@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``kubernetes_gpu_cluster_tpu_torch``).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and passed over):
+
+1. Card: name and power limit, kernel build from ``csrc/`` with nvcc.
+2. Kernels against their plain PyTorch versions at llama-3-8b head geometry
+   (nh 32, n_kv 8, hd 128, bf16, the engine's page size): max-abs error
+   within a stated bf16 tolerance, median time in CUDA events, the plain
+   version's time, the bound (the least time the card could take for the
+   same work) and, where one PyTorch call computes the same function, that
+   call's time.
+3. Model: the llama-3-8b forward through the kernels against the same
+   forward through the plain attention versions, on one small ragged batch.
+4. Engine: ``LLMEngine`` serving llama-3-8b at full width and depth (random
+   bf16 weights from a seed) through prefill, mixed, chunked-prefill and
+   decode-window steps; every kernel's launch count over that run must be
+   > 0, and a second run of the same requests must give the same tokens.
+5. Async front door: concurrent ``AsyncLLMEngine.generate`` streams.
+
+The line before the last is the ``kernels`` JSON record; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
+with code 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import gc
+import json
+import subprocess
+import sys
+import time
+from unittest import mock
+
+import numpy as np
+import torch
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and dense
+# bf16 tensor-core rate. Bounds are stated against these.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+# Max-abs tolerance of a bf16 kernel output against the plain version: both
+# accumulate in fp32 and round once to bf16 (2^-8 relative, outputs of
+# magnitude < ~2.5), plus the different summation order.
+BF16_ATOL = 2e-2
+# Relative L2 tolerance of the model's fp32 logits, kernels vs plain
+# attention, after 32 bf16 layers.
+LOGITS_RTOL = 5e-2
+SEED = 0
+MODEL = "llama-3-8b"
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median time of one call of ``fn`` in CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device).to(dtype)
+
+
+def _compare(name, got, ref) -> float:
+    if not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"{name}: non-finite kernel output")
+    err = float((got.float() - ref.float()).abs().max())
+    if err > BF16_ATOL:
+        raise RuntimeError(f"{name}: max abs error {err} > {BF16_ATOL}")
+    return err
+
+
+def check_kernels(cfg, page_size: int, max_len: int, device) -> list[dict]:
+    from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import (
+        flash_prefill as fp, flash_prefill_hist as fh, paged_decode as pd)
+    from kubernetes_gpu_cluster_tpu_torch.utils import cdiv
+
+    nh, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kd, dt, ps = n_kv * hd, torch.bfloat16, page_size
+    scale = hd ** -0.5
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    pps = cdiv(max_len, ps)
+    el = 2  # bf16 bytes
+    rows = []
+
+    # -- paged decode: B=32, context 512-2048 mixed, layer 1 of a 2-layer pool
+    B = 32
+    ctx = rng.integers(512, 2049, B).astype(np.int32)
+    n_pages = [cdiv(int(c), ps) for c in ctx]
+    P = sum(n_pages) + 1
+    perm = rng.permutation(np.arange(1, P)).astype(np.int32)
+    tables = np.zeros((B, pps), np.int32)
+    o = 0
+    for b, n in enumerate(n_pages):
+        tables[b, :n] = perm[o:o + n]
+        o += n
+    kpool = _randn(gen, (2, P, ps, kd), dt, device)
+    vpool = _randn(gen, (2, P, ps, kd), dt, device)
+    q = _randn(gen, (B, nh, hd), dt, device)
+    kc = _randn(gen, (B, n_kv, hd), dt, device)
+    vc = _randn(gen, (B, n_kv, hd), dt, device)
+    t_tables = torch.from_numpy(tables).to(device)
+    t_ctx = torch.from_numpy(ctx).to(device)
+    args = (q, kpool, vpool, t_tables, t_ctx, kc, vc, scale)
+    got = pd.paged_decode(*args, layer=1)
+    ref = A.paged_decode_attention_plain(*args, layer=1)
+    err = _compare("paged_decode", got, ref)
+    nbytes = el * (2 * B * nh * hd + 2 * B * kd + 2 * kd * int(np.sum(ctx - 1))) \
+        + 4 * (B * pps + B)
+    flops = 4 * nh * hd * int(np.sum(ctx))
+    bms, by = bound_ms(nbytes, flops)
+    rows.append(dict(
+        name="paged_decode", route="cuda",
+        source="kubernetes_gpu_cluster_tpu_torch/csrc/paged_decode.cu",
+        replaces="kubernetes_gpu_cluster_tpu/ops/pallas/paged_decode.py:206",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: pd.paged_decode(*args, layer=1), 20),
+        plain_ms=cuda_ms(lambda: A.paged_decode_attention_plain(
+            *args, layer=1), 5),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"B={B} ctx={int(ctx.min())}-{int(ctx.max())} ps={ps}"))
+    del kpool, vpool, got, ref
+
+    # -- ragged prefill: T=2048 as four segments of 512
+    T, n_seg = 2048, 4
+    seg = np.repeat(np.arange(n_seg, dtype=np.int32), T // n_seg)
+    pos = np.tile(np.arange(T // n_seg, dtype=np.int32), n_seg)
+    q = _randn(gen, (T, nh, hd), dt, device)
+    k = _randn(gen, (T, n_kv, hd), dt, device)
+    v = _randn(gen, (T, n_kv, hd), dt, device)
+    t_seg = torch.from_numpy(seg).to(device)
+    t_pos = torch.from_numpy(pos).to(device)
+    args = (q, k, v, t_seg, t_pos, scale)
+    got = fp.flash_prefill(*args)
+    ref = A.ragged_prefill_attention_plain(*args)
+    err = _compare("flash_prefill", got, ref)
+    # Library yardstick: one SDPA call with the same segment-causal mask
+    # (k/v heads expanded to nh beforehand, outside the timing).
+    mask = ((t_seg[:, None] == t_seg[None, :])
+            & (t_pos[:, None] >= t_pos[None, :]))
+    qh = q.transpose(0, 1)[None]
+    kh = k.repeat_interleave(nh // n_kv, dim=1).transpose(0, 1)[None]
+    vh = v.repeat_interleave(nh // n_kv, dim=1).transpose(0, 1)[None]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, scale=scale)
+
+    _compare("sdpa (library yardstick)", sdpa()[0].transpose(0, 1), ref)
+    n = T // n_seg
+    nbytes = el * T * (2 * nh * hd + 2 * kd) + 4 * T
+    flops = 4 * nh * hd * n_seg * n * (n + 1) // 2
+    bms, by = bound_ms(nbytes, flops)
+    rows.append(dict(
+        name="flash_prefill", route="cuda",
+        source="kubernetes_gpu_cluster_tpu_torch/csrc/flash_prefill.cu",
+        replaces="kubernetes_gpu_cluster_tpu/ops/pallas/flash_prefill.py:119",
+        max_abs_err=err, ms=cuda_ms(lambda: fp.flash_prefill(*args), 20),
+        plain_ms=cuda_ms(lambda: A.ragged_prefill_attention_plain(*args), 5),
+        bound_ms=bms, bound_by=by, library_ms=cuda_ms(sdpa, 20),
+        shape=f"T={T} as {n_seg} segments"))
+    del got, ref, qh, kh, vh, mask
+
+    # -- history: a 512-token chunk over 2048 history tokens
+    T, hist = 512, 2048
+    n_pages = cdiv(hist + T, ps)
+    width = 1 << (n_pages - 1).bit_length()      # the engine's table width
+    P = n_pages + 1
+    table = np.zeros(width, np.int32)
+    table[:n_pages] = rng.permutation(np.arange(1, P)).astype(np.int32)
+    kpool = _randn(gen, (2, P, ps, kd), dt, device)
+    vpool = _randn(gen, (2, P, ps, kd), dt, device)
+    q = _randn(gen, (T, nh, hd), dt, device)
+    k = _randn(gen, (T, n_kv, hd), dt, device)
+    v = _randn(gen, (T, n_kv, hd), dt, device)
+    t_seg = torch.zeros(T, dtype=torch.int32, device=device)
+    t_pos = torch.arange(hist, hist + T, dtype=torch.int32, device=device)
+    t_table = torch.from_numpy(table).to(device)
+    args = (q, k, v, t_seg, t_pos, kpool, vpool, t_table, hist, scale)
+    got = fh.flash_prefill_hist(*args, layer=1)
+    ref = A.prefill_history_attention_plain(*args, layer=1)
+    err = _compare("flash_prefill_hist", got, ref)
+    nbytes = el * (T * (2 * nh * hd + 2 * kd) + 2 * hist * kd) + 4 * (width + T)
+    flops = 4 * nh * hd * (T * hist + T * (T + 1) // 2)
+    bms, by = bound_ms(nbytes, flops)
+    rows.append(dict(
+        name="flash_prefill_hist", route="cuda",
+        source="kubernetes_gpu_cluster_tpu_torch/csrc/flash_prefill_hist.cu",
+        replaces="kubernetes_gpu_cluster_tpu/ops/pallas/flash_prefill_hist.py:167",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: fh.flash_prefill_hist(*args, layer=1), 20),
+        plain_ms=cuda_ms(lambda: A.prefill_history_attention_plain(
+            *args, layer=1), 5),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"chunk={T} hist={hist} ps={ps}"))
+    del kpool, vpool, got, ref
+    torch.cuda.synchronize()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the model forward, kernels against plain attention
+# ---------------------------------------------------------------------------
+
+def check_model(params, cfg, page_size: int, device) -> dict:
+    from kubernetes_gpu_cluster_tpu_torch.config import CacheConfig
+    from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import \
+        allocate_kv_cache
+    from kubernetes_gpu_cluster_tpu_torch.models import llama as M
+    from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
+
+    ps = page_size
+    lens = [100, 37, 250, 13]
+    T = 512
+    rng = np.random.default_rng(SEED + 1)
+    tokens = np.zeros(T, np.int32)
+    seg = np.full(T, -1, np.int32)
+    pos = np.zeros(T, np.int32)
+    slots = np.zeros(T, np.int32)
+    last = []
+    page_rows = []
+    o, next_page = 0, 1
+    for s, n in enumerate(lens):
+        tokens[o:o + n] = rng.integers(1, cfg.vocab_size, n)
+        seg[o:o + n] = s
+        pos[o:o + n] = np.arange(n)
+        pages = list(range(next_page, next_page + n // ps + 1))
+        next_page += len(pages)
+        page_rows.append(pages)
+        slots[o:o + n] = [pages[p // ps] * ps + p % ps for p in range(n)]
+        last.append(o + n - 1)
+        o += n
+    up = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
+    meta = M.PrefillMeta(up(seg), up(pos), up(slots), up(np.array(last,
+                                                                   np.int32)))
+    # One decode substep after the prefill: each sequence's next token.
+    pps = max(len(p) for p in page_rows)
+    tables = np.zeros((len(lens), pps), np.int32)
+    for b, pages in enumerate(page_rows):
+        tables[b, :len(pages)] = pages
+    dpos = np.array(lens, np.int32)
+    dslots = np.array([page_rows[b][n // ps] * ps + n % ps
+                       for b, n in enumerate(lens)], np.int32)
+    dmeta = M.DecodeMeta(up(dpos), up(dslots), up(tables), up(dpos + 1))
+    dtok = up(rng.integers(1, cfg.vocab_size, len(lens)).astype(np.int32))
+    cache = CacheConfig(page_size=ps)
+
+    def run():
+        kv = allocate_kv_cache(cfg, cache, next_page + 1, device)
+        h, _, _ = M.forward_prefill(params, cfg, up(tokens), meta, kv)
+        lp = M.compute_logits(params, cfg, h)
+        h, _, _ = M.forward_decode(params, cfg, dtok, dmeta, kv)
+        return lp, M.compute_logits(params, cfg, h)
+
+    got_p, got_d = run()
+    with mock.patch.object(M, "ragged_prefill_attention",
+                           A.ragged_prefill_attention_plain), \
+            mock.patch.object(M, "paged_decode_attention",
+                              A.paged_decode_attention_plain):
+        ref_p, ref_d = run()
+    out = {}
+    for name, g, r in (("prefill", got_p, ref_p), ("decode", got_d, ref_d)):
+        if not torch.isfinite(g).all():
+            raise RuntimeError(f"model {name}: non-finite logits")
+        rel = float(torch.linalg.vector_norm(g - r)
+                    / torch.linalg.vector_norm(r))
+        if rel > LOGITS_RTOL:
+            raise RuntimeError(f"model {name}: logits rel-L2 {rel} > "
+                               f"{LOGITS_RTOL}")
+        out[f"{name}_logits_rel_l2"] = rel
+        out[f"{name}_argmax_agree"] = float(
+            (g.argmax(-1) == r.argmax(-1)).float().mean())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the engine
+# ---------------------------------------------------------------------------
+
+def workload(vocab: int, n_req: int = 24, long_len: int = 3000):
+    """(arrival step, request id suffix, prompt, SamplingParams) in waves:
+    a first wave, then a few requests every few steps while earlier ones
+    decode, one prompt above max_prefill_tokens (chunked), and one seeded
+    sampled request."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    rng = np.random.default_rng(SEED + 2)
+    reqs = []
+    for i in range(n_req):
+        n = int(rng.integers(32, 1501))
+        prompt = [int(t) for t in rng.integers(1, vocab, n)]
+        max_tokens = int(rng.integers(32, 65))
+        if i == 5:
+            sp = SamplingParams(max_tokens=max_tokens, temperature=0.8,
+                                top_p=0.95, top_k=50, seed=1234)
+        else:
+            sp = SamplingParams(max_tokens=max_tokens, temperature=0.0)
+        arrival = 0 if i < 6 else 2 + 3 * ((i - 6) // 3)
+        reqs.append((arrival, f"r{i}", prompt, sp))
+    # The long prompt heads the first wave: with nothing running yet its
+    # first chunks run solo (chunked prefill over the pool history).
+    prompt = [int(t) for t in rng.integers(1, vocab, long_len)]
+    reqs.insert(0, (0, "long", prompt, SamplingParams(max_tokens=48,
+                                                      temperature=0.0)))
+    return reqs
+
+
+def drive(engine, reqs, tag: str, hist_counter) -> dict:
+    """Serve ``reqs`` (arrivals by step index, so two runs see the same
+    batches) and count step kinds; a prefill step that launched the
+    history kernel is a solo chunk of a long prompt ("chunked")."""
+    pending = sorted(reqs, key=lambda r: r[0])
+    kinds = {"prefill": 0, "chunked": 0, "mixed": 0, "decode": 0}
+    final = {}
+    step = 0
+    t0 = time.perf_counter()
+    while pending or engine.has_unfinished_requests():
+        while pending and pending[0][0] <= step:
+            _, rid, prompt, sp = pending.pop(0)
+            engine.add_request(f"{tag}-{rid}", prompt, sp)
+        hist_before = hist_counter.launches
+        for out in engine.step():
+            if out.finished:
+                final[out.request_id[len(tag) + 1:]] = out.output_token_ids
+        info = engine._last_step_info
+        if info is not None:
+            kind = info[0]
+            if kind == "prefill" and hist_counter.launches > hist_before:
+                kind = "chunked"
+            kinds[kind] += 1
+        step += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(t) for t in final.values())
+    return {"tokens": final, "kinds": kinds, "wall_s": wall,
+            "generated_tokens": n_tok, "tokens_per_s": n_tok / wall,
+            "steps": step}
+
+
+def check_engine(cfg_engine, params, device, counters) -> dict:
+    from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
+    engine = LLMEngine(cfg_engine, params=params, device=device)
+    reqs = workload(cfg_engine.model.vocab_size)
+    # Warm-up: cuBLAS handles and the allocator, outside the counted run.
+    hist = counters["flash_prefill_hist"]
+    drive(engine, reqs[1:3], "warm", hist)
+    for mod in counters.values():
+        mod.launches = 0
+    run1 = drive(engine, reqs, "a", hist)
+    launches = {name: mod.launches for name, mod in counters.items()}
+    log("engine run 1:", json.dumps({k: v for k, v in run1.items()
+                                     if k != "tokens"}),
+        "launches:", json.dumps(launches))
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"kernel {name} never launched on the main path")
+    for kind in ("prefill", "chunked", "mixed", "decode"):
+        if run1["kinds"].get(kind, 0) <= 0:
+            raise RuntimeError(f"no {kind} step ran: {run1['kinds']}")
+    if set(run1["tokens"]) != {r[1] for r in reqs}:
+        raise RuntimeError("not every request finished")
+    for _, rid, prompt, sp in reqs:
+        toks = run1["tokens"][rid]
+        if len(toks) != sp.max_tokens or not all(
+                0 <= t < cfg_engine.model.vocab_size for t in toks):
+            raise RuntimeError(f"{rid}: bad output {len(toks)} tokens")
+    run2 = drive(engine, reqs, "b", hist)
+    same = [rid for rid in run1["tokens"]
+            if run1["tokens"][rid] == run2["tokens"][rid]]
+    if len(same) != len(run1["tokens"]):
+        diff = sorted(set(run1["tokens"]) - set(same))
+        raise RuntimeError(f"second run differs for {diff}")
+    log("engine run 2: identical tokens for", len(same), "requests;",
+        json.dumps({k: v for k, v in run2.items() if k != "tokens"}))
+    del engine
+    return {"run1": {k: v for k, v in run1.items() if k != "tokens"},
+            "launches": launches}
+
+
+async def _streams(aeng, prompts, sp) -> list:
+    async def one(i, prompt):
+        toks, chunks = [], 0
+        async for chunk in aeng.generate(f"async-{i}", prompt, sp):
+            toks += chunk.new_token_ids
+            chunks += 1
+        return toks, chunks
+    aeng.start()
+    try:
+        return await asyncio.gather(*(one(i, p) for i, p in enumerate(prompts)))
+    finally:
+        aeng.shutdown()
+
+
+def check_async(cfg_engine, params, device) -> dict:
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    from kubernetes_gpu_cluster_tpu_torch.serving.async_engine import \
+        AsyncLLMEngine
+    aeng = AsyncLLMEngine(cfg_engine, params=params, device=device)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [[int(t) for t in rng.integers(1, cfg_engine.model.vocab_size,
+                                             int(n))]
+               for n in (64, 300, 900, 17)]
+    sp = SamplingParams(max_tokens=24, temperature=0.0)
+    results = asyncio.run(_streams(aeng, prompts, sp))
+    for toks, chunks in results:
+        if len(toks) != sp.max_tokens:
+            raise RuntimeError(f"async stream ended with {len(toks)} tokens")
+    return {"streams": len(results),
+            "chunks": [c for _, c in results]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from kubernetes_gpu_cluster_tpu_torch.config import (
+        CacheConfig, EngineConfig, SchedulerConfig, get_model_config)
+    from kubernetes_gpu_cluster_tpu_torch.engine.engine import \
+        DEFAULT_PAGE_SIZE
+    from kubernetes_gpu_cluster_tpu_torch.models import llama as M
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import (
+        build, flash_prefill, flash_prefill_hist, paged_decode)
+
+    device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log("card:", card, "|", kind, "| torch", torch.__version__,
+        "cuda", torch.version.cuda)
+
+    # Phase 1: build.
+    secs = build.build()
+    log(f"kernels built in {secs:.1f} s")
+    for name, text in build.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "error" in line.lower():
+                log(f"  [{name}] {line.strip()}")
+
+    cfg = get_model_config(MODEL)
+    ps = DEFAULT_PAGE_SIZE
+
+    # Phase 2: kernels.
+    rows = check_kernels(cfg, ps, cfg.max_model_len, device)
+    for r in rows:
+        log("kernel:", json.dumps(r))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 3: model parity.
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen, device)
+    torch.cuda.synchronize()
+    log(f"random {MODEL} weights in {time.perf_counter() - t0:.1f} s")
+    log("model:", json.dumps(check_model(params, cfg, ps, device)))
+
+    # Phase 4: engine.
+    cfg_engine = EngineConfig(
+        model=cfg, seed=SEED,
+        cache=CacheConfig(page_size=ps, num_pages=6144),
+        scheduler=SchedulerConfig(max_num_seqs=32))
+    counters = {"paged_decode": paged_decode, "flash_prefill": flash_prefill,
+                "flash_prefill_hist": flash_prefill_hist}
+    eng = check_engine(cfg_engine, params, device, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 5: async front door.
+    cfg_async = dataclasses.replace(
+        cfg_engine, cache=CacheConfig(page_size=ps, num_pages=1024))
+    log("async:", json.dumps(check_async(cfg_async, params, device)))
+
+    for r in rows:
+        r["launches"] = eng["launches"][r["name"]]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,175 @@
+"""Model architecture configs for the decoder-only families the framework serves.
+
+The reference served OPT-125M, Qwen-7B, Qwen2.5-7B, Qwen3-4B and Qwen3-14B via
+vLLM images (reference ``values-01-minimal-example*.yaml``: modelURL fields), and
+the north-star configs add TinyLlama-1.1B, Llama-3-8B/70B and Mixtral-8x7B
+(BASELINE.json). One config dataclass covers all of these families:
+
+- llama-class dense (Llama 1/2/3, TinyLlama, Qwen2/2.5 via ``attention_bias``,
+  Qwen3 via ``qk_norm``, OPT-like models are served through the llama graph
+  with learned-rope disabled — see models/registry.py)
+- mixtral-class sparse MoE via ``num_experts``/``num_experts_per_tok``
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    # HF ``rope_scaling`` (llama3 / linear), stored as a sorted (key, value)
+    # tuple so the frozen config stays hashable; see ops/rope.scaled_inv_freq.
+    rope_scaling: Optional[tuple] = None
+    rms_norm_eps: float = 1e-5
+    tie_word_embeddings: bool = False
+    # Qwen2/2.5 use bias on q/k/v projections (not o).
+    attention_bias: bool = False
+    # Qwen3 applies RMSNorm to q and k per-head before RoPE.
+    qk_norm: bool = False
+    # MoE (mixtral-class). num_experts == 0 means dense MLP.
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    # OPT-class decoder knobs (reference values-01-minimal-example.yaml:4-8
+    # serves facebook/opt-125m). Defaults describe the llama class.
+    norm_type: str = "rmsnorm"        # "rmsnorm" | "layernorm" (w/ bias)
+    pos_embedding: str = "rope"       # "rope" | "learned" (+2 OPT offset)
+    mlp_type: str = "swiglu"          # "swiglu" | "mlp" (fc1/act/fc2, biased)
+    mlp_act: str = "silu"             # "mlp" type only: "relu" | "gelu"
+    # OPT puts biases on the attention out-projection and the MLP.
+    linear_bias: bool = False
+    # Serving dtype for weights/activations; fp32 accumulation in the
+    # attention kernels and the norms.
+    dtype: str = "bfloat16"
+    # Weight-only quantization of the big matmuls ("int8", "int4" or None):
+    # shrinks the HBM weight-streaming bytes that bound decode to 1/2 and
+    # ~1/4 of bf16 respectively (ops/quant.py). int4 packs two nibbles per
+    # byte with group-wise scales; int8 is per-output-channel.
+    quantization: Optional[str] = None
+    # int4 only: input-dim rows per scale group (per-output-channel alone is
+    # too coarse at 4 bits). Must divide every matmul input dim
+    # (hidden/ff/nh*hd) and align with row-shard boundaries under tp.
+    quant_group_size: int = 128
+    max_model_len: int = 4096
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def q_per_kv(self) -> int:
+        assert self.num_heads % self.num_kv_heads == 0
+        return self.num_heads // self.num_kv_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def rope_scaling_dict(self) -> Optional[dict]:
+        return dict(self.rope_scaling) if self.rope_scaling else None
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def _p(name, **kw) -> ModelConfig:
+    return ModelConfig(name=name, **kw)
+
+
+MODEL_PRESETS: dict[str, ModelConfig] = {
+    # Tiny configs for tests / CI (CPU mesh) — the fake-backend analogue of the
+    # reference's opt-125m smoke model (values-01-minimal-example.yaml:7-8).
+    "debug-tiny": _p(
+        "debug-tiny", vocab_size=512, hidden_size=128, intermediate_size=256,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32, max_model_len=512,
+        dtype="float32",
+    ),
+    "debug-moe": _p(
+        "debug-moe", vocab_size=512, hidden_size=128, intermediate_size=256,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32, max_model_len=512,
+        num_experts=4, num_experts_per_tok=2, dtype="float32",
+    ),
+    # The reference's minimal-example model (values-01-minimal-example.yaml:8).
+    "opt-125m": _p(
+        "opt-125m", vocab_size=50272, hidden_size=768, intermediate_size=3072,
+        num_layers=12, num_heads=12, num_kv_heads=12, head_dim=64,
+        max_model_len=2048, tie_word_embeddings=True, attention_bias=True,
+        norm_type="layernorm", pos_embedding="learned", mlp_type="mlp",
+        mlp_act="relu", linear_bias=True,
+    ),
+    # BASELINE.json config 1.
+    "tinyllama-1.1b": _p(
+        "tinyllama-1.1b", vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+        num_layers=22, num_heads=32, num_kv_heads=4, head_dim=64,
+        rope_theta=10000.0, max_model_len=2048,
+    ),
+    # BASELINE.json configs 2/3.
+    "llama-3-8b": _p(
+        "llama-3-8b", vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+        num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+        rope_theta=500000.0, max_model_len=8192,
+    ),
+    # BASELINE.json config 5.
+    "llama-3-70b": _p(
+        "llama-3-70b", vocab_size=128256, hidden_size=8192, intermediate_size=28672,
+        num_layers=80, num_heads=64, num_kv_heads=8, head_dim=128,
+        rope_theta=500000.0, max_model_len=8192,
+    ),
+    # Reference models (values-01-minimal-example4/5/7/8/9.yaml).
+    "qwen2.5-7b": _p(
+        "qwen2.5-7b", vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+        num_layers=28, num_heads=28, num_kv_heads=4, head_dim=128,
+        rope_theta=1000000.0, rms_norm_eps=1e-6, attention_bias=True,
+        max_model_len=4096,
+    ),
+    "qwen3-4b": _p(
+        "qwen3-4b", vocab_size=151936, hidden_size=2560, intermediate_size=9728,
+        num_layers=36, num_heads=32, num_kv_heads=8, head_dim=128,
+        rope_theta=1000000.0, rms_norm_eps=1e-6, qk_norm=True,
+        tie_word_embeddings=True, max_model_len=4096,
+    ),
+    "qwen3-14b": _p(
+        "qwen3-14b", vocab_size=151936, hidden_size=5120, intermediate_size=17408,
+        num_layers=40, num_heads=40, num_kv_heads=8, head_dim=128,
+        rope_theta=1000000.0, rms_norm_eps=1e-6, qk_norm=True,
+        max_model_len=4096,
+    ),
+    # BASELINE.json config 4.
+    "mixtral-8x7b": _p(
+        "mixtral-8x7b", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+        rope_theta=1000000.0, max_model_len=8192,
+        num_experts=8, num_experts_per_tok=2,
+    ),
+}
+
+
+def get_model_config(name: str, **overrides) -> ModelConfig:
+    """Look up a preset by name (case-insensitive; HF-style ids are mapped to
+    presets by their basename, e.g. ``TinyLlama/TinyLlama-1.1B-Chat-v1.0``)."""
+    key = name.lower()
+    if key in MODEL_PRESETS:
+        cfg = MODEL_PRESETS[key]
+        return cfg.replace(**overrides) if overrides else cfg
+    base = key.rsplit("/", 1)[-1]
+    for preset_key, cfg in MODEL_PRESETS.items():
+        if preset_key.replace(".", "").replace("-", "") in base.replace(".", "").replace("-", ""):
+            return cfg.replace(**overrides) if overrides else cfg
+    raise KeyError(
+        f"unknown model {name!r}; known presets: {sorted(MODEL_PRESETS)}. "
+        "To serve a model without a preset, pre-stage its HF checkpoint "
+        "locally and pass the absolute directory path (config.json supplies "
+        "the architecture; supported families: llama/qwen2/qwen3/mixtral/opt)")

@@ -1,0 +1,798 @@
+"""LLMEngine: the single-device serving engine (continuous batching), in
+PyTorch.
+
+The JAX package's ``engine/engine.py`` step for step:
+
+- owns model params, the paged KV cache (updated in place by every step)
+  and the scheduler;
+- runs each scheduled batch as one prefill, chunked-prefill, mixed or
+  W-substep decode-window step, with sampling on the device so only the
+  sampled token ids (and their logprobs) cross to the host;
+- keeps a decode window's tokens on the device (each substep feeds the
+  previous one's output back) with ONE download per window, and chains
+  windows speculatively: window w+1 is enqueued before window w's tokens are
+  fetched. The fetch of w is a non-blocking copy into pinned host memory
+  enqueued right behind w's kernels plus an event, so waiting for it never
+  waits for w+1.
+
+Eager PyTorch has no compile step, so the JAX package's bucketed program
+caches, its donation bookkeeping and its probe-and-fall-back kernel logic
+have no counterpart: on a CUDA device the attention runs the hand-written
+kernels (``ops/cuda``) or raises.
+
+Not ported yet: speculative decoding, the host KV tier (swap), KV
+export/import for disaggregated serving and migration, parallelism, and
+the runtime sanitizers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..config import EngineConfig
+from ..models import llama as model_lib
+from ..observability import Observability
+from ..ops.sampling import (apply_logit_bias, apply_penalties, build_counts,
+                            bump_counts, gated_top_logprobs, row_sample_keys,
+                            sample_and_logprobs, token_logprobs)
+from ..resilience.faults import inject as _inject_fault
+from ..utils import cdiv, get_logger
+from .kv_cache import allocate_kv_cache, derive_num_pages
+from .sampling_params import LOGIT_BIAS_CAP, SamplingParams
+from .scheduler import ScheduledBatch, Scheduler
+from .sequence import FinishReason, Sequence, SequenceStatus
+
+logger = get_logger("engine")
+
+DEFAULT_PAGE_SIZE = 16
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """Aggregate serving counters."""
+    tokens_generated: int = 0
+    requests_finished: int = 0
+    prefill_tokens: int = 0
+    steps: int = 0
+
+
+@dataclasses.dataclass
+class RequestOutput:
+    request_id: str
+    prompt_token_ids: list[int]
+    output_token_ids: list[int]
+    finished: bool
+    finish_reason: Optional[str] = None
+    new_token_ids: Optional[list[int]] = None  # tokens produced this step
+    new_logprobs: Optional[list[float]] = None  # chosen-token logprobs, ditto
+    output_logprobs: Optional[list[float]] = None  # full per-token record
+    # OpenAI logprobs=N alternatives: per new token, [(token_id, logprob)]
+    # of the N most likely tokens (N = SamplingParams.top_logprobs).
+    new_top_logprobs: Optional[list[list[tuple[int, float]]]] = None
+    output_top_logprobs: Optional[list[list[tuple[int, float]]]] = None
+
+
+class _Sampling(NamedTuple):
+    """One batch's sampling inputs on the device, plus what the batch needs,
+    decided from the host copy (no device read-back)."""
+    temperature: torch.Tensor
+    top_k: torch.Tensor
+    top_p: torch.Tensor
+    presence: torch.Tensor
+    frequency: torch.Tensor
+    seed: torch.Tensor
+    bias: Optional[tuple[torch.Tensor, torch.Tensor]]   # (ids, vals) or None
+    any_sampled: bool
+    needs_filter: bool
+    any_pen: bool
+    with_top: bool
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device. CUDA unless the caller asks for the CPU; a CUDA
+    request on a host without a card raises (no CPU continuation)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; the engine runs on the card "
+                "(pass device='cpu' to run the plain PyTorch path)")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+class LLMEngine:
+    def __init__(self, config: EngineConfig, params=None,
+                 eos_token_id: Optional[int] = None,
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
+        sc = config.scheduler
+        if sc.spec_decode_enabled:
+            raise NotImplementedError(
+                "speculative decoding is not ported yet (ROADMAP R6)")
+        if config.cache.kv_swap_enabled:
+            raise NotImplementedError(
+                "the host KV tier (swap_space_gb) is not ported yet "
+                "(ROADMAP R4)")
+        if config.parallel.world_size > 1:
+            raise NotImplementedError(
+                "parallel serving is not ported yet (ROADMAP R7)")
+        model_lib.check_supported(config.model)
+        if config.cache.page_size is None:
+            config = dataclasses.replace(config, cache=dataclasses.replace(
+                config.cache, page_size=DEFAULT_PAGE_SIZE))
+        self.config = config
+        self.model_config = config.model
+        self.eos_token_id = eos_token_id
+        # Host-side generator for per-step keys of unseeded sampled rows.
+        self._generator = torch.Generator().manual_seed(config.seed)
+
+        if params is None:
+            logger.info("initializing random weights for %s", config.model.name)
+            gen = torch.Generator(device=self.device).manual_seed(config.seed)
+            params = model_lib.init_params(config.model, gen, self.device)
+        self.params = params
+
+        free = (torch.cuda.mem_get_info(self.device)[0]
+                if self.device.type == "cuda" else None)
+        num_pages = derive_num_pages(
+            config.model, config.cache, config.effective_max_len,
+            sc.max_num_seqs, free)
+        # Cap: no point holding more pages than max_num_seqs full sequences.
+        cap = sc.max_num_seqs * cdiv(config.effective_max_len,
+                                     config.cache.page_size) + 1
+        num_pages = min(num_pages, cap)
+        logger.info("KV cache: %d pages x %d tokens (page pool)",
+                    num_pages, config.cache.page_size)
+
+        # One Observability per engine, shared with the scheduler.
+        self.obs = Observability()
+        self.scheduler = Scheduler(config, num_pages, obs=self.obs)
+        if self.scheduler.qos is not None:
+            self.obs.configure_qos_tiers(
+                sc.qos_tiers, self.scheduler.qos.default_tier,
+                fallback_budget_ms=config.resilience.default_ttft_budget_ms)
+        self.kv_cache = allocate_kv_cache(config.model, config.cache,
+                                          num_pages, self.device)
+        if self.scheduler.mixed_enabled:
+            budget = sc.decode_priority_token_budget
+            if budget is not None and budget < 2:
+                raise ValueError(
+                    f"decode_priority_token_budget={budget} can never fit a "
+                    "decode row plus a chunk token; mixing would never engage")
+            if budget is not None and budget < sc.max_num_seqs + 1:
+                logger.warning(
+                    "mixed batching: decode_priority_token_budget=%d is below"
+                    " max_num_seqs+1=%d — a full batch's decode rows alone "
+                    "exhaust it, so high-occupancy steps keep the legacy "
+                    "policy", budget, sc.max_num_seqs + 1)
+            if sc.max_num_seqs > sc.decode_buckets[-1]:
+                logger.warning(
+                    "mixed batching: max_num_seqs=%d exceeds the decode "
+                    "bucket grid (max %d); steps with more running sequences"
+                    " than the grid covers keep the legacy policy",
+                    sc.max_num_seqs, sc.decode_buckets[-1])
+        self.stats = EngineStats()
+        self.step_count = 0
+        # Speculative decode-window chain state (see _step).
+        self._inflight: Optional[dict] = None
+        self._deferred_release: list[Sequence] = []
+        self._last_step_info = None
+        self._ttft_transfer_s: Optional[float] = None
+        # Width of the host->device output-token resync buffer for the
+        # penalty histogram (outputs are bounded by the model length).
+        self._out_cap = config.effective_max_len
+        self.obs.flight.set_snapshot_source(self._flight_snapshot)
+
+    def _flight_snapshot(self) -> dict:
+        sched = self.scheduler
+        alloc = sched.allocator
+        return {"waiting": len(sched.waiting), "running": len(sched.running),
+                "swapped": len(sched.swapped), "step": self.step_count,
+                "kv_pages_free": alloc.num_free,
+                "kv_pages_total": alloc.num_pages}
+
+    # -- host <-> device ----------------------------------------------------
+
+    def _up(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _start_fetch(self, *tensors: torch.Tensor):
+        """Enqueue device->host copies of ``tensors`` right behind the work
+        that produces them; returns (host tensors, event). Waiting on the
+        event waits for these copies only, not for work enqueued later."""
+        if self.device.type != "cuda":
+            return [t.clone() for t in tensors], None
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return host, event
+
+    @staticmethod
+    def _finish_fetch(fetch) -> list[np.ndarray]:
+        host, event = fetch
+        if event is not None:
+            event.synchronize()
+        return [h.numpy() for h in host]
+
+    def _sampling(self, batch: ScheduledBatch) -> _Sampling:
+        presence, frequency = batch.presence, batch.frequency
+        bias = None
+        if any(seq.params.logit_bias for seq in batch.seqs):
+            B = len(batch.temperature)
+            ids = np.full((B, LOGIT_BIAS_CAP), -1, np.int32)
+            vals = np.zeros((B, LOGIT_BIAS_CAP), np.float32)
+            for s, seq in batch.device_seq_rows():
+                for j, (tok, b) in enumerate((seq.params.logit_bias
+                                              or {}).items()):
+                    ids[s, j] = tok
+                    vals[s, j] = b
+            bias = (self._up(ids), self._up(vals))
+        return _Sampling(
+            temperature=self._up(batch.temperature),
+            top_k=self._up(batch.top_k), top_p=self._up(batch.top_p),
+            presence=self._up(presence), frequency=self._up(frequency),
+            seed=self._up(batch.seed), bias=bias,
+            any_sampled=bool(np.any(batch.temperature > 0)),
+            needs_filter=bool(np.any((batch.top_k > 0) | (batch.top_p < 1.0))),
+            any_pen=bool(np.any(presence != 0) or np.any(frequency != 0)),
+            with_top=bool(np.any(batch.top_n > 0)))
+
+    def _penalty_out_tokens(self, batch: ScheduledBatch) -> torch.Tensor:
+        """[B, out_cap] -1-padded output-token ids for the device-side
+        penalty histogram."""
+        out = np.full((len(batch.temperature), self._out_cap), -1, np.int32)
+        for s, seq in batch.device_seq_rows():
+            ids = seq.output_token_ids[:self._out_cap]
+            out[s, :len(ids)] = ids
+        return self._up(out)
+
+    def _next_step_key(self) -> int:
+        return int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=self._generator))
+
+    def _sample(self, logits, smp: _Sampling, pos_next, step_key: int,
+                counts=None):
+        """Bias -> penalties -> temperature/filters/draw, the JAX package's
+        logits-processor order."""
+        if smp.bias is not None:
+            logits = apply_logit_bias(logits, *smp.bias)
+        if smp.any_pen and counts is not None:
+            logits = apply_penalties(logits, counts, smp.presence,
+                                     smp.frequency)
+        keys = row_sample_keys(step_key, smp.seed, pos_next)
+        return sample_and_logprobs(
+            logits, keys, smp.temperature, smp.top_k, smp.top_p,
+            any_sampled=smp.any_sampled, needs_filter=smp.needs_filter,
+            with_top=smp.with_top)
+
+    # -- public API ---------------------------------------------------------
+
+    def add_request(self, request_id: str, prompt_token_ids: list[int],
+                    params: Optional[SamplingParams] = None,
+                    arrival_t0: Optional[float] = None,
+                    resume_outputs: Optional[list[int]] = None) -> None:
+        """``arrival_t0``: backdated ``time.monotonic()`` arrival stamp.
+        ``resume_outputs``: token-replay resume — tokens already generated
+        elsewhere are pre-seeded as OUTPUT history and replayed through the
+        recompute prefill; greedy and seeded continuations are identical to
+        the uninterrupted run. Raises ValueError when the replayed history
+        already satisfies a stop condition."""
+        params = params or SamplingParams()
+        if params.logit_bias:
+            V = self.model_config.vocab_size
+            bad = [t for t in params.logit_bias if t >= V]
+            if bad:
+                raise ValueError(
+                    f"logit_bias token ids {bad[:5]} out of range for "
+                    f"vocab_size {V}")
+        seq = Sequence(request_id, prompt_token_ids, params,
+                       eos_token_id=self.eos_token_id)
+        if arrival_t0 is not None:
+            seq.arrival_time = min(arrival_t0, seq.arrival_time)
+        if resume_outputs:
+            for tok in resume_outputs:
+                seq.append_token(int(tok))
+            if seq.check_stop(self.config.effective_max_len) is not None:
+                raise ValueError(
+                    f"resume history of {len(resume_outputs)} tokens "
+                    "already satisfies a stop condition; nothing to resume")
+        self.obs.on_arrival(seq)
+        try:
+            self.scheduler.add(seq)
+        except Exception:
+            # Admission rejected: close the just-opened trace span.
+            self.obs.on_finish(seq, FinishReason.ABORT)
+            raise
+
+    def abort_request(self, request_id: str) -> bool:
+        # A sequence in the in-flight window still has device KV writes
+        # pending against its pages: finish it but defer the page release
+        # until the chain drains.
+        if self._inflight is not None:
+            for seq in self._inflight["batch"].seqs:
+                if seq.request_id == request_id and not seq.is_finished:
+                    seq.status = SequenceStatus.FINISHED
+                    seq.finish_reason = FinishReason.ABORT
+                    if seq in self.scheduler.running:
+                        self.scheduler.running.remove(seq)
+                    self._inflight["zombies"].add(request_id)
+                    self._deferred_release.append(seq)
+                    self.stats.requests_finished += 1
+                    self.obs.on_finish(seq, FinishReason.ABORT)
+                    return True
+        if self.scheduler.abort(request_id):
+            self.stats.requests_finished += 1
+            return True
+        return False
+
+    def has_unfinished_requests(self) -> bool:
+        # An in-flight window must be drained even if every sequence
+        # finished (its deferred page releases happen at drain time).
+        return self.scheduler.has_work() or self._inflight is not None
+
+    def step(self) -> list[RequestOutput]:
+        # Chaos site: KGCT_FAULT=step_stall:delay=N sleeps here, simulating a
+        # hung device dispatch for the watchdog to catch.
+        _inject_fault("step_stall")
+        self.obs.phases.start_step()
+        # Set by _step when a device step actually ran this iteration:
+        # (kind, batch_size, decode_mode[, extras]).
+        self._last_step_info = None
+        self._ttft_transfer_s = None
+        t0 = time.perf_counter()
+        outs = self._step()
+        dt = time.perf_counter() - t0
+        self.stats.steps += 1
+        info = self._last_step_info
+        if info is None:
+            self.obs.phases.discard_step()
+        else:
+            kind, bsize, mode = info[:3]
+            extra = info[3] if len(info) > 3 else {}
+            self.obs.on_step(
+                step=self.step_count, kind=kind, batch=bsize, duration_s=dt,
+                new_tokens=sum(len(o.new_token_ids or []) for o in outs),
+                mode=mode, **extra)
+        return outs
+
+    def _step(self) -> list[RequestOutput]:
+        """Run one engine iteration and return outputs for sequences that
+        advanced.
+
+        Decode windows are SPECULATIVELY CHAINED: before window w's tokens
+        are fetched, window w+1 is enqueued with its input tokens taken from
+        w's device-resident output column, so the fetch of w overlaps w+1's
+        execution. The chain breaks when a prefill is waiting or any
+        sequence finished (the already-enqueued successor then runs with the
+        finished rows as zombies; their pages are only released once the
+        chain drains, so in-flight KV writes never touch reused pages)."""
+        ph = self.obs.phases.phase
+        inflight = self._inflight
+        if inflight is None:
+            with ph("schedule"):
+                batch = self.scheduler.schedule()
+            drained = self._drain_terminally_finished()
+            if batch is None:
+                return drained
+            self.step_count += 1
+            if batch.kind == "mixed":
+                return drained + self._step_mixed(batch)
+            if batch.kind == "prefill":
+                return drained + self._step_prefill(batch)
+            with ph("host_prep"):
+                smp = self._sampling(batch)
+                tokens = self._up(batch.tokens)
+            inflight = self._dispatch_window(batch, tokens, batch.positions,
+                                             smp)
+            inflight["drained"] = drained
+
+        successor = None
+        if not self.scheduler.waiting and not inflight["zombies"]:
+            successor = self._advance_window(inflight)
+
+        with ph("device_fetch"):
+            toks, lps, *tops = self._finish_fetch(inflight["fetch"])
+            top_i, top_l = tops if tops else (None, None)
+        self._inflight = successor
+        with ph("postproc"):
+            outputs = inflight.pop("drained", []) + self._process_window(
+                inflight["batch"], toks, lps, inflight["zombies"],
+                defer=successor is not None, top_ids=top_i, top_lps=top_l)
+            if successor is not None:
+                successor["zombies"].update(
+                    s.request_id for s in inflight["batch"].seqs
+                    if s.is_finished)
+            else:
+                self._drain_deferred()
+        self._last_step_info = (
+            "decode", inflight["batch"].num_seqs,
+            "greedy" if inflight["greedy"] else "sampled")
+        return outputs
+
+    def _fetch_step_outputs(self, next_tokens, lps, tids, tlps,
+                            batch: ScheduledBatch):
+        """Synchronous fetch of a prefill/mixed step's sampled rows, split
+        into device compute (the sync) and the copy itself for the TTFT
+        decomposition ("prefill" carries the compute, "first_fetch" only
+        the transfer)."""
+        ph = self.obs.phases.phase
+        with ph("device_fetch"):
+            t0f = time.perf_counter()
+            self._sync()
+            compute_s = time.perf_counter() - t0f
+            toks_np = next_tokens.cpu().numpy()[:, None]
+            lps_np = lps.cpu().numpy()[:, None]
+            top_i = top_l = None
+            if any(s.params.top_logprobs for s in batch.seqs):
+                top_i = tids.cpu().numpy()[:, None]
+                top_l = tlps.cpu().numpy()[:, None]
+        self._ttft_transfer_s = max(
+            self.obs.phases.current_durs.get("device_fetch", 0.0)
+            - compute_s, 0.0)
+        return toks_np, lps_np, top_i, top_l
+
+    def _step_prefill(self, batch: ScheduledBatch) -> list[RequestOutput]:
+        """One ragged prefill, or one solo chunk of a long prompt
+        (``batch.hist_len`` set) attending to its pool history."""
+        ph = self.obs.phases.phase
+        cfg = self.model_config
+        with ph("host_prep"):
+            smp = self._sampling(batch)
+            tokens = self._up(batch.tokens)
+            meta = model_lib.PrefillMeta(
+                seg_ids=self._up(batch.seg_ids),
+                positions=self._up(batch.positions),
+                slot_mapping=self._up(batch.slot_mapping),
+                logits_indices=self._up(batch.logits_indices))
+            page_table = (self._up(batch.page_tables[0])
+                          if batch.hist_len is not None else None)
+            out_tokens = (self._penalty_out_tokens(batch)
+                          if smp.any_pen and batch.hist_len is not None
+                          else None)
+        step_key = self._next_step_key()
+        with ph("device_dispatch"):
+            if batch.hist_len is not None:
+                self.stats.prefill_tokens += int(np.sum(batch.seg_ids >= 0))
+                hidden, _, _ = model_lib.forward_prefill_hist(
+                    self.params, cfg, tokens, meta, self.kv_cache, page_table,
+                    int(batch.hist_len))
+            else:
+                self.stats.prefill_tokens += sum(s.num_tokens
+                                                 for s in batch.seqs)
+                hidden, _, _ = model_lib.forward_prefill(
+                    self.params, cfg, tokens, meta, self.kv_cache)
+            if batch.partial:
+                # Prompt not complete: KV is committed, there is nothing to
+                # sample yet.
+                self._last_step_info = ("prefill", batch.num_seqs, None)
+                return []
+            logits = model_lib.compute_logits(self.params, cfg, hidden)
+            counts = None
+            if smp.any_pen:
+                if out_tokens is not None:
+                    # Chunked path: earlier chunks' ids live in the pool as
+                    # vectors only, so the histogram comes from the host.
+                    counts = build_counts(out_tokens, cfg.vocab_size)
+                else:
+                    counts = self._prefill_counts(batch, tokens, meta)
+            idx = meta.logits_indices.to(torch.int64)
+            pos_next = meta.positions[idx] + 1
+            outs = self._sample(logits, smp, pos_next, step_key, counts)
+        toks_np, lps_np, top_i, top_l = self._fetch_step_outputs(*outs, batch)
+        with ph("postproc"):
+            outputs = self._process_window(batch, toks_np, lps_np, set(),
+                                           defer=False, top_ids=top_i,
+                                           top_lps=top_l)
+        self._last_step_info = ("prefill", batch.num_seqs, None)
+        return outputs
+
+    def _prefill_counts(self, batch: ScheduledBatch, tokens: torch.Tensor,
+                        meta) -> torch.Tensor:
+        """Output-token histogram at the PREFILL sampling point. A
+        recompute-preemption re-prefill carries the sequence's generated
+        tokens IN the batch, so tokens at positions >= the row's prompt
+        length are outputs; fresh admissions penalize nothing."""
+        B = len(batch.temperature)
+        seg = meta.seg_ids.to(torch.int64)
+        row = torch.clamp(seg, 0, B - 1)
+        prompt_lens = self._up(batch.prompt_lens)
+        out_mask = (seg >= 0) & (meta.positions >= prompt_lens[row])
+        counts = torch.zeros((B, self.model_config.vocab_size),
+                             dtype=torch.int32, device=self.device)
+        counts.index_put_((row, tokens.to(torch.int64)),
+                          out_mask.to(torch.int32), accumulate=True)
+        return counts
+
+    def _step_mixed(self, batch: ScheduledBatch) -> list[RequestOutput]:
+        """Execute one mixed step: every decode row's sampled token appends
+        (with stop checks), the chunk's KV commits in the forward's scatter,
+        and the chunk row's sampled token is the sequence's first generated
+        token on a FINAL chunk — or discarded (zombie row) while the prompt
+        is partial. Mixed steps are synchronous (the next step's batch
+        depends on this one's chunk progress), so finished rows release
+        pages immediately."""
+        ph = self.obs.phases.phase
+        cfg = self.model_config
+        chunk_seq = batch.seqs[-1]
+        with ph("host_prep"):
+            smp = self._sampling(batch)
+            tokens = self._up(batch.tokens)
+            meta = model_lib.MixedMeta(
+                seg_ids=self._up(batch.seg_ids),
+                positions=self._up(batch.positions),
+                slot_mapping=self._up(batch.slot_mapping),
+                logits_indices=self._up(batch.logits_indices),
+                chunk_page_table=self._up(batch.chunk_page_table),
+                hist_len=int(batch.hist_len),
+                page_tables=self._up(batch.page_tables),
+                context_lens=self._up(batch.context_lens))
+            out_tokens = (self._penalty_out_tokens(batch) if smp.any_pen
+                          else None)
+        self.stats.prefill_tokens += batch.prefill_token_count
+        step_key = self._next_step_key()
+        with ph("device_dispatch"):
+            hidden, _, _ = model_lib.forward_mixed(
+                self.params, cfg, tokens, meta, self.kv_cache)
+            logits = model_lib.compute_logits(self.params, cfg, hidden)
+            counts = (build_counts(out_tokens, cfg.vocab_size)
+                      if out_tokens is not None else None)
+            idx = meta.logits_indices.to(torch.int64)
+            pos_next = meta.positions[idx] + 1
+            outs = self._sample(logits, smp, pos_next, step_key, counts)
+        toks_np, lps_np, top_i, top_l = self._fetch_step_outputs(*outs, batch)
+        # A partial chunk's sampled row is meaningless (prompt unfinished):
+        # route it through the zombie set so _process_window skips it.
+        zombies = {chunk_seq.request_id} if batch.partial else set()
+        with ph("postproc"):
+            outs = self._process_window(batch, toks_np, lps_np, zombies,
+                                        defer=False, top_ids=top_i,
+                                        top_lps=top_l)
+        self._last_step_info = (
+            "mixed", batch.num_seqs, None,
+            {"prefill_tokens": batch.prefill_token_count,
+             "decode_tokens": batch.num_seqs - 1})
+        return outs
+
+    def _substep_meta(self, page_tables: torch.Tensor,
+                      pos: torch.Tensor) -> "model_lib.DecodeMeta":
+        """Per-substep decode metadata, computed on the device from the
+        positions and page tables. Window substeps past the model length cap
+        produce tokens the host discards, but their KV writes still happen:
+        they go to the scrap page (page 0) at ``pos % ps`` instead of
+        clamping into the sequence's real pages, where the write would wrap
+        and overwrite earlier KV."""
+        ps = self.config.cache.page_size
+        max_len = self.config.effective_max_len
+        pos_c = torch.clamp(pos, max=max_len - 1)
+        page_idx = (pos_c // ps).to(torch.int64)
+        page = torch.gather(page_tables, 1, page_idx[:, None])[:, 0]
+        in_range = pos < max_len
+        slot = torch.where(in_range, page * ps + pos_c % ps, pos % ps)
+        return model_lib.DecodeMeta(positions=pos_c, slot_mapping=slot,
+                                    page_tables=page_tables,
+                                    context_lens=pos_c + 1)
+
+    def _dispatch_window(self, batch: ScheduledBatch, tokens: torch.Tensor,
+                         positions: np.ndarray, smp: _Sampling,
+                         counts: Optional[torch.Tensor] = None) -> dict:
+        """Enqueue one W-substep decode window: every substep's sampled
+        tokens feed the next on the device; positions, slots and context
+        lengths are recomputed per substep from the page tables. Ends by
+        enqueueing the one device->host copy of the window's outputs.
+
+        Greedy batches (all temperature 0, no penalties, no bias) take the
+        argmax-only path. ``counts`` [B, V] is the output-token histogram
+        for penalties: rebuilt from host-known outputs on a fresh window,
+        CARRIED across chained windows so penalties see the in-flight
+        window's tokens the host has not fetched yet."""
+        ph = self.obs.phases.phase
+        cfg = self.model_config
+        W = self.config.scheduler.decode_window
+        greedy = (not smp.any_sampled and not smp.any_pen
+                  and smp.bias is None)
+        with ph("host_prep"):
+            page_tables = self._up(batch.page_tables)
+            pos = self._up(positions)
+            if smp.any_pen and counts is None:
+                counts = build_counts(self._penalty_out_tokens(batch),
+                                      cfg.vocab_size)
+        step_key = self._next_step_key()
+        B = tokens.shape[0]
+        out_tok = torch.empty((B, W), dtype=torch.int32, device=self.device)
+        out_lp = torch.empty((B, W), dtype=torch.float32, device=self.device)
+        tops = []
+        with ph("device_dispatch"):
+            for i in range(W):
+                hidden, _, _ = model_lib.forward_decode(
+                    self.params, cfg, tokens, self._substep_meta(page_tables,
+                                                                 pos),
+                    self.kv_cache)
+                logits = model_lib.compute_logits(self.params, cfg, hidden)
+                if greedy:
+                    tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+                    lps = token_logprobs(logits, tokens)
+                    tids, tlps = gated_top_logprobs(logits, smp.with_top)
+                else:
+                    tokens, lps, tids, tlps = self._sample(
+                        logits, smp, pos + 1, step_key, counts)
+                    if smp.any_pen:
+                        counts = bump_counts(counts, tokens)
+                out_tok[:, i] = tokens
+                out_lp[:, i] = lps
+                if smp.with_top:
+                    tops.append((tids, tlps))
+                pos = pos + 1
+            fetch_src = [out_tok, out_lp]
+            if tops:
+                fetch_src += [torch.stack([t for t, _ in tops], dim=1),
+                              torch.stack([lp for _, lp in tops], dim=1)]
+            fetch = self._start_fetch(*fetch_src)
+        return {"batch": batch, "dev_out": out_tok, "fetch": fetch,
+                "positions": positions, "sampling": smp, "zombies": set(),
+                "counts": counts, "greedy": greedy}
+
+    def _advance_window(self, inflight: dict) -> Optional[dict]:
+        """Build + enqueue the speculative successor window: same batch
+        composition, positions advanced by W, pages grown to cover the new
+        window. Returns None (chain breaks) if pages can't be grown."""
+        W = self.config.scheduler.decode_window
+        ps = self.config.cache.page_size
+        batch = inflight["batch"]
+        new_positions = inflight["positions"] + W
+        grows = []
+        total = 0
+        for s, seq in enumerate(batch.seqs):
+            last_pos = seq.last_window_pos(
+                int(new_positions[s]), W, self.config.effective_max_len)
+            need = cdiv(last_pos + 1, ps) - len(seq.pages)
+            if need > 0:
+                grows.append((s, seq, need))
+                total += need
+        if not self.scheduler.allocator.can_allocate(total):
+            return None
+        for s, seq, need in grows:
+            seq.pages.extend(self.scheduler.allocator.allocate(need))
+            batch.page_tables[s, :len(seq.pages)] = seq.pages
+        self.step_count += 1
+        return self._dispatch_window(batch, inflight["dev_out"][:, -1],
+                                     new_positions, inflight["sampling"],
+                                     counts=inflight["counts"])
+
+    def _process_window(self, batch: ScheduledBatch, next_tokens: np.ndarray,
+                        logprobs: np.ndarray, zombies: set,
+                        defer: bool, top_ids: Optional[np.ndarray] = None,
+                        top_lps: Optional[np.ndarray] = None,
+                        ) -> list[RequestOutput]:
+        """next_tokens/logprobs: [B_pad, W]. Append window tokens per
+        sequence until a stop condition fires; tokens generated past the
+        stop are discarded. ``zombies`` (request ids finished in an earlier
+        chained window) are skipped; with ``defer`` the pages of newly
+        finished sequences are held until the chain drains (an in-flight
+        window may still write to them)."""
+        outputs = []
+        for s, seq in enumerate(batch.seqs):
+            if seq.request_id in zombies:
+                continue
+            had_first = seq.first_token_time is not None
+            want_lps = seq.params.logprobs
+            want_top = (seq.params.top_logprobs if top_ids is not None else 0)
+            new_tokens: list[int] = []
+            new_lps: list[float] = []
+            new_tops: list[list[tuple[int, float]]] = []
+            for j, (token, lp) in enumerate(zip(next_tokens[s],
+                                                logprobs[s])):
+                token = int(token)
+                top = None
+                if want_top:
+                    top = [(int(t), float(v)) for t, v in
+                           zip(top_ids[s, j, :want_top],
+                               top_lps[s, j, :want_top])]
+                    # OpenAI/vLLM: the SAMPLED token is always present (up
+                    # to N+1 entries) even when it fell outside the top N.
+                    if token not in (t for t, _ in top):
+                        top.append((token, float(lp)))
+                    new_tops.append(top)
+                seq.append_token(token, float(lp) if want_lps else None, top)
+                new_tokens.append(token)
+                if want_lps:
+                    new_lps.append(float(lp))
+                reason = seq.check_stop(self.config.effective_max_len)
+                if reason is not None:
+                    if defer:
+                        seq.status = SequenceStatus.FINISHED
+                        seq.finish_reason = reason
+                        if seq in self.scheduler.running:
+                            self.scheduler.running.remove(seq)
+                        self._deferred_release.append(seq)
+                        self.obs.on_finish(seq, reason)
+                    else:
+                        self.scheduler.finish(seq, reason)
+                    break
+            self.stats.tokens_generated += len(new_tokens)
+            if not had_first and seq.first_token_time is not None:
+                fetch_s = self._ttft_transfer_s
+                if fetch_s is None:
+                    fetch_s = self.obs.phases.current_durs.get(
+                        "device_fetch", 0.0)
+                self.obs.on_first_token(seq, fetch_s=fetch_s)
+            if seq.is_finished:
+                self.stats.requests_finished += 1
+            outputs.append(RequestOutput(
+                request_id=seq.request_id,
+                prompt_token_ids=seq.prompt_token_ids,
+                output_token_ids=list(seq.output_token_ids),
+                finished=seq.is_finished,
+                finish_reason=(seq.finish_reason.value
+                               if seq.finish_reason else None),
+                new_token_ids=new_tokens,
+                new_logprobs=new_lps if want_lps else None,
+                output_logprobs=(list(seq.output_logprobs)
+                                 if want_lps else None),
+                new_top_logprobs=new_tops if want_top else None,
+                output_top_logprobs=(list(seq.output_top_logprobs)
+                                     if seq.params.top_logprobs else None)))
+        return outputs
+
+    def _drain_terminally_finished(self) -> list[RequestOutput]:
+        """Sequences the scheduler finished on its own (grown past pool
+        capacity) still owe the client a finished RequestOutput."""
+        outs = []
+        for seq in self.scheduler.terminally_finished:
+            self.stats.requests_finished += 1
+            outs.append(RequestOutput(
+                request_id=seq.request_id,
+                prompt_token_ids=seq.prompt_token_ids,
+                output_token_ids=list(seq.output_token_ids),
+                finished=True,
+                finish_reason=(seq.finish_reason.value
+                               if seq.finish_reason else None),
+                new_token_ids=[],
+                output_logprobs=(list(seq.output_logprobs)
+                                 if seq.params.logprobs else None),
+                output_top_logprobs=(list(seq.output_top_logprobs)
+                                     if seq.params.top_logprobs else None)))
+        self.scheduler.terminally_finished.clear()
+        return outs
+
+    def _drain_deferred(self) -> None:
+        for seq in self._deferred_release:
+            if seq.pages:
+                self.scheduler.allocator.free(seq.pages)
+                seq.pages = []
+        self._deferred_release.clear()
+
+    # -- convenience --------------------------------------------------------
+
+    def generate(self, prompts: list[list[int]],
+                 params=None) -> list[RequestOutput]:
+        """Synchronous batch generation (offline / test path). ``params``:
+        one SamplingParams for all prompts, or a list of one per prompt."""
+        plist = (list(params) if isinstance(params, (list, tuple))
+                 else [params] * len(prompts))
+        if len(plist) != len(prompts):
+            raise ValueError(f"got {len(plist)} SamplingParams for "
+                             f"{len(prompts)} prompts")
+        for i, (p, sp) in enumerate(zip(prompts, plist)):
+            self.add_request(f"req-{i}", p, sp)
+        final: dict[str, RequestOutput] = {}
+        while self.has_unfinished_requests():
+            for out in self.step():
+                if out.finished:
+                    final[out.request_id] = out
+        return [final[f"req-{i}"] for i in range(len(prompts))]

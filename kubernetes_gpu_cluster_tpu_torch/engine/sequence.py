@@ -1,0 +1,142 @@
+"""Sequence state tracked by the continuous-batching scheduler."""
+
+from __future__ import annotations
+
+import enum
+import time
+from typing import Optional
+
+from .sampling_params import SamplingParams
+
+
+class SequenceStatus(enum.Enum):
+    WAITING = "waiting"        # queued, no KV pages yet
+    RUNNING = "running"        # resident in the batch
+    PREEMPTED = "preempted"    # evicted under memory pressure; resumes by
+                               # swap-in (host KV tier) or recompute
+    FINISHED = "finished"
+
+
+class FinishReason(enum.Enum):
+    STOP = "stop"              # hit EOS / stop token
+    LENGTH = "length"          # hit max_tokens or max_model_len
+    ABORT = "abort"            # client cancelled
+    MIGRATE = "migrated"       # live-migrated to a peer replica (drain):
+                               # the stream continues elsewhere; locally the
+                               # sequence is terminal without a client-facing
+                               # finish
+
+
+class Sequence:
+    """One request's generation state. Pages are owned by the scheduler's
+    PageAllocator; this object just records which pages back it."""
+
+    def __init__(self, request_id: str, prompt_token_ids: list[int],
+                 params: SamplingParams, eos_token_id: Optional[int] = None):
+        self.request_id = request_id
+        self.prompt_token_ids = list(prompt_token_ids)
+        self.output_token_ids: list[int] = []
+        self.output_logprobs: list[float] = []
+        self.output_top_logprobs: list[list] = []   # [(token_id, lp) x N]
+        self.params = params
+        self.eos_token_id = eos_token_id
+        self.status = SequenceStatus.WAITING
+        self.finish_reason: Optional[FinishReason] = None
+        self.pages: list[int] = []
+        # Two-tier KV cache: host-pool page ids holding this sequence's
+        # committed KV while it is preempted-by-swap (engine/kv_cache).
+        self.host_pages: list[int] = []
+        self.arrival_time = time.monotonic()
+        self.first_token_time: Optional[float] = None  # for TTFT metrics
+        # Disaggregated import: the decode-replica-observed TTFT (remote
+        # prefill + KV transfer + import). step() never sees the first-token
+        # transition for an imported sequence — append_token stamps
+        # first_token_time at import — so TTFT-based accounting (histogram,
+        # SLO attainment/goodput gate) must use this span, not
+        # first_token_time - arrival_time (which would read ~0).
+        self.handoff_ttft_s: Optional[float] = None
+        # Lifecycle timestamps/counters for the observability layer: first
+        # scheduling (queue-wait), terminal time (e2e latency; also the
+        # idempotence guard for Observability.on_finish), preemption count
+        # (outcome labeling + preempt/resume trace events).
+        self.scheduled_time: Optional[float] = None
+        self.finish_time: Optional[float] = None
+        self.preempt_count = 0
+        # Chunked prefill progress: tokens whose KV is already committed to
+        # the pool by earlier chunks. Reset on preemption (pages are freed,
+        # the prompt recomputes from scratch).
+        self.num_prefilled = 0
+        # Prefix-cache lookup done (one per (re)admission — a blocked head is
+        # rescheduled many times and must not re-hash/re-fork per call).
+        self.prefix_checked = False
+        # Disaggregated prefill/decode: a prefill-replica request whose
+        # committed KV must survive its finish so the export seam can ship
+        # it to a decode replica (scheduler.finish parks it in
+        # ``scheduler.held`` instead of releasing; aborts still release).
+        self.hold_kv = False
+
+    @property
+    def all_token_ids(self) -> list[int]:
+        """Prompt + generated tokens — everything whose KV must be resident.
+        This is what a recompute-prefill replays after preemption."""
+        return self.prompt_token_ids + self.output_token_ids
+
+    @property
+    def num_prompt_tokens(self) -> int:
+        return len(self.prompt_token_ids)
+
+    @property
+    def num_output_tokens(self) -> int:
+        return len(self.output_token_ids)
+
+    @property
+    def num_tokens(self) -> int:
+        return self.num_prompt_tokens + self.num_output_tokens
+
+    def last_window_pos(self, next_input_pos: int, window: int,
+                        max_len: int) -> int:
+        """Highest position a decode window starting its inputs at
+        ``next_input_pos`` can touch, clamped to the model cap AND this
+        request's own max_tokens budget. Window-tail tokens past either
+        bound route to the scrap page, so page growth sized by this bound
+        makes EXACTLY-sized pools safe (no pages a request can never use).
+        The single source of truth for scheduler._schedule_decode and the
+        speculative chain's engine._advance_window."""
+        return min(next_input_pos + window - 1, max_len - 1,
+                   self.num_prompt_tokens + self.params.max_tokens - 1)
+
+    @property
+    def is_finished(self) -> bool:
+        return self.status == SequenceStatus.FINISHED
+
+    def append_token(self, token_id: int,
+                     logprob: Optional[float] = None,
+                     top: Optional[list] = None) -> None:
+        if self.first_token_time is None:
+            self.first_token_time = time.monotonic()
+        self.output_token_ids.append(token_id)
+        if logprob is not None:
+            self.output_logprobs.append(logprob)
+        if top is not None:
+            self.output_top_logprobs.append(top)
+
+    def check_stop(self, max_model_len: int) -> Optional[FinishReason]:
+        """Token-level stop conditions (string-level stops are handled by the
+        server layer which owns the tokenizer)."""
+        if not self.output_token_ids:
+            return None
+        last = self.output_token_ids[-1]
+        if not self.params.ignore_eos and self.eos_token_id is not None \
+                and last == self.eos_token_id:
+            return FinishReason.STOP
+        if last in self.params.stop_token_ids:
+            return FinishReason.STOP
+        if self.num_output_tokens >= self.params.max_tokens:
+            return FinishReason.LENGTH
+        if self.num_tokens >= max_model_len:
+            return FinishReason.LENGTH
+        return None
+
+    def __repr__(self):
+        return (f"Sequence({self.request_id}, status={self.status.value}, "
+                f"prompt={self.num_prompt_tokens}, out={self.num_output_tokens})")

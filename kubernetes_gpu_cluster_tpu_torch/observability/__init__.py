@@ -1,0 +1,664 @@
+"""Observability subsystem: request tracing, phase attribution, histograms.
+
+One ``Observability`` object per engine, shared with its scheduler: the step
+loop and scheduler call the ``on_*`` lifecycle hooks; serving/metrics.py
+renders the histogram state into /metrics; serving/api_server.py exports the
+trace ring via /debug/trace; bench.py reads the TTFT decomposition deques.
+Everything here is bounded (rings + fixed-bucket histograms) and lock-free
+on the hot path — the engine step loop must never block on observability.
+
+Disable entirely with ``KGCT_TRACE=0`` (hooks become cheap early-returns;
+histograms still fill — they are the /metrics contract). The black-box
+flight recorder (flightrecorder.py) mirrors the same events into its own
+always-on ring (kill switch ``KGCT_FLIGHT=0``) and is NOT touched by
+``/debug/trace?clear=1`` — a scoped capture must never erase the crash
+evidence.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+
+from .flightrecorder import FlightRecorder
+from .phases import PHASES, StepPhaseStats
+from .prometheus import (BATCH_BUCKETS, LATENCY_BUCKETS_S, Histogram, fmt,
+                         render_gauge)
+from .trace import EVENT_KINDS, RequestTracer, merge_perfetto
+
+__all__ = ["Observability", "Histogram", "RequestTracer", "StepPhaseStats",
+           "FlightRecorder", "SLOTracker", "merge_perfetto",
+           "EVENT_KINDS", "PHASES", "LATENCY_BUCKETS_S", "BATCH_BUCKETS",
+           "render_gauge", "fmt"]
+
+# The attainment bar when no admission-control budget is configured: the
+# north-star "p50 TTFT <= 1 s" target. An operator budget
+# (ResilienceConfig.default_ttft_budget_ms, wired by the API server)
+# overrides it so the SLO gauge and the 429 shed line agree on one number.
+SLO_DEFAULT_TTFT_BUDGET_MS = 1000.0
+
+
+class SLOTracker:
+    """Rolling SLO view over recent requests — the autoscaler-facing signal
+    (ROADMAP item 4(b)): what fraction of recent traffic met its TTFT
+    budget, and how many tokens/s the budget-meeting requests delivered
+    (goodput — raw tok/s counts tokens nobody would have waited for).
+
+    Bounded by construction: a fixed-size TTFT window (count-based, the
+    last N first tokens) and a time-pruned goodput window. All reads are
+    nan-free: attainment over an empty window is 1.0 (nothing has missed
+    its budget), goodput is 0.0.
+
+    Thread model: the engine WORKER thread writes (on_first_token /
+    on_finish inside the step loop) while the HTTP thread reads
+    (/metrics render). Writers are single-threaded and own all mutation
+    (including the goodput prune); readers take a ``list()`` snapshot of
+    each deque — atomic under the GIL — and never mutate, so a scrape can
+    land mid-append without a 'deque mutated during iteration' error or a
+    popleft race."""
+
+    def __init__(self, ttft_budget_ms=None, window: int = 256,
+                 goodput_window_s: float = 60.0):
+        self.ttft_budget_ms = ttft_budget_ms     # None -> default bar
+        self.goodput_window_s = goodput_window_s
+        self._ttfts: deque = deque(maxlen=window)
+        self._good: deque = deque()              # (finish_ts, tokens)
+        # Start of the observation span (reset by clear()): a server up
+        # 10 s must divide its goodput by 10 s, not the full 60 s window.
+        self._window_start = time.monotonic()
+
+    @property
+    def budget_ms(self) -> float:
+        return (self.ttft_budget_ms if self.ttft_budget_ms is not None
+                else SLO_DEFAULT_TTFT_BUDGET_MS)
+
+    def on_first_token(self, ttft_s: float) -> None:
+        self._ttfts.append(ttft_s)
+
+    def on_finish(self, ttft_s: float, n_tokens: int) -> None:
+        if n_tokens <= 0 or ttft_s * 1e3 > self.budget_ms:
+            return
+        now = time.monotonic()
+        self._good.append((now, n_tokens))
+        # Writer-side prune bounds the deque to ~the window's finishes;
+        # only this (single) writer thread ever pops.
+        cutoff = now - self.goodput_window_s
+        good = self._good
+        while good and good[0][0] < cutoff:
+            good.popleft()
+
+    def attainment(self) -> float:
+        """Fraction of the recent TTFT window under the budget; 1.0 on an
+        empty window (a fresh server has missed nothing)."""
+        ttfts = list(self._ttfts)          # snapshot: reader never iterates live
+        if not ttfts:
+            return 1.0
+        bar = self.budget_ms
+        return sum(1 for t in ttfts if t * 1e3 <= bar) / len(ttfts)
+
+    def goodput_tokens_per_sec(self) -> float:
+        """Tokens/s delivered by budget-meeting requests over the rolling
+        window — 0.0 when idle. The denominator is the OBSERVED span
+        (capped at the window): dividing a 10 s-old server's tokens by the
+        full 60 s would systematically understate goodput. Read-only: the
+        window filter re-applies on the snapshot (entries the writer has
+        not pruned yet but that aged out are excluded here too)."""
+        now = time.monotonic()
+        cutoff = now - self.goodput_window_s
+        tokens = sum(n for ts, n in list(self._good) if ts >= cutoff)
+        if not tokens:
+            return 0.0
+        span = min(self.goodput_window_s,
+                   max(now - self._window_start, 1e-6))
+        return tokens / span
+
+    def clear(self) -> None:
+        """Reset the rolling windows (bench phase boundaries); the budget
+        stays."""
+        self._ttfts.clear()
+        self._good.clear()
+        self._window_start = time.monotonic()
+
+
+def _outcome(seq, reason) -> str:
+    """finished | aborted | preempted — the label the e2e/TTFT-facing series
+    carry. A request that was ever preempted finished late through no fault
+    of its own; labeling it lets QoS dashboards split the tail."""
+    rv = getattr(reason, "value", reason)
+    if rv == "abort":
+        return "aborted"
+    if rv == "migrated":
+        # Live-migrated to a peer (drain): locally terminal, but the client
+        # stream continues elsewhere — its tokens WERE delivered, so the
+        # goodput gate keeps them; the e2e series splits them out.
+        return "migrated"
+    if getattr(seq, "preempt_count", 0) > 0:
+        return "preempted"
+    return "finished"
+
+
+class Observability:
+    def __init__(self, trace_capacity: int = 8192,
+                 enabled: bool = None):
+        # Black-box flight recorder: mirrors every trace emit into its own
+        # bounded ring (plus periodic state snapshots) and dumps to a JSON
+        # file on fatal transitions — independent kill switch KGCT_FLIGHT=0.
+        self.flight = FlightRecorder()
+        # enabled=None: the tracer resolves the KGCT_TRACE kill switch
+        # itself (the one definition, shared with the router's tracer).
+        self.tracer = RequestTracer(capacity=trace_capacity, enabled=enabled,
+                                    recorder=self.flight)
+        # Rolling SLO layer: TTFT attainment + goodput, the autoscaler
+        # signals. The API server points ttft_budget_ms at the admission
+        # controller's budget so both layers grade against one bar.
+        self.slo = SLOTracker()
+        # Multi-tenant QoS: per-tier SLO trackers + served counters, keyed
+        # by the CONFIGURED tier names only (bounded label cardinality,
+        # KGCT007 — never raw user ids). Empty when QoS is off: no labeled
+        # series render and the scrape is byte-identical to the tier-less
+        # server. configure_qos_tiers wires them from engine config.
+        self.slo_by_tier: dict[str, SLOTracker] = {}
+        self.finished_by_tier: dict[str, int] = {}
+        self._qos_default_tier: str = ""
+        self.phases = StepPhaseStats()
+        self.ttft = Histogram(
+            "kgct_ttft_seconds", "time to first token", labels=("outcome",))
+        self.tpot = Histogram(
+            "kgct_tpot_seconds", "inter-token latency (per-request mean)")
+        self.queue_wait = Histogram(
+            "kgct_queue_wait_seconds", "arrival to first scheduling")
+        self.prefill_latency = Histogram(
+            "kgct_prefill_seconds", "scheduling to first token, minus fetch")
+        self.step_duration = Histogram(
+            "kgct_step_seconds", "engine step wall time")
+        self.batch_size = Histogram(
+            "kgct_batch_size_per_step", "real sequences per engine step",
+            buckets=BATCH_BUCKETS)
+        self.e2e_latency = Histogram(
+            "kgct_request_e2e_seconds", "arrival to finish",
+            labels=("outcome",))
+        # TTFT decomposition samples for bench.py (queue wait / prefill
+        # compute / first-window device->host fetch).
+        self.ttft_queue_s: deque = deque(maxlen=1024)
+        self.ttft_prefill_s: deque = deque(maxlen=1024)
+        self.ttft_fetch_s: deque = deque(maxlen=1024)
+        # Sampled-vs-greedy decode throughput regression guard: tokens and
+        # wall seconds accumulated per decode program mode by the step loop.
+        self.decode_mode_tokens = {"greedy": 0, "sampled": 0}
+        self.decode_mode_wall_s = {"greedy": 0.0, "sampled": 0.0}
+        # Mixed (stall-free) batching: device steps by kind plus the
+        # cumulative prefill/decode token split of mixed steps — feeds the
+        # kgct_mixed_step_ratio gauge and the bench mixed readout.
+        self.step_kind_counts = {"prefill": 0, "decode": 0, "mixed": 0,
+                                 "spec": 0, "spec_mixed": 0}
+        self.mixed_prefill_tokens = 0
+        self.mixed_decode_tokens = 0
+        # Speculative decoding: cumulative drafted vs accepted draft tokens
+        # (bonus tokens excluded from both) — feeds the
+        # kgct_spec_acceptance_ratio gauge, the kgct_spec_*_tokens_total
+        # counters, and the bench speculative readout.
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        # Draft PHASE telemetry (n-gram lookups or draft-model dispatches,
+        # measured at the proposer seam): tokens the proposer actually
+        # produced and the wall time spent producing them — splits a spec
+        # step's cost into draft vs verify. Zero-safe when spec is off.
+        self.spec_draft_tokens = 0
+        self.spec_draft_latency = Histogram(
+            "kgct_spec_draft_seconds",
+            "draft-phase wall time per spec step (proposer seam)")
+        # Acceptance-adaptive k: the controller's live rung (None = spec
+        # off -> the gauge is absent from /metrics, never NaN).
+        self.spec_current_k = None
+        # Two-tier KV cache: pages moved device<->host (preempt-by-swap +
+        # prefix-spill) and the per-transfer latency split by direction —
+        # feeds kgct_kv_swap_{out,in}_pages_total and kgct_kv_swap_seconds.
+        self.swap_pages = {"out": 0, "in": 0}
+        self.swap_latency = Histogram(
+            "kgct_kv_swap_seconds", "host<->device KV page transfer latency",
+            labels=("dir",))
+        # Fleet-wide prefix cache (serving/fleet_cache.py): remote prefix
+        # pulls by outcome — "ok" (imported into the local cache),
+        # "recompute" (pull failed/timed out/peer missed: local prefill
+        # serves it, byte-identical), "skipped" (the roofline gate priced
+        # the pull above recompute, or the prefix was already local) — and
+        # remote spills by outcome — "ok" (a peer parked the evicted
+        # page), "dropped" (bounded queue displaced it / peer had no
+        # room), "error" (push failed). Pre-seeded so a fresh scrape
+        # renders zeros for every outcome, nan-free, fleet cache off
+        # included.
+        self.fleet_pulls = {"ok": 0, "recompute": 0, "skipped": 0}
+        self.fleet_spills = {"ok": 0, "dropped": 0, "error": 0}
+        self.fleet_bytes = {"pull": 0, "spill": 0}
+        self.fleet_pull_latency = Histogram(
+            "kgct_fleet_prefix_pull_seconds",
+            "remote prefix pull wall latency (fetch + streamed import)")
+        # KV wire integrity (serving/handoff.py): detections by wire path
+        # x outcome — "corrupt" (a frame failed its own checksums) and
+        # "skew" (a peer spoke the pre-integrity dialect to a receiver
+        # that requires checksums). Every cell pre-seeded: a fresh scrape
+        # renders zeros for the full matrix, integrity off included.
+        self.wire_corruptions = {
+            (path, outcome): 0
+            for path in ("handoff", "prefix", "spill", "migrate", "resume")
+            for outcome in ("corrupt", "skew")}
+        # Peer quarantine entries by peer URL. Bounded cardinality: the
+        # label set is the configured allowlists (peer pool + prefill
+        # pool), seeded at server construction so idle peers render 0.
+        self.peer_quarantines: dict = {}
+
+    # -- multi-tenant QoS ----------------------------------------------------
+
+    def configure_qos_tiers(self, tiers, default_tier: str,
+                            fallback_budget_ms=None) -> None:
+        """Install the per-tier SLO trackers: one per CONFIGURED tier
+        (bounded cardinality), graded against the tier's own TTFT budget
+        when it has one, else ``fallback_budget_ms`` — the operator's
+        admission default, so a tier child and the global tracker grade
+        the same request against the same bar (None keeps the north-star
+        default, matching the global tracker's own fallback). Called once
+        at engine construction when QoS is on."""
+        self.slo_by_tier = {
+            t.name: SLOTracker(ttft_budget_ms=(
+                t.ttft_budget_ms if t.ttft_budget_ms is not None
+                else fallback_budget_ms))
+            for t in tiers}
+        self.finished_by_tier = {t.name: 0 for t in tiers}
+        self._qos_default_tier = default_tier
+
+    def _tier_slo(self, seq) -> "Optional[SLOTracker]":
+        if not self.slo_by_tier:
+            return None
+        name = getattr(getattr(seq, "params", None), "qos_tier", None)
+        if name not in self.slo_by_tier:
+            name = self._qos_default_tier
+        return self.slo_by_tier.get(name)
+
+    # -- request lifecycle hooks (engine + scheduler) ------------------------
+
+    def on_arrival(self, seq) -> None:
+        self.tracer.emit("arrival", seq.request_id,
+                         prompt_tokens=seq.num_prompt_tokens)
+
+    def on_queued(self, seq, depth: int = 0) -> None:
+        self.tracer.emit("queued", seq.request_id, queue_depth=depth)
+
+    def on_scheduled(self, seq, n_batch: int) -> None:
+        resumed = getattr(seq, "preempt_count", 0) > 0
+        if seq.scheduled_time is None:
+            seq.scheduled_time = time.monotonic()
+            self.queue_wait.observe(seq.scheduled_time - seq.arrival_time)
+        self.tracer.emit("resume" if resumed else "scheduled",
+                         seq.request_id, batch=n_batch)
+
+    def on_prefill_chunk(self, seq, start: int, end: int, total: int) -> None:
+        self.tracer.emit("prefill_chunk", seq.request_id,
+                         start=start, end=end, total=total)
+
+    def on_preempt(self, seq, kind: str = "recompute") -> None:
+        seq.preempt_count += 1
+        self.tracer.emit("preempt", seq.request_id, preempt_kind=kind,
+                         preempt_count=seq.preempt_count)
+
+    def on_swap(self, direction: str, pages: int, duration_s: float,
+                request_id: str = "") -> None:
+        """One two-tier KV transfer: ``direction`` "out" (device->host) or
+        "in" (host->device), ``pages`` moved, wall latency including the
+        host-side copy."""
+        if direction in self.swap_pages:
+            self.swap_pages[direction] += pages
+        self.swap_latency.observe(duration_s, (direction,))
+        self.tracer.emit("swap", request_id, dir=direction, pages=pages)
+
+    def on_fleet_pull(self, outcome: str, n_bytes: int = 0,
+                      duration_s=None) -> None:
+        """One fleet-cache pull decision/attempt (bounded outcome set —
+        unknown spellings fold into "recompute" so label cardinality can
+        never grow)."""
+        if outcome not in self.fleet_pulls:
+            outcome = "recompute"
+        self.fleet_pulls[outcome] += 1
+        self.fleet_bytes["pull"] += n_bytes
+        if duration_s is not None:
+            self.fleet_pull_latency.observe(duration_s)
+
+    def on_fleet_spill(self, outcome: str, n_bytes: int = 0) -> None:
+        """One remote-spill attempt (sender side)."""
+        if outcome not in self.fleet_spills:
+            outcome = "error"
+        self.fleet_spills[outcome] += 1
+        self.fleet_bytes["spill"] += n_bytes
+
+    def on_wire_corruption(self, path: str, outcome: str = "corrupt"
+                           ) -> None:
+        """One integrity detection on a KV wire path (bounded label
+        matrix — unknown spellings fold into handoff/corrupt so
+        cardinality can never grow)."""
+        if (path, outcome) not in self.wire_corruptions:
+            path, outcome = "handoff", "corrupt"
+        self.wire_corruptions[(path, outcome)] += 1
+
+    def seed_peers(self, peers) -> None:
+        """Pre-seed the quarantine counter's label set from the
+        configured allowlists — zeros for every known peer on a fresh
+        scrape, and the only way labels enter (bounded cardinality)."""
+        for peer in peers:
+            self.peer_quarantines.setdefault(peer, 0)
+
+    def on_peer_quarantine(self, peer: str) -> None:
+        """One quarantine ENTRY for ``peer`` (window extensions do not
+        re-count)."""
+        self.peer_quarantines[peer] = self.peer_quarantines.get(peer, 0) + 1
+
+    def on_spec_draft(self, n_tokens: int, duration_s: float) -> None:
+        """One draft phase (the proposer-seam call of a spec round):
+        tokens proposed + wall time. Called by the verifier/spec-mixed
+        builders on the worker thread."""
+        self.spec_draft_tokens += n_tokens
+        self.spec_draft_latency.observe(duration_s)
+
+    def on_first_token(self, seq, fetch_s: float = 0.0) -> None:
+        ttft = seq.first_token_time - seq.arrival_time
+        self.ttft.observe(ttft, (_outcome(seq, None),))
+        self.slo.on_first_token(ttft)
+        tier_slo = self._tier_slo(seq)
+        if tier_slo is not None:
+            tier_slo.on_first_token(ttft)
+        queue = ((seq.scheduled_time - seq.arrival_time)
+                 if seq.scheduled_time is not None else 0.0)
+        prefill = max(ttft - queue - fetch_s, 0.0)
+        if seq.scheduled_time is not None:
+            self.prefill_latency.observe(prefill)
+        self.ttft_queue_s.append(queue)
+        self.ttft_prefill_s.append(prefill)
+        self.ttft_fetch_s.append(fetch_s)
+        self.tracer.emit("first_token", seq.request_id,
+                         ttft_ms=round(ttft * 1e3, 2))
+
+    def on_handoff_first_token(self, seq, ttft_s: float) -> None:
+        """Disaggregated import: the first token(s) arrived WITH the KV
+        handoff, so step()'s first-token transition never fires here.
+        ``ttft_s`` is the decode-replica-observed span (remote prefill +
+        transfer + import) — the client-facing quantity; it feeds the TTFT
+        histogram and the SLO window, and is stashed on the sequence so
+        on_finish's goodput gate judges the real latency, not the ~0 of
+        first_token_time - arrival_time."""
+        seq.handoff_ttft_s = ttft_s
+        self.ttft.observe(ttft_s, (_outcome(seq, None),))
+        self.slo.on_first_token(ttft_s)
+        tier_slo = self._tier_slo(seq)
+        if tier_slo is not None:
+            tier_slo.on_first_token(ttft_s)
+        self.tracer.emit("first_token", seq.request_id,
+                         ttft_ms=round(ttft_s * 1e3, 2), handoff=True)
+
+    def on_finish(self, seq, reason) -> None:
+        """Terminal accounting — idempotent (several engine paths can reach a
+        finished sequence: defer/drain, abort-in-flight, capacity kill)."""
+        if seq.finish_time is not None:
+            return
+        seq.finish_time = time.monotonic()
+        outcome = _outcome(seq, reason)
+        self.e2e_latency.observe(seq.finish_time - seq.arrival_time,
+                                 (outcome,))
+        n = seq.num_output_tokens
+        # Goodput counts DELIVERED work only: an aborted request's tokens
+        # were generated but nobody received them (client disconnect /
+        # group-abort), and counting them would overstate the autoscaler's
+        # throughput signal under client churn.
+        if seq.first_token_time is not None and outcome != "aborted":
+            ttft = (seq.handoff_ttft_s
+                    if getattr(seq, "handoff_ttft_s", None) is not None
+                    else seq.first_token_time - seq.arrival_time)
+            self.slo.on_finish(ttft, n)
+            tier_slo = self._tier_slo(seq)
+            if tier_slo is not None:
+                tier_slo.on_finish(ttft, n)
+        if self.finished_by_tier and outcome != "aborted":
+            name = getattr(getattr(seq, "params", None), "qos_tier", None)
+            if name not in self.finished_by_tier:
+                name = self._qos_default_tier
+            if name in self.finished_by_tier:
+                self.finished_by_tier[name] += 1
+        if seq.first_token_time is not None and n >= 2:
+            self.tpot.observe(
+                (seq.finish_time - seq.first_token_time) / (n - 1))
+        self.tracer.emit("abort" if outcome == "aborted" else "finish",
+                         seq.request_id, outcome=outcome, output_tokens=n)
+
+    # -- step accounting (engine.step) ---------------------------------------
+
+    def on_step(self, step: int, kind: str, batch: int, duration_s: float,
+                new_tokens: int, mode: str = None, prefill_tokens: int = 0,
+                decode_tokens: int = 0, drafted_tokens: int = 0,
+                accepted_tokens: int = 0, draft_s: float = 0.0) -> None:
+        # Flight-recorder state snapshot, at most once per interval: one
+        # monotonic read per step when nothing is due.
+        self.flight.maybe_snapshot()
+        self.step_duration.observe(duration_s)
+        self.batch_size.observe(batch)
+        self.phases.end_step(step=step, kind=kind, batch=batch,
+                             duration_s=duration_s)
+        if kind in self.step_kind_counts:
+            self.step_kind_counts[kind] += 1
+        if kind == "decode":
+            self.tracer.emit("decode", "", batch=batch, tokens=new_tokens,
+                             mode=mode or "greedy")
+            if mode in self.decode_mode_tokens:
+                self.decode_mode_tokens[mode] += new_tokens
+                self.decode_mode_wall_s[mode] += duration_s
+        elif kind == "mixed":
+            # The stall-free batching signal: how this step's token budget
+            # split between the prefill chunk and the decode rows.
+            self.mixed_prefill_tokens += prefill_tokens
+            self.mixed_decode_tokens += decode_tokens
+            self.tracer.emit("mixed", "", batch=batch,
+                             prefill_tokens=prefill_tokens,
+                             decode_tokens=decode_tokens)
+        elif kind == "spec":
+            # The speculative-decoding signal: of the drafts this step
+            # verified, how many committed (emitted tokens = accepted +
+            # one bonus per row; new_tokens carries the realized total).
+            # draft/verify phase attribution: the draft half is the
+            # proposer-seam wall time, the verify half is the rest of the
+            # step (dispatch + fetch of the one verify program).
+            self.spec_drafted_tokens += drafted_tokens
+            self.spec_accepted_tokens += accepted_tokens
+            self.tracer.emit("spec", "", batch=batch, tokens=new_tokens,
+                             drafted=drafted_tokens, accepted=accepted_tokens,
+                             mode=mode or "greedy",
+                             draft_ms=round(draft_s * 1e3, 3),
+                             verify_ms=round(
+                                 max(duration_s - draft_s, 0.0) * 1e3, 3))
+        elif kind == "spec_mixed":
+            # The composition step counts BOTH ways: its chunk/verify token
+            # split feeds the mixed-batching counters (a spec_mixed step IS
+            # a stall-free step) and its draft outcome feeds the spec
+            # acceptance counters.
+            self.mixed_prefill_tokens += prefill_tokens
+            self.mixed_decode_tokens += decode_tokens
+            self.spec_drafted_tokens += drafted_tokens
+            self.spec_accepted_tokens += accepted_tokens
+            self.tracer.emit("spec_mixed", "", batch=batch,
+                             tokens=new_tokens,
+                             prefill_tokens=prefill_tokens,
+                             drafted=drafted_tokens,
+                             accepted=accepted_tokens,
+                             mode=mode or "greedy",
+                             draft_ms=round(draft_s * 1e3, 3),
+                             verify_ms=round(
+                                 max(duration_s - draft_s, 0.0) * 1e3, 3))
+
+    def mixed_step_ratio(self):
+        """Fraction of device steps that carried a prefill chunk alongside
+        decode work — plain mixed AND spec×mixed steps both count (a
+        spec_mixed step is a stall-free step whose decode half happens to
+        be verify slices), or None before any step ran. Near-zero under
+        mixing-off or idle-prefill regimes; rises with sustained load when
+        stall-free batching is doing its job."""
+        total = sum(self.step_kind_counts.values())
+        if total <= 0:
+            return None
+        return (self.step_kind_counts["mixed"]
+                + self.step_kind_counts["spec_mixed"]) / total
+
+    def spec_acceptance_ratio(self):
+        """accepted/drafted draft tokens over all spec steps, or None
+        before any spec step ran. The capacity signal for n-gram drafting:
+        near-0 means the workload has no lookup structure (spec steps are
+        pure overhead — disable or switch proposers); the bench's
+        repetitive-suffix phase expects it high."""
+        if self.spec_drafted_tokens <= 0:
+            return None
+        return self.spec_accepted_tokens / self.spec_drafted_tokens
+
+    def sampled_decode_ratio(self):
+        """sampled/greedy decode tok/s ratio, or None until both modes have
+        run (round-4 target: >= 0.9)."""
+        tg, ts = self.decode_mode_tokens["greedy"], self.decode_mode_tokens["sampled"]
+        wg, ws = self.decode_mode_wall_s["greedy"], self.decode_mode_wall_s["sampled"]
+        if tg <= 0 or ts <= 0 or wg <= 0 or ws <= 0:
+            return None
+        return (ts / ws) / (tg / wg)
+
+    # -- rendering / export --------------------------------------------------
+
+    def ttft_decomposition(self) -> dict:
+        """Median queue / prefill / first-fetch split of recent TTFTs (ms) —
+        the decomposition bench.py reports and QoS PRs will regress against."""
+        def med_ms(xs):
+            xs = sorted(xs)
+            return round(xs[len(xs) // 2] * 1e3, 2) if xs else 0.0
+        return {"queue_ms": med_ms(self.ttft_queue_s),
+                "prefill_ms": med_ms(self.ttft_prefill_s),
+                "first_fetch_ms": med_ms(self.ttft_fetch_s),
+                "samples": len(self.ttft_queue_s)}
+
+    def render_prometheus(self) -> list[str]:
+        lines: list[str] = []
+        for hist in (self.ttft, self.tpot, self.queue_wait,
+                     self.prefill_latency, self.step_duration,
+                     self.batch_size, self.e2e_latency):
+            lines.extend(hist.render())
+        lines.append("# TYPE kgct_step_phase_seconds_total counter")
+        for p in PHASES:
+            lines.append(
+                "kgct_step_phase_seconds_total{phase=\"%s\"} %s"
+                % (p, fmt(round(self.phases.totals.get(p, 0.0), 6))))
+        # Per-phase mean step time, promoted from the tracer's breakdown so
+        # dashboards read "where a step's wall time goes" without computing
+        # rate ratios; zeros before any step — a fresh scrape is nan-free.
+        lines.append("# TYPE kgct_step_phase_mean_seconds gauge")
+        for p in PHASES:
+            n = self.phases.counts.get(p, 0)
+            mean = self.phases.totals.get(p, 0.0) / n if n else 0.0
+            lines.append(
+                "kgct_step_phase_mean_seconds{phase=\"%s\"} %s"
+                % (p, fmt(round(mean, 9))))
+        # Rolling SLO layer (autoscaler signals, ROADMAP 4(b)): attainment
+        # of the admission-control TTFT budget over recent requests, the
+        # budget itself, and budget-meeting goodput. 1.0 / 0.0 when fresh.
+        # Multi-tenant QoS: the attainment/goodput families gain a
+        # bounded-cardinality ``tier`` label (values = configured tier
+        # names only), rendered inside each family's TYPE block. Absent
+        # entirely when QoS is off; zeros/1.0-safe on a fresh scrape (an
+        # empty window has missed nothing).
+        tier_names = sorted(self.slo_by_tier)
+        lines += [
+            "# TYPE kgct_slo_ttft_budget_ms gauge",
+            f"kgct_slo_ttft_budget_ms {fmt(self.slo.budget_ms)}",
+            "# TYPE kgct_slo_ttft_attainment_ratio gauge",
+            "kgct_slo_ttft_attainment_ratio "
+            f"{fmt(round(self.slo.attainment(), 6))}",
+        ]
+        lines += [
+            f'kgct_slo_ttft_attainment_ratio{{tier="{n}"}} '
+            f"{fmt(round(self.slo_by_tier[n].attainment(), 6))}"
+            for n in tier_names]
+        lines += [
+            "# TYPE kgct_slo_goodput_tokens_per_sec gauge",
+            "kgct_slo_goodput_tokens_per_sec "
+            f"{fmt(round(self.slo.goodput_tokens_per_sec(), 3))}",
+        ]
+        lines += [
+            f'kgct_slo_goodput_tokens_per_sec{{tier="{n}"}} '
+            f"{fmt(round(self.slo_by_tier[n].goodput_tokens_per_sec(), 3))}"
+            for n in tier_names]
+        if self.finished_by_tier:
+            lines.append("# TYPE kgct_qos_requests_finished_total counter")
+            for name in sorted(self.finished_by_tier):
+                lines.append(
+                    f'kgct_qos_requests_finished_total{{tier="{name}"}} '
+                    f"{self.finished_by_tier[name]}")
+        lines.extend(render_gauge("kgct_sampled_decode_ratio",
+                                  self.sampled_decode_ratio()))
+        lines.extend(render_gauge("kgct_mixed_step_ratio",
+                                  self.mixed_step_ratio()))
+        lines.append("# TYPE kgct_mixed_prefill_tokens_total counter")
+        lines.append("kgct_mixed_prefill_tokens_total %d"
+                     % self.mixed_prefill_tokens)
+        lines.append("# TYPE kgct_mixed_decode_tokens_total counter")
+        lines.append("kgct_mixed_decode_tokens_total %d"
+                     % self.mixed_decode_tokens)
+        lines.extend(render_gauge("kgct_spec_acceptance_ratio",
+                                  self.spec_acceptance_ratio()))
+        lines.append("# TYPE kgct_spec_drafted_tokens_total counter")
+        lines.append("kgct_spec_drafted_tokens_total %d"
+                     % self.spec_drafted_tokens)
+        lines.append("# TYPE kgct_spec_accepted_tokens_total counter")
+        lines.append("kgct_spec_accepted_tokens_total %d"
+                     % self.spec_accepted_tokens)
+        # Acceptance-adaptive k: the live rung. Absent when spec is off
+        # (None), present from engine construction when on — a fresh
+        # scrape is nan-free either way.
+        lines.extend(render_gauge("kgct_spec_current_k",
+                                  self.spec_current_k))
+        lines.append("# TYPE kgct_spec_draft_tokens_total counter")
+        lines.append("kgct_spec_draft_tokens_total %d"
+                     % self.spec_draft_tokens)
+        lines.extend(self.spec_draft_latency.render())
+        lines.append("# TYPE kgct_kv_swap_out_pages_total counter")
+        lines.append("kgct_kv_swap_out_pages_total %d"
+                     % self.swap_pages["out"])
+        lines.append("# TYPE kgct_kv_swap_in_pages_total counter")
+        lines.append("kgct_kv_swap_in_pages_total %d" % self.swap_pages["in"])
+        lines.extend(self.swap_latency.render())
+        # Fleet-wide prefix cache: every outcome pre-seeded — zeros when
+        # the fleet cache is off or idle, never an absent series.
+        lines.append("# TYPE kgct_fleet_prefix_pulls_total counter")
+        for oc in sorted(self.fleet_pulls):
+            lines.append(f'kgct_fleet_prefix_pulls_total{{outcome="{oc}"}} '
+                         f"{self.fleet_pulls[oc]}")
+        lines.append("# TYPE kgct_fleet_prefix_spills_total counter")
+        for oc in sorted(self.fleet_spills):
+            lines.append(f'kgct_fleet_prefix_spills_total{{outcome="{oc}"}} '
+                         f"{self.fleet_spills[oc]}")
+        lines.append("# TYPE kgct_fleet_prefix_bytes_total counter")
+        for d in sorted(self.fleet_bytes):
+            lines.append(f'kgct_fleet_prefix_bytes_total{{dir="{d}"}} '
+                         f"{self.fleet_bytes[d]}")
+        lines.extend(self.fleet_pull_latency.render())
+        # KV wire integrity: the full path x outcome matrix pre-seeded.
+        lines.append("# TYPE kgct_kv_wire_corruptions_total counter")
+        for (path, oc) in sorted(self.wire_corruptions):
+            lines.append(
+                f'kgct_kv_wire_corruptions_total{{path="{path}",'
+                f'outcome="{oc}"}} {self.wire_corruptions[(path, oc)]}')
+        # Peer quarantines: labels only from the seeded allowlists.
+        lines.append("# TYPE kgct_peer_quarantines_total counter")
+        for peer in sorted(self.peer_quarantines):
+            lines.append(f'kgct_peer_quarantines_total{{peer="{peer}"}} '
+                         f"{self.peer_quarantines[peer]}")
+        return lines
+
+    def export_perfetto(self) -> dict:
+        return self.tracer.export_perfetto(
+            step_records=(self.phases.step_records()
+                          + self.phases.detached_records()))
+
+    def clear_trace(self) -> None:
+        """Empty every trace ring (lifecycle events, step-phase records,
+        detached slices) for a scoped capture; histogram/total state — the
+        /metrics contract — is untouched."""
+        self.tracer.clear()
+        self.phases.clear_records()

@@ -1,0 +1,146 @@
+"""Black-box flight recorder: always-on crash capture for the serving plane.
+
+When a watchdog trips, a multihost group-abort fires, or a SIGTERM drain
+begins, the interesting evidence is the SECONDS THAT PRECEDED the event —
+queue depths building, swaps thrashing, a replica's inflight count pinned —
+and by the time anyone attaches a debugger that history is gone. The flight
+recorder keeps it: a fixed-size ring of recent trace events (mirrored from
+the request tracer, one deque append per event) interleaved with periodic
+state snapshots (scheduler queue depths, KV pool occupancy on both tiers,
+router per-replica inflight), and on a fatal transition the whole ring is
+dumped to a JSON file an operator or postmortem pipeline reads after the
+pod is restarted.
+
+Hot-path discipline (enforced by the KGCT012 lint rule): ``record`` and
+``maybe_snapshot`` are O(append) — no I/O, no serialization, no locks, no
+host syncs. The expensive part (``dump``/``export``) runs only on failure
+paths and debug endpoints, off the step loop.
+
+Dumps land under ``KGCT_FLIGHT_DIR`` (default ``/tmp/kgct-flight``), one
+file per trigger: ``flight-<reason>-<pid>-<ms>.json``. Disable the whole
+recorder with ``KGCT_FLIGHT=0`` (record becomes a no-op, dump returns
+None); engine outputs are byte-identical either way — the recorder only
+observes.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from collections import deque
+from typing import Callable, Optional
+
+from ..utils import get_logger
+
+logger = get_logger("observability.flight")
+
+# Where dump() writes, read at dump time so tests and operators can redirect
+# a live process without restart.
+FLIGHT_DIR_ENV = "KGCT_FLIGHT_DIR"
+DEFAULT_FLIGHT_DIR = "/tmp/kgct-flight"
+
+
+class FlightRecorder:
+    """Fixed-size ring of (ts, kind, request_id, args) tuples.
+
+    ``record`` is the write API the tracer mirrors into (and failure paths
+    call directly); ``maybe_snapshot`` appends a state snapshot from the
+    registered source at most once per ``snapshot_interval_s`` — callers
+    invoke it opportunistically (the engine once per step, the router once
+    per health cycle), so an idle process snapshots nothing and a busy one
+    pays one monotonic read per call."""
+
+    def __init__(self, capacity: int = 2048,
+                 snapshot_interval_s: float = 1.0,
+                 enabled: Optional[bool] = None):
+        if enabled is None:
+            enabled = os.environ.get("KGCT_FLIGHT", "1") != "0"
+        self.enabled = enabled
+        self.capacity = capacity
+        self.snapshot_interval_s = snapshot_interval_s
+        self._ring: deque = deque(maxlen=capacity)
+        self._snapshot_source: Optional[Callable[[], dict]] = None
+        # -inf, not 0.0: time.monotonic() counts from boot, so on a freshly
+        # booted host (monotonic() < snapshot_interval_s) a 0.0 start would
+        # skip the first snapshot.
+        self._last_snapshot = float("-inf")
+        self.dumps_total = 0
+        self.last_dump_path: Optional[str] = None
+
+    # -- hot path ------------------------------------------------------------
+
+    def record(self, kind: str, request_id: str = "",
+               args: Optional[dict] = None) -> None:
+        """One event append. The args dict is stored BY REFERENCE — callers
+        must not mutate it afterwards (the tracer builds a fresh dict per
+        emit, so the mirror costs nothing extra)."""
+        if not self.enabled:
+            return
+        self._ring.append((time.monotonic(), kind, request_id, args))
+
+    def set_snapshot_source(self, source: Callable[[], dict]) -> None:
+        """Register the O(1) state reader (queue depths, pool occupancy)
+        snapshots are taken from. Must be non-blocking: attribute reads and
+        len() only, never device syncs or I/O."""
+        self._snapshot_source = source
+
+    def maybe_snapshot(self) -> None:
+        if not self.enabled or self._snapshot_source is None:
+            return
+        now = time.monotonic()
+        if now - self._last_snapshot < self.snapshot_interval_s:
+            return
+        self._last_snapshot = now
+        try:
+            snap = self._snapshot_source()
+        except Exception:
+            return      # a broken source must never take the step loop down
+        self._ring.append((now, "snapshot", "", snap))
+
+    # -- export / dump (OFF the hot path) ------------------------------------
+
+    def export(self) -> dict:
+        """JSON-ready view of the ring. Timestamps are ``time.monotonic``
+        seconds; ``unix_minus_monotonic`` converts them to wall clock
+        (unix = ts + unix_minus_monotonic) for cross-process correlation."""
+        events = [{"ts": round(ts, 6), "kind": kind,
+                   **({"request_id": rid} if rid else {}),
+                   **(args or {})}
+                  for ts, kind, rid, args in list(self._ring)]
+        return {
+            "enabled": self.enabled,
+            "capacity": self.capacity,
+            "snapshot_interval_s": self.snapshot_interval_s,
+            "unix_minus_monotonic": time.time() - time.monotonic(),
+            "dumps_total": self.dumps_total,
+            "events": events,
+        }
+
+    def dump(self, reason: str, **info) -> Optional[str]:
+        """Write the ring to ``KGCT_FLIGHT_DIR`` with the triggering event
+        appended last (so the file is self-describing: the trigger and the
+        seconds that preceded it). Best-effort and never raises — dump runs
+        on failure paths where a secondary exception would mask the primary
+        one. Returns the file path, or None (disabled / write failed)."""
+        if not self.enabled:
+            return None
+        self.record(reason, args=dict(info))
+        try:
+            flight_dir = os.environ.get(FLIGHT_DIR_ENV, DEFAULT_FLIGHT_DIR)
+            os.makedirs(flight_dir, exist_ok=True)
+            path = os.path.join(
+                flight_dir,
+                f"flight-{reason}-{os.getpid()}-{int(time.time() * 1e3)}.json")
+            doc = {"reason": reason, "info": dict(info),
+                   "dumped_at_unix": time.time(), **self.export()}
+            with open(path, "w") as f:
+                json.dump(doc, f)
+        except Exception:
+            logger.exception("flight-recorder dump failed (reason=%s)",
+                             reason)
+            return None
+        self.dumps_total += 1
+        self.last_dump_path = path
+        logger.warning("flight-recorder dump (%s): %s", reason, path)
+        return path

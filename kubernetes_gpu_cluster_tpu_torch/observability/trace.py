@@ -1,0 +1,204 @@
+"""Request-lifecycle tracer: bounded ring of typed events, Perfetto export.
+
+Every request's path through the engine — arrival, queueing, scheduling,
+prefill chunks, first token, preemption/resume, finish/abort — is recorded
+as a timestamped event in a fixed-size ring buffer. The ring is the whole
+memory story: O(capacity) regardless of uptime, oldest events dropped first,
+append is one deque.append on the step-loop thread (no locks — CPython's
+deque append is atomic, and the exporter snapshots with list()).
+
+Export is Chrome/Perfetto trace-event JSON (``GET /debug/trace``): each
+request becomes an async span (``ph: b/n/e`` keyed by request id) on the
+"requests" track, and each engine step's phase timings (phases.py) become
+complete slices (``ph: X``) on the "engine.step" track — load the file in
+https://ui.perfetto.dev and TTFT decomposes visually into queue wait,
+prefill, and fetch.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from collections import deque
+from typing import Optional
+
+# Typed event kinds (the request lifecycle, in rough order). "decode",
+# "mixed" and "spec" are engine-wide per-step events (empty request id); a
+# "mixed" event carries the step's prefill/decode token split, a "spec"
+# event the drafted/accepted draft-token counts. "preempt" carries the
+# preemption kind (recompute|swap) and "swap" a two-tier KV transfer's
+# direction + page count, "handoff" a disaggregated KV handoff
+# (side=export|import, outcome/bytes/ms). The router's span stream reuses the same
+# open/close kinds with its own instants: "pick" (policy + replica + owner
+# hit/overflow/remap), "connect_retry" (connect-phase failover), "ttfb"
+# (upstream headers latency), "relay" (stream relay complete, bytes).
+EVENT_KINDS = ("arrival", "queued", "scheduled", "prefill_chunk",
+               "first_token", "decode", "mixed", "spec", "spec_mixed",
+               "preempt", "swap", "handoff", "migrate", "resume", "finish",
+               "abort", "pick", "connect_retry", "ttfb", "relay", "failover")
+
+# Events that OPEN / CLOSE a request's async span in the Perfetto export.
+_OPEN = "arrival"
+_CLOSE = ("finish", "abort")
+
+
+class TraceEvent:
+    __slots__ = ("ts", "kind", "request_id", "args")
+
+    def __init__(self, ts: float, kind: str, request_id: str, args: dict):
+        self.ts = ts
+        self.kind = kind
+        self.request_id = request_id
+        self.args = args
+
+    def as_dict(self) -> dict:
+        return {"ts": self.ts, "kind": self.kind,
+                "request_id": self.request_id, **self.args}
+
+
+class RequestTracer:
+    def __init__(self, capacity: int = 8192,
+                 enabled: Optional[bool] = None, recorder=None):
+        """``enabled`` None resolves the ``KGCT_TRACE`` kill switch here —
+        the ONE definition of the toggle, shared by the engine's
+        Observability and the router's span stream.
+
+        ``recorder``: an optional flight recorder (flightrecorder.py)
+        every emit is MIRRORED into — one extra deque append, so the
+        black-box capture rides the same call sites as the trace ring. The
+        mirror is independent of ``enabled``: the flight recorder is the
+        always-on crash-capture surface and has its own kill switch
+        (KGCT_FLIGHT=0)."""
+        if enabled is None:
+            enabled = os.environ.get("KGCT_TRACE", "1") != "0"
+        self.enabled = enabled
+        self.recorder = recorder
+        self._ring: deque[TraceEvent] = deque(maxlen=capacity)
+        # Engine-wide events (empty request id — one "decode" instant per
+        # step window) get their own ring: sustained decode emits hundreds
+        # per second and must never evict the request-lifecycle events the
+        # TTFT/queue-wait attribution exists to keep.
+        self._step_ring: deque[TraceEvent] = deque(maxlen=capacity // 4)
+
+    def emit(self, kind: str, request_id: str = "", **args) -> None:
+        rec = self.recorder
+        if rec is not None:
+            rec.record(kind, request_id, args)
+        if not self.enabled:
+            return
+        ring = self._ring if request_id else self._step_ring
+        ring.append(TraceEvent(time.monotonic(), kind, request_id, args))
+
+    def events(self) -> list[TraceEvent]:
+        return sorted([*self._ring, *self._step_ring], key=lambda e: e.ts)
+
+    def clear(self) -> None:
+        self._ring.clear()
+        self._step_ring.clear()
+
+    # -- export --------------------------------------------------------------
+
+    def export_perfetto(self, step_records: Optional[list] = None,
+                        process_name: str = "kgct-engine") -> dict:
+        """Chrome trace-event JSON. ``step_records``: phases.StepPhaseStats
+        records to render as engine.step phase slices alongside the request
+        spans. Timestamps are µs relative to the earliest event so the trace
+        opens at t=0 in the viewer; the top-level ``kgctT0Unix`` key (wall
+        clock of that origin, None when the trace is empty) lets
+        :func:`merge_perfetto` re-base several processes' exports onto one
+        timeline. Viewers ignore the extra key."""
+        events = self.events()
+        records = list(step_records or [])
+        t0_candidates = [e.ts for e in events]
+        t0_candidates += [ph[1] for r in records for ph in r["phases"]]
+        t0 = min(t0_candidates) if t0_candidates else 0.0
+        t0_unix = (time.time() - (time.monotonic() - t0)
+                   if t0_candidates else None)
+
+        def us(ts: float) -> float:
+            return round((ts - t0) * 1e6, 1)
+
+        trace_events = [
+            {"name": "process_name", "ph": "M", "pid": 1,
+             "args": {"name": process_name}},
+            {"name": "thread_name", "ph": "M", "pid": 1, "tid": 1,
+             "args": {"name": "requests"}},
+            {"name": "thread_name", "ph": "M", "pid": 1, "tid": 2,
+             "args": {"name": "engine.step"}},
+        ]
+        open_ids: set[str] = set()
+        for e in events:
+            if not e.request_id:
+                # Engine-wide event (e.g. per-window "decode"): an instant on
+                # the step track.
+                trace_events.append(
+                    {"name": e.kind, "cat": "engine", "ph": "i", "s": "t",
+                     "pid": 1, "tid": 2, "ts": us(e.ts), "args": e.args})
+                continue
+            common = {"cat": "request", "id": e.request_id, "pid": 1,
+                      "tid": 1, "ts": us(e.ts)}
+            if e.kind == _OPEN:
+                open_ids.add(e.request_id)
+                trace_events.append(
+                    {"name": e.request_id, "ph": "b", **common,
+                     "args": e.args})
+            elif e.kind in _CLOSE:
+                if e.request_id not in open_ids:
+                    # Arrival fell off the ring: synthesize a zero-length
+                    # open so the close still pairs (Perfetto drops orphans).
+                    trace_events.append(
+                        {"name": e.request_id, "ph": "b", **common,
+                         "args": {"truncated": True}})
+                open_ids.discard(e.request_id)
+                trace_events.append(
+                    {"name": e.request_id, "ph": "e", **common,
+                     "args": {"event": e.kind, **e.args}})
+            else:
+                trace_events.append(
+                    {"name": e.kind, "ph": "n", **common, "args": e.args})
+        for rec in records:
+            for name, start, dur in rec["phases"]:
+                trace_events.append(
+                    {"name": name, "cat": "step", "ph": "X", "pid": 1,
+                     "tid": 2, "ts": us(start), "dur": round(dur * 1e6, 1),
+                     "args": {"step": rec["step"], "kind": rec["kind"],
+                              "batch": rec["batch"]}})
+        return {"traceEvents": trace_events, "displayTimeUnit": "ms",
+                "kgctT0Unix": t0_unix}
+
+
+def merge_perfetto(docs: list) -> dict:
+    """Merge several processes' ``export_perfetto`` documents into ONE
+    Perfetto timeline with per-process tracks.
+
+    ``docs``: [(process_label, doc), ...] — the first entry is conventionally
+    the router, the rest its replicas. Each doc's events are re-based from
+    its own t=0 onto the earliest process's origin using the ``kgctT0Unix``
+    anchors (events stay untouched when an anchor is missing — an empty
+    trace has nothing to shift), and re-pid'd 1..N so every process renders
+    as its own track group. Request spans keep their ids, so a request that
+    crossed router -> replica -> engine shows as correlated spans across
+    tracks.
+
+    Anchors are wall clock: across PODS the merge is only as aligned as the
+    nodes' clocks (NTP-level skew, typically ms) — good enough to eyeball a
+    request's path, not for sub-ms cross-host timing."""
+    anchors = [d.get("kgctT0Unix") for _, d in docs]
+    known = [a for a in anchors if a is not None]
+    g0 = min(known) if known else None
+    out_events: list = []
+    for pid, (label, doc) in enumerate(docs, start=1):
+        anchor = doc.get("kgctT0Unix")
+        shift_us = (round((anchor - g0) * 1e6, 1)
+                    if anchor is not None and g0 is not None else 0.0)
+        for e in doc.get("traceEvents", []):
+            e = dict(e)
+            e["pid"] = pid
+            if e.get("ph") == "M":
+                if e.get("name") == "process_name":
+                    e["args"] = {"name": label}
+            elif "ts" in e:
+                e["ts"] = round(e["ts"] + shift_us, 1)
+            out_events.append(e)
+    return {"traceEvents": out_events, "displayTimeUnit": "ms",
+            "kgctT0Unix": g0}

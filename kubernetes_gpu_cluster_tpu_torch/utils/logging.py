@@ -1,0 +1,70 @@
+"""Structured logging for the framework.
+
+The reference repo's only observability was colored bash ``log/warn/error``
+helpers (reference ``k8s_setup.sh:49-51``, ``gpu-crio-setup.sh:9-11``). Here we
+provide structured, leveled logging shared by the engine, server, and cluster
+tools, controllable via ``KGCT_LOG_LEVEL`` (mirroring the reference's debug
+knobs like ``VLLM_LOGGING_LEVEL`` / ``NVIDIA_LOG_LEVEL``,
+reference ``old_README.md:998-1002,1130``).
+
+``KGCT_LOG_FORMAT=json`` switches to one-JSON-object-per-line output with a
+``request_id`` field whenever a log call carries one
+(``logger.info(..., extra={"request_id": rid})``) — the same ids the
+request-lifecycle tracer records, so a log pipeline (Loki/ELK) joins logs
+with ``/debug/trace`` spans on the id. Logs always go to stderr: stdout is
+reserved for program output (bench.py's result line depends on this).
+"""
+
+import json
+import logging
+import os
+import sys
+
+_FORMAT = "%(asctime)s %(levelname)s [%(name)s] %(message)s"
+_configured = False
+
+
+class _JsonFormatter(logging.Formatter):
+    """One JSON object per line: ts (unix seconds), level, logger, msg, plus
+    request_id when the call site attached one via ``extra`` — machine-
+    parseable and joinable with the trace/metrics surfaces on request id."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        entry = {
+            "ts": round(record.created, 3),
+            "level": record.levelname,
+            "logger": record.name,
+            "msg": record.getMessage(),
+        }
+        rid = getattr(record, "request_id", None)
+        if rid is not None:
+            entry["request_id"] = rid
+        if record.exc_info:
+            entry["exc"] = self.formatException(record.exc_info)
+        return json.dumps(entry, ensure_ascii=False)
+
+
+def _make_formatter() -> logging.Formatter:
+    if os.environ.get("KGCT_LOG_FORMAT", "").lower() == "json":
+        return _JsonFormatter()
+    return logging.Formatter(_FORMAT, datefmt="%H:%M:%S")
+
+
+def _configure_root() -> None:
+    global _configured
+    if _configured:
+        return
+    level = os.environ.get("KGCT_LOG_LEVEL", "INFO").upper()
+    handler = logging.StreamHandler(sys.stderr)
+    handler.setFormatter(_make_formatter())
+    root = logging.getLogger("kgct")
+    root.setLevel(level)
+    root.addHandler(handler)
+    root.propagate = False
+    _configured = True
+
+
+def get_logger(name: str) -> logging.Logger:
+    """Return a logger namespaced under the framework root ``kgct``."""
+    _configure_root()
+    return logging.getLogger(f"kgct.{name}")

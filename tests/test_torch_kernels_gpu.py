@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain PyTorch versions, ON THE CARD.
+
+Marked ``gpu``: each test decides inside the ``cuda_device`` fixture
+whether a card is present and skips without one (the CPU tests hold the
+plain versions against the JAX package instead). This file imports only
+torch and the port, so it also runs on the card's machine, which has no
+JAX: ``python -m pytest tests/test_torch_kernels_gpu.py -m gpu
+--noconftest -q`` (``tests/conftest.py`` imports JAX).
+
+Tolerances: fp32 atol 1e-4 (online vs dense softmax, different summation
+order); bf16 atol 2e-2 (both sides accumulate in fp32 and round the output
+once to bf16: 2^-8 relative on outputs of magnitude < ~2.5).
+"""
+
+import pytest
+import torch
+
+from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
+from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill as cfp
+from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill_hist as cfh
+from kubernetes_gpu_cluster_tpu_torch.ops.cuda import paged_decode as cpd
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA and nvcc "
+                    "(python3 chip_smoke.py runs the same checks on the card)")
+    return torch.device("cuda")
+
+
+def _segments(T, lens, device):
+    seg = torch.full((T,), -1, dtype=torch.int32)
+    pos = torch.zeros(T, dtype=torch.int32)
+    i = 0
+    for s, n in enumerate(lens):
+        seg[i:i + n] = s
+        pos[i:i + n] = torch.arange(n, dtype=torch.int32)
+        i += n
+    return seg.to(device), pos.to(device)
+
+
+def _rn(gen, dtype, device, *shape):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+GEOMETRIES = [  # nh, n_kv, hd, ps
+    (8, 2, 64, 16), (32, 8, 128, 16), (12, 1, 128, 8), (16, 16, 64, 128),
+    (8, 4, 128, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,n_kv,hd,ps", GEOMETRIES)
+def test_paged_decode_matches_plain(cuda_device, dtype, nh, n_kv, hd, ps):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    B, pps, L = 4, 6, 2
+    P = B * pps + 1
+    tables = torch.randperm(P - 1, generator=torch.Generator().manual_seed(1)
+                            )[:B * pps].reshape(B, pps).to(torch.int32) + 1
+    tables[3] = 0                                  # padded row
+    ctx = torch.tensor([1, ps + 3, pps * ps, 0], dtype=torch.int32)
+    args = (_rn(g, dtype, cuda_device, B, nh, hd),
+            _rn(g, dtype, cuda_device, L, P, ps, n_kv * hd),
+            _rn(g, dtype, cuda_device, L, P, ps, n_kv * hd),
+            tables.to(cuda_device), ctx.to(cuda_device),
+            _rn(g, dtype, cuda_device, B, n_kv, hd),
+            _rn(g, dtype, cuda_device, B, n_kv, hd), hd ** -0.5)
+    before = cpd.launches
+    got = cpd.paged_decode(*args, layer=1)
+    assert cpd.launches == before + 1
+    torch.testing.assert_close(got, A.paged_decode_attention_plain(
+        *args, layer=1), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,n_kv,hd,ps", GEOMETRIES)
+def test_flash_prefill_matches_plain(cuda_device, dtype, nh, n_kv, hd, ps):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    T = 150                                        # not a multiple of 32
+    seg, pos = _segments(T, [40, 1, 70, 29], cuda_device)   # + 10 padding
+    args = (_rn(g, dtype, cuda_device, T, nh, hd),
+            _rn(g, dtype, cuda_device, T, n_kv, hd),
+            _rn(g, dtype, cuda_device, T, n_kv, hd), seg, pos, hd ** -0.5)
+    got = cfp.flash_prefill(*args)
+    torch.testing.assert_close(got, A.ragged_prefill_attention_plain(*args),
+                               atol=TOL[dtype], rtol=0)
+    assert torch.all(got[seg < 0] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hist_len", [0, 37, 200])
+@pytest.mark.parametrize("nh,n_kv,hd,ps", GEOMETRIES[:3])
+def test_flash_prefill_hist_matches_plain(cuda_device, dtype, hist_len, nh,
+                                          n_kv, hd, ps):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    T, n_valid, L = 70, 53, 2
+    pps = -(-(hist_len + T) // ps) + 2
+    P = pps + 1
+    table = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(4))
+             + 1).to(torch.int32)[:pps]
+    seg = torch.where(torch.arange(T) < n_valid, 0, -1).to(torch.int32)
+    args = (_rn(g, dtype, cuda_device, T, nh, hd),
+            _rn(g, dtype, cuda_device, T, n_kv, hd),
+            _rn(g, dtype, cuda_device, T, n_kv, hd), seg.to(cuda_device),
+            (torch.arange(T, dtype=torch.int32) + hist_len).to(cuda_device),
+            _rn(g, dtype, cuda_device, L, P, ps, n_kv * hd),
+            _rn(g, dtype, cuda_device, L, P, ps, n_kv * hd),
+            table.to(cuda_device), hist_len, hd ** -0.5)
+    got = cfh.flash_prefill_hist(*args, layer=1)
+    torch.testing.assert_close(got, A.prefill_history_attention_plain(
+        *args, layer=1), atol=TOL[dtype], rtol=0)
+    assert torch.all(got[n_valid:] == 0)
+
+
+@pytest.mark.gpu
+def test_wrappers_reject_unsupported_geometry(cuda_device):
+    q = torch.zeros(2, 4, 96, device=cuda_device)         # hd 96
+    k = torch.zeros(2, 2, 96, device=cuda_device)
+    seg = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        cfp.flash_prefill(q, k, k, seg, seg, 0.1)
+    q = torch.zeros(1, 4, 64, device=cuda_device)
+    pool = torch.zeros(3, 12, 128, device=cuda_device)    # ps 12
+    cur = torch.zeros(1, 2, 64, device=cuda_device)
+    one = torch.ones(1, 1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="page_size"):
+        cpd.paged_decode(q, pool, pool, one, one[0], cur, cur, 0.1)

@@ -1,0 +1,219 @@
+"""The port's llama forward passes against the JAX package's, on the CPU.
+
+One JAX weight set (``debug-tiny``, fp32, random from a seed) is carried
+into the port with ``params_from_numpy``; both packages then run
+``forward_prefill`` / ``forward_decode`` / ``forward_mixed`` /
+``forward_prefill_hist`` on the same numpy inputs and the same starting KV
+pool. Hidden states, logits and the written pool must agree at fp32 atol
+1e-4: two layers of fp32 matmuls, norms and softmax summed in different
+orders by XLA and by PyTorch drift by ~1e-6 on values of order 1; 1e-4
+leaves room for that while any wrong mask, position, slot or layer index
+moves outputs by O(0.1).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubernetes_gpu_cluster_tpu.config import get_model_config as jax_model
+from kubernetes_gpu_cluster_tpu.engine.kv_cache import KVCache as JKV
+from kubernetes_gpu_cluster_tpu.models import llama as JM
+from kubernetes_gpu_cluster_tpu_torch.config import get_model_config
+from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import KVCache as TKV
+from kubernetes_gpu_cluster_tpu_torch.models import llama as TM
+
+torch.set_num_threads(2)
+
+ATOL = 1e-4
+PS = 8          # page size
+P = 20          # pool pages (page 0 = scrap)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jax_model("debug-tiny")
+    tcfg = get_model_config("debug-tiny")
+    jp = JM.init_params(jcfg, jax.random.key(0))
+    np_params = jax.tree.map(np.asarray, jp)
+    tp = TM.params_from_numpy(np_params, tcfg, "cpu")
+    rng = np.random.default_rng(0)
+    kd = tcfg.num_kv_heads * tcfg.head_dim
+    pool = [rng.standard_normal((tcfg.num_layers, P, PS, kd)).astype(
+        np.float32) for _ in range(2)]
+    return jcfg, tcfg, jp, tp, pool
+
+
+def _pools(pool):
+    return (JKV(k=jnp.asarray(pool[0]), v=jnp.asarray(pool[1])),
+            TKV(k=torch.from_numpy(pool[0].copy()),
+                v=torch.from_numpy(pool[1].copy())))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _check(jout, tout, jcfg, tcfg, jp, tp):
+    (jn, jkv, jh), (tn, tkv, th) = jout, tout
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(tn.numpy(), np.asarray(jn), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(tkv.k.numpy(), np.asarray(jkv.k), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(tkv.v.numpy(), np.asarray(jkv.v), atol=ATOL,
+                               rtol=0)
+    jl = JM.compute_logits(jp, jcfg, jn, use_pallas=False)
+    tl = TM.compute_logits(tp, tcfg, tn)
+    assert tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+
+
+def test_forward_prefill_matches_jax(setup):
+    jcfg, tcfg, jp, tp, pool = setup
+    lens, T = [10, 17, 8], 40
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, tcfg.vocab_size, T).astype(np.int32)
+    seg = np.full(T, -1, np.int32)
+    pos = np.zeros(T, np.int32)
+    slots = np.zeros(T, np.int32)          # padding -> scrap page 0
+    last, o, page = [], 0, 1
+    for s, n in enumerate(lens):
+        seg[o:o + n] = s
+        pos[o:o + n] = np.arange(n)
+        slots[o:o + n] = page * PS + np.arange(n)
+        page += -(-n // PS)
+        last.append(o + n - 1)
+        o += n
+    last = np.array(last, np.int32)
+    jkv, tkv = _pools(pool)
+    jmeta = JM.PrefillMeta(jnp.asarray(seg), jnp.asarray(pos),
+                           jnp.asarray(slots), jnp.asarray(last))
+    tmeta = TM.PrefillMeta(_t(seg), _t(pos), _t(slots), _t(last))
+    jout = JM.forward_prefill(jp, jcfg, jnp.asarray(tokens), jmeta, jkv,
+                              use_pallas=False)
+    tout = TM.forward_prefill(tp, tcfg, _t(tokens), tmeta, tkv)
+    # Padding tokens all write the scrap page: compare real pages only.
+    jn, jk, jh = jout
+    jk = JKV(k=jk.k.at[:, 0].set(0), v=jk.v.at[:, 0].set(0))
+    tout[1].k[:, 0] = 0
+    tout[1].v[:, 0] = 0
+    _check((jn, jk, jh), tout, jcfg, tcfg, jp, tp)
+
+
+def _decode_inputs():
+    B = 4
+    tables = np.array([[1, 2, 3], [4, 5, 0], [6, 7, 8], [0, 0, 0]], np.int32)
+    pos = np.array([5, 12, 20, 0], np.int32)    # row 3 is padding (ctx 0)
+    ctx = np.array([6, 13, 21, 0], np.int32)
+    slots = np.array([t[p // PS] * PS + p % PS
+                      for t, p in zip(tables, pos)], np.int32)
+    slots[3] = 0
+    return B, tables, pos, ctx, slots
+
+
+def test_forward_decode_matches_jax(setup):
+    jcfg, tcfg, jp, tp, pool = setup
+    B, tables, pos, ctx, slots = _decode_inputs()
+    tokens = np.array([3, 77, 500, 0], np.int32)
+    jkv, tkv = _pools(pool)
+    jmeta = JM.DecodeMeta(jnp.asarray(pos), jnp.asarray(slots),
+                          jnp.asarray(tables), jnp.asarray(ctx))
+    tmeta = TM.DecodeMeta(_t(pos), _t(slots), _t(tables), _t(ctx))
+    jout = JM.forward_decode(jp, jcfg, jnp.asarray(tokens), jmeta, jkv,
+                             use_pallas=False)
+    tout = TM.forward_decode(tp, tcfg, _t(tokens), tmeta, tkv)
+    _check(jout, tout, jcfg, tcfg, jp, tp)
+
+
+@pytest.mark.parametrize("hist_len", [0, 19])
+def test_forward_prefill_hist_matches_jax(setup, hist_len):
+    jcfg, tcfg, jp, tp, pool = setup
+    T, n_valid = 16, 13
+    pages = np.array([9, 10, 11, 12, 13], np.int32)
+    table = np.zeros(8, np.int32)
+    table[:len(pages)] = pages
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, tcfg.vocab_size, T).astype(np.int32)
+    seg = np.where(np.arange(T) < n_valid, 0, -1).astype(np.int32)
+    pos = np.zeros(T, np.int32)
+    pos[:n_valid] = hist_len + np.arange(n_valid)
+    slots = np.zeros(T, np.int32)
+    slots[:n_valid] = pages[pos[:n_valid] // PS] * PS + pos[:n_valid] % PS
+    last = np.array([n_valid - 1], np.int32)
+    jkv, tkv = _pools(pool)
+    jmeta = JM.PrefillMeta(jnp.asarray(seg), jnp.asarray(pos),
+                           jnp.asarray(slots), jnp.asarray(last))
+    tmeta = TM.PrefillMeta(_t(seg), _t(pos), _t(slots), _t(last))
+    jout = JM.forward_prefill_hist(jp, jcfg, jnp.asarray(tokens), jmeta, jkv,
+                                   jnp.asarray(table), jnp.int32(hist_len),
+                                   use_pallas=False)
+    tout = TM.forward_prefill_hist(tp, tcfg, _t(tokens), tmeta, tkv,
+                                   _t(table), hist_len)
+    jn, jk, jh = jout
+    jk = JKV(k=jk.k.at[:, 0].set(0), v=jk.v.at[:, 0].set(0))
+    tout[1].k[:, 0] = 0
+    tout[1].v[:, 0] = 0
+    _check((jn, jk, jh), tout, jcfg, tcfg, jp, tp)
+
+
+def test_forward_mixed_matches_jax(setup):
+    jcfg, tcfg, jp, tp, pool = setup
+    Tp, chunk, hist_len = 16, 11, 9
+    R, tables, dpos, ctx, dslots = _decode_inputs()
+    T = Tp + R
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, tcfg.vocab_size, T).astype(np.int32)
+    chunk_pages = np.array([14, 15, 16], np.int32)
+    chunk_pt = np.zeros((1, 4), np.int32)
+    chunk_pt[0, :3] = chunk_pages
+    seg = np.full(T, -1, np.int32)
+    seg[:chunk] = 0
+    pos = np.zeros(T, np.int32)
+    pos[:chunk] = hist_len + np.arange(chunk)
+    pos[Tp:] = dpos
+    slots = np.zeros(T, np.int32)
+    cp = pos[:chunk]
+    slots[:chunk] = chunk_pages[cp // PS] * PS + cp % PS
+    slots[Tp:] = dslots
+    logits_idx = np.array([Tp, Tp + 1, Tp + 2, chunk - 1], np.int32)
+    jkv, tkv = _pools(pool)
+    jmeta = JM.MixedMeta(
+        jnp.asarray(seg), jnp.asarray(pos), jnp.asarray(slots),
+        jnp.asarray(logits_idx), jnp.asarray(chunk_pt), jnp.int32(hist_len),
+        jnp.asarray(tables), jnp.asarray(ctx))
+    tmeta = TM.MixedMeta(_t(seg), _t(pos), _t(slots), _t(logits_idx),
+                         _t(chunk_pt), hist_len, _t(tables), _t(ctx))
+    jout = JM.forward_mixed(jp, jcfg, jnp.asarray(tokens), jmeta, jkv,
+                            use_pallas=False, use_pallas_hist=False)
+    tout = TM.forward_mixed(tp, tcfg, _t(tokens), tmeta, tkv)
+    jn, jk, jh = jout
+    jk = JKV(k=jk.k.at[:, 0].set(0), v=jk.v.at[:, 0].set(0))
+    tout[1].k[:, 0] = 0
+    tout[1].v[:, 0] = 0
+    _check((jn, jk, jh), tout, jcfg, tcfg, jp, tp)
+
+
+def test_init_params_layout_and_seed():
+    """Random init is on the requested device, in the JAX stacked layout,
+    and a function of the generator's seed."""
+    cfg = get_model_config("debug-tiny")
+    a = TM.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    b = TM.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    assert a["layers"]["wq"].shape == (cfg.num_layers, cfg.hidden_size,
+                                       cfg.num_heads * cfg.head_dim)
+    assert a["lm_head"].shape == (cfg.hidden_size, cfg.vocab_size)
+    assert all(torch.equal(a["layers"][k], b["layers"][k])
+               for k in a["layers"])
+    assert a["embed"].dtype == cfg.torch_dtype
+
+
+@pytest.mark.parametrize("name,feature", [
+    ("qwen3-4b", "qk_norm"), ("opt-125m", "norm_type"),
+    ("mixtral-8x7b", "MoE"), ("qwen2.5-7b", "attention_bias")])
+def test_unported_features_raise(name, feature):
+    with pytest.raises(NotImplementedError, match=feature):
+        TM.check_supported(get_model_config(name))
+    q = get_model_config("debug-tiny").replace(quantization="int8")
+    with pytest.raises(NotImplementedError, match="quantization"):
+        TM.check_supported(q)
