@@ -8,9 +8,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. Card: name and power limit, kernel build from ``csrc/`` with nvcc.
-2. Kernels against their plain PyTorch versions at llama-3-8b head geometry
-   (nh 32, n_kv 8, hd 128, bf16, the engine's page size): max-abs error
-   within a stated bf16 tolerance, median time in CUDA events, the plain
+2. Kernels against their plain PyTorch versions at llama-3-8b shapes
+   (attention: nh 32, n_kv 8, hd 128, bf16, the engine's page size; int4
+   matmul: the w_gate projection at a decode batch of 32): max-abs error
+   within a stated tolerance, the kernel's time in CUDA events, the plain
    version's time, the bound (the least time the card could take for the
    same work) and, where one PyTorch call computes the same function, that
    call's time.
@@ -18,9 +19,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    forward through the plain attention versions, on one small ragged batch.
 4. Engine: ``LLMEngine`` serving llama-3-8b at full width and depth (random
    bf16 weights from a seed) through prefill, mixed, chunked-prefill and
-   decode-window steps; every kernel's launch count over that run must be
-   > 0, and a second run of the same requests must give the same tokens.
+   decode-window steps; every attention kernel's launch count over that run
+   must be > 0, and a second run of the same requests must give the same
+   tokens.
 5. Async front door: concurrent ``AsyncLLMEngine.generate`` streams.
+
+Then the bf16 weights are freed and the int4 / int8 paths run:
+
+3b. Model, int4: the llama-3-8b int4 forward through the int4 kernel
+    against the same forward through ``int4_matmul_plain``.
+4b. Engine, int4: ``LLMEngine`` serving llama-3-8b int4 (random packed
+    weights from the seed) through every step kind; all four kernels
+    launched in that run; a second run gives the same tokens.
+4c. Engine, int8: four requests served twice with the same tokens.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -30,8 +41,10 @@ with code 2 and prints no result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -50,10 +63,18 @@ PEAK_BF16_FLOPS = 989e12
 # magnitude < ~2.5), plus the different summation order.
 BF16_ATOL = 2e-2
 # Relative L2 tolerance of the model's fp32 logits, kernels vs plain
-# attention, after 32 bf16 layers.
+# versions, after 32 bf16 layers.
 LOGITS_RTOL = 5e-2
+# Max-abs tolerance of the int4 matmul against int4_matmul_plain, as a
+# fraction of the largest output: both return fp32 sums of exact products
+# (bf16 x times a nibble), added in different orders.
+INT4_RTOL = 1e-5
+# H100 L2 size: a weight read again while it still sits there would be timed
+# faster than the engine, where every call reads another layer's weight.
+L2_BYTES = 50 * 2 ** 20
 SEED = 0
 MODEL = "llama-3-8b"
+GROUP = 128        # int4 group size of the served model (the default)
 
 
 def log(*a) -> None:
@@ -82,6 +103,43 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph and replayed, so the host's launch overhead between calls
+    (which exceeds a decode-sized kernel's run time) is not counted."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1) / reps
+    del graph
+    return ms
+
+
+def host_us(fn, n: int) -> float:
+    """Host microseconds per call of ``fn`` (validation, allocation and the
+    launches), ``n`` calls queued back to back without waiting on the
+    card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -238,16 +296,103 @@ def check_kernels(cfg, page_size: int, max_len: int, device) -> list[dict]:
     return rows
 
 
+def _int4_operands(gen, T, K, N, device):
+    x = _randn(gen, (T, K), torch.bfloat16, device)
+    wp = torch.randint(-128, 128, (K // 2, N), generator=gen, device=device,
+                       dtype=torch.int8)
+    scale = torch.rand(K // GROUP, N, generator=gen,
+                       device=device) * (K ** -0.5 / 7)
+    return x, wp, scale
+
+
+def _dequant_bf16(wp, scale):
+    from kubernetes_gpu_cluster_tpu_torch.ops import quant as Q
+    K, N = wp.shape[0] * 2, wp.shape[1]
+    return (Q.unpack_int4(wp).float().reshape(-1, GROUP, N)
+            * scale[:, None]).reshape(K, N).to(torch.bfloat16)
+
+
+def _cold_weights(gen, x, wp, scale):
+    """Calls that take (x, w) in turn over enough distinct weights (the
+    first is ``wp``) that each call reads its weight from device memory, as
+    every call in the engine does: ``(kernel call, cuBLAS call on the bf16
+    dequantized weight)``."""
+    K, N = wp.shape[0] * 2, wp.shape[1]
+    n4 = 1 + -(-2 * L2_BYTES // (wp.numel() + 4 * scale.numel()))
+    n16 = 1 + -(-2 * L2_BYTES // (2 * K * N))
+    sets = [(wp, scale)] + [_int4_operands(gen, 1, K, N, x.device)[1:]
+                            for _ in range(n4 - 1)]
+    dense = [_dequant_bf16(*sets[i % n4]) for i in range(n16)]
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import int4_matmul as K4
+    it4, it16 = itertools.cycle(sets), itertools.cycle(dense)
+    return (lambda: K4.int4_matmul(x, *next(it4)),
+            lambda: torch.matmul(x, next(it16)))
+
+
+def _int4_bytes(T, K, N):
+    return K * N // 2 + 4 * (K // GROUP) * N + 2 * T * K + 4 * T * N
+
+
+def check_int4(cfg, device) -> dict:
+    """The int4 matmul at the w_gate projection of a 32-row decode step.
+    ``library_ms`` is cuBLAS (``torch.matmul``) on the same bf16 x with the
+    weight dequantized to bf16 beforehand: the same product from four times
+    the weight bytes. Both are timed over rotating weight copies, so no
+    call finds its weight in L2. Also logs (not recorded) the kernel and
+    that call at a 2048-row prefill, at w_down and at lm_head."""
+    from kubernetes_gpu_cluster_tpu_torch.ops import quant as Q
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import int4_matmul as K4
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    d, ff, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    T, K, N = 32, d, ff
+    x, wp, scale = _int4_operands(gen, T, K, N, device)
+    got = K4.int4_matmul(x, wp, scale)
+    ref = Q.int4_matmul_plain(x, wp, scale)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise RuntimeError("int4_matmul: non-finite kernel output")
+    err = float((got - ref).abs().max())
+    tol = INT4_RTOL * float(ref.abs().max())
+    if err > tol:
+        raise RuntimeError(f"int4_matmul: max abs error {err} > {tol}")
+    kernel, library = _cold_weights(gen, x, wp, scale)
+    bms, by = bound_ms(_int4_bytes(T, K, N), 2 * T * K * N)
+    row = dict(
+        name="int4_matmul", route="cuda",
+        source="kubernetes_gpu_cluster_tpu_torch/csrc/int4_matmul.cu",
+        replaces="kubernetes_gpu_cluster_tpu/ops/pallas/int4_matmul.py:57",
+        max_abs_err=err, ms=graph_ms(kernel, 50),
+        plain_ms=cuda_ms(lambda: Q.int4_matmul_plain(x, wp, scale), 5),
+        bound_ms=bms, bound_by=by, library_ms=graph_ms(library, 50),
+        shape=f"T={T} K={K} N={N} gs={GROUP} bf16 x",
+        ms_with_launch=cuda_ms(kernel, 20), host_us=host_us(kernel, 200))
+    del x, wp, scale, got, ref, kernel, library
+    for T, K, N, what in ((2048, d, ff, "prefill w_gate"),
+                          (32, ff, d, "decode w_down"),
+                          (32, d, V, "decode lm_head")):
+        kernel, library = _cold_weights(
+            gen, *_int4_operands(gen, T, K, N, device))
+        log(f"int4 {what} T={T} K={K} N={N}:", json.dumps({
+            "ms": graph_ms(kernel, 10), "library_ms": graph_ms(library, 10),
+            "bound_ms": bound_ms(_int4_bytes(T, K, N), 2 * T * K * N)}))
+        del kernel, library
+    torch.cuda.synchronize()
+    return row
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: the model forward, kernels against plain attention
+# Phase 3: the model forward, kernels against plain versions
 # ---------------------------------------------------------------------------
 
-def check_model(params, cfg, page_size: int, device) -> dict:
+def check_model(params, cfg, page_size: int, device, plain) -> dict:
+    """Logits of a ragged prefill and one decode substep through the
+    kernels, against the same forward with ``plain`` — (module, name,
+    plain version) triples — patched in."""
     from kubernetes_gpu_cluster_tpu_torch.config import CacheConfig
     from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import \
         allocate_kv_cache
     from kubernetes_gpu_cluster_tpu_torch.models import llama as M
-    from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
 
     ps = page_size
     lens = [100, 37, 250, 13]
@@ -293,10 +438,9 @@ def check_model(params, cfg, page_size: int, device) -> dict:
         return lp, M.compute_logits(params, cfg, h)
 
     got_p, got_d = run()
-    with mock.patch.object(M, "ragged_prefill_attention",
-                           A.ragged_prefill_attention_plain), \
-            mock.patch.object(M, "paged_decode_attention",
-                              A.paged_decode_attention_plain):
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in plain:
+            stack.enter_context(mock.patch.object(mod, name, fn))
         ref_p, ref_d = run()
     out = {}
     for name, g, r in (("prefill", got_p, ref_p), ("decode", got_d, ref_d)):
@@ -317,16 +461,19 @@ def check_model(params, cfg, page_size: int, device) -> dict:
 # Phase 4: the engine
 # ---------------------------------------------------------------------------
 
-def workload(vocab: int, n_req: int = 24, long_len: int = 3000):
+def workload(vocab: int, n_req: int = 24, long_len: int = 3000,
+             max_prompt: int = 1500, wave: int = 3):
     """(arrival step, request id suffix, prompt, SamplingParams) in waves:
-    a first wave, then a few requests every few steps while earlier ones
-    decode, one prompt above max_prefill_tokens (chunked), and one seeded
-    sampled request."""
+    a first wave, then ``wave`` requests every three steps while earlier
+    ones decode, one prompt above max_prefill_tokens (chunked), and one
+    seeded sampled request. A prompt that arrives with no other packable
+    prompt waiting rides a mixed step (engine/mixed_batch.py); waves of
+    short prompts are packed into plain prefill steps instead."""
     from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
     rng = np.random.default_rng(SEED + 2)
     reqs = []
     for i in range(n_req):
-        n = int(rng.integers(32, 1501))
+        n = int(rng.integers(32, max_prompt + 1))
         prompt = [int(t) for t in rng.integers(1, vocab, n)]
         max_tokens = int(rng.integers(32, 65))
         if i == 5:
@@ -334,7 +481,7 @@ def workload(vocab: int, n_req: int = 24, long_len: int = 3000):
                                 top_p=0.95, top_k=50, seed=1234)
         else:
             sp = SamplingParams(max_tokens=max_tokens, temperature=0.0)
-        arrival = 0 if i < 6 else 2 + 3 * ((i - 6) // 3)
+        arrival = 0 if i < 6 else 2 + 3 * ((i - 6) // wave)
         reqs.append((arrival, f"r{i}", prompt, sp))
     # The long prompt heads the first wave: with nothing running yet its
     # first chunks run solo (chunked prefill over the pool history).
@@ -376,10 +523,11 @@ def drive(engine, reqs, tag: str, hist_counter) -> dict:
             "steps": step}
 
 
-def check_engine(cfg_engine, params, device, counters) -> dict:
+def check_engine(cfg_engine, params, device, counters, reqs) -> dict:
+    """Serve ``reqs`` twice; every kernel in ``counters`` must launch in
+    run 1 (counts set to 0 just before it) and both runs must agree."""
     from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
     engine = LLMEngine(cfg_engine, params=params, device=device)
-    reqs = workload(cfg_engine.model.vocab_size)
     # Warm-up: cuBLAS handles and the allocator, outside the counted run.
     hist = counters["flash_prefill_hist"]
     drive(engine, reqs[1:3], "warm", hist)
@@ -414,6 +562,36 @@ def check_engine(cfg_engine, params, device, counters) -> dict:
     del engine
     return {"run1": {k: v for k, v in run1.items() if k != "tokens"},
             "launches": launches}
+
+
+def check_int8_engine(cfg_engine, device) -> dict:
+    """int8 llama-3-8b (random codes from the seed; the pool sized from the
+    free memory left by the weights): four requests, twice, same tokens."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
+                                                         SamplingParams)
+    engine = LLMEngine(cfg_engine, device=device)
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [[int(t) for t in rng.integers(1, cfg_engine.model.vocab_size,
+                                             int(n))]
+               for n in (64, 300, 900, 17)]
+    sp = SamplingParams(max_tokens=16, temperature=0.0)
+    t0 = time.perf_counter()
+    first = [o.output_token_ids for o in engine.generate(prompts, sp)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    second = [o.output_token_ids for o in engine.generate(prompts, sp)]
+    if first != second:
+        raise RuntimeError("int8 engine: the second run differs")
+    if any(len(t) != sp.max_tokens for t in first):
+        raise RuntimeError("int8 engine: a request ended early")
+    out = {"requests": len(prompts), "kv_pages": engine.kv_cache.num_pages,
+           "weight_gb": sum(t.numel() * t.element_size() for t in
+                            [*engine.params["layers"].values(),
+                             *(v for k, v in engine.params.items()
+                               if k != "layers")]) / 1e9,
+           "run1_wall_s": wall}
+    del engine
+    return out
 
 
 async def _streams(aeng, prompts, sp) -> list:
@@ -457,8 +635,10 @@ def main() -> int:
     from kubernetes_gpu_cluster_tpu_torch.engine.engine import \
         DEFAULT_PAGE_SIZE
     from kubernetes_gpu_cluster_tpu_torch.models import llama as M
+    from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
+    from kubernetes_gpu_cluster_tpu_torch.ops import quant as Q
     from kubernetes_gpu_cluster_tpu_torch.ops.cuda import (
-        build, flash_prefill, flash_prefill_hist, paged_decode)
+        build, flash_prefill, flash_prefill_hist, int4_matmul, paged_decode)
 
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -480,6 +660,7 @@ def main() -> int:
 
     # Phase 2: kernels.
     rows = check_kernels(cfg, ps, cfg.max_model_len, device)
+    rows.append(check_int4(cfg, device))
     for r in rows:
         log("kernel:", json.dumps(r))
     gc.collect()
@@ -491,16 +672,21 @@ def main() -> int:
     params = M.init_params(cfg, gen, device)
     torch.cuda.synchronize()
     log(f"random {MODEL} weights in {time.perf_counter() - t0:.1f} s")
-    log("model:", json.dumps(check_model(params, cfg, ps, device)))
+    attn_plain = [(M, "ragged_prefill_attention",
+                   A.ragged_prefill_attention_plain),
+                  (M, "paged_decode_attention", A.paged_decode_attention_plain)]
+    log("model:", json.dumps(check_model(params, cfg, ps, device,
+                                         attn_plain)))
 
     # Phase 4: engine.
     cfg_engine = EngineConfig(
         model=cfg, seed=SEED,
         cache=CacheConfig(page_size=ps, num_pages=6144),
         scheduler=SchedulerConfig(max_num_seqs=32))
-    counters = {"paged_decode": paged_decode, "flash_prefill": flash_prefill,
-                "flash_prefill_hist": flash_prefill_hist}
-    eng = check_engine(cfg_engine, params, device, counters)
+    attn = {"paged_decode": paged_decode, "flash_prefill": flash_prefill,
+            "flash_prefill_hist": flash_prefill_hist}
+    eng = check_engine(cfg_engine, params, device, attn,
+                       workload(cfg.vocab_size))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -508,7 +694,38 @@ def main() -> int:
     cfg_async = dataclasses.replace(
         cfg_engine, cache=CacheConfig(page_size=ps, num_pages=1024))
     log("async:", json.dumps(check_async(cfg_async, params, device)))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    # Phase 3b: the int4 model, kernel against int4_matmul_plain.
+    cfg4 = cfg.replace(quantization="int4", quant_group_size=GROUP)
+    params = M.init_params(cfg4, gen, device)
+    log("model int4:", json.dumps(check_model(
+        params, cfg4, ps, device, [(Q, "int4_matmul", Q.int4_matmul_plain)])))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 4b: the int4 engine (random packed weights from the seed).
+    cfg_engine4 = dataclasses.replace(
+        cfg_engine, model=cfg4, cache=CacheConfig(page_size=ps,
+                                                  num_pages=2048))
+    eng4 = check_engine(cfg_engine4, None, device,
+                        {**attn, "int4_matmul": int4_matmul},
+                        workload(cfg.vocab_size, n_req=12, long_len=2500,
+                                 max_prompt=768, wave=1))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 4c: the int8 engine.
+    cfg_engine8 = dataclasses.replace(
+        cfg_engine, model=cfg.replace(quantization="int8"),
+        cache=CacheConfig(page_size=ps),
+        scheduler=SchedulerConfig(max_num_seqs=8))
+    log("engine int8:", json.dumps(check_int8_engine(cfg_engine8, device)))
+
+    eng["launches"]["int4_matmul"] = eng4["launches"]["int4_matmul"]
     for r in rows:
         r["launches"] = eng["launches"][r["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")

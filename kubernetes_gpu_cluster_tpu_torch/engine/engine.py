@@ -15,6 +15,14 @@ The JAX package's ``engine/engine.py`` step for step:
   enqueued right behind w's kernels plus an event, so waiting for it never
   waits for w+1.
 
+Weights: ``params`` as ``engine/weights.load_weights`` returns them (a
+local HF checkpoint, quantized on the host when
+``ModelConfig.quantization`` is "int8" or "int4"), or ``None`` for random
+weights from ``config.seed``, drawn directly in the quantized layout when
+quantization is set. The page pool is sized from the device's free memory
+after the weights exist, so a quantized model's smaller footprint leaves
+room for more KV pages; nothing else in the engine depends on the rung.
+
 Eager PyTorch has no compile step, so the JAX package's bucketed program
 caches, its donation bookkeeping and its probe-and-fall-back kernel logic
 have no counterpart: on a CUDA device the attention runs the hand-written

@@ -14,13 +14,16 @@ same step contract:
 - Attention reads the pool BEFORE this step's write: the current step's
   K/V fold in directly, and one in-place scatter after the layer loop
   commits every layer's K/V (``ops.attention.write_kv_pages_all``).
-- Matmuls run in the model dtype (cuBLAS accumulates in fp32); norms,
-  RoPE, softmax and the SwiGLU product in fp32.
+- Every matmul returns fp32 (``_dot``), as JAX's ``preferred_element_type``
+  does, and callers cast down exactly where the JAX package does; norms,
+  RoPE, softmax and the SwiGLU product run in fp32 and logits stay fp32.
+- Weight-only quantization (``ModelConfig.quantization`` "int8" / "int4",
+  ``ops/quant.py``) is consumed by ``_dot`` alone.
 - Only the hidden states that feed sampling are projected to logits.
 
 Not ported yet (each raises NotImplementedError, see ``check_supported``):
-quantization, MoE, OPT's layernorm / learned positions / plain MLP, and
-qwen's attention bias, qk-norm and tied embeddings.
+MoE, OPT's layernorm / learned positions / plain MLP, and qwen's attention
+bias, qk-norm and tied embeddings.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
+from ..ops import quant as quant_ops
 from ..ops.attention import (mixed_attention, paged_decode_attention,
                              prefill_history_attention,
                              ragged_prefill_attention, write_kv_pages_all)
@@ -74,10 +78,13 @@ class MixedMeta(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for model features the port lacks."""
+    """Raise NotImplementedError for model features the port lacks, and
+    ValueError for an unknown quantization method."""
+    if cfg.quantization is not None and \
+            cfg.quantization not in quant_ops.QUANT_METHODS:
+        raise ValueError(f"unsupported quantization {cfg.quantization!r} "
+                         f"(one of {quant_ops.QUANT_METHODS})")
     missing = []
-    if cfg.quantization is not None:
-        missing.append(f"quantization={cfg.quantization!r} (ROADMAP R5)")
     if cfg.is_moe:
         missing.append("MoE (ROADMAP R3)")
     if cfg.norm_type != "rmsnorm":
@@ -104,7 +111,7 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _shapes(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], int]]:
-    """name -> (shape, fan_in) of every random-init weight (0 = ones)."""
+    """name -> (logical shape, fan_in) of every layer weight (0 = ones)."""
     d, L = cfg.hidden_size, cfg.num_layers
     nh, nkv, hd, ff = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                        cfg.intermediate_size)
@@ -117,13 +124,58 @@ def _shapes(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], int]]:
     }
 
 
+def _quant_shapes(cfg: ModelConfig, shape: tuple[int, ...]):
+    """Logical ``[..., in, out]`` weight -> (stored weight shape, scale
+    shape) of ``cfg.quantization``: int4 ``[..., in/2, out]`` +
+    ``[..., in/gs, out]``, int8 ``[..., in, out]`` + ``[..., out]``."""
+    lead, din, dout = shape[:-2], shape[-2], shape[-1]
+    if cfg.quantization == "int4":
+        gs = cfg.quant_group_size
+        if din % gs or din % 2:
+            raise ValueError(f"int4 input dim {din} not divisible by "
+                             f"quant_group_size {gs}")
+        return lead + (din // 2, dout), lead + (din // gs, dout)
+    return shape, lead + (dout,)
+
+
+def param_layouts(cfg: ModelConfig) -> tuple[dict, dict]:
+    """(layer params, top-level params): name -> (stored shape, kind) with
+    kind "float" (the model dtype), "int8" (quantized codes) or "scale"
+    (f32)."""
+    def add(out, name, shape, quantized):
+        if quantized:
+            wshape, sshape = _quant_shapes(cfg, shape)
+            out[name] = (wshape, "int8")
+            out[name + "_scale"] = (sshape, "scale")
+        else:
+            out[name] = (shape, "float")
+
+    q = cfg.quantization is not None
+    d, V = cfg.hidden_size, cfg.vocab_size
+    layers: dict = {}
+    for name, (shape, _) in _shapes(cfg).items():
+        add(layers, name, shape, q and name in quant_ops.QUANT_LAYER_KEYS)
+    top = {"embed": ((V, d), "float"), "final_norm": ((d,), "float")}
+    add(top, "lm_head", (d, V), q)
+    return layers, top
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str,
                 dtype: Optional[torch.dtype] = None) -> Params:
     """Random-init params on ``device`` from ``generator`` (which must live
     on that device): N(0, 1/fan_in) matmul weights, unit norms. Layout:
     stacked [L, ...] per-layer tensors + embed/final_norm/lm_head, as in
-    the JAX package."""
+    the JAX package.
+
+    With ``cfg.quantization`` the matmul weights and ``lm_head`` are drawn
+    directly in their quantized layout, never through a float copy (a
+    float draw first would peak at the full-precision footprint): uniform
+    random int8 codes, or for int4 uniform packed bytes (two uniform
+    [-8, 7] nibbles each), with a constant scale that gives the dequantized
+    weights the dense init's magnitude class (std ~0.57 and ~0.66 of
+    fan_in^-0.5), as the JAX package's ``_init_params_quant`` does.
+    Checkpoints quantize at load (``engine/weights.py``)."""
     check_supported(cfg)
     dtype = dtype or cfg.torch_dtype
 
@@ -133,43 +185,64 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return torch.randn(shape, generator=generator, dtype=dtype,
                            device=device).mul_(fan_in ** -0.5)
 
+    def wq(shape, fan_in):
+        wshape, sshape = _quant_shapes(cfg, shape)
+        low, top = (-128, 7.0) if cfg.quantization == "int4" else (-127, 127.0)
+        codes = torch.randint(low, 128, wshape, generator=generator,
+                              dtype=torch.int8, device=device)
+        return codes, torch.full(sshape, fan_in ** -0.5 / top,
+                                 dtype=torch.float32, device=device)
+
+    layers = {}
+    for name, (shape, fan) in _shapes(cfg).items():
+        if cfg.quantization and name in quant_ops.QUANT_LAYER_KEYS:
+            layers[name], layers[name + "_scale"] = wq(shape, fan)
+        else:
+            layers[name] = w(shape, fan)
     d = cfg.hidden_size
-    return {
-        "layers": {name: w(shape, fan) for name, (shape, fan)
-                   in _shapes(cfg).items()},
-        "embed": w((cfg.vocab_size, d), d),
-        "final_norm": w((d,), 0),
-        "lm_head": w((d, cfg.vocab_size), d),
-    }
+    params = {"layers": layers, "embed": w((cfg.vocab_size, d), d),
+              "final_norm": w((d,), 0)}
+    if cfg.quantization:
+        params["lm_head"], params["lm_head_scale"] = wq((d, cfg.vocab_size),
+                                                        d)
+    else:
+        params["lm_head"] = w((d, cfg.vocab_size), d)
+    return params
 
 
 def params_from_numpy(np_params: Params, cfg: ModelConfig,
                       device: torch.device | str,
                       dtype: Optional[torch.dtype] = None) -> Params:
     """The JAX params pytree (as numpy arrays, stacked ``[L, ...]``
-    layout) -> the port's params on ``device``. Both packages then compute
-    the same function."""
+    layout, quantized or not) -> the port's params on ``device``. Float
+    weights take the model dtype; int8 codes stay int8 and ``*_scale``
+    stays f32. Both packages then compute the same function."""
     check_supported(cfg)
     dtype = dtype or cfg.torch_dtype
 
-    def conv(a):
+    def conv(name, a, shape, kind):
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(a.shape)} != {shape}")
+        if kind == "int8" and a.dtype != np.int8:
+            raise ValueError(f"{name}: quantized weight must be int8, got "
+                             f"{a.dtype}")
         # np.array copies: JAX hands out read-only buffers.
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=dtype)
+        np_dtype = {"float": np.float32, "int8": np.int8,
+                    "scale": np.float32}[kind]
+        t = torch.from_numpy(np.array(a, dtype=np_dtype)).to(device)
+        return t.to(dtype) if kind == "float" else t
 
+    want_layers, want_top = param_layouts(cfg)
     layers = np_params["layers"]
-    want = {name: shape for name, (shape, _) in _shapes(cfg).items()}
-    if set(layers) != set(want):
-        raise ValueError(f"layer weights {sorted(layers)} != "
-                         f"{sorted(want)}")
-    out = {"layers": {}}
-    for name, shape in want.items():
-        if tuple(layers[name].shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(layers[name].shape)} "
-                             f"!= {shape}")
-        out["layers"][name] = conv(layers[name])
-    for name in ("embed", "final_norm", "lm_head"):
-        out[name] = conv(np_params[name])
+    top = {k: v for k, v in np_params.items() if k != "layers"}
+    for got, want, what in ((layers, want_layers, "layer weights"),
+                            (top, want_top, "params")):
+        if set(got) != set(want):
+            raise ValueError(f"{what} {sorted(got)} != {sorted(want)}")
+    out = {"layers": {name: conv(name, layers[name], *spec)
+                      for name, spec in want_layers.items()}}
+    out.update({name: conv(name, top[name], *spec)
+                for name, spec in want_top.items()})
     return out
 
 
@@ -187,26 +260,51 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.to(torch.int64)]
 
 
-def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w for a dense weight ([in, out], the JAX layout)."""
-    return torch.matmul(x, w)
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [T, in] @ w [in, out] with an fp32 result, as JAX's
+    ``preferred_element_type=float32``: on the card a bf16 product goes to
+    cuBLAS with fp32 output (``aten::mm.dtype``, CUDA only); elsewhere both
+    operands are taken to fp32, where a bf16 product is exact."""
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return x.to(torch.float32) @ w.to(torch.float32)
+
+
+def _dot(x: torch.Tensor, lp: Params, name: str) -> torch.Tensor:
+    """x @ lp[name] in fp32, the one consumer of quantized weights:
+
+    - int4 (packed nibbles + group scales, ``scale.ndim == w.ndim``):
+      ``ops.quant.int4_matmul``, the hand-written kernel on the card;
+    - int8 (per-output-channel scale): the codes are cast to x's dtype,
+      multiplied with an fp32 result, and scaled once per output channel
+      (on the card the cast is a bf16 copy of this one layer's weight);
+    - a float weight takes the plain fp32-output product.
+    """
+    w = lp[name]
+    if w.dtype == torch.int8:
+        scale = lp[name + "_scale"]
+        if quant_ops.is_packed_int4(w, scale):
+            return quant_ops.int4_matmul(x, w, scale)
+        return _mm_f32(x, w.to(x.dtype)) * scale
+    return _mm_f32(x, w)
 
 
 def _qkv(lp: Params, cfg: ModelConfig, x: torch.Tensor, cos: torch.Tensor,
          sin: torch.Tensor):
-    """Project + RoPE. x: [T, d] -> q [T, nh, hd], k/v [T, nkv, hd]."""
+    """Project + RoPE. x: [T, d] -> q [T, nh, hd], k/v [T, nkv, hd] in x's
+    dtype (the fp32 projections are cast down before RoPE, as in JAX)."""
     T, hd = x.shape[0], cfg.head_dim
-    q = _dot(x, lp["wq"]).reshape(T, -1, hd)
-    k = _dot(x, lp["wk"]).reshape(T, -1, hd)
-    v = _dot(x, lp["wv"]).reshape(T, -1, hd)
+    q = _dot(x, lp, "wq").to(x.dtype).reshape(T, -1, hd)
+    k = _dot(x, lp, "wk").to(x.dtype).reshape(T, -1, hd)
+    v = _dot(x, lp, "wv").to(x.dtype).reshape(T, -1, hd)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def _dense_mlp(lp: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: silu(x @ w_gate) * (x @ w_up), then @ w_down."""
-    gate = _dot(x, lp["w_gate"]).to(torch.float32)
-    up = _dot(x, lp["w_up"]).to(torch.float32)
-    return _dot((F.silu(gate) * up).to(x.dtype), lp["w_down"])
+    """SwiGLU: silu(x @ w_gate) * (x @ w_up) in fp32, cast to x's dtype,
+    then @ w_down, cast to x's dtype."""
+    h = (F.silu(_dot(x, lp, "w_gate")) * _dot(x, lp, "w_up")).to(x.dtype)
+    return _dot(h, lp, "w_down").to(x.dtype)
 
 
 def _layer_loop(params: Params, cfg: ModelConfig, h: torch.Tensor,
@@ -231,7 +329,7 @@ def _layer_loop(params: Params, cfg: ModelConfig, h: torch.Tensor,
         k_all[layer] = k.reshape(T, kd)
         v_all[layer] = v.reshape(T, kd)
         attn = attn_fn(q, k, v, layer).reshape(T, -1)
-        h = h + _dot(attn, lp["wo"]).to(h.dtype)
+        h = h + _dot(attn, lp, "wo").to(h.dtype)
         h = h + _dense_mlp(lp, rms_norm(h, lp["post_attn_norm"], eps))
     return h, k_all, v_all
 
@@ -325,5 +423,6 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def compute_logits(params: Params, cfg: ModelConfig,
                    hidden: torch.Tensor) -> torch.Tensor:
-    """hidden [B, d] -> logits [B, V] in fp32."""
-    return _dot(hidden, params["lm_head"]).to(torch.float32)
+    """hidden [B, d] -> logits [B, V] in fp32, never rounded to the model
+    dtype on the way."""
+    return _dot(hidden, params, "lm_head")

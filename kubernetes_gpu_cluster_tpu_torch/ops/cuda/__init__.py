@@ -4,12 +4,14 @@ kernel, mirroring the JAX package's ``ops/pallas/``:
 - ``paged_decode``        <- ops/pallas/paged_decode.py::pallas_paged_decode
 - ``flash_prefill``       <- ops/pallas/flash_prefill.py::flash_ragged_prefill
 - ``flash_prefill_hist``  <- ops/pallas/flash_prefill_hist.py::flash_prefill_history
+- ``int4_matmul``         <- ops/pallas/int4_matmul.py::pallas_int4_matmul
 
 Each wrapper validates its inputs, allocates the output, launches on
 PyTorch's current stream, raises on a launch error, and counts its
 launches in a plain module-level integer ``launches``. A wrapper accepts
 CUDA tensors only: the plain PyTorch versions for the CPU live in
-``ops/attention.py``, whose dispatchers choose by device.
+``ops/attention.py`` and ``ops/quant.py``, whose dispatchers choose by
+device.
 """
 
 from __future__ import annotations

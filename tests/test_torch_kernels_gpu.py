@@ -9,15 +9,21 @@ JAX: ``python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
 Tolerances: fp32 atol 1e-4 (online vs dense softmax, different summation
 order); bf16 atol 2e-2 (both sides accumulate in fp32 and round the output
-once to bf16: 2^-8 relative on outputs of magnitude < ~2.5).
+once to bf16: 2^-8 relative on outputs of magnitude < ~2.5). The int4
+matmul returns fp32 for bf16 and fp32 x alike, and both sides sum exact
+products (x times a nibble; an fp32 x enters the tensor cores as three
+exact bf16 terms) in fp32 in different orders: max abs error 1e-5 of the
+largest output.
 """
 
 import pytest
 import torch
 
 from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
+from kubernetes_gpu_cluster_tpu_torch.ops import quant as Q
 from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill as cfp
 from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill_hist as cfh
+from kubernetes_gpu_cluster_tpu_torch.ops.cuda import int4_matmul as c4
 from kubernetes_gpu_cluster_tpu_torch.ops.cuda import paged_decode as cpd
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -130,3 +136,65 @@ def test_wrappers_reject_unsupported_geometry(cuda_device):
     one = torch.ones(1, 1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="page_size"):
         cpd.paged_decode(q, pool, pool, one, one[0], cur, cur, 0.1)
+
+
+INT4_RTOL = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(128, 96), (4096, 1024), (14336, 4096)])
+@pytest.mark.parametrize("gs", [32, 128])
+@pytest.mark.parametrize("T", [1, 7, 32, 33, 512])
+def test_int4_matmul_matches_plain(cuda_device, dtype, K, N, gs, T):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = _rn(g, dtype, cuda_device, T, K)
+    wp = torch.randint(-128, 128, (K // 2, N), generator=g,
+                       device=cuda_device, dtype=torch.int8)
+    scale = torch.rand(K // gs, N, generator=g, device=cuda_device) * 0.1
+    before = c4.launches
+    got = Q.int4_matmul(x, wp, scale)          # the dispatcher: the kernel
+    assert c4.launches == before + 1
+    ref = Q.int4_matmul_plain(x, wp, scale)
+    assert got.dtype == torch.float32 and got.shape == (T, N)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=INT4_RTOL * float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [96, 100])      # 16-byte copies / plain loads
+def test_int4_matmul_every_nibble_exact(cuda_device, dtype, N):
+    """Every byte value -128..127 in every column position; x = identity,
+    so each output row is one dequantized weight row, exactly: both
+    nibbles sign-extended and the low nibble the even input row."""
+    K, gs = 512, 32
+    wp = ((torch.arange(K // 2 * N) % 256) - 128).to(torch.int8).reshape(
+        K // 2, N).to(cuda_device)
+    scale = (torch.arange(K // gs * N, dtype=torch.float32) % 7 + 1
+             ).reshape(K // gs, N).to(cuda_device) / 8
+    x = torch.eye(K, device=cuda_device).to(dtype)
+    got = c4.int4_matmul(x, wp, scale)
+    want = Q.unpack_int4(wp).float() * scale.repeat_interleave(gs, dim=0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_int4_matmul_rejects(cuda_device):
+    K, N = 128, 32
+    x = torch.zeros(4, K, device=cuda_device, dtype=torch.bfloat16)
+    wp = torch.zeros(K // 2, N, device=cuda_device, dtype=torch.int8)
+    scale = torch.ones(K // 32, N, device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        c4.int4_matmul(x.cpu(), wp.cpu(), scale.cpu())
+    with pytest.raises(ValueError, match="whole number"):      # K % gs
+        c4.int4_matmul(x, wp, torch.ones(3, N, device=cuda_device))
+    with pytest.raises(ValueError, match="multiple of 16"):    # gs = 8
+        c4.int4_matmul(x, wp, torch.ones(16, N, device=cuda_device))
+    w8 = torch.zeros(K, N, device=cuda_device, dtype=torch.int8)
+    with pytest.raises(ValueError, match="1-D scale"):    # the int8 layout
+        c4.int4_matmul(x, w8, torch.ones(N, device=cuda_device))
+    with pytest.raises(ValueError, match="do not pack"):
+        c4.int4_matmul(x, w8, scale)
+    with pytest.raises(ValueError, match="dtype"):
+        c4.int4_matmul(x.half(), wp, scale)

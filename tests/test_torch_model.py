@@ -214,6 +214,68 @@ def test_init_params_layout_and_seed():
 def test_unported_features_raise(name, feature):
     with pytest.raises(NotImplementedError, match=feature):
         TM.check_supported(get_model_config(name))
-    q = get_model_config("debug-tiny").replace(quantization="int8")
-    with pytest.raises(NotImplementedError, match="quantization"):
-        TM.check_supported(q)
+
+
+@pytest.fixture(scope="module")
+def bf16_setup():
+    jcfg = jax_model("debug-tiny").replace(dtype="bfloat16")
+    tcfg = get_model_config("debug-tiny").replace(dtype="bfloat16")
+    jp = JM.init_params(jcfg, jax.random.key(1))
+    tp = TM.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def test_compute_logits_bf16_matches_jax(bf16_setup):
+    """bf16 serving: the same bf16 hidden state gives the JAX package's fp32
+    logits. Both sum exact bf16 products in fp32, in different orders
+    (~1e-7 relative); logits rounded to bf16 on the way would miss by
+    ~2^-9 relative, so the bound is 1e-5 of the largest logit."""
+    jcfg, tcfg, jp, tp = bf16_setup
+    rng = np.random.default_rng(4)
+    jh = jnp.asarray(rng.standard_normal((6, tcfg.hidden_size)), jnp.bfloat16)
+    th = torch.from_numpy(np.asarray(jh, np.float32)).to(torch.bfloat16)
+    jl = np.asarray(JM.compute_logits(jp, jcfg, jh, use_pallas=False))
+    tl = TM.compute_logits(tp, tcfg, th)
+    assert tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), jl, rtol=0,
+                               atol=1e-5 * np.abs(jl).max())
+
+
+def test_forward_prefill_bf16_matches_jax(bf16_setup):
+    """The whole bf16 prefill + logits against JAX. bf16 rounds at other
+    places in the two frameworks (XLA rounds a fused elementwise chain
+    once, eager PyTorch after every op): ~1 bf16 ulp (2^-8 relative) here
+    and there, carried through two layers. Measured 0.9% of the largest
+    logit; the bound is 2%, and the greedy tokens must agree."""
+    jcfg, tcfg, jp, tp = bf16_setup
+    lens, T = [10, 17, 8], 40
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, tcfg.vocab_size, T).astype(np.int32)
+    seg = np.full(T, -1, np.int32)
+    pos = np.zeros(T, np.int32)
+    slots = np.zeros(T, np.int32)
+    last, o, page = [], 0, 1
+    for s, n in enumerate(lens):
+        seg[o:o + n] = s
+        pos[o:o + n] = np.arange(n)
+        slots[o:o + n] = page * PS + np.arange(n)
+        page += -(-n // PS)
+        last.append(o + n - 1)
+        o += n
+    last = np.array(last, np.int32)
+    shape = (tcfg.num_layers, P, PS, tcfg.num_kv_heads * tcfg.head_dim)
+    jkv = JKV(k=jnp.zeros(shape, jnp.bfloat16), v=jnp.zeros(shape,
+                                                            jnp.bfloat16))
+    tkv = TKV(k=torch.zeros(shape, dtype=torch.bfloat16),
+              v=torch.zeros(shape, dtype=torch.bfloat16))
+    jn, _, _ = JM.forward_prefill(
+        jp, jcfg, jnp.asarray(tokens),
+        JM.PrefillMeta(*map(jnp.asarray, (seg, pos, slots, last))), jkv,
+        use_pallas=False)
+    tn, _, _ = TM.forward_prefill(
+        tp, tcfg, _t(tokens), TM.PrefillMeta(*map(_t, (seg, pos, slots, last))),
+        tkv)
+    jl = np.asarray(JM.compute_logits(jp, jcfg, jn, use_pallas=False))
+    tl = TM.compute_logits(tp, tcfg, tn).numpy()
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=2e-2 * np.abs(jl).max())
+    assert (tl.argmax(-1) == jl.argmax(-1)).all()

@@ -1,0 +1,152 @@
+"""The port's checkpoint loading against HF ``transformers`` and the JAX
+package, on the CPU.
+
+A tiny ``LlamaForCausalLM`` is built and saved locally (nothing is
+downloaded), in fp32 and in bf16. The port's logits from it must match
+HF's at fp32 rtol/atol 2e-4 (as ``tests/test_weights.py`` holds the JAX
+package: two fp32 implementations summing in different orders). The
+port's ``load_weights`` must equal the JAX package's on the same directory
+bit for bit, dense and quantized at load (int8, int4 with gs 32), and its
+own safetensors reader must return what ``safetensors`` wrote.
+"""
+
+import copy
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+from safetensors.torch import save_file
+
+from kubernetes_gpu_cluster_tpu.engine import weights as JW
+from kubernetes_gpu_cluster_tpu_torch.config import CacheConfig
+from kubernetes_gpu_cluster_tpu_torch.engine import weights as TW
+from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import allocate_kv_cache
+from kubernetes_gpu_cluster_tpu_torch.models import llama as TM
+
+torch.set_num_threads(2)
+
+GS = 32
+
+
+@pytest.fixture(scope="module")
+def hf_llama(tmp_path_factory):
+    """(HF model, fp32 checkpoint dir, bf16 checkpoint dir)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("USE_TF", "0")     # a torch model only: skip TensorFlow
+        from transformers import LlamaConfig, LlamaForCausalLM
+
+    torch.manual_seed(0)
+    model = LlamaForCausalLM(LlamaConfig(
+        vocab_size=128, hidden_size=128, intermediate_size=256,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=256, rope_theta=10000.0, rms_norm_eps=1e-5,
+        tie_word_embeddings=False, attention_bias=False)).eval()
+    root = tmp_path_factory.mktemp("hf")
+    model.save_pretrained(root / "fp32", safe_serialization=True)
+    copy.deepcopy(model).to(torch.bfloat16).save_pretrained(
+        root / "bf16", safe_serialization=True)
+    return model, str(root / "fp32"), str(root / "bf16")
+
+
+def test_logits_match_hf(hf_llama):
+    model, path, _ = hf_llama
+    cfg = TW.config_from_hf(path).replace(dtype="float32")
+    params = TW.load_weights(path, cfg, device="cpu")
+    prompt = [1, 17, 99, 4, 63, 2, 118, 30]
+    T = len(prompt)
+    ar = torch.arange(T, dtype=torch.int32)
+    meta = TM.PrefillMeta(torch.zeros(T, dtype=torch.int32), ar, ar, ar)
+    kv = allocate_kv_cache(cfg, CacheConfig(page_size=16, num_pages=4), 4,
+                           "cpu")
+    normed, _, _ = TM.forward_prefill(params, cfg, torch.tensor(
+        prompt, dtype=torch.int32), meta, kv)
+    got = TM.compute_logits(params, cfg, normed).numpy()
+    with torch.no_grad():
+        want = model(torch.tensor([prompt])).logits[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("method", [None, "int8", "int4"])
+@pytest.mark.parametrize("ckpt", ["fp32", "bf16"])
+def test_load_matches_jax_load(hf_llama, method, ckpt):
+    """Dense and quantized-at-load params equal the JAX package's bit for
+    bit: packed bytes, codes and scales, and float weights in the model
+    dtype."""
+    path = hf_llama[1] if ckpt == "fp32" else hf_llama[2]
+    kw = dict(dtype="float32" if ckpt == "fp32" else "bfloat16",
+              quantization=method, quant_group_size=GS)
+    want = JW.load_weights(path, JW.config_from_hf(path).replace(**kw))
+    got = TW.load_weights(path, TW.config_from_hf(path).replace(**kw),
+                          device="cpu")
+    leaves = jax.tree_util.tree_leaves_with_path(want)
+    assert len(leaves) == len(got["layers"]) + len(got) - 1
+    for keys, w in leaves:
+        g = got
+        for k in keys:
+            g = g[k.key]
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape, keys
+        if w.dtype == np.int8:
+            assert g.dtype == torch.int8, keys
+            np.testing.assert_array_equal(g.numpy(), w)
+        else:
+            assert str(g.dtype) == f"torch.{w.dtype}", keys
+            np.testing.assert_array_equal(g.float().numpy(),
+                                          w.astype(np.float32))
+
+
+def test_safetensors_reader(tmp_path):
+    """Every dtype the port reads, across two files of one checkpoint."""
+    g = torch.Generator().manual_seed(1)
+    parts = [{"a.bf16": torch.randn(3, 5, generator=g).to(torch.bfloat16),
+              "b.f32": torch.randn(7, generator=g),
+              "c.empty": torch.zeros(0, 4)},
+             {"d.i8": torch.randint(-128, 128, (4, 2), generator=g,
+                                    dtype=torch.int8),
+              "e.f16": torch.randn(2, 2, generator=g).half(),
+              "f.i64": torch.arange(5)}]
+    for i, part in enumerate(parts):
+        save_file(part, str(tmp_path / f"model-{i}.safetensors"),
+                  metadata={"format": "pt"})
+    ckpt = TW._Checkpoint(str(tmp_path))
+    for part in parts:
+        for key, want in part.items():
+            assert key in ckpt
+            got = ckpt.get(key)
+            assert got.dtype == want.dtype and torch.equal(got, want), key
+    assert torch.equal(ckpt.get_t("a.bf16"), parts[0]["a.bf16"].T)
+    # A file whose header promises more bytes than it holds is refused.
+    bad = tmp_path / "bad"
+    bad.mkdir()
+    raw = (tmp_path / "model-0.safetensors").read_bytes()
+    (bad / "model.safetensors").write_bytes(raw[:-8])
+    with pytest.raises(ValueError, match="bytes for"):
+        TW._Checkpoint(str(bad))
+
+
+def test_config_and_unported_checkpoints(hf_llama, tmp_path, monkeypatch):
+    path = hf_llama[1]
+    got, want = TW.config_from_hf(path), JW.config_from_hf(path)
+    for field in ("vocab_size", "hidden_size", "intermediate_size",
+                  "num_layers", "num_heads", "num_kv_heads", "head_dim",
+                  "rope_theta", "rope_scaling", "rms_norm_eps",
+                  "max_model_len", "name"):
+        assert getattr(got, field) == getattr(want, field), field
+    cfg, wpath, tpath = TW.resolve_model(path)
+    assert (cfg, wpath, tpath) == (got, path, path)
+    assert TW.resolve_model("llama-3-8b")[1:] == (None, None)
+    for arch, item in (("OPTForCausalLM", "R3"), ("Qwen3ForCausalLM", "R3")):
+        d = tmp_path / arch
+        d.mkdir()
+        hf = json.load(open(f"{path}/config.json"))
+        (d / "config.json").write_text(json.dumps({**hf,
+                                                   "architectures": [arch]}))
+        with pytest.raises(NotImplementedError, match=item):
+            TW.load_weights(str(d), TW.config_from_hf(str(d)), device="cpu")
+    with pytest.raises(NotImplementedError, match="R7"):
+        TW.load_weights(path, got, device="cpu", shardings={})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TW.load_weights(path, got)
