@@ -11,10 +11,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. Kernels against their plain PyTorch versions at llama-3-8b shapes
    (attention: nh 32, n_kv 8, hd 128, bf16, the engine's page size; int4
    matmul: the w_gate projection at a decode batch of 32): max-abs error
-   within a stated tolerance, the kernel's time in CUDA events, the plain
-   version's time, the bound (the least time the card could take for the
-   same work) and, where one PyTorch call computes the same function, that
-   call's time.
+   within a stated tolerance, the kernel's time (flash prefill and int4:
+   device time, calls captured in a CUDA graph; the others: CUDA events
+   around each call), the plain version's time, the bound (the least time
+   the card could take for the same work) and, where one PyTorch call
+   computes the same function, that call's time, timed the same way.
+   Logged beside them: flash prefill at one 2048-token segment and at 16
+   segments of 128; int4 at a 2048-row prefill, w_down and lm_head.
 3. Model: the llama-3-8b forward through the kernels against the same
    forward through the plain attention versions, on one small ragged batch.
 4. Engine: ``LLMEngine`` serving llama-3-8b at full width and depth (random
@@ -60,7 +63,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 # Max-abs tolerance of a bf16 kernel output against the plain version: both
 # accumulate in fp32 and round once to bf16 (2^-8 relative, outputs of
-# magnitude < ~2.5), plus the different summation order.
+# magnitude < ~2.5), plus the different summation order; the tensor-core
+# flash prefill also rounds the softmax probabilities to bf16 before P.V
+# (about 2^-9 relative per term).
 BF16_ATOL = 2e-2
 # Relative L2 tolerance of the model's fp32 logits, kernels vs plain
 # versions, after 32 bf16 layers.
@@ -166,10 +171,54 @@ def _compare(name, got, ref) -> float:
     return err
 
 
+def _prefill_case(gen, T, n_seg, nh, n_kv, hd, dt, device) -> dict:
+    """flash_prefill on T tokens as ``n_seg`` equal segments, against the
+    plain version; the kernel (called as the engine calls it, with the
+    window computed once beforehand) and its SDPA yardstick timed alike,
+    in CUDA graphs, so neither reading holds host time."""
+    from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill as fp
+    n = T // n_seg
+    seg = np.repeat(np.arange(n_seg, dtype=np.int32), n)
+    pos = np.tile(np.arange(n, dtype=np.int32), n_seg)
+    q = _randn(gen, (T, nh, hd), dt, device)
+    k = _randn(gen, (T, n_kv, hd), dt, device)
+    v = _randn(gen, (T, n_kv, hd), dt, device)
+    t_seg = torch.from_numpy(seg).to(device)
+    t_pos = torch.from_numpy(pos).to(device)
+    scale = hd ** -0.5
+    args = (q, k, v, t_seg, t_pos, scale)
+    window = fp.kb_min(t_seg)
+    got = fp.flash_prefill(*args, window=window)
+    ref = A.ragged_prefill_attention_plain(*args)
+    err = _compare(f"flash_prefill {n_seg}x{n}", got, ref)
+    # Library yardstick: one SDPA call with the same segment-causal mask
+    # (k/v heads expanded to nh beforehand, outside the timing).
+    mask = ((t_seg[:, None] == t_seg[None, :])
+            & (t_pos[:, None] >= t_pos[None, :]))
+    qh = q.transpose(0, 1)[None]
+    kh = k.repeat_interleave(nh // n_kv, dim=1).transpose(0, 1)[None]
+    vh = v.repeat_interleave(nh // n_kv, dim=1).transpose(0, 1)[None]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, scale=scale)
+
+    _compare("sdpa (library yardstick)", sdpa()[0].transpose(0, 1), ref)
+    nbytes = 2 * T * (2 * nh * hd + 2 * n_kv * hd) + 4 * T
+    flops = 4 * nh * hd * n_seg * n * (n + 1) // 2
+    bms, by = bound_ms(nbytes, flops)
+    kernel = lambda: fp.flash_prefill(*args, window=window)  # noqa: E731
+    return dict(max_abs_err=err, ms=graph_ms(kernel, 20),
+                library_ms=graph_ms(sdpa, 20), bound_ms=bms, bound_by=by,
+                kernel=kernel,
+                plain=lambda: A.ragged_prefill_attention_plain(*args))
+
+
 def check_kernels(cfg, page_size: int, max_len: int, device) -> list[dict]:
     from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
     from kubernetes_gpu_cluster_tpu_torch.ops.cuda import (
-        flash_prefill as fp, flash_prefill_hist as fh, paged_decode as pd)
+        flash_prefill_hist as fh, paged_decode as pd)
     from kubernetes_gpu_cluster_tpu_torch.utils import cdiv
 
     nh, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -219,45 +268,27 @@ def check_kernels(cfg, page_size: int, max_len: int, device) -> list[dict]:
         shape=f"B={B} ctx={int(ctx.min())}-{int(ctx.max())} ps={ps}"))
     del kpool, vpool, got, ref
 
-    # -- ragged prefill: T=2048 as four segments of 512
-    T, n_seg = 2048, 4
-    seg = np.repeat(np.arange(n_seg, dtype=np.int32), T // n_seg)
-    pos = np.tile(np.arange(T // n_seg, dtype=np.int32), n_seg)
-    q = _randn(gen, (T, nh, hd), dt, device)
-    k = _randn(gen, (T, n_kv, hd), dt, device)
-    v = _randn(gen, (T, n_kv, hd), dt, device)
-    t_seg = torch.from_numpy(seg).to(device)
-    t_pos = torch.from_numpy(pos).to(device)
-    args = (q, k, v, t_seg, t_pos, scale)
-    got = fp.flash_prefill(*args)
-    ref = A.ragged_prefill_attention_plain(*args)
-    err = _compare("flash_prefill", got, ref)
-    # Library yardstick: one SDPA call with the same segment-causal mask
-    # (k/v heads expanded to nh beforehand, outside the timing).
-    mask = ((t_seg[:, None] == t_seg[None, :])
-            & (t_pos[:, None] >= t_pos[None, :]))
-    qh = q.transpose(0, 1)[None]
-    kh = k.repeat_interleave(nh // n_kv, dim=1).transpose(0, 1)[None]
-    vh = v.repeat_interleave(nh // n_kv, dim=1).transpose(0, 1)[None]
-
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, scale=scale)
-
-    _compare("sdpa (library yardstick)", sdpa()[0].transpose(0, 1), ref)
-    n = T // n_seg
-    nbytes = el * T * (2 * nh * hd + 2 * kd) + 4 * T
-    flops = 4 * nh * hd * n_seg * n * (n + 1) // 2
-    bms, by = bound_ms(nbytes, flops)
-    rows.append(dict(
-        name="flash_prefill", route="cuda",
-        source="kubernetes_gpu_cluster_tpu_torch/csrc/flash_prefill.cu",
-        replaces="kubernetes_gpu_cluster_tpu/ops/pallas/flash_prefill.py:119",
-        max_abs_err=err, ms=cuda_ms(lambda: fp.flash_prefill(*args), 20),
-        plain_ms=cuda_ms(lambda: A.ragged_prefill_attention_plain(*args), 5),
-        bound_ms=bms, bound_by=by, library_ms=cuda_ms(sdpa, 20),
-        shape=f"T={T} as {n_seg} segments"))
-    del got, ref, qh, kh, vh, mask
+    # -- ragged prefill: T=2048 as four segments of 512 (the row), then
+    #    logged only: one 2048-token segment and 16 segments of 128.
+    for T, n_seg in ((2048, 4), (2048, 1), (2048, 16)):
+        case = _prefill_case(gen, T, n_seg, nh, n_kv, hd, dt, device)
+        if n_seg == 4:
+            rows.append(dict(
+                name="flash_prefill", route="cuda",
+                source="kubernetes_gpu_cluster_tpu_torch/csrc/flash_prefill.cu",
+                replaces="kubernetes_gpu_cluster_tpu/ops/pallas/flash_prefill.py:119",
+                max_abs_err=case["max_abs_err"], ms=case["ms"],
+                plain_ms=cuda_ms(case["plain"], 5),
+                bound_ms=case["bound_ms"], bound_by=case["bound_by"],
+                library_ms=case["library_ms"],
+                shape=f"T={T} as {n_seg} segments",
+                ms_with_launch=cuda_ms(case["kernel"], 20),
+                host_us=host_us(case["kernel"], 200)))
+        else:
+            log(f"flash_prefill T={T} as {n_seg} segments:", json.dumps(
+                {k: case[k] for k in ("ms", "library_ms", "bound_ms",
+                                      "bound_by", "max_abs_err")}))
+        del case
 
     # -- history: a 512-token chunk over 2048 history tokens
     T, hist = 512, 2048

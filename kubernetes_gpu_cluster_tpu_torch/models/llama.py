@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from ..config import ModelConfig
 from ..ops import quant as quant_ops
 from ..ops.attention import (mixed_attention, paged_decode_attention,
-                             prefill_history_attention,
+                             prefill_history_attention, prefill_window,
                              ragged_prefill_attention, write_kv_pages_all)
 from ..ops.rope import apply_rope, rope_cos_sin
 
@@ -352,10 +352,11 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     is in the batch, so attention needs no pool. Returns
     (normed_selected [B, d], kv (updated in place), raw_hidden [T, d])."""
     scale = cfg.head_dim ** -0.5
+    window = prefill_window(meta.seg_ids)      # once for all layers
 
     def attn_fn(q, k, v, layer):
         return ragged_prefill_attention(q, k, v, meta.seg_ids, meta.positions,
-                                        scale)
+                                        scale, window)
 
     h, k_all, v_all = _layer_loop(params, cfg, _embed(params, tokens),
                                   meta.positions, attn_fn)

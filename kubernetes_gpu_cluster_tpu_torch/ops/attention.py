@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from .cuda.flash_prefill import flash_prefill
+from .cuda.flash_prefill import kb_min as flash_prefill_kb_min
 from .cuda.flash_prefill_hist import flash_prefill_hist
 from .cuda.paged_decode import paged_decode
 
@@ -87,9 +88,11 @@ def ragged_prefill_attention_plain(
     seg_ids: torch.Tensor,    # [T] segment id per token; padding = -1
     positions: torch.Tensor,  # [T] position within segment
     scale: float,
+    window: Optional[torch.Tensor] = None,  # the kernel's; unused here
 ) -> torch.Tensor:
     """Dense masked attention, causal within each segment; O(T^2) memory
     in the score matrix. Padding rows emit zeros."""
+    del window
     T, n_heads, hd = q.shape
     n_kv = k.shape[1]
     g = n_heads // n_kv
@@ -185,11 +188,22 @@ def paged_decode_attention_plain(
 # Dispatchers: the plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
 
-def ragged_prefill_attention(q, k, v, seg_ids, positions, scale):
+def ragged_prefill_attention(q, k, v, seg_ids, positions, scale,
+                             window=None):
+    """``window``: the kernel's K-window starts (``prefill_window``), when
+    the caller computed them once for all layers; the plain path needs
+    none."""
     if _on_cpu(q):
         return ragged_prefill_attention_plain(q, k, v, seg_ids, positions,
                                               scale)
-    return flash_prefill(q, k, v, seg_ids, positions, scale)
+    return flash_prefill(q, k, v, seg_ids, positions, scale, window)
+
+
+def prefill_window(seg_ids: torch.Tensor) -> torch.Tensor:
+    """The flash prefill kernel's first K tile per q tile for ``seg_ids``
+    (``ops.cuda.flash_prefill.kb_min``): plain torch, computed once per
+    forward and shared by every layer."""
+    return flash_prefill_kb_min(seg_ids)
 
 
 def prefill_history_attention(q, k, v, seg_ids, positions, k_pool, v_pool,

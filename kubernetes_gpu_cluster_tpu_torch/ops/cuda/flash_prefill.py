@@ -20,8 +20,8 @@ launches = 0
 
 # The kernel's tile sizes (csrc/flash_prefill.cu kBQ/kBK; checked against
 # the library at load).
-BLOCK_Q = 32
-BLOCK_K = 32
+BLOCK_Q = 64
+BLOCK_K = 64
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -63,10 +63,13 @@ def kb_min(seg_ids: torch.Tensor, block_q: int = BLOCK_Q,
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   seg_ids: torch.Tensor, positions: torch.Tensor,
-                  scale: float) -> torch.Tensor:
+                  scale: float, window: torch.Tensor | None = None
+                  ) -> torch.Tensor:
     """q: [T, nh, hd]; k/v: [T, n_kv, hd]; seg_ids: [T] int32 (-1 =
     padding). ``positions`` is implied by the flat order (causal within a
-    segment) and accepted for signature parity. Returns [T, nh, hd]."""
+    segment) and accepted for signature parity. ``window`` is
+    ``kb_min(seg_ids)`` when the caller has it already (one forward shares
+    it across layers); it is computed here otherwise. Returns [T, nh, hd]."""
     global launches
     del positions
     dtype = check_tensors("flash_prefill", dict(q=q, k=k, v=v),
@@ -81,7 +84,12 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if T == 0:
         return out
-    kbm = kb_min(seg_ids)
+    kbm = kb_min(seg_ids) if window is None else window
+    if (kbm.dtype != torch.int32 or kbm.device != q.device
+            or tuple(kbm.shape) != (cdiv(T, BLOCK_Q),)):
+        raise ValueError(f"flash_prefill: window must be int32 "
+                         f"[{cdiv(T, BLOCK_Q)}] on {q.device}, got "
+                         f"{kbm.dtype} {tuple(kbm.shape)} on {kbm.device}")
     lib = _lib()
     code = lib.kgct_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ids.data_ptr(),

@@ -9,7 +9,9 @@ JAX: ``python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 
 Tolerances: fp32 atol 1e-4 (online vs dense softmax, different summation
 order); bf16 atol 2e-2 (both sides accumulate in fp32 and round the output
-once to bf16: 2^-8 relative on outputs of magnitude < ~2.5). The int4
+once to bf16: 2^-8 relative on outputs of magnitude < ~2.5; the
+tensor-core flash prefill also rounds the probabilities to bf16 before
+P.V, about 2^-9 relative per term). The int4
 matmul returns fp32 for bf16 and fp32 x alike, and both sides sum exact
 products (x times a nibble; an fp32 x enters the tensor cores as three
 exact bf16 terms) in fp32 in different orders: max abs error 1e-5 of the
@@ -86,7 +88,7 @@ def test_paged_decode_matches_plain(cuda_device, dtype, nh, n_kv, hd, ps):
 @pytest.mark.parametrize("nh,n_kv,hd,ps", GEOMETRIES)
 def test_flash_prefill_matches_plain(cuda_device, dtype, nh, n_kv, hd, ps):
     g = torch.Generator(device=cuda_device).manual_seed(2)
-    T = 150                                        # not a multiple of 32
+    T = 150                                        # not a multiple of 64
     seg, pos = _segments(T, [40, 1, 70, 29], cuda_device)   # + 10 padding
     args = (_rn(g, dtype, cuda_device, T, nh, hd),
             _rn(g, dtype, cuda_device, T, n_kv, hd),
@@ -95,6 +97,57 @@ def test_flash_prefill_matches_plain(cuda_device, dtype, nh, n_kv, hd, ps):
     torch.testing.assert_close(got, A.ragged_prefill_attention_plain(*args),
                                atol=TOL[dtype], rtol=0)
     assert torch.all(got[seg < 0] == 0)
+
+
+# llama-3-8b heads at engine shapes; the bf16 kernel's 64-row q tiles and
+# 64-key tiles meet segment starts in the middle of a tile, T % 64 != 0,
+# T < 64 and padding rows.
+PREFILL_LAYOUTS = {
+    "4x512": (2048, [512] * 4),
+    "one_2048": (2048, [2048]),
+    "1100_mid_tile": (1100, [37, 300, 1, 129, 90, 500, 13]),    # + 30 padding
+    "16x128": (2048, [128] * 16),
+    "short_50": (50, [20, 25]),                                  # + 5 padding
+    "short_1": (1, [1]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", sorted(PREFILL_LAYOUTS))
+def test_flash_prefill_engine_layouts(cuda_device, dtype, layout):
+    T, lens = PREFILL_LAYOUTS[layout]
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    seg, pos = _segments(T, lens, cuda_device)
+    nh, n_kv, hd = 32, 8, 128
+    args = (_rn(g, dtype, cuda_device, T, nh, hd),
+            _rn(g, dtype, cuda_device, T, n_kv, hd),
+            _rn(g, dtype, cuda_device, T, n_kv, hd), seg, pos, hd ** -0.5)
+    before = cfp.launches
+    got = cfp.flash_prefill(*args)
+    assert cfp.launches == before + 1
+    torch.testing.assert_close(got, A.ragged_prefill_attention_plain(*args),
+                               atol=TOL[dtype], rtol=0)
+    assert torch.all(got[seg < 0] == 0)
+    # The window computed once by the caller gives the same bits, and so
+    # does a second call: no atomics, no order dependence.
+    again = cfp.flash_prefill(*args, window=cfp.kb_min(seg))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_flash_prefill_padding_only_tiles(cuda_device):
+    """A 64-row q tile made only of padding stores zeros and skips its keys."""
+    T = 200
+    seg, pos = _segments(T, [60], cuda_device)          # tiles 1..3: padding
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    args = (_rn(g, torch.bfloat16, cuda_device, T, 8, 64),
+            _rn(g, torch.bfloat16, cuda_device, T, 2, 64),
+            _rn(g, torch.bfloat16, cuda_device, T, 2, 64), seg, pos, 0.125)
+    got = cfp.flash_prefill(*args)
+    assert torch.all(got[60:] == 0)
+    torch.testing.assert_close(got, A.ragged_prefill_attention_plain(*args),
+                               atol=TOL[torch.bfloat16], rtol=0)
 
 
 @pytest.mark.gpu
@@ -145,7 +198,7 @@ INT4_RTOL = 1e-5
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K,N", [(128, 96), (4096, 1024), (14336, 4096)])
 @pytest.mark.parametrize("gs", [32, 128])
-@pytest.mark.parametrize("T", [1, 7, 32, 33, 512])
+@pytest.mark.parametrize("T", [1, 7, 32, 33, 64, 65, 128, 512, 2048])
 def test_int4_matmul_matches_plain(cuda_device, dtype, K, N, gs, T):
     g = torch.Generator(device=cuda_device).manual_seed(5)
     x = _rn(g, dtype, cuda_device, T, K)
@@ -164,19 +217,46 @@ def test_int4_matmul_matches_plain(cuda_device, dtype, K, N, gs, T):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N", [96, 100])      # 16-byte copies / plain loads
-def test_int4_matmul_every_nibble_exact(cuda_device, dtype, N):
+@pytest.mark.parametrize("rows", [64, 512])   # decode tile / prefill tile
+def test_int4_matmul_every_nibble_exact(cuda_device, dtype, N, rows):
     """Every byte value -128..127 in every column position; x = identity,
     so each output row is one dequantized weight row, exactly: both
-    nibbles sign-extended and the low nibble the even input row."""
+    nibbles sign-extended and the low nibble the even input row. Calls of
+    64 rows take the decode tile; 512 bf16 rows the prefill tile."""
     K, gs = 512, 32
     wp = ((torch.arange(K // 2 * N) % 256) - 128).to(torch.int8).reshape(
         K // 2, N).to(cuda_device)
     scale = (torch.arange(K // gs * N, dtype=torch.float32) % 7 + 1
              ).reshape(K // gs, N).to(cuda_device) / 8
     x = torch.eye(K, device=cuda_device).to(dtype)
-    got = c4.int4_matmul(x, wp, scale)
+    got = torch.cat([c4.int4_matmul(x[r:r + rows].contiguous(), wp, scale)
+                     for r in range(0, K, rows)])
     want = Q.unpack_int4(wp).float() * scale.repeat_interleave(gs, dim=0)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,K,N", [(32, 4096, 14336), (1, 14336, 4096),
+                                   (64, 14336, 1024)])
+def test_int4_matmul_cut_tiles_deterministic(cuda_device, T, K, N):
+    """Decode plans whose blocks cut tiles (partials summed by the last
+    block to arrive) give the plain result, and the same bits on every
+    call: the sum runs in block order and the counters are left at 0."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x = _rn(g, torch.bfloat16, cuda_device, T, K)
+    wp = torch.randint(-128, 128, (K // 2, N), generator=g,
+                       device=cuda_device, dtype=torch.int8)
+    scale = torch.rand(K // 128, N, generator=g, device=cuda_device) * 0.01
+    p = c4._plan_for(T, K, N, 128, 1, x.device)
+    assert any(lo // p.groups != (hi - 1) // p.groups or hi - lo < p.groups
+               for lo, hi in map(lambda b: c4.block_units(p, b),
+                                 range(p.blocks)))
+    first = c4.int4_matmul(x, wp, scale)
+    ref = Q.int4_matmul_plain(x, wp, scale)
+    torch.testing.assert_close(first, ref, rtol=0,
+                               atol=INT4_RTOL * float(ref.abs().max()))
+    for _ in range(3):
+        assert torch.equal(c4.int4_matmul(x, wp, scale), first)
 
 
 @pytest.mark.gpu

@@ -101,6 +101,50 @@ def test_forward_prefill_matches_jax(setup):
     _check((jn, jk, jh), tout, jcfg, tcfg, jp, tp)
 
 
+def test_forward_prefill_hoists_kernel_window(setup, monkeypatch):
+    """forward_prefill computes the flash kernel's K-window starts once and
+    hands the same tensor to every layer; it equals kb_min(seg_ids), and
+    the forward is identical to one whose attention computes the window
+    per call."""
+    from kubernetes_gpu_cluster_tpu_torch.ops import attention as TA
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill as cfp
+    _, tcfg, _, tp, pool = setup
+    T = 150                     # three 64-row q tiles, a segment across two
+    seg = np.full(T, -1, np.int32)
+    seg[:70], seg[70:139] = 0, 1
+    pos = np.zeros(T, np.int32)
+    pos[:70], pos[70:139] = np.arange(70), np.arange(69)
+    slots = np.zeros(T, np.int32)
+    tokens = np.random.default_rng(7).integers(
+        0, tcfg.vocab_size, T).astype(np.int32)
+    meta = TM.PrefillMeta(_t(seg), _t(pos), _t(slots),
+                          _t(np.array([69, 138], np.int32)))
+    seen = []
+
+    def hoisted(q, k, v, s, p, scale, window=None):
+        seen.append(window)
+        return TA.ragged_prefill_attention(q, k, v, s, p, scale, window)
+
+    def per_call(q, k, v, s, p, scale, window=None):
+        seen.append(cfp.kb_min(s))
+        return TA.ragged_prefill_attention(q, k, v, s, p, scale)
+
+    outs = []
+    for fn in (hoisted, per_call):
+        monkeypatch.setattr(TM, "ragged_prefill_attention", fn)
+        outs.append(TM.forward_prefill(tp, tcfg, _t(tokens), meta,
+                                       _pools(pool)[1]))
+    L = tcfg.num_layers
+    assert len(seen) == 2 * L
+    assert all(w is seen[0] for w in seen[:L])     # one tensor, all layers
+    want = cfp.kb_min(_t(seg))
+    assert want.tolist() == [0, 0, 1]
+    for w in seen:
+        assert torch.equal(w, want)
+    for a, b in zip(outs[0][::2], outs[1][::2]):
+        assert torch.equal(a, b)
+
+
 def _decode_inputs():
     B = 4
     tables = np.array([[1, 2, 3], [4, 5, 0], [6, 7, 8], [0, 0, 0]], np.int32)

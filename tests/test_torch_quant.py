@@ -136,18 +136,56 @@ def test_int4_matmul_plain_matches_xla(K, N, gs):
     (1, 4096, 4096, 128), (32, 4096, 14336, 128), (32, 14336, 4096, 128),
     (32, 4096, 1024, 32), (32, 4096, 128256, 128), (2048, 4096, 14336, 128),
     (1, 128, 96, 32), (33, 512, 100, 32), (7, 3072, 1024, 48)])
-def test_int4_kernel_launch_plan(T, K, N, gs):
-    """The kernel wrapper's host-side launch math (no card needed): whole
-    groups per K slice, the slices cover K exactly once, at least 256 rows
-    per slice when K is cut, and no cut once the tiles fill the SMs."""
-    mt, splits, rows = C4.plan(T, K, N, gs, sms=132)
-    assert mt == (1 if T <= 16 else 2 if T <= 32 else 4)
-    assert rows % gs == 0 and (splits - 1) * rows < K <= splits * rows
-    tiles = -(-N // C4.BLOCK_N) * -(-T // (16 * mt))
-    if splits > 1:
-        assert rows >= 256 and tiles < C4.BLOCKS_PER_SM * 132
-    if tiles >= C4.BLOCKS_PER_SM * 132:
-        assert splits == 1
+@pytest.mark.parametrize("resident", [1, 3])
+def test_int4_kernel_launch_plan(T, K, N, gs, resident):
+    """The kernel wrapper's host-side launch math (no card needed): the
+    work is cut in whole scale groups, the blocks' ranges cover every
+    (tile, group) unit exactly once, every block gets the same number of
+    groups to within one, and the grid is either every resident block of
+    132 SMs (every SM the same bytes) or whole-tile slices that load the
+    busiest SM within 5% of the mean."""
+    p = C4.plan(T, K, N, gs, sms=132, resident=resident)
+    if T > C4.DECODE_ROWS:
+        assert (p.kind, p.tile_rows) == (C4.PREFILL, 128)
+    else:
+        assert p.kind == C4.DECODE
+        assert p.mt == (1 if T <= 16 else 2 if T <= 32 else 4)
+        assert p.tile_rows == 16 * p.mt
+    # fp32 x keeps the decode tile at any T.
+    q = C4.plan(T, K, N, gs, sms=132, resident=resident, x_bf16=False)
+    assert q.kind == C4.DECODE and q.mt == (1 if T <= 16 else 2 if T <= 32
+                                            else 4)
+    assert p.groups * gs == K
+    assert p.tile_cols == (C4.PREFILL_COLS if p.kind == C4.PREFILL
+                           else C4.DECODE_COLS)
+    assert p.tiles == -(-N // p.tile_cols) * -(-T // p.tile_rows)
+    if p.kind == C4.PREFILL:        # whole tiles, strided over the grid
+        assert p.blocks == min(p.tiles, 132 * resident)
+        return
+    units = p.tiles * p.groups
+    assert p.blocks <= min(units, 132 * resident)
+    ranges = [C4.block_units(p, b) for b in range(p.blocks)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == units
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [hi - lo for lo, hi in ranges]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    if p.blocks == min(units, 132 * resident):
+        return                  # balanced: the same bytes on every SM
+    # Aligned: S whole-tile slices per tile, no block across two tiles,
+    # and the busiest SM within 5% of the mean.
+    assert p.blocks % p.tiles == 0
+    assert all(lo // p.groups == (hi - 1) // p.groups for lo, hi in ranges)
+    assert -(-p.blocks // 132) <= C4.ALIGNED_IMBALANCE * p.blocks / 132
+
+
+@pytest.mark.parametrize("T,K,N,resident,blocks", [
+    (32, 4096, 14336, 2, 264),      # w_gate: 224 aligned blocks, 18% off
+    (32, 14336, 4096, 2, 256),      # w_down: 8 slices per tile, 3% off
+    (1, 4096, 14336, 3, 396),
+    (2048, 4096, 14336, 1, 132)])
+def test_int4_kernel_launch_plan_choice(T, K, N, resident, blocks):
+    """Which grid the plan takes at llama-3-8b shapes on 132 SMs."""
+    assert C4.plan(T, K, N, 128, sms=132, resident=resident).blocks == blocks
 
 
 def _dequant(packed, scale):
