@@ -11,13 +11,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. Kernels against their plain PyTorch versions at llama-3-8b shapes
    (attention: nh 32, n_kv 8, hd 128, bf16, the engine's page size; int4
    matmul: the w_gate projection at a decode batch of 32): max-abs error
-   within a stated tolerance, the kernel's time (flash prefill and int4:
-   device time, calls captured in a CUDA graph; the others: CUDA events
-   around each call), the plain version's time, the bound (the least time
-   the card could take for the same work) and, where one PyTorch call
-   computes the same function, that call's time, timed the same way.
-   Logged beside them: flash prefill at one 2048-token segment and at 16
-   segments of 128; int4 at a 2048-row prefill, w_down and lm_head.
+   within a stated tolerance, the kernel's device time (calls captured in a
+   CUDA graph, which also proves the wrappers capture), its time with the
+   launch (CUDA events around each call) and the host's microseconds per
+   call, the plain version's time, the bound (the least time the card
+   could take for the same work) and, where one PyTorch call computes the
+   same function, that call's time, timed the same way. Logged beside
+   them: decode at one 8191-token sequence and at B 32 over contexts
+   64-256; flash prefill at one 2048-token segment and at 16 segments of
+   128; the history kernel at a 2048-token chunk over 952 and a 64-token
+   chunk over 6000; int4 at a 2048-row prefill, w_down and lm_head.
 3. Model: the llama-3-8b forward through the kernels against the same
    forward through the plain attention versions, on one small ragged batch.
 4. Engine: ``LLMEngine`` serving llama-3-8b at full width and depth (random
@@ -64,8 +67,8 @@ PEAK_BF16_FLOPS = 989e12
 # Max-abs tolerance of a bf16 kernel output against the plain version: both
 # accumulate in fp32 and round once to bf16 (2^-8 relative, outputs of
 # magnitude < ~2.5), plus the different summation order; the tensor-core
-# flash prefill also rounds the softmax probabilities to bf16 before P.V
-# (about 2^-9 relative per term).
+# attention kernels also round the softmax probabilities to bf16 before
+# P.V (about 2^-9 relative per term).
 BF16_ATOL = 2e-2
 # Relative L2 tolerance of the model's fp32 logits, kernels vs plain
 # versions, after 32 bf16 layers.
@@ -211,28 +214,21 @@ def _prefill_case(gen, T, n_seg, nh, n_kv, hd, dt, device) -> dict:
     kernel = lambda: fp.flash_prefill(*args, window=window)  # noqa: E731
     return dict(max_abs_err=err, ms=graph_ms(kernel, 20),
                 library_ms=graph_ms(sdpa, 20), bound_ms=bms, bound_by=by,
-                kernel=kernel,
+                kernel=kernel, shape=f"T={T} as {n_seg} segments",
                 plain=lambda: A.ragged_prefill_attention_plain(*args))
 
 
-def check_kernels(cfg, page_size: int, max_len: int, device) -> list[dict]:
+def _decode_case(gen, rng, B, ctx_lo, ctx_hi, nh, n_kv, hd, ps, pps, dt,
+                 device) -> dict:
+    """paged_decode on B rows of contexts drawn from [ctx_lo, ctx_hi] over
+    ``pps``-page tables (layer 1 of a 2-layer pool), against the plain
+    version; the kernel called as the engine calls it, timed in a CUDA
+    graph."""
     from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
-    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import (
-        flash_prefill_hist as fh, paged_decode as pd)
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import paged_decode as pd
     from kubernetes_gpu_cluster_tpu_torch.utils import cdiv
-
-    nh, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    kd, dt, ps = n_kv * hd, torch.bfloat16, page_size
-    scale = hd ** -0.5
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    rng = np.random.default_rng(SEED)
-    pps = cdiv(max_len, ps)
-    el = 2  # bf16 bytes
-    rows = []
-
-    # -- paged decode: B=32, context 512-2048 mixed, layer 1 of a 2-layer pool
-    B = 32
-    ctx = rng.integers(512, 2049, B).astype(np.int32)
+    kd = n_kv * hd
+    ctx = rng.integers(ctx_lo, ctx_hi + 1, B).astype(np.int32)
     n_pages = [cdiv(int(c), ps) for c in ctx]
     P = sum(n_pages) + 1
     perm = rng.permutation(np.arange(1, P)).astype(np.int32)
@@ -243,86 +239,131 @@ def check_kernels(cfg, page_size: int, max_len: int, device) -> list[dict]:
         o += n
     kpool = _randn(gen, (2, P, ps, kd), dt, device)
     vpool = _randn(gen, (2, P, ps, kd), dt, device)
-    q = _randn(gen, (B, nh, hd), dt, device)
-    kc = _randn(gen, (B, n_kv, hd), dt, device)
-    vc = _randn(gen, (B, n_kv, hd), dt, device)
-    t_tables = torch.from_numpy(tables).to(device)
-    t_ctx = torch.from_numpy(ctx).to(device)
-    args = (q, kpool, vpool, t_tables, t_ctx, kc, vc, scale)
+    args = (_randn(gen, (B, nh, hd), dt, device), kpool, vpool,
+            torch.from_numpy(tables).to(device),
+            torch.from_numpy(ctx).to(device),
+            _randn(gen, (B, n_kv, hd), dt, device),
+            _randn(gen, (B, n_kv, hd), dt, device), hd ** -0.5)
     got = pd.paged_decode(*args, layer=1)
     ref = A.paged_decode_attention_plain(*args, layer=1)
-    err = _compare("paged_decode", got, ref)
-    nbytes = el * (2 * B * nh * hd + 2 * B * kd + 2 * kd * int(np.sum(ctx - 1))) \
+    err = _compare(f"paged_decode B={B} ctx {ctx_lo}-{ctx_hi}", got, ref)
+    if not torch.equal(pd.paged_decode(*args, layer=1), got):
+        raise RuntimeError("paged_decode: a second call gave other bits")
+    nbytes = 2 * (2 * B * nh * hd + 2 * B * kd + 2 * kd * int(np.sum(ctx - 1))) \
         + 4 * (B * pps + B)
-    flops = 4 * nh * hd * int(np.sum(ctx))
+    bms, by = bound_ms(nbytes, 4 * nh * hd * int(np.sum(ctx)))
+    kernel = lambda: pd.paged_decode(*args, layer=1)  # noqa: E731
+    return dict(max_abs_err=err, ms=graph_ms(kernel, 20), bound_ms=bms,
+                bound_by=by, kernel=kernel,
+                plain=lambda: A.paged_decode_attention_plain(*args, layer=1),
+                shape=f"B={B} ctx={int(ctx.min())}-{int(ctx.max())} ps={ps} "
+                      f"pps={pps}")
+
+
+def _hist_case(gen, rng, T, hist, nh, n_kv, hd, ps, dt, device) -> dict:
+    """flash_prefill_hist on a T-token chunk over ``hist`` pooled tokens
+    (layer 1 of a 2-layer pool, the table as wide as the engine's: the next
+    power of two in pages), against the plain version; the kernel called
+    as the engine calls it (n_valid computed once beforehand), timed in a
+    CUDA graph."""
+    from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import \
+        flash_prefill_hist as fh
+    from kubernetes_gpu_cluster_tpu_torch.utils import cdiv
+    kd = n_kv * hd
+    n_pages = cdiv(hist + T, ps)
+    width = 1 << (n_pages - 1).bit_length()
+    P = n_pages + 1
+    table = np.zeros(width, np.int32)
+    table[:n_pages] = rng.permutation(np.arange(1, P)).astype(np.int32)
+    t_seg = torch.zeros(T, dtype=torch.int32, device=device)
+    args = (_randn(gen, (T, nh, hd), dt, device),
+            _randn(gen, (T, n_kv, hd), dt, device),
+            _randn(gen, (T, n_kv, hd), dt, device), t_seg,
+            torch.arange(hist, hist + T, dtype=torch.int32, device=device),
+            _randn(gen, (2, P, ps, kd), dt, device),
+            _randn(gen, (2, P, ps, kd), dt, device),
+            torch.from_numpy(table).to(device), hist, hd ** -0.5)
+    n_valid = fh.valid_tokens(t_seg)
+    got = fh.flash_prefill_hist(*args, layer=1, n_valid=n_valid)
+    ref = A.prefill_history_attention_plain(*args, layer=1)
+    err = _compare(f"flash_prefill_hist chunk {T} hist {hist}", got, ref)
+    if not torch.equal(fh.flash_prefill_hist(*args, layer=1), got):
+        raise RuntimeError("flash_prefill_hist: a second call gave other bits")
+    nbytes = 2 * (T * (2 * nh * hd + 2 * kd) + 2 * hist * kd) + 4 * (width + T)
+    flops = 4 * nh * hd * (T * hist + T * (T + 1) // 2)
     bms, by = bound_ms(nbytes, flops)
-    rows.append(dict(
-        name="paged_decode", route="cuda",
-        source="kubernetes_gpu_cluster_tpu_torch/csrc/paged_decode.cu",
-        replaces="kubernetes_gpu_cluster_tpu/ops/pallas/paged_decode.py:206",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: pd.paged_decode(*args, layer=1), 20),
-        plain_ms=cuda_ms(lambda: A.paged_decode_attention_plain(
-            *args, layer=1), 5),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"B={B} ctx={int(ctx.min())}-{int(ctx.max())} ps={ps}"))
-    del kpool, vpool, got, ref
+    kernel = lambda: fh.flash_prefill_hist(  # noqa: E731
+        *args, layer=1, n_valid=n_valid)
+    return dict(max_abs_err=err, ms=graph_ms(kernel, 20), bound_ms=bms,
+                bound_by=by, kernel=kernel,
+                plain=lambda: A.prefill_history_attention_plain(*args,
+                                                                layer=1),
+                shape=f"chunk={T} hist={hist} ps={ps}")
+
+
+def _logged(what, case) -> None:
+    log(f"{what}:", json.dumps({k: case[k] for k in (
+        "ms", "bound_ms", "bound_by", "max_abs_err", "shape")}))
+
+
+def check_kernels(cfg, page_size: int, max_len: int, device) -> list[dict]:
+    from kubernetes_gpu_cluster_tpu_torch.utils import cdiv
+
+    nh, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt, ps = torch.bfloat16, page_size
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    pps = cdiv(max_len, ps)                  # the engine's decode table width
+    rows = []
+
+    def row(name, case, replaces):
+        return dict(
+            name=name, route="cuda",
+            source=f"kubernetes_gpu_cluster_tpu_torch/csrc/{name}.cu",
+            replaces=replaces, max_abs_err=case["max_abs_err"],
+            ms=case["ms"], plain_ms=cuda_ms(case["plain"], 5),
+            bound_ms=case["bound_ms"], bound_by=case["bound_by"],
+            library_ms=case.get("library_ms"), shape=case["shape"],
+            ms_with_launch=cuda_ms(case["kernel"], 20),
+            host_us=host_us(case["kernel"], 200))
+
+    # -- paged decode: B=32, context 512-2048 mixed (the row), then logged
+    #    only: one 8191-token sequence and B=32 at 64-256.
+    case = _decode_case(gen, rng, 32, 512, 2048, nh, n_kv, hd, ps, pps, dt,
+                        device)
+    rows.append(row("paged_decode", case,
+                    "kubernetes_gpu_cluster_tpu/ops/pallas/paged_decode.py:206"))
+    del case
+    for B, lo, hi in ((1, 8191, 8191), (32, 64, 256)):
+        _logged(f"paged_decode B={B} ctx {lo}-{hi}", _decode_case(
+            gen, rng, B, lo, hi, nh, n_kv, hd, ps, pps, dt, device))
 
     # -- ragged prefill: T=2048 as four segments of 512 (the row), then
     #    logged only: one 2048-token segment and 16 segments of 128.
     for T, n_seg in ((2048, 4), (2048, 1), (2048, 16)):
         case = _prefill_case(gen, T, n_seg, nh, n_kv, hd, dt, device)
         if n_seg == 4:
-            rows.append(dict(
-                name="flash_prefill", route="cuda",
-                source="kubernetes_gpu_cluster_tpu_torch/csrc/flash_prefill.cu",
-                replaces="kubernetes_gpu_cluster_tpu/ops/pallas/flash_prefill.py:119",
-                max_abs_err=case["max_abs_err"], ms=case["ms"],
-                plain_ms=cuda_ms(case["plain"], 5),
-                bound_ms=case["bound_ms"], bound_by=case["bound_by"],
-                library_ms=case["library_ms"],
-                shape=f"T={T} as {n_seg} segments",
-                ms_with_launch=cuda_ms(case["kernel"], 20),
-                host_us=host_us(case["kernel"], 200)))
+            rows.append(row(
+                "flash_prefill", case,
+                "kubernetes_gpu_cluster_tpu/ops/pallas/flash_prefill.py:119"))
         else:
             log(f"flash_prefill T={T} as {n_seg} segments:", json.dumps(
                 {k: case[k] for k in ("ms", "library_ms", "bound_ms",
                                       "bound_by", "max_abs_err")}))
         del case
 
-    # -- history: a 512-token chunk over 2048 history tokens
-    T, hist = 512, 2048
-    n_pages = cdiv(hist + T, ps)
-    width = 1 << (n_pages - 1).bit_length()      # the engine's table width
-    P = n_pages + 1
-    table = np.zeros(width, np.int32)
-    table[:n_pages] = rng.permutation(np.arange(1, P)).astype(np.int32)
-    kpool = _randn(gen, (2, P, ps, kd), dt, device)
-    vpool = _randn(gen, (2, P, ps, kd), dt, device)
-    q = _randn(gen, (T, nh, hd), dt, device)
-    k = _randn(gen, (T, n_kv, hd), dt, device)
-    v = _randn(gen, (T, n_kv, hd), dt, device)
-    t_seg = torch.zeros(T, dtype=torch.int32, device=device)
-    t_pos = torch.arange(hist, hist + T, dtype=torch.int32, device=device)
-    t_table = torch.from_numpy(table).to(device)
-    args = (q, k, v, t_seg, t_pos, kpool, vpool, t_table, hist, scale)
-    got = fh.flash_prefill_hist(*args, layer=1)
-    ref = A.prefill_history_attention_plain(*args, layer=1)
-    err = _compare("flash_prefill_hist", got, ref)
-    nbytes = el * (T * (2 * nh * hd + 2 * kd) + 2 * hist * kd) + 4 * (width + T)
-    flops = 4 * nh * hd * (T * hist + T * (T + 1) // 2)
-    bms, by = bound_ms(nbytes, flops)
-    rows.append(dict(
-        name="flash_prefill_hist", route="cuda",
-        source="kubernetes_gpu_cluster_tpu_torch/csrc/flash_prefill_hist.cu",
-        replaces="kubernetes_gpu_cluster_tpu/ops/pallas/flash_prefill_hist.py:167",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: fh.flash_prefill_hist(*args, layer=1), 20),
-        plain_ms=cuda_ms(lambda: A.prefill_history_attention_plain(
-            *args, layer=1), 5),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"chunk={T} hist={hist} ps={ps}"))
-    del kpool, vpool, got, ref
+    # -- history: a 512-token chunk over 2048 history tokens (the row), then
+    #    logged only: the second chunk of a 3000-token prompt and a short
+    #    chunk over a long history.
+    case = _hist_case(gen, rng, 512, 2048, nh, n_kv, hd, ps, dt, device)
+    rows.append(row(
+        "flash_prefill_hist", case,
+        "kubernetes_gpu_cluster_tpu/ops/pallas/flash_prefill_hist.py:167"))
+    del case
+    for T, hist in ((2048, 952), (64, 6000)):
+        _logged(f"flash_prefill_hist chunk {T} hist {hist}", _hist_case(
+            gen, rng, T, hist, nh, n_kv, hd, ps, dt, device))
     torch.cuda.synchronize()
     return rows
 

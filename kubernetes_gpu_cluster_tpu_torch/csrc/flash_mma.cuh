@@ -1,8 +1,8 @@
 // Tensor-core building blocks for Hopper (sm_90a), shared by the kernels
 // that run on mma.sync: cp.async copies, ldmatrix fragment loads, the
 // m16n8k16 bf16 product with fp32 accumulation, and one warp's
-// flash-attention tile (FlashAttention-2 style), used by flash_prefill.cu
-// and meant for flash_prefill_hist.cu next.
+// flash-attention tile (FlashAttention-2 style), used by the bf16 instances
+// of flash_prefill.cu, flash_prefill_hist.cu and paged_decode.cu.
 //
 // Fragment layouts of mma.sync.m16n8k16 (gid = lane / 4, tig = lane % 4):
 //   A 16x16 (row): a0 = (gid, 2tig..+1), a1 = (gid+8, 2tig..+1),

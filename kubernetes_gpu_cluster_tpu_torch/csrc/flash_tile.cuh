@@ -1,5 +1,7 @@
-// One block's flash-attention tile machinery, shared by the three attention
-// kernels (paged_decode.cu, flash_prefill.cu, flash_prefill_hist.cu).
+// One block's flash-attention tile machinery on CUDA cores: the fp32
+// instance of the three attention kernels (paged_decode.cu,
+// flash_prefill.cu, flash_prefill_hist.cu), whose bf16 instances run on the
+// tensor cores (flash_mma.cuh).
 //
 // A block owns BQ query rows of one head and sweeps the keys it may attend
 // in tiles of BK. Per tile: the K/V rows are gathered into shared memory in
@@ -9,8 +11,8 @@
 // alpha) folds the tile into the per-thread output accumulators. Nothing but
 // the final output row leaves the block.
 //
-// Plain CUDA cores, fp32 throughout: the simple design the port starts from.
-// Tensor-core (wgmma) tiles and TMA loads are later work.
+// Plain CUDA cores, fp32 throughout: exact enough for the fp32 tests and
+// debug models, which are not the served dtype.
 
 #pragma once
 
@@ -176,6 +178,13 @@ struct Tile {
     }
   }
 };
+
+// log2 of a power of two (host code: page sizes become shifts).
+inline int ilog2(int x) {
+  int s = 0;
+  while ((1 << s) < x) ++s;
+  return s;
+}
 
 // Raise the dynamic shared-memory cap of `kernel` to `bytes` (needed above
 // 48 KB) and launch nothing; returns the CUDA status.

@@ -37,7 +37,8 @@ import torch.nn.functional as F
 from ..config import ModelConfig
 from ..ops import quant as quant_ops
 from ..ops.attention import (mixed_attention, paged_decode_attention,
-                             prefill_history_attention, prefill_window,
+                             prefill_history_attention,
+                             prefill_history_valid, prefill_window,
                              ragged_prefill_attention, write_kv_pages_all)
 from ..ops.rope import apply_rope, rope_cos_sin
 
@@ -370,11 +371,12 @@ def forward_prefill_hist(params: Params, cfg: ModelConfig,
     """Chunked prefill: one sequence's chunk attending to its pool history
     plus itself causally. Returns (normed_selected [1, d], kv, raw_hidden)."""
     scale = cfg.head_dim ** -0.5
+    n_valid = prefill_history_valid(meta.seg_ids)  # once for all layers
 
     def attn_fn(q, k, v, layer):
         return prefill_history_attention(
             q, k, v, meta.seg_ids, meta.positions, kv.k, kv.v, page_table,
-            hist_len, scale, layer=layer)
+            hist_len, scale, layer=layer, n_valid=n_valid)
 
     h, k_all, v_all = _layer_loop(params, cfg, _embed(params, tokens),
                                   meta.positions, attn_fn)
@@ -392,12 +394,14 @@ def forward_mixed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     kv, raw_hidden [T, d])."""
     scale = cfg.head_dim ** -0.5
     n_prefill = tokens.shape[0] - meta.page_tables.shape[0]
+    n_valid = prefill_history_valid(meta.seg_ids[:n_prefill])  # once
 
     def attn_fn(q, k, v, layer):
         return mixed_attention(
             q, k, v, meta.seg_ids, meta.positions, kv.k, kv.v,
             meta.chunk_page_table, meta.hist_len, meta.page_tables,
-            meta.context_lens, scale, n_prefill=n_prefill, layer=layer)
+            meta.context_lens, scale, n_prefill=n_prefill, layer=layer,
+            n_valid=n_valid)
 
     h, k_all, v_all = _layer_loop(params, cfg, _embed(params, tokens),
                                   meta.positions, attn_fn)

@@ -26,7 +26,7 @@ import torch
 
 from .cuda.flash_prefill import flash_prefill
 from .cuda.flash_prefill import kb_min as flash_prefill_kb_min
-from .cuda.flash_prefill_hist import flash_prefill_hist
+from .cuda.flash_prefill_hist import flash_prefill_hist, valid_tokens
 from .cuda.paged_decode import paged_decode
 
 
@@ -206,14 +206,27 @@ def prefill_window(seg_ids: torch.Tensor) -> torch.Tensor:
     return flash_prefill_kb_min(seg_ids)
 
 
+def prefill_history_valid(seg_ids: torch.Tensor) -> torch.Tensor:
+    """The history kernel's chunk length ``sum(seg_ids >= 0)`` as an int32
+    [1] tensor on seg_ids' device (``ops.cuda.flash_prefill_hist.
+    valid_tokens``): plain torch, computed once per forward and shared by
+    every layer."""
+    return valid_tokens(seg_ids)
+
+
 def prefill_history_attention(q, k, v, seg_ids, positions, k_pool, v_pool,
-                              page_table, hist_len, scale, *, layer=None):
+                              page_table, hist_len, scale, *, layer=None,
+                              n_valid=None):
+    """``n_valid``: the kernel's chunk length (``prefill_history_valid``),
+    when the caller computed it once for all layers; the plain path needs
+    none."""
     if _on_cpu(q):
         return prefill_history_attention_plain(
             q, k, v, seg_ids, positions, k_pool, v_pool, page_table,
             hist_len, scale, layer=layer)
     return flash_prefill_hist(q, k, v, seg_ids, positions, k_pool, v_pool,
-                              page_table, hist_len, scale, layer=layer)
+                              page_table, hist_len, scale, layer=layer,
+                              n_valid=n_valid)
 
 
 def paged_decode_attention(q, k_cache_l, v_cache_l, page_tables, context_lens,
@@ -232,7 +245,7 @@ def paged_decode_attention(q, k_cache_l, v_cache_l, page_tables, context_lens,
 
 def mixed_attention(q, k, v, seg_ids, positions, k_pool, v_pool,
                     chunk_page_table, hist_len, page_tables, context_lens,
-                    scale, *, n_prefill: int, layer=None):
+                    scale, *, n_prefill: int, layer=None, n_valid=None):
     """Attention for one MIXED step: the token axis is
     ``[prefill chunk | decode rows]`` split at ``n_prefill``.
 
@@ -244,11 +257,13 @@ def mixed_attention(q, k, v, seg_ids, positions, k_pool, v_pool,
 
     Both halves read the pool PRE-write and the caller commits all new K/V
     in the one post-forward scatter. Chunk and decode sequences are
-    disjoint and each half addresses only its own page tables."""
+    disjoint and each half addresses only its own page tables. ``n_valid``
+    is ``prefill_history_valid(seg_ids[:n_prefill])`` when the caller
+    computed it once for all layers."""
     out_p = prefill_history_attention(
         q[:n_prefill], k[:n_prefill], v[:n_prefill], seg_ids[:n_prefill],
         positions[:n_prefill], k_pool, v_pool, chunk_page_table[0], hist_len,
-        scale, layer=layer)
+        scale, layer=layer, n_valid=n_valid)
     out_d = paged_decode_attention(
         q[n_prefill:], k_pool, v_pool, page_tables, context_lens,
         k[n_prefill:], v[n_prefill:], scale, layer=layer)

@@ -68,5 +68,44 @@ def check_geometry(kernel: str, nh: int, n_kv: int, hd: int,
                          f"exceeds {MAX_GROUP}")
 
 
-def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def pool_layers(pool: torch.Tensor) -> tuple[int, int, tuple]:
+    """(L, bytes between two layers, one layer's shape) of a stacked pool
+    [L, P, ps, n_kv*hd]; (0, 0, its shape) for a one-layer pool."""
+    if pool.dim() == 4:
+        return (pool.shape[0], pool.stride(0) * pool.element_size(),
+                tuple(pool.shape[1:]))
+    return 0, 0, tuple(pool.shape)
+
+
+def layer_offset(kernel: str, layers: int, layer_bytes: int,
+                 layer: int | None) -> int:
+    """Byte offset of ``layer`` in a stacked pool of ``layers`` layers (0
+    for a one-layer pool): kernels take one layer's base pointer, so no
+    view is made per call."""
+    if not layers:
+        return 0
+    if layer is None or not 0 <= layer < layers:
+        raise ValueError(f"{kernel}: layer {layer} of a stacked pool of "
+                         f"{layers} layers")
+    return layer * layer_bytes
+
+
+def device_of(kernel: str, tensors: tuple) -> int:
+    """The index of the one CUDA device on which every tensor lies, each
+    contiguous: the per-call checks of a launch whose shapes and dtypes
+    were checked when its key was first seen. Raises ValueError otherwise."""
+    dev = tensors[0].get_device()
+    if dev >= 0 and all(t.get_device() == dev and t.is_contiguous()
+                        for t in tensors):
+        return dev
+    got = ", ".join(f"{t.device}{'' if t.is_contiguous() else ' strided'}"
+                    for t in tensors)
+    raise ValueError(f"{kernel}: the kernel takes contiguous CUDA tensors "
+                     f"on one device only, got {got}")
+
+
+if hasattr(torch._C, "_cuda_getCurrentRawStream"):
+    raw_stream = torch._C._cuda_getCurrentRawStream
+else:                               # builds without the private accessor
+    def raw_stream(index: int) -> int:
+        return torch.cuda.current_stream(index).cuda_stream

@@ -13,7 +13,7 @@ import ctypes
 import torch
 
 from ...utils import cdiv
-from . import build, check_geometry, check_tensors, stream_handle
+from . import build, check_geometry, check_tensors, raw_stream
 
 # Kernel launches since the last reset (the caller may set it to 0).
 launches = 0
@@ -94,7 +94,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = lib.kgct_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ids.data_ptr(),
         kbm.data_ptr(), out.data_ptr(), T, nh, n_kv, hd, float(scale), dtype,
-        stream_handle(q.device))
+        raw_stream(q.get_device()))
     build.check_status(lib, "flash_prefill", code)
     launches += 1
     return out

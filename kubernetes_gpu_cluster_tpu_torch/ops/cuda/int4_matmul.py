@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build
+from . import build, raw_stream
 
 # Kernel launches since the last reset (the caller may set it to 0).
 launches = 0
@@ -196,13 +196,6 @@ def _grow_workspace(device: torch.device, p: Plan) -> tuple[int, int]:
     return ws.data_ptr(), cnt.data_ptr()
 
 
-if hasattr(torch._C, "_cuda_getCurrentRawStream"):
-    _raw_stream = torch._C._cuda_getCurrentRawStream
-else:                               # builds without the private accessor
-    def _raw_stream(index: int) -> int:
-        return torch.cuda.current_stream(index).cuda_stream
-
-
 def _prepare(x: torch.Tensor, w_packed: torch.Tensor,
              scale: torch.Tensor) -> _Launch:
     """The dtype and shape checks of a new key, its plan, and the device's
@@ -273,7 +266,7 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
         return out
     xp, wp, sp = x.data_ptr(), w_packed.data_ptr(), scale.data_ptr()
     code = c.fn(xp, wp, sp, out.data_ptr(), c.args,
-                c.n16 and not (xp | wp | sp) & 15, _raw_stream(dev))
+                c.n16 and not (xp | wp | sp) & 15, raw_stream(dev))
     if code:
         build.check_status(_lib(), "int4_matmul", code)
     launches += 1

@@ -234,6 +234,61 @@ def test_kb_min_matches_tpu_window(lens, T):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("B,n_kv", [(32, 8), (1, 8), (4, 1), (3, 16),
+                                    (200, 8)])
+@pytest.mark.parametrize("pps,ps", [(512, 16), (1, 8), (6, 16), (7, 128),
+                                    (1024, 8), (33, 64)])
+def test_paged_decode_plan_covers_every_token_once(B, n_kv, pps, ps):
+    """The split-K plan is plain host math on the shapes and the SM count
+    alone (no context length, no device value): the same shapes give the
+    same plan, and for every context the blocks that run cover each pooled
+    token exactly once, in order, in whole stages, within the grid."""
+    p = cpd.plan(B, n_kv, pps, ps, 132)
+    assert p == cpd.plan(B, n_kv, pps, ps, 132)
+    assert p.min_split % cpd.STAGE_KEYS == 0
+    assert 1 <= p.splits <= cpd.MAX_SPLITS
+    width = pps * ps
+    assert (p.splits - 1) * p.min_split < width        # no split always empty
+    for n_tok in sorted({0, 1, ps - 1, ps, p.min_split - 1, p.min_split,
+                         p.min_split + 1, width // 3, width - 1, width}):
+        if not 0 <= n_tok <= width:
+            continue
+        ranges = cpd.split_ranges(p, n_tok)
+        assert 1 <= len(ranges) <= p.splits
+        assert [t for lo, hi in ranges for t in range(lo, hi)] == list(
+            range(n_tok))
+        assert all(lo % cpd.STAGE_KEYS == 0 for lo, _ in ranges)
+        assert all(lo < hi for lo, hi in ranges) or n_tok == 0
+
+
+def test_paged_decode_plan_engine_shape():
+    """llama-3-8b (8 kv heads) on 132 SMs over the engine's decode table
+    (512 pages of 16): the grid never passes two waves of two blocks per
+    SM, so 2 splits per (sequence, kv head) at B 32, 8 at B 8 (a 4096-key
+    context as eight splits of 512 keys, a 300-key one as one split), 16
+    at B 1. The workspace holds one fp32 partial (o [g, hd], m, l) per
+    split slot of the grid."""
+    assert cpd.plan(32, 8, 512, 16, 132) == cpd.Plan(512, 2)
+    p = cpd.plan(8, 8, 512, 16, 132)
+    assert p == cpd.Plan(512, 8)
+    assert cpd.split_ranges(p, 4095) == [(s, min(s + 512, 4095))
+                                         for s in range(0, 4095, 512)]
+    assert cpd.split_ranges(p, 300) == [(0, 300)]
+    assert cpd.split_ranges(cpd.plan(32, 8, 512, 16, 132), 4095) == [
+        (0, 2048), (2048, 4095)]
+    assert cpd.plan(1, 8, 512, 16, 132) == cpd.Plan(512, 16)
+    assert cpd.workspace_floats(p, 8, 8, 4, 128) == 8 * 8 * 8 * 4 * 130
+    for B in (1, 2, 4, 8, 16, 32):
+        assert B * 8 * cpd.plan(B, 8, 512, 16, 132).splits <= 4 * 132
+
+
+def test_history_valid_tokens():
+    seg = torch.tensor([0] * 13 + [-1] * 3, dtype=torch.int32)
+    n = TA.prefill_history_valid(seg)
+    assert n.dtype == torch.int32 and n.tolist() == [13]
+    assert cfh.valid_tokens(seg[:0]).tolist() == [0]
+
+
 @pytest.mark.parametrize("fn,args", [
     (cpd.paged_decode, lambda: (
         torch.zeros(1, 2, 64), torch.zeros(2, 8, 64), torch.zeros(2, 8, 64),

@@ -10,7 +10,7 @@ JAX: ``python -m pytest tests/test_torch_kernels_gpu.py -m gpu
 Tolerances: fp32 atol 1e-4 (online vs dense softmax, different summation
 order); bf16 atol 2e-2 (both sides accumulate in fp32 and round the output
 once to bf16: 2^-8 relative on outputs of magnitude < ~2.5; the
-tensor-core flash prefill also rounds the probabilities to bf16 before
+tensor-core attention kernels also round the probabilities to bf16 before
 P.V, about 2^-9 relative per term). The int4
 matmul returns fp32 for bf16 and fp32 x alike, and both sides sum exact
 products (x times a nibble; an fp32 x enters the tensor cores as three
@@ -81,6 +81,75 @@ def test_paged_decode_matches_plain(cuda_device, dtype, nh, n_kv, hd, ps):
     assert cpd.launches == before + 1
     torch.testing.assert_close(got, A.paged_decode_attention_plain(
         *args, layer=1), atol=TOL[dtype], rtol=0)
+
+
+def _decode_case(gen, dtype, device, nh, n_kv, hd, ps, ctx, pps, L=2):
+    """paged_decode arguments for rows of context lengths ``ctx`` (0 =
+    padded row), each on its own random pages of a ``pps``-wide table,
+    reading layer 1 of an L-layer pool."""
+    ctx = [int(c) for c in ctx]
+    need = [-(-max(c - 1, 0) // ps) for c in ctx]
+    P = sum(need) + 1
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(11)
+                          ).to(torch.int32) + 1
+    tables = torch.zeros(len(ctx), pps, dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = perm[o:o + n]
+        o += n
+    B = len(ctx)
+    return (_rn(gen, dtype, device, B, nh, hd),
+            _rn(gen, dtype, device, L, P, ps, n_kv * hd),
+            _rn(gen, dtype, device, L, P, ps, n_kv * hd),
+            tables.to(device), torch.tensor(ctx, dtype=torch.int32).to(device),
+            _rn(gen, dtype, device, B, n_kv, hd),
+            _rn(gen, dtype, device, B, n_kv, hd), hd ** -0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,n_kv,hd,ps", GEOMETRIES)
+def test_paged_decode_split_contexts(cuda_device, dtype, nh, n_kv, hd, ps):
+    """The engine's table width (8192 keys), contexts that end at the
+    smallest split's edge and one past it, one page, one token, 4097 and
+    8191 (one sequence filling most of the table), a padded row; the same
+    bits on a second call (splits merged in a fixed order, counters left
+    at 0)."""
+    pps = 8192 // ps
+    S = cpd.MIN_SPLIT_TOKENS
+    ctx = [1, ps, S, S + 1, S + 2, 4097, 8191, 0]     # pooled: ctx - 1
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    args = _decode_case(g, dtype, cuda_device, nh, n_kv, hd, ps, ctx, pps)
+    before = cpd.launches
+    got = cpd.paged_decode(*args, layer=1)
+    assert cpd.launches == before + 1
+    torch.testing.assert_close(got, A.paged_decode_attention_plain(
+        *args, layer=1), atol=TOL[dtype], rtol=0)
+    assert torch.equal(got[-1], args[6][-1].repeat_interleave(nh // n_kv, 0))
+    assert torch.equal(cpd.paged_decode(*args, layer=1), got)
+
+
+@pytest.mark.gpu
+def test_paged_decode_mixed_step_slice(cuda_device):
+    """The mixed step's decode half: q, k and v are row slices of the
+    step's token axis (contiguous views at an offset)."""
+    nh, n_kv, hd, ps, n_prefill = 32, 8, 128, 16, 300
+    ctx = [700, 1, 0, 2000, 257]
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    q, kp, vp, tables, t_ctx, kc, vc, scale = _decode_case(
+        g, torch.bfloat16, cuda_device, nh, n_kv, hd, ps, ctx, 512)
+    B = len(ctx)
+    q_all = _rn(g, torch.bfloat16, cuda_device, n_prefill + B, nh, hd)
+    k_all = _rn(g, torch.bfloat16, cuda_device, n_prefill + B, n_kv, hd)
+    v_all = _rn(g, torch.bfloat16, cuda_device, n_prefill + B, n_kv, hd)
+    q_all[n_prefill:], k_all[n_prefill:], v_all[n_prefill:] = q, kc, vc
+    args = (q_all[n_prefill:], kp, vp, tables, t_ctx, k_all[n_prefill:],
+            v_all[n_prefill:], scale)
+    got = cpd.paged_decode(*args, layer=1)
+    torch.testing.assert_close(got, A.paged_decode_attention_plain(
+        *args, layer=1), atol=TOL[torch.bfloat16], rtol=0)
+    assert torch.equal(got, cpd.paged_decode(q, kp, vp, tables, t_ctx, kc, vc,
+                                             scale, layer=1))
 
 
 @pytest.mark.gpu
@@ -174,6 +243,53 @@ def test_flash_prefill_hist_matches_plain(cuda_device, dtype, hist_len, nh,
     torch.testing.assert_close(got, A.prefill_history_attention_plain(
         *args, layer=1), atol=TOL[dtype], rtol=0)
     assert torch.all(got[n_valid:] == 0)
+
+
+# (chunk T, valid tokens, history): engine chunks (512 over 2048; the second
+# chunk of a 3000-token prompt; a short chunk over a long history), no
+# history, a history that is a multiple of neither 64 nor ps, and a chunk
+# whose padding leaves q tiles made only of padding.
+HIST_CASES = {
+    "512_over_2048": (512, 512, 2048),
+    "952_pad_over_2048": (1024, 952, 2048),
+    "2048_over_952": (2048, 2048, 952),
+    "64_over_6000": (64, 64, 6000),
+    "hist_0": (300, 300, 0),
+    "hist_1037": (200, 200, 1037),
+    "padding_tiles": (300, 100, 77),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(HIST_CASES))
+def test_flash_prefill_hist_engine_shapes(cuda_device, dtype, case):
+    T, n_valid, hist_len = HIST_CASES[case]
+    nh, n_kv, hd, ps, L = 32, 8, 128, 16, 2
+    pps = -(-(hist_len + T) // ps)
+    P = pps + 1
+    table = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(14))
+             + 1).to(torch.int32)
+    seg = torch.where(torch.arange(T) < n_valid, 0, -1).to(torch.int32)
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    args = (_rn(g, dtype, cuda_device, T, nh, hd),
+            _rn(g, dtype, cuda_device, T, n_kv, hd),
+            _rn(g, dtype, cuda_device, T, n_kv, hd), seg.to(cuda_device),
+            (torch.arange(T, dtype=torch.int32) + hist_len).to(cuda_device),
+            _rn(g, dtype, cuda_device, L, P, ps, n_kv * hd),
+            _rn(g, dtype, cuda_device, L, P, ps, n_kv * hd),
+            table.to(cuda_device), hist_len, hd ** -0.5)
+    before = cfh.launches
+    got = cfh.flash_prefill_hist(*args, layer=1)
+    assert cfh.launches == before + 1
+    torch.testing.assert_close(got, A.prefill_history_attention_plain(
+        *args, layer=1), atol=TOL[dtype], rtol=0)
+    assert torch.all(got[n_valid:] == 0)
+    # n_valid computed once by the caller gives the same bits, and so does
+    # a second call.
+    again = cfh.flash_prefill_hist(*args, layer=1,
+                                   n_valid=cfh.valid_tokens(args[3]))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu

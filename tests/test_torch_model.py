@@ -170,21 +170,29 @@ def test_forward_decode_matches_jax(setup):
     _check(jout, tout, jcfg, tcfg, jp, tp)
 
 
-@pytest.mark.parametrize("hist_len", [0, 19])
-def test_forward_prefill_hist_matches_jax(setup, hist_len):
-    jcfg, tcfg, jp, tp, pool = setup
+def _hist_case(vocab, hist_len):
+    """One 13-token chunk padded to 16 over ``hist_len`` pooled tokens:
+    (tokens, seg, pos, slots, last, table)."""
     T, n_valid = 16, 13
     pages = np.array([9, 10, 11, 12, 13], np.int32)
     table = np.zeros(8, np.int32)
     table[:len(pages)] = pages
     rng = np.random.default_rng(2)
-    tokens = rng.integers(0, tcfg.vocab_size, T).astype(np.int32)
+    tokens = rng.integers(0, vocab, T).astype(np.int32)
     seg = np.where(np.arange(T) < n_valid, 0, -1).astype(np.int32)
     pos = np.zeros(T, np.int32)
     pos[:n_valid] = hist_len + np.arange(n_valid)
     slots = np.zeros(T, np.int32)
     slots[:n_valid] = pages[pos[:n_valid] // PS] * PS + pos[:n_valid] % PS
     last = np.array([n_valid - 1], np.int32)
+    return tokens, seg, pos, slots, last, table
+
+
+@pytest.mark.parametrize("hist_len", [0, 19])
+def test_forward_prefill_hist_matches_jax(setup, hist_len):
+    jcfg, tcfg, jp, tp, pool = setup
+    tokens, seg, pos, slots, last, table = _hist_case(tcfg.vocab_size,
+                                                      hist_len)
     jkv, tkv = _pools(pool)
     jmeta = JM.PrefillMeta(jnp.asarray(seg), jnp.asarray(pos),
                            jnp.asarray(slots), jnp.asarray(last))
@@ -201,13 +209,15 @@ def test_forward_prefill_hist_matches_jax(setup, hist_len):
     _check((jn, jk, jh), tout, jcfg, tcfg, jp, tp)
 
 
-def test_forward_mixed_matches_jax(setup):
-    jcfg, tcfg, jp, tp, pool = setup
+def _mixed_case(vocab):
+    """An 11-token chunk padded to 16 over 9 pooled tokens, then the four
+    decode rows of ``_decode_inputs``: (tokens, seg, pos, slots,
+    logits_idx, chunk_pt, hist_len, tables, ctx)."""
     Tp, chunk, hist_len = 16, 11, 9
     R, tables, dpos, ctx, dslots = _decode_inputs()
     T = Tp + R
     rng = np.random.default_rng(3)
-    tokens = rng.integers(0, tcfg.vocab_size, T).astype(np.int32)
+    tokens = rng.integers(0, vocab, T).astype(np.int32)
     chunk_pages = np.array([14, 15, 16], np.int32)
     chunk_pt = np.zeros((1, 4), np.int32)
     chunk_pt[0, :3] = chunk_pages
@@ -221,6 +231,13 @@ def test_forward_mixed_matches_jax(setup):
     slots[:chunk] = chunk_pages[cp // PS] * PS + cp % PS
     slots[Tp:] = dslots
     logits_idx = np.array([Tp, Tp + 1, Tp + 2, chunk - 1], np.int32)
+    return tokens, seg, pos, slots, logits_idx, chunk_pt, hist_len, tables, ctx
+
+
+def test_forward_mixed_matches_jax(setup):
+    jcfg, tcfg, jp, tp, pool = setup
+    (tokens, seg, pos, slots, logits_idx, chunk_pt, hist_len, tables,
+     ctx) = _mixed_case(tcfg.vocab_size)
     jkv, tkv = _pools(pool)
     jmeta = JM.MixedMeta(
         jnp.asarray(seg), jnp.asarray(pos), jnp.asarray(slots),
@@ -236,6 +253,66 @@ def test_forward_mixed_matches_jax(setup):
     tout[1].k[:, 0] = 0
     tout[1].v[:, 0] = 0
     _check((jn, jk, jh), tout, jcfg, tcfg, jp, tp)
+
+
+@pytest.mark.parametrize("forward", ["prefill_hist", "mixed"])
+def test_forward_hoists_history_valid_count(setup, monkeypatch, forward):
+    """forward_prefill_hist and forward_mixed compute the history kernel's
+    chunk length n_valid once per forward (not once per layer) and hand the
+    same tensor to every layer; it counts the chunk's tokens, and the
+    forward is identical to one whose attention computes it per call."""
+    from kubernetes_gpu_cluster_tpu_torch.ops import attention as TA
+    _, tcfg, _, tp, pool = setup
+    counted = []
+
+    def count(seg_ids):
+        counted.append(seg_ids)
+        return TA.prefill_history_valid(seg_ids)
+
+    monkeypatch.setattr(TM, "prefill_history_valid", count)
+    if forward == "prefill_hist":
+        tokens, seg, pos, slots, last, table = _hist_case(tcfg.vocab_size, 19)
+        meta = TM.PrefillMeta(_t(seg), _t(pos), _t(slots), _t(last))
+        name, want = "prefill_history_attention", 13
+        base = TA.prefill_history_attention
+
+        def run():
+            return TM.forward_prefill_hist(tp, tcfg, _t(tokens), meta,
+                                           _pools(pool)[1], _t(table), 19)
+    else:
+        (tokens, seg, pos, slots, logits_idx, chunk_pt, hist_len, tables,
+         ctx) = _mixed_case(tcfg.vocab_size)
+        meta = TM.MixedMeta(_t(seg), _t(pos), _t(slots), _t(logits_idx),
+                            _t(chunk_pt), hist_len, _t(tables), _t(ctx))
+        name, want = "mixed_attention", 11
+        base = TA.mixed_attention
+
+        def run():
+            return TM.forward_mixed(tp, tcfg, _t(tokens), meta,
+                                    _pools(pool)[1])
+    seen = []
+
+    def hoisted(*a, n_valid=None, **kw):
+        seen.append(n_valid)
+        return base(*a, n_valid=n_valid, **kw)
+
+    def per_call(*a, n_valid=None, **kw):
+        s = a[3] if forward == "prefill_hist" else a[3][:kw["n_prefill"]]
+        seen.append(TA.prefill_history_valid(s))
+        return base(*a, **kw)
+
+    outs = []
+    for fn in (hoisted, per_call):
+        monkeypatch.setattr(TM, name, fn)
+        outs.append(run())
+    L = tcfg.num_layers
+    assert len(counted) == 2                        # one per forward
+    assert len(seen) == 2 * L
+    assert all(n is seen[0] for n in seen[:L])      # one tensor, all layers
+    for n in seen:
+        assert n.dtype == torch.int32 and n.tolist() == [want]
+    for a, b in zip(outs[0][::2], outs[1][::2]):
+        assert torch.equal(a, b)
 
 
 def test_init_params_layout_and_seed():
