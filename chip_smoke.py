@@ -39,6 +39,25 @@ Then the bf16 weights are freed and the int4 / int8 paths run:
     launched in that run; a second run gives the same tokens.
 4c. Engine, int8: four requests served twice with the same tokens.
 
+Then the other model families, each from random weights at its preset's
+full width and depth, freed before the next (``FAMILIES``): qwen2.5-7b
+bf16 (q/k/v bias, a GQA group of 7), qwen3-4b bf16 (qk-norm, tied
+embeddings, q width 4096 != d 2560), opt-125m bf16 (LayerNorm, learned
+positions, a biased ReLU MLP, tied embeddings, MHA at hd 64) and
+mixtral-8x7b int4 (dense-dispatch MoE: every expert's three matmuls through
+the int4 kernel). For each:
+
+6.  The three attention kernels at the family's heads and phase 2's
+    shapes, against their plain versions (logged, not recorded).
+6a. Model: the forward through the kernels against the same forward with
+    the plain attention versions (bf16) or ``int4_matmul_plain`` (int4,
+    attention on the kernels in both runs, so the routing stays the same;
+    the (token, layer) pairs whose top-k experts differ are counted).
+6b. Engine: ``LLMEngine`` through every step kind, twice, the same tokens;
+    the attention kernels (and the int4 kernel) launched in the first run.
+
+Each phase logs its seconds.
+
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result.
@@ -83,6 +102,21 @@ L2_BYTES = 50 * 2 ** 20
 SEED = 0
 MODEL = "llama-3-8b"
 GROUP = 128        # int4 group size of the served model (the default)
+# The other families, each at its preset's full width and depth: (preset,
+# quantization, workload() arguments, SchedulerConfig overrides, KV pages).
+# opt-125m holds 2048 positions: its prompts stay below that, and a lower
+# prefill budget still chunks the long one. mixtral-8x7b runs int4 (24 GB
+# with its scales; bf16 would be 93 GB) on a small workload: a dense-
+# dispatch forward makes 897 int4 calls.
+FAMILIES = (
+    ("qwen2.5-7b", None, {}, {}, 6144),
+    ("qwen3-4b", None, {}, {}, 6144),
+    ("opt-125m", None, dict(long_len=1500, max_prompt=500),
+     dict(max_prefill_tokens=512), 4096),
+    ("mixtral-8x7b", "int4", dict(n_req=10, long_len=1400, max_prompt=768,
+                                  wave=1),
+     dict(max_prefill_tokens=1024), 2048),
+)
 
 
 def log(*a) -> None:
@@ -457,6 +491,40 @@ def check_int4(cfg, device) -> dict:
 # Phase 3: the model forward, kernels against plain versions
 # ---------------------------------------------------------------------------
 
+def _routes(store: list):
+    """A stand-in for ``models.llama._moe_mlp`` that appends each call's
+    fp32 router logits [T, E] to ``store``, then runs the block."""
+    from kubernetes_gpu_cluster_tpu_torch.models import llama as M
+    block = M._moe_mlp
+
+    def recorded(lp, cfg, x):
+        store.append(M._mm_f32(x.to(torch.float32), lp["router"]))
+        return block(lp, cfg, x)
+    return recorded
+
+
+def _routing(got: torch.Tensor, ref: torch.Tensor, k: int) -> dict:
+    """Router logits of every (token, layer) pair of two runs -> how many
+    pairs chose other top-k experts, and for those the gap between their
+    k-th and (k+1)-th logit against how far the logits moved between the
+    runs (a gap no wider than the move is a near-tie that the runs may
+    break either way)."""
+    def chosen(logits):
+        return torch.topk(logits, k, dim=-1).indices.sort(dim=-1).values
+
+    differs = (chosen(got) != chosen(ref)).any(dim=-1)
+    top = torch.topk(got, k + 1, dim=-1).values
+    gap = top[:, k - 1] - top[:, k]
+    shift = (got - ref).abs().max(dim=-1).values
+    return {"routing_pairs": int(differs.numel()),
+            "routing_differs": int(differs.sum()),
+            "routing_shift_median": float(shift.median()),
+            "routing_gap_shift_at_differs": [
+                [float(g), float(m)] for g, m in zip(gap[differs],
+                                                     shift[differs])],
+            "routing_near_ties": int((gap <= shift).sum())}
+
+
 def check_model(params, cfg, page_size: int, device, plain) -> dict:
     """Logits of a ragged prefill and one decode substep through the
     kernels, against the same forward with ``plain`` — (module, name,
@@ -502,19 +570,29 @@ def check_model(params, cfg, page_size: int, device, plain) -> dict:
     dtok = up(rng.integers(1, cfg.vocab_size, len(lens)).astype(np.int32))
     cache = CacheConfig(page_size=ps)
 
-    def run():
-        kv = allocate_kv_cache(cfg, cache, next_page + 1, device)
-        h, _, _ = M.forward_prefill(params, cfg, up(tokens), meta, kv)
-        lp = M.compute_logits(params, cfg, h)
-        h, _, _ = M.forward_decode(params, cfg, dtok, dmeta, kv)
-        return lp, M.compute_logits(params, cfg, h)
+    routes: dict = {"kernels": [], "plain": []}
 
-    got_p, got_d = run()
-    with contextlib.ExitStack() as stack:
-        for mod, name, fn in plain:
-            stack.enter_context(mock.patch.object(mod, name, fn))
-        ref_p, ref_d = run()
+    def run(which):
+        with contextlib.ExitStack() as stack:
+            if cfg.is_moe:
+                stack.enter_context(mock.patch.object(
+                    M, "_moe_mlp", _routes(routes[which])))
+            if which == "plain":
+                for mod, name, fn in plain:
+                    stack.enter_context(mock.patch.object(mod, name, fn))
+            kv = allocate_kv_cache(cfg, cache, next_page + 1, device)
+            h, _, _ = M.forward_prefill(params, cfg, up(tokens), meta, kv)
+            lp = M.compute_logits(params, cfg, h)
+            h, _, _ = M.forward_decode(params, cfg, dtok, dmeta, kv)
+            return lp, M.compute_logits(params, cfg, h)
+
+    got_p, got_d = run("kernels")
+    ref_p, ref_d = run("plain")
     out = {}
+    if cfg.is_moe:      # (token, layer) pairs routed to other experts
+        out.update(_routing(torch.cat(routes["kernels"]),
+                            torch.cat(routes["plain"]),
+                            cfg.num_experts_per_tok))
     for name, g, r in (("prefill", got_p, ref_p), ("decode", got_d, ref_d)):
         if not torch.isfinite(g).all():
             raise RuntimeError(f"model {name}: non-finite logits")
@@ -666,6 +744,69 @@ def check_int8_engine(cfg_engine, device) -> dict:
     return out
 
 
+def check_family(cfg, wl, sched, pages, device, attn, attn_plain) -> dict:
+    """Phases 6a and 6b for one family (random weights from the seed, freed
+    at the end)."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                         EngineConfig,
+                                                         SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine.engine import \
+        DEFAULT_PAGE_SIZE
+    from kubernetes_gpu_cluster_tpu_torch.models import llama as M
+    from kubernetes_gpu_cluster_tpu_torch.ops import quant as Q
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import int4_matmul
+
+    ps = DEFAULT_PAGE_SIZE
+    # The attention kernels at this family's heads, the phase-2 shapes.
+    nh, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    dt = torch.bfloat16
+    for what, case in (
+            ("paged_decode", lambda: _decode_case(
+                gen, rng, 32, 512, 2048, nh, n_kv, hd, ps,
+                -(-cfg.max_model_len // ps), dt, device)),
+            ("flash_prefill", lambda: _prefill_case(
+                gen, 2048, 4, nh, n_kv, hd, dt, device)),
+            ("flash_prefill_hist", lambda: _hist_case(
+                gen, rng, 512, 2048, nh, n_kv, hd, ps, dt, device))):
+        _logged(f"{cfg.name} {what} nh={nh} n_kv={n_kv} hd={hd}", case())
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(
+        SEED), device)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "weight_gb": sum(t.numel() * t.element_size() for t in
+                            [*params["layers"].values(),
+                             *(v for k, v in params.items()
+                               if k != "layers")]) / 1e9}
+    counters = dict(attn)
+    plain = attn_plain
+    if cfg.quantization == "int4":
+        counters["int4_matmul"] = int4_matmul
+        plain = [(Q, "int4_matmul", Q.int4_matmul_plain)]
+    t0 = time.perf_counter()
+    out["model"] = check_model(params, cfg, ps, device, plain)
+    if out["model"].get("routing_differs"):
+        log(f"{cfg.name}: the top-k experts of "
+            f"{out['model']['routing_differs']} (token, layer) pairs differ "
+            "between the kernel and plain runs")
+    out["model_s"] = time.perf_counter() - t0
+    log(f"{cfg.name} model:", json.dumps(out))
+    t0 = time.perf_counter()
+    cfg_engine = EngineConfig(
+        model=cfg, seed=SEED, cache=CacheConfig(page_size=ps,
+                                                num_pages=pages),
+        scheduler=SchedulerConfig(max_num_seqs=32, **sched))
+    out["engine"] = check_engine(cfg_engine, params, device, counters,
+                                 workload(cfg.vocab_size, **wl))
+    out["engine_s"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 async def _streams(aeng, prompts, sp) -> list:
     async def one(i, prompt):
         toks, chunks = [], 0
@@ -719,6 +860,13 @@ def main() -> int:
     log("card:", card, "|", kind, "| torch", torch.__version__,
         "cuda", torch.version.cuda)
 
+    t_phase = [time.perf_counter()]
+
+    def phase(name: str) -> None:
+        now = time.perf_counter()
+        log(f"phase {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     # Phase 1: build.
     secs = build.build()
     log(f"kernels built in {secs:.1f} s")
@@ -726,6 +874,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "error" in line.lower():
                 log(f"  [{name}] {line.strip()}")
+    phase("build (1)")
 
     cfg = get_model_config(MODEL)
     ps = DEFAULT_PAGE_SIZE
@@ -737,6 +886,7 @@ def main() -> int:
         log("kernel:", json.dumps(r))
     gc.collect()
     torch.cuda.empty_cache()
+    phase("kernels (2)")
 
     # Phase 3: model parity.
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -769,6 +919,7 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    phase(f"{MODEL} bf16 (3, 4, 5)")
 
     # Phase 3b: the int4 model, kernel against int4_matmul_plain.
     cfg4 = cfg.replace(quantization="int4", quant_group_size=GROUP)
@@ -796,6 +947,24 @@ def main() -> int:
         cache=CacheConfig(page_size=ps),
         scheduler=SchedulerConfig(max_num_seqs=8))
     log("engine int8:", json.dumps(check_int8_engine(cfg_engine8, device)))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("int4 and int8 (3b, 4b, 4c)")
+
+    # Phases 6a/6b: the other model families.
+    for preset, quant, wl, sched, pages in FAMILIES:
+        fam = check_family(get_model_config(preset).replace(
+            quantization=quant, quant_group_size=GROUP), wl, sched, pages,
+            device, attn, attn_plain)
+        log(f"family {preset}:", json.dumps(
+            {"tokens_per_s": fam["engine"]["run1"]["tokens_per_s"],
+             "launches": fam["engine"]["launches"],
+             "kinds": fam["engine"]["run1"]["kinds"],
+             "model": fam["model"], "weight_gb": fam["weight_gb"],
+             "init_s": fam["init_s"], "model_s": fam["model_s"],
+             "engine_s": fam["engine_s"]}))
+        phase(f"family {preset}")
 
     eng["launches"]["int4_matmul"] = eng4["launches"]["int4_matmul"]
     for r in rows:

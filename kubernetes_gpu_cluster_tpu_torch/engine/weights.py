@@ -13,9 +13,11 @@ header length, a JSON header of dtype / shape / byte offsets, then the raw
 tensor bytes), through ``numpy.memmap``, so the port needs no
 ``safetensors`` package.
 
-Covered: llama-class dense checkpoints (Llama 1/2/3, TinyLlama). Not
-ported yet: the shard-aware streamed load (ROADMAP R7) and the OPT, qwen
-and MoE tensors (ROADMAP R3); each raises NotImplementedError.
+Covered: every family ``config_from_hf`` reads: llama-class (Llama 1/2/3,
+TinyLlama), Qwen2/2.5 (q/k/v biases), Qwen3 (qk norms, tied embeddings),
+Mixtral (router and per-expert weights stacked ``[L, E, in, out]``) and
+OPT (its own tensor names). Not ported yet: the shard-aware streamed load
+(ROADMAP R7), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,15 +48,14 @@ _DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "BF16": "<i2",
 
 
 def config_from_hf(path: str, name: Optional[str] = None) -> ModelConfig:
-    """A ModelConfig from a local HF checkpoint's config.json (llama, qwen2,
-    qwen3 and mixtral architectures; the model then says which of their
-    features it serves)."""
+    """A ModelConfig from a local HF checkpoint's config.json: llama, qwen2,
+    qwen3, mixtral and OPT architectures, no preset needed."""
     with open(os.path.join(path, "config.json")) as f:
         hf = json.load(f)
     arch = (hf.get("architectures") or ["LlamaForCausalLM"])[0]
+    name = name or os.path.basename(os.path.normpath(path))
     if arch == "OPTForCausalLM":
-        raise NotImplementedError("OPT checkpoints are not ported yet "
-                                  "(ROADMAP R3)")
+        return _opt_config_from_hf(hf, name)
     num_heads = hf["num_attention_heads"]
     head_dim = hf.get("head_dim") or hf["hidden_size"] // num_heads
     rope_scaling = None
@@ -67,7 +68,7 @@ def config_from_hf(path: str, name: Optional[str] = None) -> ModelConfig:
         scaled_inv_freq(head_dim, float(hf.get("rope_theta", 10000.0)), raw)
         rope_scaling = tuple(sorted(raw.items()))
     return ModelConfig(
-        name=name or os.path.basename(os.path.normpath(path)),
+        name=name,
         vocab_size=hf["vocab_size"],
         hidden_size=hf["hidden_size"],
         intermediate_size=hf["intermediate_size"],
@@ -85,6 +86,47 @@ def config_from_hf(path: str, name: Optional[str] = None) -> ModelConfig:
         num_experts=hf.get("num_local_experts", 0),
         num_experts_per_tok=hf.get("num_experts_per_tok", 2),
         max_model_len=min(int(hf.get("max_position_embeddings", 4096)), 8192),
+    )
+
+
+def _validate_act(act: str) -> str:
+    """Fail the load on an activation the model has no function for."""
+    if act not in model_lib.MLP_ACTS:
+        raise ValueError(f"unsupported activation_function {act!r}; "
+                         f"supported: {sorted(model_lib.MLP_ACTS)}")
+    return act
+
+
+def _opt_config_from_hf(hf: dict, name: str) -> ModelConfig:
+    """OPT (the reference's minimal-example model, facebook/opt-125m):
+    learned positions (+2 offset), pre-LN LayerNorm with biases, a biased
+    fc1/act/fc2 MLP, a tied head, MHA."""
+    h = hf["hidden_size"]
+    num_heads = hf["num_attention_heads"]
+    if hf.get("word_embed_proj_dim", h) != h:
+        raise ValueError("OPT word_embed_proj_dim != hidden_size (projected "
+                         "embeddings) is not supported")
+    if not hf.get("do_layer_norm_before", True):
+        raise ValueError("OPT post-LN variants (do_layer_norm_before=false, "
+                         "e.g. opt-350m) are not supported")
+    bias = bool(hf.get("enable_bias", True))
+    return ModelConfig(
+        name=name,
+        vocab_size=hf["vocab_size"],
+        hidden_size=h,
+        intermediate_size=hf["ffn_dim"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=num_heads,
+        num_kv_heads=num_heads,
+        head_dim=h // num_heads,
+        tie_word_embeddings=bool(hf.get("tie_word_embeddings", True)),
+        attention_bias=bias,
+        norm_type="layernorm",
+        pos_embedding="learned",
+        mlp_type="mlp",
+        mlp_act=_validate_act(hf.get("activation_function", "relu")),
+        linear_bias=bias,
+        max_model_len=min(int(hf.get("max_position_embeddings", 2048)), 8192),
     )
 
 
@@ -137,27 +179,11 @@ class _Checkpoint:
         return self.get(key).T.contiguous()
 
 
-def load_weights(path: str, cfg: ModelConfig,
-                 device: torch.device | str = "cuda",
-                 dtype: Optional[torch.dtype] = None,
-                 shardings: Optional[Any] = None) -> Params:
-    """Load a local HF llama-class checkpoint into the stacked-layer params
-    of ``models/llama.py`` on ``device`` (the card unless the caller asks
-    for the CPU). With ``cfg.quantization`` the matmul weights and
-    ``lm_head`` are quantized on the host before upload, bit-identically to
-    the JAX package's load."""
-    if shardings is not None:
-        raise NotImplementedError("the shard-aware streamed load is not "
-                                  "ported yet (ROADMAP R7)")
-    model_lib.check_supported(cfg)
-    device = resolve_device(device)
-    ckpt = _Checkpoint(path)
-    dtype = dtype or cfg.torch_dtype
-    L = cfg.num_layers
-    pre = "model.layers.{}."
-
+def _stacker(ckpt: _Checkpoint, L: int, pre: str):
+    """``stack(suffix, transpose=True)``: the ``[L, ...]`` tensor of the
+    per-layer tensors ``pre.format(layer) + suffix``, holding one extra
+    layer; ``[out, in]`` matrices come out as ``[in, out]``."""
     def stack(suffix: str, transpose: bool = True) -> torch.Tensor:
-        """[L, ...] from the per-layer tensors, holding one extra layer."""
         read = ckpt.get_t if transpose else ckpt.get
         first = read(pre.format(0) + suffix)
         out = torch.empty((L,) + tuple(first.shape), dtype=first.dtype)
@@ -165,7 +191,30 @@ def load_weights(path: str, cfg: ModelConfig,
         for layer in range(1, L):
             out[layer] = read(pre.format(layer) + suffix)
         return out
+    return stack
 
+
+def load_weights(path: str, cfg: ModelConfig,
+                 device: torch.device | str = "cuda",
+                 dtype: Optional[torch.dtype] = None,
+                 shardings: Optional[Any] = None) -> Params:
+    """Load a local HF checkpoint into the stacked-layer params of
+    ``models/llama.py`` on ``device`` (the card unless the caller asks for
+    the CPU). With ``cfg.quantization`` the matmul weights (experts
+    included) and ``lm_head`` are quantized on the host before upload,
+    bit-identically to the JAX package's load."""
+    if shardings is not None:
+        raise NotImplementedError("the shard-aware streamed load is not "
+                                  "ported yet (ROADMAP R7)")
+    model_lib.check_supported(cfg)
+    device = resolve_device(device)
+    ckpt = _Checkpoint(path)
+    dtype = dtype or cfg.torch_dtype
+    if cfg.pos_embedding == "learned":
+        return _place(_load_opt_host(ckpt, cfg), cfg, dtype, device)
+    L = cfg.num_layers
+    pre = "model.layers.{}."
+    stack = _stacker(ckpt, L, pre)
     layers = {
         "input_norm": stack("input_layernorm.weight", transpose=False),
         "post_attn_norm": stack("post_attention_layernorm.weight",
@@ -174,20 +223,91 @@ def load_weights(path: str, cfg: ModelConfig,
         "wk": stack("self_attn.k_proj.weight"),
         "wv": stack("self_attn.v_proj.weight"),
         "wo": stack("self_attn.o_proj.weight"),
-        "w_gate": stack("mlp.gate_proj.weight"),
-        "w_up": stack("mlp.up_proj.weight"),
-        "w_down": stack("mlp.down_proj.weight"),
     }
+    if cfg.attention_bias:
+        for ours, theirs in (("bq", "q_proj"), ("bk", "k_proj"),
+                             ("bv", "v_proj")):
+            layers[ours] = stack(f"self_attn.{theirs}.bias", transpose=False)
+    if cfg.qk_norm:
+        layers["q_norm"] = stack("self_attn.q_norm.weight", transpose=False)
+        layers["k_norm"] = stack("self_attn.k_norm.weight", transpose=False)
+    if cfg.is_moe:
+        layers["router"] = stack("block_sparse_moe.gate.weight")
+        for ours, theirs in (("w_gate", "w1"), ("w_up", "w3"),
+                             ("w_down", "w2")):
+            layers[ours] = _stack_experts(ckpt, cfg, pre, theirs)
+    else:
+        layers["w_gate"] = stack("mlp.gate_proj.weight")
+        layers["w_up"] = stack("mlp.up_proj.weight")
+        layers["w_down"] = stack("mlp.down_proj.weight")
     params: Params = {
         "embed": ckpt.get("model.embed_tokens.weight"),
         "final_norm": ckpt.get("model.norm.weight"),
         "layers": layers,
     }
+    _head(ckpt, cfg, params)
+    return _place(params, cfg, dtype, device)
+
+
+def _stack_experts(ckpt: _Checkpoint, cfg: ModelConfig, pre: str,
+                   w_name: str) -> torch.Tensor:
+    """Mixtral's ``block_sparse_moe.experts.{e}.{w_name}`` of every layer
+    as one ``[L, E, in, out]`` tensor."""
+    L, E = cfg.num_layers, cfg.num_experts
+    key = pre + "block_sparse_moe.experts.{}." + w_name + ".weight"
+    first = ckpt.get_t(key.format(0, 0))
+    out = torch.empty((L, E) + tuple(first.shape), dtype=first.dtype)
+    for layer in range(L):
+        for e in range(E):
+            out[layer, e] = ckpt.get_t(key.format(layer, e))
+    return out
+
+
+def _head(ckpt: _Checkpoint, cfg: ModelConfig, params: Params) -> None:
+    """``lm_head`` unless the config ties it to the embedding; a checkpoint
+    without one ties it although its config does not say so."""
+    if cfg.tie_word_embeddings:
+        return
     if "lm_head.weight" in ckpt:
         params["lm_head"] = ckpt.get_t("lm_head.weight")
-    else:   # the checkpoint ties although its config does not say so
+    else:
         params["lm_head"] = params["embed"].T.contiguous()
-    return _place(params, cfg, dtype, device)
+
+
+def _load_opt_host(ckpt: _Checkpoint, cfg: ModelConfig) -> Params:
+    """An HF OPTForCausalLM checkpoint -> the model's params (host). The
+    per-layer pre-MLP norm is ``final_layer_norm`` inside each layer,
+    distinct from the decoder's ``model.decoder.final_layer_norm``."""
+    stack = _stacker(ckpt, cfg.num_layers, "model.decoder.layers.{}.")
+    layers = {
+        "input_norm": stack("self_attn_layer_norm.weight", transpose=False),
+        "input_norm_b": stack("self_attn_layer_norm.bias", transpose=False),
+        "post_attn_norm": stack("final_layer_norm.weight", transpose=False),
+        "post_attn_norm_b": stack("final_layer_norm.bias", transpose=False),
+        "wq": stack("self_attn.q_proj.weight"),
+        "wk": stack("self_attn.k_proj.weight"),
+        "wv": stack("self_attn.v_proj.weight"),
+        "wo": stack("self_attn.out_proj.weight"),
+        "w_up": stack("fc1.weight"),
+        "w_down": stack("fc2.weight"),
+    }
+    if cfg.attention_bias:
+        for ours, theirs in (("bq", "q_proj"), ("bk", "k_proj"),
+                             ("bv", "v_proj")):
+            layers[ours] = stack(f"self_attn.{theirs}.bias", transpose=False)
+    if cfg.linear_bias:
+        layers["bo"] = stack("self_attn.out_proj.bias", transpose=False)
+        layers["b_up"] = stack("fc1.bias", transpose=False)
+        layers["b_down"] = stack("fc2.bias", transpose=False)
+    params: Params = {
+        "embed": ckpt.get("model.decoder.embed_tokens.weight"),
+        "pos_embed": ckpt.get("model.decoder.embed_positions.weight"),
+        "final_norm": ckpt.get("model.decoder.final_layer_norm.weight"),
+        "final_norm_b": ckpt.get("model.decoder.final_layer_norm.bias"),
+        "layers": layers,
+    }
+    _head(ckpt, cfg, params)
+    return params
 
 
 def _place(params: Params, cfg: ModelConfig, dtype: torch.dtype,

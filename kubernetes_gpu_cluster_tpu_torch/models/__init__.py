@@ -1,1 +1,2 @@
-"""Model forward passes (llama-class dense)."""
+"""Model forward passes: llama-class dense and mixtral-class MoE, and the
+model registry."""

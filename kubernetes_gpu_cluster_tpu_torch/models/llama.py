@@ -1,7 +1,12 @@
-"""Decoder-only llama-class dense transformer for serving, in PyTorch.
+"""Decoder-only transformer for serving, in PyTorch: llama-class dense and
+mixtral-class MoE.
 
 The JAX package's ``models/llama.py`` with the same parameter layout and the
-same step contract:
+same step contract. One config-driven implementation serves every family of
+``config/model_config.py``: Llama 1/2/3 and TinyLlama, Qwen2/2.5 (q/k/v
+bias), Qwen3 (per-head qk-norm, tied embeddings), OPT (LayerNorm with bias,
+learned positions, a biased fc1/act/fc2 MLP, tied embeddings) and Mixtral
+(sparse MoE, dense dispatch).
 
 - Plain functions over a params dict whose per-layer weights are STACKED
   with a leading ``[L, ...]`` axis (the JAX pytree layout, so
@@ -20,14 +25,11 @@ same step contract:
 - Weight-only quantization (``ModelConfig.quantization`` "int8" / "int4",
   ``ops/quant.py``) is consumed by ``_dot`` alone.
 - Only the hidden states that feed sampling are projected to logits.
-
-Not ported yet (each raises NotImplementedError, see ``check_supported``):
-MoE, OPT's layernorm / learned positions / plain MLP, and qwen's attention
-bias, qk-norm and tied embeddings.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import TYPE_CHECKING, Any, NamedTuple, Optional
 
 import numpy as np
@@ -79,50 +81,79 @@ class MixedMeta(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for model features the port lacks, and
-    ValueError for an unknown quantization method."""
+    """Raise ValueError for an unknown quantization method or MLP
+    activation. Every model family of ``config/model_config.py`` is
+    served."""
     if cfg.quantization is not None and \
             cfg.quantization not in quant_ops.QUANT_METHODS:
         raise ValueError(f"unsupported quantization {cfg.quantization!r} "
                          f"(one of {quant_ops.QUANT_METHODS})")
-    missing = []
-    if cfg.is_moe:
-        missing.append("MoE (ROADMAP R3)")
-    if cfg.norm_type != "rmsnorm":
-        missing.append(f"norm_type={cfg.norm_type!r} (ROADMAP R3)")
-    if cfg.pos_embedding != "rope":
-        missing.append(f"pos_embedding={cfg.pos_embedding!r} (ROADMAP R3)")
-    if cfg.mlp_type != "swiglu":
-        missing.append(f"mlp_type={cfg.mlp_type!r} (ROADMAP R3)")
-    if cfg.linear_bias:
-        missing.append("linear_bias (ROADMAP R3)")
-    if cfg.attention_bias:
-        missing.append("attention_bias (ROADMAP R3)")
-    if cfg.qk_norm:
-        missing.append("qk_norm (ROADMAP R3)")
-    if cfg.tie_word_embeddings:
-        missing.append("tie_word_embeddings (ROADMAP R3)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet: " + ", ".join(missing))
+    if cfg.mlp_type == "mlp" and cfg.mlp_act not in MLP_ACTS:
+        raise ValueError(f"unsupported activation {cfg.mlp_act!r} "
+                         f"(one of {sorted(MLP_ACTS)})")
 
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
 
-def _shapes(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], int]]:
-    """name -> (logical shape, fan_in) of every layer weight (0 = ones)."""
+# Initial value of a non-matmul weight: norm weights are ones, biases zeros
+# (as the JAX package's init); a matmul weight's init is its fan-in.
+ONES, ZEROS = "ones", "zeros"
+
+
+def _shapes(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], Any]]:
+    """name -> (logical shape, init) of every layer weight: ONES, ZEROS, or
+    the fan-in of an N(0, 1/fan_in) matmul weight. The key set is the JAX
+    package's for the same config."""
     d, L = cfg.hidden_size, cfg.num_layers
     nh, nkv, hd, ff = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                        cfg.intermediate_size)
-    return {
-        "input_norm": ((L, d), 0), "post_attn_norm": ((L, d), 0),
+    out = {
+        "input_norm": ((L, d), ONES), "post_attn_norm": ((L, d), ONES),
         "wq": ((L, d, nh * hd), d), "wk": ((L, d, nkv * hd), d),
         "wv": ((L, d, nkv * hd), d), "wo": ((L, nh * hd, d), nh * hd),
-        "w_gate": ((L, d, ff), d), "w_up": ((L, d, ff), d),
-        "w_down": ((L, ff, d), ff),
     }
+    if cfg.attention_bias:
+        out.update(bq=((L, nh * hd), ZEROS), bk=((L, nkv * hd), ZEROS),
+                   bv=((L, nkv * hd), ZEROS))
+    if cfg.qk_norm:
+        out.update(q_norm=((L, hd), ONES), k_norm=((L, hd), ONES))
+    if cfg.is_moe:
+        E = cfg.num_experts
+        out.update(router=((L, d, E), d), w_gate=((L, E, d, ff), d),
+                   w_up=((L, E, d, ff), d), w_down=((L, E, ff, d), ff))
+    else:
+        if cfg.mlp_type != "mlp":
+            out["w_gate"] = ((L, d, ff), d)
+        out.update(w_up=((L, d, ff), d), w_down=((L, ff, d), ff))
+    if cfg.norm_type == "layernorm":
+        out.update(input_norm_b=((L, d), ZEROS),
+                   post_attn_norm_b=((L, d), ZEROS))
+    if cfg.linear_bias:
+        out.update(bo=((L, d), ZEROS), b_up=((L, ff), ZEROS),
+                   b_down=((L, d), ZEROS))
+    return out
+
+
+def _top_shapes(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], Any]]:
+    """The top-level weights as ``_shapes``: no ``lm_head`` when the
+    embedding is tied, OPT's learned positions (with HF's +2 offset rows)
+    and LayerNorm bias when the config has them."""
+    d, V = cfg.hidden_size, cfg.vocab_size
+    out = {"embed": ((V, d), d), "final_norm": ((d,), ONES)}
+    if cfg.norm_type == "layernorm":
+        out["final_norm_b"] = ((d,), ZEROS)
+    if cfg.pos_embedding == "learned":
+        out["pos_embed"] = ((cfg.max_model_len + 2, d), d)
+    if not cfg.tie_word_embeddings:
+        out["lm_head"] = ((d, V), d)
+    return out
+
+
+def _quantized(cfg: ModelConfig, name: str) -> bool:
+    return cfg.quantization is not None and (
+        name in quant_ops.QUANT_LAYER_KEYS or name == "lm_head")
 
 
 def _quant_shapes(cfg: ModelConfig, shape: tuple[int, ...]):
@@ -143,31 +174,28 @@ def param_layouts(cfg: ModelConfig) -> tuple[dict, dict]:
     """(layer params, top-level params): name -> (stored shape, kind) with
     kind "float" (the model dtype), "int8" (quantized codes) or "scale"
     (f32)."""
-    def add(out, name, shape, quantized):
-        if quantized:
-            wshape, sshape = _quant_shapes(cfg, shape)
-            out[name] = (wshape, "int8")
-            out[name + "_scale"] = (sshape, "scale")
-        else:
-            out[name] = (shape, "float")
+    def layout(shapes):
+        out: dict = {}
+        for name, (shape, _) in shapes.items():
+            if _quantized(cfg, name):
+                wshape, sshape = _quant_shapes(cfg, shape)
+                out[name] = (wshape, "int8")
+                out[name + "_scale"] = (sshape, "scale")
+            else:
+                out[name] = (shape, "float")
+        return out
 
-    q = cfg.quantization is not None
-    d, V = cfg.hidden_size, cfg.vocab_size
-    layers: dict = {}
-    for name, (shape, _) in _shapes(cfg).items():
-        add(layers, name, shape, q and name in quant_ops.QUANT_LAYER_KEYS)
-    top = {"embed": ((V, d), "float"), "final_norm": ((d,), "float")}
-    add(top, "lm_head", (d, V), q)
-    return layers, top
+    return layout(_shapes(cfg)), layout(_top_shapes(cfg))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str,
                 dtype: Optional[torch.dtype] = None) -> Params:
     """Random-init params on ``device`` from ``generator`` (which must live
-    on that device): N(0, 1/fan_in) matmul weights, unit norms. Layout:
-    stacked [L, ...] per-layer tensors + embed/final_norm/lm_head, as in
-    the JAX package.
+    on that device): N(0, 1/fan_in) matmul weights and embeddings, unit
+    norm weights, zero biases. Layout: stacked [L, ...] per-layer tensors
+    (``[L, E, ...]`` for MoE experts) + the top-level weights, as in the
+    JAX package.
 
     With ``cfg.quantization`` the matmul weights and ``lm_head`` are drawn
     directly in their quantized layout, never through a float copy (a
@@ -175,16 +203,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     random int8 codes, or for int4 uniform packed bytes (two uniform
     [-8, 7] nibbles each), with a constant scale that gives the dequantized
     weights the dense init's magnitude class (std ~0.57 and ~0.66 of
-    fan_in^-0.5), as the JAX package's ``_init_params_quant`` does.
-    Checkpoints quantize at load (``engine/weights.py``)."""
+    fan_in^-0.5), as the JAX package's ``_init_params_quant`` does. The
+    MoE router stays in the model dtype. Checkpoints quantize at load
+    (``engine/weights.py``)."""
     check_supported(cfg)
     dtype = dtype or cfg.torch_dtype
 
-    def w(shape, fan_in):
-        if fan_in == 0:
+    def w(shape, init):
+        if init == ONES:
             return torch.ones(shape, dtype=dtype, device=device)
+        if init == ZEROS:
+            return torch.zeros(shape, dtype=dtype, device=device)
         return torch.randn(shape, generator=generator, dtype=dtype,
-                           device=device).mul_(fan_in ** -0.5)
+                           device=device).mul_(init ** -0.5)
 
     def wq(shape, fan_in):
         wshape, sshape = _quant_shapes(cfg, shape)
@@ -194,21 +225,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return codes, torch.full(sshape, fan_in ** -0.5 / top,
                                  dtype=torch.float32, device=device)
 
-    layers = {}
-    for name, (shape, fan) in _shapes(cfg).items():
-        if cfg.quantization and name in quant_ops.QUANT_LAYER_KEYS:
-            layers[name], layers[name + "_scale"] = wq(shape, fan)
-        else:
-            layers[name] = w(shape, fan)
-    d = cfg.hidden_size
-    params = {"layers": layers, "embed": w((cfg.vocab_size, d), d),
-              "final_norm": w((d,), 0)}
-    if cfg.quantization:
-        params["lm_head"], params["lm_head_scale"] = wq((d, cfg.vocab_size),
-                                                        d)
-    else:
-        params["lm_head"] = w((d, cfg.vocab_size), d)
-    return params
+    def draw(shapes):
+        out = {}
+        for name, (shape, init) in shapes.items():
+            if _quantized(cfg, name):
+                out[name], out[name + "_scale"] = wq(shape, init)
+            else:
+                out[name] = w(shape, init)
+        return out
+
+    return {"layers": draw(_shapes(cfg)), **draw(_top_shapes(cfg))}
 
 
 def params_from_numpy(np_params: Params, cfg: ModelConfig,
@@ -252,13 +278,43 @@ def params_from_numpy(np_params: Params, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """Normalise over the last axis in fp32, cast to x's dtype, then scale
+    in x's dtype (the JAX order; also the per-head qk-norm of
+    ``[T, heads, hd]``)."""
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
 
-def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.to(torch.int64)]
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm in the JAX package's rounding order: normalise in fp32,
+    cast to x's dtype, then ``* weight + bias`` in x's dtype
+    (``F.layer_norm`` applies the affine in fp32 and rounds once, other
+    bits at bf16)."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) * (xf - mu), dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * weight + bias
+
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, store: Params,
+          name: str) -> torch.Tensor:
+    """RMSNorm, or OPT's LayerNorm with its bias stored as ``<name>_b``."""
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, store[name], store[name + "_b"],
+                          cfg.rms_norm_eps)
+    return rms_norm(x, store[name], cfg.rms_norm_eps)
+
+
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    """Token embedding, plus OPT's learned position embedding (HF keeps a
+    +2 offset into its table)."""
+    h = params["embed"][tokens.to(torch.int64)]
+    if cfg.pos_embedding == "learned":
+        h = h + params["pos_embed"][positions.to(torch.int64) + 2]
+    return h
 
 
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -290,48 +346,109 @@ def _dot(x: torch.Tensor, lp: Params, name: str) -> torch.Tensor:
     return _mm_f32(x, w)
 
 
-def _qkv(lp: Params, cfg: ModelConfig, x: torch.Tensor, cos: torch.Tensor,
-         sin: torch.Tensor):
-    """Project + RoPE. x: [T, d] -> q [T, nh, hd], k/v [T, nkv, hd] in x's
-    dtype (the fp32 projections are cast down before RoPE, as in JAX)."""
+def _qkv(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+         rope: Optional[tuple[torch.Tensor, torch.Tensor]]):
+    """Project (+ qwen2's bias on the fp32 projection), cast to x's dtype,
+    per-head RMSNorm of q and k (qwen3), then RoPE from ``rope`` = (cos,
+    sin) unless the positions are learned. x: [T, d] -> q [T, nh, hd],
+    k/v [T, nkv, hd] in x's dtype."""
     T, hd = x.shape[0], cfg.head_dim
-    q = _dot(x, lp, "wq").to(x.dtype).reshape(T, -1, hd)
-    k = _dot(x, lp, "wk").to(x.dtype).reshape(T, -1, hd)
-    v = _dot(x, lp, "wv").to(x.dtype).reshape(T, -1, hd)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    out = []
+    for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
+        y = _dot(x, lp, w)
+        if cfg.attention_bias:
+            y = y + lp[b]
+        out.append(y.to(x.dtype).reshape(T, -1, hd))
+    q, k, v = out
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
+    if rope is not None:
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    return q, k, v
 
 
-def _dense_mlp(lp: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: silu(x @ w_gate) * (x @ w_up) in fp32, cast to x's dtype,
-    then @ w_down, cast to x's dtype."""
+# HF's ACT2FN names. "gelu" is the exact erf GELU (the tanh approximation
+# drifts ~1e-3 per layer from HF), "gelu_new" HF's tanh variant.
+MLP_ACTS = {"relu": F.relu,
+            "gelu": functools.partial(F.gelu, approximate="none"),
+            "gelu_new": functools.partial(F.gelu, approximate="tanh"),
+            "silu": F.silu}
+
+
+def _swiglu(lp: Params, x: torch.Tensor) -> torch.Tensor:
+    """silu(x @ w_gate) * (x @ w_up) in fp32, cast to x's dtype, then
+    @ w_down: the fp32 result."""
     h = (F.silu(_dot(x, lp, "w_gate")) * _dot(x, lp, "w_up")).to(x.dtype)
-    return _dot(h, lp, "w_down").to(x.dtype)
+    return _dot(h, lp, "w_down")
 
 
-def _layer_loop(params: Params, cfg: ModelConfig, h: torch.Tensor,
+def _dense_mlp(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU cast to x's dtype, or with ``mlp_type="mlp"`` OPT's fc1 (+
+    bias), activation, cast, fc2 (+ bias), cast."""
+    if cfg.mlp_type == "mlp":
+        h = _dot(x, lp, "w_up")
+        if "b_up" in lp:
+            h = h + lp["b_up"]
+        out = _dot(MLP_ACTS[cfg.mlp_act](h).to(x.dtype), lp, "w_down")
+        if "b_down" in lp:
+            out = out + lp["b_down"]
+        return out.to(x.dtype)
+    return _swiglu(lp, x).to(x.dtype)
+
+
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down",
+                "w_gate_scale", "w_up_scale", "w_down_scale")
+
+
+def _moe_mlp(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Mixtral's sparse MoE, dense-dispatch as in the JAX package: an fp32
+    router, top-k, a softmax over the k logits, [T, E] combine weights
+    (zero for experts a token did not choose); every expert runs over all
+    T tokens through ``_dot`` on its own contiguous 2-D weight slices (an
+    int4 expert goes to the int4 kernel), and the outputs combine in fp32
+    before the one cast."""
+    k = cfg.num_experts_per_tok
+    logits = _mm_f32(x.to(torch.float32), lp["router"])           # [T, E]
+    top_vals, top_idx = torch.topk(logits, k, dim=-1)
+    combine = torch.zeros_like(logits).scatter_(
+        1, top_idx, torch.softmax(top_vals, dim=-1))
+    out = torch.zeros((x.shape[0], x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for e in range(lp["w_up"].shape[0]):
+        ep = {name: lp[name][e] for name in _EXPERT_KEYS if name in lp}
+        out += combine[:, e, None] * _swiglu(ep, x)
+    return out.to(x.dtype)
+
+
+def _layer_loop(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, attn_fn):
-    """Run every layer. ``attn_fn(q, k, v, layer) -> [T, nh, hd]`` sees a
-    pool holding tokens written in PREVIOUS steps only (this step's k/v
-    fold in directly). Returns (h, k_all, v_all) with k_all/v_all
-    [L, T, n_kv*hd], for the caller's one post-loop scatter."""
+    """Embed ``tokens`` and run every layer. ``attn_fn(q, k, v, layer) ->
+    [T, nh, hd]`` sees a pool holding tokens written in PREVIOUS steps only
+    (this step's k/v fold in directly). Returns (h, k_all, v_all) with
+    k_all/v_all [L, T, n_kv*hd], for the caller's one post-loop scatter."""
+    h = _embed(params, cfg, tokens, positions)
     layers = params["layers"]
     L = layers["wq"].shape[0]
     T = h.shape[0]
     kd = cfg.num_kv_heads * cfg.head_dim
     k_all = torch.empty((L, T, kd), dtype=h.dtype, device=h.device)
     v_all = torch.empty_like(k_all)
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+    rope = None
+    if cfg.pos_embedding == "rope":                 # once for all layers
+        rope = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             scaling=cfg.rope_scaling_dict)
-    eps = cfg.rms_norm_eps
+    mlp = _moe_mlp if cfg.is_moe else _dense_mlp
     for layer in range(L):
         lp = {name: t[layer] for name, t in layers.items()}
-        x = rms_norm(h, lp["input_norm"], eps)
-        q, k, v = _qkv(lp, cfg, x, cos, sin)
+        q, k, v = _qkv(lp, cfg, _norm(cfg, h, lp, "input_norm"), rope)
         k_all[layer] = k.reshape(T, kd)
         v_all[layer] = v.reshape(T, kd)
-        attn = attn_fn(q, k, v, layer).reshape(T, -1)
-        h = h + _dot(attn, lp, "wo").to(h.dtype)
-        h = h + _dense_mlp(lp, rms_norm(h, lp["post_attn_norm"], eps))
+        o = _dot(attn_fn(q, k, v, layer).reshape(T, -1), lp, "wo")
+        if "bo" in lp:
+            o = o + lp["bo"]
+        h = h + o.to(h.dtype)
+        h = h + mlp(lp, cfg, _norm(cfg, h, lp, "post_attn_norm"))
     return h, k_all, v_all
 
 
@@ -340,7 +457,7 @@ def _finish(params: Params, cfg: ModelConfig, h: torch.Tensor, kv: KVCache,
     write_kv_pages_all(kv.k, kv.v, k_all, v_all, slot_mapping)
     selected = h if logits_indices is None else \
         h[logits_indices.to(torch.int64)]
-    return rms_norm(selected, params["final_norm"], cfg.rms_norm_eps), kv, h
+    return _norm(cfg, selected, params, "final_norm"), kv, h
 
 
 # ---------------------------------------------------------------------------
@@ -359,8 +476,8 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         return ragged_prefill_attention(q, k, v, meta.seg_ids, meta.positions,
                                         scale, window)
 
-    h, k_all, v_all = _layer_loop(params, cfg, _embed(params, tokens),
-                                  meta.positions, attn_fn)
+    h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
+                                  attn_fn)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping,
                    meta.logits_indices)
 
@@ -378,8 +495,8 @@ def forward_prefill_hist(params: Params, cfg: ModelConfig,
             q, k, v, meta.seg_ids, meta.positions, kv.k, kv.v, page_table,
             hist_len, scale, layer=layer, n_valid=n_valid)
 
-    h, k_all, v_all = _layer_loop(params, cfg, _embed(params, tokens),
-                                  meta.positions, attn_fn)
+    h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
+                                  attn_fn)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping,
                    meta.logits_indices)
 
@@ -403,8 +520,8 @@ def forward_mixed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             meta.context_lens, scale, n_prefill=n_prefill, layer=layer,
             n_valid=n_valid)
 
-    h, k_all, v_all = _layer_loop(params, cfg, _embed(params, tokens),
-                                  meta.positions, attn_fn)
+    h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
+                                  attn_fn)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping,
                    meta.logits_indices)
 
@@ -421,13 +538,16 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                       meta.context_lens, k, v, scale,
                                       layer=layer)
 
-    h, k_all, v_all = _layer_loop(params, cfg, _embed(params, tokens),
-                                  meta.positions, attn_fn)
+    h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
+                                  attn_fn)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping, None)
 
 
 def compute_logits(params: Params, cfg: ModelConfig,
                    hidden: torch.Tensor) -> torch.Tensor:
     """hidden [B, d] -> logits [B, V] in fp32, never rounded to the model
-    dtype on the way."""
+    dtype on the way. A tied head multiplies by the model-dtype embedding
+    (never quantized: there is no ``lm_head``)."""
+    if cfg.tie_word_embeddings:
+        return _mm_f32(hidden, params["embed"].T)
     return _dot(hidden, params, "lm_head")

@@ -29,7 +29,9 @@ from typing import Any
 import numpy as np
 import torch
 
-# The big streamed matmul weights. Norms and embeddings stay high-precision.
+# The big streamed matmul weights (MoE experts ``[L, E, in, out]`` too: the
+# formulas act on the last two axes). Norms, biases, embeddings and the MoE
+# router stay high-precision.
 QUANT_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 QUANT_METHODS = ("int8", "int4")

@@ -7,6 +7,9 @@ page pool small enough to force recompute preemptions. Greedy outputs must
 be token-for-token identical (tolerance: none — both sides compute fp32
 logits that agree to ~1e-6, far from any argmax tie on these weights).
 Mixed batching on and off must give identical outputs, greedy and seeded.
+The same greedy workload runs on every model family of
+``tests/test_torch_model.py``'s ``VARIANTS`` (random biases and norm
+weights) against the JAX engine on the same weights.
 
 Also here: the no-device default raises, the port imports neither JAX nor
 the JAX package, and the port's flight recorder snapshots on a freshly
@@ -40,6 +43,8 @@ from kubernetes_gpu_cluster_tpu_torch.observability.flightrecorder import \
     FlightRecorder
 from kubernetes_gpu_cluster_tpu_torch.serving.async_engine import \
     AsyncLLMEngine
+from test_torch_model import (VARIANTS, both_packages, variant_cfgs,
+                              variant_params)
 
 torch.set_num_threads(2)
 
@@ -122,6 +127,31 @@ def test_greedy_generate_matches_jax_engine(weights, jax_greedy):
     assert engine.scheduler.num_preemptions > 0
     # Every page returned to the pool (page 0 is scrap).
     assert engine.scheduler.allocator.num_free == CACHE["num_pages"] - 1
+
+
+# One prefill and one decode bucket: the JAX engine compiles five programs
+# per model, not a dozen.
+VSCHED = dict(SCHED, decode_buckets=(4,), prefill_buckets=(64,))
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_variant_greedy_generate_matches_jax_engine(name):
+    """Each model family through chunked prefill, mixed steps, decode
+    windows and preemption: token-identical to the JAX engine."""
+    jcfg, tcfg = variant_cfgs(name)
+    jp, tp = both_packages(jcfg, tcfg, variant_params(jcfg, 3))
+    sp = dict(max_tokens=MAX_TOKENS, temperature=0.0)
+    jeng = JaxEngine(JEngineConfig(model=jcfg, cache=JCache(**CACHE),
+                                   scheduler=JSched(**VSCHED)), params=jp)
+    want = [o.output_token_ids for o in jeng.generate(_prompts(),
+                                                      JaxParams(**sp))]
+    engine = LLMEngine(EngineConfig(model=tcfg, cache=CacheConfig(**CACHE),
+                                    scheduler=SchedulerConfig(**VSCHED)),
+                       params=tp, device="cpu")
+    outs, calls = _run(engine, _prompts(), SamplingParams(**sp))
+    assert [o.output_token_ids for o in outs] == want
+    assert all(n > 0 for n in calls.values()), calls
+    assert engine.scheduler.num_preemptions > 0
 
 
 def test_mixed_on_off_identical_greedy_and_seeded(weights, jax_greedy):

@@ -21,6 +21,8 @@ largest output.
 import pytest
 import torch
 
+from kubernetes_gpu_cluster_tpu_torch.config import get_model_config
+from kubernetes_gpu_cluster_tpu_torch.models import llama as M
 from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
 from kubernetes_gpu_cluster_tpu_torch.ops import quant as Q
 from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill as cfp
@@ -54,9 +56,13 @@ def _rn(gen, dtype, device, *shape):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
+# The served families' heads at the engine's page size: qwen2.5-7b (a GQA
+# group of 7, 9 of the decode tile's 16 rows empty), qwen3-14b (g 5) and
+# opt-125m (MHA at hd 64).
+FAMILY_GEOMETRIES = [(28, 4, 128, 16), (40, 8, 128, 16), (12, 12, 64, 16)]
 GEOMETRIES = [  # nh, n_kv, hd, ps
     (8, 2, 64, 16), (32, 8, 128, 16), (12, 1, 128, 8), (16, 16, 64, 128),
-    (8, 4, 128, 32)]
+    (8, 4, 128, 32), *FAMILY_GEOMETRIES]
 
 
 @pytest.mark.gpu
@@ -222,7 +228,7 @@ def test_flash_prefill_padding_only_tiles(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hist_len", [0, 37, 200])
-@pytest.mark.parametrize("nh,n_kv,hd,ps", GEOMETRIES[:3])
+@pytest.mark.parametrize("nh,n_kv,hd,ps", GEOMETRIES[:3] + FAMILY_GEOMETRIES)
 def test_flash_prefill_hist_matches_plain(cuda_device, dtype, hist_len, nh,
                                           n_kv, hd, ps):
     g = torch.Generator(device=cuda_device).manual_seed(3)
@@ -373,6 +379,32 @@ def test_int4_matmul_cut_tiles_deterministic(cuda_device, T, K, N):
                                atol=INT4_RTOL * float(ref.abs().max()))
     for _ in range(3):
         assert torch.equal(c4.int4_matmul(x, wp, scale), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 32, 300])
+def test_moe_int4_experts_through_the_kernel(cuda_device, T):
+    """One mixtral-8x7b MoE block (d 4096, ff 14336, 8 experts, top 2, int4
+    gs 128) through ``_moe_mlp``: each expert's three matmuls launch the
+    kernel on contiguous 2-D slices of the stacked ``[E, ...]`` weights
+    (3 x 8 launches), and the block's bf16 output matches the same block
+    through ``int4_matmul_plain`` (the same routing: the router is bf16,
+    not quantized) within 1% of its largest value, a few bf16 ulps."""
+    cfg = get_model_config("mixtral-8x7b").replace(quantization="int4",
+                                                   num_layers=1)
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    lp = {k: t[0] for k, t in M.init_params(cfg, g, cuda_device)[
+        "layers"].items()}
+    x = _rn(g, torch.bfloat16, cuda_device, T, cfg.hidden_size)
+    before = c4.launches
+    got = M._moe_mlp(lp, cfg, x)
+    assert c4.launches == before + 3 * cfg.num_experts
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Q, "int4_matmul", Q.int4_matmul_plain)
+        ref = M._moe_mlp(lp, cfg, x)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=1e-2 * float(ref.float().abs().max()))
 
 
 @pytest.mark.gpu

@@ -9,6 +9,15 @@ pool. Hidden states, logits and the written pool must agree at fp32 atol
 orders by XLA and by PyTorch drift by ~1e-6 on values of order 1; 1e-4
 leaves room for that while any wrong mask, position, slot or layer index
 moves outputs by O(0.1).
+
+The same checks run on the other model families of the JAX presets, at
+debug widths (``VARIANTS``): qwen2-like (q/k/v bias), qwen3-like (qk-norm,
+tied embeddings, q width 192 != d 128), OPT-like (LayerNorm, learned
+positions, a biased fc1/act/fc2 MLP with relu and with exact gelu, every
+bias, tied embeddings, MHA) and ``debug-moe``. The JAX init sets biases to
+zero and norm weights to one, where a missing term would go unseen, so
+the shared weight set draws them at random (``variant_params``) and
+``test_variant_every_term_moves_the_output`` proves each one counts.
 """
 
 import jax
@@ -20,7 +29,8 @@ import torch
 from kubernetes_gpu_cluster_tpu.config import get_model_config as jax_model
 from kubernetes_gpu_cluster_tpu.engine.kv_cache import KVCache as JKV
 from kubernetes_gpu_cluster_tpu.models import llama as JM
-from kubernetes_gpu_cluster_tpu_torch.config import get_model_config
+from kubernetes_gpu_cluster_tpu_torch.config import (MODEL_PRESETS,
+                                                     get_model_config)
 from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import KVCache as TKV
 from kubernetes_gpu_cluster_tpu_torch.models import llama as TM
 
@@ -38,6 +48,69 @@ def setup():
     jp = JM.init_params(jcfg, jax.random.key(0))
     np_params = jax.tree.map(np.asarray, jp)
     tp = TM.params_from_numpy(np_params, tcfg, "cpu")
+    rng = np.random.default_rng(0)
+    kd = tcfg.num_kv_heads * tcfg.head_dim
+    pool = [rng.standard_normal((tcfg.num_layers, P, PS, kd)).astype(
+        np.float32) for _ in range(2)]
+    return jcfg, tcfg, jp, tp, pool
+
+
+# Model families of the JAX presets at debug widths: (preset, overrides).
+_OPT = dict(num_kv_heads=4, norm_type="layernorm", pos_embedding="learned",
+            mlp_type="mlp", linear_bias=True, attention_bias=True,
+            tie_word_embeddings=True)
+VARIANTS = {
+    "qwen2": ("debug-tiny", dict(attention_bias=True)),
+    "qwen3": ("debug-tiny", dict(qk_norm=True, tie_word_embeddings=True,
+                                 num_heads=6)),
+    "opt-relu": ("debug-tiny", dict(_OPT, mlp_act="relu")),
+    "opt-gelu": ("debug-tiny", dict(_OPT, mlp_act="gelu")),
+    "moe": ("debug-moe", {}),
+}
+# Weights the JAX init sets to zero (biases) or one (norms).
+BIASES = ("bq", "bk", "bv", "bo", "b_up", "b_down", "input_norm_b",
+          "post_attn_norm_b", "final_norm_b")
+NORMS = ("input_norm", "post_attn_norm", "final_norm", "q_norm", "k_norm")
+
+
+def variant_cfgs(name, **overrides):
+    """(JAX config, port config) of a variant."""
+    preset, kw = VARIANTS[name]
+    kw = {**kw, **overrides}
+    return (jax_model(preset).replace(**kw),
+            get_model_config(preset).replace(**kw))
+
+
+def variant_params(jcfg, seed):
+    """The JAX init of ``jcfg`` as numpy, with every bias drawn from
+    N(0, 0.2^2) and every norm weight from N(1, 0.2^2) (fp32 draws, cast
+    to the model dtype by each package)."""
+    np_params = jax.tree.map(np.asarray, JM.init_params(
+        jcfg, jax.random.key(seed)))
+    rng = np.random.default_rng(seed + 100)
+    for store in (np_params["layers"], np_params):
+        for name in BIASES + NORMS:
+            if name in store:
+                noise = 0.2 * rng.standard_normal(store[name].shape)
+                store[name] = (noise + (name in NORMS)).astype(np.float32)
+    return np_params
+
+
+def both_packages(jcfg, tcfg, np_params):
+    """The numpy weight set in each package, float weights in the model
+    dtype (f32 scales and int8 codes as they are)."""
+    def jax_leaf(path, a):
+        if a.dtype == np.float32 and not path[-1].key.endswith("_scale"):
+            return jnp.asarray(a, jcfg.jnp_dtype)
+        return jnp.asarray(a)
+    return (jax.tree_util.tree_map_with_path(jax_leaf, np_params),
+            TM.params_from_numpy(np_params, tcfg, "cpu"))
+
+
+@pytest.fixture(scope="module", params=sorted(VARIANTS))
+def variant(request):
+    jcfg, tcfg = variant_cfgs(request.param)
+    jp, tp = both_packages(jcfg, tcfg, variant_params(jcfg, 0))
     rng = np.random.default_rng(0)
     kd = tcfg.num_kv_heads * tcfg.head_dim
     pool = [rng.standard_normal((tcfg.num_layers, P, PS, kd)).astype(
@@ -70,6 +143,10 @@ def _check(jout, tout, jcfg, tcfg, jp, tp):
 
 
 def test_forward_prefill_matches_jax(setup):
+    _prefill_matches(setup)
+
+
+def _prefill_matches(setup):
     jcfg, tcfg, jp, tp, pool = setup
     lens, T = [10, 17, 8], 40
     rng = np.random.default_rng(1)
@@ -157,6 +234,10 @@ def _decode_inputs():
 
 
 def test_forward_decode_matches_jax(setup):
+    _decode_matches(setup)
+
+
+def _decode_matches(setup):
     jcfg, tcfg, jp, tp, pool = setup
     B, tables, pos, ctx, slots = _decode_inputs()
     tokens = np.array([3, 77, 500, 0], np.int32)
@@ -190,6 +271,10 @@ def _hist_case(vocab, hist_len):
 
 @pytest.mark.parametrize("hist_len", [0, 19])
 def test_forward_prefill_hist_matches_jax(setup, hist_len):
+    _hist_matches(setup, hist_len)
+
+
+def _hist_matches(setup, hist_len):
     jcfg, tcfg, jp, tp, pool = setup
     tokens, seg, pos, slots, last, table = _hist_case(tcfg.vocab_size,
                                                       hist_len)
@@ -235,6 +320,10 @@ def _mixed_case(vocab):
 
 
 def test_forward_mixed_matches_jax(setup):
+    _mixed_matches(setup)
+
+
+def _mixed_matches(setup):
     jcfg, tcfg, jp, tp, pool = setup
     (tokens, seg, pos, slots, logits_idx, chunk_pt, hist_len, tables,
      ctx) = _mixed_case(tcfg.vocab_size)
@@ -329,12 +418,79 @@ def test_init_params_layout_and_seed():
     assert a["embed"].dtype == cfg.torch_dtype
 
 
-@pytest.mark.parametrize("name,feature", [
-    ("qwen3-4b", "qk_norm"), ("opt-125m", "norm_type"),
-    ("mixtral-8x7b", "MoE"), ("qwen2.5-7b", "attention_bias")])
-def test_unported_features_raise(name, feature):
-    with pytest.raises(NotImplementedError, match=feature):
-        TM.check_supported(get_model_config(name))
+@pytest.mark.parametrize("kind", ["prefill", "decode", "hist0", "hist19",
+                                  "mixed"])
+def test_variant_forward_matches_jax(variant, kind):
+    """Every forward and compute_logits of each model family against JAX
+    at fp32 atol 1e-4, with random biases and norm weights."""
+    if kind.startswith("hist"):
+        _hist_matches(variant, int(kind[4:]))
+    else:
+        {"prefill": _prefill_matches, "decode": _decode_matches,
+         "mixed": _mixed_matches}[kind](variant)
+
+
+def test_variant_every_term_moves_the_output(variant):
+    """Setting any randomised bias or norm weight back to the JAX init's
+    value (0 or 1) moves the port's decode logits by far more than the
+    parity tolerance: the parity tests above see every term."""
+    _, tcfg, _, tp, pool = variant
+    B, tables, pos, ctx, slots = _decode_inputs()
+    meta = TM.DecodeMeta(_t(pos), _t(slots), _t(tables), _t(ctx))
+    tokens = _t(np.array([3, 77, 500, 0], np.int32))
+
+    def logits(params):
+        h, _, _ = TM.forward_decode(params, tcfg, tokens, meta,
+                                    _pools(pool)[1])
+        return TM.compute_logits(params, tcfg, h)[:3]
+
+    base = logits(tp)
+    moved = []
+    for top in (False, True):
+        store = tp if top else tp["layers"]
+        for name in BIASES + NORMS:
+            if name not in store:
+                continue
+            edited = {**tp, "layers": dict(tp["layers"])}
+            (edited if top else edited["layers"])[name] = (
+                torch.ones_like if name in NORMS else torch.zeros_like)(
+                    store[name])
+            moved.append((name, float((logits(edited) - base).abs().max())))
+    assert len(moved) >= 3 and all(d > 100 * ATOL for _, d in moved), moved
+
+
+@pytest.mark.parametrize("quantization", [None, "int8", "int4"])
+def test_every_preset_is_served(quantization):
+    """check_supported accepts every preset under every quantization; only
+    an unknown method (or activation) is refused."""
+    for name, cfg in MODEL_PRESETS.items():
+        TM.check_supported(cfg.replace(quantization=quantization))
+    cfg = get_model_config("debug-tiny")
+    with pytest.raises(ValueError, match="quantization"):
+        TM.check_supported(cfg.replace(quantization="fp8"))
+    with pytest.raises(ValueError, match="activation"):
+        TM.check_supported(cfg.replace(mlp_type="mlp", mlp_act="swish"))
+
+
+@pytest.mark.parametrize("quantization", [None, "int8", "int4"])
+def test_param_layouts_match_jax_init(quantization):
+    """For every preset, the port's stored layout (names, shapes, kinds) is
+    the JAX package's init's, so params_from_numpy carries any JAX weight
+    set across (shapes only: ``jax.eval_shape`` allocates nothing)."""
+    for name in MODEL_PRESETS:
+        jcfg = jax_model(name).replace(quantization=quantization)
+        want = jax.eval_shape(lambda: JM.init_params(jcfg,
+                                                     jax.random.key(0)))
+
+        def kinds(tree):
+            return {k: (tuple(a.shape), "int8" if a.dtype == jnp.int8 else
+                        "scale" if k.endswith("_scale") else "float")
+                    for k, a in tree.items() if k != "layers"}
+
+        layers, top = TM.param_layouts(get_model_config(name).replace(
+            quantization=quantization))
+        assert layers == kinds(want["layers"]), name
+        assert top == kinds(want), name
 
 
 @pytest.fixture(scope="module")
@@ -368,7 +524,44 @@ def test_forward_prefill_bf16_matches_jax(bf16_setup):
     once, eager PyTorch after every op): ~1 bf16 ulp (2^-8 relative) here
     and there, carried through two layers. Measured 0.9% of the largest
     logit; the bound is 2%, and the greedy tokens must agree."""
-    jcfg, tcfg, jp, tp = bf16_setup
+    _prefill_bf16_matches(*bf16_setup)
+
+
+@pytest.mark.parametrize("name", ["qwen3", "opt-relu"])
+def test_variant_forward_prefill_bf16_matches_jax(name):
+    """bf16 qk-norm (qwen3) and LayerNorm with learned positions and
+    biases (OPT) through the whole prefill + tied logits, under the bound
+    of the llama bf16 case above."""
+    jcfg, tcfg = variant_cfgs(name, dtype="bfloat16")
+    _prefill_bf16_matches(jcfg, tcfg, *both_packages(jcfg, tcfg,
+                                             variant_params(jcfg, 1)))
+
+
+def test_norms_bf16_bit_identical_to_jax():
+    """LayerNorm and the per-head RMSNorm of qk-norm at bf16 round where
+    JAX rounds (normalise in fp32, cast, then the affine in bf16): the
+    same bits. ``F.layer_norm`` rounds once after an fp32 affine and gives
+    other bits, so the port does not use it."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((64, 128)) * 3 + 0.5
+    w = 1 + 0.2 * rng.standard_normal(128)
+    b = 0.2 * rng.standard_normal(128)
+    j = [jnp.asarray(a, jnp.bfloat16) for a in (x, w, b)]
+    t = [torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+         for a in j]
+    want = np.asarray(JM.layer_norm(*j, 1e-5), np.float32)
+    got = TM.layer_norm(*t, 1e-5)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    fused = torch.nn.functional.layer_norm(t[0], (128,), t[1], t[2], 1e-5)
+    assert not np.array_equal(fused.float().numpy(), want)
+    heads = (j[0].reshape(64, 4, 32), j[1][:32])
+    want = np.asarray(JM.rms_norm(*heads, 1e-6), np.float32)
+    got = TM.rms_norm(t[0].reshape(64, 4, 32), t[1][:32], 1e-6)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def _prefill_bf16_matches(jcfg, tcfg, jp, tp):
     lens, T = [10, 17, 8], 40
     rng = np.random.default_rng(5)
     tokens = rng.integers(0, tcfg.vocab_size, T).astype(np.int32)

@@ -10,6 +10,11 @@ this jax, see ROADMAP C). Tolerances:
   int4 tests (fp32 sums of exact products, different summation order);
 - forward logits: fp32 atol 1e-4, as ``tests/test_torch_model.py``;
 - greedy engine output: token-identical.
+
+``debug-moe`` (4 experts, top 2, random norm weights) runs the same
+checks: its ``[L, E, in, out]`` expert weights quantize bit-identically,
+each expert reaches the int4 matmul as one contiguous 2-D slice per call,
+and its forwards and greedy engine output match JAX at int8 and int4.
 """
 
 import jax
@@ -36,6 +41,7 @@ from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import KVCache as TKV
 from kubernetes_gpu_cluster_tpu_torch.models import llama as TM
 from kubernetes_gpu_cluster_tpu_torch.ops import quant as TQ
 from kubernetes_gpu_cluster_tpu_torch.ops.cuda import int4_matmul as C4
+from test_torch_model import both_packages, variant_cfgs, variant_params
 
 torch.set_num_threads(2)
 
@@ -106,6 +112,34 @@ def test_quantize_params_bit_identical():
             np.testing.assert_array_equal(g.numpy(), w)
     with pytest.raises(ValueError, match="unsupported quantization"):
         TQ.quantize_params({"layers": {}}, "fp8")
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("as_torch", [False, True])
+def test_quantize_params_moe_bit_identical(method, as_torch):
+    """The 4-D expert weights ``[L, E, in, out]`` quantize per expert as
+    the JAX package does, bit for bit; the router and the norms stay
+    float."""
+    jcfg, _ = variant_cfgs("moe")
+    dense = variant_params(jcfg, 4)
+    want = JQ.quantize_params(jax.tree.map(np.copy, dense), method, GS)
+    src = jax.tree.map(_t, dense) if as_torch else jax.tree.map(np.copy,
+                                                                 dense)
+    got = TQ.quantize_params(src, method, GS)
+    assert set(got["layers"]) == set(want["layers"])
+    L, E, d, ff = 2, 4, 128, 256
+    packed = 2 if method == "int4" else 1
+    assert want["layers"]["w_down"].shape == (L, E, ff // packed, d)
+    assert want["layers"]["router"].dtype == np.float32
+    assert "router_scale" not in got["layers"]
+    for store, ref in ((got["layers"], want["layers"]), (got, want)):
+        for name, w in ref.items():
+            if name == "layers":
+                continue
+            g = store[name]
+            g = g.numpy() if as_torch else g
+            assert g.dtype == w.dtype, name
+            np.testing.assert_array_equal(g, w, err_msg=name)
 
 
 # -- the int4 matmul ----------------------------------------------------------
@@ -223,16 +257,31 @@ def test_dot_matches_jax(method, dtype):
 
 # -- the model ----------------------------------------------------------------
 
-@pytest.fixture(scope="module", params=METHODS)
+# debug-tiny at both rungs, then debug-moe (random norm weights) at both.
+MODELS = METHODS + ("moe-int8", "moe-int4")
+
+
+def _weights(model, seed):
+    """(JAX config, port config, numpy params): JAX's quantize_params of a
+    dense weight set of ``model``."""
+    method = model.removeprefix("moe-")
+    if model.startswith("moe-"):
+        jcfg, tcfg = variant_cfgs("moe", quantization=method,
+                                  quant_group_size=GS)
+        dense = variant_params(jcfg.replace(quantization=None), seed)
+    else:
+        jcfg, tcfg = _cfgs(method)
+        dense = jax.tree.map(np.asarray, JM.init_params(
+            jax_model("debug-tiny"), jax.random.key(seed)))
+    return jcfg, tcfg, JQ.quantize_params(dense, method, GS)
+
+
+@pytest.fixture(scope="module", params=MODELS)
 def qmodel(request):
     """One quantized weight set (JAX's quantize_params of a dense one) in
     both packages, plus a random starting pool."""
-    jcfg, tcfg = _cfgs(request.param)
-    dense = jax.tree.map(np.asarray, JM.init_params(
-        jax_model("debug-tiny"), jax.random.key(2)))
-    np_params = JQ.quantize_params(dense, request.param, GS)
-    jp = jax.tree.map(jnp.asarray, np_params)
-    tp = TM.params_from_numpy(np_params, tcfg, "cpu")
+    jcfg, tcfg, np_params = _weights(request.param, 2)
+    jp, tp = both_packages(jcfg, tcfg, np_params)
     rng = np.random.default_rng(0)
     kd = tcfg.num_kv_heads * tcfg.head_dim
     pool = [rng.standard_normal((tcfg.num_layers, P, PS, kd)).astype(
@@ -319,6 +368,35 @@ def test_forward_logits_match_jax(qmodel, kind):
     np.testing.assert_allclose(tl.numpy(), jl, atol=ATOL, rtol=0)
 
 
+def test_moe_int4_experts_reach_the_kernel_as_2d_slices(monkeypatch):
+    """Each int4 expert matmul reaches ``int4_matmul`` (the kernel on the
+    card) as one contiguous 2-D weight slice and its 2-D scales: per
+    layer 4 attention + 3 x E expert calls, then the head."""
+    _, tcfg = variant_cfgs("moe", quantization="int4", quant_group_size=GS)
+    tp = TM.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    seen = []
+
+    def record(x, w, scale):
+        seen.append((tuple(w.shape), w.is_contiguous(), scale.dim()))
+        return TQ.int4_matmul_plain(x, w, scale)
+
+    monkeypatch.setattr(TQ, "int4_matmul", record)
+    tables, pos, ctx, slots = _decode_meta()
+    kd = tcfg.num_kv_heads * tcfg.head_dim
+    kv = TKV(k=torch.zeros(tcfg.num_layers, P, PS, kd),
+             v=torch.zeros(tcfg.num_layers, P, PS, kd))
+    h, _, _ = TM.forward_decode(tp, tcfg, _t(np.array([3, 7, 9, 0],
+                                                      np.int32)),
+                                TM.DecodeMeta(*map(_t, (pos, slots, tables,
+                                                        ctx))), kv)
+    TM.compute_logits(tp, tcfg, h)
+    E, L, d, ff = 4, 2, 128, 256
+    assert len(seen) == L * (4 + 3 * E) + 1
+    experts = [s for s in seen if s[0] in ((d // 2, ff), (ff // 2, d))]
+    assert len(experts) == L * 3 * E
+    assert all(contig and sdim == 2 for _, contig, sdim in seen)
+
+
 def test_init_params_quantized_layout_and_seed():
     """Random quantized init: the stored layouts of the config's rung,
     int8 codes in range, f32 scales, and a function of the seed."""
@@ -372,13 +450,19 @@ PROMPT_LENS = (5, 40, 100, 17, 9, 70)
 MAX_TOKENS = 20
 
 
-@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("method", MODELS)
 def test_greedy_engine_matches_jax_engine(method, monkeypatch):
     """The test_torch_engine workload (chunked prefill, mixed steps, decode
-    windows, preemption) on random quantized weights: token-identical."""
-    jcfg, tcfg = _cfgs(method)
-    jp = JM.init_params(jcfg, jax.random.key(3))
-    tp = TM.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    windows, preemption) on random quantized weights (debug-tiny: JAX's
+    quantized init; debug-moe: quantize_params of random dense experts):
+    token-identical."""
+    if method in METHODS:
+        jcfg, tcfg = _cfgs(method)
+        np_params = jax.tree.map(np.asarray, JM.init_params(
+            jcfg, jax.random.key(3)))
+    else:
+        jcfg, tcfg, np_params = _weights(method, 6)
+    jp, tp = both_packages(jcfg, tcfg, np_params)
     rng = np.random.default_rng(0)
     prompts = [[int(x) for x in rng.integers(1, 500, n)] for n in PROMPT_LENS]
     jeng = JaxEngine(JEngineConfig(model=jcfg, cache=JCache(**CACHE),

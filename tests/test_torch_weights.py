@@ -8,9 +8,19 @@ package: two fp32 implementations summing in different orders). The
 port's ``load_weights`` must equal the JAX package's on the same directory
 bit for bit, dense and quantized at load (int8, int4 with gs 32), and its
 own safetensors reader must return what ``safetensors`` wrote.
+
+The other families ``config_from_hf`` reads get the same checks from tiny
+local checkpoints: ``Qwen2ForCausalLM`` (q/k/v biases),
+``Qwen3ForCausalLM`` (qk norms, tied embeddings, q width != hidden),
+``MixtralForCausalLM`` (router + experts) and ``OPTForCausalLM`` (its own
+tensor names, LayerNorm biases, learned positions, tied head). Their
+biases and norm weights are drawn at random before saving (HF initialises
+them to 0 and 1, where a tensor loaded into the wrong place would go
+unseen).
 """
 
 import copy
+import dataclasses
 import json
 
 import jax
@@ -24,6 +34,7 @@ from kubernetes_gpu_cluster_tpu_torch.config import CacheConfig
 from kubernetes_gpu_cluster_tpu_torch.engine import weights as TW
 from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import allocate_kv_cache
 from kubernetes_gpu_cluster_tpu_torch.models import llama as TM
+from kubernetes_gpu_cluster_tpu_torch.models import registry as TR
 
 torch.set_num_threads(2)
 
@@ -51,7 +62,10 @@ def hf_llama(tmp_path_factory):
 
 
 def test_logits_match_hf(hf_llama):
-    model, path, _ = hf_llama
+    _logits_match_hf(*hf_llama[:2])
+
+
+def _logits_match_hf(model, path):
     cfg = TW.config_from_hf(path).replace(dtype="float32")
     params = TW.load_weights(path, cfg, device="cpu")
     prompt = [1, 17, 99, 4, 63, 2, 118, 30]
@@ -74,7 +88,11 @@ def test_load_matches_jax_load(hf_llama, method, ckpt):
     """Dense and quantized-at-load params equal the JAX package's bit for
     bit: packed bytes, codes and scales, and float weights in the model
     dtype."""
-    path = hf_llama[1] if ckpt == "fp32" else hf_llama[2]
+    _load_matches_jax_load(hf_llama[1] if ckpt == "fp32" else hf_llama[2],
+                           method, ckpt)
+
+
+def _load_matches_jax_load(path, method, ckpt):
     kw = dict(dtype="float32" if ckpt == "fp32" else "bfloat16",
               quantization=method, quant_group_size=GS)
     want = JW.load_weights(path, JW.config_from_hf(path).replace(**kw))
@@ -137,16 +155,126 @@ def test_config_and_unported_checkpoints(hf_llama, tmp_path, monkeypatch):
     cfg, wpath, tpath = TW.resolve_model(path)
     assert (cfg, wpath, tpath) == (got, path, path)
     assert TW.resolve_model("llama-3-8b")[1:] == (None, None)
-    for arch, item in (("OPTForCausalLM", "R3"), ("Qwen3ForCausalLM", "R3")):
-        d = tmp_path / arch
-        d.mkdir()
-        hf = json.load(open(f"{path}/config.json"))
-        (d / "config.json").write_text(json.dumps({**hf,
-                                                   "architectures": [arch]}))
-        with pytest.raises(NotImplementedError, match=item):
-            TW.load_weights(str(d), TW.config_from_hf(str(d)), device="cpu")
     with pytest.raises(NotImplementedError, match="R7"):
         TW.load_weights(path, got, device="cpu", shardings={})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TW.load_weights(path, got)
+
+
+# -- the other families -------------------------------------------------------
+
+def _families():
+    """name -> (HF model class, its config): tiny, built locally."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("USE_TF", "0")
+        import transformers as hf
+    common = dict(vocab_size=128, hidden_size=128, intermediate_size=256,
+                  num_hidden_layers=2, num_attention_heads=4,
+                  num_key_value_heads=2, max_position_embeddings=256,
+                  rope_theta=10000.0, rms_norm_eps=1e-5)
+    return {
+        "qwen2": (hf.Qwen2ForCausalLM, hf.Qwen2Config(
+            **common, tie_word_embeddings=False)),
+        "qwen3": (hf.Qwen3ForCausalLM, hf.Qwen3Config(
+            **common, head_dim=48, tie_word_embeddings=True)),
+        "mixtral": (hf.MixtralForCausalLM, hf.MixtralConfig(
+            **common, num_local_experts=4, num_experts_per_tok=2,
+            tie_word_embeddings=False)),
+        "opt": (hf.OPTForCausalLM, hf.OPTConfig(
+            vocab_size=128, hidden_size=128, ffn_dim=256,
+            num_hidden_layers=2, num_attention_heads=4,
+            max_position_embeddings=64, word_embed_proj_dim=128,
+            do_layer_norm_before=True, activation_function="relu",
+            enable_bias=True, tie_word_embeddings=True)),
+    }
+
+
+FAMILIES = ("qwen2", "qwen3", "mixtral", "opt")
+
+
+@pytest.fixture(scope="module")
+def hf_family(tmp_path_factory):
+    """name -> (HF model, fp32 checkpoint dir, bf16 checkpoint dir)."""
+    out = {}
+    for i, (name, (cls, config)) in enumerate(_families().items()):
+        torch.manual_seed(10 + i)
+        model = cls(config).eval()
+        with torch.no_grad():
+            for pname, p in model.named_parameters():
+                if pname.endswith("bias") or "norm" in pname:
+                    p.copy_(torch.randn_like(p) * 0.2
+                            + ("norm" in pname and "bias" not in pname))
+        root = tmp_path_factory.mktemp(name)
+        model.save_pretrained(root / "fp32", safe_serialization=True)
+        copy.deepcopy(model).to(torch.bfloat16).save_pretrained(
+            root / "bf16", safe_serialization=True)
+        out[name] = (model, str(root / "fp32"), str(root / "bf16"))
+    return out
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_logits_match_hf(hf_family, name):
+    """The port's load + prefill + logits of each family against HF's
+    forward at fp32 rtol/atol 2e-4."""
+    _logits_match_hf(*hf_family[name][:2])
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_config_matches_jax(hf_family, name):
+    path = hf_family[name][1]
+    got, want = TW.config_from_hf(path), JW.config_from_hf(path)
+    for field in (f.name for f in dataclasses.fields(want)):
+        assert getattr(got, field) == getattr(want, field), field
+    assert got.is_moe == (name == "mixtral")
+    assert got.tie_word_embeddings == (name in ("qwen3", "opt"))
+
+
+@pytest.mark.parametrize("method", [None, "int8", "int4"])
+@pytest.mark.parametrize("ckpt", ["fp32", "bf16"])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_load_matches_jax_load(hf_family, name, method, ckpt):
+    """Every family's params, dense and quantized at load, equal the JAX
+    package's load bit for bit (expert weights and scales included, no
+    ``lm_head`` when tied)."""
+    path = hf_family[name][1 if ckpt == "fp32" else 2]
+    _load_matches_jax_load(path, method, ckpt)
+    if name in ("qwen3", "opt"):
+        cfg = TW.config_from_hf(path).replace(quantization=method,
+                                              quant_group_size=GS)
+        got = TW.load_weights(path, cfg, device="cpu")
+        assert "lm_head" not in got and "lm_head_scale" not in got
+
+
+def test_opt_config_refusals(hf_family, tmp_path):
+    """OPT variants the model has no path for fail the config read."""
+    hf = json.loads(open(f"{hf_family['opt'][1]}/config.json").read())
+    for edit, match in (({"do_layer_norm_before": False}, "post-LN"),
+                        ({"word_embed_proj_dim": 64}, "word_embed_proj_dim"),
+                        ({"activation_function": "swish"}, "activation")):
+        d = tmp_path / match
+        d.mkdir()
+        (d / "config.json").write_text(json.dumps({**hf, **edit}))
+        with pytest.raises(ValueError, match=match):
+            TW.config_from_hf(str(d))
+
+
+def test_registry_resolves_presets_and_checkpoints(hf_family):
+    """models/registry.py: a preset name (or an HF id ending in one) gives
+    its config and random weights; a local checkpoint directory gives
+    config_from_hf and the port's load of it."""
+    assert TR.list_models() == sorted(TR.MODEL_PRESETS)
+    r = TR.resolve("Qwen/Qwen3-4B")
+    assert r.config == TR.get_model_config("qwen3-4b")
+    assert (r.weights_path, r.tokenizer_path) == (None, None)
+    assert TR.load(r) is None
+    path = hf_family["mixtral"][1]
+    r = TR.resolve(path, name="tiny-mixtral")
+    assert r.config.name == "tiny-mixtral" and r.config.is_moe
+    assert r.weights_path == r.tokenizer_path == path
+    cfg = r.config.replace(dtype="float32")
+    got = TR.load(TR.ResolvedModel(cfg, path, path), device="cpu")
+    want = TW.load_weights(path, cfg, device="cpu")
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got["layers"][k], want["layers"][k])
+               for k in want["layers"])
