@@ -56,6 +56,27 @@ the int4 kernel). For each:
 6b. Engine: ``LLMEngine`` through every step kind, twice, the same tokens;
     the attention kernels (and the int4 kernel) launched in the first run.
 
+Then speculative decoding:
+
+7a. llama-3-8b bf16 (the phase-4 weights, before they are freed): the
+    phase-4 engine with n-gram speculation (k 4, mixed batching on) on
+    phase 4's workload shape, where half the prompts repeat a random 8-32
+    token pattern and one more request samples with a seed; served twice
+    (the same tokens; spec and spec×mixed steps ran, drafts were made, the
+    three attention kernels launched), and once by the spec-off engine.
+    Logged: tokens/s on and off, the acceptance ratio, the share of greedy
+    requests whose tokens equal spec off (bf16: verify attention is fp32
+    PyTorch, decode the bf16 kernel, so near-ties may flip), and the
+    verify attention's ms per call at the engine's shape beside
+    ``paged_decode``'s.
+7b. tinyllama-1.1b fp32 at full width and depth, drafting for itself (the
+    draft model's own pool, the target's weights: an oracle), k 4,
+    adaptive k and mixed batching on: acceptance >= 0.9, ``paged_decode``
+    launched by the draft runner, and greedy tokens equal to the spec-off
+    engine on every request, except where the printed top-2 logit gap at
+    the first differing position is below 1e-3 of that position's logit
+    standard deviation (counted).
+
 Each phase logs its seconds.
 
 The line before the last is the ``kernels`` JSON record; the last line is
@@ -83,6 +104,8 @@ import torch
 # bf16 tensor-core rate. Bounds are stated against these.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# fp32 outside the tensor cores: the verify attention computes in fp32.
+PEAK_FP32_FLOPS = 67e12
 # Max-abs tolerance of a bf16 kernel output against the plain version: both
 # accumulate in fp32 and round once to bf16 (2^-8 relative, outputs of
 # magnitude < ~2.5), plus the different summation order; the tensor-core
@@ -288,7 +311,7 @@ def _decode_case(gen, rng, B, ctx_lo, ctx_hi, nh, n_kv, hd, ps, pps, dt,
     bms, by = bound_ms(nbytes, 4 * nh * hd * int(np.sum(ctx)))
     kernel = lambda: pd.paged_decode(*args, layer=1)  # noqa: E731
     return dict(max_abs_err=err, ms=graph_ms(kernel, 20), bound_ms=bms,
-                bound_by=by, kernel=kernel,
+                bound_by=by, kernel=kernel, args=args,
                 plain=lambda: A.paged_decode_attention_plain(*args, layer=1),
                 shape=f"B={B} ctx={int(ctx.min())}-{int(ctx.max())} ps={ps} "
                       f"pps={pps}")
@@ -646,7 +669,8 @@ def drive(engine, reqs, tag: str, hist_counter) -> dict:
     batches) and count step kinds; a prefill step that launched the
     history kernel is a solo chunk of a long prompt ("chunked")."""
     pending = sorted(reqs, key=lambda r: r[0])
-    kinds = {"prefill": 0, "chunked": 0, "mixed": 0, "decode": 0}
+    kinds = dict.fromkeys(("prefill", "chunked", "mixed", "decode", "spec",
+                           "spec_mixed"), 0)
     final = {}
     step = 0
     t0 = time.perf_counter()
@@ -807,6 +831,254 @@ def check_family(cfg, wl, sched, pages, device, attn, attn_plain) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: speculative decoding
+# ---------------------------------------------------------------------------
+
+# Top-2 logit gap, as a fraction of the logits' standard deviation, below
+# which a greedy divergence between spec on and off counts as a near-tie:
+# two fp32 attention paths (PyTorch verify, the decode kernel) differ by
+# ~1e-6 relative, so only such ties can flip.
+NEAR_TIE = 1e-3
+
+
+def spec_workload(vocab: int):
+    """Phase 4's workload shape with half the prompts (the last twelve to
+    arrive, so the first windows run without drafts) repeating a random
+    8-32 token pattern to their length, so n-gram drafts exist, plus one
+    more seeded sampled request."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    rng = np.random.default_rng(SEED + 7)
+    reqs = []
+    for arrival, rid, prompt, sp in workload(vocab):
+        if rid != "long" and int(rid[1:]) >= 12:
+            pattern = [int(t) for t in rng.integers(
+                1, vocab, int(rng.integers(8, 33)))]
+            prompt = (pattern * (len(prompt) // len(pattern) + 1))[
+                :len(prompt)]
+        reqs.append((arrival, rid, prompt, sp))
+    pattern = [int(t) for t in rng.integers(1, vocab, 16)]
+    reqs.append((2, "sampled", pattern * 20, SamplingParams(
+        max_tokens=48, temperature=0.8, top_p=0.95, seed=77)))
+    return reqs
+
+
+def _spec_run(engine, reqs, tag, counters) -> dict:
+    """One counted run (every count set to 0 just before it): drive()'s
+    record plus the launches, drafted/accepted tokens of this run."""
+    obs = engine.obs
+    d0, a0 = obs.spec_drafted_tokens, obs.spec_accepted_tokens
+    for mod in counters.values():
+        mod.launches = 0
+    run = drive(engine, reqs, tag, counters["flash_prefill_hist"])
+    run["launches"] = {n: mod.launches for n, mod in counters.items()}
+    run["drafted"] = obs.spec_drafted_tokens - d0
+    run["accepted"] = obs.spec_accepted_tokens - a0
+    run["acceptance"] = run["accepted"] / max(run["drafted"], 1)
+    return run
+
+
+def _loggable(run) -> str:
+    return json.dumps({k: v for k, v in run.items() if k != "tokens"})
+
+
+def time_verify(cfg, page_size, max_len, device, S: int) -> dict:
+    """The verify attention (PyTorch, fp32) per call at the engine's shape,
+    B 32 rows of S tokens over contexts 512-2048 with the table cut to the
+    longest, beside ``paged_decode`` on the same pool and contexts (one
+    token per row), each timed in CUDA events. Its bound: the bf16 inputs
+    and output moved once, against the fp32 operations over each row's
+    history and causal slice at the fp32 peak."""
+    from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
+    from kubernetes_gpu_cluster_tpu_torch.utils import cdiv
+    nh, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    rng = np.random.default_rng(SEED + 8)
+    B, dt = 32, torch.bfloat16
+    case = _decode_case(gen, rng, B, 512, 2048, nh, n_kv, hd, page_size,
+                        cdiv(max_len, page_size), dt, device)
+    _, kpool, vpool, tables, ctx, _, _, scale = case["args"]
+    width = A.verify_table_width(ctx.cpu().numpy(), page_size)
+    tables = tables[:, :width].contiguous()
+    q = _randn(gen, (B * S, nh, hd), dt, device)
+    k = _randn(gen, (B * S, n_kv, hd), dt, device)
+    v = _randn(gen, (B * S, n_kv, hd), dt, device)
+
+    def verify():
+        return A.spec_verify_attention(q, k, v, kpool, vpool, tables, ctx,
+                                       scale, layer=1)
+
+    out = verify()
+    if not torch.isfinite(out.float()).all():
+        raise RuntimeError("verify attention: non-finite output")
+    hist = int((ctx - 1).clamp(min=0).sum())
+    nbytes = 2 * (2 * B * S * (nh * hd + n_kv * hd) + 2 * n_kv * hd * hist) \
+        + 4 * (B * width + B)
+    flops = 4 * nh * hd * (S * hist + B * S * (S + 1) // 2)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {"verify_ms": cuda_ms(verify, 10),
+            "verify_bound_ms": max(t_bytes, t_ops),
+            "verify_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "paged_decode_ms": cuda_ms(case["kernel"], 20),
+            "paged_decode_graph_ms": case["ms"], "rows": B, "S": S,
+            "table_width": width, "shape": case["shape"]}
+
+
+def check_spec_ngram(cfg_engine, params, device, counters) -> dict:
+    """Phase 7a: n-gram speculation on the phase-4 engine, twice, then the
+    spec-off engine once on the same requests."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
+    sc = dataclasses.replace(cfg_engine.scheduler, spec_decode_enabled=True,
+                             num_speculative_tokens=4,
+                             mixed_batch_enabled=True)
+    cfg_spec = dataclasses.replace(cfg_engine, scheduler=sc)
+    reqs = spec_workload(cfg_engine.model.vocab_size)
+    engine = LLMEngine(cfg_spec, params=params, device=device)
+    drive(engine, reqs[1:3], "warm", counters["flash_prefill_hist"])
+    run1 = _spec_run(engine, reqs, "a", counters)
+    log("spec engine run 1:", _loggable(run1))
+    kinds, launches = run1["kinds"], run1["launches"]
+    if kinds["spec"] < 1 or kinds["spec_mixed"] < 1:
+        raise RuntimeError(f"spec / spec_mixed steps did not run: {kinds}")
+    if run1["drafted"] <= 0:
+        raise RuntimeError("the n-gram proposer drafted nothing")
+    for name in ("paged_decode", "flash_prefill", "flash_prefill_hist"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never launched in the spec run")
+    if set(run1["tokens"]) != {r[1] for r in reqs}:
+        raise RuntimeError("spec engine: not every request finished")
+    run2 = _spec_run(engine, reqs, "b", counters)
+    log("spec engine run 2:", _loggable(run2))
+    diff = sorted(r for r in run1["tokens"]
+                  if run1["tokens"][r] != run2["tokens"][r])
+    if diff:
+        raise RuntimeError(f"spec engine: the second run differs for {diff}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    off = LLMEngine(cfg_engine, params=params, device=device)
+    drive(off, reqs[1:3], "warm", counters["flash_prefill_hist"])
+    run_off = drive(off, reqs, "off", counters["flash_prefill_hist"])
+    del off
+    greedy = [r[1] for r in reqs if r[3].temperature == 0.0]
+    same = sum(run1["tokens"][r] == run_off["tokens"][r] for r in greedy)
+    out = {"tokens_per_s_spec": run1["tokens_per_s"],
+           "tokens_per_s_spec_run2": run2["tokens_per_s"],
+           "tokens_per_s_off": run_off["tokens_per_s"],
+           "acceptance": run1["acceptance"], "drafted": run1["drafted"],
+           "accepted": run1["accepted"], "kinds": kinds,
+           "kinds_off": run_off["kinds"], "launches": launches,
+           "greedy_identical_to_off": same / len(greedy),
+           "greedy_requests": len(greedy)}
+    out.update(time_verify(cfg_engine.model, cfg_engine.cache.page_size,
+                           cfg_engine.effective_max_len, device, 5))
+    return out
+
+
+def _top2_gap(params, cfg, ids, device) -> tuple[float, float]:
+    """(top-2 gap, standard deviation) of the logits after ``ids``, by one
+    prefill of the whole sequence."""
+    from kubernetes_gpu_cluster_tpu_torch.config import CacheConfig
+    from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import \
+        allocate_kv_cache
+    from kubernetes_gpu_cluster_tpu_torch.models import llama as M
+    n, ps = len(ids), 16
+    up = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)  # noqa: E731
+    kv = allocate_kv_cache(cfg, CacheConfig(page_size=ps), -(-n // ps) + 1,
+                           device)
+    meta = M.PrefillMeta(up(np.zeros(n)), up(np.arange(n)),
+                         up(np.arange(n) + ps), up([n - 1]))
+    h, _, _ = M.forward_prefill(params, cfg, up(ids), meta, kv)
+    logits = M.compute_logits(params, cfg, h)[0]
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1]), float(logits.std())
+
+
+def check_spec_draft(device, counters) -> dict:
+    """Phase 7b: tinyllama-1.1b fp32 drafting for itself (an oracle), the
+    draft model's own pool; spec off on the same requests."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (
+        CacheConfig, EngineConfig, SchedulerConfig, get_model_config)
+    from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
+                                                         SamplingParams)
+    from kubernetes_gpu_cluster_tpu_torch.models import llama as M
+    cfg = get_model_config("tinyllama-1.1b").replace(dtype="float32")
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(
+        SEED), device)
+    base = EngineConfig(model=cfg, seed=SEED,
+                        cache=CacheConfig(page_size=16, num_pages=2048),
+                        scheduler=SchedulerConfig(max_num_seqs=32,
+                                                  max_prefill_tokens=512))
+    spec = dataclasses.replace(base, scheduler=dataclasses.replace(
+        base.scheduler, spec_decode_enabled=True, num_speculative_tokens=4,
+        spec_adaptive_k=True, spec_draft_model="tinyllama-1.1b"))
+    rng = np.random.default_rng(SEED + 9)
+    greedy = SamplingParams(max_tokens=40, temperature=0.0)
+    reqs = [(0 if i < 6 else 2 + 2 * (i - 6), f"r{i}",
+             [int(t) for t in rng.integers(1, cfg.vocab_size,
+                                           int(rng.integers(24, 400)))],
+             greedy) for i in range(14)]
+    reqs.insert(0, (0, "long", [int(t) for t in rng.integers(
+        1, cfg.vocab_size, 1300)], greedy))
+    engine = LLMEngine(spec, params=params, device=device,
+                       draft_params=params)
+    runner = engine.scheduler.spec_proposer
+    propose = runner.propose_batch
+    by_draft = {"paged_decode": 0, "flash_prefill_hist": 0}
+
+    def counted(seqs, k):
+        before = {n: counters[n].launches for n in by_draft}
+        out = propose(seqs, k)
+        for n in by_draft:
+            by_draft[n] += counters[n].launches - before[n]
+        return out
+
+    runner.propose_batch = counted
+    drive(engine, reqs[1:3], "warm", counters["flash_prefill_hist"])
+    for n in by_draft:
+        by_draft[n] = 0
+    run = _spec_run(engine, reqs, "a", counters)
+    run["launches_by_draft_runner"] = dict(by_draft)
+    run["draft_dispatches"] = runner.num_dispatches
+    run["draft_reset_prefills"] = runner.num_reset_prefills
+    log("draft spec engine:", _loggable(run))
+    del engine, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    if run["acceptance"] < 0.9:
+        raise RuntimeError(f"oracle draft acceptance {run['acceptance']}")
+    if by_draft["paged_decode"] <= 0:
+        raise RuntimeError("the draft runner never launched paged_decode")
+    if run["kinds"]["spec"] + run["kinds"]["spec_mixed"] < 1:
+        raise RuntimeError(f"no spec step ran: {run['kinds']}")
+    off = LLMEngine(base, params=params, device=device)
+    run_off = drive(off, reqs, "off", counters["flash_prefill_hist"])
+    del off
+    ties, faults = [], []
+    for _, rid, prompt, _ in reqs:
+        a, b = run["tokens"][rid], run_off["tokens"][rid]
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap, std = _top2_gap(params, cfg, prompt + b[:i], device)
+        log(f"spec/off divergence {rid} at output {i}: top-2 gap {gap} "
+            f"logit std {std} ({gap / std:.3g} of it)")
+        (ties if gap < NEAR_TIE * std else faults).append(rid)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if faults:
+        raise RuntimeError(f"greedy spec output differs from spec off "
+                           f"beyond a near-tie for {faults}")
+    return {"tokens_per_s_spec": run["tokens_per_s"],
+            "tokens_per_s_off": run_off["tokens_per_s"],
+            "acceptance": run["acceptance"], "kinds": run["kinds"],
+            "launches": run["launches"],
+            "launches_by_draft_runner": run["launches_by_draft_runner"],
+            "near_tie_divergences": len(ties), "requests": len(reqs)}
+
+
 async def _streams(aeng, prompts, sp) -> list:
     async def one(i, prompt):
         toks, chunks = [], 0
@@ -916,10 +1188,15 @@ def main() -> int:
     cfg_async = dataclasses.replace(
         cfg_engine, cache=CacheConfig(page_size=ps, num_pages=1024))
     log("async:", json.dumps(check_async(cfg_async, params, device)))
+    phase(f"{MODEL} bf16 (3, 4, 5)")
+
+    # Phase 7a: n-gram speculative decoding on the same weights.
+    log("spec ngram:", json.dumps(check_spec_ngram(cfg_engine, params, device,
+                                                   attn)))
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    phase(f"{MODEL} bf16 (3, 4, 5)")
+    phase(f"{MODEL} bf16 spec (7a)")
 
     # Phase 3b: the int4 model, kernel against int4_matmul_plain.
     cfg4 = cfg.replace(quantization="int4", quant_group_size=GROUP)
@@ -965,6 +1242,10 @@ def main() -> int:
              "init_s": fam["init_s"], "model_s": fam["model_s"],
              "engine_s": fam["engine_s"]}))
         phase(f"family {preset}")
+
+    # Phase 7b: draft-model speculative decoding.
+    log("spec draft:", json.dumps(check_spec_draft(device, attn)))
+    phase("tinyllama-1.1b fp32 draft spec (7b)")
 
     eng["launches"]["int4_matmul"] = eng4["launches"]["int4_matmul"]
     for r in rows:

@@ -5,9 +5,10 @@ The JAX package's ``engine/engine.py`` step for step:
 
 - owns model params, the paged KV cache (updated in place by every step)
   and the scheduler;
-- runs each scheduled batch as one prefill, chunked-prefill, mixed or
-  W-substep decode-window step, with sampling on the device so only the
-  sampled token ids (and their logprobs) cross to the host;
+- runs each scheduled batch as one prefill, chunked-prefill, mixed,
+  speculative-verification (``spec``), spec×mixed or W-substep
+  decode-window step, with sampling on the device so only the sampled token
+  ids (and their logprobs) cross to the host;
 - keeps a decode window's tokens on the device (each substep feeds the
   previous one's output back) with ONE download per window, and chains
   windows speculatively: window w+1 is enqueued before window w's tokens are
@@ -28,9 +29,16 @@ caches, its donation bookkeeping and its probe-and-fall-back kernel logic
 have no counterpart: on a CUDA device the attention runs the hand-written
 kernels (``ops/cuda``) or raises.
 
-Not ported yet: speculative decoding, the host KV tier (swap), KV
-export/import for disaggregated serving and migration, parallelism, and
-the runtime sanitizers.
+Speculative decoding (``SchedulerConfig.spec_decode_enabled``): the
+scheduler's proposer (n-gram lookup, or with ``spec_draft_model`` a draft
+model with its own KV pool, ``engine/spec/draft_model.py``) drafts k tokens
+per running sequence and one step verifies them all; decode windows never
+chain while it is on.
+
+Not ported yet: the host KV tier (swap), KV export/import for
+disaggregated serving and migration, parallelism, and the runtime
+sanitizers (with them the spec path's KV-slot shadow and its
+``kv_commit_stomp`` chaos site).
 """
 
 from __future__ import annotations
@@ -45,9 +53,11 @@ import torch
 from ..config import EngineConfig
 from ..models import llama as model_lib
 from ..observability import Observability
+from ..ops.attention import verify_table_width
 from ..ops.sampling import (apply_logit_bias, apply_penalties, build_counts,
                             bump_counts, gated_top_logprobs, row_sample_keys,
-                            sample_and_logprobs, token_logprobs)
+                            sample_and_logprobs, spec_verify_sample,
+                            token_logprobs)
 from ..resilience.faults import inject as _inject_fault
 from ..utils import cdiv, get_logger
 from .kv_cache import allocate_kv_cache, derive_num_pages
@@ -120,12 +130,12 @@ def resolve_device(device) -> torch.device:
 class LLMEngine:
     def __init__(self, config: EngineConfig, params=None,
                  eos_token_id: Optional[int] = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", draft_params=None):
+        """``draft_params``: the draft model's weights when
+        ``SchedulerConfig.spec_draft_model`` is set (random from the seed
+        when None)."""
         self.device = resolve_device(device)
         sc = config.scheduler
-        if sc.spec_decode_enabled:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP R6)")
         if config.cache.kv_swap_enabled:
             raise NotImplementedError(
                 "the host KV tier (swap_space_gb) is not ported yet "
@@ -170,6 +180,19 @@ class LLMEngine:
                 fallback_budget_ms=config.resilience.default_ttft_budget_ms)
         self.kv_cache = allocate_kv_cache(config.model, config.cache,
                                           num_pages, self.device)
+        if self.scheduler.spec_enabled:
+            if sc.spec_draft_model:
+                # Built after the target pool: its own pool takes at most
+                # half of the memory left. The one installation site; the
+                # engine and scheduler reach draft state only through the
+                # proposer seam.
+                from .spec.draft_model import build_draft_runner
+                self.scheduler.spec_proposer = build_draft_runner(
+                    config, sc.spec_draft_model, params=draft_params,
+                    device=self.device)
+            ctrl = self.scheduler.spec_controller
+            self.obs.spec_current_k = (ctrl.current_k if ctrl is not None
+                                       else sc.effective_spec_k_max)
         if self.scheduler.mixed_enabled:
             budget = sc.decode_priority_token_budget
             if budget is not None and budget < 2:
@@ -238,8 +261,13 @@ class LLMEngine:
             event.synchronize()
         return [h.numpy() for h in host]
 
-    def _sampling(self, batch: ScheduledBatch) -> _Sampling:
-        presence, frequency = batch.presence, batch.frequency
+    def _sampling(self, batch: ScheduledBatch,
+                  rows: slice = slice(None)) -> _Sampling:
+        """The sampling inputs of the batch's device ``rows`` (a spec×mixed
+        step samples its verify rows and its chunk row apart)."""
+        temperature, top_k, top_p = (batch.temperature[rows],
+                                     batch.top_k[rows], batch.top_p[rows])
+        presence, frequency = batch.presence[rows], batch.frequency[rows]
         bias = None
         if any(seq.params.logit_bias for seq in batch.seqs):
             B = len(batch.temperature)
@@ -250,16 +278,17 @@ class LLMEngine:
                                               or {}).items()):
                     ids[s, j] = tok
                     vals[s, j] = b
-            bias = (self._up(ids), self._up(vals))
+            if np.any(ids[rows] >= 0):
+                bias = (self._up(ids[rows]), self._up(vals[rows]))
         return _Sampling(
-            temperature=self._up(batch.temperature),
-            top_k=self._up(batch.top_k), top_p=self._up(batch.top_p),
+            temperature=self._up(temperature),
+            top_k=self._up(top_k), top_p=self._up(top_p),
             presence=self._up(presence), frequency=self._up(frequency),
-            seed=self._up(batch.seed), bias=bias,
-            any_sampled=bool(np.any(batch.temperature > 0)),
-            needs_filter=bool(np.any((batch.top_k > 0) | (batch.top_p < 1.0))),
+            seed=self._up(batch.seed[rows]), bias=bias,
+            any_sampled=bool(np.any(temperature > 0)),
+            needs_filter=bool(np.any((top_k > 0) | (top_p < 1.0))),
             any_pen=bool(np.any(presence != 0) or np.any(frequency != 0)),
-            with_top=bool(np.any(batch.top_n > 0)))
+            with_top=bool(np.any(batch.top_n[rows] > 0)))
 
     def _penalty_out_tokens(self, batch: ScheduledBatch) -> torch.Tensor:
         """[B, out_cap] -1-padded output-token ids for the device-side
@@ -401,6 +430,10 @@ class LLMEngine:
             self.step_count += 1
             if batch.kind == "mixed":
                 return drained + self._step_mixed(batch)
+            if batch.kind == "spec":
+                return drained + self._step_spec(batch)
+            if batch.kind == "spec_mixed":
+                return drained + self._step_spec_mixed(batch)
             if batch.kind == "prefill":
                 return drained + self._step_prefill(batch)
             with ph("host_prep"):
@@ -411,7 +444,12 @@ class LLMEngine:
             inflight["drained"] = drained
 
         successor = None
-        if not self.scheduler.waiting and not inflight["zombies"]:
+        # With spec decode on, windows never chain: verification is the
+        # speculation, and a chained successor would hold the engine in
+        # plain decode after drafts become available (schedule() decides
+        # spec eligibility only between chains).
+        if (not self.scheduler.waiting and not inflight["zombies"]
+                and not self.scheduler.spec_enabled):
             successor = self._advance_window(inflight)
 
         with ph("device_fetch"):
@@ -577,6 +615,191 @@ class LLMEngine:
              "decode_tokens": batch.num_seqs - 1})
         return outs
 
+    def _verify(self, logits: torch.Tensor, smp: _Sampling, drafts_flat,
+                context_lens: torch.Tensor, S: int, step_key: int,
+                out_tokens: Optional[torch.Tensor]):
+        """Acceptance over a verify half's logits [R*S, V]: the bias of each
+        row on all of its S positions, then ``spec_verify_sample`` with the
+        host-resynced penalty histogram (spec steps are synchronous, so the
+        host knows every output token)."""
+        R = context_lens.shape[0]
+        V = logits.shape[-1]
+        if smp.bias is not None:
+            logits = apply_logit_bias(
+                logits, *(t.repeat_interleave(S, dim=0) for t in smp.bias))
+        counts = (build_counts(out_tokens, V) if out_tokens is not None
+                  else None)
+        return spec_verify_sample(
+            logits.reshape(R, S, V), drafts_flat.reshape(R, S)[:, 1:],
+            context_lens, step_key, smp.seed, smp.temperature, smp.top_k,
+            smp.top_p, smp.presence, smp.frequency, counts,
+            any_sampled=smp.any_sampled, needs_filter=smp.needs_filter,
+            any_pen=smp.any_pen, with_top=smp.with_top)
+
+    def _spec_outcome(self, batch: ScheduledBatch, n_acc: np.ndarray,
+                      D: int, S: int) -> tuple[np.ndarray, int, int]:
+        """(tokens each of the D verify rows emits: accepted + 1, at most
+        S; drafted; accepted). Both tallies count real proposals only:
+        rows short of k were padded with filler drafts, which are lossless
+        but were never proposed."""
+        emit = np.minimum(n_acc[:D] + 1, S)
+        draft_lens = batch.draft_lens[:D]
+        drafted = int(draft_lens.sum())
+        accepted = int(np.minimum(n_acc[:D], draft_lens).sum())
+        self._observe_spec_outcome(drafted, accepted)
+        return emit, drafted, accepted
+
+    def _step_spec(self, batch: ScheduledBatch) -> list[RequestOutput]:
+        """One speculative-verification step: every row advances by
+        ``accepted + 1`` tokens through the regular stop-check loop, so EOS
+        and max_tokens inside the accepted prefix truncate exactly as in the
+        decode path. Synchronous (the next drafts depend on this step's
+        tokens), so finished rows release pages at once. Rejected drafts'
+        K/V sit past the new committed length: verify reads history only
+        below ``context_lens - 1`` and the next step's append overwrites
+        them before any read, so nothing is rolled back on the device."""
+        ph = self.obs.phases.phase
+        cfg = self.model_config
+        R_pad = batch.page_tables.shape[0]
+        S = len(batch.tokens) // R_pad
+        width = verify_table_width(batch.context_lens,
+                                   self.config.cache.page_size)
+        with ph("host_prep"):
+            smp = self._sampling(batch)
+            tokens = self._up(batch.tokens)
+            meta = model_lib.SpecMeta(
+                seg_ids=self._up(batch.seg_ids),
+                positions=self._up(batch.positions),
+                slot_mapping=self._up(batch.slot_mapping),
+                page_tables=self._up(batch.page_tables[:, :width]),
+                context_lens=self._up(batch.context_lens))
+            out_tokens = (self._penalty_out_tokens(batch) if smp.any_pen
+                          else None)
+        step_key = self._next_step_key()
+        with ph("device_dispatch"):
+            hidden, _, _ = model_lib.forward_spec_verify(
+                self.params, cfg, tokens, meta, self.kv_cache)
+            logits = model_lib.compute_logits(self.params, cfg, hidden)
+            toks, n_acc, lps, tids, tlps = self._verify(
+                logits, smp, tokens, meta.context_lens, S, step_key,
+                out_tokens)
+        with ph("device_fetch"):
+            self._sync()
+            toks_np, n_acc_np, lps_np = (t.cpu().numpy()
+                                         for t in (toks, n_acc, lps))
+            top_i = top_l = None
+            if any(s.params.top_logprobs for s in batch.seqs):
+                top_i, top_l = tids.cpu().numpy(), tlps.cpu().numpy()
+        B = batch.num_seqs
+        emit, drafted, accepted = self._spec_outcome(batch, n_acc_np, B, S)
+        greedy = bool(np.all(batch.temperature[:B] <= 0))
+        with ph("postproc"):
+            outs = self._process_window(batch, toks_np, lps_np, set(),
+                                        defer=False, top_ids=top_i,
+                                        top_lps=top_l, emit_counts=emit)
+        self._last_step_info = (
+            "spec", B, "greedy" if greedy else "sampled",
+            {"drafted_tokens": drafted, "accepted_tokens": accepted,
+             "draft_s": batch.draft_time_s})
+        return outs
+
+    def _observe_spec_outcome(self, drafted: int, accepted: int) -> None:
+        """Feed the acceptance-adaptive controller (no-op when k is static)
+        and mirror its rung to the kgct_spec_current_k gauge."""
+        ctrl = self.scheduler.spec_controller
+        if ctrl is None:
+            return
+        ctrl.observe(drafted, accepted)
+        self.obs.spec_current_k = ctrl.current_k
+
+    def _step_spec_mixed(self, batch: ScheduledBatch) -> list[RequestOutput]:
+        """One spec×mixed step: every running row advances by ``accepted +
+        1`` tokens (the spec step's commit) and the queue-head prompt by one
+        chunk (the mixed step's commit), in one forward. The chunk row
+        samples on device row R_pad: its token is the sequence's first on a
+        final chunk and is dropped (zombie row) while the prompt is
+        partial. Synchronous, like both."""
+        ph = self.obs.phases.phase
+        cfg = self.model_config
+        chunk_seq = batch.seqs[-1]
+        D = len(batch.seqs) - 1
+        R_pad = batch.page_tables.shape[0]
+        S = batch.spec_S
+        width = verify_table_width(batch.context_lens,
+                                   self.config.cache.page_size)
+        with ph("host_prep"):
+            smp_s = self._sampling(batch, slice(0, R_pad))
+            smp_c = self._sampling(batch, slice(R_pad, R_pad + 1))
+            tokens = self._up(batch.tokens)
+            meta = model_lib.MixedMeta(
+                seg_ids=self._up(batch.seg_ids),
+                positions=self._up(batch.positions),
+                slot_mapping=self._up(batch.slot_mapping),
+                logits_indices=self._up(batch.logits_indices),
+                chunk_page_table=self._up(batch.chunk_page_table),
+                hist_len=int(batch.hist_len),
+                page_tables=self._up(batch.page_tables[:, :width]),
+                context_lens=self._up(batch.context_lens))
+            out_tokens = (self._penalty_out_tokens(batch)
+                          if smp_s.any_pen or smp_c.any_pen else None)
+        self.stats.prefill_tokens += batch.prefill_token_count
+        step_key = self._next_step_key()
+        with ph("device_dispatch"):
+            hidden, _, _ = model_lib.forward_spec_mixed(
+                self.params, cfg, tokens, meta, self.kv_cache, S)
+            logits = model_lib.compute_logits(self.params, cfg, hidden)
+            Tp = len(batch.tokens) - R_pad * S
+            toks, n_acc, lps, tids, tlps = self._verify(
+                logits[:R_pad * S], smp_s, tokens[Tp:], meta.context_lens, S,
+                step_key, out_tokens[:R_pad] if smp_s.any_pen else None)
+            # The chunk row: the mixed step's one sampled row, on the
+            # chunk's last-token logits.
+            idx = meta.logits_indices[R_pad * S:].to(torch.int64)
+            counts_c = (build_counts(out_tokens[R_pad:], cfg.vocab_size)
+                        if smp_c.any_pen else None)
+            tok_c, lp_c, tid_c, tlp_c = self._sample(
+                logits[R_pad * S:], smp_c, meta.positions[idx] + 1, step_key,
+                counts_c)
+        want_top = any(s.params.top_logprobs for s in batch.seqs)
+        with ph("device_fetch"):
+            t0f = time.perf_counter()
+            self._sync()
+            compute_s = time.perf_counter() - t0f
+            # Host rows: the D real verify rows, then the chunk's row with
+            # its one token in column 0 (its emit count is 1).
+            toks_np = np.zeros((D + 1, S), np.int64)
+            lps_np = np.zeros((D + 1, S), np.float32)
+            toks_np[:D], toks_np[D, 0] = toks[:D].cpu().numpy(), int(tok_c[0])
+            lps_np[:D], lps_np[D, 0] = lps[:D].cpu().numpy(), float(lp_c[0])
+            n_acc_np = n_acc.cpu().numpy()
+            top_i = top_l = None
+            if want_top:
+                top_i = np.zeros((D + 1,) + tuple(tids.shape[1:]), np.int64)
+                top_l = np.zeros(top_i.shape, np.float32)
+                top_i[:D], top_l[:D] = tids[:D].cpu().numpy(), \
+                    tlps[:D].cpu().numpy()
+                top_i[D, 0], top_l[D, 0] = tid_c[0].cpu().numpy(), \
+                    tlp_c[0].cpu().numpy()
+        self._ttft_transfer_s = max(
+            self.obs.phases.current_durs.get("device_fetch", 0.0)
+            - compute_s, 0.0)
+        emit = np.ones(D + 1, np.int64)
+        emit[:D], drafted, accepted = self._spec_outcome(batch, n_acc_np, D,
+                                                         S)
+        greedy = bool(np.all(batch.temperature <= 0))
+        zombies = {chunk_seq.request_id} if batch.partial else set()
+        with ph("postproc"):
+            outs = self._process_window(batch, toks_np, lps_np, zombies,
+                                        defer=False, top_ids=top_i,
+                                        top_lps=top_l, emit_counts=emit)
+        self._last_step_info = (
+            "spec_mixed", batch.num_seqs, "greedy" if greedy else "sampled",
+            {"prefill_tokens": batch.prefill_token_count,
+             "decode_tokens": int(emit[:D].sum()),
+             "drafted_tokens": drafted, "accepted_tokens": accepted,
+             "draft_s": batch.draft_time_s})
+        return outs
+
     def _substep_meta(self, page_tables: torch.Tensor,
                       pos: torch.Tensor) -> "model_lib.DecodeMeta":
         """Per-substep decode metadata, computed on the device from the
@@ -686,13 +909,16 @@ class LLMEngine:
                         logprobs: np.ndarray, zombies: set,
                         defer: bool, top_ids: Optional[np.ndarray] = None,
                         top_lps: Optional[np.ndarray] = None,
+                        emit_counts: Optional[np.ndarray] = None,
                         ) -> list[RequestOutput]:
         """next_tokens/logprobs: [B_pad, W]. Append window tokens per
         sequence until a stop condition fires; tokens generated past the
         stop are discarded. ``zombies`` (request ids finished in an earlier
         chained window) are skipped; with ``defer`` the pages of newly
         finished sequences are held until the chain drains (an in-flight
-        window may still write to them)."""
+        window may still write to them). ``emit_counts`` [B] caps the
+        usable columns per row (spec steps: accepted drafts + 1; columns
+        past the first rejection are garbage)."""
         outputs = []
         for s, seq in enumerate(batch.seqs):
             if seq.request_id in zombies:
@@ -703,8 +929,10 @@ class LLMEngine:
             new_tokens: list[int] = []
             new_lps: list[float] = []
             new_tops: list[list[tuple[int, float]]] = []
-            for j, (token, lp) in enumerate(zip(next_tokens[s],
-                                                logprobs[s])):
+            width = (next_tokens.shape[1] if emit_counts is None
+                     else int(emit_counts[s]))
+            for j, (token, lp) in enumerate(zip(next_tokens[s][:width],
+                                                logprobs[s][:width])):
                 token = int(token)
                 top = None
                 if want_top:

@@ -1,0 +1,42 @@
+"""Speculative decoding subsystem (engine/spec/).
+
+Decode steps normally emit exactly ONE token per sequence per dispatched
+device program, so decode throughput is bounded by step latency no matter
+how full the batch is. Speculative decoding (Leviathan et al., "Fast
+Inference from Transformers via Speculative Decoding") breaks that bound:
+a cheap proposer drafts k tokens per sequence, and the target model scores
+all k+1 positions in ONE forward pass; accepted drafts commit several
+tokens per step while a lossless accept/resample rule provably preserves
+the target distribution (exact-match for greedy).
+
+Pieces:
+
+- ``proposer``: pluggable draft proposers. Ships ``NgramProposer``
+  (prompt-lookup decoding, Saxena-style): drafts by matching the
+  sequence's trailing n-gram against its own prompt+output history — no
+  draft model weights, so the whole subsystem exercises on the CPU.
+- ``draft_model``: the two-model rung — a second, small model with its own
+  paged KV pool, run by the same engine process; k greedy decode
+  dispatches batched across all spec rows produce the drafts
+  (``spec_draft_model`` config).
+- ``adaptive``: acceptance-adaptive speculation depth — a per-engine
+  controller moving k along a bounded pow-2 ladder [0, k_max] from the
+  rolling acceptance ratio; k=0 degrades to plain decode
+  (``spec_adaptive_k`` config).
+- ``verifier``: assembles the batched verification step from scheduler
+  state — every running sequence's [last_token, d_1..d_k] slice laid out
+  on one ragged token axis (per-token seg_ids/positions/slot_mapping, the
+  mixed-batch layout discipline), with per-row page tables for history
+  attention and multi-token KV append into the paged pool.
+
+The device step lives in ``engine.LLMEngine._step_spec`` (forward:
+``models.forward_spec_verify`` over ``ops.attention.spec_verify_attention``;
+acceptance: ``ops.sampling.spec_verify_sample``).
+"""
+
+from .adaptive import AdaptiveK, k_ladder
+from .proposer import DraftProposer, NgramProposer, build_proposer
+from .verifier import build_spec_batch
+
+__all__ = ["AdaptiveK", "k_ladder", "DraftProposer", "NgramProposer",
+           "build_proposer", "build_spec_batch"]

@@ -1,0 +1,184 @@
+"""Batched speculative-verification step assembly.
+
+One spec step verifies EVERY running sequence's k drafted tokens in a
+single dispatched device program. The layout reuses the engine's ragged
+mixed-batch discipline — one flat token axis with per-token
+seg_ids/positions/slot_mapping — shaped ``[R_pad * S]`` where ``S = k + 1``
+and ``R_pad`` is the decode-bucketed row count:
+
+    row s occupies slots [s*S, (s+1)*S):
+    tokens        [x_{n-1}, d_1, ..., d_k]   (last committed token + drafts)
+    positions     n-1 .. n-1+k               (model-len-clamped; overflow
+                                              slots route to the scrap page)
+    slot_mapping  KV write slot per token    (multi-token append: every
+                                              slice token's K/V commits to
+                                              the paged pool in the one
+                                              post-scan scatter)
+    page_tables   [R_pad, pages_bucket]      per-row history pages
+    context_lens  [R_pad]                    committed tokens incl. x_{n-1}
+
+Logits come back for EVERY slot: logits at slot j score draft d_{j+1}
+(exact-match for greedy, lossless rejection sampling otherwise —
+ops.sampling.spec_verify_sample), and the last accepted position's logits
+yield one bonus token, so a spec step always advances every sequence by
+``accepted + 1`` tokens.
+
+Both S and the row bucket are static per compiled shape: k is config
+(``num_speculative_tokens``), so the verify program adds exactly one
+compile-shape family — one variant per decode bucket — to the engine's
+bounded grid (tests/test_compile_guard.py pins it).
+
+Rollback contract: rejected drafts' KV slots sit at positions PAST the
+sequence's new committed length. Positions are append-only, so the next
+step's write at position ``num_tokens - 1`` overwrites the first stale
+slot before anything ever reads it — sequence state rewinds exactly by
+truncating the emitted-token list, and no page is freed or moved
+(tests/test_spec_decode.py pins this).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import TYPE_CHECKING, Optional
+
+import numpy as np
+
+from ...utils import cdiv, get_logger
+from ..kv_cache import SCRAP_PAGE
+
+if TYPE_CHECKING:  # pragma: no cover - import cycle guard
+    from ..scheduler import ScheduledBatch, Scheduler
+
+logger = get_logger("spec.verifier")
+
+
+def resolve_spec_k(sched: "Scheduler") -> int:
+    """This step's draft length: the acceptance-adaptive controller's
+    current rung when configured, else the static config k. Mirrored to
+    the ``kgct_spec_current_k`` gauge on every resolution (a k=0 throttle
+    must be visible on /metrics, not only by the absence of spec steps)."""
+    ctrl = sched.spec_controller
+    k = ctrl.current_k if ctrl is not None else sched.spec_proposer.k
+    sched.obs.spec_current_k = k
+    return k
+
+
+def collect_proposals(sched: "Scheduler", decode_seqs, k: int):
+    """Drafts for this round through the ONE proposer seam: lifecycle
+    retain, then the batched propose (k cheap draft-model decode
+    dispatches, or per-row n-gram lookups), timed for the draft-phase
+    metrics (``kgct_spec_draft_seconds`` / ``kgct_spec_draft_tokens_total``
+    and the spec trace events' draft/verify attribution)."""
+    t0 = time.perf_counter()
+    proposer = sched.spec_proposer
+    proposer.retain(s.request_id for s in sched.running)
+    proposals = [p[:k] for p in proposer.propose_batch(decode_seqs, k)]
+    draft_s = time.perf_counter() - t0
+    sched.obs.on_spec_draft(sum(len(p) for p in proposals), draft_s)
+    return proposals, draft_s
+
+
+def fill_verify_slices(decode_seqs, proposals, k: int, ps: int, max_len: int,
+                       tokens: np.ndarray, seg_ids: np.ndarray,
+                       positions: np.ndarray, slot_mapping: np.ndarray,
+                       page_tables: np.ndarray, context_lens: np.ndarray,
+                       draft_lens: np.ndarray, base: int = 0) -> None:
+    """THE per-row ``[last, d_1..d_k]`` slice layout — one definition for
+    the pure spec step (base 0) and the spec×mixed step (base = the chunk
+    bucket Tp), so the slot-overflow/scrap-page contract, filler padding
+    and page-table fill cannot drift between the two paths.
+
+    Row s occupies token slots [base + s*S, base + (s+1)*S). Short
+    proposals pad by repeating the trailing token: ANY filler keeps greedy
+    exact and sampled lossless (see proposer docstring); repetition just
+    gives the filler a fighting chance on repetitive workloads. Slots
+    past the model cap route to the scrap page, never wrap into real KV
+    (the decode window's substep_meta contract)."""
+    S = k + 1
+    for s, seq in enumerate(decode_seqs):
+        n = seq.num_tokens
+        last_tok = (seq.output_token_ids[-1] if seq.output_token_ids
+                    else seq.prompt_token_ids[-1])
+        drafts = proposals[s]
+        draft_lens[s] = len(drafts)
+        filler = drafts[-1] if drafts else last_tok
+        drafts = drafts + [filler] * (k - len(drafts))
+        row0 = base + s * S
+        tokens[row0:row0 + S] = [last_tok] + drafts
+        seg_ids[row0:row0 + S] = s
+        for i in range(S):
+            pos = n - 1 + i
+            pos_c = min(pos, max_len - 1)
+            positions[row0 + i] = pos_c
+            page = (seq.pages[pos_c // ps] if pos_c // ps < len(seq.pages)
+                    else SCRAP_PAGE)
+            slot_mapping[row0 + i] = (page * ps + pos_c % ps if pos < max_len
+                                      else pos % ps)
+        page_tables[s, :len(seq.pages)] = seq.pages
+        context_lens[s] = n
+
+
+def build_spec_batch(sched: "Scheduler") -> Optional["ScheduledBatch"]:
+    """Assemble one spec-verify step from the scheduler's live state, or
+    return None when spec cannot (or should not) run this step — the
+    caller falls through to the legacy decode path.
+
+    Bow-outs:
+    - row count outside the decode-bucket grid (an unwarmed compile shape
+      mid-serving would dodge the compile guard's bound) — probed before
+      any mutation;
+    - no SCHEDULED sequence has a real n-gram proposal (a verify step
+      costs S forward tokens per row; with nothing drafted, plain decode
+      is strictly better). Proposals are computed ONCE, on the post-growth
+      row set — the proposer is on the critical path between device
+      dispatches, and probing the pre-growth set could let preemption
+      evict the only proposer and ship an all-filler step.
+
+    Page growth happens through the same ``_grow_decode_pages`` the decode
+    path uses (window = S: the device writes S KV entries per row before
+    the host sees a token) and may preempt the youngest; the growth is not
+    wasted on a late bow-out — the fall-through decode step needs exactly
+    these rows' pages (its own window re-probes the width it needs).
+    """
+    from ..scheduler import ScheduledBatch, _bucket
+
+    sc = sched.config.scheduler
+    k = resolve_spec_k(sched)
+    if k < 1:
+        # Adaptive throttle at the floor: spec is off until the idle
+        # cooldown re-probes (scheduler ticks the controller).
+        return None
+    S = k + 1
+    if len(sched.running) > sc.decode_buckets[-1]:
+        return None
+
+    decode_seqs = sched._grow_decode_pages(window=S)
+    if not decode_seqs:
+        return None
+    proposals, draft_s = collect_proposals(sched, decode_seqs, k)
+    if not any(proposals):
+        return None
+
+    B = len(decode_seqs)
+    R_pad = _bucket(B, sc.decode_buckets)
+    T = R_pad * S
+    ps = sched.page_size
+    max_len = sched.config.effective_max_len
+    pages_bucket = cdiv(max_len, ps)
+
+    tokens = np.zeros(T, np.int32)
+    seg_ids = np.full(T, -1, np.int32)
+    positions = np.zeros(T, np.int32)
+    slot_mapping = np.arange(T, dtype=np.int32) % ps   # padding -> scrap page
+    page_tables = np.zeros((R_pad, pages_bucket), np.int32)
+    context_lens = np.zeros(R_pad, np.int32)
+    draft_lens = np.zeros(R_pad, np.int32)
+    fill_verify_slices(decode_seqs, proposals, k, ps, max_len, tokens,
+                       seg_ids, positions, slot_mapping, page_tables,
+                       context_lens, draft_lens)
+
+    return ScheduledBatch(
+        kind="spec", seqs=decode_seqs, tokens=tokens, positions=positions,
+        slot_mapping=slot_mapping, seg_ids=seg_ids, page_tables=page_tables,
+        context_lens=context_lens, draft_lens=draft_lens, spec_S=S,
+        draft_time_s=draft_s, **sched._sampling_arrays(decode_seqs, R_pad))

@@ -14,8 +14,10 @@ learned positions, a biased fc1/act/fc2 MLP, tied embeddings) and Mixtral
   layer loop is a Python loop over views of the stacked weights.
 - Entry points matching the serving hot loop: ``forward_prefill`` (ragged
   flattened prompt tokens), ``forward_prefill_hist`` (one sequence's chunk
-  over its pool history), ``forward_mixed`` (a chunk plus decode rows) and
-  ``forward_decode`` (one token per sequence against the paged pool).
+  over its pool history), ``forward_mixed`` (a chunk plus decode rows),
+  ``forward_decode`` (one token per sequence against the paged pool),
+  ``forward_spec_verify`` (every running sequence's ``[last, k drafts]``
+  slice) and ``forward_spec_mixed`` (a chunk plus verify slices).
 - Attention reads the pool BEFORE this step's write: the current step's
   K/V fold in directly, and one in-place scatter after the layer loop
   commits every layer's K/V (``ops.attention.write_kv_pages_all``).
@@ -41,7 +43,8 @@ from ..ops import quant as quant_ops
 from ..ops.attention import (mixed_attention, paged_decode_attention,
                              prefill_history_attention,
                              prefill_history_valid, prefill_window,
-                             ragged_prefill_attention, write_kv_pages_all)
+                             ragged_prefill_attention, spec_mixed_attention,
+                             spec_verify_attention, write_kv_pages_all)
 from ..ops.rope import apply_rope, rope_cos_sin
 
 if TYPE_CHECKING:  # import cycle guard: the engine package imports us
@@ -64,6 +67,19 @@ class DecodeMeta(NamedTuple):
     slot_mapping: torch.Tensor   # [B] int32 flat KV slot for the new token
     page_tables: torch.Tensor    # [B, pages_per_seq] int32 (pad = scrap)
     context_lens: torch.Tensor   # [B] int32 valid tokens incl. the new one
+
+
+class SpecMeta(NamedTuple):
+    """Metadata for a speculative-verification step over one padded token
+    axis ``T = R_pad * S``: every running sequence contributes S = k+1
+    contiguous slots (its last committed token + k drafts), attending to
+    its own paged-pool history plus the earlier slice tokens causally
+    (``S = T // page_tables.shape[0]``)."""
+    seg_ids: torch.Tensor        # [T] row id on real slots, -1 padding
+    positions: torch.Tensor      # [T] global positions (RoPE input)
+    slot_mapping: torch.Tensor   # [T] KV write slot (overflow -> scrap page)
+    page_tables: torch.Tensor    # [R_pad, pages] per-row history pages
+    context_lens: torch.Tensor   # [R_pad] committed tokens incl. slot 0's
 
 
 class MixedMeta(NamedTuple):
@@ -307,13 +323,23 @@ def _norm(cfg: ModelConfig, x: torch.Tensor, store: Params,
     return rms_norm(x, store[name], cfg.rms_norm_eps)
 
 
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` with JAX's gather semantics: a negative index wraps
+    once (``+ rows``), then every index is clamped to ``[0, rows - 1]``.
+    An id the table does not hold reads a row, never faults the device."""
+    n = table.shape[0]
+    idx = idx.to(torch.int64)
+    return table[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
+
+
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     """Token embedding, plus OPT's learned position embedding (HF keeps a
-    +2 offset into its table)."""
-    h = params["embed"][tokens.to(torch.int64)]
+    +2 offset into its table). Out-of-range ids and positions gather as
+    JAX's clamped gather does (``_rows``)."""
+    h = _rows(params["embed"], tokens)
     if cfg.pos_embedding == "learned":
-        h = h + params["pos_embed"][positions.to(torch.int64) + 2]
+        h = h + _rows(params["pos_embed"], positions.to(torch.int64) + 2)
     return h
 
 
@@ -524,6 +550,51 @@ def forward_mixed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                   attn_fn)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping,
                    meta.logits_indices)
+
+
+def forward_spec_mixed(params: Params, cfg: ModelConfig,
+                       tokens: torch.Tensor, meta: MixedMeta, kv: KVCache,
+                       S: int):
+    """Spec×mixed step: ONE forward over ``[prefill chunk | verify
+    slices]`` with attention split at ``n_prefill = T - R_pad * S``
+    (ops.attention.spec_mixed_attention). Returns (normed_selected
+    [R_pad*S + 1, d]: every verify slot, then the chunk's last token; kv;
+    raw_hidden [T, d])."""
+    scale = cfg.head_dim ** -0.5
+    n_prefill = tokens.shape[0] - meta.page_tables.shape[0] * S
+    n_valid = prefill_history_valid(meta.seg_ids[:n_prefill])  # once
+
+    def attn_fn(q, k, v, layer):
+        return spec_mixed_attention(
+            q, k, v, meta.seg_ids, meta.positions, kv.k, kv.v,
+            meta.chunk_page_table, meta.hist_len, meta.page_tables,
+            meta.context_lens, scale, n_prefill=n_prefill, layer=layer,
+            n_valid=n_valid)
+
+    h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
+                                  attn_fn)
+    return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping,
+                   meta.logits_indices)
+
+
+def forward_spec_verify(params: Params, cfg: ModelConfig,
+                        tokens: torch.Tensor, meta: SpecMeta, kv: KVCache):
+    """Speculative verification: every running sequence's ``[last token,
+    k drafts]`` slice in one forward over the flat ``[R_pad * S]`` axis,
+    attention by ``ops.attention.spec_verify_attention``. Returns
+    (normed_hidden [T, d] over EVERY slot, kv, raw_hidden [T, d]). All new
+    K/V, rejected drafts' included, commit in the one post-loop scatter;
+    rejected slots sit past the committed length and are overwritten
+    before any later step reads them."""
+    scale = cfg.head_dim ** -0.5
+
+    def attn_fn(q, k, v, layer):
+        return spec_verify_attention(q, k, v, kv.k, kv.v, meta.page_tables,
+                                     meta.context_lens, scale, layer=layer)
+
+    h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
+                                  attn_fn)
+    return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping, None)
 
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

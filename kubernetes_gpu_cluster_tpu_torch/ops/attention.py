@@ -9,13 +9,18 @@ Two attention shapes exist in the serving hot loop:
   and are addressed through per-sequence page tables.
 
 plus chunked prefill, where one sequence's chunk attends to its committed
+pool history and causally to itself, and speculative verification, where
+each running sequence's ``[last token, k drafts]`` slice attends to its
 pool history and causally to itself.
 
 The ``*_plain`` functions compute each in plain PyTorch (dense masked fp32,
 the JAX package's XLA oracles term for term): the CPU path and the yardstick
 the CUDA kernels are held against. The dispatchers choose by device: a CPU
 tensor takes the plain version, a CUDA tensor takes the hand-written kernel
-in ``ops/cuda/`` or raises — there is no fallback between the two.
+in ``ops/cuda/`` or raises — there is no fallback between the two. Verify
+attention is the exception: the JAX package has no Pallas kernel for it
+(its dispatcher sends every backend to the XLA version), so its plain
+version runs on both devices.
 """
 
 from __future__ import annotations
@@ -184,6 +189,54 @@ def paged_decode_attention_plain(
     return out.reshape(B, n_heads, hd).to(q.dtype)
 
 
+def spec_verify_attention_plain(
+    q: torch.Tensor,             # [B*S, n_heads, hd] (post-RoPE), row-major
+    k: torch.Tensor,             # [B*S, n_kv, hd] this step's keys (drafts too)
+    v: torch.Tensor,             # [B*S, n_kv, hd]
+    k_pool: torch.Tensor,        # [P, ps, n_kv*hd] or [L, P, ps, n_kv*hd]
+    v_pool: torch.Tensor,
+    page_tables: torch.Tensor,   # [B, pages] page ids (pad = scrap)
+    context_lens: torch.Tensor,  # [B] committed tokens incl. the slice's first
+    scale: float,
+    layer: Optional[int] = None,
+) -> torch.Tensor:
+    """Batched draft verification: B rows of S = k+1 tokens (``[last
+    committed token, k drafts]``), each token attending to its row's pool
+    history (positions ``0..context_len-2``, the same mask for all S
+    queries) and causally to the earlier tokens of its own slice. The
+    slice's own K/V arrive in-batch; the caller commits them in the one
+    post-forward scatter. fp32 throughout. A padding row (context 0) sees
+    only its own slice, as in the JAX package; the host never reads it."""
+    k_pool = _pool_layer(k_pool, layer)
+    v_pool = _pool_layer(v_pool, layer)
+    B = page_tables.shape[0]
+    T, n_heads, hd = q.shape
+    S = T // B
+    n_kv = k.shape[1]
+    ps = k_pool.shape[1]
+    L = page_tables.shape[1] * ps
+    g = n_heads // n_kv
+    idx = page_tables.to(torch.int64)
+    k_seq = k_pool[idx].reshape(B, L, n_kv, hd).float()
+    v_seq = v_pool[idx].reshape(B, L, n_kv, hd).float()
+
+    qg = (q.float() * scale).reshape(B, S, n_kv, g, hd)
+    kf = k.float().reshape(B, S, n_kv, hd)
+    vf = v.float().reshape(B, S, n_kv, hd)
+    s_h = torch.einsum("bskgh,blkh->bkgsl", qg, k_seq)      # [B,n_kv,g,S,L]
+    valid_h = (torch.arange(L, device=q.device)[None, :]
+               < (context_lens - 1)[:, None])                # [B, L]
+    s_h = s_h.masked_fill(~valid_h[:, None, None, None, :], float("-inf"))
+    s_b = torch.einsum("bskgh,btkh->bkgst", qg, kf)         # [B,n_kv,g,S,S]
+    causal = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                   device=q.device))
+    s_b = s_b.masked_fill(~causal, float("-inf"))
+    p = _masked_softmax(torch.cat([s_h, s_b], dim=-1))      # [B,n_kv,g,S,L+S]
+    out = (torch.einsum("bkgsl,blkh->bskgh", p[..., :L], v_seq)
+           + torch.einsum("bkgst,btkh->bskgh", p[..., L:], vf))
+    return out.reshape(T, n_heads, hd).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Dispatchers: the plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
@@ -239,6 +292,41 @@ def paged_decode_attention(q, k_cache_l, v_cache_l, page_tables, context_lens,
                         k_cur, v_cur, scale, layer=layer)
 
 
+# Most fp32 history bytes (K and V) one spec_verify_attention_plain call
+# gathers; a larger batch is split over rows.
+VERIFY_GATHER_BYTES = 1 << 30
+
+
+def spec_verify_attention(q, k, v, k_pool, v_pool, page_tables, context_lens,
+                          scale, *, layer=None):
+    """Spec-verify dispatcher: the plain version on either device (the JAX
+    package's dispatcher sends every backend to its XLA version; there is no
+    TPU kernel to port). Rows go in groups whose gathered fp32 history stays
+    within ``VERIFY_GATHER_BYTES``; callers pass tables cut to the columns
+    the batch's longest context needs (``verify_table_width``)."""
+    B, pps = page_tables.shape
+    S = q.shape[0] // B
+    per_row = 2 * pps * k_pool.shape[-2] * k_pool.shape[-1] * 4
+    rows = max(1, VERIFY_GATHER_BYTES // per_row)
+    if rows >= B:
+        return spec_verify_attention_plain(q, k, v, k_pool, v_pool,
+                                           page_tables, context_lens, scale,
+                                           layer=layer)
+    return torch.cat([spec_verify_attention_plain(
+        q[b * S:(b + rows) * S], k[b * S:(b + rows) * S],
+        v[b * S:(b + rows) * S], k_pool, v_pool, page_tables[b:b + rows],
+        context_lens[b:b + rows], scale, layer=layer)
+        for b in range(0, B, rows)], dim=0)
+
+
+def verify_table_width(context_lens, page_size: int) -> int:
+    """Page-table columns a verify step reads: its longest pooled history
+    (``context_len - 1`` tokens), at least one column. Computed on the host
+    from the batch's context lengths; columns past it are masked anyway."""
+    longest = int(max(context_lens, default=1)) - 1
+    return max(1, -(-longest // page_size))
+
+
 # ---------------------------------------------------------------------------
 # Mixed prefill/decode attention (stall-free batching)
 # ---------------------------------------------------------------------------
@@ -268,3 +356,34 @@ def mixed_attention(q, k, v, seg_ids, positions, k_pool, v_pool,
         q[n_prefill:], k_pool, v_pool, page_tables, context_lens,
         k[n_prefill:], v[n_prefill:], scale, layer=layer)
     return torch.cat([out_p, out_d], dim=0)
+
+
+def spec_mixed_attention(q, k, v, seg_ids, positions, k_pool, v_pool,
+                         chunk_page_table, hist_len, page_tables,
+                         context_lens, scale, *, n_prefill: int, layer=None,
+                         n_valid=None):
+    """Attention for one SPEC×MIXED step: the token axis is
+    ``[prefill chunk | verify slices]`` split at ``n_prefill``.
+
+    - tokens [0:n_prefill): one sequence's prompt chunk, exactly the mixed
+      step's chunk half (``prefill_history_attention``: the history kernel
+      on the card); chunk tokens carry seg 0, padding -1.
+    - tokens [n_prefill:): every running sequence's ``[last, d_1..d_k]``
+      verify slice against the paged pool (``spec_verify_attention``, as in
+      the pure spec step).
+
+    Both halves read the pool PRE-write and the caller commits all new K/V
+    in the one post-forward scatter. ``n_valid`` is
+    ``prefill_history_valid`` of the chunk half when the caller computed it
+    once for all layers."""
+    # The chunk half's segment view: the flat batch carries row ids on the
+    # verify slices, which the chunk's attention must not see.
+    segp = torch.where(seg_ids[:n_prefill] >= 0, 0, -1).to(seg_ids.dtype)
+    out_p = prefill_history_attention(
+        q[:n_prefill], k[:n_prefill], v[:n_prefill], segp,
+        positions[:n_prefill], k_pool, v_pool, chunk_page_table[0], hist_len,
+        scale, layer=layer, n_valid=n_valid)
+    out_s = spec_verify_attention(
+        q[n_prefill:], k[n_prefill:], v[n_prefill:], k_pool, v_pool,
+        page_tables, context_lens, scale, layer=layer)
+    return torch.cat([out_p, out_s], dim=0)

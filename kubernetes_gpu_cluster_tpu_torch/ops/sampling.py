@@ -13,7 +13,10 @@ counter-based integer hash of (seed, absolute position of the sampled
 token, vocab index), and the draw is Gumbel-max: ``argmax(logits + g)``
 with ``g = -log(-log(u))`` is an exact sample of ``softmax(logits)``. The
 same seed and position give the same token in any batch, on any engine
-(same property as the JAX draw; not the same bits).
+(same property as the JAX draw; not the same bits). Speculative
+verification (``spec_verify_sample``) draws its acceptance uniform and its
+residual/bonus noise from two further streams of the same row key, so a
+seeded row's outcome at a position is as independent of the batch.
 """
 
 from __future__ import annotations
@@ -63,14 +66,24 @@ def row_sample_keys(step_key: int, seed: torch.Tensor,
     return torch.where(seed >= 0, seeded, unseeded)
 
 
+# Stream salts of a verify step's two draws from one row key: the
+# acceptance uniform and the residual (or bonus) Gumbel noise.
+_ACCEPT_SALT = 0x0ACC3E77
+_RESIDUAL_SALT = 0x5E5D0A11
+
+
+def _unit_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """32-bit hashes -> fp32 uniforms in (0, 1): the top 24 bits, centred."""
+    return ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
 def gumbel_noise(keys: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """[B, V] fp32 standard Gumbel noise, a pure function of (row key,
     vocab index)."""
     cols = _mix32(torch.arange(vocab_size, device=keys.device,
                                dtype=torch.int64) + 0x2545F491)
     bits = _mix32(keys.to(torch.int64)[:, None] ^ cols)
-    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
+    return -torch.log(-torch.log(_unit_uniform(bits)))
 
 
 def _filter_thresholds_sorted(sorted_logits: torch.Tensor, k: torch.Tensor,
@@ -266,3 +279,134 @@ def sample_and_logprobs(
     ids = torch.where(temperature <= 0, greedy_ids, ids)
     return (ids, _chosen_logprobs(scaled, ids),
             *gated_top_logprobs(scaled, with_top))
+
+
+def sample_tokens(logits: torch.Tensor, keys: torch.Tensor,
+                  temperature: torch.Tensor, top_k: torch.Tensor,
+                  top_p: torch.Tensor, *, any_sampled: bool,
+                  needs_filter: bool) -> torch.Tensor:
+    """Sampled token ids only (``sample_and_logprobs`` without the
+    logprobs)."""
+    return sample_and_logprobs(logits, keys, temperature, top_k, top_p,
+                               any_sampled=any_sampled,
+                               needs_filter=needs_filter)[0]
+
+
+def spec_verify_sample(
+    logits: torch.Tensor,        # [B, S, V] f32, bias already applied
+    drafts: torch.Tensor,        # [B, S-1] int draft tokens d_1..d_k
+    pos0: torch.Tensor,          # [B] absolute position of the first emitted token
+    step_key: int,               # the engine's per-step key
+    seed: torch.Tensor,          # [B] int; -1 = unseeded
+    temperature: torch.Tensor,   # [B]; 0 => greedy (exact-match acceptance)
+    top_k: torch.Tensor,         # [B]; 0 => disabled
+    top_p: torch.Tensor,         # [B]; 1.0 => disabled
+    presence: torch.Tensor,      # [B]
+    frequency: torch.Tensor,     # [B]
+    counts: Optional[torch.Tensor],  # [B, V] output-token histogram, or None
+    *,
+    any_sampled: bool,
+    needs_filter: bool,
+    any_pen: bool,
+    with_top: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """Lossless draft acceptance over one verify step's logits.
+
+    Position j's logits define the target distribution p_j through the
+    non-spec pipeline: penalties on the raw logits (counts advanced with
+    each emitted token, as the decode window bumps them per substep),
+    temperature, then top-k/top-p. For j = 0..k-1 while a row's chain is
+    alive:
+
+    - greedy rows accept d_{j+1} iff it is the argmax; on a mismatch the
+      argmax is emitted (identical to non-spec greedy);
+    - sampled rows accept with probability p_j(d_{j+1}) (one-hot drafts:
+      Leviathan's min(1, p/q) is p(d)); on rejection they emit a sample of
+      p_j with the draft masked out. Either way the token is distributed
+      exactly as p_j. The uniform and the residual's Gumbel noise come
+      from two streams of the row's key at position ``pos0 + j``
+      (``row_sample_keys``), so a seeded row's outcome depends on its seed
+      and position only.
+
+    The first rejection ends the chain (later columns are garbage the host
+    discards). A chain that survives all k drafts draws one bonus token
+    from the last position (the residual stream, nothing masked). A draft
+    outside the vocabulary is never accepted.
+
+    The flags (any sampled row, any filter, any penalty, alternatives
+    wanted) come from the host copy of the params, as in
+    ``sample_and_logprobs``. Returns (tokens [B, S] int32, n_accepted [B]
+    int32, logprobs [B, S], top ids [B, S, 5], top logprobs [B, S, 5]),
+    logprobs under the temperature-scaled pre-truncation distribution
+    (raw for greedy rows)."""
+    B, S, V = logits.shape
+    logits = logits.to(torch.float32)
+    is_greedy = temperature <= 0
+    safe_temp = torch.where(is_greedy, torch.ones_like(temperature),
+                            temperature)
+    vocab = torch.arange(V, device=logits.device)
+
+    def target(raw, counts):
+        pen = (apply_penalties(raw, counts, presence, frequency)
+               if any_pen else raw)
+        scaled = pen / safe_temp[:, None]
+        filtered = (_apply_filters(scaled, top_k, top_p) if needs_filter
+                    else scaled)
+        return pen, scaled, filtered
+
+    def residual_noise(keys):
+        return gumbel_noise(_mix32(keys ^ _RESIDUAL_SALT), V)
+
+    alive = torch.ones(B, dtype=torch.bool, device=logits.device)
+    n_acc = torch.zeros(B, dtype=torch.int32, device=logits.device)
+    toks, lps, tids, tlps = [], [], [], []
+    for j in range(S - 1):
+        pen, scaled, filtered = target(logits[:, j], counts)
+        greedy_ids = torch.argmax(pen, dim=-1).to(torch.int32)
+        d = drafts[:, j].to(torch.int32)
+        accept = d == greedy_ids
+        replacement = greedy_ids
+        if any_sampled:
+            keys = row_sample_keys(step_key, seed, pos0 + j)
+            is_d = vocab[None, :] == d[:, None].to(torch.int64)   # [B, V]
+            p_d = torch.sum(torch.softmax(filtered, dim=-1) * is_d, dim=-1)
+            u = _unit_uniform(_mix32(keys ^ _ACCEPT_SALT))
+            residual = filtered.masked_fill(is_d, float("-inf"))
+            res_ids = torch.argmax(residual + residual_noise(keys),
+                                   dim=-1).to(torch.int32)
+            # The draft held all the remaining mass (a +100 logit_bias, say):
+            # rejection has probability ~0; keep the draft.
+            res_ok = torch.isfinite(torch.max(residual, dim=-1).values)
+            accept = torch.where(is_greedy, accept, u < p_d)
+            replacement = torch.where(
+                is_greedy, greedy_ids, torch.where(res_ok, res_ids, d))
+        accept = accept & alive
+        emitted = torch.where(accept, d, replacement)
+        if any_pen:
+            counts = counts.scatter_add(
+                1, emitted.to(torch.int64)[:, None],
+                alive.to(counts.dtype)[:, None])
+        toks.append(emitted)
+        lps.append(_chosen_logprobs(scaled, emitted))
+        tid, tlp = gated_top_logprobs(scaled, with_top)
+        tids.append(tid)
+        tlps.append(tlp)
+        alive = accept
+        n_acc = n_acc + accept.to(torch.int32)
+
+    # Bonus token from the last position (used only where the whole chain
+    # survived; the host discards it otherwise).
+    pen, scaled, filtered = target(logits[:, -1], counts)
+    bonus = torch.argmax(pen, dim=-1).to(torch.int32)
+    if any_sampled:
+        keys = row_sample_keys(step_key, seed, pos0 + (S - 1))
+        sampled = torch.argmax(filtered + residual_noise(keys),
+                               dim=-1).to(torch.int32)
+        bonus = torch.where(is_greedy, bonus, sampled)
+    toks.append(bonus)
+    lps.append(_chosen_logprobs(scaled, bonus))
+    tid, tlp = gated_top_logprobs(scaled, with_top)
+    tids.append(tid)
+    tlps.append(tlp)
+    return (torch.stack(toks, dim=1), n_acc, torch.stack(lps, dim=1),
+            torch.stack(tids, dim=1), torch.stack(tlps, dim=1))

@@ -46,9 +46,10 @@ class StreamChunk:
 class AsyncLLMEngine:
     def __init__(self, config: EngineConfig, params=None,
                  eos_token_id: Optional[int] = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", draft_params=None):
         self.engine = LLMEngine(config, params=params,
-                                eos_token_id=eos_token_id, device=device)
+                                eos_token_id=eos_token_id, device=device,
+                                draft_params=draft_params)
         # resilience watchdog (set by the server): armed around each step()
         # so a hung device dispatch flips /health.
         self.watchdog = None

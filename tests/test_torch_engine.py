@@ -268,9 +268,8 @@ def test_no_device_default_raises(monkeypatch, weights):
 
 
 def test_unported_engine_options_raise(weights):
-    for cfg in (_port_cfg(spec_decode_enabled=True),
-                EngineConfig(model=get_model_config("debug-tiny"),
-                             cache=CacheConfig(swap_space_gb=0.1))):
+    for cfg in (EngineConfig(model=get_model_config("debug-tiny"),
+                             cache=CacheConfig(swap_space_gb=0.1)),):
         with pytest.raises(NotImplementedError):
             LLMEngine(cfg, params=weights[1], device="cpu")
 

@@ -298,6 +298,109 @@ def test_flash_prefill_hist_engine_shapes(cuda_device, dtype, case):
     assert torch.equal(got, again)
 
 
+def _hist_args(gen, dtype, device, nh, n_kv, hd, ps, T, n_valid, hist_len,
+               L, pps, seed):
+    """flash_prefill_hist arguments: a T-token chunk (``n_valid`` real) over
+    ``hist_len`` pooled tokens on random pages of a ``pps``-wide table,
+    layer 1 of an L-layer pool."""
+    P = pps + 1
+    table = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1).to(torch.int32)
+    seg = torch.where(torch.arange(T) < n_valid, 0, -1).to(torch.int32)
+    return (_rn(gen, dtype, device, T, nh, hd),
+            _rn(gen, dtype, device, T, n_kv, hd),
+            _rn(gen, dtype, device, T, n_kv, hd), seg.to(device),
+            (torch.arange(T, dtype=torch.int32) + hist_len).to(device),
+            _rn(gen, dtype, device, L, P, ps, n_kv * hd),
+            _rn(gen, dtype, device, L, P, ps, n_kv * hd),
+            table.to(device), hist_len, hd ** -0.5)
+
+
+@pytest.mark.gpu
+def test_two_pools_interleaved_through_one_wrapper(cuda_device):
+    """Draft-model speculation alternates the target pool and the draft
+    model's pool on one stream: llama-3-8b heads over a 4-layer pool and
+    tinyllama heads (32 / 4 / 64) over a 3-layer pool with another page
+    count. ``paged_decode`` (contexts long enough to split, so both keys
+    share the device's split-K workspace and self-resetting counters) and
+    ``flash_prefill_hist`` each match the plain version on both pools, and
+    three rounds of interleaved calls give the same bits every round."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    dt = torch.bfloat16
+    decode = [_decode_case(g, dt, cuda_device, 32, 8, 128, 16,
+                           [700, 4097, 1, 2000, 0], 512, L=4),
+              _decode_case(g, dt, cuda_device, 32, 4, 64, 16,
+                           [690, 4090, 3, 1990, 0, 35], 512, L=3)]
+    hist = [_hist_args(g, dt, cuda_device, 32, 8, 128, 16, 128, 100, 900, 4,
+                       64, 22),
+            _hist_args(g, dt, cuda_device, 32, 4, 64, 16, 64, 64, 300, 3,
+                       32, 23)]
+    want_d = [A.paged_decode_attention_plain(*c, layer=1) for c in decode]
+    want_h = [A.prefill_history_attention_plain(*c, layer=1) for c in hist]
+    rounds = []
+    for _ in range(3):
+        outs = []
+        for dc, hc, wd, wh in zip(decode, hist, want_d, want_h):
+            before = cpd.launches, cfh.launches
+            outs.append(cpd.paged_decode(*dc, layer=1))
+            outs.append(cfh.flash_prefill_hist(*hc, layer=1))
+            assert (cpd.launches, cfh.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+            torch.testing.assert_close(outs[-2], wd, atol=TOL[dt], rtol=0)
+            torch.testing.assert_close(outs[-1], wh, atol=TOL[dt], rtol=0)
+        rounds.append(outs)
+    for later in rounds[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(rounds[0], later))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spec_mixed_attention_chunk_half_through_the_kernel(cuda_device,
+                                                            dtype):
+    """A spec×mixed step's attention at llama-3-8b heads: a 512-slot chunk
+    (470 real tokens over 1037 pooled) through the history kernel, then 8
+    verify rows of S 5 (one padding) through the plain verify attention.
+    Each half equals its plain version (the verify half IS the plain
+    version, fed row slices of the step's token axis); the chunk length
+    computed once (``n_valid``) gives the same bits."""
+    nh, n_kv, hd, ps, L = 32, 8, 128, 16, 2
+    Tp, n_real, hist_len, R, S = 512, 470, 1037, 8, 5
+    g = torch.Generator(device=cuda_device).manual_seed(24)
+    chunk = _hist_args(g, dtype, cuda_device, nh, n_kv, hd, ps, Tp, n_real,
+                       hist_len, L, 128, 25)
+    q, k, v, seg_c, pos_c, kp, vp, table, _, scale = chunk
+    ctx = torch.tensor([1, 17, 300, 1500, 64, 700, 2047, 0],
+                       dtype=torch.int32)
+    pps = 128
+    tables = torch.randint(1, kp.shape[1], (R, pps),
+                           generator=torch.Generator().manual_seed(26),
+                           dtype=torch.int32)
+    tables[ctx == 0] = 0
+    qs = _rn(g, dtype, cuda_device, R * S, nh, hd)
+    ks = _rn(g, dtype, cuda_device, R * S, n_kv, hd)
+    vs = _rn(g, dtype, cuda_device, R * S, n_kv, hd)
+    seg = torch.cat([seg_c, torch.repeat_interleave(
+        torch.arange(R, dtype=torch.int32, device=cuda_device), S)])
+    seg[Tp + (R - 1) * S:] = -1
+    pos = torch.cat([pos_c, torch.zeros(R * S, dtype=torch.int32,
+                                        device=cuda_device)])
+    args = (torch.cat([q, qs]), torch.cat([k, ks]), torch.cat([v, vs]), seg,
+            pos, kp, vp, table[None], hist_len, tables.to(cuda_device),
+            ctx.to(cuda_device), scale)
+    before = cfh.launches
+    got = A.spec_mixed_attention(*args, n_prefill=Tp, layer=1)
+    assert cfh.launches == before + 1
+    torch.testing.assert_close(got[:Tp], A.prefill_history_attention_plain(
+        q, k, v, seg_c, pos_c, kp, vp, table, hist_len, scale, layer=1),
+        atol=TOL[dtype], rtol=0)
+    torch.testing.assert_close(got[Tp:], A.spec_verify_attention_plain(
+        qs, ks, vs, kp, vp, tables.to(cuda_device), ctx.to(cuda_device),
+        scale, layer=1), atol=TOL[dtype], rtol=0)
+    again = A.spec_mixed_attention(*args, n_prefill=Tp, layer=1,
+                                   n_valid=cfh.valid_tokens(seg_c))
+    assert torch.equal(got, again)
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_unsupported_geometry(cuda_device):
     q = torch.zeros(2, 4, 96, device=cuda_device)         # hd 96
