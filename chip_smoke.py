@@ -77,6 +77,30 @@ Then speculative decoding:
     the first differing position is below 1e-3 of that position's logit
     standard deviation (counted).
 
+Then the KV transfer layer, on the phase-4 weights (after 7a, before they
+are freed; each engine freed before the next is built):
+
+8a. Swap: a 160-page pool (2 MiB pages) and a 2 GB pinned host tier under
+    twelve greedy requests whose decode growth overflows the pool: swap
+    preemptions > 0 and recompute 0; a wrapper in this script keeps a
+    device copy of every page set that goes out and checks every restored
+    page ``torch.equal`` to it (the count is logged); the same requests
+    twice give the same tokens; each direction's pages, GB, ms and GB/s
+    beside a pinned 1 GiB ``copy_`` each way (the link's bound) and the
+    time to pin the host tier. A never-preempted engine serves the same
+    requests; greedy differences are counted and logged with their top-2
+    gap (batch composition changes the GEMM and decode split shapes, so
+    bf16 near-ties flip).
+8b. Handoff: a prefill replica and a decode replica (two engines, each
+    with its own pool). Four prompts, one at a time: prefill with
+    ``hold_kv`` and ``max_tokens`` 1, ``export_held``, ``import_request``,
+    decode to completion; the tokens must equal the decode replica serving
+    the prompt alone. Then a 1024-token prefix goes ``export_prefix`` ->
+    ``begin/import_prefix_chunk/commit``, and a prompt extending it hits
+    the imported pages (a prefix-cache hit) with tokens equal to the
+    prefill replica serving it from its own cache. Export and import ms
+    and GB/s are logged.
+
 Each phase logs its seconds.
 
 The line before the last is the ``kernels`` JSON record; the last line is
@@ -1079,6 +1103,315 @@ def check_spec_draft(device, counters) -> dict:
             "near_tie_divergences": len(ties), "requests": len(reqs)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the KV transfer layer (host tier, export/import seams)
+# ---------------------------------------------------------------------------
+
+SWAP_PAGES = 160     # 8a's device pool: 320 MB of llama-3-8b bf16 KV
+SWAP_GB = 2.0        # 8a's host tier: 1024 pages, more than the overflow
+HANDOFF_PAGES = 1024
+PREFIX_TOKENS = 1024
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def link_bound(device) -> dict:
+    """GB/s of one 1 GiB ``copy_`` each way between pinned host memory and
+    the card (CUDA events): the link's bound beside the transfer rates."""
+    n = 1 << 30
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.uint8, device=device)
+    d2h = cuda_ms(lambda: host.copy_(dev, non_blocking=True), 3, warmup=1)
+    h2d = cuda_ms(lambda: dev.copy_(host, non_blocking=True), 3, warmup=1)
+    return {"d2h_gb_s": n / d2h / 1e6, "h2d_gb_s": n / h2d / 1e6,
+            "bytes": n}
+
+
+class SwapAudit:
+    """Wraps an engine's swapper (in this script only): keeps a device copy
+    of every page set that goes out, checks every restored page against it
+    with ``torch.equal``, and times each transfer between two
+    synchronizes (the swapper's own swap-in returns before its copy
+    finishes)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        sw = engine.swapper
+        self._out, self._in = sw.swap_out, sw.swap_in
+        sw.swap_out, sw.swap_in = self.swap_out, self.swap_in
+        self.saved: dict = {}
+        self.compared = 0
+        self.pages = {"out": 0, "in": 0}
+        self.seconds = {"out": 0.0, "in": 0.0}
+
+    def _read(self, pages):
+        kv = self.engine.kv_cache
+        idx = torch.tensor(pages, device=kv.k.device)
+        return kv.k.index_select(1, idx), kv.v.index_select(1, idx)
+
+    def _timed(self, direction, n, fn):
+        device = self.engine.device
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        self.seconds[direction] += time.perf_counter() - t0
+        self.pages[direction] += n
+        return out
+
+    def swap_out(self, pages, request_id=""):
+        k, v = self._read(pages)
+        host_pages = self._timed("out", len(pages),
+                                 lambda: self._out(pages, request_id))
+        for i, hp in enumerate(host_pages):
+            self.saved[hp] = (k[:, i], v[:, i])
+        return host_pages
+
+    def swap_in(self, host_pages, device_pages, request_id=""):
+        self._timed("in", len(host_pages), lambda: self._in(
+            host_pages, device_pages, request_id))
+        k, v = self._read(device_pages)
+        for i, hp in enumerate(host_pages):
+            want_k, want_v = self.saved.pop(hp)
+            if not (torch.equal(k[:, i], want_k)
+                    and torch.equal(v[:, i], want_v)):
+                raise RuntimeError(f"restored page {device_pages[i]} (host "
+                                   f"{hp}) differs from what went out")
+            self.compared += 1
+
+    def rates(self, page_bytes: int) -> dict:
+        out = {}
+        for d in ("out", "in"):
+            b = self.pages[d] * page_bytes
+            out[d] = {"pages": self.pages[d], "gb": b / 1e9,
+                      "ms": self.seconds[d] * 1e3,
+                      "gb_s": b / self.seconds[d] / 1e9
+                      if self.seconds[d] else None}
+        return out
+
+
+def swap_workload(vocab: int):
+    """Twelve greedy requests of 200-600-token prompts and 64-128 new
+    tokens, all at step 0: their decode growth overflows 8a's pool."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    rng = np.random.default_rng(SEED + 11)
+    return [(0, f"s{i}", [int(t) for t in rng.integers(
+        1, vocab, int(rng.integers(200, 601)))],
+        SamplingParams(max_tokens=int(rng.integers(64, 129)),
+                       temperature=0.0)) for i in range(12)]
+
+
+def check_swap(cfg_engine, params, device, counters) -> dict:
+    """Phase 8a: swap preemption at llama-3-8b width on the phase-4
+    weights. The same requests twice (identical tokens), every restored
+    page bit-equal to what went out, then a never-preempted engine on the
+    same requests (greedy differences counted with their top-2 gap: batch
+    composition changes ``paged_decode``'s split plan, so bf16 near-ties
+    may flip)."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                         SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
+    from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import \
+        kv_cache_bytes_per_page
+    cfg = cfg_engine.model
+    ps = cfg_engine.cache.page_size
+    sched = SchedulerConfig(max_num_seqs=12)
+    cfg_swap = dataclasses.replace(
+        cfg_engine, scheduler=sched,
+        cache=CacheConfig(page_size=ps, num_pages=SWAP_PAGES,
+                          swap_space_gb=SWAP_GB))
+    page_bytes = kv_cache_bytes_per_page(cfg, cfg_swap.cache)
+    reqs = swap_workload(cfg.vocab_size)
+    hist = counters.get("flash_prefill_hist")
+    engine = LLMEngine(cfg_swap, params=params, device=device)
+    host = engine.swapper.host
+    audit = SwapAudit(engine)
+    drive(engine, reqs[:2], "warm", hist)
+    for mod in counters.values():
+        mod.launches = 0
+    kinds0 = dict(engine.scheduler.num_preemptions_by_kind)
+    run1 = drive(engine, reqs, "a", hist)
+    launches = {name: mod.launches for name, mod in counters.items()}
+    kinds = {k: v - kinds0[k]
+             for k, v in engine.scheduler.num_preemptions_by_kind.items()}
+    rates = audit.rates(page_bytes)
+    compared = audit.compared
+    log("swap run 1:", json.dumps({k: v for k, v in run1.items()
+                                   if k != "tokens"}),
+        "preemptions:", json.dumps(kinds), "launches:", json.dumps(launches))
+    if kinds["swap"] <= 0 or kinds["recompute"] != 0:
+        raise RuntimeError(f"8a: expected swap preemptions only: {kinds}")
+    if compared <= 0 or audit.pages["in"] != audit.pages["out"]:
+        raise RuntimeError(f"8a: {compared} restored pages compared, "
+                           f"{audit.pages}")
+    # 8a's prompts fit the prefill budget: no chunk runs the history kernel.
+    for name in ("paged_decode", "flash_prefill"):
+        if launches.get(name, 1) <= 0:
+            raise RuntimeError(f"8a: kernel {name} never launched")
+    if set(run1["tokens"]) != {r[1] for r in reqs}:
+        raise RuntimeError("8a: not every request finished")
+    run2 = drive(engine, reqs, "b", hist)
+    diff = sorted(r for r in run1["tokens"]
+                  if run1["tokens"][r] != run2["tokens"][r])
+    if diff:
+        raise RuntimeError(f"8a: the second swap run differs for {diff}")
+    if (host.num_in_use or engine.scheduler.allocator.num_free
+            != engine.scheduler.allocator.num_pages - 1):
+        raise RuntimeError("8a: pages left in use after the runs")
+    out = {"preemptions": kinds, "restored_pages_compared": compared,
+           "restored_pages_compared_run2": audit.compared - compared,
+           "transfers": rates, "page_bytes": page_bytes,
+           "host_pages": host.num_pages, "host_pin_s": host.pin_s,
+           "tokens_per_s": run1["tokens_per_s"],
+           "tokens_per_s_run2": run2["tokens_per_s"],
+           "kinds": run1["kinds"], "launches": launches}
+    del engine, audit, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    off = LLMEngine(dataclasses.replace(
+        cfg_engine, scheduler=sched,
+        cache=CacheConfig(page_size=ps, num_pages=HANDOFF_PAGES)),
+        params=params, device=device)
+    run_off = drive(off, reqs, "off", hist)
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    diverged = []
+    for _, rid, prompt, _ in reqs:
+        a, b = run1["tokens"][rid], run_off["tokens"][rid]
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap, std = _top2_gap(params, cfg, prompt + b[:i], device)
+        log(f"swap/never-preempted divergence {rid} at output {i}: top-2 "
+            f"gap {gap} logit std {std} ({gap / std:.3g} of it)")
+        diverged.append({"rid": rid, "at": i, "gap_over_std": gap / std})
+    out.update(tokens_per_s_never_preempted=run_off["tokens_per_s"],
+               kinds_never_preempted=run_off["kinds"],
+               greedy_differing_from_never_preempted=len(diverged),
+               divergences=diverged, requests=len(reqs),
+               link=link_bound(device))
+    return out
+
+
+def _serve_one(engine, rid, prompt, sp) -> list[int]:
+    engine.add_request(rid, prompt, sp)
+    final = None
+    while engine.has_unfinished_requests():
+        for o in engine.step():
+            if o.request_id == rid and o.finished:
+                final = list(o.output_token_ids)
+    return final
+
+
+def check_handoff(cfg_engine, params, device, counters) -> dict:
+    """Phase 8b: a prefill replica and a decode replica (two engines on
+    the phase-4 weights, each with its own pool). Each request, one at a
+    time: prefill with hold_kv and max_tokens 1, export_held,
+    import_request on the decode replica, decode to completion; the tokens
+    must equal the decode replica serving the same request alone. Then one
+    1024-token prefix goes export_prefix -> begin/import_prefix_chunk/
+    commit, and a prompt extending it hits the imported pages, with tokens
+    equal to the prefill replica (which hits its own cached pages)."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                         SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
+                                                         SamplingParams)
+    cfg = cfg_engine.model
+    ps = cfg_engine.cache.page_size
+    cfg_pair = dataclasses.replace(
+        cfg_engine, cache=CacheConfig(page_size=ps, num_pages=HANDOFF_PAGES),
+        scheduler=SchedulerConfig(max_num_seqs=8,
+                                  enable_prefix_caching=True))
+    pre = LLMEngine(cfg_pair, params=params, device=device)
+    dec = LLMEngine(cfg_pair, params=params, device=device)
+    rng = np.random.default_rng(SEED + 12)
+    sp = SamplingParams(max_tokens=32, temperature=0.0)
+    warm = [int(t) for t in rng.integers(1, cfg.vocab_size, 64)]
+    for eng in (pre, dec):
+        _serve_one(eng, "warm", warm, sp)
+    for mod in counters.values():
+        mod.launches = 0
+    handoffs = []
+    for i, n in enumerate((300, 700, 1100, 1500)):
+        prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+        ref = _serve_one(dec, f"colo-{i}", prompt, sp)
+        pre.add_request(f"pf-{i}", prompt,
+                        dataclasses.replace(sp, max_tokens=1), hold_kv=True)
+        while pre.has_unfinished_requests():
+            pre.step()
+        _sync(device)
+        t0 = time.perf_counter()
+        state = pre.export_held(f"pf-{i}")
+        t_exp = time.perf_counter() - t0
+        nbytes = state["k"].nbytes + state["v"].nbytes
+        t0 = time.perf_counter()
+        outs = dec.import_request(f"dc-{i}", prompt, sp, state)
+        _sync(device)
+        t_imp = time.perf_counter() - t0
+        got = list(outs[0].output_token_ids)
+        while dec.has_unfinished_requests():
+            for o in dec.step():
+                if o.request_id == f"dc-{i}" and o.finished:
+                    got = list(o.output_token_ids)
+        if got != ref:
+            raise RuntimeError(f"8b: handoff of {n}-token prompt differs "
+                               f"from colocated: {got[:8]} vs {ref[:8]}")
+        handoffs.append({"prompt": n, "pages": state["k"].shape[1],
+                         "bytes": nbytes, "export_ms": t_exp * 1e3,
+                         "export_gb_s": nbytes / t_exp / 1e9,
+                         "import_ms": t_imp * 1e3,
+                         "import_gb_s": nbytes / t_imp / 1e9})
+    prefix = [int(t) for t in rng.integers(1, cfg.vocab_size, PREFIX_TOKENS)]
+    ext = [int(t) for t in rng.integers(1, cfg.vocab_size, 200)]
+    _serve_one(pre, "pfx", prefix + ext[:1],
+               dataclasses.replace(sp, max_tokens=1))
+    _sync(device)
+    t0 = time.perf_counter()
+    state = pre.export_prefix(prefix + ext)
+    t_exp = time.perf_counter() - t0
+    if state["matched_tokens"] != PREFIX_TOKENS:
+        raise RuntimeError(f"8b: exported {state['matched_tokens']} prefix "
+                           f"tokens, expected {PREFIX_TOKENS}")
+    nbytes = state["k"].nbytes + state["v"].nbytes
+    t0 = time.perf_counter()
+    handle = dec.begin_prefix_import(
+        {k: v for k, v in state.items() if k not in ("k", "v")})
+    for j in range(0, state["k"].shape[1], 16):
+        dec.import_prefix_chunk(handle, state["k"][:, j:j + 16],
+                                state["v"][:, j:j + 16])
+    dec.commit_prefix_import(handle)
+    _sync(device)
+    t_imp = time.perf_counter() - t0
+    if dec.prefix_peek(prefix + ext) != PREFIX_TOKENS:
+        raise RuntimeError("8b: the imported prefix is not in the cache")
+    hits0 = dec.scheduler.prefix_cache.hits
+    got = _serve_one(dec, "ext-dc", prefix + ext, sp)
+    hit = dec.scheduler.prefix_cache.hits - hits0
+    ref = _serve_one(pre, "ext-colo", prefix + ext, sp)
+    if hit != 1 or got != ref:
+        raise RuntimeError(f"8b: prefix import hit {hit}; tokens "
+                           f"{'equal' if got == ref else 'differ'}")
+    launches = {name: mod.launches for name, mod in counters.items()}
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"8b: kernel {name} never launched")
+    del pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"handoffs": handoffs, "handoff_tokens_identical": len(handoffs),
+            "prefix": {"tokens": PREFIX_TOKENS, "bytes": nbytes,
+                       "export_ms": t_exp * 1e3,
+                       "export_gb_s": nbytes / t_exp / 1e9,
+                       "import_ms": t_imp * 1e3,
+                       "import_gb_s": nbytes / t_imp / 1e9,
+                       "cache_hit": hit, "tokens_identical": got == ref},
+            "launches": launches}
+
+
 async def _streams(aeng, prompts, sp) -> list:
     async def one(i, prompt):
         toks, chunks = [], 0
@@ -1193,10 +1526,17 @@ def main() -> int:
     # Phase 7a: n-gram speculative decoding on the same weights.
     log("spec ngram:", json.dumps(check_spec_ngram(cfg_engine, params, device,
                                                    attn)))
+    phase(f"{MODEL} bf16 spec (7a)")
+
+    # Phase 8: the KV transfer layer on the same weights.
+    log("swap:", json.dumps(check_swap(cfg_engine, params, device, attn)),
+        "|", card)
+    log("handoff:", json.dumps(check_handoff(cfg_engine, params, device,
+                                             attn)), "|", card)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    phase(f"{MODEL} bf16 spec (7a)")
+    phase(f"{MODEL} bf16 KV transfer (8)")
 
     # Phase 3b: the int4 model, kernel against int4_matmul_plain.
     cfg4 = cfg.replace(quantization="int4", quant_group_size=GROUP)

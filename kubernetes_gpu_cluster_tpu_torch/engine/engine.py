@@ -35,10 +35,18 @@ model with its own KV pool, ``engine/spec/draft_model.py``) drafts k tokens
 per running sequence and one step verifies them all; decode windows never
 chain while it is on.
 
-Not ported yet: the host KV tier (swap), KV export/import for
-disaggregated serving and migration, parallelism, and the runtime
-sanitizers (with them the spec path's KV-slot shadow and its
-``kv_commit_stomp`` chaos site).
+The KV transfer layer (``engine/kv_cache.py``): with
+``CacheConfig.swap_space_gb`` > 0 a host KV tier takes swap preemptions
+and prefix-cache spills; the export/import seams (``export_held``,
+``export_running``, ``import_request``, ``export_prefix`` and the streamed
+prefix import, ``accept_remote_spill``) move committed pages between
+replicas as host-buffer state dicts that read the same as the JAX
+package's. The wire codec (``serving/handoff.py`` in the JAX package)
+will sit on these dicts.
+
+Not ported yet: parallelism, and the runtime sanitizers (with them the
+spec path's KV-slot shadow, its ``kv_commit_stomp`` chaos site and the
+swap-restore hook).
 """
 
 from __future__ import annotations
@@ -60,7 +68,9 @@ from ..ops.sampling import (apply_logit_bias, apply_penalties, build_counts,
                             token_logprobs)
 from ..resilience.faults import inject as _inject_fault
 from ..utils import cdiv, get_logger
-from .kv_cache import allocate_kv_cache, derive_num_pages
+from .kv_cache import (KVPageIO, KVTransferPrograms, KVTransferRefused,
+                       allocate_kv_cache, build_kv_swapper, derive_num_pages,
+                       dtype_name, host_tensor)
 from .sampling_params import LOGIT_BIAS_CAP, SamplingParams
 from .scheduler import ScheduledBatch, Scheduler
 from .sequence import FinishReason, Sequence, SequenceStatus
@@ -136,10 +146,6 @@ class LLMEngine:
         when None)."""
         self.device = resolve_device(device)
         sc = config.scheduler
-        if config.cache.kv_swap_enabled:
-            raise NotImplementedError(
-                "the host KV tier (swap_space_gb) is not ported yet "
-                "(ROADMAP R4)")
         if config.parallel.world_size > 1:
             raise NotImplementedError(
                 "parallel serving is not ported yet (ROADMAP R7)")
@@ -211,11 +217,37 @@ class LLMEngine:
                     "bucket grid (max %d); steps with more running sequences"
                     " than the grid covers keep the legacy policy",
                     sc.max_num_seqs, sc.decode_buckets[-1])
+        # Two-tier KV cache (CacheConfig.swap_space_gb > 0): a pinned host
+        # page pool; the scheduler preempts by swap instead of recompute,
+        # and the prefix cache spills evicted pages for a second-chance
+        # restore. None when off. One gather/scatter pair serves both
+        # transfer seams (host tier and cross-replica handoff); both write
+        # into self.kv_cache in place, so the pool is never rebound.
+        self._kv_programs = KVTransferPrograms(self.device)
+        self.swapper = build_kv_swapper(
+            config.model, config.cache, self.kv_cache,
+            get_kv=lambda: self.kv_cache, programs=self._kv_programs,
+            obs=self.obs)
+        if self.swapper is not None:
+            self.scheduler.attach_swapper(self.swapper)
+            if self.scheduler.prefix_cache is not None:
+                self.scheduler.prefix_cache.attach_swapper(self.swapper)
+        self.kv_io = KVPageIO(get_kv=lambda: self.kv_cache,
+                              programs=self._kv_programs)
         self.stats = EngineStats()
         self.step_count = 0
         # Speculative decode-window chain state (see _step).
         self._inflight: Optional[dict] = None
+        # Set when an import joins ``running`` outside schedule(): a chained
+        # window's batch no longer covers every runner, so the chain breaks
+        # at the next step.
+        self._batch_stale = False
         self._deferred_release: list[Sequence] = []
+        # Streamed fleet-prefix imports in flight (begin_prefix_import):
+        # handle -> {pages, token_ids, start_page, filled}; pages are
+        # released on commit/abort.
+        self._prefix_imports: dict[str, dict] = {}
+        self._prefix_import_seq = 0
         self._last_step_info = None
         self._ttft_transfer_s: Optional[float] = None
         # Width of the host->device output-token resync buffer for the
@@ -226,10 +258,14 @@ class LLMEngine:
     def _flight_snapshot(self) -> dict:
         sched = self.scheduler
         alloc = sched.allocator
-        return {"waiting": len(sched.waiting), "running": len(sched.running),
+        snap = {"waiting": len(sched.waiting), "running": len(sched.running),
                 "swapped": len(sched.swapped), "step": self.step_count,
                 "kv_pages_free": alloc.num_free,
                 "kv_pages_total": alloc.num_pages}
+        if self.swapper is not None:
+            snap["host_pages_in_use"] = self.swapper.host.num_in_use
+            snap["host_pages_total"] = self.swapper.host.num_pages
+        return snap
 
     # -- host <-> device ----------------------------------------------------
 
@@ -322,9 +358,14 @@ class LLMEngine:
 
     def add_request(self, request_id: str, prompt_token_ids: list[int],
                     params: Optional[SamplingParams] = None,
+                    hold_kv: bool = False,
                     arrival_t0: Optional[float] = None,
                     resume_outputs: Optional[list[int]] = None) -> None:
-        """``arrival_t0``: backdated ``time.monotonic()`` arrival stamp.
+        """``hold_kv``: disaggregated-prefill mode — when the request
+        finishes (normally with max_tokens=1 on a prefill replica), its
+        committed KV pages are HELD for :meth:`export_held` instead of
+        released; the caller owns the export-or-discard.
+        ``arrival_t0``: backdated ``time.monotonic()`` arrival stamp.
         ``resume_outputs``: token-replay resume — tokens already generated
         elsewhere are pre-seeded as OUTPUT history and replayed through the
         recompute prefill; greedy and seeded continuations are identical to
@@ -340,6 +381,7 @@ class LLMEngine:
                     f"vocab_size {V}")
         seq = Sequence(request_id, prompt_token_ids, params,
                        eos_token_id=self.eos_token_id)
+        seq.hold_kv = hold_kv
         if arrival_t0 is not None:
             seq.arrival_time = min(arrival_t0, seq.arrival_time)
         if resume_outputs:
@@ -376,12 +418,423 @@ class LLMEngine:
         if self.scheduler.abort(request_id):
             self.stats.requests_finished += 1
             return True
+        if request_id in self.scheduler.held:
+            # A held prefill whose exporter died between finish and export:
+            # the sequence already counted as finished, only its parked
+            # pages remain, and no other abort path scans ``held``.
+            self.discard_held(request_id)
+            return True
         return False
 
     def has_unfinished_requests(self) -> bool:
         # An in-flight window must be drained even if every sequence
         # finished (its deferred page releases happen at drain time).
         return self.scheduler.has_work() or self._inflight is not None
+
+    # -- KV handoff seams (disaggregated prefill/decode, live migration) ----
+    #
+    # A state dict: "model", "page_size", "dtype" (the JAX package's
+    # spelling, e.g. "bfloat16"), the token/logprob history, "sampling",
+    # and "k"/"v", CPU tensors [L, n, ps, kd] of the committed pages. The
+    # importers also take numpy arrays there, so a state decoded by the JAX
+    # package's wire codec imports as it is.
+
+    def _export_state(self, seq: Sequence, k, v) -> dict:
+        """The cross-replica sequence state, built from COMMITTED
+        quantities only: the host-known token/logprob history and the
+        already-fetched committed-page buffers — nothing of an in-flight
+        window."""
+        return {
+            "model": self.model_config.name,
+            "page_size": self.config.cache.page_size,
+            "dtype": dtype_name(self.kv_cache.k.dtype),
+            "prompt_token_ids": list(seq.prompt_token_ids),
+            "output_token_ids": list(seq.output_token_ids),
+            "output_logprobs": list(seq.output_logprobs),
+            "output_top_logprobs": [
+                [[int(t), float(lp)] for t, lp in top]
+                for top in seq.output_top_logprobs],
+            "sampling": seq.params.to_state(),
+            "k": k, "v": v,
+        }
+
+    def export_held(self, request_id: str) -> dict:
+        """Serialize a held finished prefill (``add_request(hold_kv=True)``)
+        into one state dict: its committed KV pages (positions [0,
+        num_tokens-1) — the last sampled token's KV is written by the
+        decode side's first step, exactly like a swap restore) plus the
+        generation state a decode replica needs to resume identically.
+        Pages are released here; raises KeyError when nothing is held under
+        ``request_id`` — the caller degrades to local recompute."""
+        seq = self.scheduler.held.pop(request_id, None)
+        if seq is None:
+            raise KeyError(f"no held KV for request {request_id!r}")
+        n = cdiv(seq.num_tokens - 1, self.config.cache.page_size)
+        k, v = self.kv_io.export_pages(seq.pages[:n])
+        # The copy completed above; only now may the pages return.
+        self.scheduler.allocator.free(seq.pages)
+        seq.pages = []
+        return self._export_state(seq, k, v)
+
+    def export_running(self, request_id: str) -> dict:
+        """Live migration: snapshot a RUNNING sequence mid-decode into the
+        state :meth:`export_held` produces and retire it locally
+        (FinishReason.MIGRATE: terminal, but the stream continues on the
+        peer). Greedy and seeded continuations on the importer are
+        identical to the uninterrupted run.
+
+        Safe against the decode-window chain: a sequence in the in-flight
+        window becomes a ZOMBIE (its unfetched window tokens are dropped;
+        the peer regenerates them) and its pages are released only when
+        the chain drains. The gather is queued behind the in-flight window
+        on the stream and reads only committed positions' pages.
+
+        Raises KeyError when no RUNNING sequence owns ``request_id`` and
+        RuntimeError when nothing is committed yet."""
+        seq = self.scheduler.find_running(request_id)
+        if seq is None:
+            raise KeyError(f"no running sequence {request_id!r}")
+        n = cdiv(seq.num_tokens - 1, self.config.cache.page_size)
+        if n < 1 or n > len(seq.pages) or not seq.output_token_ids:
+            raise RuntimeError(
+                f"{request_id!r} has no committed KV to migrate")
+        k, v = self.kv_io.export_pages(seq.pages[:n])
+        state = self._export_state(seq, k, v)
+        state["mid_stream"] = True
+        self.scheduler.running.remove(seq)
+        seq.status = SequenceStatus.FINISHED
+        seq.finish_reason = FinishReason.MIGRATE
+        inflight = self._inflight
+        if inflight is not None and seq in inflight["batch"].seqs:
+            inflight["zombies"].add(request_id)
+            self._deferred_release.append(seq)
+        elif seq.pages:
+            self.scheduler.allocator.free(seq.pages)
+            seq.pages = []
+        self.stats.requests_finished += 1
+        self.obs.on_finish(seq, FinishReason.MIGRATE)
+        self.obs.tracer.emit("migrate", request_id, side="export", pages=n,
+                             tokens=len(state["output_token_ids"]))
+        return state
+
+    def discard_held(self, request_id: str) -> None:
+        """Release a held prefill whose export never happened. Idempotent."""
+        seq = self.scheduler.held.pop(request_id, None)
+        if seq is not None:
+            self.scheduler._release(seq)
+
+    def _check_kv_buffers(self, k, v, n_pages: int, what: str) -> None:
+        """Raise ValueError unless ``k``/``v`` are buffers [L, n_pages, ps,
+        kd] in the pool's dtype (they arrive from another replica)."""
+        try:
+            shapes = (tuple(k.shape), tuple(v.shape))
+            dtypes = (dtype_name(k.dtype), dtype_name(v.dtype))
+        except AttributeError as e:
+            raise ValueError(f"{what} KV buffers malformed: {e}") from None
+        L, _, ps, kd = self.kv_cache.k.shape
+        want = (L, n_pages, ps, kd)
+        if shapes != (want, want):
+            raise ValueError(f"{what} KV shape {shapes[0]} != {want}")
+        pool = dtype_name(self.kv_cache.k.dtype)
+        if dtypes != (pool, pool):
+            raise ValueError(f"{what} KV dtype {dtypes[0]} != {pool}")
+
+    def import_request(self, request_id: str, prompt_token_ids: list[int],
+                       params: SamplingParams, state: dict
+                       ) -> list[RequestOutput]:
+        """Admit an exported state as COMMITTED history: allocate pages,
+        scatter the transferred KV in (the swap-in path, no prefill
+        replay), and join ``running`` directly. Returns the RequestOutput
+        carrying the already-generated token(s). Raises on any mismatch or
+        capacity shortfall before a page is allocated — the caller falls
+        back to local recompute (``add_request``), which gives the same
+        tokens, slower."""
+        # Serving-layer stamp of when the handoff began: now - t0 is the
+        # replica-observed TTFT (remote prefill + transfer + import).
+        ttft_t0 = state.pop("_ttft_t0", None)
+        mid_stream = bool(state.pop("mid_stream", False))
+        state.pop("sampling", None)
+        ps = self.config.cache.page_size
+        if state.get("model") != self.model_config.name:
+            raise ValueError(f"handoff model {state.get('model')!r} != "
+                             f"{self.model_config.name!r}")
+        if state.get("page_size") != ps:
+            raise ValueError(f"handoff page_size {state.get('page_size')} "
+                             f"!= {ps}")
+        if list(state["prompt_token_ids"]) != list(prompt_token_ids):
+            raise ValueError("handoff prompt does not match the request")
+        try:
+            out_ids = [int(t) for t in state["output_token_ids"]]
+            lps = [float(x) for x in (state.get("output_logprobs") or [])]
+            tops = [[(int(t), float(p)) for t, p in row]
+                    for row in (state.get("output_top_logprobs") or [])]
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"malformed handoff output state: {e}") from e
+        if not out_ids:
+            raise ValueError("handoff carries no generated token")
+        num_tokens = len(prompt_token_ids) + len(out_ids)
+        need = cdiv(num_tokens - 1, ps)
+        self._check_kv_buffers(state["k"], state["v"], need, "handoff")
+        k, v = host_tensor(state["k"]), host_tensor(state["v"])
+        sched = self.scheduler
+        if len(sched.running) >= sched.max_num_seqs:
+            raise KVTransferRefused("no batch seat for imported sequence")
+        if not sched.allocator.can_allocate(need):
+            raise KVTransferRefused(
+                f"no KV pages for imported sequence (want {need}, "
+                f"free {sched.allocator.num_free})")
+        seq = Sequence(request_id, prompt_token_ids, params,
+                       eos_token_id=self.eos_token_id)
+        pages = sched.allocator.allocate(need)
+        try:
+            self.kv_io.import_pages(pages, k, v)
+        except BaseException:
+            sched.allocator.free(pages)
+            raise
+        seq.pages = pages
+        seq.num_prefilled = seq.num_prompt_tokens
+        seq.prefix_checked = True
+        want_lps = params.logprobs
+        want_top = params.top_logprobs
+        for j, tok in enumerate(out_ids):
+            lp = lps[j] if want_lps and j < len(lps) else None
+            top = tops[j] if want_top and j < len(tops) else None
+            seq.append_token(tok, lp, top)
+        seq.status = SequenceStatus.RUNNING
+        sched.running.append(seq)
+        self.obs.on_arrival(seq)
+        self.obs.on_scheduled(seq, 1)
+        if ttft_t0 is not None and not mid_stream:
+            # step() never fires on_first_token for an imported sequence
+            # (append_token above stamped first_token_time).
+            self.obs.on_handoff_first_token(
+                seq, max(time.monotonic() - ttft_t0, 0.0))
+        self.obs.tracer.emit("migrate" if mid_stream else "handoff",
+                             request_id, side="import",
+                             pages=need, tokens=len(out_ids))
+        reason = seq.check_stop(self.config.effective_max_len)
+        if reason is not None:
+            sched.finish(seq, reason)
+            self.stats.requests_finished += 1
+        else:
+            # A chained decode window's batch predates this sequence.
+            self._batch_stale = True
+        return [RequestOutput(
+            request_id=request_id,
+            prompt_token_ids=list(prompt_token_ids),
+            output_token_ids=list(seq.output_token_ids),
+            finished=seq.is_finished,
+            finish_reason=(seq.finish_reason.value
+                           if seq.finish_reason else None),
+            new_token_ids=out_ids,
+            new_logprobs=(list(lps) if want_lps else None),
+            output_logprobs=(list(seq.output_logprobs)
+                             if want_lps else None),
+            new_top_logprobs=(list(seq.output_top_logprobs)
+                              if want_top else None),
+            output_top_logprobs=(list(seq.output_top_logprobs)
+                                 if want_top else None))]
+
+    # -- fleet-wide prefix cache (KV reuse over the handoff seam) -----------
+
+    def prefix_peek(self, token_ids: list[int]) -> int:
+        """Tokens already covered by the LOCAL prefix cache (either tier).
+        Read-only."""
+        return self.scheduler.prefix_peek(token_ids)
+
+    def export_prefix(self, token_ids: list[int],
+                      skip_tokens: int = 0) -> dict:
+        """Serve a peer's fetch: the longest cached prefix of ``token_ids``
+        — live entries gathered through the ``KVPageIO`` seam, host-tier
+        spills READ IN PLACE (never restored, no LRU touch, no counters) —
+        as one contiguous host buffer pair. ``skip_tokens``: what the
+        puller already holds (floored to a page); only pages beyond it are
+        exported, though the chain walk runs from token 0. Raises KeyError
+        when prefix caching is off, nothing matches, or the match does not
+        extend past ``skip_tokens``. Capped at ``len(token_ids) - 1`` like
+        admission reuse."""
+        pc = self.scheduler.prefix_cache
+        if pc is None:
+            raise KeyError("prefix caching is off on this replica")
+        ps = self.config.cache.page_size
+        skip_pages = max(int(skip_tokens), 0) // ps
+        entries, matched = pc.export_walk(token_ids, len(token_ids) - 1)
+        dev_pages = [p for kind, p in entries if kind == "dev"]
+        try:
+            if matched <= skip_pages * ps:
+                raise KeyError(
+                    "no cached prefix beyond the peer's local coverage"
+                    if matched else "no cached prefix for this prompt")
+            send = entries[skip_pages:]
+            dev_ix = [i for i, (kind, _) in enumerate(send) if kind == "dev"]
+            host_ix = [i for i, (kind, _) in enumerate(send)
+                       if kind == "host"]
+            if not host_ix:
+                # One gather; the copy completes inside export_pages,
+                # before the forked references are released below.
+                k, v = self.kv_io.export_pages([p for _, p in send])
+            else:
+                L, _, _, kd = self.kv_cache.k.shape
+                k = torch.empty((L, len(send), ps, kd),
+                                dtype=self.kv_cache.k.dtype)
+                v = torch.empty_like(k)
+                parts = [(host_ix, self.swapper.host.get(
+                    [send[i][1] for i in host_ix]))]
+                if dev_ix:
+                    parts.append((dev_ix, self.kv_io.export_pages(
+                        [send[i][1] for i in dev_ix])))
+                for ix, (pk, pv) in parts:
+                    ix = torch.tensor(ix, dtype=torch.int64)
+                    k.index_copy_(1, ix, pk)
+                    v.index_copy_(1, ix, pv)
+        finally:
+            if dev_pages:
+                self.scheduler.allocator.free(dev_pages)
+        return {
+            "model": self.model_config.name,
+            "page_size": ps,
+            "dtype": dtype_name(self.kv_cache.k.dtype),
+            "matched_tokens": matched,
+            "start_tokens": skip_pages * ps,
+            "prompt_token_ids": list(token_ids[:matched]),
+            "k": k, "v": v,
+        }
+
+    def _validate_prefix_header(self, header: dict) -> tuple:
+        """Shared header validation of the streamed prefix import: returns
+        (token_ids, start page, page count) or raises ValueError before a
+        page is allocated."""
+        ps = self.config.cache.page_size
+        if header.get("model") != self.model_config.name:
+            raise ValueError(f"prefix import model {header.get('model')!r} "
+                             f"!= {self.model_config.name!r}")
+        if header.get("page_size") != ps:
+            raise ValueError(f"prefix import page_size "
+                             f"{header.get('page_size')} != {ps}")
+        pool = dtype_name(self.kv_cache.k.dtype)
+        if str(header.get("dtype")) != pool:
+            raise ValueError(f"prefix import dtype {header.get('dtype')} "
+                             f"!= {pool}")
+        try:
+            ids = [int(t) for t in header["prompt_token_ids"]]
+            matched = int(header["matched_tokens"])
+            start = int(header.get("start_tokens", 0))
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"malformed prefix import header: {e}") from e
+        if matched < ps or matched % ps or len(ids) != matched:
+            raise ValueError(
+                f"prefix import carries {matched} matched tokens over "
+                f"{len(ids)} ids (need a page-aligned, page-covered match)")
+        if start < 0 or start % ps or start >= matched:
+            raise ValueError(
+                f"prefix import start_tokens {start} invalid for "
+                f"{matched} matched tokens")
+        return ids, start // ps, (matched - start) // ps
+
+    def begin_prefix_import(self, header: dict) -> str:
+        """Open a STREAMED prefix import: validate the header, allocate the
+        destination pages, and return an opaque handle. The caller then
+        scatters the pulled pages in chunks (:meth:`import_prefix_chunk`)
+        and registers the chain (:meth:`commit_prefix_import`), or
+        releases it (:meth:`abort_prefix_import`)."""
+        if self.scheduler.prefix_cache is None:
+            raise ValueError("prefix caching is off on this replica")
+        ids, start_page, need = self._validate_prefix_header(header)
+        alloc = self.scheduler.allocator
+        if not alloc.can_allocate(need):
+            raise KVTransferRefused(
+                f"no KV pages for prefix import (want {need}, "
+                f"free {alloc.num_free})")
+        self._prefix_import_seq += 1
+        handle = f"pfimp-{self._prefix_import_seq}"
+        self._prefix_imports[handle] = {
+            "pages": alloc.allocate(need), "token_ids": ids,
+            "start_page": start_page, "filled": 0}
+        return handle
+
+    def import_prefix_chunk(self, handle: str, k, v) -> None:
+        """Scatter one chunk ``[L, n, ps, kd]`` of pulled pages into the
+        next slice of the handle's destination pages. A malformed chunk
+        aborts the whole import."""
+        st = self._prefix_imports.get(handle)
+        if st is None:
+            raise ValueError(f"unknown prefix import handle {handle!r}")
+        n = k.shape[1] if len(k.shape) == 4 else -1
+        try:
+            if n < 1 or st["filled"] + n > len(st["pages"]):
+                raise ValueError(f"{n} pages at offset {st['filled']}")
+            self._check_kv_buffers(k, v, n, "prefix import chunk")
+        except ValueError as e:
+            self.abort_prefix_import(handle)
+            raise ValueError(
+                f"prefix import chunk shape {tuple(k.shape)} invalid at "
+                f"offset {st['filled']}/{len(st['pages'])} pages: {e}"
+            ) from None
+        self.kv_io.import_pages(
+            st["pages"][st["filled"]:st["filled"] + n], k, v)
+        st["filled"] += n
+
+    def commit_prefix_import(self, handle: str) -> int:
+        """Close a streamed import: every destination page must be filled;
+        the chain registers into the prefix cache (which forks its own
+        reference per new digest) and the import's references are released
+        — pages whose digest was already registered return to the pool.
+        Returns the matched token count now served from the local cache."""
+        st = self._prefix_imports.pop(handle, None)
+        if st is None:
+            raise ValueError(f"unknown prefix import handle {handle!r}")
+        if st["filled"] != len(st["pages"]):
+            self.scheduler.allocator.free(st["pages"])
+            raise ValueError(
+                f"prefix import truncated: {st['filled']}/"
+                f"{len(st['pages'])} pages arrived")
+        self.scheduler.prefix_cache.register(
+            st["token_ids"], st["pages"], start_page=st["start_page"])
+        self.scheduler.allocator.free(st["pages"])
+        return len(st["token_ids"])
+
+    def abort_prefix_import(self, handle: str) -> None:
+        """Release a streamed import that will not complete. Idempotent."""
+        st = self._prefix_imports.pop(handle, None)
+        if st is not None:
+            self.scheduler.allocator.free(st["pages"])
+
+    def accept_remote_spill(self, digest_hex: str, k, v) -> bool:
+        """Receive one remote-spilled prefix page ``[L, 1, ps, kd]`` into
+        the local HOST tier (``PrefixCache.accept_host_entry``): a peer's
+        cold prefix takes no device page until a local lookup
+        second-chances it. False when the host tier is off or full, or the
+        page does not match this pool's geometry."""
+        pc = self.scheduler.prefix_cache
+        if pc is None:
+            return False
+        try:
+            self._check_kv_buffers(k, v, 1, "spill")
+            digest = bytes.fromhex(digest_hex)
+        except ValueError:
+            return False
+        return pc.accept_host_entry(digest, k, v)
+
+    def enable_fleet_spill(self, sink) -> bool:
+        """Arm the remote-spill eviction rung: ``sink(digest_hex, k, v) ->
+        bool`` receives each evicted page the local host tier could not
+        take (called mid-eviction, so it must only enqueue). The gather
+        completes before the eviction frees the page. False when prefix
+        caching is off."""
+        pc = self.scheduler.prefix_cache
+        if pc is None:
+            return False
+
+        def hook(digest: bytes, page: int) -> bool:
+            k, v = self.kv_io.export_pages([page])
+            try:
+                return bool(sink(digest.hex(), k, v))
+            except Exception:
+                logger.exception("fleet spill sink failed; dropping page")
+                return False
+
+        pc.fleet_spill = hook
+        return True
 
     def step(self) -> list[RequestOutput]:
         # Chaos site: KGCT_FAULT=step_stall:delay=N sleeps here, simulating a
@@ -424,6 +877,7 @@ class LLMEngine:
         if inflight is None:
             with ph("schedule"):
                 batch = self.scheduler.schedule()
+            self._batch_stale = False
             drained = self._drain_terminally_finished()
             if batch is None:
                 return drained
@@ -449,6 +903,7 @@ class LLMEngine:
         # plain decode after drafts become available (schedule() decides
         # spec eligibility only between chains).
         if (not self.scheduler.waiting and not inflight["zombies"]
+                and not self._batch_stale
                 and not self.scheduler.spec_enabled):
             successor = self._advance_window(inflight)
 
@@ -1008,6 +1463,13 @@ class LLMEngine:
 
     def _drain_deferred(self) -> None:
         for seq in self._deferred_release:
+            if (seq.hold_kv and seq.pages
+                    and seq.finish_reason != FinishReason.ABORT):
+                # A disaggregated prefill finishing inside a chained decode
+                # window: the export seam owns the release, as in the
+                # scheduler's finish.
+                self.scheduler.held[seq.request_id] = seq
+                continue
             if seq.pages:
                 self.scheduler.allocator.free(seq.pages)
                 seq.pages = []

@@ -34,7 +34,8 @@ from ..config import EngineConfig
 from ..observability import Observability
 from ..utils import cdiv, get_logger
 from ..utils.math import next_power_of_2
-from .kv_cache import CachingPageAllocator, PageAllocator
+from .kv_cache import (CachingPageAllocator, KVTransferRefused,
+                       PageAllocator)
 from .qos import build_qos
 from .sequence import FinishReason, Sequence, SequenceStatus
 
@@ -364,19 +365,20 @@ class Scheduler:
         [0, num_tokens-1) — the window-growth tail past them holds only
         scratch) to host, free all its device pages, park it on ``swapped``.
         False (caller falls back to recompute) when swap is off, the host
-        pool is full, or the transfer fails (chaos site ``kv_swap_fail``) —
-        a failed swap must never wedge the victim."""
+        pool is full, or the chaos site ``kv_swap_fail`` fires — a refused
+        swap must never wedge the victim."""
         if self.swapper is None:
             return False
         n = cdiv(victim.num_tokens - 1, self.page_size)
         if n < 1 or n > len(victim.pages):
             return False
         try:
-            # Gather + fetch complete inside swap_out, BEFORE the release
-            # below can hand the pages to the next allocation (KGCT010).
+            # The copy completes inside swap_out, BEFORE the release below
+            # can hand the pages to the next allocation. Only a refused
+            # swap degrades; a device fault propagates.
             host_pages = self.swapper.swap_out(victim.pages[:n],
                                                request_id=victim.request_id)
-        except Exception as e:
+        except KVTransferRefused as e:
             logger.warning("swap-out of %s failed (%s); falling back to "
                            "recompute preemption", victim.request_id, e,
                            extra={"request_id": victim.request_id})
@@ -443,7 +445,7 @@ class Scheduler:
             try:
                 self.swapper.swap_in(seq.host_pages, pages,
                                      request_id=seq.request_id)
-            except Exception as e:
+            except KVTransferRefused as e:
                 logger.warning("swap-in of %s failed (%s); recompute",
                                seq.request_id, e,
                                extra={"request_id": seq.request_id})
@@ -457,7 +459,6 @@ class Scheduler:
             seq.host_pages = []
             seq.status = SequenceStatus.RUNNING
             self.running.append(seq)
-            self.swapper.notify_restored(seq)
             self.obs.on_scheduled(seq, 1)    # emits the "resume" event
 
     # -- QoS: weighted fair sharing + priority preemption --------------------

@@ -8,9 +8,14 @@ per-request asyncio queues. This is the piece the OpenAI server wraps.
 The worker thread idles on a condition variable when there is no work — an
 idle replica burns no CPU and wakes in O(µs) on the first request.
 
+Disaggregated prefill/decode and migration: ``generate(handoff=state)``
+has the worker import an exported KV state (``LLMEngine.import_request``)
+instead of prefilling, and falls back to a normal admission when the import
+fails; ``generate(hold_kv=True)`` parks a finished request's KV for
+``run_in_worker(lambda e: e.export_held(rid))``.
+
 Not ported yet: the multihost leader (directive broadcast to follower
-ranks), the KV handoff/hold seams of disaggregated serving, and the
-interleave sanitizer hook.
+ranks) and the interleave sanitizer hook.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from ..config import EngineConfig
 from ..engine import LLMEngine, RequestOutput, SamplingParams
+from ..engine.kv_cache import KVTransferRefused
 from ..utils import get_logger
 
 logger = get_logger("serving.async_engine")
@@ -60,11 +66,20 @@ class AsyncLLMEngine:
         self._reserved: set = set()
         self._inbox: list = []            # (request_id, token_ids, params)
         self._aborts: list[str] = []
+        # Disaggregated prefill/decode side-channels, keyed by request id:
+        # a KV-handoff state an inbox entry IMPORTS instead of prefilling,
+        # and the entries whose finished KV the export seam collects.
+        self._handoffs: dict[str, dict] = {}
+        self._holds: set = set()
         # Mid-stream failover: already-relayed output token ids to replay
         # as forced context when an entry is admitted.
         self._resumes: dict[str, list] = {}
         # Backdated arrival stamps (time.monotonic).
         self._arrival_t0s: dict[str, float] = {}
+        # Serving-layer hook, called on the worker thread with the request
+        # id when an import fails and the request falls back to a local
+        # prefill.
+        self.on_import_fallback = None
         # Worker-thread operations: (fn(engine), future) pairs executed
         # between steps, where every engine/scheduler/device touch is
         # single-threaded by construction.
@@ -116,7 +131,8 @@ class AsyncLLMEngine:
         return False
 
     async def generate(self, request_id: str, prompt_token_ids: list[int],
-                       params: SamplingParams,
+                       params: SamplingParams, handoff: Optional[dict] = None,
+                       hold_kv: bool = False,
                        arrival_t0: Optional[float] = None,
                        resume_outputs: Optional[list] = None
                        ) -> AsyncIterator[StreamChunk]:
@@ -124,9 +140,12 @@ class AsyncLLMEngine:
 
         Id contract: serving callers reserve the id first (see
         reserve_request_id); a DIRECT caller must use an id it knows to be
-        unique. ``resume_outputs``: output tokens already relayed elsewhere,
-        replayed as forced context (the stream then carries only new
-        tokens)."""
+        unique. ``handoff``: an exported KV state the worker imports as
+        committed history; when the import fails the request is admitted
+        normally (local recompute, the same tokens). ``hold_kv``: park the
+        finished request's KV for the export seam. ``resume_outputs``:
+        output tokens already relayed elsewhere, replayed as forced context
+        when the entry admits without a usable ``handoff``."""
         if request_id in self._reserved:
             self._reserved.discard(request_id)
             queue: asyncio.Queue = self._queues[request_id]
@@ -136,6 +155,10 @@ class AsyncLLMEngine:
             queue = asyncio.Queue()
             self._queues[request_id] = queue
         with self._cv:
+            if handoff is not None:
+                self._handoffs[request_id] = handoff
+            if hold_kv:
+                self._holds.add(request_id)
             if arrival_t0 is not None:
                 self._arrival_t0s[request_id] = arrival_t0
             if resume_outputs:
@@ -226,16 +249,30 @@ class AsyncLLMEngine:
             aborted = set(aborts)
             inbox = [item for item in inbox if item[0] not in aborted]
             for rid in aborted:
+                self._handoffs.pop(rid, None)
+                self._holds.discard(rid)
                 self._arrival_t0s.pop(rid, None)
                 self._resumes.pop(rid, None)
             for rid in aborts:
                 self.engine.abort_request(rid)
                 self._post(StreamChunk(rid, [], [], True, "abort"))
             for rid, ids, params in inbox:
+                handoff = self._handoffs.pop(rid, None)
+                arrival_t0 = self._arrival_t0s.pop(rid, None)
+                hold = rid in self._holds
+                self._holds.discard(rid)
                 try:
+                    if handoff is not None:
+                        # import_request pops the stamp; keep it so a failed
+                        # import backdates the recompute admission.
+                        if arrival_t0 is None:
+                            arrival_t0 = handoff.get("_ttft_t0")
+                        if self._import(rid, ids, params, handoff):
+                            self._resumes.pop(rid, None)
+                            continue
                     self.engine.add_request(
-                        rid, ids, params,
-                        arrival_t0=self._arrival_t0s.pop(rid, None),
+                        rid, ids, params, hold_kv=hold,
+                        arrival_t0=arrival_t0,
                         resume_outputs=self._resumes.pop(rid, None))
                 except ValueError as e:   # oversized prompt etc.
                     self._post_exc(rid, e)
@@ -264,6 +301,30 @@ class AsyncLLMEngine:
                     return
                 if wd is not None:
                     wd.disarm()
+
+    def _import(self, rid: str, ids: list[int], params: SamplingParams,
+                handoff: dict) -> bool:
+        """Import ``handoff`` for ``rid`` and post its first chunk; False
+        (traced, and reported to ``on_import_fallback``) when the engine
+        refuses it — the caller then admits the request normally."""
+        try:
+            outs = self.engine.import_request(rid, ids, params, handoff)
+        except (ValueError, KeyError, KVTransferRefused) as e:
+            logger.warning("kv import for %s failed (%s); falling back to "
+                           "local prefill", rid, e,
+                           extra={"request_id": rid})
+            self.engine.obs.tracer.emit("handoff", rid, side="import",
+                                        outcome="import_fallback",
+                                        error=str(e))
+            if self.on_import_fallback is not None:
+                try:
+                    self.on_import_fallback(rid)
+                except Exception:
+                    logger.exception("import-fallback hook failed")
+            return False
+        for out in outs:
+            self._post(_chunk_of(out))
+        return True
 
     def _post(self, chunk: StreamChunk) -> None:
         queue = self._queues.get(chunk.request_id)

@@ -35,6 +35,7 @@ from kubernetes_gpu_cluster_tpu.engine import SamplingParams as JaxParams
 from kubernetes_gpu_cluster_tpu.models import llama as JM
 from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
                                                      EngineConfig,
+                                                     ParallelConfig,
                                                      SchedulerConfig,
                                                      get_model_config)
 from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine, SamplingParams
@@ -268,10 +269,17 @@ def test_no_device_default_raises(monkeypatch, weights):
 
 
 def test_unported_engine_options_raise(weights):
-    for cfg in (EngineConfig(model=get_model_config("debug-tiny"),
-                             cache=CacheConfig(swap_space_gb=0.1)),):
-        with pytest.raises(NotImplementedError):
-            LLMEngine(cfg, params=weights[1], device="cpu")
+    """More than one device still raises; the host KV tier is ported, so
+    swap_space_gb > 0 builds a swapper, on the CPU too."""
+    with pytest.raises(NotImplementedError):
+        LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
+                               parallel=ParallelConfig(tp=2)),
+                  params=weights[1], device="cpu")
+    eng = LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
+                                 cache=CacheConfig(swap_space_gb=0.1)),
+                    params=weights[1], device="cpu")
+    assert eng.swapper is not None and eng.scheduler.swapper is eng.swapper
+    assert eng.swapper.host.num_pages > 0
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -16,12 +16,21 @@ matmul returns fp32 for bf16 and fp32 x alike, and both sides sum exact
 products (x times a nibble; an fp32 x enters the tensor cores as three
 exact bf16 terms) in fp32 in different orders: max abs error 1e-5 of the
 largest output.
+
+The KV transfer layer (host tier, export/import seams) has no kernel of
+its own: its card cases hold page copies to bit equality, pin the host-page
+reuse fence, and drive small card engines through swap and import.
 """
 
 import pytest
 import torch
 
-from kubernetes_gpu_cluster_tpu_torch.config import get_model_config
+from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                     EngineConfig,
+                                                     SchedulerConfig,
+                                                     get_model_config)
+from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine, SamplingParams
+from kubernetes_gpu_cluster_tpu_torch.engine import kv_cache as KV
 from kubernetes_gpu_cluster_tpu_torch.models import llama as M
 from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
 from kubernetes_gpu_cluster_tpu_torch.ops import quant as Q
@@ -529,3 +538,163 @@ def test_int4_matmul_rejects(cuda_device):
         c4.int4_matmul(x, w8, scale)
     with pytest.raises(ValueError, match="dtype"):
         c4.int4_matmul(x.half(), wp, scale)
+
+
+# -- the KV transfer layer ---------------------------------------------------
+
+def _swapper(device, host_pages=32, L=4, P=64, ps=16, kd=1024,
+             dtype=torch.bfloat16):
+    gen = torch.Generator(device=device).manual_seed(0)
+    kv = KV.KVCache(k=_rn(gen, dtype, device, L, P, ps, kd),
+                    v=_rn(gen, dtype, device, L, P, ps, kd))
+    host = KV.HostKVPool(host_pages, L, ps, kd, dtype, pin=True)
+    return kv, KV.KVSwapper(host, lambda: kv, KV.KVTransferPrograms(device))
+
+
+@pytest.mark.gpu
+def test_swap_round_trip_bit_identical(cuda_device):
+    """bf16 pages out to the pinned host pool, overwritten on the card,
+    back in to DIFFERENT pages: bit-identical, and the host pool drains."""
+    kv, sw = _swapper(cuda_device)
+    assert sw.host.k.is_pinned() and sw.host.v.is_pinned()
+    out_pages = [3, 9, 10, 11, 40, 2]           # runs and single pages
+    want_k, want_v = kv.k[:, out_pages].clone(), kv.v[:, out_pages].clone()
+    hp = sw.swap_out(out_pages)
+    assert torch.equal(sw.host.k[:, hp], want_k.cpu())
+    assert torch.equal(sw.host.v[:, hp], want_v.cpu())
+    kv.k[:, out_pages] = 0
+    kv.v[:, out_pages] = 0
+    in_pages = [50, 51, 5, 60, 61, 62]
+    sw.swap_in(hp, in_pages)
+    torch.cuda.synchronize()
+    assert torch.equal(kv.k[:, in_pages], want_k)
+    assert torch.equal(kv.v[:, in_pages], want_v)
+    assert sw.host.num_in_use == 0
+
+
+@pytest.mark.gpu
+def test_sliced_host_buffers_scatter_bit_identical(cuda_device):
+    """A chunk sliced out of a larger host buffer (the streamed prefix
+    import) is not contiguous; it uploads layer by layer and lands bit for
+    bit, from pinned and from pageable memory."""
+    kv, sw = _swapper(cuda_device)
+    io = KV.KVPageIO(lambda: kv, sw.programs)
+    k, v = io.export_pages(list(range(10, 30)))
+    assert k.is_pinned() and not k[:, 4:9].is_contiguous()
+    for src_k, src_v in ((k, v), (k.clone(), v.clone())):
+        io.import_pages(list(range(40, 45)), src_k[:, 4:9], src_v[:, 4:9])
+        torch.cuda.synchronize()
+        assert torch.equal(kv.k[:, 40:45], kv.k[:, 14:19])
+        assert torch.equal(kv.v[:, 40:45], kv.v[:, 14:19])
+        kv.k[:, 40:45] = 0
+        kv.v[:, 40:45] = 0
+
+
+@pytest.mark.gpu
+def test_host_pages_reused_only_after_the_swap_in_read_them(cuda_device):
+    """swap_in, then at once a reuse of the host pages it freed — by a
+    swap-out of other pages, or by a host-side write (a peer's spill) —
+    with the swap-in's copy queued behind a ~1 ms kernel so it has not
+    started when the reuse comes. Over many rounds every restored page is
+    what went out: the reuse waits for the copy's event."""
+    kv, sw = _swapper(cuda_device, host_pages=8)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    pages = list(range(1, 33))
+    for r in range(40):
+        src, dst, other = pages[:8], pages[8:16], pages[16:24]
+        kv.k[:, src] = _rn(gen, kv.k.dtype, cuda_device,
+                           *kv.k[:, src].shape)
+        want = kv.k[:, src].clone()
+        hp = sw.swap_out(src)                   # every host page in use
+        torch.cuda._sleep(2_000_000)
+        sw.swap_in(hp, dst)
+        if r % 2:
+            kv.k[:, other] = -want
+            reused = sw.swap_out(other)
+        else:
+            reused = sw.host.allocate(8)
+            zeros = torch.zeros((kv.k.shape[0], 8) + tuple(kv.k.shape[2:]),
+                                dtype=kv.k.dtype)
+            sw.host.put(reused, zeros, zeros)
+        assert sorted(reused) == sorted(hp)
+        torch.cuda.synchronize()
+        assert torch.equal(kv.k[:, dst], want), f"round {r}"
+        sw.free_host(reused)
+        pages = pages[8:] + pages[:8]
+
+
+def _tiny_cfg(num_pages=64, swap_gb=0.0):
+    model = get_model_config("debug-tiny").replace(head_dim=64,
+                                                   dtype="bfloat16")
+    return EngineConfig(
+        model=model, cache=CacheConfig(page_size=16, num_pages=num_pages,
+                                       swap_space_gb=swap_gb),
+        scheduler=SchedulerConfig(max_num_seqs=8, max_prefill_tokens=256,
+                                  decode_buckets=(1, 2, 4, 8),
+                                  prefill_buckets=(64, 128, 256),
+                                  decode_window=4))
+
+
+def _prompts(n, lo, hi, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, 500, (int(torch.randint(lo, hi, (1,),
+                                                     generator=g)),),
+                          generator=g).tolist() for _ in range(n)]
+
+
+@pytest.mark.gpu
+def test_import_request_of_a_cpu_state_on_the_card(cuda_device):
+    """A held prefill exported from one card engine (pinned CPU tensors)
+    imports into another card engine as it is, as a pageable copy and as
+    numpy arrays; each decodes the colocated run's tokens."""
+    a = LLMEngine(_tiny_cfg(), device=cuda_device)
+    b = LLMEngine(_tiny_cfg(), params=a.params, device=cuda_device)
+    prompt = _prompts(1, 60, 61)[0]
+    sp = SamplingParams(max_tokens=12, temperature=0.0)
+    ref = a.generate([prompt], sp)[0].output_token_ids
+    for i, convert in enumerate((lambda t: t, lambda t: t.clone(),
+                                 lambda t: t.float().numpy())):
+        a.add_request(f"pf{i}", prompt, SamplingParams(max_tokens=1,
+                                                       temperature=0.0),
+                      hold_kv=True)
+        while a.has_unfinished_requests():
+            a.step()
+        state = a.export_held(f"pf{i}")
+        assert state["k"].device.type == "cpu" and state["dtype"] == \
+            "bfloat16"
+        if i == 2:      # numpy has no bfloat16: an fp32 copy must refuse
+            with pytest.raises(ValueError, match="dtype"):
+                b.import_request("bad", prompt, sp,
+                                 dict(state, k=convert(state["k"]),
+                                      v=convert(state["v"])))
+            continue
+        state = dict(state, k=convert(state["k"]), v=convert(state["v"]))
+        b.import_request(f"dc{i}", prompt, sp, state)
+        final = None
+        while b.has_unfinished_requests():
+            for o in b.step():
+                if o.request_id == f"dc{i}" and o.finished:
+                    final = o.output_token_ids
+        assert final == ref
+    alloc = b.scheduler.allocator
+    assert alloc.num_free == alloc.num_pages - 1
+
+
+@pytest.mark.gpu
+def test_swap_engine_twice_identical_on_the_card(cuda_device):
+    """A card engine whose pool the decode growth overflows preempts by
+    swap; the same requests twice give identical tokens and both tiers
+    drain."""
+    eng = LLMEngine(_tiny_cfg(num_pages=24, swap_gb=0.01),
+                    device=cuda_device)
+    prompts = _prompts(6, 20, 80, seed=2)
+    sp = SamplingParams(max_tokens=40, temperature=0.0)
+    first = [o.output_token_ids for o in eng.generate(prompts, sp)]
+    swaps = eng.scheduler.num_preemptions_by_kind["swap"]
+    second = [o.output_token_ids for o in eng.generate(prompts, sp)]
+    assert swaps > 0
+    assert eng.scheduler.num_preemptions_by_kind["recompute"] == 0
+    assert first == second
+    assert eng.swapper.host.num_in_use == 0
+    alloc = eng.scheduler.allocator
+    assert alloc.num_free == alloc.num_pages - 1

@@ -821,8 +821,8 @@ class TestInterop:
 
     def test_spec_engine_constructs_other_options_still_raise(self, params):
         """Spec decoding serves with and without a draft model (the async
-        front door passes the draft weights through); swap and more than
-        one device still raise."""
+        front door passes the draft weights through); swap builds its host
+        tier, and more than one device still raises."""
         from kubernetes_gpu_cluster_tpu_torch.serving.async_engine import \
             AsyncLLMEngine
         aeng = AsyncLLMEngine(_cfg(True, draft="debug-tiny"), params=params,
@@ -832,12 +832,14 @@ class TestInterop:
         assert runner.params is params
         assert isinstance(make_engine(params, True).scheduler.spec_proposer,
                           NgramProposer)
-        for cfg in (EngineConfig(model=get_model_config("debug-tiny"),
-                                 cache=CacheConfig(swap_space_gb=0.1)),
-                    EngineConfig(model=get_model_config("debug-tiny"),
-                                 parallel=ParallelConfig(tp=2))):
-            with pytest.raises(NotImplementedError):
-                LLMEngine(cfg, params=params, device="cpu")
+        swap = LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
+                                      cache=CacheConfig(swap_space_gb=0.1)),
+                         params=params, device="cpu")
+        assert swap.swapper is not None
+        with pytest.raises(NotImplementedError):
+            LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
+                                   parallel=ParallelConfig(tp=2)),
+                      params=params, device="cpu")
 
 
 class TestDraftModel:
