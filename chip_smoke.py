@@ -95,11 +95,29 @@ are freed; each engine freed before the next is built):
     with its own pool). Four prompts, one at a time: prefill with
     ``hold_kv`` and ``max_tokens`` 1, ``export_held``, ``import_request``,
     decode to completion; the tokens must equal the decode replica serving
-    the prompt alone. Then a 1024-token prefix goes ``export_prefix`` ->
+    the prompt alone. One request migrates mid-decode
+    (``export_running`` -> ``import_request``) with tokens equal to the
+    uninterrupted run. Then a 1024-token prefix goes ``export_prefix`` ->
     ``begin/import_prefix_chunk/commit``, and a prompt extending it hits
     the imported pages (a prefix-cache hit) with tokens equal to the
     prefill replica serving it from its own cache. Export and import ms
     and GB/s are logged.
+8c. Prefix spill: a 192-page engine with prefix caching and a 1 GB host
+    tier, beside a 1024-page engine that never evicts. Churn spills every
+    page of a 512-token prefix to the host; ``export_prefix`` reads them
+    there, byte-equal to the other engine's device pages; a prompt behind
+    the prefix restores each page (second chance, > 0 host hits) and runs
+    its suffix through the history kernel (launched), with tokens equal to
+    the other engine's. A 256-token prefix crosses page by page into the
+    host tier (``accept_remote_spill``) and is restored the same way.
+
+After 7b, on its tinyllama-1.1b fp32 weights:
+
+8d. Swap as in 8a (160 pages, 1 GB host tier): swap preemptions only,
+    every restored page bit-equal, two identical runs; greedy tokens equal
+    the never-preempted engine's except near-ties as in 7b (counted). In
+    fp32 the two batchings agree to ~1e-6, so this tells a swap fault
+    from bf16 batching noise, which 8a cannot.
 
 Each phase logs its seconds.
 
@@ -1019,17 +1037,13 @@ def _top2_gap(params, cfg, ids, device) -> tuple[float, float]:
     return float(top[0] - top[1]), float(logits.std())
 
 
-def check_spec_draft(device, counters) -> dict:
+def check_spec_draft(cfg, params, device, counters) -> dict:
     """Phase 7b: tinyllama-1.1b fp32 drafting for itself (an oracle), the
     draft model's own pool; spec off on the same requests."""
     from kubernetes_gpu_cluster_tpu_torch.config import (
-        CacheConfig, EngineConfig, SchedulerConfig, get_model_config)
+        CacheConfig, EngineConfig, SchedulerConfig)
     from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
                                                          SamplingParams)
-    from kubernetes_gpu_cluster_tpu_torch.models import llama as M
-    cfg = get_model_config("tinyllama-1.1b").replace(dtype="float32")
-    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(
-        SEED), device)
     base = EngineConfig(model=cfg, seed=SEED,
                         cache=CacheConfig(page_size=16, num_pages=2048),
                         scheduler=SchedulerConfig(max_num_seqs=32,
@@ -1089,7 +1103,6 @@ def check_spec_draft(device, counters) -> dict:
         log(f"spec/off divergence {rid} at output {i}: top-2 gap {gap} "
             f"logit std {std} ({gap / std:.3g} of it)")
         (ties if gap < NEAR_TIE * std else faults).append(rid)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     if faults:
@@ -1107,10 +1120,15 @@ def check_spec_draft(device, counters) -> dict:
 # Phase 8: the KV transfer layer (host tier, export/import seams)
 # ---------------------------------------------------------------------------
 
-SWAP_PAGES = 160     # 8a's device pool: 320 MB of llama-3-8b bf16 KV
+SWAP_PAGES = 160     # 8a's and 8d's device pool (8a: 320 MB of bf16 KV)
 SWAP_GB = 2.0        # 8a's host tier: 1024 pages, more than the overflow
+SWAP_GB_FP32 = 1.0   # 8d's host tier: 1489 pages of tinyllama-1.1b fp32
 HANDOFF_PAGES = 1024
 PREFIX_TOKENS = 1024
+SPILL_PAGES = 192    # 8c's device pool: two 1500-token prompts evict it
+SPILL_GB = 1.0       # 8c's host tier: 512 pages
+SHARED_TOKENS = 512  # 8c's prefix spilled to the host and restored
+REMOTE_TOKENS = 256  # 8c's prefix accepted as a peer's spill
 
 
 def _sync(device) -> None:
@@ -1204,13 +1222,16 @@ def swap_workload(vocab: int):
                        temperature=0.0)) for i in range(12)]
 
 
-def check_swap(cfg_engine, params, device, counters) -> dict:
-    """Phase 8a: swap preemption at llama-3-8b width on the phase-4
-    weights. The same requests twice (identical tokens), every restored
-    page bit-equal to what went out, then a never-preempted engine on the
-    same requests (greedy differences counted with their top-2 gap: batch
-    composition changes ``paged_decode``'s split plan, so bf16 near-ties
-    may flip)."""
+def check_swap(cfg_engine, params, device, counters, swap_gb: float,
+               near_ties_only: bool) -> dict:
+    """Swap preemption on ``params`` through a ``SWAP_PAGES`` pool: the
+    same requests twice (identical tokens), every restored page bit-equal
+    to what went out, then a never-preempted engine on the same requests.
+    Greedy differences from it are logged with their top-2 gap: batch
+    composition changes the GEMM shapes and ``paged_decode``'s split plan.
+    Phase 8a (llama-3-8b bf16) counts them; with ``near_ties_only`` (8d,
+    fp32, where the two batchings agree to ~1e-6) each one must be a
+    near-tie, below ``NEAR_TIE`` of the logit standard deviation."""
     from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
                                                          SchedulerConfig)
     from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
@@ -1222,7 +1243,7 @@ def check_swap(cfg_engine, params, device, counters) -> dict:
     cfg_swap = dataclasses.replace(
         cfg_engine, scheduler=sched,
         cache=CacheConfig(page_size=ps, num_pages=SWAP_PAGES,
-                          swap_space_gb=SWAP_GB))
+                          swap_space_gb=swap_gb))
     page_bytes = kv_cache_bytes_per_page(cfg, cfg_swap.cache)
     reqs = swap_workload(cfg.vocab_size)
     hist = counters.get("flash_prefill_hist")
@@ -1243,24 +1264,24 @@ def check_swap(cfg_engine, params, device, counters) -> dict:
                                    if k != "tokens"}),
         "preemptions:", json.dumps(kinds), "launches:", json.dumps(launches))
     if kinds["swap"] <= 0 or kinds["recompute"] != 0:
-        raise RuntimeError(f"8a: expected swap preemptions only: {kinds}")
+        raise RuntimeError(f"swap: expected swap preemptions only: {kinds}")
     if compared <= 0 or audit.pages["in"] != audit.pages["out"]:
-        raise RuntimeError(f"8a: {compared} restored pages compared, "
+        raise RuntimeError(f"swap: {compared} restored pages compared, "
                            f"{audit.pages}")
-    # 8a's prompts fit the prefill budget: no chunk runs the history kernel.
+    # The prompts fit the prefill budget: no chunk runs the history kernel.
     for name in ("paged_decode", "flash_prefill"):
         if launches.get(name, 1) <= 0:
-            raise RuntimeError(f"8a: kernel {name} never launched")
+            raise RuntimeError(f"swap: kernel {name} never launched")
     if set(run1["tokens"]) != {r[1] for r in reqs}:
-        raise RuntimeError("8a: not every request finished")
+        raise RuntimeError("swap: not every request finished")
     run2 = drive(engine, reqs, "b", hist)
     diff = sorted(r for r in run1["tokens"]
                   if run1["tokens"][r] != run2["tokens"][r])
     if diff:
-        raise RuntimeError(f"8a: the second swap run differs for {diff}")
+        raise RuntimeError(f"swap: the second run differs for {diff}")
     if (host.num_in_use or engine.scheduler.allocator.num_free
             != engine.scheduler.allocator.num_pages - 1):
-        raise RuntimeError("8a: pages left in use after the runs")
+        raise RuntimeError("swap: pages left in use after the runs")
     out = {"preemptions": kinds, "restored_pages_compared": compared,
            "restored_pages_compared_run2": audit.compared - compared,
            "transfers": rates, "page_bytes": page_bytes,
@@ -1279,7 +1300,7 @@ def check_swap(cfg_engine, params, device, counters) -> dict:
     del off
     gc.collect()
     torch.cuda.empty_cache()
-    diverged = []
+    diverged, faults = [], []
     for _, rid, prompt, _ in reqs:
         a, b = run1["tokens"][rid], run_off["tokens"][rid]
         if a == b:
@@ -1289,11 +1310,16 @@ def check_swap(cfg_engine, params, device, counters) -> dict:
         log(f"swap/never-preempted divergence {rid} at output {i}: top-2 "
             f"gap {gap} logit std {std} ({gap / std:.3g} of it)")
         diverged.append({"rid": rid, "at": i, "gap_over_std": gap / std})
+        if gap >= NEAR_TIE * std:
+            faults.append(rid)
+    if near_ties_only and faults:
+        raise RuntimeError(f"swap output differs from never-preempted "
+                           f"beyond a near-tie for {faults}")
     out.update(tokens_per_s_never_preempted=run_off["tokens_per_s"],
                kinds_never_preempted=run_off["kinds"],
                greedy_differing_from_never_preempted=len(diverged),
-               divergences=diverged, requests=len(reqs),
-               link=link_bound(device))
+               beyond_near_tie=len(faults), divergences=diverged,
+               requests=len(reqs))
     return out
 
 
@@ -1312,7 +1338,8 @@ def check_handoff(cfg_engine, params, device, counters) -> dict:
     the phase-4 weights, each with its own pool). Each request, one at a
     time: prefill with hold_kv and max_tokens 1, export_held,
     import_request on the decode replica, decode to completion; the tokens
-    must equal the decode replica serving the same request alone. Then one
+    must equal the decode replica serving the same request alone. One
+    request moves mid-decode (export_running -> import_request). Then one
     1024-token prefix goes export_prefix -> begin/import_prefix_chunk/
     commit, and a prompt extending it hits the imported pages, with tokens
     equal to the prefill replica (which hits its own cached pages)."""
@@ -1365,6 +1392,7 @@ def check_handoff(cfg_engine, params, device, counters) -> dict:
                          "export_gb_s": nbytes / t_exp / 1e9,
                          "import_ms": t_imp * 1e3,
                          "import_gb_s": nbytes / t_imp / 1e9})
+    migration = _migrate_one(pre, dec, rng, sp, device)
     prefix = [int(t) for t in rng.integers(1, cfg.vocab_size, PREFIX_TOKENS)]
     ext = [int(t) for t in rng.integers(1, cfg.vocab_size, 200)]
     _serve_one(pre, "pfx", prefix + ext[:1],
@@ -1403,6 +1431,7 @@ def check_handoff(cfg_engine, params, device, counters) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"handoffs": handoffs, "handoff_tokens_identical": len(handoffs),
+            "migration": migration,
             "prefix": {"tokens": PREFIX_TOKENS, "bytes": nbytes,
                        "export_ms": t_exp * 1e3,
                        "export_gb_s": nbytes / t_exp / 1e9,
@@ -1410,6 +1439,158 @@ def check_handoff(cfg_engine, params, device, counters) -> dict:
                        "import_gb_s": nbytes / t_imp / 1e9,
                        "cache_hit": hit, "tokens_identical": got == ref},
             "launches": launches}
+
+
+def _migrate_one(src, dst, rng, sp, device) -> dict:
+    """Live migration of one request between two engines: decode on
+    ``src`` until at least nine tokens are out, ``export_running``, drain
+    ``src``, ``import_request`` on ``dst`` and decode to the end; the tokens
+    must equal ``dst`` serving the request uninterrupted."""
+    prompt = [int(t) for t in rng.integers(1, src.model_config.vocab_size,
+                                           900)]
+    ref = _serve_one(dst, "mig-colo", prompt, sp)
+    src.add_request("mig", prompt, sp)
+    done = []
+    while len(done) < 9:
+        if not src.has_unfinished_requests():
+            raise RuntimeError("8b: the request to migrate left the engine")
+        for o in src.step():
+            if o.request_id == "mig":
+                if o.finished:
+                    raise RuntimeError("8b: the request to migrate finished")
+                done = list(o.output_token_ids)
+    _sync(device)
+    t0 = time.perf_counter()
+    state = src.export_running("mig")
+    t_exp = time.perf_counter() - t0
+    while src.has_unfinished_requests():
+        src.step()
+    moved = len(state["output_token_ids"])
+    nbytes = state["k"].nbytes + state["v"].nbytes
+    outs = dst.import_request("mig-dc", prompt, sp, state)
+    got = list(outs[0].output_token_ids)
+    while dst.has_unfinished_requests():
+        for o in dst.step():
+            if o.request_id == "mig-dc" and o.finished:
+                got = list(o.output_token_ids)
+    if got != ref:
+        raise RuntimeError(f"8b: migrated request differs from "
+                           f"uninterrupted: {got} vs {ref}")
+    return {"prompt": len(prompt), "tokens_moved": moved,
+            "pages": state["k"].shape[1], "bytes": nbytes,
+            "export_ms": t_exp * 1e3, "export_gb_s": nbytes / t_exp / 1e9,
+            "tokens_identical": True}
+
+
+def check_prefix_spill(cfg_engine, params, device, counters) -> dict:
+    """Phase 8c: the prefix cache's host spill tier on the phase-4 weights.
+    A ``SPILL_PAGES`` engine with prefix caching and a pinned host tier
+    (``spill``) and a 1024-page engine that never evicts (``keep``) each
+    serve a prompt behind a 512-token prefix; three 1500-token prompts
+    churn ``spill``'s cache, so every page of that prefix spills to the
+    host. ``export_prefix`` of it reads the host tier in place and must
+    equal ``keep``'s export of its device pages byte for byte. Counted
+    run: a second prompt behind the prefix second-chances every spilled
+    page (one host-to-device copy each) and prefills its suffix through
+    the history kernel; its tokens must equal ``keep``'s, served from
+    device pages. Last, ``keep`` exports a 256-token prefix page by page
+    into ``spill``'s host tier (``accept_remote_spill``), and a prompt
+    behind it restores those pages, with tokens equal to ``keep``'s."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                         SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
+                                                         SamplingParams)
+    from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import PrefixCache
+    cfg = cfg_engine.model
+    ps = cfg_engine.cache.page_size
+    sched = SchedulerConfig(max_num_seqs=8, enable_prefix_caching=True)
+    spill = LLMEngine(dataclasses.replace(
+        cfg_engine, scheduler=sched,
+        cache=CacheConfig(page_size=ps, num_pages=SPILL_PAGES,
+                          swap_space_gb=SPILL_GB)),
+        params=params, device=device)
+    keep = LLMEngine(dataclasses.replace(
+        cfg_engine, scheduler=sched,
+        cache=CacheConfig(page_size=ps, num_pages=HANDOFF_PAGES)),
+        params=params, device=device)
+    pc = spill.scheduler.prefix_cache
+    rng = np.random.default_rng(SEED + 13)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+
+    sp = SamplingParams(max_tokens=32, temperature=0.0)
+    one = dataclasses.replace(sp, max_tokens=1)
+    shared, remote = toks(SHARED_TOKENS), toks(REMOTE_TOKENS)
+    first, second = shared + toks(64), shared + toks(200)
+    for eng in (spill, keep):
+        _serve_one(eng, "first", first, sp)
+    for i in range(3):
+        _serve_one(spill, f"churn-{i}", toks(1500), one)
+    n_shared = SHARED_TOKENS // ps
+    digests = list(PrefixCache._page_digests(shared, n_shared, ps))
+    on_host = sum(d in pc._host_entries for d in digests)
+    if on_host != n_shared:
+        raise RuntimeError(f"8c: {on_host} of the prefix's {n_shared} pages "
+                           f"spilled to the host")
+    _sync(device)
+    t0 = time.perf_counter()
+    got_state = spill.export_prefix(second)
+    t_exp = time.perf_counter() - t0
+    want_state = keep.export_prefix(second)
+    if not (got_state["matched_tokens"] == SHARED_TOKENS
+            and torch.equal(got_state["k"], want_state["k"])
+            and torch.equal(got_state["v"], want_state["v"])):
+        raise RuntimeError("8c: the export read from the host tier differs "
+                           "from the device pages it spilled")
+    nbytes = got_state["k"].nbytes + got_state["v"].nbytes
+    for mod in counters.values():
+        mod.launches = 0
+    hits0 = pc.host_hits
+    got = _serve_one(spill, "second", second, sp)
+    launches = {name: mod.launches for name, mod in counters.items()}
+    host_hits = pc.host_hits - hits0
+    want = _serve_one(keep, "second", second, sp)
+    log("prefix spill counted run: host hits", host_hits, "launches:",
+        json.dumps(launches))
+    if host_hits != n_shared:
+        raise RuntimeError(f"8c: {host_hits} host hits, expected {n_shared}")
+    # The suffix prefills over the restored history: no ragged prefill.
+    for name in ("paged_decode", "flash_prefill_hist"):
+        if launches.get(name, 1) <= 0:
+            raise RuntimeError(f"8c: kernel {name} never launched")
+    if got != want:
+        raise RuntimeError("8c: tokens after the host restore differ from "
+                           "the engine that kept the prefix on the card")
+    _serve_one(keep, "remote", remote + toks(64), one)
+    tail = remote + toks(150)
+    st = keep.export_prefix(tail)
+    n_remote = REMOTE_TOKENS // ps
+    accepted = sum(spill.accept_remote_spill(
+        d.hex(), st["k"][:, j:j + 1], st["v"][:, j:j + 1])
+        for j, d in enumerate(PrefixCache._page_digests(tail, n_remote, ps)))
+    hits0 = pc.host_hits
+    got = _serve_one(spill, "remote", tail, sp)
+    remote_hits = pc.host_hits - hits0
+    want = _serve_one(keep, "remote-2", tail, sp)
+    if accepted != n_remote or remote_hits != n_remote or got != want:
+        raise RuntimeError(f"8c: {accepted} remote spills accepted, "
+                           f"{remote_hits} restored, tokens "
+                           f"{'equal' if got == want else 'differ'}")
+    host = spill.swapper.host
+    if host.num_in_use != len(pc._host_entries):
+        raise RuntimeError(f"8c: {host.num_in_use} host pages in use for "
+                           f"{len(pc._host_entries)} spilled entries")
+    out = {"host_entries": len(pc._host_entries), "host_hits": host_hits, "remote_spills_accepted": accepted,
+           "remote_host_hits": remote_hits,
+           "export_from_host": {"pages": n_shared, "bytes": nbytes,
+                                "ms": t_exp * 1e3,
+                                "gb_s": nbytes / t_exp / 1e9},
+           "tokens_identical": 2, "launches": launches}
+    del spill, keep, pc, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 async def _streams(aeng, prompts, sp) -> list:
@@ -1529,10 +1710,14 @@ def main() -> int:
     phase(f"{MODEL} bf16 spec (7a)")
 
     # Phase 8: the KV transfer layer on the same weights.
-    log("swap:", json.dumps(check_swap(cfg_engine, params, device, attn)),
-        "|", card)
+    swap = check_swap(cfg_engine, params, device, attn, SWAP_GB,
+                      near_ties_only=False)
+    swap["link"] = link_bound(device)
+    log("swap:", json.dumps(swap), "|", card)
     log("handoff:", json.dumps(check_handoff(cfg_engine, params, device,
                                              attn)), "|", card)
+    log("prefix spill:", json.dumps(check_prefix_spill(
+        cfg_engine, params, device, attn)), "|", card)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1584,8 +1769,24 @@ def main() -> int:
         phase(f"family {preset}")
 
     # Phase 7b: draft-model speculative decoding.
-    log("spec draft:", json.dumps(check_spec_draft(device, attn)))
+    cfg_tiny = get_model_config("tinyllama-1.1b").replace(dtype="float32")
+    params = M.init_params(cfg_tiny, torch.Generator(
+        device=device).manual_seed(SEED), device)
+    log("spec draft:", json.dumps(check_spec_draft(cfg_tiny, params, device,
+                                                   attn)))
     phase("tinyllama-1.1b fp32 draft spec (7b)")
+
+    # Phase 8d: swap on the same fp32 weights, held to the never-preempted
+    # engine but for near-ties.
+    cfg_tiny_engine = EngineConfig(model=cfg_tiny, seed=SEED,
+                                   cache=CacheConfig(page_size=ps))
+    log("swap fp32:", json.dumps(check_swap(
+        cfg_tiny_engine, params, device, attn, SWAP_GB_FP32,
+        near_ties_only=True)), "|", card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("tinyllama-1.1b fp32 swap (8d)")
 
     eng["launches"]["int4_matmul"] = eng4["launches"]["int4_matmul"]
     for r in rows:

@@ -810,6 +810,7 @@ class LLMEngine:
             return False
         try:
             self._check_kv_buffers(k, v, 1, "spill")
+            k, v = host_tensor(k), host_tensor(v)
             digest = bytes.fromhex(digest_hex)
         except ValueError:
             return False

@@ -326,8 +326,9 @@ class KVTransferPrograms:
     scatter copies host buffers to the device and ``index_copy_``s them
     into the pool IN PLACE. The JAX package computes both with jitted XLA
     indexing (no Pallas kernel) and pads page lists to powers of two to
-    bound its recompiles; here nothing is padded. On a CPU engine every
-    copy is synchronous."""
+    bound its recompiles; here nothing is padded. Both devices run the
+    same copies; only a CUDA engine records events and waits on them (a
+    CPU engine's copies have completed when they return)."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
@@ -336,17 +337,26 @@ class KVTransferPrograms:
     def _idx(self, pages: list[int]) -> torch.Tensor:
         return torch.tensor(pages, dtype=torch.int64).to(self.device)
 
-    def _event(self) -> torch.cuda.Event:
+    def _event(self) -> Optional[torch.cuda.Event]:
+        """The event after the copies queued so far on a CUDA engine; None
+        on a CPU engine, whose copies have completed on return."""
+        if not self.cuda:
+            return None
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
         return event
+
+    def _fence(self) -> None:
+        """Return only once every queued copy into host memory is done."""
+        if self.cuda:
+            self._event().synchronize()
 
     def _upload(self, t: torch.Tensor) -> torch.Tensor:
         """Host buffer ``t`` [L, n, ps, kd] on the device. A page range
         sliced out of a larger buffer is not contiguous: ``Tensor.to`` would
         first gather it on the host, so it is copied layer by layer (each
         layer's slice is one contiguous run)."""
-        if not self.cuda or t.is_contiguous():
+        if t.is_contiguous():
             return t.to(self.device, non_blocking=True)
         out = torch.empty(t.shape, dtype=t.dtype, device=self.device)
         for layer in range(t.shape[0]):
@@ -363,32 +373,26 @@ class KVTransferPrograms:
         of shape ``[L, n, ps, kd]`` (pinned on a CUDA engine). The copy
         COMPLETES inside this call: after return the device pages are free
         to be released and reallocated."""
-        k_g, v_g = self._gather(kv, pages)
-        if not self.cuda:
-            return k_g, v_g               # index_select made the copy
-        k_h = torch.empty(k_g.shape, dtype=k_g.dtype, pin_memory=True)
-        v_h = torch.empty(v_g.shape, dtype=v_g.dtype, pin_memory=True)
-        k_h.copy_(k_g, non_blocking=True)
-        v_h.copy_(v_g, non_blocking=True)
-        self._event().synchronize()
-        return k_h, v_h
+        out = []
+        for src in self._gather(kv, pages):
+            host = torch.empty(src.shape, dtype=src.dtype,
+                               pin_memory=self.cuda)
+            host.copy_(src, non_blocking=True)
+            out.append(host)
+        self._fence()
+        return out[0], out[1]
 
     def gather_to_host(self, kv: "KVCache", pages: list[int],
                        host: HostKVPool, host_pages: list[int]) -> None:
         """Gather device ``pages`` into the host pool's ``host_pages`` (one
         copy per run of consecutive host pages and layer, straight into the
-        pinned pool). Completes inside the call, like
-        :meth:`gather_pages`."""
-        k_g, v_g = self._gather(kv, pages)
-        if not self.cuda:
-            host.put(host_pages, k_g, v_g)
-            return
-        for src, dst in ((k_g, host.k), (v_g, host.v)):
+        pool). Completes inside the call, like :meth:`gather_pages`."""
+        for src, dst in zip(self._gather(kv, pages), (host.k, host.v)):
             for h0, i0, m in _runs(host_pages):
                 for layer in range(src.shape[0]):
                     dst[layer, h0:h0 + m].copy_(src[layer, i0:i0 + m],
                                                 non_blocking=True)
-        self._event().synchronize()
+        self._fence()
 
     def scatter_pages(self, kv: "KVCache", device_pages: list[int],
                       k: torch.Tensor, v: torch.Tensor
@@ -399,17 +403,16 @@ class KVTransferPrograms:
         idx = self._idx(device_pages)
         kv.k.index_copy_(1, idx, self._upload(k))
         kv.v.index_copy_(1, idx, self._upload(v))
-        return self._event() if self.cuda else None
+        return self._event()
 
     def scatter_from_host(self, kv: "KVCache", device_pages: list[int],
                           host: HostKVPool, host_pages: list[int]
                           ) -> Optional[torch.cuda.Event]:
-        """Write the host pool's ``host_pages`` into ``device_pages``.
-        Returns the event after the copies on a CUDA engine (the host pages
-        are read until it completes), else None."""
-        if not self.cuda:
-            return self.scatter_pages(kv, device_pages,
-                                      *host.get(host_pages))
+        """Write the host pool's ``host_pages`` into ``device_pages`` (one
+        copy per run of consecutive host pages and layer into a device
+        buffer, then the in-place scatter). Returns the event after the
+        copies on a CUDA engine (the host pages are read until it
+        completes), else None."""
         L, _, ps, kd = kv.k.shape
         n = len(host_pages)
         bufs = []

@@ -592,6 +592,16 @@ class TestRemoteSpill:
         assert not importer.accept_remote_spill("not-hex", k, k)
         assert not owner.accept_remote_spill("ab" * 16, k, k)
 
+    def test_spill_off_the_host_refused(self, fleet):
+        # A buffer of the right shape and dtype that does not lie in host
+        # memory is refused like any malformed page, not raised.
+        _, importer = fleet
+        host = importer.swapper.host
+        in_use = host.num_in_use
+        k = torch.empty((2, 1, 16, 64), device="meta")
+        assert not importer.accept_remote_spill("cd" * 16, k, k)
+        assert host.num_in_use == in_use
+
 
 class TestAcrossPackages:
     """States cross between the JAX engine and the port, both ways, through
