@@ -119,6 +119,38 @@ After 7b, on its tinyllama-1.1b fp32 weights:
     fp32 the two batchings agree to ~1e-6, so this tells a swap fault
     from bf16 batching noise, which 8a cannot.
 
+Then the OpenAI server (``serving/api_server.py`` on ``serving/http.py``;
+the client here speaks HTTP/1.1 over asyncio streams on 127.0.0.1):
+
+9a. In this process on the phase-4 llama-3-8b bf16 weights (run after
+    phase 5, before 7a): a 1024-page pool, 16 seats, the byte tokenizer.
+    Sequential: four token-id prompts (64, 300, 900 and a chunked 2500
+    tokens), greedy, 32 tokens, each plain and streamed; a wrapper in this
+    script around the server's ``AsyncLLMEngine.generate`` records the
+    token ids, which must be the same both ways and equal to
+    ``LLMEngine.generate`` of the prompt alone on the same engine, except
+    near-ties as in 7b (counted); the text must be the byte tokenizer's
+    decode of the ids and ``usage`` must count them. Concurrent: 16
+    requests (completions and chat, streamed and not, one with logprobs 2,
+    one n 2 with a seed, one over the prefill budget) in two waves; every
+    response 200, every stream ends in ``[DONE]``, the engine idle after,
+    the three attention kernels launched, ``kgct_requests_total`` up by
+    16, ``kgct_hbm_bytes_in_use`` above 0; client-side TTFT and end-to-end
+    seconds logged. Under that load a request with a 0.001 ms TTFT budget
+    gets 429 with ``Retry-After``. A 400-token stream closed after its
+    first frame (logprobs on, so frames flow per engine chunk) is aborted
+    before its 400th token and leaves the engine idle within 10 s, and the
+    server still answers. ``begin_drain()``: ``/health`` 503, a new request 503, the
+    in-flight stream ends in ``[DONE]``.
+9b. The CLI in a subprocess on the card (tinyllama-1.1b int4, group 128,
+    8 seats, 0.3 of the free memory): ``/health`` polled until it answers,
+    plain, streamed and chat requests, then a long stream during which
+    ``POST /debug/profile?seconds=2`` captures a torch.profiler trace
+    while one 1500-token prompt alone (a mixed step) and then a wave of
+    short prompts (a packed prefill step) arrive; the trace must hold CUDA kernel events of all four kernels
+    (found by their ``__global__`` names in ``csrc/``). SIGTERM: exit 0
+    within the drain grace. On any failure the server's output is printed.
+
 Each phase logs its seconds.
 
 The line before the last is the ``kernels`` JSON record; the last line is
@@ -134,9 +166,11 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -1625,6 +1659,454 @@ def check_async(cfg_engine, params, device) -> dict:
             "chunks": [c for _, c in results]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the OpenAI server (in process on the phase-4 weights; the CLI)
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent
+SERVER_PAGES = 1024
+SERVER_SEQS = 16
+SEQ_PROMPTS = (64, 300, 900, 2500)   # 2500 > the 2048-token prefill budget
+SEQ_TOKENS = 32
+CLI_MODEL = ["--model", "tinyllama-1.1b", "--quantization", "int4",
+             "--quant-group-size", "128"]
+CLI_LONG_PROMPT = 1500               # alone while another decodes: mixed
+# Filled by _record_ids: the token ids each engine request produced.
+_PRODUCED: dict = {}
+
+
+async def http_call(port: int, method: str, path: str, body=None,
+                    headers=None, close_after_first: bool = False) -> dict:
+    """One HTTP/1.1 request on its own connection (asyncio streams; the
+    card's machine has no HTTP client library): status, headers, body, and
+    for a chunked (SSE) body the seconds to its first ``data:`` frame.
+    ``close_after_first`` closes the connection right after that frame."""
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        data = b"" if body is None else json.dumps(body).encode()
+        head = [f"{method} {path} HTTP/1.1", "Host: 127.0.0.1",
+                "Connection: close", f"Content-Length: {len(data)}",
+                "Content-Type: application/json"]
+        head += [f"{k}: {v}" for k, v in (headers or {}).items()]
+        writer.write(("\r\n".join(head) + "\r\n\r\n").encode() + data)
+        await writer.drain()
+        status = int((await reader.readline()).split()[1])
+        hdrs = {}
+        while (line := (await reader.readline()).strip()):
+            k, _, v = line.decode().partition(":")
+            hdrs[k.strip().lower()] = v.strip()
+        first = None
+        if hdrs.get("transfer-encoding") == "chunked":
+            out = b""
+            while True:
+                size = int((await reader.readline()).split(b";")[0], 16)
+                if size == 0:
+                    break
+                out += await reader.readexactly(size)
+                await reader.readexactly(2)
+                if first is None and b"data: " in out:
+                    first = time.perf_counter() - t0
+                    if close_after_first:
+                        break
+        else:
+            out = await reader.readexactly(int(hdrs.get("content-length",
+                                                        0)))
+        return {"status": status, "headers": hdrs, "body": out.decode(),
+                "ttft_s": first, "e2e_s": time.perf_counter() - t0}
+    finally:
+        writer.close()
+
+
+def sse_frames(body: str) -> list:
+    frames = [ln[len("data: "):] for ln in body.splitlines()
+              if ln.startswith("data: ")]
+    if not frames or frames[-1] != "[DONE]":
+        raise RuntimeError(f"stream did not end in [DONE]: {body[-200:]!r}")
+    return [json.loads(f) for f in frames[:-1]]
+
+
+def _record_ids(aeng) -> None:
+    """Wrap the server's ``AsyncLLMEngine.generate``: every engine request's
+    output token ids land in ``_PRODUCED`` (random weights over a
+    128256-token vocabulary make the byte tokenizer's text mostly empty)."""
+    inner = aeng.generate
+
+    async def generate(rid, ids, params, **kw):
+        async for chunk in inner(rid, ids, params, **kw):
+            _PRODUCED[rid] = list(chunk.output_token_ids)
+            yield chunk
+    aeng.generate = generate
+
+
+def _metric(text: str, name: str) -> float:
+    [line] = [ln for ln in text.splitlines() if ln.startswith(name + " ")]
+    return float(line.split()[-1])
+
+
+async def _serve_9a(api, prompts, ref, vocab, counters) -> dict:
+    from kubernetes_gpu_cluster_tpu_torch.serving.http import Server
+    from kubernetes_gpu_cluster_tpu_torch.serving.tokenizer import \
+        ByteTokenizer
+    tok = ByteTokenizer()
+    eng = api.engine.engine
+    srv = Server(api.build_app())
+    await srv.start("127.0.0.1", 0)
+    port = srv.port
+    out = {}
+    try:
+        # 9a.1 sequential: each prompt plain, then streamed.
+        seq = []
+        for i, prompt in enumerate(prompts):
+            body = {"prompt": prompt, "max_tokens": SEQ_TOKENS,
+                    "temperature": 0.0}
+            plain = await http_call(port, "POST", "/v1/completions", body,
+                                    {"x-kgct-request-id": f"seq{i}-plain"})
+            sse = await http_call(port, "POST", "/v1/completions",
+                                  dict(body, stream=True),
+                                  {"x-kgct-request-id": f"seq{i}-sse"})
+            if plain["status"] != 200 or sse["status"] != 200:
+                raise RuntimeError(f"seq{i}: {plain['status']} "
+                                   f"{sse['status']} {plain['body'][:300]}")
+            a, b = _PRODUCED[f"seq{i}-plain"], _PRODUCED[f"seq{i}-sse"]
+            doc = json.loads(plain["body"])
+            text_sse = "".join(f["choices"][0]["text"]
+                               for f in sse_frames(sse["body"]))
+            if a != b:
+                raise RuntimeError(f"seq{i}: plain and streamed ids differ")
+            if doc["choices"][0]["text"] != tok.decode(a) or \
+                    text_sse != tok.decode(b):
+                raise RuntimeError(f"seq{i}: text is not decode(ids)")
+            if doc["usage"] != {"prompt_tokens": len(prompt),
+                                "completion_tokens": len(a),
+                                "total_tokens": len(prompt) + len(a)}:
+                raise RuntimeError(f"seq{i}: usage {doc['usage']}")
+            seq.append({"prompt": len(prompt), "tokens": len(a),
+                        "equal_to_engine": a == ref[i],
+                        "plain_e2e_s": plain["e2e_s"],
+                        "sse_ttft_s": sse["ttft_s"],
+                        "sse_e2e_s": sse["e2e_s"]})
+        out["sequential"] = seq
+
+        # 9a.2-3 concurrent, with the admission check under load.
+        rng = np.random.default_rng(SEED + 10)
+        metrics0 = (await http_call(port, "GET", "/metrics"))["body"]
+        reqs = []
+        for i in range(16):
+            kind = "chat" if i % 4 == 3 else "completion"
+            body = {"max_tokens": 128, "temperature": 0.0,
+                    "stream": i % 2 == 1}
+            if kind == "chat":
+                body["messages"] = [{"role": "user",
+                                     "content": f"request {i}: say more"}]
+            else:
+                n = SEQ_PROMPTS[-1] if i == 0 else int(rng.integers(32,
+                                                                    600))
+                body["prompt"] = [int(t) for t in rng.integers(1, vocab, n)]
+            if i == 2:
+                body["logprobs"] = 2
+            elif kind == "completion" and body["stream"]:
+                # A frame per engine chunk (random ids mostly decode to no
+                # text), so the first frame times the first token.
+                body["logprobs"] = 1
+            if i == 4:
+                body.update(n=2, seed=77, temperature=0.8)
+            path = ("/v1/chat/completions" if kind == "chat"
+                    else "/v1/completions")
+            reqs.append((path, body))
+        for mod in counters.values():
+            mod.launches = 0
+        tasks = [asyncio.ensure_future(http_call(port, "POST", p, b))
+                 for p, b in reqs[:8]]
+        deadline = time.monotonic() + 120
+        while not eng.scheduler.running:
+            if time.monotonic() > deadline:
+                raise RuntimeError("first wave never started")
+            await asyncio.sleep(0.01)
+        tasks += [asyncio.ensure_future(http_call(port, "POST", p, b))
+                  for p, b in reqs[8:]]
+        while len(eng.scheduler.waiting) + len(eng.scheduler.running) < 16:
+            if time.monotonic() > deadline or all(t.done() for t in tasks):
+                raise RuntimeError("the 16 requests never queued together")
+            await asyncio.sleep(0.005)
+        shed = await http_call(port, "POST", "/v1/completions",
+                               {"prompt": [5, 6, 7], "max_tokens": 4},
+                               {"x-kgct-ttft-budget-ms": "0.001"})
+        health = json.loads((await http_call(port, "GET", "/health"))["body"])
+        if shed["status"] != 429 or "retry-after" not in shed["headers"]:
+            raise RuntimeError(f"budget request not shed: {shed['status']} "
+                               f"{shed['headers']}")
+        if health["waiting"] + health["running"] <= 0:
+            raise RuntimeError(f"/health under load: {health}")
+        results = await asyncio.gather(*tasks)
+        for (path, body), r in zip(reqs, results):
+            if r["status"] != 200:
+                raise RuntimeError(f"{path}: {r['status']} {r['body'][:300]}")
+            if body["stream"]:
+                sse_frames(r["body"])
+        deadline = time.monotonic() + 10
+        while eng.has_unfinished_requests():
+            if time.monotonic() > deadline:
+                raise RuntimeError("engine not idle after the concurrent "
+                                   "requests")
+            await asyncio.sleep(0.01)
+        launches = {n: m.launches for n, m in counters.items()}
+        if min(launches.values()) <= 0:
+            raise RuntimeError(f"kernels not launched by the server: "
+                               f"{launches}")
+        metrics1 = (await http_call(port, "GET", "/metrics"))["body"]
+        n_req = (_metric(metrics1, "kgct_requests_total")
+                 - _metric(metrics0, "kgct_requests_total"))
+        hbm = _metric(metrics1, "kgct_hbm_bytes_in_use")
+        if n_req != 16 or hbm <= 0:
+            raise RuntimeError(f"/metrics: {n_req} requests, {hbm} bytes")
+        out["concurrent"] = {
+            "launches": launches, "requests_total_delta": n_req,
+            "hbm_bytes_in_use": hbm,
+            "shed": {"status": shed["status"],
+                     "retry_after": shed["headers"]["retry-after"],
+                     "health": {k: health[k] for k in ("waiting",
+                                                       "running")}},
+            "ttft_s": [r["ttft_s"] for r in results if r["ttft_s"]],
+            "e2e_s": [r["e2e_s"] for r in results]}
+
+        # 9a.4 disconnect after the first frame of a 400-token stream
+        # (logprobs: a frame per engine chunk, so the first comes early).
+        cut = await http_call(port, "POST", "/v1/completions",
+                              {"prompt": [9] * 50, "max_tokens": 400,
+                               "temperature": 0.0, "stream": True,
+                               "logprobs": 1},
+                              close_after_first=True)
+        t0 = time.monotonic()
+        while eng.has_unfinished_requests():
+            if time.monotonic() - t0 > 10:
+                raise RuntimeError("a closed stream kept the engine busy")
+            await asyncio.sleep(0.01)
+        idle_s = time.monotonic() - t0
+        alive = await http_call(port, "POST", "/v1/completions",
+                                {"prompt": [9] * 8, "max_tokens": 4,
+                                 "temperature": 0.0})
+        n_cut = len(_PRODUCED[cut["headers"]["x-kgct-request-id"]])
+        if cut["ttft_s"] is None or n_cut >= 400 or alive["status"] != 200:
+            raise RuntimeError(f"disconnect: first frame {cut['ttft_s']}, "
+                               f"{n_cut} tokens, then {alive['status']}")
+        out["disconnect"] = {"idle_after_s": idle_s,
+                             "tokens_seen_before_abort": n_cut}
+
+        # 9a.5 drain with a stream in flight.
+        reader_task = asyncio.ensure_future(http_call(
+            port, "POST", "/v1/completions",
+            {"prompt": [11] * 40, "max_tokens": 64, "temperature": 0.0,
+             "stream": True}))
+        while not eng.scheduler.running:
+            await asyncio.sleep(0.005)
+        drained = []
+        task = api.begin_drain(on_drained=lambda: drained.append(1))
+        h = await http_call(port, "GET", "/health")
+        new = await http_call(port, "POST", "/v1/completions",
+                              {"prompt": [1, 2], "max_tokens": 2})
+        inflight = await reader_task
+        await asyncio.wait_for(task, 60)
+        frames = sse_frames(inflight["body"])
+        if (h["status"], new["status"], inflight["status"]) != \
+                (503, 503, 200) or drained != [1]:
+            raise RuntimeError(f"drain: health {h['status']}, new "
+                               f"{new['status']}, stream "
+                               f"{inflight['status']}, drained {drained}")
+        out["drain"] = {"health": h["status"], "new_request": new["status"],
+                        "inflight_frames": len(frames)}
+    finally:
+        await srv.close()
+    return out
+
+
+def check_server(cfg_engine, params, device, counters) -> dict:
+    """Phase 9a: the OpenAI server in this process on the phase-4 weights
+    (a 1024-page pool, 16 seats, the byte tokenizer)."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                         SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    from kubernetes_gpu_cluster_tpu_torch.serving import build_server
+    os.environ["KGCT_FLIGHT_DIR"] = str(REPO / "build" / "flight")
+    cfg = cfg_engine.model
+    cfg_server = dataclasses.replace(
+        cfg_engine,
+        cache=CacheConfig(page_size=cfg_engine.cache.page_size,
+                          num_pages=SERVER_PAGES),
+        scheduler=SchedulerConfig(max_num_seqs=SERVER_SEQS))
+    api = build_server(cfg_server, params=params, device=device,
+                       model_name=MODEL)
+    eng = api.engine.engine
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in SEQ_PROMPTS]
+    sp = SamplingParams(max_tokens=SEQ_TOKENS, temperature=0.0)
+    # Each prompt alone through LLMEngine.generate on the server's own
+    # engine, before its worker starts: batch-1 shapes, as over HTTP.
+    ref = [list(eng.generate([p], sp)[0].output_token_ids) for p in prompts]
+    _record_ids(api.engine)
+    out = asyncio.run(_serve_9a(api, prompts, ref, cfg.vocab_size,
+                                counters))
+    diverged, faults = [], []
+    for i, (row, prompt) in enumerate(zip(out["sequential"], prompts)):
+        if row["equal_to_engine"]:
+            continue
+        a, b = _PRODUCED[f"seq{i}-plain"], ref[i]
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        gap, std = _top2_gap(params, cfg, prompt + b[:j], device)
+        log(f"server/engine divergence seq{i} at output {j}: top-2 gap "
+            f"{gap} logit std {std} ({gap / std:.3g} of it)")
+        diverged.append({"seq": i, "at": j, "gap_over_std": gap / std})
+        if gap >= NEAR_TIE * std:
+            faults.append(i)
+    if faults:
+        raise RuntimeError(f"HTTP tokens differ from LLMEngine.generate "
+                           f"beyond a near-tie for prompts {faults}")
+    out["divergences"] = diverged
+    del api, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernel_names() -> dict:
+    """Each CUDA source's ``__global__`` function names."""
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import build
+    import re
+    names = {}
+    for name in build.KERNELS:
+        src = (build.CSRC / f"{name}.cu").read_text()
+        names[name] = re.findall(r"__global__[^\n]*\n\s*(\w+)\s*\(", src)
+    return names
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def _drive_cli(port: int, proc, vocab: int) -> dict:
+    deadline = time.monotonic() + 600
+    while True:
+        if proc.poll() is not None:
+            raise RuntimeError(f"the CLI server exited with {proc.returncode}")
+        try:
+            if (await http_call(port, "GET", "/health"))["status"] == 200:
+                break
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            raise RuntimeError("the CLI server never answered /health")
+        await asyncio.sleep(0.5)
+    up_s = 600 - (deadline - time.monotonic())
+    rng = np.random.default_rng(SEED + 11)
+
+    def ids(n):
+        return [int(t) for t in rng.integers(1, vocab, n)]
+    first = [
+        await http_call(port, "POST", "/v1/completions",
+                        {"prompt": ids(100), "max_tokens": 16,
+                         "temperature": 0.0}),
+        await http_call(port, "POST", "/v1/completions",
+                        {"prompt": ids(100), "max_tokens": 16,
+                         "temperature": 0.0, "stream": True}),
+        await http_call(port, "POST", "/v1/chat/completions",
+                        {"messages": [{"role": "user", "content": "hello"}],
+                         "max_tokens": 16, "temperature": 0.0}),
+    ]
+    sse_frames(first[1]["body"])
+    # The long request decodes while the profiler runs. Inside the window
+    # one prompt arrives alone (a mixed step: its chunk through the history
+    # kernel), then, once it is served, a wave of short prompts (a packed
+    # prefill step: flash_prefill). The profiler's start may hold the
+    # server's loop, so the first arrival waits a second.
+    long = asyncio.ensure_future(http_call(
+        port, "POST", "/v1/completions",
+        {"prompt": ids(64), "max_tokens": 300, "temperature": 0.0,
+         "stream": True}))
+    await asyncio.sleep(1.0)
+    prof = asyncio.ensure_future(http_call(port, "POST",
+                                           "/debug/profile?seconds=2"))
+    await asyncio.sleep(1.0)
+    wave = [await http_call(port, "POST", "/v1/completions",
+                            {"prompt": ids(CLI_LONG_PROMPT), "max_tokens": 4,
+                             "temperature": 0.0})]
+    wave += await asyncio.gather(*(http_call(
+        port, "POST", "/v1/completions",
+        {"prompt": ids(n), "max_tokens": 4, "temperature": 0.0})
+        for n in (120, 130, 140)))
+    rest = wave + [await long]
+    prof = await prof
+    for r in first + rest:
+        if r["status"] != 200:
+            raise RuntimeError(f"CLI request: {r['status']} "
+                               f"{r['body'][:300]}")
+    if prof["status"] != 200:
+        raise RuntimeError(f"/debug/profile: {prof['status']} {prof['body']}")
+    trace_dir = Path(json.loads(prof["body"])["trace_dir"])
+    [trace] = sorted(trace_dir.glob("trace-*.json"))
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {mod: sum(any(n in k for n in names) for k in kernels)
+             for mod, names in _kernel_names().items()}
+    if min(found.values()) <= 0:
+        raise RuntimeError(f"profiler trace lacks kernels: {found} "
+                           f"({len(kernels)} kernel events)")
+    return {"health_after_s": up_s, "requests": len(first) + len(rest),
+            "trace_mb": trace.stat().st_size / 2 ** 20,
+            "kernel_events": len(kernels), "by_source": found}
+
+
+def check_cli(vocab: int) -> dict:
+    """Phase 9b: the CLI on the card in a subprocess (tinyllama-1.1b int4):
+    requests, a profiler capture holding all four kernels, SIGTERM exit 0
+    within the drain grace."""
+    import signal
+    port = _free_port()
+    work = REPO / "build" / "cli-9b"
+    work.mkdir(parents=True, exist_ok=True)
+    for old in work.glob("kgct-profile/trace-*.json"):
+        old.unlink()
+    env = dict(os.environ, TMPDIR=str(work),
+               KGCT_FLIGHT_DIR=str(work / "flight"),
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO)] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    cmd = [sys.executable, "-m",
+           "kubernetes_gpu_cluster_tpu_torch.serving.api_server",
+           *CLI_MODEL, "--max-num-seqs", "8",
+           "--hbm-utilization", "0.3", "--host", "127.0.0.1",
+           "--port", str(port)]
+    log_path = work / "server.log"
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=logf,
+                                stderr=subprocess.STDOUT)
+        try:
+            out = asyncio.run(_drive_cli(port, proc, vocab))
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=DRAIN_GRACE_S)
+            out["sigterm_exit_s"] = time.perf_counter() - t0
+            if rc != 0:
+                raise RuntimeError(f"the CLI server exited {rc} on SIGTERM")
+        except BaseException:
+            logf.flush()
+            log("CLI server output (tail):\n"
+                + log_path.read_text()[-6000:])
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+DRAIN_GRACE_S = 120.0   # the CLI's default --drain-grace-s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1703,6 +2185,11 @@ def main() -> int:
         cfg_engine, cache=CacheConfig(page_size=ps, num_pages=1024))
     log("async:", json.dumps(check_async(cfg_async, params, device)))
     phase(f"{MODEL} bf16 (3, 4, 5)")
+
+    # Phase 9a: the OpenAI server in this process on the same weights.
+    log("server:", json.dumps(check_server(cfg_engine, params, device,
+                                           attn)), "|", card)
+    phase(f"{MODEL} bf16 server (9a)")
 
     # Phase 7a: n-gram speculative decoding on the same weights.
     log("spec ngram:", json.dumps(check_spec_ngram(cfg_engine, params, device,
@@ -1787,6 +2274,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase("tinyllama-1.1b fp32 swap (8d)")
+
+    # Phase 9b: the CLI server in a subprocess.
+    log("cli:", json.dumps(check_cli(cfg_tiny.vocab_size)), "|", card)
+    phase("tinyllama-1.1b int4 CLI (9b)")
 
     eng["launches"]["int4_matmul"] = eng4["launches"]["int4_matmul"]
     for r in rows:

@@ -137,6 +137,19 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def device_memory_stats(device: torch.device) -> tuple:
+    """(bytes total, bytes allocated) of ``device`` — the
+    ``kgct_hbm_bytes_{limit,in_use}`` gauges. The card's total memory from
+    ``torch.cuda.mem_get_info`` and the caching allocator's live bytes
+    from ``torch.cuda.memory_allocated``, both host-side queries that
+    never synchronize the device; (0, 0) on the CPU, so a scrape stays
+    nan-free."""
+    if device.type != "cuda":
+        return (0, 0)
+    return (int(torch.cuda.mem_get_info(device)[1]),
+            int(torch.cuda.memory_allocated(device)))
+
+
 class LLMEngine:
     def __init__(self, config: EngineConfig, params=None,
                  eos_token_id: Optional[int] = None,
@@ -430,6 +443,14 @@ class LLMEngine:
         # An in-flight window must be drained even if every sequence
         # finished (its deferred page releases happen at drain time).
         return self.scheduler.has_work() or self._inflight is not None
+
+    def compiled_step_variants(self) -> int:
+        """Step programs compiled so far: always 0. Eager PyTorch compiles
+        no step programs (the JAX engine's bucketed jit caches have no
+        counterpart here); the CUDA kernels are built once, ahead of the
+        first step. Kept so ``kgct_jit_compiles_total`` names the same
+        family on both servers' /metrics."""
+        return 0
 
     # -- KV handoff seams (disaggregated prefill/decode, live migration) ----
     #

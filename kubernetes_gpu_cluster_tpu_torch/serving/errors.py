@@ -1,0 +1,105 @@
+"""Shared OpenAI-shaped error envelopes for the serving stack.
+
+One definition for engine shed/drain (api_server) and router-level
+rejections: the router's docstring promises clients parse the SAME envelope
+from both layers, so the shape lives in one place instead of drifting
+between two copies.
+
+Also home of the ``x-kgct-request-id`` wire contract (the fleet tracing
+correlation id): the router mints one per request (honoring an inbound
+header), forwards it to the replica, and echoes it on EVERY response —
+success or error — so a 429/503 in a client log joins the router span
+stream, the replica's engine trace, and the JSON log records on one id.
+The port's server serves these over its own HTTP layer
+(``serving/http.py``), so the responses here are that layer's type.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Optional
+
+from .http import Response, json_response
+
+REQUEST_ID_HEADER = "x-kgct-request-id"
+
+# Disaggregated prefill/decode: the router names the prefill-pool replica a
+# decode replica should pull prefilled KV from (serving/handoff.py). Set by
+# the ROUTER only — the proxy strips any client-supplied value. Traffic
+# that reaches a replica pod DIRECTLY (per-pod DNS) bypasses that strip,
+# so the replica enforces its own boundary: with ``--prefill-pool`` set
+# (the renderer wires it from prefillReplicas), a header naming any other
+# url is never fetched — the request degrades to local recompute.
+PREFILL_URL_HEADER = "x-kgct-prefill-url"
+
+# Session survivability: the router names the healthy peer a draining
+# replica should PUSH each running sequence's KV to (live migration on
+# SIGTERM) — the ring successor of the serving replica, so the router's
+# own mid-stream failover re-dispatch finds the parked state where it
+# lands. Router-set like the prefill url (client values stripped at the
+# proxy; ``--peer-pool`` is the direct-to-pod allowlist).
+MIGRATE_URL_HEADER = "x-kgct-migrate-url"
+
+# Fleet-wide prefix cache: the router names the ring OWNER of this
+# request's affinity key when the pick had to land elsewhere (owner
+# over-bound or out of rotation) — the chosen replica pulls the owner's
+# cached prefix KV instead of recomputing it (``POST
+# /internal/fetch_prefix``, serving/fleet_cache.py). Router-set like the
+# prefill url (client values stripped at the proxy); ``--peer-pool`` is
+# the direct-to-pod allowlist, and the replica-side roofline gate skips
+# pulls priced above a local recompute.
+PREFIX_SOURCE_HEADER = "x-kgct-prefix-source"
+
+# Multi-tenant QoS: the request's priority class. Resolution order (one
+# definition, engine/qos.resolve_tier_name, shared by router and replica):
+# a valid inbound header naming a CONFIGURED tier wins; else the
+# ``session_id``/``user`` tenant key is looked up against the tiers' user
+# pins; else the default tier. The router propagates the tier it resolved
+# upstream in this header so both layers attribute the request
+# identically; a header naming an unconfigured tier is a 400 at the
+# replica (loud, not silently re-classed). Ignored when no tiers are
+# configured (QoS off is byte-identical to today).
+QOS_TIER_HEADER = "x-kgct-qos-tier"
+
+# Echoed by ``POST /internal/resume``: how the resumed stream was
+# reconstructed — "import" (parked migrated KV scattered in, decode
+# resumes directly) or "recompute" (token-replay re-prefill). The router
+# attributes kgct_failovers_total{outcome=} from it.
+RESUME_MODE_HEADER = "x-kgct-resume-mode"
+
+
+class StreamMigratedError(Exception):
+    """Posted into a live stream's output queue when its sequence was
+    live-migrated to a peer (drain): the handler aborts the client
+    connection WITHOUT a terminal SSE frame, so the router's relay sees an
+    incomplete stream and re-dispatches to the migration target. Carries
+    the peer url for logs/traces."""
+
+    def __init__(self, peer_url: str):
+        super().__init__(f"stream migrated to {peer_url}")
+        self.peer_url = peer_url
+
+# Ids must be safe to echo into headers, log records, and trace JSON: a
+# bounded charset, no whitespace/control bytes, bounded length. Anything
+# else is treated as absent and a fresh id is minted.
+_REQUEST_ID_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._:+-]{0,127}$")
+
+
+def valid_request_id(rid: Optional[str]) -> Optional[str]:
+    """``rid`` when it satisfies the header contract, else None."""
+    if rid and _REQUEST_ID_RE.match(rid):
+        return rid
+    return None
+
+
+def overloaded_error(status: int, message: str,
+                     retry_after_s: float) -> Response:
+    """Shed/drain/no-capacity rejection: OpenAI-shaped error body plus a
+    Retry-After header so well-behaved clients (and a benchmark's overload
+    phase) back off for the time the backlog actually needs instead of
+    hammering a doomed queue."""
+    return json_response(
+        {"error": {"message": message, "type": "overloaded_error",
+                   "code": status}},
+        status=status,
+        headers={"Retry-After": str(max(int(retry_after_s), 1))})

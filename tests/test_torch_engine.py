@@ -305,6 +305,50 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         not in src.replace("kubernetes_gpu_cluster_tpu_torch", "")
 
 
+def test_port_serves_without_aiohttp_or_transformers():
+    """The card's installation has neither aiohttp nor transformers: with
+    both blocked, a fresh interpreter imports every port module, builds the
+    port's server on the CPU and serves one completion over a socket."""
+    code = (
+        "import sys\n"
+        "sys.modules['aiohttp'] = None\n"
+        "sys.modules['transformers'] = None\n"
+        "import asyncio, http.client, importlib, json, pkgutil\n"
+        "import kubernetes_gpu_cluster_tpu_torch as port\n"
+        "for m in pkgutil.walk_packages(port.__path__, "
+        "'kubernetes_gpu_cluster_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from kubernetes_gpu_cluster_tpu_torch.config import EngineConfig, "
+        "CacheConfig, get_model_config\n"
+        "from kubernetes_gpu_cluster_tpu_torch.serving import build_server\n"
+        "from kubernetes_gpu_cluster_tpu_torch.serving.http import Server\n"
+        "cfg = EngineConfig(model=get_model_config('debug-tiny'), "
+        "cache=CacheConfig(page_size=16, num_pages=32))\n"
+        "async def main():\n"
+        "    srv = Server(build_server(cfg, device='cpu').build_app())\n"
+        "    await srv.start('127.0.0.1', 0)\n"
+        "    def call():\n"
+        "        c = http.client.HTTPConnection('127.0.0.1', srv.port, "
+        "timeout=60)\n"
+        "        c.request('POST', '/v1/completions', json.dumps({'prompt': "
+        "'hi', 'max_tokens': 3, 'temperature': 0}), "
+        "{'Content-Type': 'application/json'})\n"
+        "        r = c.getresponse()\n"
+        "        return r.status, json.loads(r.read())\n"
+        "    try:\n"
+        "        return await asyncio.to_thread(call)\n"
+        "    finally:\n"
+        "        await srv.close()\n"
+        "status, body = asyncio.run(main())\n"
+        "print(status, body['usage'])\n"
+        "sys.exit(0 if status == 200 and body['usage']['completion_tokens'] "
+        "== 3 else 1)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "aiohttp" not in (REPO / "chip_smoke.py").read_text()
+
+
 def test_flight_recorder_snapshots_on_a_fresh_host(monkeypatch):
     """The port's copy starts ``_last_snapshot`` at -inf: the first
     snapshot is taken even while time.monotonic() (time since boot) is

@@ -698,3 +698,54 @@ def test_swap_engine_twice_identical_on_the_card(cuda_device):
     assert eng.swapper.host.num_in_use == 0
     alloc = eng.scheduler.allocator
     assert alloc.num_free == alloc.num_pages - 1
+
+
+@pytest.mark.gpu
+def test_server_on_the_card_serves_streamed_and_plain(cuda_device):
+    """The port's OpenAI server on the card at debug widths (bf16,
+    hd 64): one plain and one streamed completion over a socket
+    (``http.client``), the same greedy text both ways, with the attention
+    kernels launched."""
+    import asyncio
+    import http.client
+    import json
+
+    from kubernetes_gpu_cluster_tpu_torch.serving import build_server
+    from kubernetes_gpu_cluster_tpu_torch.serving.http import Server
+
+    body = {"prompt": [5, 6, 7, 8] * 20, "max_tokens": 12,
+            "temperature": 0.0}
+
+    def call(port, stream):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        c.request("POST", "/v1/completions",
+                  json.dumps(dict(body, stream=stream)),
+                  {"Content-Type": "application/json"})
+        r = c.getresponse()
+        raw = r.read().decode()
+        c.close()
+        if not stream:
+            return r.status, json.loads(raw)["choices"][0]["text"]
+        frames = [ln[6:] for ln in raw.splitlines()
+                  if ln.startswith("data: ")]
+        assert frames[-1] == "[DONE]"
+        return r.status, "".join(json.loads(f)["choices"][0]["text"]
+                                 for f in frames[:-1])
+
+    async def go():
+        api = build_server(_tiny_cfg(), device=cuda_device)
+        srv = Server(api.build_app())
+        await srv.start("127.0.0.1", 0)
+        try:
+            for mod in (cpd, cfp):
+                mod.launches = 0
+            plain = await asyncio.to_thread(call, srv.port, False)
+            streamed = await asyncio.to_thread(call, srv.port, True)
+            return plain, streamed, cpd.launches, cfp.launches
+        finally:
+            await srv.close()
+
+    plain, streamed, n_decode, n_prefill = asyncio.run(go())
+    assert plain[0] == streamed[0] == 200
+    assert plain[1] == streamed[1]
+    assert n_decode > 0 and n_prefill > 0
