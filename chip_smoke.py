@@ -151,6 +151,43 @@ the client here speaks HTTP/1.1 over asyncio streams on 127.0.0.1):
     (found by their ``__global__`` names in ``csrc/``). SIGTERM: exit 0
     within the drain grace. On any failure the server's output is printed.
 
+Then the fleet plane (``serving/handoff.py``'s KV wire, ``fleet_cache.py``,
+the server's ``/internal/*`` routes), on the phase-4 weights after phase 8:
+servers in this process on free ports, driven through the port's own HTTP
+client, at most four llama-3-8b engines alive (1024-page pools, 8 seats);
+every greedy request's tokens must equal ``LLMEngine.generate`` of its
+prompt alone (on the colocated server's engine, before it serves) but for
+near-ties as in 7b (counted):
+
+10a. A ``prefill`` server P (prefix caching on) and a ``decode`` server D
+     pulling from it (``x-kgct-prefill-url``), integrity on: six requests
+     (prompts 64-2500, 32 new tokens; two streamed with logprobs 1, one
+     logprobs 2, one seeded sampled, compared by length). D counts 6
+     imports ``ok`` and 0 fallbacks, P 6 exports; each handoff's bytes and
+     seconds from ``/metrics``; the streamed ones also colocated on C for
+     the TTFT beside D's.
+10b. The same pair with ``kv_wire_corrupt`` armed: the corruption is
+     caught, the request falls back to local prefill with its tokens, P is
+     quarantined on D.
+10d. A ``both`` server C streams a 1024-token prompt (400 new tokens) with
+     ``x-kgct-migrate-url`` D; after 16 tokens ``begin_drain()`` pushes it:
+     the stream ends with no ``[DONE]``, D parks it, ``/internal/resume``
+     on D answers in ``import`` mode with only the unseen tokens, and
+     relayed plus resumed tokens equal the uninterrupted run.
+10c. Two fleet-cache servers F1 and F2: a 1024-token prefix cached on F1 is
+     pulled by F2 on ``x-kgct-prefix-source`` (one pull ``ok``, one cache
+     hit, the history kernel launched, F1's tokens). Then F1 rebuilt with a
+     192-page pool and no host tier of its own: churn evicts a 512-token
+     prefix, whose 32 pages land in F2's 1 GB host tier through
+     ``/internal/fleet_spill`` (counted ``ok``), and F2 serves the prompt
+     from them (host hits) with F1's tokens.
+10e. The codec on 10a's 1500-token frame (encode, decode, the import-seam
+     verify; integrity on and off; ms and GB/s, best of 3) and the prefill
+     FLOP/s of one packed 2048-token prefill step (best of 3), the figure
+     ``fleet_cache.DEFAULT_FLOPS["cuda"]`` holds; the pull policy logged.
+     ``paged_decode``, ``flash_prefill`` and ``flash_prefill_hist`` must
+     have launched across phase 10.
+
 Each phase logs its seconds.
 
 The line before the last is the ``kernels`` JSON record; the last line is
@@ -1676,46 +1713,39 @@ _PRODUCED: dict = {}
 
 
 async def http_call(port: int, method: str, path: str, body=None,
-                    headers=None, close_after_first: bool = False) -> dict:
-    """One HTTP/1.1 request on its own connection (asyncio streams; the
-    card's machine has no HTTP client library): status, headers, body, and
-    for a chunked (SSE) body the seconds to its first ``data:`` frame.
-    ``close_after_first`` closes the connection right after that frame."""
+                    headers=None, close_after_first: bool = False,
+                    on_data=None) -> dict:
+    """One HTTP/1.1 request to 127.0.0.1 on its own connection, through the
+    port's client (``serving/http.py``; the card's machine has no HTTP
+    client library): status, headers, body, for a chunked (SSE) body the
+    seconds to its first ``data:`` frame, and whether the connection was
+    cut inside the body. ``close_after_first`` closes the connection right
+    after that frame; ``on_data(raw)`` sees the body as it grows."""
+    from kubernetes_gpu_cluster_tpu_torch.serving.http import (ClientError,
+                                                               ClientSession)
     t0 = time.perf_counter()
-    reader, writer = await asyncio.open_connection("127.0.0.1", port)
-    try:
-        data = b"" if body is None else json.dumps(body).encode()
-        head = [f"{method} {path} HTTP/1.1", "Host: 127.0.0.1",
-                "Connection: close", f"Content-Length: {len(data)}",
-                "Content-Type: application/json"]
-        head += [f"{k}: {v}" for k, v in (headers or {}).items()]
-        writer.write(("\r\n".join(head) + "\r\n\r\n").encode() + data)
-        await writer.drain()
-        status = int((await reader.readline()).split()[1])
-        hdrs = {}
-        while (line := (await reader.readline()).strip()):
-            k, _, v = line.decode().partition(":")
-            hdrs[k.strip().lower()] = v.strip()
-        first = None
-        if hdrs.get("transfer-encoding") == "chunked":
-            out = b""
-            while True:
-                size = int((await reader.readline()).split(b";")[0], 16)
-                if size == 0:
-                    break
-                out += await reader.readexactly(size)
-                await reader.readexactly(2)
-                if first is None and b"data: " in out:
+    url = f"http://127.0.0.1:{port}{path}"
+    sess = ClientSession()
+    call = (sess.get(url, headers=headers, timeout_s=600) if method == "GET"
+            else sess.post(url, json=body, headers=headers, timeout_s=600))
+    raw, first, severed = bytearray(), None, False
+    async with call as r:
+        sse = "chunked" in r.headers.get("Transfer-Encoding", "")
+        try:
+            async for piece in r.iter_chunked(1 << 16):
+                raw += piece
+                if sse and first is None and b"data: " in raw:
                     first = time.perf_counter() - t0
                     if close_after_first:
                         break
-        else:
-            out = await reader.readexactly(int(hdrs.get("content-length",
-                                                        0)))
-        return {"status": status, "headers": hdrs, "body": out.decode(),
-                "ttft_s": first, "e2e_s": time.perf_counter() - t0}
-    finally:
-        writer.close()
+                if on_data is not None:
+                    on_data(raw)
+        except ClientError:
+            severed = True
+        return {"status": r.status, "headers": r.headers, "raw": raw,
+                "body": raw.decode("utf-8", errors="replace"),
+                "ttft_s": first, "e2e_s": time.perf_counter() - t0,
+                "severed": severed}
 
 
 def sse_frames(body: str) -> list:
@@ -1739,8 +1769,14 @@ def _record_ids(aeng) -> None:
     aeng.generate = generate
 
 
-def _metric(text: str, name: str) -> float:
-    [line] = [ln for ln in text.splitlines() if ln.startswith(name + " ")]
+def _metric(text: str, name: str, missing=None) -> float:
+    """The value of the series ``name``; ``missing`` when it is not
+    rendered (a labelled histogram renders once observed), else an
+    error."""
+    lines = [ln for ln in text.splitlines() if ln.startswith(name + " ")]
+    if not lines and missing is not None:
+        return missing
+    [line] = lines
     return float(line.split()[-1])
 
 
@@ -2104,6 +2140,527 @@ def check_cli(vocab: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the fleet plane (in process on the phase-4 weights)
+# ---------------------------------------------------------------------------
+
+FLEET_PAGES = 1024
+FLEET_SEQS = 8
+DISAGG_PROMPTS = (64, 300, 700, 1100, 1500, 2500)
+DISAGG_TOKENS = 32
+# 10a's request shapes by prompt index: streamed (logprobs 1, so a frame
+# per engine chunk times the first token), logprobs 2, seeded sampled.
+DISAGG_STREAMED = (1, 4)
+DISAGG_LOGPROBS = 2
+DISAGG_SEEDED = 3
+CODEC_PROMPT = 1500                  # 10e times the codec on its state
+FLEET_PREFIX = 1024
+FLEET_SUFFIX = 200
+SPILL_PREFIX = 512                   # 32 pages: the spill queue's cap
+SPILL_SUFFIX = 15                    # under a page: no page of its own
+SPILL_HOST_GB = 1.0
+MIGRATE_PROMPT = 1024
+MIGRATE_TOKENS = 400
+MIGRATE_AFTER = 16                   # relayed tokens before the drain
+FLOPS_PROMPTS = (512, 512, 512, 512)  # one packed 2048-token prefill step
+
+
+def _first_diff(a: list, b: list) -> int:
+    return next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def _held_to(what, got, ref, prompt, params, cfg, device, ties) -> None:
+    """``got`` equals ``ref`` but where the top-2 logit gap at the first
+    differing position is below NEAR_TIE of the logits' deviation (counted
+    in ``ties``); anything else fails the run."""
+    if got == ref:
+        return
+    j = _first_diff(got, ref)
+    gap, std = _top2_gap(params, cfg, prompt + ref[:j], device)
+    log(f"10 {what}: tokens differ at output {j}: top-2 gap {gap} logit "
+        f"std {std} ({gap / std:.3g} of it)")
+    if gap >= NEAR_TIE * std:
+        raise RuntimeError(f"10 {what}: tokens differ from the reference "
+                           f"beyond a near-tie at output {j}")
+    ties.append({"what": what, "at": j, "gap_over_std": gap / std})
+
+
+def _ledger(raw: bytes) -> tuple[list, bool]:
+    """(token ledger of the SSE frames, whether ``[DONE]`` ended them)."""
+    ids, done = [], False
+    for ln in raw.decode("utf-8", errors="replace").splitlines():
+        if ln == "data: [DONE]":
+            done = True
+        elif ln.startswith("data: {"):
+            ids += json.loads(ln[6:]).get("kgct_token_ids", [])
+    return ids, done
+
+
+async def _metrics(port: int) -> str:
+    return (await http_call(port, "GET", "/metrics"))["body"]
+
+
+async def _fleet_10abd(srv, refs, prompts, ctx) -> dict:
+    """10a disaggregated serving, 10b wire chaos, 10d drain-time live
+    migration, on servers P (prefill), D (decode) and C (colocated)."""
+    from kubernetes_gpu_cluster_tpu_torch.resilience.faults import \
+        configure_faults
+    from kubernetes_gpu_cluster_tpu_torch.serving.errors import (
+        MIGRATE_URL_HEADER, PREFILL_URL_HEADER, REQUEST_ID_HEADER,
+        RESUME_MODE_HEADER)
+    from kubernetes_gpu_cluster_tpu_torch.serving.http import Server
+    running = []
+    for name in ("P", "D", "C"):
+        server = Server(srv[name]["api"].build_app())
+        await server.start("127.0.0.1", srv[name]["port"])
+        running.append(server)
+    port = {n: srv[n]["port"] for n in srv}
+    url = {n: srv[n]["url"] for n in srv}
+    out = {}
+    try:
+        # 10a: six requests to D, each pulled from P; each also to C.
+        rows = []
+        for i, prompt in enumerate(prompts["a"]):
+            body = {"prompt": prompt, "max_tokens": DISAGG_TOKENS,
+                    "temperature": 0.0}
+            if i in DISAGG_STREAMED:
+                body.update(stream=True, logprobs=1)
+            elif i == DISAGG_LOGPROBS:
+                body["logprobs"] = 2
+            elif i == DISAGG_SEEDED:
+                body.update(temperature=0.8, seed=7)
+            m0 = await _metrics(port["D"])
+            p0 = await _metrics(port["P"])
+            dec = await http_call(
+                port["D"], "POST", "/v1/completions", body,
+                {PREFILL_URL_HEADER: url["P"],
+                 REQUEST_ID_HEADER: f"10a-{i}-dec"})
+            m1 = await _metrics(port["D"])
+            p1 = await _metrics(port["P"])
+            if dec["status"] != 200:
+                raise RuntimeError(f"10a-{i}: {dec['status']} "
+                                   f"{dec['body'][:300]}")
+            got = _PRODUCED[f"10a-{i}-dec"]
+            colo = None
+            if body.get("stream"):
+                if not dec["body"].rstrip().endswith("data: [DONE]"):
+                    raise RuntimeError(f"10a-{i}: stream did not end in "
+                                       "[DONE]")
+                # The same stream colocated on C: the TTFT beside D's.
+                colo = await http_call(
+                    port["C"], "POST", "/v1/completions", body,
+                    {REQUEST_ID_HEADER: f"10a-{i}-colo"})
+                ctx["held"](f"10a-{i} colocated",
+                            _PRODUCED[f"10a-{i}-colo"], refs["a"][i],
+                            prompt)
+            if i == DISAGG_SEEDED:
+                if not 0 < len(got) <= DISAGG_TOKENS:
+                    raise RuntimeError(f"10a-{i}: sampled {len(got)} "
+                                       "tokens")
+            else:
+                ctx["held"](f"10a-{i} decode", got, refs["a"][i], prompt)
+            if i == DISAGG_LOGPROBS:
+                lp = json.loads(dec["body"])["choices"][0]["logprobs"]
+                if len(lp["top_logprobs"]) != len(got):
+                    raise RuntimeError(f"10a-{i}: logprobs {lp}")
+            key_b = 'kgct_disagg_kv_bytes_total{side="%s"}'
+            key_s = 'kgct_disagg_handoff_seconds_sum{side="%s"}'
+            nbytes = _metric(m1, key_b % "import") - _metric(m0,
+                                                             key_b % "import")
+            secs = (_metric(m1, key_s % "import", 0.0)
+                    - _metric(m0, key_s % "import", 0.0))
+            exp_s = (_metric(p1, key_s % "export", 0.0)
+                     - _metric(p0, key_s % "export", 0.0))
+            rows.append({"prompt": len(prompt), "tokens": len(got),
+                         "stream": bool(body.get("stream")),
+                         "bytes": nbytes, "import_s": secs,
+                         "import_gb_s": nbytes / secs / 1e9,
+                         "export_s": exp_s,
+                         "decode_ttft_s": dec["ttft_s"],
+                         "decode_e2e_s": dec["e2e_s"],
+                         **({"colocated_ttft_s": colo["ttft_s"],
+                             "colocated_e2e_s": colo["e2e_s"]}
+                            if colo else {})})
+        mD, mP = await _metrics(port["D"]), await _metrics(port["P"])
+        h = 'kgct_disagg_handoffs_total{side="%s",outcome="%s"}'
+        counts = {"import_ok": _metric(mD, h % ("import", "ok")),
+                  "import_fallback": _metric(mD, h % ("import", "fallback")),
+                  "export_ok": _metric(mP, h % ("export", "ok"))}
+        if counts != {"import_ok": 6, "import_fallback": 0, "export_ok": 6}:
+            raise RuntimeError(f"10a: handoff counters {counts}")
+        out["10a"] = {"handoffs": rows, "counters": counts}
+        # The frame 10e times: P's export of the 1500-token prompt.
+        r = await http_call(port["P"], "POST", "/internal/kv_handoff", {
+            "prompt_token_ids": prompts["a"][DISAGG_PROMPTS.index(
+                CODEC_PROMPT)], "temperature": 0.0})
+        if r["status"] != 200:
+            raise RuntimeError(f"10e: export {r['status']}")
+        ctx["frame"] = bytes(r["raw"])
+
+        # 10b: the same pair with the transit corruption armed.
+        configure_faults("kv_wire_corrupt")
+        try:
+            bad = await http_call(
+                port["D"], "POST", "/v1/completions",
+                {"prompt": prompts["b"], "max_tokens": DISAGG_TOKENS,
+                 "temperature": 0.0},
+                {PREFILL_URL_HEADER: url["P"], REQUEST_ID_HEADER: "10b"})
+        finally:
+            configure_faults(None)
+        if bad["status"] != 200:
+            raise RuntimeError(f"10b: {bad['status']} {bad['body'][:300]}")
+        ctx["held"]("10b", _PRODUCED["10b"], refs["b"], prompts["b"])
+        mD = await _metrics(port["D"])
+        corrupt = _metric(mD, 'kgct_kv_wire_corruptions_total{path='
+                              '"handoff",outcome="corrupt"}')
+        fallback = _metric(mD, h % ("import", "fallback"))
+        quarantines = _metric(mD, 'kgct_peer_quarantines_total{peer="%s"}'
+                              % url["P"])
+        quarantined = srv["D"]["api"].peer_scores.quarantined(url["P"])
+        if (corrupt, fallback, quarantines, quarantined) != (1, 1, 1, True):
+            raise RuntimeError(f"10b: corrupt {corrupt}, fallback "
+                               f"{fallback}, quarantines {quarantines}, "
+                               f"quarantined {quarantined}")
+        out["10b"] = {"corruptions": corrupt, "fallbacks": fallback,
+                      "quarantined": quarantined, "tokens_held": True}
+
+        # 10d: a stream on C drained toward D, then resumed there.
+        body = {"prompt": prompts["d"], "max_tokens": MIGRATE_TOKENS,
+                "temperature": 0.0, "stream": True}
+        drains = []
+
+        def on_data(raw):
+            if not drains and len(_ledger(raw)[0]) >= MIGRATE_AFTER:
+                drains.append(srv["C"]["api"].begin_drain())
+        cut = await http_call(
+            port["C"], "POST", "/v1/completions", body,
+            {MIGRATE_URL_HEADER: url["D"], REQUEST_ID_HEADER: "10d"},
+            on_data=on_data)
+        if not drains:
+            raise RuntimeError("10d: the stream ended before the drain")
+        await asyncio.wait_for(drains[0], 120)
+        relayed, done = _ledger(cut["raw"])
+        mD, mC = await _metrics(port["D"]), await _metrics(port["C"])
+        g = 'kgct_migrations_total{side="%s",outcome="%s"}'
+        parked = _metric(mD, g % ("recv", "ok"))
+        pushed = _metric(mC, g % ("push", "ok"))
+        if done or not cut["severed"] or parked != 1 or pushed != 1:
+            raise RuntimeError(f"10d: done {done}, severed "
+                               f"{cut['severed']}, parked {parked}, "
+                               f"pushed {pushed}")
+        resumed = await http_call(
+            port["D"], "POST", "/internal/resume",
+            {"body": body, "kind": "completion",
+             "relayed_token_ids": relayed}, {REQUEST_ID_HEADER: "10d"})
+        new, rdone = _ledger(resumed["raw"])
+        mode = resumed["headers"].get(RESUME_MODE_HEADER)
+        if resumed["status"] != 200 or mode != "import" or not rdone:
+            raise RuntimeError(f"10d: resume {resumed['status']} mode "
+                               f"{mode} done {rdone}")
+        ctx["held"]("10d", relayed + new, refs["d"], prompts["d"])
+        push_b = _metric(mC, 'kgct_migration_bytes_total{side="push"}')
+        push_s = _metric(mC, 'kgct_migration_seconds_sum{side="push"}')
+        out["10d"] = {"relayed": len(relayed), "resumed": len(new),
+                      "mode": mode, "push_bytes": push_b,
+                      "push_ms": push_s * 1e3,
+                      "push_gb_s": push_b / push_s / 1e9,
+                      "resume_ttft_s": resumed["ttft_s"]}
+    finally:
+        for server in running:
+            await server.close()
+    return out
+
+
+async def _fleet_10c(srv, build_f1_spill, prompts, ctx) -> dict:
+    """10c: a fleet-cache pull F1 -> F2, then F1 rebuilt small, its evicted
+    prefix remote-spilled into F2's host tier."""
+    from kubernetes_gpu_cluster_tpu_torch.serving.errors import (
+        PREFIX_SOURCE_HEADER, REQUEST_ID_HEADER)
+    from kubernetes_gpu_cluster_tpu_torch.serving.http import Server
+    servers = {}
+    for name in ("F1", "F2"):
+        servers[name] = Server(srv[name]["api"].build_app())
+        await servers[name].start("127.0.0.1", srv[name]["port"])
+    port = {n: srv[n]["port"] for n in ("F1", "F2")}
+    url = {n: srv[n]["url"] for n in ("F1", "F2")}
+    f2 = srv["F2"]["api"].engine
+    out = {}
+
+    async def comp(name, prompt, rid, max_tokens=DISAGG_TOKENS,
+                   headers=None):
+        r = await http_call(port[name], "POST", "/v1/completions",
+                            {"prompt": prompt, "max_tokens": max_tokens,
+                             "temperature": 0.0},
+                            {REQUEST_ID_HEADER: rid, **(headers or {})})
+        if r["status"] != 200:
+            raise RuntimeError(f"10c {rid}: {r['status']} {r['body'][:300]}")
+        return r
+    try:
+        prefix, ext = prompts["c_prefix"], prompts["c_suffix"]
+        await comp("F1", prefix + ext[:1], "10c-warm", max_tokens=1)
+        hist0 = ctx["hist"].launches
+        hits0 = f2.engine.scheduler.prefix_cache.hits
+        pulled = await comp("F2", prefix + ext, "10c-pull",
+                            headers={PREFIX_SOURCE_HEADER: url["F1"]})
+        hits = f2.engine.scheduler.prefix_cache.hits - hits0
+        own = await comp("F1", prefix + ext, "10c-own")
+        pulls = dict(f2.engine.obs.fleet_pulls)
+        if pulls["ok"] != 1 or hits != 1 or ctx["hist"].launches <= hist0:
+            raise RuntimeError(f"10c: pulls {pulls}, hits {hits}, history "
+                               f"launches {ctx['hist'].launches - hist0}")
+        ctx["held"]("10c pull", _PRODUCED["10c-pull"], _PRODUCED["10c-own"],
+                    prefix + ext)
+        m2 = await _metrics(port["F2"])
+        nbytes = _metric(m2, 'kgct_fleet_prefix_bytes_total{dir="pull"}')
+        secs = _metric(m2, "kgct_fleet_prefix_pull_seconds_sum")
+        out["pull"] = {"tokens": FLEET_PREFIX, "bytes": nbytes,
+                       "pull_ms": secs * 1e3,
+                       "pull_gb_s": nbytes / secs / 1e9,
+                       "cache_hits": hits,
+                       "pulled_ttft_e2e_s": pulled["e2e_s"],
+                       "owner_e2e_s": own["e2e_s"]}
+
+        # Remote spill: F1 rebuilt with a small pool.
+        await servers["F1"].close()
+        srv["F1"] = build_f1_spill()
+        servers["F1"] = Server(srv["F1"]["api"].build_app())
+        await servers["F1"].start("127.0.0.1", srv["F1"]["port"])
+        f1 = srv["F1"]["api"].engine
+        sp_prefix, sp_suffix = prompts["s_prefix"], prompts["s_suffix"]
+        await comp("F1", sp_prefix + sp_suffix[:1], "10c-spill-warm",
+                   max_tokens=1)
+        await comp("F1", sp_prefix + sp_suffix, "10c-spill-own")
+        for i, churn in enumerate(prompts["s_churn"]):
+            if not await f1.run_in_worker(lambda e: e.prefix_peek(
+                    sp_prefix + sp_suffix)):
+                break
+            await comp("F1", churn, f"10c-churn-{i}", max_tokens=1)
+        if await f1.run_in_worker(lambda e: e.prefix_peek(
+                sp_prefix + sp_suffix)):
+            raise RuntimeError("10c: churn did not evict the prefix")
+        deadline = time.monotonic() + 60
+        spills = f1.engine.obs.fleet_spills
+        while spills["ok"] < SPILL_PREFIX // ctx["ps"]:
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"10c: spills {dict(spills)}")
+            await asyncio.sleep(0.05)
+        have = await f2.run_in_worker(lambda e: e.prefix_peek(
+            sp_prefix + sp_suffix))
+        if have != SPILL_PREFIX:
+            raise RuntimeError(f"10c: F2 holds {have} spilled tokens")
+        host0 = f2.engine.scheduler.prefix_cache.host_hits
+        await comp("F2", sp_prefix + sp_suffix, "10c-spill-restored")
+        host_hits = f2.engine.scheduler.prefix_cache.host_hits - host0
+        if host_hits < 1:
+            raise RuntimeError("10c: the spilled pages were not restored")
+        ctx["held"]("10c spill", _PRODUCED["10c-spill-restored"],
+                    _PRODUCED["10c-spill-own"], sp_prefix + sp_suffix)
+        m1 = await _metrics(port["F1"])
+        out["spill"] = {
+            "spills_ok": _metric(m1, 'kgct_fleet_prefix_spills_total'
+                                     '{outcome="ok"}'),
+            "spills_dropped": _metric(m1, 'kgct_fleet_prefix_spills_total'
+                                          '{outcome="dropped"}'),
+            "bytes": _metric(m1, 'kgct_fleet_prefix_bytes_total'
+                                 '{dir="spill"}'),
+            "peer_tokens": have, "host_hits": host_hits}
+    finally:
+        for server in servers.values():
+            await server.close()
+    return out
+
+
+def _best_ms(fn, reps: int = 3) -> float:
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def time_codec(frame: bytes) -> dict:
+    """10e: the codec on the 1500-token handoff frame, integrity on and
+    off: ms and GB/s of the K/V payload, best of 3, on the host."""
+    from kubernetes_gpu_cluster_tpu_torch.serving.handoff import (
+        decode_handoff, encode_handoff, verify_import_state)
+    state = decode_handoff(frame, require_integrity=True)
+    stash = state["_integrity"]
+    payload = state["k"].nbytes + state["v"].nbytes
+    plain = bytes(encode_handoff(state, integrity=False))
+
+    def verify():
+        state["_integrity"] = stash
+        verify_import_state(state)
+    rows = {
+        "encode_crc": _best_ms(lambda: encode_handoff(state,
+                                                      integrity=True)),
+        "encode_plain": _best_ms(lambda: encode_handoff(state)),
+        "decode_crc": _best_ms(lambda: decode_handoff(
+            frame, require_integrity=True)),
+        "decode_plain": _best_ms(lambda: decode_handoff(plain)),
+        "verify_import_state": _best_ms(verify)}
+    out = {"payload_bytes": payload, "frame_bytes": len(frame),
+           "pages": state["k"].shape[1]}
+    for k, ms in rows.items():
+        out[k] = {"ms": ms, "gb_s": payload / ms / 1e6}
+    return out
+
+
+def measure_prefill_flops(cfg_engine, params, device) -> dict:
+    """10e: prefill FLOP/s of one packed 2048-token prefill step (four
+    512-token prompts admitted together), synchronized, best of 3:
+    ``prefill_flops_per_token`` x tokens / wall. The pull gate's ``cuda``
+    figure."""
+    from kubernetes_gpu_cluster_tpu_torch.config import CacheConfig
+    from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
+                                                         SamplingParams)
+    from kubernetes_gpu_cluster_tpu_torch.serving.fleet_cache import \
+        prefill_flops_per_token
+    cfg = cfg_engine.model
+    eng = LLMEngine(dataclasses.replace(
+        cfg_engine, cache=CacheConfig(page_size=cfg_engine.cache.page_size,
+                                      num_pages=FLEET_PAGES)),
+        params=params, device=device)
+    rng = np.random.default_rng(SEED + 21)
+    one = SamplingParams(max_tokens=1, temperature=0.0)
+    walls = []
+    for rep in range(4):              # the first is a warm-up
+        for j, n in enumerate(FLOPS_PROMPTS):
+            eng.add_request(f"fl-{rep}-{j}", [int(t) for t in rng.integers(
+                1, cfg.vocab_size, n)], one)
+        _sync(device)
+        t0 = time.perf_counter()
+        outs = eng.step()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        # One step prefilled every prompt: each finished at its one token.
+        if sum(o.finished for o in outs) != len(FLOPS_PROMPTS) or \
+                eng.has_unfinished_requests():
+            raise RuntimeError(f"10e: not one packed prefill step: "
+                               f"{eng._last_step_info}")
+        if rep:
+            walls.append(wall)
+    tokens = sum(FLOPS_PROMPTS)
+    fpt = prefill_flops_per_token(cfg)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tokens": tokens, "flops_per_token": fpt,
+            "walls_s": walls, "best_s": min(walls),
+            "flops_per_s": fpt * tokens / min(walls)}
+
+
+def check_fleet(cfg_engine, params, device, counters) -> dict:
+    """Phase 10: the fleet plane on the phase-4 weights, servers in this
+    process on free ports of 127.0.0.1, at most four engines alive."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                         SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    from kubernetes_gpu_cluster_tpu_torch.serving import build_server
+    from kubernetes_gpu_cluster_tpu_torch.serving.fleet_cache import (
+        DEFAULT_FLOPS, build_pull_policy, kv_bytes_per_token)
+    cfg = cfg_engine.model
+    ps = cfg_engine.cache.page_size
+    rng = np.random.default_rng(SEED + 20)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+
+    prompts = {"a": [toks(n) for n in DISAGG_PROMPTS], "b": toks(300),
+               "d": toks(MIGRATE_PROMPT), "c_prefix": toks(FLEET_PREFIX),
+               "c_suffix": toks(FLEET_SUFFIX),
+               "s_prefix": toks(SPILL_PREFIX), "s_suffix": toks(SPILL_SUFFIX),
+               "s_churn": [toks(1500) for _ in range(4)]}
+    ports = {name: _free_port() for name in ("P", "D", "C", "F1", "F2")}
+
+    def server(name, pages=FLEET_PAGES, prefix=False, swap_gb=0.0,
+               record=True, **kw):
+        cfg_s = dataclasses.replace(
+            cfg_engine,
+            cache=CacheConfig(page_size=ps, num_pages=pages,
+                              swap_space_gb=swap_gb),
+            scheduler=SchedulerConfig(max_num_seqs=FLEET_SEQS,
+                                      enable_prefix_caching=prefix))
+        api = build_server(cfg_s, params=params, device=device,
+                           model_name=MODEL, **kw)
+        if record:
+            _record_ids(api.engine)
+        return {"api": api, "port": ports[name],
+                "url": f"http://127.0.0.1:{ports[name]}"}
+
+    def url(name):
+        return f"http://127.0.0.1:{ports[name]}"
+
+    ties = []
+    ctx = {"ps": ps, "hist": counters["flash_prefill_hist"],
+           "held": lambda what, got, ref, prompt: _held_to(
+               what, got, ref, prompt, params, cfg, device, ties)}
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    srv = {"C": server("C", peer_pool=[url("D")])}
+    # References: each prompt alone through LLMEngine.generate on C's
+    # engine, before its worker starts.
+    ceng = srv["C"]["api"].engine.engine
+    sp = SamplingParams(max_tokens=DISAGG_TOKENS, temperature=0.0)
+    refs = {"a": [list(ceng.generate([p], sp)[0].output_token_ids)
+                  for p in prompts["a"]],
+            "b": list(ceng.generate([prompts["b"]], sp)[0].output_token_ids),
+            "d": list(ceng.generate([prompts["d"]], dataclasses.replace(
+                sp, max_tokens=MIGRATE_TOKENS))[0].output_token_ids)}
+    # P's requests carry D's request ids: only D's are recorded.
+    srv["P"] = server("P", role="prefill", prefix=True, record=False)
+    srv["D"] = server("D", role="decode", prefill_pool=[url("P")])
+    t_ref = time.perf_counter() - t0
+    out = asyncio.run(_fleet_10abd(srv, refs, prompts, ctx))
+    del srv, ceng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_abd = time.perf_counter() - t0
+
+    srv = {"F1": server("F1", prefix=True, fleet_prefix_cache=True,
+                        peer_pool=[url("F2")]),
+           "F2": server("F2", prefix=True, swap_gb=SPILL_HOST_GB,
+                        fleet_prefix_cache=True, peer_pool=[url("F1")])}
+
+    def f1_spill():
+        srv["F1"] = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        # No host tier of its own: every evicted page takes the remote
+        # rung into F2's host tier.
+        return server("F1", pages=SPILL_PAGES, prefix=True,
+                      fleet_prefix_cache=True, peer_pool=[url("F2")])
+    out["10c"] = asyncio.run(_fleet_10c(srv, f1_spill, prompts, ctx))
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {name: mod.launches for name, mod in counters.items()}
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"10: kernel {name} never launched")
+    out["launches"] = launches
+    out["near_ties"] = ties
+    t_c = time.perf_counter() - t0
+
+    out["10e"] = {"codec": time_codec(ctx.pop("frame")),
+                  "prefill": measure_prefill_flops(cfg_engine, params,
+                                                   device)}
+    measured = out["10e"]["prefill"]["flops_per_s"]
+    pol = build_pull_policy(cfg, ps, 2, "cuda")
+    out["10e"]["policy"] = pol.describe()
+    out["10e"]["policy_at_measured"] = dataclasses.replace(
+        pol, flops_per_s=measured).describe()
+    out["10e"]["default_flops_cuda"] = DEFAULT_FLOPS["cuda"]
+    out["10e"]["kv_bytes_per_token"] = kv_bytes_per_token(cfg, 2)
+    out["seconds"] = {"references": t_ref, "10abd": t_abd - t_ref,
+                      "10c": t_c - t_abd,
+                      "10e": time.perf_counter() - t0 - t_c}
+    return out
+
+
 DRAIN_GRACE_S = 120.0   # the CLI's default --drain-grace-s
 
 
@@ -2205,10 +2762,15 @@ def main() -> int:
                                              attn)), "|", card)
     log("prefix spill:", json.dumps(check_prefix_spill(
         cfg_engine, params, device, attn)), "|", card)
+    phase(f"{MODEL} bf16 KV transfer (8)")
+
+    # Phase 10: the fleet plane on the same weights.
+    log("fleet:", json.dumps(check_fleet(cfg_engine, params, device, attn)),
+        "|", card)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    phase(f"{MODEL} bf16 KV transfer (8)")
+    phase(f"{MODEL} bf16 fleet plane (10)")
 
     # Phase 3b: the int4 model, kernel against int4_matmul_plain.
     cfg4 = cfg.replace(quantization="int4", quant_group_size=GROUP)

@@ -1,7 +1,10 @@
 """Serving front door: the asyncio engine wrapper and the OpenAI HTTP
-server (colocated serving, on the standard-library HTTP layer
-``serving/http.py``). Not ported yet: the fleet plane (KV handoff wire,
-router, fleet prefix cache; ROADMAP A6) and multihost serving (A7)."""
+server on the standard-library HTTP layer ``serving/http.py`` (server and
+client), with the fleet plane's replica side: the KV wire codec
+(``serving/handoff.py``), the fleet prefix cache's policy
+(``serving/fleet_cache.py``) and the ``/internal/*`` routes. Not ported
+yet: the router (``serving/router.py`` of the JAX package; ROADMAP A6),
+multihost serving (A7) and the interleave sanitizer hook."""
 
 __all__ = ["APIServer", "build_server"]
 

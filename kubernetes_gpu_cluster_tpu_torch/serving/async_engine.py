@@ -14,6 +14,11 @@ instead of prefilling, and falls back to a normal admission when the import
 fails; ``generate(hold_kv=True)`` parks a finished request's KV for
 ``run_in_worker(lambda e: e.export_held(rid))``.
 
+The api_server's fleet plane drives these seams: the prefill replica's
+export, the decode replica's import, drain-time ``export_running`` with
+``post_exception(StreamMigratedError)`` to sever the client stream, and
+``generate(resume_outputs=...)`` for the failover re-dispatch.
+
 Not ported yet: the multihost leader (directive broadcast to follower
 ranks) and the interleave sanitizer hook.
 """

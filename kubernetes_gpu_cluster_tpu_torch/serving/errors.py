@@ -19,7 +19,7 @@ from __future__ import annotations
 import re
 from typing import Optional
 
-from .http import Response, json_response
+from .http import Response, StreamSevered, json_response
 
 REQUEST_ID_HEADER = "x-kgct-request-id"
 
@@ -68,12 +68,13 @@ QOS_TIER_HEADER = "x-kgct-qos-tier"
 RESUME_MODE_HEADER = "x-kgct-resume-mode"
 
 
-class StreamMigratedError(Exception):
+class StreamMigratedError(StreamSevered):
     """Posted into a live stream's output queue when its sequence was
     live-migrated to a peer (drain): the handler aborts the client
-    connection WITHOUT a terminal SSE frame, so the router's relay sees an
-    incomplete stream and re-dispatches to the migration target. Carries
-    the peer url for logs/traces."""
+    connection WITHOUT a terminal SSE frame (``serving/http.py`` closes a
+    committed response on a ``StreamSevered``), so the router's relay sees
+    an incomplete stream and re-dispatches to the migration target.
+    Carries the peer url for logs/traces."""
 
     def __init__(self, peer_url: str):
         super().__init__(f"stream migrated to {peer_url}")

@@ -1,0 +1,263 @@
+"""Fleet-wide KV reuse: policy and plumbing for the global prefix cache,
+the JAX package's ``serving/fleet_cache.py`` for the port.
+
+N per-replica prefix caches become one fleet cache: when the affinity
+router's pick cannot land on the ring owner, the chosen replica PULLS the
+owner's cached prefix pages over the handoff substrate (``POST
+/internal/fetch_prefix`` + the streamed prefix codec in
+serving/handoff.py) instead of recomputing them, and eviction gains a
+remote-spill rung (cold prefixes move to a peer's host tier before being
+dropped). This module owns the engine-free halves the api_server composes:
+
+- the ANTI-THRASH pull policy: a roofline price of pull vs recompute. Per
+  token the two sides are ``kv_bytes_per_token / link_bandwidth`` against
+  ``prefill_flops_per_token / achievable_flops``: never fetch what is
+  cheaper to re-prefill. The FLOPs model counts the prefill matmuls and
+  EXCLUDES the quadratic attention term, which underestimates recompute
+  cost and so biases the gate toward skipping (the safe direction);
+- the BOUNDED spill queue: eviction runs on the engine worker thread and
+  must never block on a socket, so the remote-spill hook only enqueues
+  (drop-oldest beyond the cap) and an async serving task drains the queue
+  toward allowlisted peers (``--peer-pool``);
+- the PEER SCOREBOARD: per-peer reputation over the KV wire plane.
+  Corruptions and timeouts decay a health score; a peer that sinks below
+  the quarantine threshold is excluded from pulls/spills/migration
+  targets for a backoff window, after which the NEXT attempt is the probe
+  (success restores, another failure re-quarantines).
+
+Everything here is engine-free, so tests pin the policy arithmetic and the
+queue bounds without building an engine.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from collections import deque
+from typing import Optional
+
+# Link bandwidth assumed by the pull gate when the operator does not
+# override it (KGCT_FLEET_BW_GBPS): a conservative intra-cluster figure —
+# pod-to-pod TCP inside one rack comfortably sustains this, and
+# underestimating bandwidth only makes the gate MORE reluctant to pull.
+DEFAULT_LINK_GBPS = 8.0
+
+# Achievable prefill FLOP/s assumed per device type when the operator does
+# not override it (KGCT_FLEET_FLOPS). cuda: the packed 2048-token prefill
+# step of llama-3-8b bf16 through the port's kernels read 395.5e12 to
+# 404.8e12 in three runs of chip_smoke.py phase 10e (NVIDIA H100 80GB HBM3,
+# 700.00 W power limit); the lowest, rounded down. cpu: the measured order
+# of magnitude of the XLA CPU prefill path on one core in the JAX package
+# (recompute is expensive there, so pulling almost always wins).
+DEFAULT_FLOPS = {"cuda": 390e12, "cpu": 5e9}
+
+# Bounded spill queue: pages parked for the async peer push. Beyond the
+# cap the OLDEST entry drops (newer evictions are warmer) — a burst of
+# eviction pressure must never balloon host memory with in-flight spills.
+SPILL_QUEUE_CAP = 32
+
+# Peer-reputation defaults. A single corruption quarantines immediately
+# (a checksum mismatch is never noise — either the wire or the peer is
+# lying about bytes); timeouts take a few in a row (transient congestion
+# is normal). Scores recover multiplicatively on success so one good
+# probe after the window restores full standing quickly but not
+# instantly.
+PEER_SCORE_START = 1.0
+PEER_CORRUPT_COST = 1.0
+PEER_TIMEOUT_COST = 0.3
+PEER_RECOVERY_GAIN = 0.5
+PEER_QUARANTINE_THRESHOLD = 0.25
+PEER_QUARANTINE_S = 30.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PullPolicy:
+    """The anti-thrash gate: pull a prefix only when the roofline prices
+    the transfer below the recompute. All three knobs resolve once at
+    server construction; the decision itself is a pure function so tests
+    pin both directions with injected constants."""
+
+    link_bytes_per_s: float
+    flops_per_s: float
+    kv_bytes_per_token: float
+    flops_per_token: float
+    min_tokens: int = 1
+
+    def pull_beats_recompute(self, n_tokens: int) -> bool:
+        """Price ``n_tokens`` of prefix: transfer wall vs re-prefill wall.
+        Below ``min_tokens`` (sub-page matches) nothing is ever pulled."""
+        if n_tokens < self.min_tokens:
+            return False
+        transfer_s = n_tokens * self.kv_bytes_per_token / self.link_bytes_per_s
+        recompute_s = n_tokens * self.flops_per_token / self.flops_per_s
+        return transfer_s < recompute_s
+
+    def describe(self) -> dict:
+        """One-line policy readout for logs/traces."""
+        return {
+            "link_gbps": round(self.link_bytes_per_s / 1e9, 3),
+            "flops_per_s": self.flops_per_s,
+            "kv_bytes_per_token": round(self.kv_bytes_per_token, 1),
+            "flops_per_token": round(self.flops_per_token, 1),
+            "min_tokens": self.min_tokens,
+        }
+
+
+def prefill_flops_per_token(model_cfg) -> float:
+    """Matmul FLOPs to prefill one token (2 FLOPs/MAC over the attention
+    projections + routed MLP experts, every layer) — the same accounting
+    as the JAX package's prefill roofline, minus the T^2 attention term
+    (see the module docstring for why excluding it is the safe
+    direction)."""
+    h, inter = model_cfg.hidden_size, model_cfg.intermediate_size
+    nh, nkv, hd = (model_cfg.num_heads, model_cfg.num_kv_heads,
+                   model_cfg.head_dim)
+    attn_p = h * nh * hd + 2 * h * nkv * hd + nh * hd * h
+    mlp_unit = 3 * h * inter
+    active_exp = (model_cfg.num_experts_per_tok
+                  if getattr(model_cfg, "is_moe", False) else 1)
+    return float(2 * model_cfg.num_layers * (attn_p + active_exp * mlp_unit))
+
+
+def kv_bytes_per_token(model_cfg, itemsize: int) -> float:
+    """Wire bytes per token of cached prefix: K and V across every layer
+    at the pool dtype."""
+    return float(2 * model_cfg.num_layers * model_cfg.num_kv_heads
+                 * model_cfg.head_dim * itemsize)
+
+
+def build_pull_policy(model_cfg, page_size: int, itemsize: int,
+                      backend: str) -> PullPolicy:
+    """Resolve the gate's constants once: env overrides
+    (``KGCT_FLEET_BW_GBPS`` / ``KGCT_FLEET_FLOPS``) beat the defaults of
+    ``backend``, the engine's device type (``"cuda"`` / ``"cpu"``);
+    ``min_tokens`` is one page, the cache's own reuse granularity."""
+    gbps = float(os.environ.get("KGCT_FLEET_BW_GBPS", DEFAULT_LINK_GBPS))
+    flops = float(os.environ.get(
+        "KGCT_FLEET_FLOPS", DEFAULT_FLOPS.get(backend, DEFAULT_FLOPS["cpu"])))
+    return PullPolicy(
+        link_bytes_per_s=gbps * 1e9,
+        flops_per_s=flops,
+        kv_bytes_per_token=kv_bytes_per_token(model_cfg, itemsize),
+        flops_per_token=prefill_flops_per_token(model_cfg),
+        min_tokens=page_size)
+
+
+class SpillQueue:
+    """Bounded drop-oldest queue between the engine worker's eviction hook
+    (producer, must never block) and the serving-side async peer push
+    (consumer). Thread-safe by GIL-atomicity of deque append/popleft —
+    single producer, single consumer, no locks on the eviction path."""
+
+    def __init__(self, cap: int = SPILL_QUEUE_CAP):
+        self._q: deque = deque(maxlen=cap)
+        self.dropped = 0
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    def offer(self, digest_hex: str, k_np, v_np) -> bool:
+        """Enqueue one evicted page; True when nothing was displaced.
+        A full queue drops its OLDEST entry (deque maxlen semantics) —
+        counted, so the spill metrics attribute the loss."""
+        displaced = len(self._q) == self._q.maxlen
+        if displaced:
+            self.dropped += 1
+        self._q.append((digest_hex, k_np, v_np))
+        return not displaced
+
+    def pop(self) -> Optional[tuple]:
+        try:
+            return self._q.popleft()
+        except IndexError:
+            return None
+
+
+class PeerScoreboard:
+    """Per-peer reputation over the KV wire plane (pulls, spills,
+    migration pushes — and, with its own instance, the router's proxy
+    walk). Single-threaded by construction (every caller runs on one
+    event loop), clock-injectable so tests pin the window arithmetic.
+
+    Lifecycle of a misbehaving peer: failures decay its score
+    (corruption >> timeout); crossing ``threshold`` quarantines it for
+    ``quarantine_s`` — :meth:`quarantined` excludes it from every target
+    walk. Once the window lapses the peer is AUTOMATICALLY a probe
+    candidate again (still at its decayed score): one success recovers
+    the score toward healthy, one more failure re-quarantines for a
+    fresh window. No unbounded state: one entry per allowlisted peer."""
+
+    def __init__(self, threshold: float = PEER_QUARANTINE_THRESHOLD,
+                 corrupt_cost: float = PEER_CORRUPT_COST,
+                 timeout_cost: float = PEER_TIMEOUT_COST,
+                 recovery: float = PEER_RECOVERY_GAIN,
+                 quarantine_s: float = PEER_QUARANTINE_S,
+                 clock=None):
+        self.threshold = threshold
+        self.corrupt_cost = corrupt_cost
+        self.timeout_cost = timeout_cost
+        self.recovery = recovery
+        self.quarantine_s = quarantine_s
+        self._clock = clock if clock is not None else time.monotonic
+        self._score: dict[str, float] = {}
+        self._until: dict[str, float] = {}
+        # Total quarantine ENTRIES per peer (the metric counter): only
+        # the below-threshold transition increments, not every excluded
+        # attempt during a window.
+        self.quarantines: dict[str, int] = {}
+        # Ever-quarantined peers whose recovery has not been observed
+        # yet: lets callers trace the probe-recovery transition.
+        self._in_quarantine: set = set()
+
+    def score(self, peer: str) -> float:
+        return self._score.get(peer, PEER_SCORE_START)
+
+    def quarantined(self, peer: str) -> bool:
+        """True while ``peer`` sits inside an active backoff window —
+        excluded from pulls/spills/migration targets. The first attempt
+        AFTER the window is the probe: this returns False then, and the
+        attempt's outcome decides recovery vs re-quarantine."""
+        return self._clock() < self._until.get(peer, 0.0)
+
+    def retry_after_s(self, peer: str) -> float:
+        """Seconds left in the peer's backoff window (0 when none) — the
+        Retry-After a quarantine-derived 503 carries."""
+        return max(0.0, self._until.get(peer, 0.0) - self._clock())
+
+    def record_ok(self, peer: str) -> None:
+        """A successful exchange (probe included): recover the score
+        toward healthy and clear any lapsed window."""
+        s = min(PEER_SCORE_START,
+                self.score(peer) + self.recovery)
+        self._score[peer] = s
+        if peer in self._in_quarantine and s >= self.threshold:
+            self._in_quarantine.discard(peer)
+            self._until.pop(peer, None)
+
+    def record_timeout(self, peer: str) -> bool:
+        """One timeout/transport failure; True when this ENTERED
+        quarantine (the caller's cue to count/dump the transition)."""
+        return self._decay(peer, self.timeout_cost)
+
+    def record_corruption(self, peer: str) -> bool:
+        """One checksum/protocol detection; True when this ENTERED
+        quarantine."""
+        return self._decay(peer, self.corrupt_cost)
+
+    def _decay(self, peer: str, cost: float) -> bool:
+        """Apply one failure; True when this ENTERED quarantine (a
+        failure landing inside an already-active window extends it but
+        does not re-count — in-flight exchanges against a peer that just
+        crossed must not inflate the entry counter)."""
+        s = max(0.0, self.score(peer) - cost)
+        self._score[peer] = s
+        if s < self.threshold:
+            now = self._clock()
+            entered = now >= self._until.get(peer, 0.0)
+            if entered:
+                self.quarantines[peer] = self.quarantines.get(peer, 0) + 1
+            self._until[peer] = now + self.quarantine_s
+            self._in_quarantine.add(peer)
+            return entered
+        return False

@@ -26,6 +26,14 @@ end-of-file. When the peer closes before the response is complete, the
 handler's task is cancelled, so its ``finally`` blocks run (the API
 server aborts the engine request there) whether it was awaiting the
 engine or writing a stream.
+
+The client half (``ClientSession``) is the part of aiohttp's
+``ClientSession`` the fleet plane uses for its peer calls: ``post`` /
+``get`` as async context managers over ``http://`` or ``https://``, one
+connection per request, a request body sent with ``Content-Length``, a
+response body read by ``Content-Length``, by chunked transfer coding or to
+end of file, and one wall bound over the whole exchange (aiohttp's
+``ClientTimeout(total=...)``), which raises ``asyncio.TimeoutError``.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import asyncio
 import contextlib
 import json
 import signal
+import ssl
 from collections.abc import MutableMapping
 from http import HTTPStatus
 from typing import Any, Awaitable, Callable, Iterator, Optional
@@ -49,6 +58,13 @@ DEFAULT_MAX_BODY = 1 << 20          # aiohttp's default client_max_size
 MAX_LINE = 8190                     # request line / one header line
 MAX_HEADERS = 100
 _READ_SIZE = 1 << 16
+
+
+class StreamSevered(Exception):
+    """Raised by a handler whose committed response must end WITHOUT its
+    terminating chunk: the connection closes, and the truncated body is
+    the peer's signal (a migrated stream's relay reads it as its failover
+    cue). Not a handler failure: nothing is logged as one."""
 
 
 class BadRequest(Exception):
@@ -85,6 +101,18 @@ class Headers(MutableMapping):
         return len(self._d)
 
 
+def _media_type(headers: Headers) -> str:
+    """The Content-Type without parameters (aiohttp's default when the
+    header is absent)."""
+    ctype = headers.get("Content-Type", "application/octet-stream")
+    return ctype.split(";")[0].strip().lower()
+
+
+def _content_length(headers: Headers) -> Optional[int]:
+    length = headers.get("Content-Length")
+    return int(length) if length is not None and length.isdigit() else None
+
+
 class Request:
     def __init__(self, method: str, target: str, version: str,
                  headers: Headers, body: bytes, conn: "_Connection"):
@@ -100,6 +128,17 @@ class Request:
 
     async def json(self) -> Any:
         return json.loads(self.body)
+
+    async def read(self) -> bytes:
+        return self.body
+
+    @property
+    def content_type(self) -> str:
+        return _media_type(self.headers)
+
+    @property
+    def content_length(self) -> Optional[int]:
+        return _content_length(self.headers)
 
     def __getitem__(self, key: str) -> Any:
         return self._stash[key]
@@ -149,7 +188,10 @@ class Response:
         self.headers["Content-Length"] = str(len(self.body))
         if not keep_alive:
             self.headers["Connection"] = "close"
-        await conn.write(_head(self.status, self.headers) + self.body)
+        # Two writes: a KV frame body is hundreds of MB, never copied
+        # into a joined buffer.
+        conn.writer.write(_head(self.status, self.headers))
+        await conn.write(self.body)
 
 
 def json_response(data: Any, *, status: int = 200, headers=None) -> Response:
@@ -246,7 +288,7 @@ class _Connection:
         """One CRLF-terminated line without its terminator; None at a clean
         end of stream before any byte of it."""
         while True:
-            i = self.buf.find(b"\n")
+            i = self.buf.find(b"\n", 0, MAX_LINE + 2)
             if i >= 0:
                 line = bytes(self.buf[:i])
                 del self.buf[:i + 1]
@@ -436,7 +478,11 @@ class Server:
             return await self.app.handle(request)
         except (ConnectionError, asyncio.CancelledError):
             raise
-        except Exception:
+        except Exception as e:
+            if isinstance(e, StreamSevered) and request._conn.committed:
+                logger.info("%s %s: %s; connection closed", request.method,
+                            request.path, e)
+                raise ConnectionAbortedError(str(e)) from None
             logger.exception("handler failed: %s %s", request.method,
                              request.path)
             if request._conn.committed:
@@ -444,6 +490,257 @@ class Server:
                 # left, so the connection closes.
                 raise ConnectionAbortedError("handler failed mid-response")
             return Response(text="500: Internal Server Error", status=500)
+
+
+# -- client -----------------------------------------------------------------
+
+DEFAULT_TIMEOUT_S = 300.0           # aiohttp's default total bound
+_CLIENT_READ_SIZE = 1 << 20          # a KV frame is hundreds of MB
+
+
+class ClientError(ConnectionError):
+    """A response that cannot be parsed, or a peer that broke the framing
+    (a line over ``MAX_LINE``, a malformed chunk size, too many
+    headers)."""
+
+
+class ClientResponse:
+    """One response: ``status``, case-insensitive ``headers``, and its body,
+    read under the request's wall bound with ``read(n)`` (at most ``n``
+    bytes, fewer only at the end of the body) or ``iter_chunked(size)``."""
+
+    def __init__(self, reader: asyncio.StreamReader,
+                 writer: asyncio.StreamWriter, deadline: float):
+        self._reader = reader
+        self._writer = writer
+        self._deadline = deadline
+        self._buf = bytearray()
+        self._at_eof = False          # the stream has no more bytes
+        self._done = False            # the body has no more bytes
+        self._mode = "eof"            # "length" | "chunked" | "eof"
+        self._left = 0                # of the body ("length") or the chunk
+        self.status = 0
+        self.reason = ""
+        self.headers = Headers()
+
+    @property
+    def content_type(self) -> str:
+        return _media_type(self.headers)
+
+    @property
+    def content_length(self) -> Optional[int]:
+        return _content_length(self.headers)
+
+    async def _io(self, aw):
+        """``aw`` under what is left of the wall bound."""
+        async with asyncio.timeout_at(self._deadline):
+            return await aw
+
+    async def _fill(self) -> bool:
+        if self._at_eof:
+            return False
+        data = await self._io(self._reader.read(_CLIENT_READ_SIZE))
+        if not data:
+            self._at_eof = True
+            return False
+        self._buf += data
+        return True
+
+    async def _readline(self, what: str) -> bytes:
+        while True:
+            i = self._buf.find(b"\n", 0, MAX_LINE + 2)
+            if i >= 0:
+                line = bytes(self._buf[:i])
+                del self._buf[:i + 1]
+                return line.rstrip(b"\r")
+            if len(self._buf) > MAX_LINE:
+                raise ClientError(f"{what} over {MAX_LINE} bytes")
+            if not await self._fill():
+                raise ClientError(f"connection closed inside a {what}")
+
+    async def _start(self, method: str) -> None:
+        while True:
+            line = await self._readline("status line")
+            parts = line.decode("latin-1").split(" ", 2)
+            if len(parts) < 2 or not parts[0].startswith("HTTP/1.") \
+                    or not parts[1].isdigit():
+                raise ClientError(f"malformed status line {line[:80]!r}")
+            self.status = int(parts[1])
+            self.reason = parts[2] if len(parts) > 2 else ""
+            self.headers = Headers()
+            while (hl := await self._readline("header line")):
+                if len(self.headers) >= MAX_HEADERS:
+                    raise ClientError("too many response headers")
+                name, sep, value = hl.decode("latin-1").partition(":")
+                if not sep or not name.strip():
+                    raise ClientError(f"malformed header line {hl[:80]!r}")
+                self.headers[name.strip()] = value.strip()
+            if self.status >= 200:
+                break                   # 1xx: the real response follows
+        if method == "HEAD" or self.status in (204, 304):
+            self._done = True
+        elif "chunked" in self.headers.get("Transfer-Encoding", "").lower():
+            self._mode = "chunked"
+        elif self.content_length is not None:
+            self._mode, self._left = "length", self.content_length
+            self._done = self._left == 0
+
+    async def _next_piece(self, n: int) -> bytes:
+        """Up to ``n`` bytes of the body (b"" at its end): whatever has
+        arrived, across chunk boundaries, waiting only when nothing has."""
+        out = bytearray()
+        while len(out) < n and not self._done:
+            if self._mode == "chunked" and self._left == 0:
+                if out and b"\n" not in self._buf:
+                    break                   # the next chunk is not here yet
+                size_line = await self._readline("chunk-size line")
+                try:
+                    size = int(size_line.split(b";")[0].strip(), 16)
+                except ValueError:
+                    raise ClientError("malformed chunk size") from None
+                if size == 0:
+                    while await self._readline("trailer line"):
+                        pass
+                    self._done = True
+                    break
+                self._left = size
+            if not self._buf:
+                if out:
+                    break
+                if not await self._fill():
+                    if self._mode != "eof":
+                        raise ClientError("connection closed inside the "
+                                          "body")
+                    self._done = True
+                continue
+            take = len(self._buf) if self._mode == "eof" else self._left
+            take = min(take, n - len(out), len(self._buf))
+            out += self._buf[:take]
+            del self._buf[:take]
+            if self._mode != "eof":
+                self._left -= take
+                if self._left == 0:
+                    if self._mode == "length":
+                        self._done = True
+                    else:
+                        while len(self._buf) < 2:        # the chunk's CRLF
+                            if not await self._fill():
+                                raise ClientError("truncated chunk")
+                        del self._buf[:2]
+        return bytes(out)
+
+    async def read(self, n: int = -1) -> bytearray:
+        """The body up to ``n`` bytes (all of it for ``n < 0``)."""
+        out = bytearray()
+        while n < 0 or len(out) < n:
+            piece = await self._next_piece(
+                _CLIENT_READ_SIZE if n < 0 else min(n - len(out), 1 << 24))
+            if not piece:
+                break
+            out += piece
+        return out
+
+    async def iter_chunked(self, size: int):
+        """The body in pieces of at most ``size`` bytes, as they arrive."""
+        while (piece := await self._next_piece(size)):
+            yield piece
+
+    async def text(self) -> str:
+        return (await self.read()).decode("utf-8", errors="replace")
+
+    async def json(self) -> Any:
+        return json.loads(await self.read())
+
+    def close(self) -> None:
+        self._writer.close()
+
+
+class _RequestContext:
+    def __init__(self, session: "ClientSession", method: str, url: str,
+                 body: bytes, headers: Headers, timeout_s: float):
+        self._session = session
+        self._args = (method, url, body, headers, timeout_s)
+        self._resp: Optional[ClientResponse] = None
+
+    async def __aenter__(self) -> ClientResponse:
+        self._resp = await self._session._request(*self._args)
+        return self._resp
+
+    async def __aexit__(self, *exc) -> None:
+        self._session._close(self._resp)
+
+
+class ClientSession:
+    """``post`` / ``get`` as async context managers, one connection per
+    request. ``timeout_s`` bounds the whole exchange: connect, the request,
+    and every read of the response inside the ``async with``."""
+
+    def __init__(self):
+        self._open: set[ClientResponse] = set()
+
+    def post(self, url: str, *, json: Any = None, data=None, headers=None,
+             timeout_s: float = DEFAULT_TIMEOUT_S) -> _RequestContext:
+        return self._context("POST", url, json, data, headers, timeout_s)
+
+    def get(self, url: str, *, headers=None,
+            timeout_s: float = DEFAULT_TIMEOUT_S) -> _RequestContext:
+        return self._context("GET", url, None, None, headers, timeout_s)
+
+    def _context(self, method, url, json_body, data, headers, timeout_s):
+        hdrs = Headers(headers or ())
+        if json_body is not None:
+            body = json.dumps(json_body).encode()
+            hdrs.setdefault("Content-Type", "application/json")
+        else:
+            body = b"" if data is None else data
+            if data is not None:
+                hdrs.setdefault("Content-Type", "application/octet-stream")
+        return _RequestContext(self, method, url, body, hdrs, timeout_s)
+
+    async def _request(self, method, url, body, headers: Headers,
+                       timeout_s: float) -> ClientResponse:
+        parts = urlsplit(url)
+        if parts.scheme not in ("http", "https") or not parts.hostname:
+            raise ValueError(f"unsupported url {url!r}")
+        tls = parts.scheme == "https"
+        port = parts.port or (443 if tls else 80)
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout_s
+        async with asyncio.timeout_at(deadline):
+            reader, writer = await asyncio.open_connection(
+                parts.hostname, port, limit=_CLIENT_READ_SIZE,
+                ssl=ssl.create_default_context() if tls else None,
+                server_hostname=parts.hostname if tls else None)
+        resp = ClientResponse(reader, writer, deadline)
+        self._open.add(resp)
+        try:
+            target = parts.path or "/"
+            if parts.query:
+                target += "?" + parts.query
+            head = Headers({"Host": parts.netloc})
+            head.update(headers)
+            head["Content-Length"] = str(len(body))
+            head["Connection"] = "close"
+            lines = [f"{method} {target} HTTP/1.1\r\n"]
+            lines += [f"{k}: {v}\r\n" for k, v in head.items()]
+            writer.write(("".join(lines) + "\r\n").encode("latin-1"))
+            if body:
+                writer.write(body)
+            await resp._io(writer.drain())
+            await resp._start(method)
+        except BaseException:
+            self._close(resp)
+            raise
+        return resp
+
+    def _close(self, resp: Optional[ClientResponse]) -> None:
+        if resp is not None:
+            self._open.discard(resp)
+            resp.close()
+
+    async def close(self) -> None:
+        for resp in list(self._open):
+            self._close(resp)
 
 
 def run_app(app: Application, host: str, port: int) -> None:

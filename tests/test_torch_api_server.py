@@ -1100,28 +1100,17 @@ class TestWorkerOpShutdownGuard:
 
 # -- what the port refuses -------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(role="prefill"), dict(role="decode"),
-                                dict(prefill_pool=["http://a"]),
-                                dict(peer_pool=["http://b"]),
-                                dict(fleet_prefix_cache=True)],
-                         ids=["prefill", "decode", "prefill-pool",
-                              "peer-pool", "fleet-prefix-cache"])
-def test_fleet_options_refused_naming_a6(kw):
-    with pytest.raises(ValueError, match="A6"):
-        build_server(port_config(), device="cpu", **kw)
-
-
 @pytest.mark.parametrize("argv", [["--distributed"],
                                   ["--tensor-parallel-size", "2"],
                                   ["--pipeline-parallel-size", "2"],
                                   ["--sequence-parallel-size", "2"],
-                                  ["--expert-parallel-size", "2"],
-                                  ["--role", "decode"],
-                                  ["--peer-pool", "http://a"],
-                                  ["--fleet-prefix-cache"]])
+                                  ["--expert-parallel-size", "2"]])
 def test_cli_refuses_fleet_and_parallel_flags(argv):
+    """Multihost and parallel serving wait for ROADMAP A7 (the fleet flags
+    serve since the fleet plane's replica side was ported:
+    ``tests/test_torch_fleet.py``)."""
     from kubernetes_gpu_cluster_tpu_torch.serving.api_server import main
-    with pytest.raises(ValueError, match="A6|A7"):
+    with pytest.raises(ValueError, match="A7"):
         main(["--model", "debug-tiny", "--device", "cpu", *argv])
 
 

@@ -7,7 +7,8 @@ exported by either package imports into either:
   ``tests/test_migration.py::TestMidStreamByteIdentity`` and
   ``tests/test_fleet_cache.py``'s ``TestPulledPrefixByteIdentity``,
   ``TestDeltaExport`` and ``TestRemoteSpill``, re-pointed at the port, with
-  the states passed as dicts (the port has no wire codec yet);
+  the states passed as dicts (the port's own codec is held to the JAX
+  package's in ``tests/test_torch_wire.py``);
 - across packages, both directions, through the JAX package's own wire
   codec (``serving/handoff.py``, imported here only): a JAX prefill
   replica's ``export_held`` state imports into the port and a port export

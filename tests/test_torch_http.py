@@ -143,6 +143,23 @@ def test_chunked_body_and_expect_continue():
 
 
 @pytest.mark.parametrize("request_bytes", [
+    b"GET /" + b"a" * 9000 + b" HTTP/1.1\r\n\r\n",
+    b"GET /echo HTTP/1.1\r\nX-Long: " + b"b" * 9000 + b"\r\n\r\n",
+], ids=["request-line", "header-line"])
+def test_over_long_line_answered_431_when_it_arrives_whole(request_bytes):
+    """A line over MAX_LINE is refused even when its newline came in the
+    same read (the bound is checked on the line found, not only while one
+    is incomplete)."""
+    app, _ = _echo_app()
+
+    async def go():
+        async with serving(app) as port:
+            return await asyncio.to_thread(_raw, port, request_bytes)
+    out = asyncio.run(go())
+    assert out.startswith(b"HTTP/1.1 431 "), out[:80]
+
+
+@pytest.mark.parametrize("request_bytes", [
     b"GARBAGE\r\n\r\n",
     b"GET /echo\r\n\r\n",
     b"GET /echo HTTP/1.1\r\nno colon here\r\n\r\n",

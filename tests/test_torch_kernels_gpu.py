@@ -749,3 +749,45 @@ def test_server_on_the_card_serves_streamed_and_plain(cuda_device):
     assert plain[0] == streamed[0] == 200
     assert plain[1] == streamed[1]
     assert n_decode > 0 and n_prefill > 0
+
+
+@pytest.mark.gpu
+def test_handoff_frame_between_card_engines(cuda_device):
+    """Disaggregated serving across the wire codec on the card: a held
+    bf16 prefill exported from one card engine, encoded with integrity on,
+    decoded and verified, imports into a second card engine page for page
+    bit-equal, and decodes the colocated run's tokens."""
+    from kubernetes_gpu_cluster_tpu_torch.serving.handoff import (
+        decode_handoff, encode_handoff, verify_import_state)
+
+    a = LLMEngine(_tiny_cfg(), device=cuda_device)
+    b = LLMEngine(_tiny_cfg(), params=a.params, device=cuda_device)
+    prompt = _prompts(1, 90, 91, seed=4)[0]
+    sp = SamplingParams(max_tokens=16, temperature=0.0)
+    ref = a.generate([prompt], sp)[0].output_token_ids
+    a.add_request("pf", prompt, SamplingParams(max_tokens=1,
+                                               temperature=0.0),
+                  hold_kv=True)
+    while a.has_unfinished_requests():
+        a.step()
+    sent = a.export_held("pf")
+    frame = encode_handoff(sent, integrity=True)
+    state = decode_handoff(bytes(frame), require_integrity=True)
+    verify_import_state(state)
+    assert state["k"].dtype == torch.bfloat16
+    assert torch.equal(state["k"], sent["k"])
+    assert torch.equal(state["v"], sent["v"])
+    b.import_request("dc", prompt, sp, state)
+    pages = b.scheduler.find_running("dc").pages
+    n = state["k"].shape[1]
+    torch.cuda.synchronize()
+    assert torch.equal(b.kv_cache.k[:, pages[:n]].cpu(), sent["k"])
+    assert torch.equal(b.kv_cache.v[:, pages[:n]].cpu(), sent["v"])
+    final = None
+    while b.has_unfinished_requests():
+        for o in b.step():
+            if o.request_id == "dc" and o.finished:
+                final = o.output_token_ids
+    assert final == ref
+    alloc = b.scheduler.allocator
+    assert alloc.num_free == alloc.num_pages - 1

@@ -6,7 +6,7 @@ drain transitions, loop liveness and the hub's exposition
 (``tests/test_qos.py::TestTierAdmission``); and the server-level chaos cases
 of ``tests/test_chaos.py`` (``TestAdmissionShedding``, ``TestWatchdog``, and
 ``TestGracefulDrain``'s drain and SIGTERM cases) on the port's server on the
-CPU. The live-migration drain cases wait for the fleet plane (ROADMAP A6).
+CPU. The live-migration drain cases are in ``tests/test_torch_fleet.py``.
 Also the ``KGCT_FAULT`` grammar (``TestFaultGrammar``) against the port's
 ``resilience/faults.py``.
 """
