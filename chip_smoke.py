@@ -188,7 +188,48 @@ near-ties as in 7b (counted):
      ``paged_decode``, ``flash_prefill`` and ``flash_prefill_hist`` must
      have launched across phase 10.
 
-Each phase logs its seconds.
+Then the router (``serving/router.py``) on the same weights, right after
+phase 10: two ``both`` replicas A and B (1024 pages, 8 seats, prefix
+caching on), a ``prefill`` replica P and a ``decode`` replica D, servers
+in this process on free ports, with the port's router in front of them in
+the same process; the greedy references come from an ``LLMEngine`` of the
+replicas' configuration that serves nothing else, fed the same prompts in
+the same order:
+
+11.  The router's hop: the same cold 512-token prompt straight to B and
+     through a router over A alone (client TTFT and end to end, both
+     streamed) for each of 10 cold prompts, and a one-token request both
+     ways, many times; the router's added ms (the cold pairs' median,
+     quartiles and range, unresolved where the quartiles span 0).
+11a. Prefix affinity: four sessions (``session_id``) of three streamed
+     turns each, the turns of a session sharing a 512-1024-token prefix.
+     Every session sticks to one replica (12 affinity hits), every warm
+     turn hits the owner's prefix cache and launches
+     ``flash_prefill_hist``, every turn's tokens equal the reference's but
+     for counted near-ties.
+11b. Least-inflight: 16 concurrent requests (prompts 64-2500, 64 new
+     tokens, half streamed) spread over both replicas (each serves some),
+     no failure, no retry, one upstream connection per request.
+11c. ``replica_kill_midstream`` after 8 relayed chunks of a 1024-token
+     stream with 256 new tokens: the client sees one stream ending in
+     ``[DONE]``; ``kgct_failovers_total`` rises by one. The relayed tokens
+     equal the uninterrupted run's; the resumed ones equal the reference's
+     greedy continuation of prompt + relayed tokens (what the recompute
+     rung computes); where the whole differs from the uninterrupted run,
+     the first difference and its top-2 gap are logged, and the gap must
+     be under ``RESUME_DRIFT`` of the logits' deviation.
+11e. The router's ``/metrics`` carries both replicas' series, relabelled;
+     ``/debug/trace`` is one Perfetto document with a track for the router
+     and one per replica; ``replica_down`` on a session's owner sends the
+     session to the other replica, and the recovered owner gets it back.
+11d. Disaggregated: D behind the router with P as its prefill pool
+     (``prefill_urls``); 1500- and 300-token prompts, the handoff counted
+     ``ok`` on both sides, tokens equal to the reference's.
+11f. The router's CLI in a subprocess in front of A: one streamed request,
+     then SIGTERM, exit 0.
+
+The three attention kernels must have launched on the replicas across
+phase 11. Each phase logs its seconds.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -2178,10 +2219,10 @@ def _held_to(what, got, ref, prompt, params, cfg, device, ties) -> None:
         return
     j = _first_diff(got, ref)
     gap, std = _top2_gap(params, cfg, prompt + ref[:j], device)
-    log(f"10 {what}: tokens differ at output {j}: top-2 gap {gap} logit "
+    log(f"{what}: tokens differ at output {j}: top-2 gap {gap} logit "
         f"std {std} ({gap / std:.3g} of it)")
     if gap >= NEAR_TIE * std:
-        raise RuntimeError(f"10 {what}: tokens differ from the reference "
+        raise RuntimeError(f"{what}: tokens differ from the reference "
                            f"beyond a near-tie at output {j}")
     ties.append({"what": what, "at": j, "gap_over_std": gap / std})
 
@@ -2661,6 +2702,491 @@ def check_fleet(cfg_engine, params, device, counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the router in front of replicas (in process on the phase-4
+# weights)
+# ---------------------------------------------------------------------------
+
+ROUTER_PAGES = 1024
+ROUTER_SEQS = 8
+HOP_PROMPT = 512                     # 11: the router's added ms
+HOP_REPS = 10
+HOP_SMALL_REPS = 20
+AFFINITY_PREFIXES = (512, 640, 896, 1024)   # 11a: one session each
+AFFINITY_SUFFIX = 48
+AFFINITY_TOKENS = 16
+SPREAD = 16                          # 11b: concurrent requests
+SPREAD_PROMPTS = (64, 2500)          # 11b: prompt lengths, evenly spaced
+SPREAD_TOKENS = 64
+KILL_PROMPT = 1024                   # 11c
+KILL_TOKENS = 256
+KILL_AFTER = 8                       # relayed chunks before the kill
+# 11c: a recompute resume prefills prompt + relayed cold, so its bf16 KV
+# is not the uninterrupted run's, written a step at a time: the two runs
+# may part where the top-2 gap is below that rounding. The limit on the
+# gap (over the logits' deviation) where they part is four times the
+# largest reading of the runs whose resumes were sound (0.018-0.025).
+RESUME_DRIFT = 0.1
+ROUTED_DISAGG = (1500, 300)          # 11d
+ROUTED_DISAGG_TOKENS = 16
+
+
+def _picks(router, rid: str) -> list:
+    """The replicas the router picked for request ``rid``, in order."""
+    return [e.args["replica"] for e in router.tracer.events()
+            if e.kind == "pick" and e.request_id == rid
+            and e.args.get("pool") != "prefill"]
+
+
+async def _router_11(srv, prompts, refs, ctx) -> dict:
+    """11, 11a-11f on replicas A, B, P, D (``srv``: name -> APIServer)."""
+    from collections import Counter
+
+    from kubernetes_gpu_cluster_tpu_torch.resilience.faults import \
+        configure_faults
+    from kubernetes_gpu_cluster_tpu_torch.serving import router as R
+    from kubernetes_gpu_cluster_tpu_torch.serving.errors import \
+        REQUEST_ID_HEADER
+    from kubernetes_gpu_cluster_tpu_torch.serving.http import Server
+    running, port, url = [], {}, {}
+
+    async def serve(app, name):
+        server = Server(app)
+        await server.start("127.0.0.1", 0)
+        running.append(server)
+        port[name] = server.port
+        url[name] = f"http://127.0.0.1:{server.port}"
+        return server.port
+
+    def rid_hdr(rid):
+        return {REQUEST_ID_HEADER: rid}
+
+    def ok(what, r, stream=False):
+        if r["status"] != 200:
+            raise RuntimeError(f"{what}: {r['status']} {r['body'][:300]}")
+        if stream:
+            sse_frames(r["body"])
+        return r
+
+    for name in ("A", "B", "P", "D"):
+        await serve(srv[name].build_app(), name)
+    out = {}
+    try:
+        # 11: the hop, on cold prompts of one length, then a one-token
+        # request many times.
+        r1 = R.Router([url["A"]], health_interval_s=3600)
+        await serve(r1.build_app(), "R1")
+        hop = {"direct": [], "routed": []}
+        for i, prompt in enumerate(prompts["hop"]):
+            # logprobs 1: a frame per engine chunk (random weights make the
+            # byte tokenizer's text mostly empty), so the first one times
+            # the first token.
+            body = {"prompt": prompt, "max_tokens": AFFINITY_TOKENS,
+                    "temperature": 0.0, "stream": True, "logprobs": 1}
+            order = (("direct", "B"), ("routed", "R1"))
+            for how, name in (order if i % 2 == 0 else order[::-1]):
+                r = ok(f"11 hop {how}", await http_call(
+                    port[name], "POST", "/v1/completions", body,
+                    rid_hdr(f"11-{how}-{i}")), stream=True)
+                hop[how].append({"ttft_s": r["ttft_s"], "e2e_s": r["e2e_s"]})
+        small = {"direct": [], "routed": []}
+        one = {"prompt": prompts["hop"][0][:8], "max_tokens": 1,
+               "temperature": 0.0}
+        for i in range(HOP_SMALL_REPS):
+            for how, name in (("direct", "A"), ("routed", "R1")):
+                r = ok("11 one-token", await http_call(
+                    port[name], "POST", "/v1/completions", one))
+                small[how].append(r["e2e_s"])
+        med = lambda xs: float(np.median(xs))  # noqa: E731
+
+        def added(key):
+            """The router's added ms over the HOP_REPS pairs (routed minus
+            direct, one pair per cold prompt): the median, the quartiles
+            and the range; unresolved where the quartiles span 0."""
+            d = 1e3 * np.array([r[key] - h[key] for r, h in
+                                zip(hop["routed"], hop["direct"])])
+            q1, q3 = (float(x) for x in np.percentile(d, (25, 75)))
+            return {"median": float(np.median(d)), "q1": q1, "q3": q3,
+                    "min": float(d.min()), "max": float(d.max()),
+                    "resolved": q1 > 0 or q3 < 0}
+        out["11"] = {
+            "cold": hop,
+            "cold_ttft_added_ms": added("ttft_s"),
+            "cold_e2e_added_ms": added("e2e_s"),
+            "one_token_e2e_ms": {k: 1e3 * med(v) for k, v in small.items()},
+            "one_token_added_ms": 1e3 * (med(small["routed"])
+                                         - med(small["direct"]))}
+
+        # 11a: prefix affinity.
+        ra = R.Router([url["A"], url["B"]], health_interval_s=3600,
+                      routing_policy="prefix-affinity")
+        await serve(ra.build_app(), "Ra")
+        engines = {n: srv[n].engine.engine for n in ("A", "B")}
+        by_url = {url[n]: n for n in engines}
+        sessions, warm_hist = [], []
+        for s, turns in enumerate(prompts["a"]):
+            owners = []
+            for t, prompt in enumerate(turns):
+                rid = f"11a-{s}-{t}"
+                hits0 = {n: e.scheduler.prefix_cache.hits
+                         for n, e in engines.items()}
+                hist0 = ctx["hist"].launches
+                r = ok(rid, await http_call(
+                    port["Ra"], "POST", "/v1/completions",
+                    {"prompt": prompt, "max_tokens": AFFINITY_TOKENS,
+                     "temperature": 0.0, "stream": True,
+                     "session_id": f"11a-session-{s}"}, rid_hdr(rid)),
+                    stream=True)
+                [picked] = _picks(ra, rid)
+                owner = by_url[picked]
+                owners.append(owner)
+                hits = engines[owner].scheduler.prefix_cache.hits \
+                    - hits0[owner]
+                if t > 0:
+                    warm_hist.append(ctx["hist"].launches - hist0)
+                    if hits < 1 or warm_hist[-1] < 1:
+                        raise RuntimeError(
+                            f"{rid}: warm turn on {owner}: {hits} prefix "
+                            f"hits, {warm_hist[-1]} history launches")
+                ctx["held"](rid, _PRODUCED[rid], refs["a"][s][t], prompt)
+                if t == 0:
+                    first = r
+            if len(set(owners)) != 1:
+                raise RuntimeError(f"11a session {s} moved: {owners}")
+            sessions.append({"prefix": len(turns[0]) - AFFINITY_SUFFIX,
+                             "owner": owners[0],
+                             "cold_ttft_s": first["ttft_s"],
+                             "warm_ttft_s": r["ttft_s"]})
+        ma = await _metrics(port["Ra"])
+        hits = _metric(ma, "kgct_router_affinity_hits_total")
+        if hits != 3 * len(prompts["a"]):
+            raise RuntimeError(f"11a: {hits} affinity hits")
+        out["11a"] = {"sessions": sessions, "affinity_hits": hits,
+                      "warm_hist_launches": warm_hist}
+
+        # 11b: least-inflight under 16 concurrent requests.
+        rb = R.Router([url["A"], url["B"]], health_interval_s=3600)
+        await serve(rb.build_app(), "Rb")
+        opened = []
+        inner = rb._session._connect
+
+        async def connect(*a, **kw):
+            opened.append(a[:2])
+            return await inner(*a, **kw)
+        rb._session._connect = connect
+        t_b = time.perf_counter()
+        rows = await asyncio.gather(*(http_call(
+            port["Rb"], "POST", "/v1/completions",
+            {"prompt": prompt, "max_tokens": SPREAD_TOKENS,
+             "temperature": 0.0, **({"stream": True} if i % 2 else {})},
+            rid_hdr(f"11b-{i}")) for i, prompt in enumerate(prompts["b"])))
+        wall_b = time.perf_counter() - t_b
+        served = {n: 0 for n in engines}
+        for i, r in enumerate(rows):
+            ok(f"11b-{i}", r, stream=bool(i % 2))
+            if len(_PRODUCED[f"11b-{i}"]) != SPREAD_TOKENS:
+                raise RuntimeError(f"11b-{i}: "
+                                   f"{len(_PRODUCED[f'11b-{i}'])} tokens")
+            [picked] = _picks(rb, f"11b-{i}")
+            served[by_url[picked]] += 1
+        if min(served.values()) < 1 or rb.retries_total \
+                or any(r.consecutive_failures for r in rb.replicas):
+            raise RuntimeError(f"11b: served {served}, retries "
+                               f"{rb.retries_total}")
+        if len(opened) != SPREAD:
+            raise RuntimeError(f"11b: {len(opened)} upstream connections "
+                               f"for {SPREAD} requests")
+        out["11b"] = {
+            "served": served, "wall_s": wall_b,
+            "tokens_per_s": SPREAD * SPREAD_TOKENS / wall_b,
+            "upstream_connections_per_request": len(opened) / SPREAD,
+            "ttft_s": sorted(r["ttft_s"] for r in rows if r["ttft_s"]),
+            "e2e_s": sorted(r["e2e_s"] for r in rows)}
+
+        # 11c: a stream severed after KILL_AFTER relayed chunks.
+        rc = R.Router([url["A"], url["B"]], health_interval_s=3600)
+        await serve(rc.build_app(), "Rc")
+        relays = []
+
+        class Kept(R._SSERelay):
+            def __init__(self):
+                super().__init__()
+                relays.append(self)
+        configure_faults(f"replica_kill_midstream:after={KILL_AFTER},"
+                         "times=1")
+        try:
+            with mock.patch.object(R, "_SSERelay", Kept):
+                r = ok("11c", await http_call(
+                    port["Rc"], "POST", "/v1/completions",
+                    {"prompt": prompts["c"], "max_tokens": KILL_TOKENS,
+                     "temperature": 0.0, "stream": True}, rid_hdr("11c")),
+                    stream=True)
+        finally:
+            configure_faults(None)
+        [relay] = relays
+        [cut] = [e.args for e in rc.tracer.events()
+                 if e.kind == "failover" and "relayed_tokens" in e.args]
+        mc = await _metrics(port["Rc"])
+        g = 'kgct_failovers_total{outcome="%s"}'
+        fo = {oc: _metric(mc, g % oc) for oc in ("import", "recompute",
+                                                 "failed")}
+        if sum(fo.values()) != 1 or fo["failed"] or not relay.done \
+                or len(relay.tokens) != KILL_TOKENS:
+            raise RuntimeError(f"11c: failovers {fo}, done {relay.done}, "
+                               f"{len(relay.tokens)} tokens")
+        out["11c"] = {"failovers": fo, "picks": _picks(rc, "11c"),
+                      "relayed": cut["relayed_tokens"],
+                      "tokens": list(relay.tokens),
+                      "failover_s": _metric(
+                          mc, "kgct_router_failover_seconds_sum"),
+                      "ttft_s": r["ttft_s"], "e2e_s": r["e2e_s"]}
+
+        # 11e: the aggregated /metrics and trace, and replica_down.
+        families = {}
+        for ln in ma.splitlines():
+            for n in engines:
+                if f'replica="{url[n]}"' in ln \
+                        and not ln.startswith("kgct_router_"):
+                    families.setdefault(n, set()).add(
+                        ln.split("{")[0])
+        if set(families) != set(engines) \
+                or families["A"] != families["B"] or len(families["A"]) < 10:
+            raise RuntimeError(f"11e: relabelled series {families}")
+        tr = ok("11e trace", await http_call(port["Ra"], "GET",
+                                             "/debug/trace"))
+        doc = json.loads(tr["body"])
+        names = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"]
+                 if e.get("name") == "process_name"}
+        want = {"kgct-router"} | {f"kgct-engine {url[n]}" for n in engines}
+        if set(names.values()) != want:
+            raise RuntimeError(f"11e: trace processes {names}")
+        per_pid = {names[p]: n for p, n in Counter(
+            e["pid"] for e in doc["traceEvents"]).items()}
+        key = ra._affinity_key_from_obj({"session_id": "11a-session-0"})
+        owner = ra.ring.owner(key)
+        idx = [r.url for r in ra.replicas].index(owner)
+        down = {}
+        configure_faults(f"replica_down:value={idx}")
+        try:
+            for rep in ra.replicas:
+                await ra._check(rep, startup=True)
+            body = {"prompt": prompts["a"][0][-1], "max_tokens": 4,
+                    "temperature": 0.0, "session_id": "11a-session-0"}
+            ok("11e down", await http_call(port["Ra"], "POST",
+                                           "/v1/completions", body,
+                                           rid_hdr("11e-down")))
+            down["during"] = _picks(ra, "11e-down")
+        finally:
+            configure_faults(None)
+        ra.replicas[idx].benched_until = 0.0
+        for rep in ra.replicas:
+            await ra._check(rep)
+        ok("11e back", await http_call(port["Ra"], "POST",
+                                       "/v1/completions", body,
+                                       rid_hdr("11e-back")))
+        down["after"] = _picks(ra, "11e-back")
+        if down["during"] == [owner] or down["after"] != [owner] \
+                or ra.ring_remaps_total != 1:
+            raise RuntimeError(f"11e: owner {owner}, {down}, remaps "
+                               f"{ra.ring_remaps_total}")
+        out["11e"] = {"relabelled_families": len(families["A"]),
+                      "trace_events": per_pid, "down": down}
+
+        # 11d: disaggregated behind the router.
+        rd = R.Router([url["D"]], prefill_urls=[url["P"]],
+                      health_interval_s=3600)
+        await serve(rd.build_app(), "Rd")
+        rows = []
+        for i, prompt in enumerate(prompts["d"]):
+            rid = f"11d-{i}"
+            r = ok(rid, await http_call(
+                port["Rd"], "POST", "/v1/completions",
+                {"prompt": prompt, "max_tokens": ROUTED_DISAGG_TOKENS,
+                 "temperature": 0.0, **({"stream": True, "logprobs": 1}
+                                        if i == 0 else {})}, rid_hdr(rid)),
+                stream=i == 0)
+            ctx["held"](rid, _PRODUCED[rid], refs["d"][i], prompt)
+            rows.append({"prompt": len(prompt), "ttft_s": r["ttft_s"],
+                         "e2e_s": r["e2e_s"]})
+        mD, mP = await _metrics(port["D"]), await _metrics(port["P"])
+        h = 'kgct_disagg_handoffs_total{side="%s",outcome="%s"}'
+        counts = (_metric(mD, h % ("import", "ok")),
+                  _metric(mD, h % ("import", "fallback")),
+                  _metric(mP, h % ("export", "ok")))
+        if counts != (2, 0, 2):
+            raise RuntimeError(f"11d: handoffs (import ok, fallback, "
+                               f"export ok) {counts}")
+        out["11d"] = {"requests": rows, "handoffs": counts}
+
+        # 11f: the CLI in a subprocess in front of A.
+        out["11f"] = await _router_cli(url["A"])
+    finally:
+        for server in reversed(running):
+            await server.close()
+    return out
+
+
+async def _router_cli(replica_url: str) -> dict:
+    """11f: ``python -m ...serving.router`` in front of ``replica_url``,
+    one streamed request, SIGTERM, exit 0."""
+    import signal
+    work = REPO / "build" / "router-11f"
+    work.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    log_path = work / "router.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "kubernetes_gpu_cluster_tpu_torch.serving.router",
+             "--replicas", replica_url, "--host", "127.0.0.1",
+             "--port", str(port)], cwd=REPO, env=env, stdout=logf,
+            stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise RuntimeError(f"11f: the router exited with "
+                                       f"{proc.returncode}")
+                try:
+                    if (await http_call(port, "GET", "/health"))[
+                            "status"] == 200:
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() - t0 > 60:
+                    raise RuntimeError("11f: the router never answered")
+                await asyncio.sleep(0.1)
+            up_s = time.perf_counter() - t0
+            r = await http_call(port, "POST", "/v1/completions",
+                                {"prompt": [1, 2, 3, 4], "max_tokens": 8,
+                                 "temperature": 0.0, "stream": True},
+                                {"x-kgct-request-id": "11f"})
+            if r["status"] != 200 or len(_PRODUCED["11f"]) != 8:
+                raise RuntimeError(f"11f: {r['status']} {r['body'][:300]}")
+            sse_frames(r["body"])
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = await asyncio.to_thread(proc.wait, 30)
+            if rc != 0:
+                raise RuntimeError(f"11f: the router exited {rc} on SIGTERM")
+            return {"health_after_s": up_s, "ttft_s": r["ttft_s"],
+                    "sigterm_exit_s": time.perf_counter() - t1}
+        except BaseException:
+            logf.flush()
+            log("router CLI output (tail):\n" + log_path.read_text()[-4000:])
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def check_router(cfg_engine, params, device, counters) -> dict:
+    """Phase 11: the port's router in front of in-process replicas on the
+    phase-4 weights (five engines: A, B, P, D and the reference)."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                         SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
+                                                         SamplingParams)
+    from kubernetes_gpu_cluster_tpu_torch.serving import build_server
+    cfg = cfg_engine.model
+    ps = cfg_engine.cache.page_size
+    rng = np.random.default_rng(SEED + 30)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+
+    prompts = {
+        "hop": [toks(HOP_PROMPT) for _ in range(HOP_REPS)],
+        "a": [[prefix + toks(AFFINITY_SUFFIX) for _ in range(3)]
+              for prefix in (toks(n) for n in AFFINITY_PREFIXES)],
+        "b": [toks(int(n)) for n in rng.permutation(
+            np.linspace(*SPREAD_PROMPTS, SPREAD).astype(int))],
+        "c": toks(KILL_PROMPT),
+        "d": [toks(n) for n in ROUTED_DISAGG]}
+
+    def config(prefix=True):
+        return dataclasses.replace(
+            cfg_engine,
+            cache=CacheConfig(page_size=ps, num_pages=ROUTER_PAGES),
+            scheduler=SchedulerConfig(max_num_seqs=ROUTER_SEQS,
+                                      enable_prefix_caching=prefix))
+
+    t0 = time.perf_counter()
+    # The reference: the replicas' configuration, the same prompts in the
+    # same order (11a's warm turns hit its prefix cache as the owner's do).
+    ref_eng = LLMEngine(config(), params=params, device=device)
+
+    def gen(prompt, n):
+        return list(ref_eng.generate([prompt], SamplingParams(
+            max_tokens=n, temperature=0.0))[0].output_token_ids)
+    refs = {"a": [[gen(p, AFFINITY_TOKENS) for p in turns]
+                  for turns in prompts["a"]],
+            "c": gen(prompts["c"], KILL_TOKENS),
+            "d": [gen(p, ROUTED_DISAGG_TOKENS) for p in prompts["d"]]}
+    srv = {}
+    for name, role in (("A", "both"), ("B", "both"), ("P", "prefill"),
+                       ("D", "decode")):
+        srv[name] = build_server(config(prefix=role == "both"),
+                                 params=params, device=device,
+                                 model_name=MODEL, role=role)
+        # P's requests carry D's request ids: only D's are recorded.
+        if role != "prefill":
+            _record_ids(srv[name].engine)
+    t_ref = time.perf_counter() - t0
+
+    ties = []
+    ctx = {"hist": counters["flash_prefill_hist"],
+           "held": lambda what, got, ref, prompt: _held_to(
+               what, got, ref, prompt, params, cfg, device, ties)}
+    for mod in counters.values():
+        mod.launches = 0
+    out = asyncio.run(_router_11(srv, prompts, refs, ctx))
+    launches = {name: mod.launches for name, mod in counters.items()}
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"11: replica kernel launches {launches}")
+    t_serve = time.perf_counter() - t0 - t_ref
+
+    # 11c: the relayed tokens are the uninterrupted run's; the resumed ones
+    # the reference's greedy continuation of prompt + relayed, prefilled
+    # cold as the successor does (the reference's cache holds the
+    # uninterrupted run's decode-time pages: dropped first).
+    c = out["11c"]
+    got, n_cut = c.pop("tokens"), c["relayed"]
+    relayed, resumed = got[:n_cut], got[n_cut:]
+    ctx["held"]("11c relayed", relayed, refs["c"][:n_cut], prompts["c"])
+    cache = ref_eng.scheduler.prefix_cache
+    cache.evict(len(cache))
+    cont = gen(prompts["c"] + relayed, KILL_TOKENS - n_cut)
+    ctx["held"]("11c resumed", resumed, cont, prompts["c"] + relayed)
+    j = _first_diff(got, refs["c"])
+    c["equal_to_uninterrupted"] = got == refs["c"]
+    if j < len(got):
+        gap, std = _top2_gap(params, cfg, prompts["c"] + refs["c"][:j],
+                             device)
+        log(f"11c: the resumed stream leaves the uninterrupted run at "
+            f"output {j} (relayed {n_cut}): top-2 gap {gap} logit std "
+            f"{std} ({gap / std:.3g} of it; limit {RESUME_DRIFT})")
+        c["uninterrupted_diff"] = {"at": j, "gap_over_std": gap / std,
+                                   "limit": RESUME_DRIFT}
+        if gap >= RESUME_DRIFT * std:
+            raise RuntimeError(
+                f"11c: the resumed stream leaves the uninterrupted run at "
+                f"output {j} with a top-2 gap of {gap / std:.3g} of the "
+                f"logit std, over the limit {RESUME_DRIFT}")
+    del ref_eng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["near_ties"] = ties
+    out["seconds"] = {"engines_and_references": t_ref, "serving": t_serve,
+                      "total": time.perf_counter() - t0}
+    return out
+
+
 DRAIN_GRACE_S = 120.0   # the CLI's default --drain-grace-s
 
 
@@ -2767,10 +3293,15 @@ def main() -> int:
     # Phase 10: the fleet plane on the same weights.
     log("fleet:", json.dumps(check_fleet(cfg_engine, params, device, attn)),
         "|", card)
+    phase(f"{MODEL} bf16 fleet plane (10)")
+
+    # Phase 11: the router in front of replicas on the same weights.
+    log("router:", json.dumps(check_router(cfg_engine, params, device,
+                                           attn)), "|", card)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    phase(f"{MODEL} bf16 fleet plane (10)")
+    phase(f"{MODEL} bf16 router (11)")
 
     # Phase 3b: the int4 model, kernel against int4_matmul_plain.
     cfg4 = cfg.replace(quantization="int4", quant_group_size=GROUP)

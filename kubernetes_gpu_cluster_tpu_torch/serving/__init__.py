@@ -2,16 +2,21 @@
 server on the standard-library HTTP layer ``serving/http.py`` (server and
 client), with the fleet plane's replica side: the KV wire codec
 (``serving/handoff.py``), the fleet prefix cache's policy
-(``serving/fleet_cache.py``) and the ``/internal/*`` routes. Not ported
-yet: the router (``serving/router.py`` of the JAX package; ROADMAP A6),
-multihost serving (A7) and the interleave sanitizer hook."""
+(``serving/fleet_cache.py``) and the ``/internal/*`` routes; and the
+router (``serving/router.py``), the fleet's front door over N replicas.
+Not ported yet: multihost serving (ROADMAP A7) and the interleave
+sanitizer hook."""
 
-__all__ = ["APIServer", "build_server"]
+__all__ = ["APIServer", "build_server", "Router"]
 
 
 def __getattr__(name):
     # Imported on first use, so ``python -m ...serving.api_server`` does
-    # not find the module already loaded by its own package.
+    # not find the module already loaded by its own package, and a router
+    # loads no engine.
+    if name == "Router":
+        from . import router
+        return router.Router
     if name in __all__:
         from . import api_server
         return getattr(api_server, name)

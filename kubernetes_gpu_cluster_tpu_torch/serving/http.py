@@ -28,12 +28,19 @@ server aborts the engine request there) whether it was awaiting the
 engine or writing a stream.
 
 The client half (``ClientSession``) is the part of aiohttp's
-``ClientSession`` the fleet plane uses for its peer calls: ``post`` /
-``get`` as async context managers over ``http://`` or ``https://``, one
-connection per request, a request body sent with ``Content-Length``, a
-response body read by ``Content-Length``, by chunked transfer coding or to
-end of file, and one wall bound over the whole exchange (aiohttp's
-``ClientTimeout(total=...)``), which raises ``asyncio.TimeoutError``.
+``ClientSession`` the fleet plane's peer calls and the router use:
+``request`` / ``post`` / ``get`` as async context managers over
+``http://`` or ``https://``, one connection per request, a request body
+sent with ``Content-Length``, a response body read by ``Content-Length``,
+by chunked transfer coding or to end of file. Two bounds, as aiohttp's
+``ClientTimeout(total=..., sock_connect=...)``: a wall bound over the whole
+exchange (``timeout_s``; ``None`` for none), which raises
+``asyncio.TimeoutError``, and a connect bound (``connect_timeout_s``). The
+errors say how far the exchange got: ``ClientConnectorError`` when no
+connection was made (refused, unreachable, TLS refused, or the connect
+bound expired), so nothing reached the peer; ``ClientPayloadError`` when
+the body ended before its framing said it would; ``ClientError`` for
+anything else the peer broke.
 """
 
 from __future__ import annotations
@@ -119,6 +126,7 @@ class Request:
         self.method = method
         parts = urlsplit(target)
         self.path = parts.path
+        self.path_qs = target           # the raw target, query included
         self.query = dict(parse_qsl(parts.query, keep_blank_values=True))
         self.version = version
         self.headers = headers
@@ -501,16 +509,29 @@ _CLIENT_READ_SIZE = 1 << 20          # a KV frame is hundreds of MB
 class ClientError(ConnectionError):
     """A response that cannot be parsed, or a peer that broke the framing
     (a line over ``MAX_LINE``, a malformed chunk size, too many
-    headers)."""
+    headers), or a connection lost after it was made."""
+
+
+class ClientConnectorError(ClientError):
+    """No connection was made: refused, unreachable, a TLS handshake
+    refused, or the connect bound expired. Nothing reached the peer, so
+    the request may be sent elsewhere."""
+
+
+class ClientPayloadError(ClientError):
+    """The response body ended before its framing said it would: a chunked
+    body closed without its zero-length chunk, or fewer bytes than its
+    ``Content-Length``."""
 
 
 class ClientResponse:
     """One response: ``status``, case-insensitive ``headers``, and its body,
     read under the request's wall bound with ``read(n)`` (at most ``n``
-    bytes, fewer only at the end of the body) or ``iter_chunked(size)``."""
+    bytes, fewer only at the end of the body), ``readany()`` or
+    ``iter_chunked(size)``."""
 
     def __init__(self, reader: asyncio.StreamReader,
-                 writer: asyncio.StreamWriter, deadline: float):
+                 writer: asyncio.StreamWriter, deadline: Optional[float]):
         self._reader = reader
         self._writer = writer
         self._deadline = deadline
@@ -519,6 +540,7 @@ class ClientResponse:
         self._done = False            # the body has no more bytes
         self._mode = "eof"            # "length" | "chunked" | "eof"
         self._left = 0                # of the body ("length") or the chunk
+        self._in_body = False         # the head has been read
         self.status = 0
         self.reason = ""
         self.headers = Headers()
@@ -539,14 +561,20 @@ class ClientResponse:
     async def _fill(self) -> bool:
         if self._at_eof:
             return False
-        data = await self._io(self._reader.read(_CLIENT_READ_SIZE))
+        try:
+            data = await self._io(self._reader.read(_CLIENT_READ_SIZE))
+        except ConnectionError as e:
+            raise (ClientPayloadError if self._in_body else ClientError)(
+                f"connection lost: {e}") from e
         if not data:
             self._at_eof = True
             return False
         self._buf += data
         return True
 
-    async def _readline(self, what: str) -> bytes:
+    async def _readline(self, what: str, cut=ClientError) -> bytes:
+        """One line; ``cut`` is raised when the connection closes inside
+        it."""
         while True:
             i = self._buf.find(b"\n", 0, MAX_LINE + 2)
             if i >= 0:
@@ -556,7 +584,7 @@ class ClientResponse:
             if len(self._buf) > MAX_LINE:
                 raise ClientError(f"{what} over {MAX_LINE} bytes")
             if not await self._fill():
-                raise ClientError(f"connection closed inside a {what}")
+                raise cut(f"connection closed inside a {what}")
 
     async def _start(self, method: str) -> None:
         while True:
@@ -577,6 +605,7 @@ class ClientResponse:
                 self.headers[name.strip()] = value.strip()
             if self.status >= 200:
                 break                   # 1xx: the real response follows
+        self._in_body = True
         if method == "HEAD" or self.status in (204, 304):
             self._done = True
         elif "chunked" in self.headers.get("Transfer-Encoding", "").lower():
@@ -593,13 +622,15 @@ class ClientResponse:
             if self._mode == "chunked" and self._left == 0:
                 if out and b"\n" not in self._buf:
                     break                   # the next chunk is not here yet
-                size_line = await self._readline("chunk-size line")
+                size_line = await self._readline("chunk-size line",
+                                                 ClientPayloadError)
                 try:
                     size = int(size_line.split(b";")[0].strip(), 16)
                 except ValueError:
                     raise ClientError("malformed chunk size") from None
                 if size == 0:
-                    while await self._readline("trailer line"):
+                    while await self._readline("trailer line",
+                                               ClientPayloadError):
                         pass
                     self._done = True
                     break
@@ -609,8 +640,8 @@ class ClientResponse:
                     break
                 if not await self._fill():
                     if self._mode != "eof":
-                        raise ClientError("connection closed inside the "
-                                          "body")
+                        raise ClientPayloadError("connection closed inside "
+                                                 "the body")
                     self._done = True
                 continue
             take = len(self._buf) if self._mode == "eof" else self._left
@@ -625,7 +656,8 @@ class ClientResponse:
                     else:
                         while len(self._buf) < 2:        # the chunk's CRLF
                             if not await self._fill():
-                                raise ClientError("truncated chunk")
+                                raise ClientPayloadError(
+                                    "truncated chunk")
                         del self._buf[:2]
         return bytes(out)
 
@@ -639,6 +671,11 @@ class ClientResponse:
                 break
             out += piece
         return out
+
+    async def readany(self) -> bytes:
+        """Whatever part of the body has arrived (waiting only when nothing
+        has); b"" at its end."""
+        return await self._next_piece(_CLIENT_READ_SIZE)
 
     async def iter_chunked(self, size: int):
         """The body in pieces of at most ``size`` bytes, as they arrive."""
@@ -657,7 +694,7 @@ class ClientResponse:
 
 class _RequestContext:
     def __init__(self, session: "ClientSession", method: str, url: str,
-                 body: bytes, headers: Headers, timeout_s: float):
+                 body: bytes, headers: Headers, timeout_s):
         self._session = session
         self._args = (method, url, body, headers, timeout_s)
         self._resp: Optional[ClientResponse] = None
@@ -671,19 +708,32 @@ class _RequestContext:
 
 
 class ClientSession:
-    """``post`` / ``get`` as async context managers, one connection per
-    request. ``timeout_s`` bounds the whole exchange: connect, the request,
-    and every read of the response inside the ``async with``."""
+    """``request`` / ``post`` / ``get`` as async context managers, one
+    connection per request. A call's ``timeout_s`` bounds its whole
+    exchange: connect, the request, and every read of the response inside
+    the ``async with`` (``None``: no bound). The session's
+    ``connect_timeout_s`` bounds each connect alone (``None``: only the
+    wall bound)."""
 
-    def __init__(self):
+    def __init__(self, *, connect_timeout_s: Optional[float] = None):
+        self.connect_timeout_s = connect_timeout_s
         self._open: set[ClientResponse] = set()
 
+    def request(self, method: str, url: str, *, json: Any = None, data=None,
+                headers=None,
+                timeout_s: Optional[float] = DEFAULT_TIMEOUT_S
+                ) -> _RequestContext:
+        return self._context(method.upper(), url, json, data, headers,
+                             timeout_s)
+
     def post(self, url: str, *, json: Any = None, data=None, headers=None,
-             timeout_s: float = DEFAULT_TIMEOUT_S) -> _RequestContext:
+             timeout_s: Optional[float] = DEFAULT_TIMEOUT_S
+             ) -> _RequestContext:
         return self._context("POST", url, json, data, headers, timeout_s)
 
     def get(self, url: str, *, headers=None,
-            timeout_s: float = DEFAULT_TIMEOUT_S) -> _RequestContext:
+            timeout_s: Optional[float] = DEFAULT_TIMEOUT_S
+            ) -> _RequestContext:
         return self._context("GET", url, None, None, headers, timeout_s)
 
     def _context(self, method, url, json_body, data, headers, timeout_s):
@@ -697,20 +747,42 @@ class ClientSession:
                 hdrs.setdefault("Content-Type", "application/octet-stream")
         return _RequestContext(self, method, url, body, hdrs, timeout_s)
 
+    async def _connect(self, host: str, port: int, tls: bool,
+                       deadline: Optional[float]):
+        """(reader, writer), or ``ClientConnectorError`` when no connection
+        was made; the wall bound expiring first raises
+        ``asyncio.TimeoutError`` as everywhere else."""
+        bound = asyncio.timeout(self.connect_timeout_s)
+        try:
+            async with asyncio.timeout_at(deadline):
+                async with bound:
+                    return await asyncio.open_connection(
+                        host, port, limit=_CLIENT_READ_SIZE,
+                        ssl=ssl.create_default_context() if tls else None,
+                        server_hostname=host if tls else None)
+        except TimeoutError:
+            # TimeoutError is an OSError: told apart before the clause
+            # below.
+            if bound.expired():
+                raise ClientConnectorError(
+                    f"connect to {host}:{port} timed out after "
+                    f"{self.connect_timeout_s} s") from None
+            raise
+        except OSError as e:
+            raise ClientConnectorError(
+                f"cannot connect to {host}:{port}: {e}") from e
+
     async def _request(self, method, url, body, headers: Headers,
-                       timeout_s: float) -> ClientResponse:
+                       timeout_s: Optional[float]) -> ClientResponse:
         parts = urlsplit(url)
         if parts.scheme not in ("http", "https") or not parts.hostname:
             raise ValueError(f"unsupported url {url!r}")
         tls = parts.scheme == "https"
         port = parts.port or (443 if tls else 80)
         loop = asyncio.get_running_loop()
-        deadline = loop.time() + timeout_s
-        async with asyncio.timeout_at(deadline):
-            reader, writer = await asyncio.open_connection(
-                parts.hostname, port, limit=_CLIENT_READ_SIZE,
-                ssl=ssl.create_default_context() if tls else None,
-                server_hostname=parts.hostname if tls else None)
+        deadline = None if timeout_s is None else loop.time() + timeout_s
+        reader, writer = await self._connect(parts.hostname, port, tls,
+                                             deadline)
         resp = ClientResponse(reader, writer, deadline)
         self._open.add(resp)
         try:
@@ -726,7 +798,11 @@ class ClientSession:
             writer.write(("".join(lines) + "\r\n").encode("latin-1"))
             if body:
                 writer.write(body)
-            await resp._io(writer.drain())
+            try:
+                await resp._io(writer.drain())
+            except ConnectionError as e:
+                raise ClientError(f"connection lost sending the request: "
+                                  f"{e}") from e
             await resp._start(method)
         except BaseException:
             self._close(resp)
@@ -743,20 +819,24 @@ class ClientSession:
             self._close(resp)
 
 
-def run_app(app: Application, host: str, port: int) -> None:
-    """Serve until SIGINT, then close the listener (in-flight handlers are
-    cancelled) and run the cleanup hooks."""
+def run_app(app: Application, host: str, port: int,
+            signals: tuple = (signal.SIGINT,)) -> None:
+    """Serve until one of ``signals`` arrives (SIGINT alone by default, so a
+    caller may install its own SIGTERM handler), then close the listener
+    (in-flight handlers are cancelled) and run the cleanup hooks."""
 
     async def _main() -> None:
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
-        loop.add_signal_handler(signal.SIGINT, stop.set)
+        for sig in signals:
+            loop.add_signal_handler(sig, stop.set)
         server = Server(app)
         await server.start(host, port)
         try:
             await stop.wait()
         finally:
-            loop.remove_signal_handler(signal.SIGINT)
+            for sig in signals:
+                loop.remove_signal_handler(sig)
             await server.close()
 
     asyncio.run(_main())
