@@ -231,6 +231,46 @@ the same order:
 The three attention kernels must have launched on the replicas across
 phase 11. Each phase logs its seconds.
 
+Then, still on the phase-4 weights, tensor and expert parallelism, each
+rank a child process (``chip_smoke.py --tp-child``) that builds its engine
+from the seed, drawing each full tensor and keeping its slice; the script
+first records the tp=1 engine's greedy tokens for the same requests:
+
+12.  tp 2: two ranks on card 0 joined by gloo (NCCL refuses two ranks on
+     one device; gloo stages each all-reduce through host memory, so this
+     measures no NVLink), 1024 pages each. Rank 0 serves 8 requests (a
+     2500-token prompt, chunked, and prompts arriving one at a time while
+     others decode: prefill, chunked, mixed and decode-window steps)
+     through ``AsyncLLMEngine(leader=DirectiveLeader)``; rank 1 runs a
+     ``DirectiveFollower``. Arrivals follow tp=1's step for step (the
+     worker waits after each step for the requests due), and the two runs
+     must step the same batches (each step's kind and size). Each
+     request's tokens equal tp=1's up to a first difference; from there
+     every token is, teacher forced on the tp=1 weights, the top token or
+     under ``RESUME_DRIFT`` of the logits' deviation below it: the
+     all-reduce sums in another order. ``paged_decode``, ``flash_prefill`` and
+     ``flash_prefill_hist`` launch on both ranks (each reports its counts,
+     set to 0 just before it serves). Logged: tokens/s at tp 1 and tp 2
+     and the ms of one all-reduce of a decode step's [8, 4096] fp32.
+12c. Group abort on the same ranks: ``broadcast_fail`` on the leader
+     mid-generation; every request fails, the leader's worker stops, the
+     follower group-aborts and its ``/health`` turns 503, both within
+     ``ABORT_BOUND_S``; no rank process is left.
+12e. The server's CLI at tp 2: two ``--distributed`` ranks on card 0
+     (``chip_smoke.py --cli-rank``: ``api_server.main`` after a gloo
+     rendezvous, since the CLI picks NCCL on a card), four greedy
+     requests over HTTP (a 2300-token prompt, chunked, then three more);
+     every served token teacher forced as in 12 (there is no one-device
+     run to compare with first), the three attention kernels launched on
+     both ranks, the follower's ``/health`` 200, and after SIGTERM rank 0
+     drains and its stop directive lets rank 1 exit, both with 0.
+12d. With two cards, phase 12 over NCCL on cards 0 and 1; with one, the
+     line ``nccl tp: not run (1 card)``.
+12b. ep 2: mixtral-8x7b int4 at tp 1, ep 2, full width (depth
+     ``EP_LAYERS``, None for all 32), two ranks on card 0, four requests,
+     the same token check against the one-device engine; ``int4_matmul``
+     launches on both ranks.
+
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result.
@@ -674,9 +714,9 @@ def _routes(store: list):
     from kubernetes_gpu_cluster_tpu_torch.models import llama as M
     block = M._moe_mlp
 
-    def recorded(lp, cfg, x):
+    def recorded(lp, cfg, x, groups=None):
         store.append(M._mm_f32(x.to(torch.float32), lp["router"]))
-        return block(lp, cfg, x)
+        return block(lp, cfg, x, groups)
     return recorded
 
 
@@ -820,12 +860,12 @@ def workload(vocab: int, n_req: int = 24, long_len: int = 3000,
 
 def drive(engine, reqs, tag: str, hist_counter) -> dict:
     """Serve ``reqs`` (arrivals by step index, so two runs see the same
-    batches) and count step kinds; a prefill step that launched the
-    history kernel is a solo chunk of a long prompt ("chunked")."""
+    batches), recording each step's kind and batch size."""
     pending = sorted(reqs, key=lambda r: r[0])
     kinds = dict.fromkeys(("prefill", "chunked", "mixed", "decode", "spec",
                            "spec_mixed"), 0)
     final = {}
+    schedule = []
     step = 0
     t0 = time.perf_counter()
     while pending or engine.has_unfinished_requests():
@@ -836,19 +876,29 @@ def drive(engine, reqs, tag: str, hist_counter) -> dict:
         for out in engine.step():
             if out.finished:
                 final[out.request_id[len(tag) + 1:]] = out.output_token_ids
-        info = engine._last_step_info
-        if info is not None:
-            kind = info[0]
-            if kind == "prefill" and hist_counter.launches > hist_before:
-                kind = "chunked"
-            kinds[kind] += 1
+        schedule.append(_step_record(engine, hist_counter, hist_before))
+        if schedule[-1] is not None:
+            kinds[schedule[-1][0]] += 1
         step += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_tok = sum(len(t) for t in final.values())
     return {"tokens": final, "kinds": kinds, "wall_s": wall,
             "generated_tokens": n_tok, "tokens_per_s": n_tok / wall,
-            "steps": step}
+            "steps": step, "schedule": schedule}
+
+
+def _step_record(engine, hist_counter, hist_before):
+    """[kind, sequences] of the step just run, None for a step that ran no
+    batch; a prefill step that launched the history kernel is a solo chunk
+    of a long prompt ("chunked")."""
+    info = engine._last_step_info
+    if info is None:
+        return None
+    kind = info[0]
+    if kind == "prefill" and hist_counter.launches > hist_before:
+        kind = "chunked"
+    return [kind, info[1]]
 
 
 def check_engine(cfg_engine, params, device, counters, reqs) -> dict:
@@ -863,8 +913,7 @@ def check_engine(cfg_engine, params, device, counters, reqs) -> dict:
         mod.launches = 0
     run1 = drive(engine, reqs, "a", hist)
     launches = {name: mod.launches for name, mod in counters.items()}
-    log("engine run 1:", json.dumps({k: v for k, v in run1.items()
-                                     if k != "tokens"}),
+    log("engine run 1:", _loggable(run1),
         "launches:", json.dumps(launches))
     for name, n in launches.items():
         if n <= 0:
@@ -886,9 +935,9 @@ def check_engine(cfg_engine, params, device, counters, reqs) -> dict:
         diff = sorted(set(run1["tokens"]) - set(same))
         raise RuntimeError(f"second run differs for {diff}")
     log("engine run 2: identical tokens for", len(same), "requests;",
-        json.dumps({k: v for k, v in run2.items() if k != "tokens"}))
+        _loggable(run2))
     del engine
-    return {"run1": {k: v for k, v in run1.items() if k != "tokens"},
+    return {"run1": _summary(run1),
             "launches": launches}
 
 
@@ -1032,8 +1081,13 @@ def _spec_run(engine, reqs, tag, counters) -> dict:
     return run
 
 
+def _summary(run) -> dict:
+    """``drive``'s result without its per-request and per-step lists."""
+    return {k: v for k, v in run.items() if k not in ("tokens", "schedule")}
+
+
 def _loggable(run) -> str:
-    return json.dumps({k: v for k, v in run.items() if k != "tokens"})
+    return json.dumps(_summary(run))
 
 
 def time_verify(cfg, page_size, max_len, device, S: int) -> dict:
@@ -1130,9 +1184,9 @@ def check_spec_ngram(cfg_engine, params, device, counters) -> dict:
     return out
 
 
-def _top2_gap(params, cfg, ids, device) -> tuple[float, float]:
-    """(top-2 gap, standard deviation) of the logits after ``ids``, by one
-    prefill of the whole sequence."""
+def _prefill_logits(params, cfg, ids, at, device) -> torch.Tensor:
+    """fp32 logits [len(at), V] after ``ids[:i + 1]`` for each i in
+    ``at``, by one prefill of the whole sequence."""
     from kubernetes_gpu_cluster_tpu_torch.config import CacheConfig
     from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import \
         allocate_kv_cache
@@ -1142,9 +1196,15 @@ def _top2_gap(params, cfg, ids, device) -> tuple[float, float]:
     kv = allocate_kv_cache(cfg, CacheConfig(page_size=ps), -(-n // ps) + 1,
                            device)
     meta = M.PrefillMeta(up(np.zeros(n)), up(np.arange(n)),
-                         up(np.arange(n) + ps), up([n - 1]))
+                         up(np.arange(n) + ps), up(at))
     h, _, _ = M.forward_prefill(params, cfg, up(ids), meta, kv)
-    logits = M.compute_logits(params, cfg, h)[0]
+    return M.compute_logits(params, cfg, h)
+
+
+def _top2_gap(params, cfg, ids, device) -> tuple[float, float]:
+    """(top-2 gap, standard deviation) of the logits after ``ids``, by one
+    prefill of the whole sequence."""
+    logits = _prefill_logits(params, cfg, ids, [len(ids) - 1], device)[0]
     top = torch.topk(logits, 2).values
     return float(top[0] - top[1]), float(logits.std())
 
@@ -1372,8 +1432,7 @@ def check_swap(cfg_engine, params, device, counters, swap_gb: float,
              for k, v in engine.scheduler.num_preemptions_by_kind.items()}
     rates = audit.rates(page_bytes)
     compared = audit.compared
-    log("swap run 1:", json.dumps({k: v for k, v in run1.items()
-                                   if k != "tokens"}),
+    log("swap run 1:", _loggable(run1),
         "preemptions:", json.dumps(kinds), "launches:", json.dumps(launches))
     if kinds["swap"] <= 0 or kinds["recompute"] != 0:
         raise RuntimeError(f"swap: expected swap preemptions only: {kinds}")
@@ -3187,7 +3246,674 @@ def check_router(cfg_engine, params, device, counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: tensor and expert parallelism, ranks in child processes
+# ---------------------------------------------------------------------------
+
+TP_PAGES = 1024      # each rank's pool, fixed: ranks sharing one card see
+TP_SEQS = 8          # one mem_get_info, so none is derived from it
+TP_LONG = 2500       # > the 2048-token prefill budget: chunked
+EP_REQS = 4
+FAULT_AFTER = 3      # 12c: broadcasts before the injected failure
+ABORT_BOUND_S = 60.0  # 12c: both ranks gone within this after the fault
+ALLREDUCE_REPS = 50
+EP_LAYERS = None     # 12b's depth: None is mixtral-8x7b's full 32 layers
+TP_DIR = REPO / "build" / "tp"
+
+
+def tp_requests(vocab: int, n_req: int, long_len: int) -> list:
+    """``workload``'s prompts, every request greedy: the long one (chunked)
+    and three more arrive at once, the rest one at a time every three
+    steps while those decode (mixed steps)."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    reqs = workload(vocab, n_req=n_req, long_len=long_len, max_prompt=768,
+                    wave=1)
+    return [(0 if i < 4 else 3 * (i - 3), rid, prompt,
+             SamplingParams(max_tokens=sp.max_tokens, temperature=0.0))
+            for i, (_, rid, prompt, sp) in enumerate(reqs)]
+
+
+def _req_spec(reqs) -> list:
+    return [[a, rid, prompt, sp.max_tokens] for a, rid, prompt, sp in reqs]
+
+
+def spawn_ranks(tag: str, spec: dict, devices: list, backend: str,
+                timeout_s: float) -> list[dict]:
+    """Run ``chip_smoke.py --tp-child`` as one process per rank (rank k
+    on ``cuda:devices[k]``), joined over localhost by ``backend``; returns
+    each rank's result record. Any rank that fails or outlives
+    ``timeout_s`` fails the phase; no process is left behind."""
+    world = len(devices)
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    spec = dict(spec, tag=tag, world=world, backend=backend,
+                coordinator=f"127.0.0.1:{_free_port()}",
+                ctrl=[_free_port() for _ in range(2 * world)])
+    procs, logs = [], []
+    for rank, dev in enumerate(devices):
+        out = TP_DIR / f"{tag}-rank{rank}.json"
+        out.unlink(missing_ok=True)
+        logf = open(TP_DIR / f"{tag}-rank{rank}.log", "w")
+        logs.append(logf)
+        env = dict(os.environ, GLOO_SOCKET_IFNAME="lo",
+                   KGCT_COORDINATOR=spec["coordinator"],
+                   KGCT_NUM_PROCESSES=str(world),
+                   KGCT_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--tp-child",
+             json.dumps(dict(spec, rank=rank, device=dev, out=str(out)))],
+            env=env, stdout=logf, stderr=subprocess.STDOUT))
+    t0 = time.monotonic()
+    try:
+        for p in procs:
+            p.wait(timeout=max(timeout_s - (time.monotonic() - t0), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    results = []
+    for rank, p in enumerate(procs):
+        out = TP_DIR / f"{tag}-rank{rank}.json"
+        tail = (TP_DIR / f"{tag}-rank{rank}.log").read_text()[-3000:]
+        if p.returncode != 0 or not out.exists():
+            log(f"{tag} rank {rank} log tail:\n{tail}")
+            raise RuntimeError(f"{tag}: rank {rank} exited {p.returncode}")
+        results.append(json.loads(out.read_text()))
+    return results
+
+
+def _time_allreduce(groups, device) -> float:
+    """ms of one all-reduce of a decode step's [TP_SEQS, d] fp32 over the
+    tp group (every rank calls this the same number of times)."""
+    x = torch.randn((TP_SEQS, 4096), dtype=torch.float32, device=device)
+    for _ in range(5):
+        groups.all_reduce(x)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(ALLREDUCE_REPS):
+        groups.all_reduce(x)
+    torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) / ALLREDUCE_REPS * 1e3
+
+
+async def _serve_waves(aeng, reqs, steps: list) -> dict:
+    """Submit ``reqs`` by arrival step as ``drive`` does and collect each
+    request's tokens: the first wave is in the inbox before the worker
+    starts, and each later request goes in once the step count reaches its
+    arrival, while the worker waits for it (``_hold_for_arrivals``)."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    out: dict = {}
+
+    async def one(rid, prompt, max_tokens):
+        toks = []
+        async for chunk in aeng.generate(
+                rid, prompt, SamplingParams(max_tokens=max_tokens,
+                                            temperature=0.0)):
+            toks = chunk.output_token_ids
+        out[rid] = toks
+
+    first = [r for r in reqs if r[0] == 0]
+    tasks = [asyncio.create_task(one(rid, prompt, max_tokens))
+             for _, rid, prompt, max_tokens in first]
+    while len(aeng._inbox) < len(first):
+        await asyncio.sleep(0)
+    aeng.start(asyncio.get_running_loop())
+    for arrival, rid, prompt, max_tokens in sorted(
+            (r for r in reqs if r[0] > 0), key=lambda r: r[0]):
+        while steps[0] < arrival:
+            await asyncio.sleep(0.001)
+        tasks.append(asyncio.create_task(one(rid, prompt, max_tokens)))
+    await asyncio.gather(*tasks)
+    return out
+
+
+def _hold_for_arrivals(aeng, reqs, step: int, seen: set,
+                       timeout_s: float = 60.0) -> None:
+    """On the worker thread once ``step`` steps have run: wait until every
+    request due by then has reached the inbox (``seen`` gathers the ids
+    met there), so it joins the batch ``drive`` gives it."""
+    due = {rid for arrival, rid, _, _ in reqs if arrival <= step}
+    deadline = time.monotonic() + timeout_s
+    while not due <= seen:
+        with aeng._cv:
+            seen.update(item[0] for item in aeng._inbox)
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"requests {sorted(due - seen)} due at step "
+                               f"{step} never reached the inbox")
+        time.sleep(0.0005)
+
+
+async def _fail_midstream(aeng, reqs) -> list:
+    """12c: requests that must each end in an error."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    errors = []
+
+    async def one(rid, prompt):
+        try:
+            async for _ in aeng.generate(rid, prompt, SamplingParams(
+                    max_tokens=64, temperature=0.0)):
+                pass
+            errors.append(None)
+        except Exception as e:
+            errors.append(str(e))
+    await asyncio.gather(*(one(f"abort-{rid}", prompt)
+                           for _, rid, prompt, _ in reqs))
+    return errors
+
+
+def tp_child(spec: dict) -> None:
+    """One rank of phase 12/12b/12c/12d. Rank 0 serves ``spec["reqs"]``
+    through ``AsyncLLMEngine(leader=DirectiveLeader)``; rank 1 follows.
+    Each writes its kernel launches, counted from 0 just before serving,
+    and rank 0 the tokens and each step's kind and batch size, to
+    ``spec["out"]``."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (
+        CacheConfig, EngineConfig, ParallelConfig, SchedulerConfig,
+        get_model_config)
+    from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import (
+        flash_prefill, flash_prefill_hist, int4_matmul, paged_decode)
+    from kubernetes_gpu_cluster_tpu_torch.parallel import (
+        initialize_distributed, mesh_from_config)
+    from kubernetes_gpu_cluster_tpu_torch.resilience import (
+        LoopLiveness, configure_faults)
+    from kubernetes_gpu_cluster_tpu_torch.serving.async_engine import \
+        AsyncLLMEngine
+    from kubernetes_gpu_cluster_tpu_torch.serving.multihost import (
+        DirectiveFollower, DirectiveLeader, serve_follower_health)
+
+    rank, world = spec["rank"], spec["world"]
+    device = torch.device("cuda", spec["device"])
+    torch.cuda.set_device(device)
+    ctrl = spec["ctrl"]
+    followers = []
+    if rank > 0:      # bound before the rendezvous blocks
+        followers = [DirectiveFollower(port=ctrl[2 * rank + i],
+                                       host="127.0.0.1") for i in range(2)]
+    t0 = time.perf_counter()
+    initialize_distributed(backend=spec["backend"], device=device,
+                           timeout_s=300)
+    par = ParallelConfig(tp=spec["tp"], ep=spec["ep"])
+    groups = mesh_from_config(par)
+    model = get_model_config(spec["model"]).replace(
+        quantization=spec["quant"], quant_group_size=GROUP,
+        **({"num_layers": spec["layers"]} if spec.get("layers") else {}))
+    cfg = EngineConfig(model=model, seed=SEED, parallel=par,
+                       cache=CacheConfig(page_size=spec["page_size"],
+                                         num_pages=spec["pages"]),
+                       scheduler=SchedulerConfig(max_num_seqs=TP_SEQS))
+    counters = {"paged_decode": paged_decode, "flash_prefill": flash_prefill,
+                "flash_prefill_hist": flash_prefill_hist,
+                "int4_matmul": int4_matmul}
+    res: dict = {"rank": rank, "coords": groups.coords}
+    if rank == 0:
+        addrs = [f"127.0.0.1:{ctrl[2 * k]}" for k in range(1, world)]
+        aeng = AsyncLLMEngine(cfg, device=device, groups=groups,
+                              leader=DirectiveLeader(addrs))
+        engine = aeng.engine
+    else:
+        engine = LLMEngine(cfg, device=device, groups=groups)
+    torch.cuda.synchronize(device)
+    res["init_s"] = time.perf_counter() - t0
+    res["weight_gb"] = sum(
+        t.numel() * t.element_size()
+        for t in [*engine.params["layers"].values(),
+                  *(v for k, v in engine.params.items() if k != "layers")]
+    ) / 1e9
+    res["kv_shape"] = list(engine.kv_cache.k.shape)
+    for mod in counters.values():
+        mod.launches = 0
+    if rank == 0:
+        steps = [0]
+        kinds = dict.fromkeys(("prefill", "chunked", "mixed", "decode"), 0)
+        schedule: list = []
+        seen = {rid for arrival, rid, _, _ in spec["reqs"] if arrival == 0}
+        step = engine.step
+
+        def counted_step():
+            hist = flash_prefill_hist.launches
+            outs = step()
+            schedule.append(_step_record(engine, flash_prefill_hist, hist))
+            if schedule[-1] is not None:
+                kind = schedule[-1][0]
+                kinds[kind] = kinds.get(kind, 0) + 1
+            steps[0] += 1
+            _hold_for_arrivals(aeng, spec["reqs"], steps[0], seen)
+            return outs
+        engine.step = counted_step
+
+        async def serve():
+            t1 = time.perf_counter()
+            toks = await _serve_waves(aeng, spec["reqs"], steps)
+            # The steps that drain the in-flight window run after the last
+            # token is out: the worker is idle (every step recorded) once
+            # an op queued after them has run.
+            while engine.has_unfinished_requests():
+                await asyncio.sleep(0.001)
+            await aeng.run_in_worker(lambda e: None)
+            torch.cuda.synchronize(device)
+            return toks, time.perf_counter() - t1
+        loop = asyncio.new_event_loop()
+        toks, wall = loop.run_until_complete(serve())
+        engine.step = step
+        res.update(tokens=toks, wall_s=wall, kinds=kinds, schedule=schedule,
+                   tokens_per_s=sum(map(len, toks.values())) / wall,
+                   launches={n: m.launches for n, m in counters.items()})
+        aeng.leader.close()             # stop: the follower leaves run()
+    else:
+        followers[0].run(engine)
+        res["launches"] = {n: m.launches for n, m in counters.items()}
+    if spec.get("allreduce"):
+        res["allreduce_ms"] = _time_allreduce(groups, device)
+    if spec.get("abort"):
+        # 12c on the same engines: a fresh channel, then the fault.
+        if rank == 0:
+            aeng.leader = DirectiveLeader(
+                [f"127.0.0.1:{ctrl[2 * k + 1]}" for k in range(1, world)])
+            configure_faults(f"broadcast_fail:after={FAULT_AFTER},times=1")
+            t1 = time.perf_counter()
+            errors = loop.run_until_complete(
+                _fail_midstream(aeng, spec["reqs"][:3]))
+            aeng._thread.join(timeout=ABORT_BOUND_S)
+            res["abort"] = {
+                "errors": errors, "s": time.perf_counter() - t1,
+                "worker_stopped": not aeng._thread.is_alive(),
+                "leader_detached": aeng.leader is None,
+                "unfinished": engine.has_unfinished_requests()}
+        else:
+            liveness = LoopLiveness(timeout_s=600)
+            health = serve_follower_health(0, host="127.0.0.1",
+                                           liveness=liveness)
+            t1 = time.perf_counter()
+            followers[1].run(engine, liveness=liveness,
+                             liveness_timeout_s=ABORT_BOUND_S)
+            import urllib.error
+            import urllib.request
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{health.server_address[1]}"
+                        "/health", timeout=5) as r:
+                    status = r.status
+            except urllib.error.HTTPError as e:
+                status = e.code
+            health.shutdown()
+            res["abort"] = {"health": status, "reason": liveness.reason,
+                            "s": time.perf_counter() - t1,
+                            "unfinished": engine.has_unfinished_requests()}
+    Path(spec["out"]).write_text(json.dumps(res))
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def _forced_gaps(params, cfg, prompt, toks, device) -> list[float]:
+    """Teacher forcing on ``params``: one prefill of prompt + toks; for
+    each output i, how far toks[i]'s logit lies below the top logit after
+    prompt + toks[:i], over those logits' deviation (0 where it is the
+    top token)."""
+    ids = prompt + toks[:-1]
+    logits = _prefill_logits(params, cfg, ids,
+                             np.arange(len(prompt) - 1, len(ids)), device)
+    chosen = logits.gather(1, torch.tensor(toks, device=device)[:, None])
+    gaps = (logits.max(-1).values - chosen[:, 0]) / logits.std(-1)
+    return gaps.tolist()
+
+
+def _held_forced(what, got, ref, prompt, params, cfg, device,
+                 ties: list) -> bool:
+    """``got`` (a run on more than one rank) equals ``ref`` (the
+    one-device engine's tokens; None: none to compare) up to its first
+    difference j. From j on, each token is, teacher forced on the
+    one-device weights ``params`` (one prefill of prompt + got), the top
+    token or under ``RESUME_DRIFT`` of the logits' deviation below it: the
+    one-device greedy continuation of what came before, but for near-ties
+    that the all-reduce's other summation order may flip. Each token off
+    the top goes into ``ties``. Returns whether ``got`` equals ``ref``."""
+    if not got:
+        raise RuntimeError(f"{what}: no tokens")
+    j = 0
+    if ref is not None:
+        j = _first_diff(got, ref)
+        if j == min(len(got), len(ref)):
+            if len(got) != len(ref):
+                raise RuntimeError(f"{what}: {len(got)} tokens, the "
+                                   f"one-device run {len(ref)}")
+            return True
+        log(f"{what}: tokens differ from the one-device run at output {j}")
+    gaps = _forced_gaps(params, cfg, prompt, got, device)
+    off = [(i, gaps[i]) for i in range(j, len(got)) if gaps[i] > 0]
+    ties += [{"what": what, "at": i, "gap_over_std": g} for i, g in off]
+    if off:
+        i, g = max(off, key=lambda x: x[1])
+        log(f"{what}: {len(off)} of outputs {j}-{len(got) - 1} are not the "
+            f"top token teacher forced on the one-device weights; the "
+            f"widest gap, at output {i}, is {g:.3g} of the logit std (limit "
+            f"{RESUME_DRIFT})")
+        if g >= RESUME_DRIFT:
+            raise RuntimeError(f"{what}: output {i} lies {g:.3g} of the "
+                               f"logit std below the top token, over the "
+                               f"limit {RESUME_DRIFT}")
+    return False
+
+
+def _same_schedule(what, got: list, ref: list) -> None:
+    """The run on ranks stepped the batches the one-device run did, step
+    for step: its tokens then differ from that run's only by the ranks'
+    arithmetic."""
+    if got != ref:
+        j = _first_diff(got, ref)
+        raise RuntimeError(
+            f"{what}: step {j} ran {got[j] if j < len(got) else None}, the "
+            f"one-device run {ref[j] if j < len(ref) else None} "
+            f"({len(got)} and {len(ref)} steps)")
+
+
+def _launched(what, results: list, names: tuple) -> None:
+    for r in results:
+        for name in names:
+            if r["launches"][name] <= 0:
+                raise RuntimeError(f"{what}: {name} never launched on rank "
+                                   f"{r['rank']}: {r['launches']}")
+
+
+def check_tp(cfg, params, device, card: str, devices: list,
+             backend: str, abort: bool) -> dict:
+    """Phase 12 (12d with NCCL on two cards): llama-3-8b bf16 at tp 2
+    against the tp=1 engine on the same seed; 12c on the same ranks."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (
+        CacheConfig, EngineConfig, SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill_hist
+    ps = 16
+    reqs = tp_requests(cfg.vocab_size, n_req=7, long_len=TP_LONG)
+    engine = LLMEngine(EngineConfig(
+        model=cfg, seed=SEED, cache=CacheConfig(page_size=ps,
+                                                num_pages=TP_PAGES),
+        scheduler=SchedulerConfig(max_num_seqs=TP_SEQS)), params=params,
+        device=device)
+    ref = drive(engine, reqs, "tp1", flash_prefill_hist)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    tag = "12" if backend == "gloo" else "12d"
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tag, dict(model=cfg.name, quant=None, tp=2, ep=1,
+                                  page_size=ps, pages=TP_PAGES,
+                                  reqs=_req_spec(reqs), allreduce=True,
+                                  abort=abort),
+                        devices, backend, timeout_s=600)
+    lead = ranks[0]
+    _same_schedule(tag, lead["schedule"], ref["schedule"])
+    ties: list = []
+    equal = [rid for _, rid, prompt, _ in reqs if _held_forced(
+        f"tp 2 ({backend}) {rid}", lead["tokens"][rid], ref["tokens"][rid],
+        prompt, params, cfg, device, ties)]
+    _launched(tag, ranks, ("paged_decode", "flash_prefill",
+                           "flash_prefill_hist"))
+    for kind in ("prefill", "chunked", "mixed", "decode"):
+        if lead["kinds"].get(kind, 0) <= 0:
+            raise RuntimeError(f"{tag}: no {kind} step ran: {lead['kinds']}")
+    out = {"backend": backend, "devices": devices,
+           "tp1_tokens_per_s": ref["tokens_per_s"],
+           "tp2_tokens_per_s": lead["tokens_per_s"],
+           "tp2_wall_s": lead["wall_s"], "kinds": lead["kinds"],
+           "steps": len(ref["schedule"]), "same_schedule": True,
+           "equal_to_tp1": f"{len(equal)} of {len(reqs)}",
+           "near_ties": ties,
+           "allreduce_ms": [r["allreduce_ms"] for r in ranks],
+           "launches": [r["launches"] for r in ranks],
+           "init_s": [r["init_s"] for r in ranks],
+           "weight_gb": [r["weight_gb"] for r in ranks],
+           "kv_shape": ranks[0]["kv_shape"],
+           "spawn_s": time.perf_counter() - t0}
+    log(f"tp 2 ({backend}, cuda {devices}): {ref['tokens_per_s']:.1f} "
+        f"tokens/s at tp 1, {lead['tokens_per_s']:.1f} at tp 2; one "
+        f"all-reduce of [{TP_SEQS}, 4096] fp32: "
+        f"{[round(r['allreduce_ms'], 4) for r in ranks]} ms | {card}")
+    if backend == "gloo":
+        log("tp 2 on one card: gloo stages every all-reduce through host "
+            "memory; this run measures no NVLink")
+    if abort:
+        a0, a1 = ranks[0]["abort"], ranks[1]["abort"]
+        if not all(a0["errors"]) or not a0["worker_stopped"] \
+                or a0["unfinished"]:
+            raise RuntimeError(f"12c: leader did not fail cleanly: {a0}")
+        if a1["health"] != 503 or a1["unfinished"]:
+            raise RuntimeError(f"12c: follower did not group-abort: {a1}")
+        if max(a0["s"], a1["s"]) > ABORT_BOUND_S:
+            raise RuntimeError(f"12c: ranks took over {ABORT_BOUND_S} s")
+        out["abort"] = {"leader": a0, "follower": a1}
+        log("group abort (12c):", json.dumps(out["abort"]))
+    return out
+
+
+def check_ep(cfg, device, card: str, layers) -> dict:
+    """Phase 12b: mixtral-8x7b int4 at tp 1, ep 2 on two ranks of one card
+    against the one-device engine on the same seed."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (
+        CacheConfig, EngineConfig, SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill_hist
+    from kubernetes_gpu_cluster_tpu_torch.models import llama as M
+    ps = 16
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    reqs = tp_requests(cfg.vocab_size, n_req=EP_REQS - 1, long_len=1400)
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(
+        SEED), device)
+    engine = LLMEngine(EngineConfig(
+        model=cfg, seed=SEED, cache=CacheConfig(page_size=ps,
+                                                num_pages=TP_PAGES // 2),
+        scheduler=SchedulerConfig(max_num_seqs=TP_SEQS)), params=params,
+        device=device)
+    ref = drive(engine, reqs, "ep1", flash_prefill_hist)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("12b", dict(model=cfg.name, quant="int4", tp=1, ep=2,
+                                    layers=layers, page_size=ps,
+                                    pages=TP_PAGES // 2,
+                                    reqs=_req_spec(reqs)),
+                        [0, 0], "gloo", timeout_s=600)
+    _same_schedule("12b", ranks[0]["schedule"], ref["schedule"])
+    ties: list = []
+    equal = [rid for _, rid, prompt, _ in reqs if _held_forced(
+        f"ep 2 {rid}", ranks[0]["tokens"][rid], ref["tokens"][rid], prompt,
+        params, cfg, device, ties)]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _launched("12b", ranks, ("int4_matmul", "paged_decode", "flash_prefill"))
+    out = {"layers": cfg.num_layers, "ep1_tokens_per_s": ref["tokens_per_s"],
+           "ep2_tokens_per_s": ranks[0]["tokens_per_s"],
+           "kinds": ranks[0]["kinds"], "steps": len(ref["schedule"]),
+           "same_schedule": True,
+           "equal_to_ep1": f"{len(equal)} of {len(reqs)}", "near_ties": ties,
+           "launches": [r["launches"] for r in ranks],
+           "init_s": [r["init_s"] for r in ranks],
+           "weight_gb": [r["weight_gb"] for r in ranks],
+           "spawn_s": time.perf_counter() - t0}
+    log(f"ep 2 (mixtral-8x7b int4, {cfg.num_layers} layers): "
+        f"{ref['tokens_per_s']:.1f} tokens/s at ep 1, "
+        f"{ranks[0]['tokens_per_s']:.1f} at ep 2 | {card}")
+    return out
+
+
 DRAIN_GRACE_S = 120.0   # the CLI's default --drain-grace-s
+CLI_TP_PROMPTS = (2300, 300, 100, 700)   # 12e: the first one chunked
+CLI_TP_TOKENS = 16
+
+
+def cli_rank_child(spec: dict) -> None:
+    """One rank of phase 12e: the server's CLI (``api_server.main`` with
+    ``--distributed``) in this process, which first joins the group over
+    gloo: two ranks share one card, where NCCL, the CLI's own choice on a
+    card, refuses. Writes the kernel launches, counted from this rank's
+    first admitted request, and the engine's tokens by prompt to
+    ``spec["out"]``."""
+    import torch.distributed as dist
+
+    from kubernetes_gpu_cluster_tpu_torch.engine.engine import LLMEngine
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import (
+        flash_prefill, flash_prefill_hist, paged_decode)
+    from kubernetes_gpu_cluster_tpu_torch.parallel import \
+        initialize_distributed
+    from kubernetes_gpu_cluster_tpu_torch.serving import api_server
+    initialize_distributed(backend="gloo", device=spec["device"],
+                           timeout_s=300)
+    counters = {"paged_decode": paged_decode, "flash_prefill": flash_prefill,
+                "flash_prefill_hist": flash_prefill_hist}
+    prompts, tokens = {}, {}
+    add, step = LLMEngine.add_request, LLMEngine.step
+
+    def counted_add(self, request_id, prompt_token_ids, *a, **k):
+        if not prompts:
+            for mod in counters.values():
+                mod.launches = 0
+        prompts[request_id] = list(prompt_token_ids)
+        return add(self, request_id, prompt_token_ids, *a, **k)
+
+    def recorded_step(self):
+        outs = step(self)
+        for out in outs:
+            if out.finished:
+                tokens[out.request_id] = list(out.output_token_ids)
+        return outs
+    LLMEngine.add_request, LLMEngine.step = counted_add, recorded_step
+    try:
+        api_server.main(spec["argv"])
+    finally:
+        Path(spec["out"]).write_text(json.dumps({
+            "rank": spec["rank"],
+            "launches": {n: m.launches if prompts else 0
+                         for n, m in counters.items()},
+            "requests": [[prompts[r], t] for r, t in tokens.items()]}))
+        dist.destroy_process_group()
+
+
+async def _drive_cli_tp(port: int, health: int, procs: list,
+                        vocab: int) -> dict:
+    """12e's requests: the long prompt first (chunked), the others half a
+    second later, all greedy; the follower's /health while they run."""
+    deadline = time.monotonic() + 600
+    while True:
+        for rank, p in enumerate(procs):
+            if p.poll() is not None:
+                raise RuntimeError(f"12e: rank {rank} exited {p.returncode} "
+                                   "before serving")
+        try:
+            if (await http_call(port, "GET", "/health"))["status"] == 200:
+                break
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            raise RuntimeError("12e: rank 0 never answered /health")
+        await asyncio.sleep(0.5)
+    up_s = 600 - (deadline - time.monotonic())
+    rng = np.random.default_rng(SEED + 12)
+    prompts = [[int(t) for t in rng.integers(1, vocab, n)]
+               for n in CLI_TP_PROMPTS]
+
+    def complete(prompt):
+        return http_call(port, "POST", "/v1/completions",
+                         {"prompt": prompt, "max_tokens": CLI_TP_TOKENS,
+                          "temperature": 0.0})
+    t0 = time.perf_counter()
+    first = asyncio.ensure_future(complete(prompts[0]))
+    await asyncio.sleep(0.5)
+    follower = await http_call(health, "GET", "/health")
+    replies = [await first, *await asyncio.gather(
+        *(complete(p) for p in prompts[1:]))]
+    wall = time.perf_counter() - t0
+    for r in replies:
+        if r["status"] != 200:
+            raise RuntimeError(f"12e request: {r['status']} "
+                               f"{r['body'][:300]}")
+    return {"up_s": up_s, "wall_s": wall, "follower_health": follower["status"],
+            "prompts": prompts,
+            "bodies": [json.loads(r["body"]) for r in replies]}
+
+
+def check_cli_tp(cfg, params, device, card: str) -> dict:
+    """Phase 12e: the server's CLI at tp 2, two ``--distributed`` ranks on
+    card 0 (each ``chip_smoke.py --cli-rank``). Requests over HTTP; the
+    engine's tokens held to the one-device weights by teacher forcing; the
+    attention kernels launched on both ranks; the follower's /health 200;
+    SIGTERM drains rank 0, whose stop directive lets rank 1 exit, both
+    with 0."""
+    import signal
+    work = REPO / "build" / "cli-12e"
+    work.mkdir(parents=True, exist_ok=True)
+    port, health, ctrl = _free_port(), _free_port(), _free_port()
+    coord = f"127.0.0.1:{_free_port()}"
+    procs, logs = [], []
+    for rank in range(2):
+        out = work / f"rank{rank}.json"
+        out.unlink(missing_ok=True)
+        env = dict(os.environ, TMPDIR=str(work),
+                   KGCT_FLIGHT_DIR=str(work / "flight"),
+                   GLOO_SOCKET_IFNAME="lo", KGCT_COORDINATOR=coord,
+                   KGCT_NUM_PROCESSES="2", KGCT_PROCESS_ID=str(rank),
+                   KGCT_CONTROL_PORT=str(ctrl),
+                   KGCT_FOLLOWER_ADDRS=f"127.0.0.1:{ctrl}")
+        argv = ["--model", MODEL, "--tensor-parallel-size", "2",
+                "--distributed", "--device", "cuda:0",
+                "--hbm-utilization", "0.1", "--max-num-seqs", "8",
+                "--host", "127.0.0.1",
+                "--port", str(port if rank == 0 else health)]
+        logs.append(open(work / f"rank{rank}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--cli-rank",
+             json.dumps({"rank": rank, "device": "cuda:0", "argv": argv,
+                         "out": str(out)})],
+            cwd=REPO, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        res = asyncio.run(_drive_cli_tp(port, health, procs, cfg.vocab_size))
+        t0 = time.perf_counter()
+        procs[0].send_signal(signal.SIGTERM)
+        rcs = [procs[0].wait(timeout=DRAIN_GRACE_S),
+               procs[1].wait(timeout=ABORT_BOUND_S)]
+        res["sigterm_exit_s"] = time.perf_counter() - t0
+        if rcs != [0, 0]:
+            raise RuntimeError(f"12e: the ranks exited {rcs} after SIGTERM")
+    except BaseException:
+        for rank, f in enumerate(logs):
+            f.flush()
+            log(f"12e rank {rank} log tail:\n"
+                + (work / f"rank{rank}.log").read_text()[-4000:])
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(2)]
+    _launched("12e", ranks, ("paged_decode", "flash_prefill",
+                             "flash_prefill_hist"))
+    if res["follower_health"] != 200:
+        raise RuntimeError(f"12e: follower /health {res['follower_health']}")
+    served = {tuple(p): t for p, t in ranks[0]["requests"]}
+    ties: list = []
+    for i, (prompt, body) in enumerate(zip(res.pop("prompts"),
+                                           res.pop("bodies"))):
+        toks = served.get(tuple(prompt))
+        if toks is None or body["usage"]["completion_tokens"] != len(toks):
+            raise RuntimeError(f"12e request {i}: the engine served "
+                               f"{None if toks is None else len(toks)} "
+                               f"tokens, the reply says {body['usage']}")
+        _held_forced(f"12e request {i}", toks, None, prompt, params, cfg,
+                     device, ties)
+    res.update(launches=[r["launches"] for r in ranks], near_ties=ties)
+    log(f"CLI tp 2 (12e): up in {res['up_s']:.1f} s, {len(CLI_TP_PROMPTS)} "
+        f"requests in {res['wall_s']:.2f} s | {card}")
+    return res
 
 
 def main() -> int:
@@ -3298,10 +4024,35 @@ def main() -> int:
     # Phase 11: the router in front of replicas on the same weights.
     log("router:", json.dumps(check_router(cfg_engine, params, device,
                                            attn)), "|", card)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     phase(f"{MODEL} bf16 router (11)")
+
+    # Phases 12 and 12c: tp 2 as two ranks on this card (gloo), held to
+    # the tp=1 tokens of these weights; then the group abort.
+    log("tp:", json.dumps(check_tp(cfg, params, device, card, [0, 0],
+                                   "gloo", abort=True)), "|", card)
+    phase(f"{MODEL} bf16 tp 2 (12, 12c)")
+    # Phase 12e: the server's CLI at tp 2, two --distributed ranks.
+    log("cli tp:", json.dumps(check_cli_tp(cfg, params, device, card)), "|",
+        card)
+    phase(f"{MODEL} bf16 CLI tp 2 (12e)")
+    # Phase 12d: the same over NCCL, where two cards exist.
+    if torch.cuda.device_count() >= 2:
+        log("nccl tp:", json.dumps(check_tp(cfg, params, device, card,
+                                            [0, 1], "nccl", abort=False)))
+        phase(f"{MODEL} bf16 nccl tp 2 (12d)")
+    else:
+        log("nccl tp: not run (1 card)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 12b: expert parallelism, mixtral-8x7b int4 at ep 2.
+    log("ep:", json.dumps(check_ep(get_model_config("mixtral-8x7b").replace(
+        quantization="int4", quant_group_size=GROUP), device, card,
+        EP_LAYERS)), "|", card)
+    phase("mixtral-8x7b int4 ep 2 (12b)")
 
     # Phase 3b: the int4 model, kernel against int4_matmul_plain.
     cfg4 = cfg.replace(quantization="int4", quant_group_size=GROUP)
@@ -3386,4 +4137,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-child"]:
+        tp_child(json.loads(sys.argv[2]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--cli-rank"]:
+        cli_rank_child(json.loads(sys.argv[2]))
+        sys.exit(0)
     sys.exit(main())

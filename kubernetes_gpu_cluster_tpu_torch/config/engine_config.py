@@ -171,6 +171,9 @@ class ParallelConfig:
     dp: int = 1    # data parallel (replicated engine)
     ep: int = 1    # expert parallel (MoE experts)
     sp: int = 1    # sequence parallel (ring-attention prefill, long context)
+    # Debug: after every step all ranks compare a hash of the step's
+    # tokens (one extra collective per step) and raise when they differ.
+    lockstep_check: bool = False
 
     @property
     def world_size(self) -> int:

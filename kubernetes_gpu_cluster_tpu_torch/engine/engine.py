@@ -44,14 +44,24 @@ replicas as host-buffer state dicts that read the same as the JAX
 package's. The wire codec (``serving/handoff.py`` in the JAX package)
 will sit on these dicts.
 
-Not ported yet: parallelism, and the runtime sanitizers (with them the
-spec path's KV-slot shadow, its ``kv_commit_stomp`` chaos site and the
-swap-restore hook).
+Tensor and expert parallelism (``parallel/``): with ``groups`` (one
+rank's ``ParallelGroups``, e.g. ``mesh_from_config(config.parallel)``
+once ``torch.distributed`` is up) the engine holds this rank's slices of the
+weights (random init draws each full tensor from the seed and keeps the
+slice) and a pool of its local kv heads, sized by the MIN of every rank's
+free memory. Every rank samples from the same all-gathered logits with the
+same generators, so ranks fed the same requests in the same order
+(``serving/multihost.py``) step in lockstep. pp (ROADMAP A7b) and sp (A7c)
+are refused.
+
+Not ported yet: the runtime sanitizers (with them the spec path's KV-slot
+shadow, its ``kv_commit_stomp`` chaos site and the swap-restore hook).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import NamedTuple, Optional
 
@@ -66,6 +76,8 @@ from ..ops.sampling import (apply_logit_bias, apply_penalties, build_counts,
                             bump_counts, gated_top_logprobs, row_sample_keys,
                             sample_and_logprobs, spec_verify_sample,
                             token_logprobs)
+from ..parallel.sharding import (init_shard_fn, local_kv_config,
+                                 shard_params)
 from ..resilience.faults import inject as _inject_fault
 from ..utils import cdiv, get_logger
 from .kv_cache import (KVPageIO, KVTransferPrograms, KVTransferRefused,
@@ -150,18 +162,51 @@ def device_memory_stats(device: torch.device) -> tuple:
             int(torch.cuda.memory_allocated(device)))
 
 
+def refuse_unported(sizes: dict) -> None:
+    """Raise NotImplementedError for pp or sp above 1."""
+    if sizes["pp"] > 1:
+        raise NotImplementedError(
+            f"pipeline parallelism (pp={sizes['pp']}) is not ported yet "
+            "(ROADMAP A7b)")
+    if sizes["sp"] > 1:
+        raise NotImplementedError(
+            f"sequence parallelism (sp={sizes['sp']}) is not ported yet "
+            "(ROADMAP A7c)")
+
+
+def resolve_groups(config: EngineConfig, groups):
+    """The engine's ``ParallelGroups``: ``groups`` (None at world size 1).
+    pp and sp are refused, with no other path taken; a parallel config
+    without ``groups`` is refused rather than run on one rank."""
+    refuse_unported(groups.sizes if groups is not None
+                    else dataclasses.asdict(config.parallel))
+    if groups is None:
+        if config.parallel.world_size > 1:
+            raise RuntimeError(
+                f"parallel config {config.parallel} needs this rank's "
+                "groups: call parallel.initialize_distributed, then pass "
+                "groups=parallel.mesh_from_config(config.parallel)")
+        return None
+    return groups if groups.world_size > 1 else None
+
+
 class LLMEngine:
     def __init__(self, config: EngineConfig, params=None,
                  eos_token_id: Optional[int] = None,
-                 device: torch.device | str = "cuda", draft_params=None):
+                 device: torch.device | str = "cuda", draft_params=None,
+                 groups=None):
         """``draft_params``: the draft model's weights when
         ``SchedulerConfig.spec_draft_model`` is set (random from the seed
-        when None)."""
+        when None; the draft model stays whole on every rank).
+        ``groups``: this rank's ``parallel.ParallelGroups`` (None at world
+        size 1). ``params``
+        may be the full weights or this rank's slices."""
         self.device = resolve_device(device)
         sc = config.scheduler
-        if config.parallel.world_size > 1:
-            raise NotImplementedError(
-                "parallel serving is not ported yet (ROADMAP R7)")
+        groups = resolve_groups(config, groups)
+        self.groups = groups
+        if groups is not None and self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
         model_lib.check_supported(config.model)
         if config.cache.page_size is None:
             config = dataclasses.replace(config, cache=dataclasses.replace(
@@ -173,16 +218,27 @@ class LLMEngine:
         self._generator = torch.Generator().manual_seed(config.seed)
 
         if params is None:
-            logger.info("initializing random weights for %s", config.model.name)
+            logger.info("initializing random weights for %s%s",
+                        config.model.name,
+                        f" (rank {groups.rank} of {groups.sizes})"
+                        if groups is not None else "")
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
-            params = model_lib.init_params(config.model, gen, self.device)
+            params = model_lib.init_params(
+                config.model, gen, self.device,
+                shard=(init_shard_fn(config.model, groups)
+                       if groups is not None else None))
+        elif groups is not None:
+            params = shard_params(params, config.model, groups)
         self.params = params
+        # This rank's pool geometry (its kv heads); the whole model's
+        # without groups.
+        kv_model = local_kv_config(config.model, groups)
 
         free = (torch.cuda.mem_get_info(self.device)[0]
                 if self.device.type == "cuda" else None)
         num_pages = derive_num_pages(
-            config.model, config.cache, config.effective_max_len,
-            sc.max_num_seqs, free)
+            kv_model, config.cache, config.effective_max_len,
+            sc.max_num_seqs, free, groups=groups)
         # Cap: no point holding more pages than max_num_seqs full sequences.
         cap = sc.max_num_seqs * cdiv(config.effective_max_len,
                                      config.cache.page_size) + 1
@@ -197,7 +253,7 @@ class LLMEngine:
             self.obs.configure_qos_tiers(
                 sc.qos_tiers, self.scheduler.qos.default_tier,
                 fallback_budget_ms=config.resilience.default_ttft_budget_ms)
-        self.kv_cache = allocate_kv_cache(config.model, config.cache,
+        self.kv_cache = allocate_kv_cache(kv_model, config.cache,
                                           num_pages, self.device)
         if self.scheduler.spec_enabled:
             if sc.spec_draft_model:
@@ -238,7 +294,7 @@ class LLMEngine:
         # into self.kv_cache in place, so the pool is never rebound.
         self._kv_programs = KVTransferPrograms(self.device)
         self.swapper = build_kv_swapper(
-            config.model, config.cache, self.kv_cache,
+            kv_model, config.cache, self.kv_cache,
             get_kv=lambda: self.kv_cache, programs=self._kv_programs,
             obs=self.obs)
         if self.swapper is not None:
@@ -871,6 +927,8 @@ class LLMEngine:
         outs = self._step()
         dt = time.perf_counter() - t0
         self.stats.steps += 1
+        if self.groups is not None and self.config.parallel.lockstep_check:
+            self._check_lockstep(outs)
         info = self._last_step_info
         if info is None:
             self.obs.phases.discard_step()
@@ -882,6 +940,19 @@ class LLMEngine:
                 new_tokens=sum(len(o.new_token_ids or []) for o in outs),
                 mode=mode, **extra)
         return outs
+
+    def _check_lockstep(self, outs: list[RequestOutput]) -> None:
+        """Debug (``ParallelConfig.lockstep_check``): every rank hashes this
+        step's (request, tokens) pairs and the world compares the hashes;
+        a difference means the ranks' schedulers or samplers diverged."""
+        digest = hashlib.blake2b(repr(sorted(
+            (o.request_id, tuple(o.new_token_ids or ()), o.finished)
+            for o in outs)).encode(), digest_size=8).digest()
+        if not self.groups.world_agree(
+                int.from_bytes(digest, "little") >> 1):
+            raise RuntimeError(f"rank {self.groups.rank}: step "
+                               f"{self.step_count} tokens differ across "
+                               "ranks (lockstep lost)")
 
     def _step(self) -> list[RequestOutput]:
         """Run one engine iteration and return outputs for sequences that
@@ -994,18 +1065,20 @@ class LLMEngine:
                 self.stats.prefill_tokens += int(np.sum(batch.seg_ids >= 0))
                 hidden, _, _ = model_lib.forward_prefill_hist(
                     self.params, cfg, tokens, meta, self.kv_cache, page_table,
-                    int(batch.hist_len))
+                    int(batch.hist_len), groups=self.groups)
             else:
                 self.stats.prefill_tokens += sum(s.num_tokens
                                                  for s in batch.seqs)
                 hidden, _, _ = model_lib.forward_prefill(
-                    self.params, cfg, tokens, meta, self.kv_cache)
+                    self.params, cfg, tokens, meta, self.kv_cache,
+                    groups=self.groups)
             if batch.partial:
                 # Prompt not complete: KV is committed, there is nothing to
                 # sample yet.
                 self._last_step_info = ("prefill", batch.num_seqs, None)
                 return []
-            logits = model_lib.compute_logits(self.params, cfg, hidden)
+            logits = model_lib.compute_logits(self.params, cfg, hidden,
+                                              groups=self.groups)
             counts = None
             if smp.any_pen:
                 if out_tokens is not None:
@@ -1071,8 +1144,10 @@ class LLMEngine:
         step_key = self._next_step_key()
         with ph("device_dispatch"):
             hidden, _, _ = model_lib.forward_mixed(
-                self.params, cfg, tokens, meta, self.kv_cache)
-            logits = model_lib.compute_logits(self.params, cfg, hidden)
+                self.params, cfg, tokens, meta, self.kv_cache,
+                groups=self.groups)
+            logits = model_lib.compute_logits(self.params, cfg, hidden,
+                                              groups=self.groups)
             counts = (build_counts(out_tokens, cfg.vocab_size)
                       if out_tokens is not None else None)
             idx = meta.logits_indices.to(torch.int64)
@@ -1155,8 +1230,10 @@ class LLMEngine:
         step_key = self._next_step_key()
         with ph("device_dispatch"):
             hidden, _, _ = model_lib.forward_spec_verify(
-                self.params, cfg, tokens, meta, self.kv_cache)
-            logits = model_lib.compute_logits(self.params, cfg, hidden)
+                self.params, cfg, tokens, meta, self.kv_cache,
+                groups=self.groups)
+            logits = model_lib.compute_logits(self.params, cfg, hidden,
+                                              groups=self.groups)
             toks, n_acc, lps, tids, tlps = self._verify(
                 logits, smp, tokens, meta.context_lens, S, step_key,
                 out_tokens)
@@ -1223,8 +1300,10 @@ class LLMEngine:
         step_key = self._next_step_key()
         with ph("device_dispatch"):
             hidden, _, _ = model_lib.forward_spec_mixed(
-                self.params, cfg, tokens, meta, self.kv_cache, S)
-            logits = model_lib.compute_logits(self.params, cfg, hidden)
+                self.params, cfg, tokens, meta, self.kv_cache, S,
+                groups=self.groups)
+            logits = model_lib.compute_logits(self.params, cfg, hidden,
+                                              groups=self.groups)
             Tp = len(batch.tokens) - R_pad * S
             toks, n_acc, lps, tids, tlps = self._verify(
                 logits[:R_pad * S], smp_s, tokens[Tp:], meta.context_lens, S,
@@ -1330,8 +1409,9 @@ class LLMEngine:
                 hidden, _, _ = model_lib.forward_decode(
                     self.params, cfg, tokens, self._substep_meta(page_tables,
                                                                  pos),
-                    self.kv_cache)
-                logits = model_lib.compute_logits(self.params, cfg, hidden)
+                    self.kv_cache, groups=self.groups)
+                logits = model_lib.compute_logits(self.params, cfg, hidden,
+                                                  groups=self.groups)
                 if greedy:
                     tokens = torch.argmax(logits, dim=-1).to(torch.int32)
                     lps = token_logprobs(logits, tokens)

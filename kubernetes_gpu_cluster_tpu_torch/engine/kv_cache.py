@@ -98,14 +98,22 @@ def derive_num_pages(
     max_model_len: int,
     max_num_seqs: int,
     free_bytes: Optional[int] = None,
+    groups=None,
 ) -> int:
     """Size the page pool. If ``cache.num_pages`` is set, use it; else use
     ``hbm_utilization`` of the device's free memory (the reference's
     gpuMemoryUtilization semantics; the engine reads it from
     ``torch.cuda.mem_get_info``); else fall back to enough pages for
-    max_num_seqs full-length sequences (CPU/test path)."""
+    max_num_seqs full-length sequences (CPU/test path).
+
+    ``groups`` (``parallel.ParallelGroups``): the free bytes are first
+    all-reduced with MIN over every rank, so all ranks size one pool and
+    their schedulers stay in lockstep. ``model`` then carries one rank's
+    kv heads (``parallel.sharding.local_kv_config``)."""
     if cache.num_pages is not None:
         return cache.num_pages
+    if free_bytes is not None and groups is not None:
+        free_bytes = groups.world_min(free_bytes)
     if free_bytes is not None:
         budget = int(free_bytes * cache.hbm_utilization)
         n = budget // kv_cache_bytes_per_page(model, cache)

@@ -16,8 +16,11 @@ tensor bytes), through ``numpy.memmap``, so the port needs no
 Covered: every family ``config_from_hf`` reads: llama-class (Llama 1/2/3,
 TinyLlama), Qwen2/2.5 (q/k/v biases), Qwen3 (qk norms, tied embeddings),
 Mixtral (router and per-expert weights stacked ``[L, E, in, out]``) and
-OPT (its own tensor names). Not ported yet: the shard-aware streamed load
-(ROADMAP R7), which raises NotImplementedError.
+OPT (its own tensor names). Under tp/ep (``groups=``) the whole checkpoint
+is read on the host and each rank uploads only its slices
+(``parallel/sharding.py``). Not ported yet: the shard-aware streamed load
+that reads only a rank's byte ranges (ROADMAP A7d), which raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from ..config import ModelConfig, get_model_config
 from ..models import llama as model_lib
 from ..ops.quant import quantize_params
+from ..parallel.sharding import init_shard_fn
 from ..utils import get_logger
 from .engine import resolve_device
 
@@ -197,21 +201,23 @@ def _stacker(ckpt: _Checkpoint, L: int, pre: str):
 def load_weights(path: str, cfg: ModelConfig,
                  device: torch.device | str = "cuda",
                  dtype: Optional[torch.dtype] = None,
-                 shardings: Optional[Any] = None) -> Params:
+                 shardings: Optional[Any] = None, groups=None) -> Params:
     """Load a local HF checkpoint into the stacked-layer params of
     ``models/llama.py`` on ``device`` (the card unless the caller asks for
     the CPU). With ``cfg.quantization`` the matmul weights (experts
     included) and ``lm_head`` are quantized on the host before upload,
-    bit-identically to the JAX package's load."""
+    bit-identically to the JAX package's load. ``groups``
+    (``parallel.ParallelGroups``): slice on the host after the load and
+    upload this rank's part only."""
     if shardings is not None:
         raise NotImplementedError("the shard-aware streamed load is not "
-                                  "ported yet (ROADMAP R7)")
+                                  "ported yet (ROADMAP A7d)")
     model_lib.check_supported(cfg)
     device = resolve_device(device)
     ckpt = _Checkpoint(path)
     dtype = dtype or cfg.torch_dtype
     if cfg.pos_embedding == "learned":
-        return _place(_load_opt_host(ckpt, cfg), cfg, dtype, device)
+        return _place(_load_opt_host(ckpt, cfg), cfg, dtype, device, groups)
     L = cfg.num_layers
     pre = "model.layers.{}."
     stack = _stacker(ckpt, L, pre)
@@ -246,7 +252,7 @@ def load_weights(path: str, cfg: ModelConfig,
         "layers": layers,
     }
     _head(ckpt, cfg, params)
-    return _place(params, cfg, dtype, device)
+    return _place(params, cfg, dtype, device, groups)
 
 
 def _stack_experts(ckpt: _Checkpoint, cfg: ModelConfig, pre: str,
@@ -311,19 +317,24 @@ def _load_opt_host(ckpt: _Checkpoint, cfg: ModelConfig) -> Params:
 
 
 def _place(params: Params, cfg: ModelConfig, dtype: torch.dtype,
-           device: torch.device) -> Params:
+           device: torch.device, groups=None) -> Params:
     """Quantize on the host (the device never holds full-precision matmul
-    weights), check every shape against the model's layout, take float
-    weights to ``dtype``, and upload."""
+    weights), check every shape against the model's layout, keep this
+    rank's slice under ``groups``, take float weights to ``dtype``, and
+    upload."""
     if cfg.quantization:
         params = quantize_params(params, cfg.quantization,
                                  cfg.quant_group_size)
     want_layers, want_top = model_lib.param_layouts(cfg)
+    shard = (init_shard_fn(cfg, groups) if groups is not None
+             and groups.world_size > 1 else None)
 
     def put(name: str, t: torch.Tensor, shape, kind) -> torch.Tensor:
         if tuple(t.shape) != shape:
             raise ValueError(f"checkpoint {name}: shape {tuple(t.shape)} "
                              f"!= {shape} for {cfg.name}")
+        if shard is not None:
+            t = shard(name, t, name in want_top)
         return (t.to(dtype) if kind == "float" else t).to(device)
 
     out: Params = {"layers": {name: put(name, params["layers"][name], *spec)

@@ -27,6 +27,14 @@ learned positions, a biased fc1/act/fc2 MLP, tied embeddings) and Mixtral
 - Weight-only quantization (``ModelConfig.quantization`` "int8" / "int4",
   ``ops/quant.py``) is consumed by ``_dot`` alone.
 - Only the hidden states that feed sampling are projected to logits.
+- Tensor and expert parallelism (``parallel/``): every forward takes
+  ``groups``, one rank's ``ParallelGroups``, with that rank's local weights
+  (``parallel/sharding.py``). Head counts come from the local projection
+  widths; the fp32 outputs of ``wo`` and ``w_down`` (or of the MoE
+  combine) are all-reduced before the cast and before ``bo``/``b_down``;
+  the vocab-sharded embedding lookup is all-reduced and the logits'
+  vocab shards are all-gathered. With ``groups=None`` no collective and
+  no extra op runs.
 """
 
 from __future__ import annotations
@@ -206,7 +214,8 @@ def param_layouts(cfg: ModelConfig) -> tuple[dict, dict]:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str,
-                dtype: Optional[torch.dtype] = None) -> Params:
+                dtype: Optional[torch.dtype] = None,
+                shard=None) -> Params:
     """Random-init params on ``device`` from ``generator`` (which must live
     on that device): N(0, 1/fan_in) matmul weights and embeddings, unit
     norm weights, zero biases. Layout: stacked [L, ...] per-layer tensors
@@ -221,7 +230,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     weights the dense init's magnitude class (std ~0.57 and ~0.66 of
     fan_in^-0.5), as the JAX package's ``_init_params_quant`` does. The
     MoE router stays in the model dtype. Checkpoints quantize at load
-    (``engine/weights.py``)."""
+    (``engine/weights.py``).
+
+    ``shard(name, tensor, top)`` (``parallel.sharding.init_shard_fn``)
+    takes each FULL tensor right after its draw and returns the rank's
+    slice, so a tp/ep rank draws the same weights as one device and holds
+    at most one full tensor beyond its shards."""
     check_supported(cfg)
     dtype = dtype or cfg.torch_dtype
 
@@ -241,16 +255,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return codes, torch.full(sshape, fan_in ** -0.5 / top,
                                  dtype=torch.float32, device=device)
 
-    def draw(shapes):
+    def draw(shapes, top):
         out = {}
         for name, (shape, init) in shapes.items():
             if _quantized(cfg, name):
                 out[name], out[name + "_scale"] = wq(shape, init)
             else:
                 out[name] = w(shape, init)
+            if shard is not None:
+                for key in (name, name + "_scale"):
+                    if key in out:
+                        out[key] = shard(key, out[key], top)
         return out
 
-    return {"layers": draw(_shapes(cfg)), **draw(_top_shapes(cfg))}
+    return {"layers": draw(_shapes(cfg), False),
+            **draw(_top_shapes(cfg), True)}
 
 
 def params_from_numpy(np_params: Params, cfg: ModelConfig,
@@ -333,11 +352,25 @@ def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor, groups=None) -> torch.Tensor:
     """Token embedding, plus OPT's learned position embedding (HF keeps a
     +2 offset into its table). Out-of-range ids and positions gather as
-    JAX's clamped gather does (``_rows``)."""
-    h = _rows(params["embed"], tokens)
+    JAX's clamped gather does (``_rows``). Under tp each rank holds a
+    vocab slice of ``embed``: the id is clamped against the whole
+    vocabulary, the rank that holds its row gathers it, the others give
+    zeros, and one all-reduce sums them (exact: one term is nonzero)."""
+    if groups is None or groups.tp == 1:
+        h = _rows(params["embed"], tokens)
+    else:
+        table = params["embed"]
+        n = table.shape[0]
+        V = n * groups.tp
+        idx = tokens.to(torch.int64)
+        idx = torch.where(idx < 0, idx + V, idx).clamp(0, V - 1)
+        local = idx - groups.tp_rank * n
+        mine = (local >= 0) & (local < n)
+        h = table[local.clamp(0, n - 1)] * mine[:, None].to(table.dtype)
+        h = groups.all_reduce(h, "tp")
     if cfg.pos_embedding == "learned":
         h = h + _rows(params["pos_embed"], positions.to(torch.int64) + 2)
     return h
@@ -409,55 +442,71 @@ def _swiglu(lp: Params, x: torch.Tensor) -> torch.Tensor:
     return _dot(h, lp, "w_down")
 
 
-def _dense_mlp(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _reduce(out: torch.Tensor, groups, over: str = "tp") -> torch.Tensor:
+    """Sum a row-split projection's fp32 partials over ``over``; no op
+    without groups."""
+    return out if groups is None else groups.all_reduce(out, over)
+
+
+def _dense_mlp(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+               groups=None) -> torch.Tensor:
     """SwiGLU cast to x's dtype, or with ``mlp_type="mlp"`` OPT's fc1 (+
-    bias), activation, cast, fc2 (+ bias), cast."""
+    bias), activation, cast, fc2 (+ bias), cast. Under tp the fp32 output
+    of ``w_down`` is reduced before ``b_down`` (added once) and the
+    cast."""
     if cfg.mlp_type == "mlp":
         h = _dot(x, lp, "w_up")
         if "b_up" in lp:
             h = h + lp["b_up"]
-        out = _dot(MLP_ACTS[cfg.mlp_act](h).to(x.dtype), lp, "w_down")
+        out = _reduce(_dot(MLP_ACTS[cfg.mlp_act](h).to(x.dtype), lp,
+                           "w_down"), groups)
         if "b_down" in lp:
             out = out + lp["b_down"]
         return out.to(x.dtype)
-    return _swiglu(lp, x).to(x.dtype)
+    return _reduce(_swiglu(lp, x), groups).to(x.dtype)
 
 
 _EXPERT_KEYS = ("w_gate", "w_up", "w_down",
                 "w_gate_scale", "w_up_scale", "w_down_scale")
 
 
-def _moe_mlp(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _moe_mlp(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+             groups=None) -> torch.Tensor:
     """Mixtral's sparse MoE, dense-dispatch as in the JAX package: an fp32
     router, top-k, a softmax over the k logits, [T, E] combine weights
     (zero for experts a token did not choose); every expert runs over all
     T tokens through ``_dot`` on its own contiguous 2-D weight slices (an
     int4 expert goes to the int4 kernel), and the outputs combine in fp32
-    before the one cast."""
+    before the one cast. Under ep a rank holds ``E / ep`` experts and
+    takes its slice of the combine weights (under tp each expert's ffn
+    slice); the fp32 partials are reduced over ep and tp together."""
     k = cfg.num_experts_per_tok
     logits = _mm_f32(x.to(torch.float32), lp["router"])           # [T, E]
     top_vals, top_idx = torch.topk(logits, k, dim=-1)
     combine = torch.zeros_like(logits).scatter_(
         1, top_idx, torch.softmax(top_vals, dim=-1))
+    e_local = lp["w_up"].shape[0]
+    first = 0 if groups is None else groups.ep_rank * e_local
     out = torch.zeros((x.shape[0], x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    for e in range(lp["w_up"].shape[0]):
+    for e in range(e_local):
         ep = {name: lp[name][e] for name in _EXPERT_KEYS if name in lp}
-        out += combine[:, e, None] * _swiglu(ep, x)
-    return out.to(x.dtype)
+        out += combine[:, first + e, None] * _swiglu(ep, x)
+    return _reduce(out, groups, "moe").to(x.dtype)
 
 
 def _layer_loop(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                positions: torch.Tensor, attn_fn):
+                positions: torch.Tensor, attn_fn, groups=None):
     """Embed ``tokens`` and run every layer. ``attn_fn(q, k, v, layer) ->
     [T, nh, hd]`` sees a pool holding tokens written in PREVIOUS steps only
     (this step's k/v fold in directly). Returns (h, k_all, v_all) with
-    k_all/v_all [L, T, n_kv*hd], for the caller's one post-loop scatter."""
-    h = _embed(params, cfg, tokens, positions)
+    k_all/v_all [L, T, n_kv*hd] (this rank's kv heads), for the caller's
+    one post-loop scatter."""
+    h = _embed(params, cfg, tokens, positions, groups)
     layers = params["layers"]
     L = layers["wq"].shape[0]
     T = h.shape[0]
-    kd = cfg.num_kv_heads * cfg.head_dim
+    kd = layers["wk"].shape[-1]
     k_all = torch.empty((L, T, kd), dtype=h.dtype, device=h.device)
     v_all = torch.empty_like(k_all)
     rope = None
@@ -470,11 +519,12 @@ def _layer_loop(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         q, k, v = _qkv(lp, cfg, _norm(cfg, h, lp, "input_norm"), rope)
         k_all[layer] = k.reshape(T, kd)
         v_all[layer] = v.reshape(T, kd)
-        o = _dot(attn_fn(q, k, v, layer).reshape(T, -1), lp, "wo")
+        o = _reduce(_dot(attn_fn(q, k, v, layer).reshape(T, -1), lp, "wo"),
+                    groups)
         if "bo" in lp:
             o = o + lp["bo"]
         h = h + o.to(h.dtype)
-        h = h + mlp(lp, cfg, _norm(cfg, h, lp, "post_attn_norm"))
+        h = h + mlp(lp, cfg, _norm(cfg, h, lp, "post_attn_norm"), groups)
     return h, k_all, v_all
 
 
@@ -491,7 +541,7 @@ def _finish(params: Params, cfg: ModelConfig, h: torch.Tensor, kv: KVCache,
 # ---------------------------------------------------------------------------
 
 def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                    meta: PrefillMeta, kv: KVCache):
+                    meta: PrefillMeta, kv: KVCache, groups=None):
     """Ragged prefill over T flattened tokens; each sequence's whole prompt
     is in the batch, so attention needs no pool. Returns
     (normed_selected [B, d], kv (updated in place), raw_hidden [T, d])."""
@@ -503,14 +553,15 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                         scale, window)
 
     h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
-                                  attn_fn)
+                                  attn_fn, groups)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping,
                    meta.logits_indices)
 
 
 def forward_prefill_hist(params: Params, cfg: ModelConfig,
                          tokens: torch.Tensor, meta: PrefillMeta, kv: KVCache,
-                         page_table: torch.Tensor, hist_len: int):
+                         page_table: torch.Tensor, hist_len: int,
+                         groups=None):
     """Chunked prefill: one sequence's chunk attending to its pool history
     plus itself causally. Returns (normed_selected [1, d], kv, raw_hidden)."""
     scale = cfg.head_dim ** -0.5
@@ -522,13 +573,13 @@ def forward_prefill_hist(params: Params, cfg: ModelConfig,
             hist_len, scale, layer=layer, n_valid=n_valid)
 
     h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
-                                  attn_fn)
+                                  attn_fn, groups)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping,
                    meta.logits_indices)
 
 
 def forward_mixed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                  meta: MixedMeta, kv: KVCache):
+                  meta: MixedMeta, kv: KVCache, groups=None):
     """Mixed prefill/decode step: ONE forward over the combined token axis
     (embedding, matmuls and norms run once for chunk and decode tokens
     together), attention split at ``n_prefill = T - R_pad``: chunk tokens
@@ -547,14 +598,14 @@ def forward_mixed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             n_valid=n_valid)
 
     h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
-                                  attn_fn)
+                                  attn_fn, groups)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping,
                    meta.logits_indices)
 
 
 def forward_spec_mixed(params: Params, cfg: ModelConfig,
                        tokens: torch.Tensor, meta: MixedMeta, kv: KVCache,
-                       S: int):
+                       S: int, groups=None):
     """Spec×mixed step: ONE forward over ``[prefill chunk | verify
     slices]`` with attention split at ``n_prefill = T - R_pad * S``
     (ops.attention.spec_mixed_attention). Returns (normed_selected
@@ -572,13 +623,14 @@ def forward_spec_mixed(params: Params, cfg: ModelConfig,
             n_valid=n_valid)
 
     h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
-                                  attn_fn)
+                                  attn_fn, groups)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping,
                    meta.logits_indices)
 
 
 def forward_spec_verify(params: Params, cfg: ModelConfig,
-                        tokens: torch.Tensor, meta: SpecMeta, kv: KVCache):
+                        tokens: torch.Tensor, meta: SpecMeta, kv: KVCache,
+                        groups=None):
     """Speculative verification: every running sequence's ``[last token,
     k drafts]`` slice in one forward over the flat ``[R_pad * S]`` axis,
     attention by ``ops.attention.spec_verify_attention``. Returns
@@ -593,12 +645,12 @@ def forward_spec_verify(params: Params, cfg: ModelConfig,
                                      meta.context_lens, scale, layer=layer)
 
     h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
-                                  attn_fn)
+                                  attn_fn, groups)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping, None)
 
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   meta: DecodeMeta, kv: KVCache):
+                   meta: DecodeMeta, kv: KVCache, groups=None):
     """Decode step: B sequences, one new token each, against the paged pool
     (positions 0..ctx-2 in the pool; this step's k/v fold in directly).
     Returns (normed_hidden [B, d], kv, raw_hidden [B, d])."""
@@ -610,15 +662,18 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                       layer=layer)
 
     h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
-                                  attn_fn)
+                                  attn_fn, groups)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping, None)
 
 
 def compute_logits(params: Params, cfg: ModelConfig,
-                   hidden: torch.Tensor) -> torch.Tensor:
+                   hidden: torch.Tensor, groups=None) -> torch.Tensor:
     """hidden [B, d] -> logits [B, V] in fp32, never rounded to the model
     dtype on the way. A tied head multiplies by the model-dtype embedding
-    (never quantized: there is no ``lm_head``)."""
+    (never quantized: there is no ``lm_head``). Under tp each rank's vocab
+    shard is all-gathered into the whole ``[B, V]`` on every rank."""
     if cfg.tie_word_embeddings:
-        return _mm_f32(hidden, params["embed"].T)
-    return _dot(hidden, params, "lm_head")
+        logits = _mm_f32(hidden, params["embed"].T)
+    else:
+        logits = _dot(hidden, params, "lm_head")
+    return logits if groups is None else groups.all_gather(logits, dim=-1)

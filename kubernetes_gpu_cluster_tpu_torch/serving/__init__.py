@@ -3,8 +3,9 @@ server on the standard-library HTTP layer ``serving/http.py`` (server and
 client), with the fleet plane's replica side: the KV wire codec
 (``serving/handoff.py``), the fleet prefix cache's policy
 (``serving/fleet_cache.py``) and the ``/internal/*`` routes; and the
-router (``serving/router.py``), the fleet's front door over N replicas.
-Not ported yet: multihost serving (ROADMAP A7) and the interleave
+router (``serving/router.py``), the fleet's front door over N replicas;
+and multi-rank serving (``serving/multihost.py``): rank 0's directive
+broadcast to its tp/ep followers. Not ported yet: the interleave
 sanitizer hook."""
 
 __all__ = ["APIServer", "build_server", "Router"]

@@ -55,7 +55,15 @@ with the router's ``/internal/resume`` re-dispatch. Frames go through
 integrity on by default), peer calls through the standard-library client
 of ``serving/http.py``. Every failed pull or push degrades to local
 recompute (the same tokens, slower), counted on ``/metrics`` and traced.
-Not served: multihost / parallel serving (ROADMAP A7).
+Tensor and expert parallelism (``--tensor-parallel-size``,
+``--expert-parallel-size``): rank 0 serves the
+API and broadcasts each engine-loop iteration's adds and aborts to the
+follower ranks (``serving/multihost.py``), which serve only ``/health``.
+With ``--distributed`` each rank is its own pod (``KGCT_*`` environment,
+``parallel/mesh.py``); without it, on one node, rank 0 starts the other
+ranks as local processes on the next cards. KV handoff, migration and the
+fleet prefix cache are off under a leader. pp and sp are refused (ROADMAP
+A7b, A7c).
 """
 
 from __future__ import annotations
@@ -76,6 +84,8 @@ from ..config.engine_config import ResilienceConfig
 from ..engine import SamplingParams
 from ..engine.qos import resolve_tier_name, tenant_key_of
 from ..observability import Histogram
+from ..parallel.mesh import initialize_distributed, mesh_from_config
+from ..parallel.sharding import validate
 from ..resilience import (AdmissionController, DrainState, ResilienceHub,
                           StepWatchdog)
 from ..resilience.drain import drain_and_notify
@@ -114,8 +124,6 @@ TTFT_BUDGET_HEADER = "x-kgct-ttft-budget-ms"
 # (it never serves handoff exports and always honors an inbound
 # prefill-url header).
 REPLICA_ROLES = ("prefill", "decode", "both")
-PARALLEL_TODO = "multihost and parallel serving are not ported yet " \
-                "(ROADMAP A7)"
 
 
 class DisaggStats:
@@ -295,6 +303,10 @@ class APIServer:
         # order gives the round-robin target rotation a stable spelling).
         self.peer_list = (tuple(u.rstrip("/") for u in peer_pool)
                           if peer_pool else ())
+        # KV handoff does not compose with multi-rank lockstep: an import
+        # or hold on rank 0 alone would leave the followers' schedulers
+        # behind, so a leader serves colocated only.
+        self._handoff_ok = engine.leader is None
         # Bounded pull: a single sequence's handoff can never legitimately
         # exceed the local pool's own byte size (plus header slack).
         kv = engine.engine.kv_cache
@@ -339,10 +351,13 @@ class APIServer:
         # siblings' host tiers. Requires the local prefix cache. Off =
         # byte-identical serving.
         pc = engine.engine.scheduler.prefix_cache
-        self.fleet_on = bool(fleet_prefix_cache and pc is not None)
+        self.fleet_on = bool(fleet_prefix_cache and self._handoff_ok
+                             and pc is not None)
         if fleet_prefix_cache and not self.fleet_on:
-            logger.warning("fleet prefix cache disabled: prefix caching is "
-                           "off (--enable-prefix-caching)")
+            logger.warning(
+                "fleet prefix cache disabled: %s",
+                "prefix caching is off (--enable-prefix-caching)"
+                if pc is None else "multi-rank leader (lockstep)")
         self._pull_policy = None
         self._spill_queue: Optional[SpillQueue] = None
         self._spill_task: Optional[asyncio.Task] = None
@@ -852,7 +867,7 @@ class APIServer:
         until the router's /internal/resume re-dispatch claims it."""
         if request.content_type == "application/octet-stream":
             return await self._kv_handoff_recv(request)
-        if self.role == "decode":
+        if self.role == "decode" or not self._handoff_ok:
             return _error(404, f"kv handoff is not served by this replica "
                                f"(role={self.role})")
         try:
@@ -948,7 +963,7 @@ class APIServer:
         may never fail over here). The router's /internal/resume claims it
         by request id; TTL/cap bounds in MigrationStore keep a crashing
         fleet from ballooning this replica."""
-        if self.role == "prefill":
+        if self.role == "prefill" or not self._handoff_ok:
             self.migration.on_migrate("recv", "error")
             return _error(404, "migration push is not served by this "
                                f"replica (role={self.role})")
@@ -1043,7 +1058,7 @@ class APIServer:
         "recompute", byte-identical for greedy/seeded sampling). The mode
         is echoed in RESUME_MODE_HEADER for the router's failover
         attribution."""
-        if self.role == "prefill":
+        if self.role == "prefill" or not self._handoff_ok:
             return _error(404, "resume is not served by this replica "
                                f"(role={self.role})")
         if self.drain_state.is_draining:
@@ -1667,7 +1682,7 @@ class APIServer:
         handoff = None
         pull_t0 = None
         prefill_url = request.headers.get(PREFILL_URL_HEADER)
-        if (prefill_url and self.role != "prefill"
+        if (prefill_url and self.role != "prefill" and self._handoff_ok
                 and prefill_url.startswith(("http://", "https://"))):
             if (self.prefill_pool is not None
                     and prefill_url.rstrip("/") not in self.prefill_pool):
@@ -1738,7 +1753,8 @@ class APIServer:
         # ledger the router replays on mid-stream failover.
         migrate_url = request.headers.get(MIGRATE_URL_HEADER)
         embed_tokens = bool(
-            stream and migrate_url and self.role != "prefill"
+            stream and migrate_url and self._handoff_ok
+            and self.role != "prefill"
             and migrate_url.startswith(("http://", "https://"))
             and (self.peer_pool is None
                  or migrate_url.rstrip("/") in self.peer_pool))
@@ -2063,16 +2079,18 @@ def build_server(config: EngineConfig, tokenizer_path: Optional[str] = None,
                  peer_pool: Optional[list] = None,
                  fleet_prefix_cache: bool = False,
                  integrity_checks: bool = True,
-                 draft_params=None) -> APIServer:
+                 draft_params=None, leader=None, groups=None) -> APIServer:
     """The server over a new engine on ``device`` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU). ``leader``/``groups``: rank 0 of a
+    multi-rank group (``serving/multihost.py``, ``parallel/mesh.py``)."""
     if role not in REPLICA_ROLES:
         raise ValueError(f"unknown replica role {role!r} "
                          f"(known: {', '.join(REPLICA_ROLES)})")
     tokenizer = load_tokenizer(tokenizer_path)
     engine = AsyncLLMEngine(config, params=params,
                             eos_token_id=tokenizer.eos_token_id,
-                            device=device, draft_params=draft_params)
+                            device=device, draft_params=draft_params,
+                            leader=leader, groups=groups)
     return APIServer(engine, tokenizer, model_name or config.model.name,
                      resilience=config.resilience, role=role,
                      prefill_pool=prefill_pool, peer_pool=peer_pool,
@@ -2094,15 +2112,20 @@ def main(argv: Optional[list[str]] = None) -> None:
 
     Flag names are the JAX package's CLI, which mirrors the reference's
     vllmConfig/extraArgs surface, so rendered manifests carry over.
-    ``--distributed`` and any parallel size above 1 wait for ROADMAP A7:
-    each raises ValueError. ``--trust-remote-code``,
-    ``--disable-custom-all-reduce`` and ``--enforce-eager`` are accepted
-    and change nothing here (local checkpoints only; one card, no custom
-    all-reduce; eager PyTorch)."""
+    ``--trust-remote-code``, ``--disable-custom-all-reduce`` and
+    ``--enforce-eager`` are accepted and change nothing here (local
+    checkpoints only; the all-reduce is torch.distributed's; eager
+    PyTorch).
+
+    tp or ep above 1: with ``--distributed`` this process is one rank of
+    the ``KGCT_*`` environment (rank 0 serves, the others follow);
+    without it rank 0 starts the other ranks itself on ``cuda:1..`` (or
+    the CPU) and forms the group over localhost."""
     import argparse
 
     from ..config import (CacheConfig, ParallelConfig, SchedulerConfig,
                           get_model_config)
+    from ..engine.engine import refuse_unported
     from ..engine.qos import parse_qos_tiers
 
     p = argparse.ArgumentParser()
@@ -2204,16 +2227,20 @@ def main(argv: Optional[list[str]] = None) -> None:
                    help="accepted; local checkpoints never execute remote "
                    "code here")
     p.add_argument("--disable-custom-all-reduce", action="store_true",
-                   help="accepted; one card has no all-reduce")
+                   help="accepted for reference-values parity; the port's "
+                   "all-reduce is torch.distributed's (NCCL or gloo) and "
+                   "has no custom path to disable")
     p.add_argument("--distributed", action="store_true",
-                   help="refused (A7)")
+                   help="this process is one rank of a multi-process group "
+                   "(coordinator, world and rank from KGCT_COORDINATOR, "
+                   "KGCT_NUM_PROCESSES, KGCT_PROCESS_ID; parallel/mesh.py)")
     args = p.parse_args(argv)
 
-    sizes = (args.tensor_parallel_size, args.pipeline_parallel_size,
-             args.sequence_parallel_size, args.expert_parallel_size)
-    if args.distributed or any(s > 1 for s in sizes):
-        raise ValueError(f"--distributed / parallel sizes {sizes}: "
-                         f"{PARALLEL_TODO}")
+    parallel = ParallelConfig(tp=args.tensor_parallel_size,
+                              pp=args.pipeline_parallel_size,
+                              sp=args.sequence_parallel_size,
+                              ep=args.expert_parallel_size)
+    refuse_unported(dataclasses.asdict(parallel))
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; the server runs on "
@@ -2254,6 +2281,30 @@ def main(argv: Optional[list[str]] = None) -> None:
         if args.qos_default_tier not in {t.name for t in qos_tiers}:
             p.error(f"--qos-default-tier {args.qos_default_tier!r} is not "
                     "a configured tier")
+    if args.expert_parallel_size > 1 and not model_cfg.is_moe:
+        # ep on a dense model replicates all work across the axis.
+        p.error(f"--expert-parallel-size {args.expert_parallel_size} "
+                f"requires an MoE model; {model_cfg.name} is dense")
+    # Refuse a layout the model cannot split before any rank starts.
+    validate(model_cfg, parallel.tp, parallel.ep)
+    follower, local_ranks = None, []
+    if args.distributed:
+        from .multihost import CONTROL_PORT, DirectiveFollower
+        if parallel.world_size > 1 and not os.environ.get("KGCT_COORDINATOR"):
+            raise ValueError(
+                f"--distributed at world size {parallel.world_size} needs "
+                "KGCT_COORDINATOR, KGCT_NUM_PROCESSES and KGCT_PROCESS_ID "
+                "(without --distributed one node starts its own ranks)")
+        if int(os.environ.get("KGCT_PROCESS_ID", "0")) > 0:
+            # Bound before the rendezvous blocks, so the leader's connect
+            # finds the listener.
+            follower = DirectiveFollower(
+                port=int(os.environ.get("KGCT_CONTROL_PORT", CONTROL_PORT)))
+            _exit_with_parent()
+        initialize_distributed(device=device)
+    elif parallel.world_size > 1:
+        local_ranks = _start_local_ranks(argv, parallel.world_size, device)
+    groups = mesh_from_config(parallel)
     config = EngineConfig(
         model=model_cfg,
         cache=CacheConfig(hbm_utilization=args.hbm_utilization,
@@ -2272,7 +2323,7 @@ def main(argv: Optional[list[str]] = None) -> None:
             spec_k_max=args.spec_k_max,
             qos_tiers=qos_tiers,
             qos_default_tier=args.qos_default_tier),
-        parallel=ParallelConfig(),
+        parallel=parallel,
         resilience=(ResilienceConfig(drain_grace_s=args.drain_grace_s)
                     if args.drain_grace_s is not None
                     else ResilienceConfig()),
@@ -2281,7 +2332,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     params = None
     if args.weights:
         from ..engine.weights import load_weights
-        params = load_weights(args.weights, config.model, device=device)
+        params = load_weights(args.weights, config.model, device=device,
+                              groups=groups)
     draft_params = None
     if args.spec_draft_weights:
         from ..engine.weights import load_weights
@@ -2291,13 +2343,28 @@ def main(argv: Optional[list[str]] = None) -> None:
             args.spec_draft_weights,
             get_model_config(args.spec_draft_model).replace(
                 dtype=model_cfg.dtype), device=device)
+    if follower is not None:
+        _serve_follower(follower, config, args, params, device, groups,
+                        draft_params)
+        return
+    leader = None
+    if groups is not None:
+        from .multihost import DirectiveLeader, follower_addrs_from_env
+        leader = DirectiveLeader(
+            follower_addrs_from_env(),
+            heartbeat_interval_s=config.resilience.heartbeat_interval_s)
     server = build_server(config, args.tokenizer, args.model, params=params,
                           device=device, role=args.role,
                           prefill_pool=_url_list(args.prefill_pool),
                           peer_pool=_url_list(args.peer_pool),
                           fleet_prefix_cache=args.fleet_prefix_cache,
                           integrity_checks=not args.no_integrity_checks,
-                          draft_params=draft_params)
+                          draft_params=draft_params, leader=leader,
+                          groups=groups)
+    if leader is not None:
+        # Connect now (an empty directive steps nobody): every follower
+        # then hears heartbeats from the start and the stop at shutdown.
+        leader.broadcast([], [])
     app = server.build_app()
 
     async def _arm_sigterm(app_):
@@ -2314,7 +2381,113 @@ def main(argv: Optional[list[str]] = None) -> None:
                 on_drained=lambda: os.kill(os.getpid(), signal.SIGINT)))
 
     app.on_startup.append(_arm_sigterm)
-    run_app(app, host=args.host, port=args.port)
+    try:
+        run_app(app, host=args.host, port=args.port)
+    finally:
+        _reap(local_ranks)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_local_ranks(argv: Optional[list[str]], world: int,
+                       device: torch.device) -> list:
+    """One node, one container: start ranks 1..world-1 as this CLI with
+    ``--distributed`` (rank k on ``cuda:<index+k>``, or the CPU), a
+    control port each and an ephemeral health port, join the group over
+    localhost as rank 0, and point the leader at them. The followers exit
+    when the leader's channel closes or this process dies."""
+    import subprocess
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # The group never leaves this host: gloo binds the loopback.
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    coord = f"127.0.0.1:{_free_port()}"
+    ctrl = [_free_port() for _ in range(1, world)]
+    procs = []
+    for k in range(1, world):
+        dev = (f"cuda:{(device.index or 0) + k}" if device.type == "cuda"
+               else "cpu")
+        env = dict(os.environ, KGCT_COORDINATOR=coord,
+                   KGCT_NUM_PROCESSES=str(world), KGCT_PROCESS_ID=str(k),
+                   KGCT_CONTROL_PORT=str(ctrl[k - 1]),
+                   KGCT_PARENT_PID=str(os.getpid()))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", __spec__.name, *argv, "--distributed",
+             "--device", dev, "--port", "0", "--host", "127.0.0.1"],
+            env=env))
+    os.environ["KGCT_FOLLOWER_ADDRS"] = ",".join(
+        f"127.0.0.1:{c}" for c in ctrl)
+    logger.info("started %d local ranks (pids %s); coordinator %s",
+                world - 1, [q.pid for q in procs], coord)
+    try:
+        initialize_distributed(coord, world, 0, device=device)
+    except BaseException:
+        _reap(procs)
+        raise
+    return procs
+
+
+def _reap(procs: list, timeout_s: float = 30.0) -> None:
+    """Wait for local ranks to exit after the leader's stop; kill any that
+    do not within ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    for q in procs:
+        try:
+            q.wait(timeout=max(deadline - time.monotonic(), 0.1))
+        except Exception:
+            logger.warning("local rank pid %d did not exit; killing", q.pid)
+            q.kill()
+            q.wait()
+
+
+def _exit_with_parent() -> None:
+    """A local rank (``KGCT_PARENT_PID``) exits when the rank 0 that
+    started it is gone, even before the directive channel is up."""
+    ppid = int(os.environ.get("KGCT_PARENT_PID", "0"))
+    if not ppid:
+        return
+    import threading
+
+    def watch():
+        while True:
+            time.sleep(1.0)
+            try:
+                os.kill(ppid, 0)
+            except OSError:
+                logger.error("rank 0 (pid %d) is gone; exiting", ppid)
+                os._exit(1)
+    threading.Thread(target=watch, daemon=True,
+                     name="kgct-parent-watch").start()
+
+
+def _serve_follower(follower, config: EngineConfig, args, params,
+                    device: torch.device, groups, draft_params) -> None:
+    """Rank > 0: no API, the same engine stepping on rank 0's directives
+    (``serving/multihost.py``), and ``/health`` tied to the loop's
+    liveness for the pod's probes."""
+    from ..engine import LLMEngine
+    from ..resilience.heartbeat import LoopLiveness
+    from .multihost import serve_follower_health
+    liveness = LoopLiveness(
+        timeout_s=max(config.resilience.liveness_timeout_s,
+                      config.resilience.watchdog_timeout_s))
+    health = serve_follower_health(args.port, host=args.host,
+                                   liveness=liveness)
+    tokenizer = load_tokenizer(args.tokenizer)
+    engine = LLMEngine(config, params=params,
+                       eos_token_id=tokenizer.eos_token_id, device=device,
+                       draft_params=draft_params, groups=groups)
+    try:
+        follower.run(engine, liveness=liveness,
+                     liveness_timeout_s=config.resilience.liveness_timeout_s)
+    finally:
+        health.shutdown()
 
 
 if __name__ == "__main__":

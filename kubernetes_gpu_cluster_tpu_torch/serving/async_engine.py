@@ -19,8 +19,18 @@ export, the decode replica's import, drain-time ``export_running`` with
 ``post_exception(StreamMigratedError)`` to sever the client stream, and
 ``generate(resume_outputs=...)`` for the failover re-dispatch.
 
-Not ported yet: the multihost leader (directive broadcast to follower
-ranks) and the interleave sanitizer hook.
+Multi-rank serving (``serving/multihost.py``): with ``leader=`` (a
+``DirectiveLeader``, on rank 0 of a tp/ep group) every worker-loop
+iteration's adds and aborts are broadcast to the follower ranks BEFORE the
+local apply and step, so every rank's engine schedules and steps in
+lockstep. Handoff imports and KV holds are ignored under a leader (rank 0
+alone would leave the followers' schedulers behind). A failed broadcast
+fails every waiter, group-aborts the in-flight work and detaches the
+leader; a rank of a real process group then stops taking work (its
+collectives have no partner left) and flips the watchdog, so the pod is
+restarted.
+
+Not ported yet: the interleave sanitizer hook.
 """
 
 from __future__ import annotations
@@ -57,10 +67,15 @@ class StreamChunk:
 class AsyncLLMEngine:
     def __init__(self, config: EngineConfig, params=None,
                  eos_token_id: Optional[int] = None,
-                 device: torch.device | str = "cuda", draft_params=None):
+                 device: torch.device | str = "cuda", draft_params=None,
+                 leader=None, groups=None):
+        """``leader``: ``serving.multihost.DirectiveLeader`` when this
+        process is rank 0 of a multi-rank group. ``groups``: the engine's
+        ``parallel.ParallelGroups`` (None at world size 1)."""
         self.engine = LLMEngine(config, params=params,
                                 eos_token_id=eos_token_id, device=device,
-                                draft_params=draft_params)
+                                draft_params=draft_params, groups=groups)
+        self.leader = leader
         # resilience watchdog (set by the server): armed around each step()
         # so a hung device dispatch flips /health.
         self.watchdog = None
@@ -108,6 +123,15 @@ class AsyncLLMEngine:
             self._shutdown = True
             self._cv.notify()
         self._thread.join(timeout=30)
+        if self.leader is not None:
+            if self._thread.is_alive():
+                # A wedged worker may still write the directive sockets;
+                # closing now would interleave frames on the followers'
+                # NDJSON stream. Leave the sockets to the OS.
+                logger.warning("worker thread still alive after join "
+                               "timeout; skipping leader close")
+            else:
+                self.leader.close()
 
     # -- request API ---------------------------------------------------------
 
@@ -150,7 +174,15 @@ class AsyncLLMEngine:
         normally (local recompute, the same tokens). ``hold_kv``: park the
         finished request's KV for the export seam. ``resume_outputs``:
         output tokens already relayed elsewhere, replayed as forced context
-        when the entry admits without a usable ``handoff``."""
+        when the entry admits without a usable ``handoff``. Under a leader
+        ``handoff``, ``hold_kv``, ``arrival_t0`` and ``resume_outputs``
+        raise ValueError: rank 0 alone would leave the followers behind."""
+        if self.leader is not None and (
+                handoff is not None or hold_kv or arrival_t0 is not None
+                or resume_outputs):
+            raise ValueError("handoff, hold_kv, arrival_t0 and "
+                             "resume_outputs are refused under a multihost "
+                             "leader")
         if request_id in self._reserved:
             self._reserved.discard(request_id)
             queue: asyncio.Queue = self._queues[request_id]
@@ -258,6 +290,10 @@ class AsyncLLMEngine:
                 self._holds.discard(rid)
                 self._arrival_t0s.pop(rid, None)
                 self._resumes.pop(rid, None)
+            if self.leader is not None and not self._broadcast(inbox, aborts):
+                if self.engine.groups is not None:
+                    return
+                continue
             for rid in aborts:
                 self.engine.abort_request(rid)
                 self._post(StreamChunk(rid, [], [], True, "abort"))
@@ -306,6 +342,52 @@ class AsyncLLMEngine:
                     return
                 if wd is not None:
                     wd.disarm()
+
+    def _broadcast(self, inbox: list, aborts: list) -> bool:
+        """Send this iteration's events to the follower ranks before the
+        local apply and step. On failure (a dead follower; the process
+        group is broken): fail every waiter first, detach the leader and
+        group-abort the in-flight work under the armed watchdog. A rank of
+        a real process group then stops the worker and marks the watchdog
+        dead (no partner is left for its collectives); a single-device
+        leader serves on. Returns False after a failure."""
+        try:
+            self.leader.broadcast(inbox, aborts)
+            return True
+        except Exception as e:
+            logger.exception("directive broadcast failed; group-aborting "
+                             "in-flight work")
+            cause = e
+        err = RuntimeError(f"multihost process group failed: {cause}")
+        for rid in list(self._queues):
+            self._post_exc(rid, err)
+        try:
+            self.leader.close()
+        except Exception:
+            pass
+        self.leader = None
+        from .multihost import group_abort
+        wd = self.watchdog
+        if wd is not None:
+            wd.arm()
+        try:
+            group_abort(self.engine)
+        except Exception:
+            logger.exception("group-abort drain failed")
+        finally:
+            if wd is not None:
+                wd.disarm()
+        if self.engine.groups is not None:
+            if wd is not None:
+                wd.mark_dead(f"process group lost: {cause}")
+            with self._cv:
+                self._shutdown = True
+                ops, self._ops = self._ops, []
+            for _, fut in ops:
+                if fut is not None:
+                    fut.set_exception(RuntimeError(
+                        "engine stopped: process group lost"))
+        return False
 
     def _import(self, rid: str, ids: list[int], params: SamplingParams,
                 handoff: dict) -> bool:

@@ -1100,18 +1100,25 @@ class TestWorkerOpShutdownGuard:
 
 # -- what the port refuses -------------------------------------------------
 
-@pytest.mark.parametrize("argv", [["--distributed"],
-                                  ["--tensor-parallel-size", "2"],
-                                  ["--pipeline-parallel-size", "2"],
-                                  ["--sequence-parallel-size", "2"],
-                                  ["--expert-parallel-size", "2"]])
-def test_cli_refuses_fleet_and_parallel_flags(argv):
-    """Multihost and parallel serving wait for ROADMAP A7 (the fleet flags
-    serve since the fleet plane's replica side was ported:
-    ``tests/test_torch_fleet.py``)."""
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--distributed", "--tensor-parallel-size", "2"], ValueError,
+     "KGCT_COORDINATOR"),
+    (["--tensor-parallel-size", "8"], ValueError, "not divisible by tp=8"),
+    (["--pipeline-parallel-size", "2"], NotImplementedError, "A7b"),
+    (["--sequence-parallel-size", "2"], NotImplementedError, "A7c"),
+    (["--expert-parallel-size", "2"], SystemExit, None)])
+def test_cli_refuses_fleet_and_parallel_flags(argv, exc, match, capsys):
+    """What the CLI still refuses, before any rank starts: pp and sp wait
+    for ROADMAP A7b and A7c; tp that does not divide the heads; ep on a
+    dense model; ``--distributed`` across ranks without the ``KGCT_*``
+    rendezvous. tp and ep themselves serve
+    (``tests/test_torch_distributed.py``), as do the fleet flags
+    (``tests/test_torch_fleet.py``)."""
     from kubernetes_gpu_cluster_tpu_torch.serving.api_server import main
-    with pytest.raises(ValueError, match="A7"):
+    with pytest.raises(exc, match=match):
         main(["--model", "debug-tiny", "--device", "cpu", *argv])
+    if exc is SystemExit:
+        assert "requires an MoE model" in capsys.readouterr().err
 
 
 def test_cli_without_a_card_fails_at_once():

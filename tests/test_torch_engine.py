@@ -269,9 +269,15 @@ def test_no_device_default_raises(monkeypatch, weights):
 
 
 def test_unported_engine_options_raise(weights):
-    """More than one device still raises; the host KV tier is ported, so
-    swap_space_gb > 0 builds a swapper, on the CPU too."""
-    with pytest.raises(NotImplementedError):
+    """pp and sp still raise (ROADMAP A7b, A7c); tp above 1 needs the
+    process group (tests/test_torch_parallel.py runs it); the host KV tier
+    is ported, so swap_space_gb > 0 builds a swapper, on the CPU too."""
+    for axis, ref in (("pp", "A7b"), ("sp", "A7c")):
+        with pytest.raises(NotImplementedError, match=ref):
+            LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
+                                   parallel=ParallelConfig(**{axis: 2})),
+                      params=weights[1], device="cpu")
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
                                parallel=ParallelConfig(tp=2)),
                   params=weights[1], device="cpu")

@@ -70,6 +70,22 @@ torch.set_num_threads(2)
 DEAD_PEER = "http://127.0.0.1:1"      # connection refused at once
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _module_flight_dir(tmp_path_factory):
+    """Flight-recorder dumps made while the module's servers start or stop
+    land in a directory of this run, never in the recorder's default."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("KGCT_FLIGHT_DIR", str(tmp_path_factory.mktemp("flight")))
+        yield
+
+
+@pytest.fixture(autouse=True)
+def _flight_dir(monkeypatch, tmp_path):
+    """Each case's dumps (a quarantine, a drain), the JAX server's
+    included, land in its own ``tmp_path``."""
+    monkeypatch.setenv("KGCT_FLIGHT_DIR", str(tmp_path))
+
+
 @pytest.fixture(autouse=True)
 def _clean_faults():
     configure_faults(None)

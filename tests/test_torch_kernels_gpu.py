@@ -20,7 +20,18 @@ largest output.
 The KV transfer layer (host tier, export/import seams) has no kernel of
 its own: its card cases hold page copies to bit equality, pin the host-page
 reuse fence, and drive small card engines through swap and import.
+
+Tensor parallelism: two rank processes at tp 2 give the one-card engine's
+tokens, over NCCL on two cards (skipped with one) and over gloo with both
+ranks on card 0.
 """
+
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -791,3 +802,95 @@ def test_handoff_frame_between_card_engines(cuda_device):
     assert final == ref
     alloc = b.scheduler.allocator
     assert alloc.num_free == alloc.num_pages - 1
+
+
+# -- tensor parallelism on the card -------------------------------------------
+
+TP_RANK = r'''
+import json, os, sys
+import torch
+sys.path.insert(0, os.environ["KGCT_REPO"])
+from kubernetes_gpu_cluster_tpu_torch.config import (
+    CacheConfig, EngineConfig, ParallelConfig, SchedulerConfig,
+    get_model_config)
+from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine, SamplingParams
+from kubernetes_gpu_cluster_tpu_torch.parallel import (
+    initialize_distributed, mesh_from_config)
+rank = int(os.environ["KGCT_PROCESS_ID"])
+device = torch.device("cuda", int(os.environ["KGCT_TEST_DEVICES"].split(",")[rank]))
+initialize_distributed(backend=os.environ["KGCT_TEST_BACKEND"], device=device,
+                       timeout_s=120)
+cfg = json.loads(os.environ["KGCT_TEST_CFG"])
+par = ParallelConfig(tp=2, lockstep_check=True)
+eng = LLMEngine(EngineConfig(
+    model=get_model_config(cfg["model"]).replace(**cfg["over"]),
+    cache=CacheConfig(page_size=16, num_pages=128),
+    scheduler=SchedulerConfig(max_num_seqs=4, max_prefill_tokens=128),
+    parallel=par), device=device, groups=mesh_from_config(par))
+outs = eng.generate(cfg["prompts"], SamplingParams(max_tokens=16,
+                                                   temperature=0.0))
+print("TOKENS:" + json.dumps([o.output_token_ids for o in outs]), flush=True)
+'''
+
+# tinyllama-1.1b's heads (32 q, 4 kv, hd 64) at two layers, fp32: tp 2 puts
+# 16 q and 2 kv heads on each rank.
+TP_MODEL = dict(model="tinyllama-1.1b",
+                over=dict(num_layers=2, dtype="float32"),
+                prompts=[[5, 99, 23, 44, 17] * 4, list(range(1, 200)),
+                         [7, 3, 9]])
+
+
+@pytest.fixture(params=["nccl", "gloo"])
+def tp_devices(request, cuda_device):
+    """(backend, card per rank): NCCL needs two cards, one rank each; gloo
+    runs both ranks on card 0."""
+    if request.param == "nccl":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("NCCL tp 2 needs two cards (NCCL refuses two ranks "
+                        "on one device)")
+        return "nccl", [0, 1]
+    return "gloo", [0, 0]
+
+
+@pytest.mark.gpu
+def test_tp2_engine_on_the_card_matches_tp1(tp_devices, tmp_path):
+    """Two ranks at tp 2 through the kernels give the one-card engine's
+    greedy tokens (fp32, so summation order stays far from ties)."""
+    backend, devices = tp_devices
+    ref = LLMEngine(EngineConfig(
+        model=get_model_config(TP_MODEL["model"]).replace(**TP_MODEL["over"]),
+        cache=CacheConfig(page_size=16, num_pages=128),
+        scheduler=SchedulerConfig(max_num_seqs=4, max_prefill_tokens=128)),
+        device="cuda")
+    want = [o.output_token_ids for o in ref.generate(
+        TP_MODEL["prompts"], SamplingParams(max_tokens=16,
+                                            temperature=0.0))]
+    del ref
+    torch.cuda.empty_cache()
+    script = tmp_path / "rank.py"
+    script.write_text(TP_RANK)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, KGCT_REPO=str(Path(__file__).parents[1]),
+                   KGCT_COORDINATOR=f"127.0.0.1:{port}",
+                   KGCT_NUM_PROCESSES="2", KGCT_PROCESS_ID=str(rank),
+                   KGCT_TEST_DEVICES=",".join(map(str, devices)),
+                   KGCT_TEST_BACKEND=backend, GLOO_SOCKET_IFNAME="lo",
+                   KGCT_TEST_CFG=json.dumps(TP_MODEL))
+        procs.append(subprocess.Popen([sys.executable, str(script)], env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        line = next(ln for ln in out.splitlines() if ln.startswith("TOKENS:"))
+        assert json.loads(line[len("TOKENS:"):]) == want

@@ -822,7 +822,8 @@ class TestInterop:
     def test_spec_engine_constructs_other_options_still_raise(self, params):
         """Spec decoding serves with and without a draft model (the async
         front door passes the draft weights through); swap builds its host
-        tier, and more than one device still raises."""
+        tier; pp still raises (ROADMAP A7b) and tp needs the process
+        group."""
         from kubernetes_gpu_cluster_tpu_torch.serving.async_engine import \
             AsyncLLMEngine
         aeng = AsyncLLMEngine(_cfg(True, draft="debug-tiny"), params=params,
@@ -836,7 +837,11 @@ class TestInterop:
                                       cache=CacheConfig(swap_space_gb=0.1)),
                          params=params, device="cpu")
         assert swap.swapper is not None
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="A7b"):
+            LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
+                                   parallel=ParallelConfig(pp=2)),
+                      params=params, device="cpu")
+        with pytest.raises(RuntimeError, match="initialize_distributed"):
             LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
                                    parallel=ParallelConfig(tp=2)),
                       params=params, device="cpu")

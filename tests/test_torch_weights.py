@@ -35,6 +35,7 @@ from kubernetes_gpu_cluster_tpu_torch.engine import weights as TW
 from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import allocate_kv_cache
 from kubernetes_gpu_cluster_tpu_torch.models import llama as TM
 from kubernetes_gpu_cluster_tpu_torch.models import registry as TR
+from kubernetes_gpu_cluster_tpu_torch.parallel import make_mesh, shard_params
 
 torch.set_num_threads(2)
 
@@ -155,7 +156,7 @@ def test_config_and_unported_checkpoints(hf_llama, tmp_path, monkeypatch):
     cfg, wpath, tpath = TW.resolve_model(path)
     assert (cfg, wpath, tpath) == (got, path, path)
     assert TW.resolve_model("llama-3-8b")[1:] == (None, None)
-    with pytest.raises(NotImplementedError, match="R7"):
+    with pytest.raises(NotImplementedError, match="A7d"):
         TW.load_weights(path, got, device="cpu", shardings={})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -278,3 +279,30 @@ def test_registry_resolves_presets_and_checkpoints(hf_family):
     assert got.keys() == want.keys()
     assert all(torch.equal(got["layers"][k], want["layers"][k])
                for k in want["layers"])
+
+
+@pytest.mark.parametrize("method", [None, "int4"])
+@pytest.mark.parametrize("name", ["llama", "mixtral", "opt"])
+def test_sharded_load_is_the_rank_slice_of_the_full_load(
+        hf_llama, hf_family, name, method):
+    """``load_weights(groups=)`` reads the whole checkpoint on the host and
+    keeps one rank's slice: for every rank of tp 2 (x ep 2 for mixtral)
+    the tensors equal ``shard_params`` of the full load, int4 scales
+    included."""
+    path = hf_llama[1] if name == "llama" else hf_family[name][1]
+    cfg = TW.config_from_hf(path).replace(quantization=method,
+                                          quant_group_size=GS)
+    full = TW.load_weights(path, cfg, device="cpu")
+    tp, ep = 2, 2 if cfg.is_moe else 1
+    for rank in range(tp * ep):
+        groups = make_mesh(tp=tp, ep=ep, rank=rank)
+        got = TW.load_weights(path, cfg, device="cpu", groups=groups)
+        want = shard_params(full, cfg, groups)
+        assert set(got) == set(want)
+        assert set(got["layers"]) == set(want["layers"])
+        for key in want["layers"]:
+            assert torch.equal(got["layers"][key], want["layers"][key]), key
+        for key in (k for k in want if k != "layers"):
+            assert torch.equal(got[key], want[key]), key
+        assert got["layers"]["wq"].shape[-1] * tp == \
+            full["layers"]["wq"].shape[-1]
