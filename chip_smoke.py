@@ -264,6 +264,30 @@ first records the tp=1 engine's greedy tokens for the same requests:
      run to compare with first), the three attention kernels launched on
      both ranks, the follower's ``/health`` 200, and after SIGTERM rank 0
      drains and its stop directive lets rank 1 exit, both with 0.
+13.  pp 2: llama-3-8b bf16 at full width and depth as two pipeline
+     stages on card 0 over gloo (16 layers and their slab of a 1024-page
+     pool each; the embedding and head whole on both), phase 12's
+     requests through ``AsyncLLMEngine(leader=)``. pp turns mixed
+     batching off, so the one-device reference runs with mixed (and spec)
+     off too; arrivals follow it step for step and the two runs must step
+     the same batches. Tokens held as in 12. ``paged_decode``,
+     ``flash_prefill`` and ``flash_prefill_hist`` launch on both ranks.
+     Logged: each rank's weight GB, one send/recv of a decode step's
+     [8, 4096] bf16 hidden between the stages (gloo point-to-point ops
+     take host memory, so it travels through a pinned buffer) and one
+     broadcast of it from the last stage, in ms, and tokens/s at pp 2
+     beside pp 1.
+13b. sp 2: the same model as two sp ranks on card 0, each holding the
+     whole model and a fixed 1024-page pool (both read one
+     ``mem_get_info``); the requests' long prompt is 2048 tokens, so one
+     prefill runs ring attention at T 2048 (1024 rows a rank). Held as in
+     13 against the one-device engine with mixed off; ``paged_decode``
+     launches on both ranks and ``flash_prefill`` on neither (the ring
+     takes its place, as in the JAX package). Logged: the ring's ms at
+     T 2048 beside ``flash_prefill``'s on the same inputs, and its
+     largest difference from it.
+13c. The server's CLI with ``--pipeline-parallel-size 2``: 12e's requests
+     and checks with pp in place of tp.
 12d. With two cards, phase 12 over NCCL on cards 0 and 1; with one, the
      line ``nccl tp: not run (1 card)``.
 12b. ep 2: mixtral-8x7b int4 at tp 1, ep 2, full width (depth
@@ -3258,6 +3282,10 @@ FAULT_AFTER = 3      # 12c: broadcasts before the injected failure
 ABORT_BOUND_S = 60.0  # 12c: both ranks gone within this after the fault
 ALLREDUCE_REPS = 50
 EP_LAYERS = None     # 12b's depth: None is mixtral-8x7b's full 32 layers
+SP_LONG = 2048       # 13b: one prefill of T 2048 through the ring
+P2P_REPS = 50
+RING_REPS = 5
+RING_ERR = 5e-2      # 13b: ring vs flash_prefill on bf16 inputs
 TP_DIR = REPO / "build" / "tp"
 
 
@@ -3324,6 +3352,73 @@ def spawn_ranks(tag: str, spec: dict, devices: list, backend: str,
             raise RuntimeError(f"{tag}: rank {rank} exited {p.returncode}")
         results.append(json.loads(out.read_text()))
     return results
+
+
+def _time_stage_hops(groups, device) -> dict:
+    """13: ms of one send/recv of a decode step's [TP_SEQS, 4096] bf16
+    hidden between the two stages (ping-pong, per hop) and of one
+    broadcast of it from the last stage."""
+    x = torch.randn((TP_SEQS, 4096), dtype=torch.bfloat16, device=device)
+    other = groups.peer("pp", 1)
+
+    def ping():
+        if groups.is_first_stage:
+            groups.send(x, other)
+            groups.recv(x.shape, x.dtype, device, other)
+        else:
+            groups.send(groups.recv(x.shape, x.dtype, device, other), other)
+    out = {}
+    for name, fn, per in (("p2p_ms", ping, 2),
+                          ("bcast_ms", lambda: groups.broadcast_from_last_stage(
+                              x), 1)):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(P2P_REPS):
+            fn()
+        torch.cuda.synchronize(device)
+        out[name] = (time.perf_counter() - t0) / (P2P_REPS * per) * 1e3
+    return out
+
+
+def _time_ring(groups, cfg, device) -> dict:
+    """13b: the ring's ms (wall, synchronized: its hops go through host
+    memory) at T ``SP_LONG`` on one sequence of random bf16 q/k/v at the
+    model's heads, beside ``flash_prefill``'s on the same inputs, and the
+    largest difference between the two."""
+    from kubernetes_gpu_cluster_tpu_torch.ops.attention import (
+        prefill_window, ragged_prefill_attention)
+    from kubernetes_gpu_cluster_tpu_torch.parallel.sp import \
+        ring_prefill_attention
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    T, hd = SP_LONG, cfg.head_dim
+    q = _randn(gen, (T, cfg.num_heads, hd), torch.bfloat16, device)
+    k = _randn(gen, (T, cfg.num_kv_heads, hd), torch.bfloat16, device)
+    v = _randn(gen, (T, cfg.num_kv_heads, hd), torch.bfloat16, device)
+    seg = torch.zeros(T, dtype=torch.int32, device=device)
+    pos = torch.arange(T, dtype=torch.int32, device=device)
+    scale = hd ** -0.5
+    win = prefill_window(seg)
+
+    def ring():
+        return ring_prefill_attention(q, k, v, seg, pos, scale,
+                                      groups=groups)
+
+    def flash():
+        return ragged_prefill_attention(q, k, v, seg, pos, scale, win)
+    err = (ring().float() - flash().float()).abs().max().item()
+    out = {"T": T, "max_abs_diff": err}
+    for name, fn, reps in (("ring_ms", ring, RING_REPS),
+                           ("flash_prefill_ms", flash, 5 * RING_REPS)):
+        fn()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+    return out
 
 
 def _time_allreduce(groups, device) -> float:
@@ -3437,7 +3532,8 @@ def tp_child(spec: dict) -> None:
     t0 = time.perf_counter()
     initialize_distributed(backend=spec["backend"], device=device,
                            timeout_s=300)
-    par = ParallelConfig(tp=spec["tp"], ep=spec["ep"])
+    par = ParallelConfig(tp=spec["tp"], ep=spec["ep"],
+                         pp=spec.get("pp", 1), sp=spec.get("sp", 1))
     groups = mesh_from_config(par)
     model = get_model_config(spec["model"]).replace(
         quantization=spec["quant"], quant_group_size=GROUP,
@@ -3509,6 +3605,10 @@ def tp_child(spec: dict) -> None:
         res["launches"] = {n: m.launches for n, m in counters.items()}
     if spec.get("allreduce"):
         res["allreduce_ms"] = _time_allreduce(groups, device)
+    if par.pp > 1:
+        res.update(_time_stage_hops(groups, device))
+    if par.sp > 1:
+        res["ring"] = _time_ring(groups, model, device)
     if spec.get("abort"):
         # 12c on the same engines: a fresh channel, then the fault.
         if rank == 0:
@@ -3690,6 +3790,89 @@ def check_tp(cfg, params, device, card: str, devices: list,
     return out
 
 
+def check_pp_sp(cfg, params, device, card: str, axis: str) -> dict:
+    """Phase 13 (``axis`` "pp") or 13b ("sp"): llama-3-8b bf16 at pp 2 or
+    sp 2 as two ranks on card 0 over gloo, against the one-device engine
+    on the same seed with mixed batching off (pp and sp turn it off)."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (
+        CacheConfig, EngineConfig, SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill_hist
+    ps = 16
+    tag = "13" if axis == "pp" else "13b"
+    reqs = tp_requests(cfg.vocab_size, n_req=7,
+                       long_len=TP_LONG if axis == "pp" else SP_LONG)
+    engine = LLMEngine(EngineConfig(
+        model=cfg, seed=SEED, cache=CacheConfig(page_size=ps,
+                                                num_pages=TP_PAGES),
+        scheduler=SchedulerConfig(max_num_seqs=TP_SEQS,
+                                  mixed_batch_enabled=False)),
+        params=params, device=device)
+    ref = drive(engine, reqs, f"{axis}1", flash_prefill_hist)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tag, {"model": cfg.name, "quant": None, "tp": 1,
+                              "ep": 1, axis: 2, "page_size": ps,
+                              "pages": TP_PAGES, "reqs": _req_spec(reqs)},
+                        [0, 0], "gloo", timeout_s=600)
+    lead = ranks[0]
+    _same_schedule(tag, lead["schedule"], ref["schedule"])
+    ties: list = []
+    equal = [rid for _, rid, prompt, _ in reqs if _held_forced(
+        f"{axis} 2 {rid}", lead["tokens"][rid], ref["tokens"][rid], prompt,
+        params, cfg, device, ties)]
+    kinds = ("prefill", "decode") + (("chunked",) if axis == "pp" else ())
+    for kind in kinds:
+        if lead["kinds"].get(kind, 0) <= 0:
+            raise RuntimeError(f"{tag}: no {kind} step ran: {lead['kinds']}")
+    if lead["kinds"].get("mixed", 0):
+        raise RuntimeError(f"{tag}: a mixed step ran under {axis}")
+    if axis == "pp":
+        _launched(tag, ranks, ("paged_decode", "flash_prefill",
+                               "flash_prefill_hist"))
+    else:
+        _launched(tag, ranks, ("paged_decode",))
+        for r in ranks:
+            if r["launches"]["flash_prefill"]:
+                raise RuntimeError(f"{tag}: flash_prefill launched on rank "
+                                   f"{r['rank']} under sp: {r['launches']}")
+            if r["ring"]["max_abs_diff"] > RING_ERR:
+                raise RuntimeError(f"{tag}: ring attention differs from "
+                                   f"flash_prefill by {r['ring']}")
+    out = {"axis": axis, "one_device_tokens_per_s": ref["tokens_per_s"],
+           "tokens_per_s": lead["tokens_per_s"], "wall_s": lead["wall_s"],
+           "kinds": lead["kinds"], "steps": len(ref["schedule"]),
+           "same_schedule": True,
+           "equal_to_one_device": f"{len(equal)} of {len(reqs)}",
+           "near_ties": ties, "launches": [r["launches"] for r in ranks],
+           "init_s": [r["init_s"] for r in ranks],
+           "weight_gb": [r["weight_gb"] for r in ranks],
+           "kv_shape": [r["kv_shape"] for r in ranks],
+           "spawn_s": time.perf_counter() - t0}
+    if axis == "pp":
+        out.update(p2p_ms=[r["p2p_ms"] for r in ranks],
+                   bcast_ms=[r["bcast_ms"] for r in ranks])
+        log(f"pp 2 (gloo, one card): {ref['tokens_per_s']:.1f} tokens/s "
+            f"at pp 1, {lead['tokens_per_s']:.1f} at pp 2; weights "
+            f"{[round(r['weight_gb'], 2) for r in ranks]} GB a rank; one "
+            f"send/recv of [{TP_SEQS}, 4096] bf16 "
+            f"{[round(r['p2p_ms'], 4) for r in ranks]} ms, one broadcast "
+            f"{[round(r['bcast_ms'], 4) for r in ranks]} ms | {card}")
+    else:
+        out["ring"] = [r["ring"] for r in ranks]
+        log(f"sp 2 (gloo, one card): {ref['tokens_per_s']:.1f} tokens/s "
+            f"at sp 1, {lead['tokens_per_s']:.1f} at sp 2; ring attention "
+            f"at T {SP_LONG}: {[round(r['ring']['ring_ms'], 3) for r in ranks]}"
+            f" ms against flash_prefill "
+            f"{[round(r['ring']['flash_prefill_ms'], 4) for r in ranks]} ms"
+            f" | {card}")
+    log(f"{axis} 2 on one card: gloo stages every hop through host memory;"
+        " this run measures no NVLink")
+    return out
+
+
 def check_ep(cfg, device, card: str, layers) -> dict:
     """Phase 12b: mixtral-8x7b int4 at tp 1, ep 2 on two ranks of one card
     against the one-device engine on the same seed."""
@@ -3796,14 +3979,15 @@ def cli_rank_child(spec: dict) -> None:
 
 
 async def _drive_cli_tp(port: int, health: int, procs: list,
-                        vocab: int) -> dict:
-    """12e's requests: the long prompt first (chunked), the others half a
-    second later, all greedy; the follower's /health while they run."""
+                        vocab: int, tag: str = "12e") -> dict:
+    """12e's (13c's) requests: the long prompt first (chunked), the others
+    half a second later, all greedy; the follower's /health while they
+    run."""
     deadline = time.monotonic() + 600
     while True:
         for rank, p in enumerate(procs):
             if p.poll() is not None:
-                raise RuntimeError(f"12e: rank {rank} exited {p.returncode} "
+                raise RuntimeError(f"{tag}: rank {rank} exited {p.returncode} "
                                    "before serving")
         try:
             if (await http_call(port, "GET", "/health"))["status"] == 200:
@@ -3811,7 +3995,7 @@ async def _drive_cli_tp(port: int, health: int, procs: list,
         except OSError:
             pass
         if time.monotonic() > deadline:
-            raise RuntimeError("12e: rank 0 never answered /health")
+            raise RuntimeError(f"{tag}: rank 0 never answered /health")
         await asyncio.sleep(0.5)
     up_s = 600 - (deadline - time.monotonic())
     rng = np.random.default_rng(SEED + 12)
@@ -3831,22 +4015,25 @@ async def _drive_cli_tp(port: int, health: int, procs: list,
     wall = time.perf_counter() - t0
     for r in replies:
         if r["status"] != 200:
-            raise RuntimeError(f"12e request: {r['status']} "
+            raise RuntimeError(f"{tag} request: {r['status']} "
                                f"{r['body'][:300]}")
     return {"up_s": up_s, "wall_s": wall, "follower_health": follower["status"],
             "prompts": prompts,
             "bodies": [json.loads(r["body"]) for r in replies]}
 
 
-def check_cli_tp(cfg, params, device, card: str) -> dict:
-    """Phase 12e: the server's CLI at tp 2, two ``--distributed`` ranks on
+def check_cli_tp(cfg, params, device, card: str,
+                 flag: str = "--tensor-parallel-size",
+                 tag: str = "12e") -> dict:
+    """Phase 12e (13c with ``flag`` --pipeline-parallel-size): the
+    server's CLI at size 2 of ``flag``, two ``--distributed`` ranks on
     card 0 (each ``chip_smoke.py --cli-rank``). Requests over HTTP; the
     engine's tokens held to the one-device weights by teacher forcing; the
     attention kernels launched on both ranks; the follower's /health 200;
     SIGTERM drains rank 0, whose stop directive lets rank 1 exit, both
     with 0."""
     import signal
-    work = REPO / "build" / "cli-12e"
+    work = REPO / "build" / f"cli-{tag}"
     work.mkdir(parents=True, exist_ok=True)
     port, health, ctrl = _free_port(), _free_port(), _free_port()
     coord = f"127.0.0.1:{_free_port()}"
@@ -3860,7 +4047,7 @@ def check_cli_tp(cfg, params, device, card: str) -> dict:
                    KGCT_NUM_PROCESSES="2", KGCT_PROCESS_ID=str(rank),
                    KGCT_CONTROL_PORT=str(ctrl),
                    KGCT_FOLLOWER_ADDRS=f"127.0.0.1:{ctrl}")
-        argv = ["--model", MODEL, "--tensor-parallel-size", "2",
+        argv = ["--model", MODEL, flag, "2",
                 "--distributed", "--device", "cuda:0",
                 "--hbm-utilization", "0.1", "--max-num-seqs", "8",
                 "--host", "127.0.0.1",
@@ -3872,18 +4059,19 @@ def check_cli_tp(cfg, params, device, card: str) -> dict:
                          "out": str(out)})],
             cwd=REPO, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
     try:
-        res = asyncio.run(_drive_cli_tp(port, health, procs, cfg.vocab_size))
+        res = asyncio.run(_drive_cli_tp(port, health, procs, cfg.vocab_size,
+                                        tag))
         t0 = time.perf_counter()
         procs[0].send_signal(signal.SIGTERM)
         rcs = [procs[0].wait(timeout=DRAIN_GRACE_S),
                procs[1].wait(timeout=ABORT_BOUND_S)]
         res["sigterm_exit_s"] = time.perf_counter() - t0
         if rcs != [0, 0]:
-            raise RuntimeError(f"12e: the ranks exited {rcs} after SIGTERM")
+            raise RuntimeError(f"{tag}: the ranks exited {rcs} after SIGTERM")
     except BaseException:
         for rank, f in enumerate(logs):
             f.flush()
-            log(f"12e rank {rank} log tail:\n"
+            log(f"{tag} rank {rank} log tail:\n"
                 + (work / f"rank{rank}.log").read_text()[-4000:])
         raise
     finally:
@@ -3895,24 +4083,24 @@ def check_cli_tp(cfg, params, device, card: str) -> dict:
             f.close()
     ranks = [json.loads((work / f"rank{r}.json").read_text())
              for r in range(2)]
-    _launched("12e", ranks, ("paged_decode", "flash_prefill",
+    _launched(tag, ranks, ("paged_decode", "flash_prefill",
                              "flash_prefill_hist"))
     if res["follower_health"] != 200:
-        raise RuntimeError(f"12e: follower /health {res['follower_health']}")
+        raise RuntimeError(f"{tag}: follower /health {res['follower_health']}")
     served = {tuple(p): t for p, t in ranks[0]["requests"]}
     ties: list = []
     for i, (prompt, body) in enumerate(zip(res.pop("prompts"),
                                            res.pop("bodies"))):
         toks = served.get(tuple(prompt))
         if toks is None or body["usage"]["completion_tokens"] != len(toks):
-            raise RuntimeError(f"12e request {i}: the engine served "
+            raise RuntimeError(f"{tag} request {i}: the engine served "
                                f"{None if toks is None else len(toks)} "
                                f"tokens, the reply says {body['usage']}")
-        _held_forced(f"12e request {i}", toks, None, prompt, params, cfg,
+        _held_forced(f"{tag} request {i}", toks, None, prompt, params, cfg,
                      device, ties)
     res.update(launches=[r["launches"] for r in ranks], near_ties=ties)
-    log(f"CLI tp 2 (12e): up in {res['up_s']:.1f} s, {len(CLI_TP_PROMPTS)} "
-        f"requests in {res['wall_s']:.2f} s | {card}")
+    log(f"CLI {flag} 2 ({tag}): up in {res['up_s']:.1f} s, "
+        f"{len(CLI_TP_PROMPTS)} requests in {res['wall_s']:.2f} s | {card}")
     return res
 
 
@@ -4037,6 +4225,18 @@ def main() -> int:
     log("cli tp:", json.dumps(check_cli_tp(cfg, params, device, card)), "|",
         card)
     phase(f"{MODEL} bf16 CLI tp 2 (12e)")
+    # Phases 13 and 13b: pp 2 and sp 2 as two ranks on this card (gloo),
+    # held to the one-device engine with mixed off; 13c the CLI at pp 2.
+    log("pp:", json.dumps(check_pp_sp(cfg, params, device, card, "pp")),
+        "|", card)
+    phase(f"{MODEL} bf16 pp 2 (13)")
+    log("sp:", json.dumps(check_pp_sp(cfg, params, device, card, "sp")),
+        "|", card)
+    phase(f"{MODEL} bf16 sp 2 (13b)")
+    log("cli pp:", json.dumps(check_cli_tp(
+        cfg, params, device, card, "--pipeline-parallel-size", "13c")), "|",
+        card)
+    phase(f"{MODEL} bf16 CLI pp 2 (13c)")
     # Phase 12d: the same over NCCL, where two cards exist.
     if torch.cuda.device_count() >= 2:
         log("nccl tp:", json.dumps(check_tp(cfg, params, device, card,

@@ -51,8 +51,16 @@ weights (random init draws each full tensor from the seed and keeps the
 slice) and a pool of its local kv heads, sized by the MIN of every rank's
 free memory. Every rank samples from the same all-gathered logits with the
 same generators, so ranks fed the same requests in the same order
-(``serving/multihost.py``) step in lockstep. pp (ROADMAP A7b) and sp (A7c)
-are refused.
+(``serving/multihost.py``) step in lockstep.
+
+Pipeline and sequence parallelism (``parallel/pp.py``, ``parallel/sp.py``),
+as the JAX engine: under pp each rank holds its stage's layers and their
+slab of the pool, and prefill, decode substeps and history chunks run
+through ``pipeline_forward``; under sp every rank holds the tp slices and
+the whole pool, prefill attention runs around the sp ring, and decode and
+history chunks run on every rank. Neither has a mixed or a spec-verify
+forward, so both turn off mixed batching and speculative decoding (with
+the JAX package's warnings), and they do not combine with each other.
 
 Not ported yet: the runtime sanitizers (with them the spec path's KV-slot
 shadow, its ``kv_commit_stomp`` chaos site and the swap-restore hook).
@@ -61,6 +69,7 @@ shadow, its ``kv_commit_stomp`` chaos site and the swap-restore hook).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import time
 from typing import NamedTuple, Optional
@@ -76,8 +85,10 @@ from ..ops.sampling import (apply_logit_bias, apply_penalties, build_counts,
                             bump_counts, gated_top_logprobs, row_sample_keys,
                             sample_and_logprobs, spec_verify_sample,
                             token_logprobs)
+from ..parallel.pp import pipeline_forward
 from ..parallel.sharding import (init_shard_fn, local_kv_config,
-                                 shard_params)
+                                 shard_params, validate)
+from ..parallel.sp import ring_prefill_attention
 from ..resilience.faults import inject as _inject_fault
 from ..utils import cdiv, get_logger
 from .kv_cache import (KVPageIO, KVTransferPrograms, KVTransferRefused,
@@ -162,23 +173,31 @@ def device_memory_stats(device: torch.device) -> tuple:
             int(torch.cuda.memory_allocated(device)))
 
 
-def refuse_unported(sizes: dict) -> None:
-    """Raise NotImplementedError for pp or sp above 1."""
-    if sizes["pp"] > 1:
-        raise NotImplementedError(
-            f"pipeline parallelism (pp={sizes['pp']}) is not ported yet "
-            "(ROADMAP A7b)")
-    if sizes["sp"] > 1:
-        raise NotImplementedError(
-            f"sequence parallelism (sp={sizes['sp']}) is not ported yet "
-            "(ROADMAP A7c)")
+def validate_layout(config: EngineConfig, sizes: dict) -> None:
+    """The JAX engine's refusals of a parallel layout, before any rank
+    starts: sp and pp together, prefill buckets that the sp ring cannot
+    split, ep on a dense model, and (``parallel.sharding.validate``) a
+    model the tp, ep or pp split does not divide."""
+    sp, pp, ep = sizes["sp"], sizes["pp"], sizes["ep"]
+    if sp > 1:
+        if pp > 1:
+            raise ValueError("sp and pp cannot combine in one mesh")
+        bad = [b for b in config.scheduler.prefill_buckets if b % sp]
+        if bad:
+            raise ValueError(
+                f"prefill buckets {bad} not divisible by sp={sp}"
+                " (ring attention shards the token axis)")
+    if ep > 1 and not config.model.is_moe:
+        raise ValueError(f"ep={ep} requires an MoE model; "
+                         f"{config.model.name} is dense")
+    validate(config.model, sizes["tp"], ep, pp)
 
 
 def resolve_groups(config: EngineConfig, groups):
-    """The engine's ``ParallelGroups``: ``groups`` (None at world size 1).
-    pp and sp are refused, with no other path taken; a parallel config
-    without ``groups`` is refused rather than run on one rank."""
-    refuse_unported(groups.sizes if groups is not None
+    """The engine's ``ParallelGroups``: ``groups`` (None at world size 1),
+    after ``validate_layout``; a parallel config without ``groups`` is
+    refused rather than run on one rank."""
+    validate_layout(config, groups.sizes if groups is not None
                     else dataclasses.asdict(config.parallel))
     if groups is None:
         if config.parallel.world_size > 1:
@@ -255,6 +274,26 @@ class LLMEngine:
                 fallback_budget_ms=config.resilience.default_ttft_budget_ms)
         self.kv_cache = allocate_kv_cache(kv_model, config.cache,
                                           num_pages, self.device)
+        self.pp_size = groups.pp if groups is not None else 1
+        self.sp_size = groups.sp if groups is not None else 1
+        self._prefill_attn = None
+        if self.sp_size > 1:
+            self._prefill_attn = functools.partial(ring_prefill_attention,
+                                                   groups=groups)
+        if self.pp_size > 1 or self.sp_size > 1:
+            # No mixed or spec-verify forward runs through the pipeline or
+            # the ring: those layouts keep the prefill-else-decode policy.
+            if self.scheduler.mixed_enabled:
+                logger.warning(
+                    "mixed batching disabled: no mixed forward path under "
+                    "pp=%d/sp=%d meshes", self.pp_size, self.sp_size)
+                self.scheduler.mixed_enabled = False
+            if self.scheduler.spec_enabled:
+                logger.warning(
+                    "spec decode disabled: no spec-verify forward path under "
+                    "pp=%d/sp=%d meshes", self.pp_size, self.sp_size)
+                self.scheduler.spec_enabled = False
+            self.scheduler.spec_mixed_enabled = False
         if self.scheduler.spec_enabled:
             if sc.spec_draft_model:
                 # Built after the target pool: its own pool takes at most
@@ -264,7 +303,7 @@ class LLMEngine:
                 from .spec.draft_model import build_draft_runner
                 self.scheduler.spec_proposer = build_draft_runner(
                     config, sc.spec_draft_model, params=draft_params,
-                    device=self.device)
+                    device=self.device, groups=groups)
             ctrl = self.scheduler.spec_controller
             self.obs.spec_current_k = (ctrl.current_k if ctrl is not None
                                        else sc.effective_spec_k_max)
@@ -1063,15 +1102,12 @@ class LLMEngine:
         with ph("device_dispatch"):
             if batch.hist_len is not None:
                 self.stats.prefill_tokens += int(np.sum(batch.seg_ids >= 0))
-                hidden, _, _ = model_lib.forward_prefill_hist(
-                    self.params, cfg, tokens, meta, self.kv_cache, page_table,
-                    int(batch.hist_len), groups=self.groups)
+                hidden = self._forward("prefill_hist", tokens, meta,
+                                       page_table, int(batch.hist_len))
             else:
                 self.stats.prefill_tokens += sum(s.num_tokens
                                                  for s in batch.seqs)
-                hidden, _, _ = model_lib.forward_prefill(
-                    self.params, cfg, tokens, meta, self.kv_cache,
-                    groups=self.groups)
+                hidden = self._forward("prefill", tokens, meta)
             if batch.partial:
                 # Prompt not complete: KV is committed, there is nothing to
                 # sample yet.
@@ -1097,6 +1133,25 @@ class LLMEngine:
                                            top_lps=top_l)
         self._last_step_info = ("prefill", batch.num_seqs, None)
         return outputs
+
+    def _forward(self, kind: str, tokens, meta, page_table=None,
+                 hist_len=None) -> torch.Tensor:
+        """The normed rows of a "prefill", "decode" or "prefill_hist" step
+        that feed sampling: through the pipeline under pp, with ring
+        attention for a prefill under sp, else the plain forward."""
+        cfg = self.model_config
+        extra = () if page_table is None else (page_table, hist_len)
+        if self.pp_size > 1:
+            return pipeline_forward(kind, self.params, cfg, tokens, meta,
+                                    self.kv_cache, self.groups, *extra)[0]
+        if kind == "prefill":
+            return model_lib.forward_prefill(
+                self.params, cfg, tokens, meta, self.kv_cache,
+                groups=self.groups, attn_impl=self._prefill_attn)[0]
+        fwd = (model_lib.forward_decode if kind == "decode"
+               else model_lib.forward_prefill_hist)
+        return fwd(self.params, cfg, tokens, meta, self.kv_cache, *extra,
+                   groups=self.groups)[0]
 
     def _prefill_counts(self, batch: ScheduledBatch, tokens: torch.Tensor,
                         meta) -> torch.Tensor:
@@ -1406,10 +1461,8 @@ class LLMEngine:
         tops = []
         with ph("device_dispatch"):
             for i in range(W):
-                hidden, _, _ = model_lib.forward_decode(
-                    self.params, cfg, tokens, self._substep_meta(page_tables,
-                                                                 pos),
-                    self.kv_cache, groups=self.groups)
+                hidden = self._forward(
+                    "decode", tokens, self._substep_meta(page_tables, pos))
                 logits = model_lib.compute_logits(self.params, cfg, hidden,
                                                   groups=self.groups)
                 if greedy:

@@ -95,12 +95,33 @@ def _common_prefix(a: list[int], b: list[int]) -> int:
     return n
 
 
+def draft_pool_pages(want: int, free_bytes: Optional[int], page_bytes: int,
+                     groups=None) -> int:
+    """Pages of the draft KV pool: ``want`` (full coverage), capped on the
+    card by half of the free memory ``free_bytes`` (None on the CPU: no
+    cap). With ``groups`` the free bytes are the MIN over every rank, as
+    the target pool's are (``derive_num_pages``): ranks that share a card
+    read different free memory, and two draft pools of different sizes
+    would run out of pages at different steps and leave lockstep."""
+    if free_bytes is None:
+        return want
+    if groups is not None:
+        free_bytes = groups.world_min(free_bytes)
+    fit = (free_bytes // 2) // page_bytes
+    if fit < want:
+        logger.warning(
+            "draft KV pool capped by free device memory: %d pages "
+            "(full coverage wants %d); rows beyond the cap skip "
+            "drafting", fit, want)
+    return max(min(want, fit), 2)
+
+
 class DraftModelRunner(DraftProposer):
     """See module docstring. Construct via :func:`build_draft_runner`."""
 
     def __init__(self, config: EngineConfig, draft_config: ModelConfig,
                  params=None, seed: Optional[int] = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", groups=None):
         from ..engine import resolve_device
 
         target = config.model
@@ -134,17 +155,11 @@ class DraftModelRunner(DraftProposer):
         # card by half of the memory the target pool left: at a production
         # pairing full coverage would be tens of GB, and rows the pool
         # cannot hold sit spec rounds out (no drafts: lossless).
-        num_pages = sc.max_num_seqs * self.pages_bucket + 1
-        if self.device.type == "cuda":
-            free = torch.cuda.mem_get_info(self.device)[0]
-            fit = (free // 2) // kv_cache_bytes_per_page(draft_config,
-                                                         draft_cache)
-            if fit < num_pages:
-                logger.warning(
-                    "draft KV pool capped by free device memory: %d pages "
-                    "(full coverage wants %d); rows beyond the cap skip "
-                    "drafting", fit, num_pages)
-            num_pages = max(min(num_pages, fit), 2)
+        num_pages = draft_pool_pages(
+            sc.max_num_seqs * self.pages_bucket + 1,
+            (torch.cuda.mem_get_info(self.device)[0]
+             if self.device.type == "cuda" else None),
+            kv_cache_bytes_per_page(draft_config, draft_cache), groups)
         self.kv_cache = allocate_kv_cache(draft_config, draft_cache,
                                           num_pages, self.device)
         self.allocator = PageAllocator(num_pages, self.page_size)
@@ -354,15 +369,17 @@ class DraftModelRunner(DraftProposer):
 
 def build_draft_runner(config: EngineConfig, draft_model: str,
                        params=None, seed: Optional[int] = None,
-                       device: torch.device | str = "cuda"
+                       device: torch.device | str = "cuda", groups=None
                        ) -> DraftModelRunner:
     """The engine's construction seam (mirrors ``build_proposer``): resolve
     the draft preset and build the runner. ``params`` injects loaded draft
-    weights; None draws them from ``seed`` (default: the config's)."""
+    weights; None draws them from ``seed`` (default: the config's).
+    ``groups``: the engine's ``ParallelGroups``, over which the pool's
+    size is agreed (``draft_pool_pages``)."""
     draft_cfg = get_model_config(draft_model)
     if draft_cfg.dtype != config.model.dtype:
         # Keep the draft in the target's serving dtype: only its argmax
         # leaves the runner.
         draft_cfg = dataclasses.replace(draft_cfg, dtype=config.model.dtype)
     return DraftModelRunner(config, draft_cfg, params=params, seed=seed,
-                            device=device)
+                            device=device, groups=groups)

@@ -16,8 +16,9 @@ tensor bytes), through ``numpy.memmap``, so the port needs no
 Covered: every family ``config_from_hf`` reads: llama-class (Llama 1/2/3,
 TinyLlama), Qwen2/2.5 (q/k/v biases), Qwen3 (qk norms, tied embeddings),
 Mixtral (router and per-expert weights stacked ``[L, E, in, out]``) and
-OPT (its own tensor names). Under tp/ep (``groups=``) the whole checkpoint
-is read on the host and each rank uploads only its slices
+OPT (its own tensor names). Under tp/ep/pp (``groups=``) the whole
+checkpoint is read on the host and each rank uploads only its slices: its
+stage's layers under pp, its heads, columns and experts under tp and ep
 (``parallel/sharding.py``). Not ported yet: the shard-aware streamed load
 that reads only a rank's byte ranges (ROADMAP A7d), which raises
 NotImplementedError.
@@ -207,8 +208,8 @@ def load_weights(path: str, cfg: ModelConfig,
     the CPU). With ``cfg.quantization`` the matmul weights (experts
     included) and ``lm_head`` are quantized on the host before upload,
     bit-identically to the JAX package's load. ``groups``
-    (``parallel.ParallelGroups``): slice on the host after the load and
-    upload this rank's part only."""
+    (``parallel.ParallelGroups``): slice on the host after the load (a pp
+    rank keeps its stage's layers) and upload this rank's part only."""
     if shardings is not None:
         raise NotImplementedError("the shard-aware streamed load is not "
                                   "ported yet (ROADMAP A7d)")

@@ -35,6 +35,12 @@ learned positions, a biased fc1/act/fc2 MLP, tied embeddings) and Mixtral
   the vocab-sharded embedding lookup is all-reduced and the logits'
   vocab shards are all-gathered. With ``groups=None`` no collective and
   no extra op runs.
+- Pipeline and sequence parallelism (``parallel/pp.py``, ``parallel/sp.py``):
+  ``forward_prefill``, ``forward_decode`` and ``forward_prefill_hist`` take
+  ``hidden_in``, the hidden state a previous stage sent (the layer loop then
+  skips the embedding and runs this stage's layers, its K/V scattered into
+  its own slab of the pool), and ``forward_prefill`` takes ``attn_impl``,
+  which replaces its attention (the sp ring).
 """
 
 from __future__ import annotations
@@ -496,13 +502,16 @@ def _moe_mlp(lp: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _layer_loop(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                positions: torch.Tensor, attn_fn, groups=None):
-    """Embed ``tokens`` and run every layer. ``attn_fn(q, k, v, layer) ->
-    [T, nh, hd]`` sees a pool holding tokens written in PREVIOUS steps only
-    (this step's k/v fold in directly). Returns (h, k_all, v_all) with
-    k_all/v_all [L, T, n_kv*hd] (this rank's kv heads), for the caller's
-    one post-loop scatter."""
-    h = _embed(params, cfg, tokens, positions, groups)
+                positions: torch.Tensor, attn_fn, groups=None,
+                hidden_in: Optional[torch.Tensor] = None):
+    """Embed ``tokens`` (or start from ``hidden_in``, a previous pipeline
+    stage's output) and run every layer ``params`` holds. ``attn_fn(q, k,
+    v, layer) -> [T, nh, hd]`` sees a pool holding tokens written in
+    PREVIOUS steps only (this step's k/v fold in directly). Returns (h,
+    k_all, v_all) with k_all/v_all [L, T, n_kv*hd] (this rank's layers and
+    kv heads), for the caller's one post-loop scatter."""
+    h = (_embed(params, cfg, tokens, positions, groups) if hidden_in is None
+         else hidden_in)
     layers = params["layers"]
     L = layers["wq"].shape[0]
     T = h.shape[0]
@@ -541,19 +550,21 @@ def _finish(params: Params, cfg: ModelConfig, h: torch.Tensor, kv: KVCache,
 # ---------------------------------------------------------------------------
 
 def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                    meta: PrefillMeta, kv: KVCache, groups=None):
+                    meta: PrefillMeta, kv: KVCache, groups=None,
+                    hidden_in=None, attn_impl=None):
     """Ragged prefill over T flattened tokens; each sequence's whole prompt
-    is in the batch, so attention needs no pool. Returns
+    is in the batch, so attention needs no pool. ``attn_impl`` replaces
+    ``ops.attention.ragged_prefill_attention`` (same signature). Returns
     (normed_selected [B, d], kv (updated in place), raw_hidden [T, d])."""
     scale = cfg.head_dim ** -0.5
-    window = prefill_window(meta.seg_ids)      # once for all layers
+    attn = attn_impl or ragged_prefill_attention
+    window = None if attn_impl else prefill_window(meta.seg_ids)  # once
 
     def attn_fn(q, k, v, layer):
-        return ragged_prefill_attention(q, k, v, meta.seg_ids, meta.positions,
-                                        scale, window)
+        return attn(q, k, v, meta.seg_ids, meta.positions, scale, window)
 
     h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
-                                  attn_fn, groups)
+                                  attn_fn, groups, hidden_in)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping,
                    meta.logits_indices)
 
@@ -561,7 +572,7 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def forward_prefill_hist(params: Params, cfg: ModelConfig,
                          tokens: torch.Tensor, meta: PrefillMeta, kv: KVCache,
                          page_table: torch.Tensor, hist_len: int,
-                         groups=None):
+                         groups=None, hidden_in=None):
     """Chunked prefill: one sequence's chunk attending to its pool history
     plus itself causally. Returns (normed_selected [1, d], kv, raw_hidden)."""
     scale = cfg.head_dim ** -0.5
@@ -573,7 +584,7 @@ def forward_prefill_hist(params: Params, cfg: ModelConfig,
             hist_len, scale, layer=layer, n_valid=n_valid)
 
     h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
-                                  attn_fn, groups)
+                                  attn_fn, groups, hidden_in)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping,
                    meta.logits_indices)
 
@@ -650,7 +661,8 @@ def forward_spec_verify(params: Params, cfg: ModelConfig,
 
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   meta: DecodeMeta, kv: KVCache, groups=None):
+                   meta: DecodeMeta, kv: KVCache, groups=None,
+                   hidden_in=None):
     """Decode step: B sequences, one new token each, against the paged pool
     (positions 0..ctx-2 in the pool; this step's k/v fold in directly).
     Returns (normed_hidden [B, d], kv, raw_hidden [B, d])."""
@@ -662,7 +674,7 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                       layer=layer)
 
     h, k_all, v_all = _layer_loop(params, cfg, tokens, meta.positions,
-                                  attn_fn, groups)
+                                  attn_fn, groups, hidden_in)
     return _finish(params, cfg, h, kv, k_all, v_all, meta.slot_mapping, None)
 
 

@@ -11,7 +11,12 @@ groups its forward reduces over:
   MLP columns);
 - ``ep``: the ranks that differ only in their ep index (experts);
 - ``moe``: the ranks of one dp index that differ in ep or tp (the MoE
-  combine reduces over both).
+  combine reduces over both);
+- ``pp``: the ranks that differ only in their pipeline stage
+  (``parallel/pp.py``: hidden states pass stage to stage, and the last
+  stage broadcasts its output over this group);
+- ``sp``: the ranks that differ only in their sp index
+  (``parallel/sp.py``: K/V blocks rotate around this ring).
 
 dp keeps the JAX meaning, a replicated engine: each dp index is a full copy
 of the tp x ep group, fed the same directives, with no collective between
@@ -20,7 +25,11 @@ deploy renderer gives each pod (``KGCT_COORDINATOR``,
 ``KGCT_NUM_PROCESSES``, ``KGCT_PROCESS_ID``), explicit arguments winning.
 The backend is named, never switched: ``nccl`` by default on a CUDA
 device, ``gloo`` on the CPU, and ``gloo`` may be asked for CUDA tensors
-(two ranks on one card, where NCCL refuses).
+(two ranks on one card, where NCCL refuses). gloo's all-reduce, all-gather
+and broadcast take CUDA tensors; its point-to-point ops are given host
+memory only: under gloo a CUDA tensor sent or received travels through
+one pinned host buffer per shape and dtype. Under NCCL tensors stay on
+the device.
 """
 
 from __future__ import annotations
@@ -84,6 +93,8 @@ class ParallelGroups:
         self.backend = backend
         self.coords = coords_of(rank, self.sizes)
         self._groups = groups or {}
+        # Pinned host buffers of gloo's staged point-to-point ops.
+        self._host_bufs: dict = {}
 
     def __repr__(self) -> str:
         return (f"ParallelGroups(rank={self.rank}, {self.sizes}, "
@@ -105,6 +116,14 @@ class ParallelGroups:
         return self.sizes["ep"]
 
     @property
+    def pp(self) -> int:
+        return self.sizes["pp"]
+
+    @property
+    def sp(self) -> int:
+        return self.sizes["sp"]
+
+    @property
     def tp_rank(self) -> int:
         return self.coords["tp"]
 
@@ -112,8 +131,26 @@ class ParallelGroups:
     def ep_rank(self) -> int:
         return self.coords["ep"]
 
+    @property
+    def pp_rank(self) -> int:
+        """This rank's pipeline stage."""
+        return self.coords["pp"]
+
+    @property
+    def sp_rank(self) -> int:
+        """This rank's place on the sp ring."""
+        return self.coords["sp"]
+
+    @property
+    def is_first_stage(self) -> bool:
+        return self.pp_rank == 0
+
+    @property
+    def is_last_stage(self) -> bool:
+        return self.pp_rank == self.pp - 1
+
     def _group(self, name: str):
-        size = {"tp": self.tp, "ep": self.ep,
+        size = {"tp": self.tp, "ep": self.ep, "pp": self.pp, "sp": self.sp,
                 "moe": self.tp * self.ep}[name]
         if size == 1:
             return None
@@ -121,6 +158,96 @@ class ParallelGroups:
             raise RuntimeError(f"{self!r} is a layout without process "
                                f"groups; no collective over {name}")
         return self._groups[name]
+
+    def peer(self, axis: str, offset: int) -> int:
+        """The global rank ``offset`` steps along ``axis`` from this one
+        (cyclic), the other coordinates equal."""
+        coords = dict(self.coords)
+        coords[axis] = (coords[axis] + offset) % self.sizes[axis]
+        rank = 0
+        for a in MESH_AXES:
+            rank = rank * self.sizes[a] + coords[a]
+        return rank
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        """Whether ``t`` travels through a pinned host buffer: a CUDA
+        tensor under gloo, whose point-to-point ops take host memory."""
+        return self.backend == "gloo" and t.device.type == "cuda"
+
+    def _host(self, t: torch.Tensor, slot: int = 0) -> torch.Tensor:
+        """The pinned host buffer of ``t``'s shape and dtype (``slot``
+        tells apart two buffers of one shape in flight at once)."""
+        key = (tuple(t.shape), t.dtype, slot)
+        buf = self._host_bufs.get(key)
+        if buf is None:
+            buf = self._host_bufs[key] = torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True)
+        return buf
+
+    def send(self, t: torch.Tensor, dst: int) -> None:
+        """Blocking send of ``t`` to global rank ``dst``."""
+        if self._staged(t):
+            buf = self._host(t)
+            buf.copy_(t)
+            dist.send(buf, dst)
+        else:
+            dist.send(t.contiguous(), dst)
+
+    def recv(self, shape, dtype: torch.dtype, device, src: int
+             ) -> torch.Tensor:
+        """Blocking receive of a new ``shape``/``dtype`` tensor on
+        ``device`` from global rank ``src``."""
+        out = torch.empty(shape, dtype=dtype, device=device)
+        if self._staged(out):
+            buf = self._host(out)
+            dist.recv(buf, src)
+            out.copy_(buf)
+        else:
+            dist.recv(out, src)
+        return out
+
+    def send_next_stage(self, t: torch.Tensor) -> None:
+        self.send(t, self.peer("pp", 1))
+
+    def recv_prev_stage(self, shape, dtype, device) -> torch.Tensor:
+        return self.recv(shape, dtype, device, self.peer("pp", -1))
+
+    def broadcast_from_last_stage(self, t: torch.Tensor) -> torch.Tensor:
+        """Overwrite ``t`` on every stage with the last stage's ``t``
+        (in place; returned)."""
+        group = self._group("pp")
+        if group is not None:
+            dist.broadcast(t, src=self.peer("pp", -1 - self.pp_rank),
+                           group=group)
+        return t
+
+    def ring_shift(self, tensors: list) -> list:
+        """One hop around the sp ring: send each of ``tensors`` to the next
+        sp rank and return the previous one's (same shapes and dtypes), all
+        in one ``batch_isend_irecv``."""
+        if self.sp == 1:
+            return list(tensors)
+        nxt, prv = self.peer("sp", 1), self.peer("sp", -1)
+        outs = [torch.empty_like(t) for t in tensors]
+        staged = self._staged(tensors[0])
+        sends, recvs = [], []
+        for i, (t, o) in enumerate(zip(tensors, outs)):
+            if staged:
+                s = self._host(t, 2 * i)
+                s.copy_(t)
+                r = self._host(o, 2 * i + 1)
+            else:
+                s, r = t.contiguous(), o
+            sends.append(s)
+            recvs.append(r)
+        ops = [dist.P2POp(dist.isend, s, nxt) for s in sends]
+        ops += [dist.P2POp(dist.irecv, r, prv) for r in recvs]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if staged:
+            for o, r in zip(outs, recvs):
+                o.copy_(r)
+        return outs
 
     def all_reduce(self, t: torch.Tensor, over: str = "tp") -> torch.Tensor:
         """Sum ``t`` in place over the ``over`` group ("tp", "ep" or
@@ -130,12 +257,14 @@ class ParallelGroups:
             dist.all_reduce(t, group=group)
         return t
 
-    def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """Concatenate every tp rank's ``t`` along ``dim``, in tp order."""
-        group = self._group("tp")
+    def all_gather(self, t: torch.Tensor, dim: int = -1,
+                   over: str = "tp") -> torch.Tensor:
+        """Concatenate every ``over`` rank's ``t`` ("tp" or "sp") along
+        ``dim``, in rank order."""
+        group = self._group(over)
         if group is None:
             return t
-        parts = [torch.empty_like(t) for _ in range(self.tp)]
+        parts = [torch.empty_like(t) for _ in range(self.sizes[over])]
         dist.all_gather(parts, t.contiguous(), group=group)
         return torch.cat(parts, dim=dim)
 
@@ -168,8 +297,8 @@ def make_mesh(tp: int = 1, pp: int = 1, dp: int = 1, ep: int = 1,
               sp: int = 1, rank: Optional[int] = None) -> ParallelGroups:
     """The rank layout for ``dp*pp*ep*sp*tp`` ranks. With
     ``torch.distributed`` initialized (and ``rank`` None or this rank) the
-    world size must equal the product and the tp, ep and moe groups are
-    created, every rank creating every group in the same order, as
+    world size must equal the product and the tp, ep, moe, pp and sp
+    groups are created, every rank creating every group in the same order, as
     ``new_group`` requires. Otherwise ``rank`` names the layout position
     to describe (a layout without groups)."""
     sizes = dict(dp=dp, pp=pp, ep=ep, sp=sp, tp=tp)
@@ -191,7 +320,8 @@ def make_mesh(tp: int = 1, pp: int = 1, dp: int = 1, ep: int = 1,
     backend = dist.get_backend()
     groups = {}
     for name, axes in (("tp", ("tp",)), ("ep", ("ep",)),
-                       ("moe", ("ep", "tp"))):
+                       ("moe", ("ep", "tp")), ("pp", ("pp",)),
+                       ("sp", ("sp",))):
         if len(_groups_over(axes, sizes)[0]) == 1:
             continue
         for members in _groups_over(axes, sizes):

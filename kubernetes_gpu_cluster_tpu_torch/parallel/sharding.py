@@ -1,5 +1,5 @@
-"""Megatron sharding rules for tp and ep: the full parameter dict -> one
-rank's local tensors.
+"""Megatron sharding rules for tp and ep, and the stage split of pp: the
+full parameter dict -> one rank's local tensors.
 
 The JAX package states these rules as ``PartitionSpec`` annotations
 (``parallel/sharding.py::param_shardings``) and GSPMD slices and reduces.
@@ -13,7 +13,20 @@ of the logits, and one all-reduce of the vocab-sharded embedding lookup.
   heads divide tp instead, each rank keeps the ONE kv head its local q
   heads read (the JAX package replicates all of them and falls back to XLA
   attention; keeping one head is the same math, and the kernel sees a plain
-  GQA group). A rank whose q heads would straddle two kv heads is refused;
+  GQA group). When neither divides the other, a rank's q heads straddle kv
+  heads: it keeps one kv head PER LOCAL Q HEAD (``g = 1``), its ``wk``/``wv``
+  columns (biases, scales) repeating the kv head each of its q heads reads,
+  so the pool and the kernels see plain MHA at ``nh / tp`` heads. The JAX
+  package replicates the whole kv pool over tp instead. Per token and layer
+  a rank's pool then holds ``2 * (nh / tp) * hd`` elements against the JAX
+  layout's ``2 * n_kv * hd``: 12 q / 6 kv heads at tp 4 hold 3 heads a
+  rank against 6 (half the JAX bytes; 12 heads over the 4 ranks against 6
+  unique), 24 q / 3 kv at tp 2 hold 12 against 3 (four times);
+- under pp every layer tensor is split on its layer axis: stage ``s`` of
+  ``S`` keeps layers ``[s * L / S, (s + 1) * L / S)``, then the tp/ep rules
+  apply inside the stage; ``embed``, ``final_norm``, ``lm_head`` (and
+  ``pos_embed``) stay whole over pp (under tp they keep the vocab split);
+  sp ranks hold the same slices as their sp peers;
 - ``wo`` and ``w_down`` row-split; ``bo`` and ``b_down`` replicated and
   added once, after the reduce;
 - ``w_gate``/``w_up`` (and ``b_up``) column-split;
@@ -33,27 +46,34 @@ import torch
 
 from ..config import ModelConfig
 from ..models import llama as model_lib
+from .pp import validate_pp_mesh
 
 # (axis, mesh axis) pairs of a weight; "kv" is tp under the kv-head rule.
 Rules = tuple[tuple[int, str], ...]
 
 
+def straddles(cfg: ModelConfig, tp: int) -> bool:
+    """Whether a tp rank's q heads straddle kv heads: neither of tp and
+    the kv heads divides the other."""
+    return bool(cfg.num_kv_heads % tp and tp % cfg.num_kv_heads)
+
+
 def local_kv_heads(cfg: ModelConfig, tp: int) -> int:
     """kv heads one tp rank holds: ``n_kv / tp`` when tp divides them, 1
-    when they divide tp (each rank keeps the head its q heads read)."""
+    when they divide tp (each rank keeps the head its q heads read), and
+    one per local q head when its q heads straddle kv heads."""
     n_kv = cfg.num_kv_heads
     if n_kv % tp == 0:
         return n_kv // tp
     if tp % n_kv == 0:
         return 1
-    raise ValueError(
-        f"{cfg.name}: {cfg.num_kv_heads} kv heads and tp={tp} neither "
-        f"divide each other; a rank's {cfg.num_heads // tp} q heads would "
-        "straddle kv heads (not served; ROADMAP A7a)")
+    return cfg.num_heads // tp
 
 
-def validate(cfg: ModelConfig, tp: int, ep: int) -> None:
+def validate(cfg: ModelConfig, tp: int, ep: int, pp: int = 1) -> None:
     """Raise ValueError for a model the layout cannot split."""
+    if pp > 1:
+        validate_pp_mesh(cfg, pp, tp, ep)
     if cfg.num_heads % tp != 0:
         raise ValueError(f"num_heads={cfg.num_heads} not divisible by "
                          f"tp={tp}")
@@ -64,7 +84,6 @@ def validate(cfg: ModelConfig, tp: int, ep: int) -> None:
                     ("intermediate_size", cfg.intermediate_size)):
         if n % tp:
             raise ValueError(f"{what}={n} not divisible by tp={tp}")
-    local_kv_heads(cfg, tp)
     if cfg.quantization == "int4" and tp > 1:
         gs = cfg.quant_group_size
         for what, k in (("wo", cfg.num_heads * cfg.head_dim),
@@ -122,14 +141,22 @@ def split_rules(cfg: ModelConfig) -> tuple[dict[str, Rules],
     return layers, top
 
 
-def _span(cfg: ModelConfig, mesh_axis: str, size: int, tp: int, ep: int,
-          tp_rank: int, ep_rank: int, name: str) -> tuple[int, int]:
-    """(start, length) of one rank's slice of an axis of ``size``."""
+def _span(cfg: ModelConfig, mesh_axis: str, size: int, groups,
+          name: str) -> tuple[int, int] | list[int]:
+    """One rank's part of an axis of ``size``: (start, length), or under
+    a kv-head straddle the list of indices it gathers."""
+    tp = groups.tp
     if mesh_axis == "kv" and cfg.num_kv_heads % tp:
-        local_kv_heads(cfg, tp)                    # raises when straddling
         width = size // cfg.num_kv_heads
-        return (tp_rank // (tp // cfg.num_kv_heads)) * width, width
-    n, i = (ep, ep_rank) if mesh_axis == "ep" else (tp, tp_rank)
+        q_per_kv = cfg.num_heads // cfg.num_kv_heads
+        if not straddles(cfg, tp):
+            return (groups.tp_rank // (tp // cfg.num_kv_heads)) * width, width
+        nh = cfg.num_heads // tp
+        heads = [(groups.tp_rank * nh + j) // q_per_kv for j in range(nh)]
+        return [h * width + i for h in heads for i in range(width)]
+    n, i = {"ep": (groups.ep, groups.ep_rank),
+            "pp": (groups.pp, groups.pp_rank)}.get(
+                mesh_axis, (tp, groups.tp_rank))
     if size % n:
         raise ValueError(f"{name}: axis of {size} not divisible by "
                          f"{mesh_axis}={n}")
@@ -145,10 +172,12 @@ def shard_tensor(t: torch.Tensor, rules: Rules, cfg: ModelConfig, groups,
         return t
     out = t
     for axis, mesh_axis in rules:
-        start, length = _span(cfg, mesh_axis, t.shape[axis], groups.tp,
-                              groups.ep, groups.tp_rank, groups.ep_rank,
-                              name)
-        out = out.narrow(axis, start, length)
+        span = _span(cfg, mesh_axis, t.shape[axis], groups, name)
+        if isinstance(span, list):
+            out = out.index_select(axis, torch.tensor(span,
+                                                      device=out.device))
+        else:
+            out = out.narrow(axis, *span)
     return out.clone(memory_format=torch.contiguous_format)
 
 
@@ -156,19 +185,27 @@ def local_shape(shape: tuple, rules: Rules, cfg: ModelConfig,
                 groups) -> tuple:
     shape = list(shape)
     for axis, mesh_axis in rules:
-        shape[axis] = _span(cfg, mesh_axis, shape[axis], groups.tp,
-                            groups.ep, 0, 0, "")[1]
+        span = _span(cfg, mesh_axis, shape[axis], groups, "")
+        shape[axis] = len(span) if isinstance(span, list) else span[1]
     return tuple(shape)
+
+
+def _rule_sets(cfg: ModelConfig, groups) -> tuple[dict, dict, Rules]:
+    """(layer rules, top-level rules, the rule every layer tensor takes
+    first: its layer axis over pp)."""
+    validate(cfg, groups.tp, groups.ep, groups.pp)
+    layer_rules, top_rules = split_rules(cfg)
+    return layer_rules, top_rules, (((0, "pp"),) if groups.pp > 1 else ())
 
 
 def init_shard_fn(cfg: ModelConfig, groups):
     """``models.llama.init_params``'s ``shard`` hook: each full tensor is
     sliced to this rank's part right after it is drawn."""
-    validate(cfg, groups.tp, groups.ep)
-    layer_rules, top_rules = split_rules(cfg)
+    layer_rules, top_rules, stage = _rule_sets(cfg, groups)
 
     def shard(name: str, t: torch.Tensor, top: bool) -> torch.Tensor:
-        rules = (top_rules if top else layer_rules).get(name, ())
+        rules = (top_rules.get(name, ()) if top
+                 else stage + layer_rules.get(name, ()))
         return shard_tensor(t, rules, cfg, groups, name)
     return shard
 
@@ -177,31 +214,34 @@ def shard_params(params: dict, cfg: ModelConfig, groups) -> dict:
     """The full parameter dict -> this rank's local tensors. A tensor
     already at its local shape (a sharded load) is kept as it is; any
     other shape raises."""
-    validate(cfg, groups.tp, groups.ep)
-    layer_rules, top_rules = split_rules(cfg)
+    layer_rules, top_rules, stage = _rule_sets(cfg, groups)
     want_layers, want_top = model_lib.param_layouts(cfg)
 
-    def one(name, t, want, rules):
-        full = want[name][0]
+    def one(name, t, full, rules):
         if tuple(t.shape) == tuple(full):
-            return shard_tensor(t, rules.get(name, ()), cfg, groups, name)
-        if tuple(t.shape) == local_shape(full, rules.get(name, ()), cfg,
-                                         groups):
+            return shard_tensor(t, rules, cfg, groups, name)
+        if tuple(t.shape) == local_shape(full, rules, cfg, groups):
             return t
         raise ValueError(f"{name}: shape {tuple(t.shape)} is neither the "
                          f"full {tuple(full)} nor this rank's slice")
 
-    out = {"layers": {n: one(n, t, want_layers, layer_rules)
+    out = {"layers": {n: one(n, t, want_layers[n][0],
+                             stage + layer_rules.get(n, ()))
                       for n, t in params["layers"].items()}}
-    out.update({n: one(n, t, want_top, top_rules)
+    out.update({n: one(n, t, want_top[n][0], top_rules.get(n, ()))
                 for n, t in params.items() if n != "layers"})
     return out
 
 
 def local_kv_config(cfg: ModelConfig, groups) -> ModelConfig:
-    """``cfg`` with one rank's head counts: the geometry of its paged KV
-    pool ``[L, P, ps, n_kv_local * hd]`` (and of its host tier)."""
-    if groups is None or groups.tp == 1:
+    """``cfg`` with one rank's layer and head counts: the geometry of its
+    paged KV pool ``[L / pp, P, ps, n_kv_local * hd]`` (and of its host
+    tier)."""
+    if groups is None:
+        return cfg
+    if groups.pp > 1:
+        cfg = cfg.replace(num_layers=cfg.num_layers // groups.pp)
+    if groups.tp == 1:
         return cfg
     return cfg.replace(num_heads=cfg.num_heads // groups.tp,
                        num_kv_heads=local_kv_heads(cfg, groups.tp))

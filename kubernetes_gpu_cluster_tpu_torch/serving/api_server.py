@@ -55,15 +55,15 @@ with the router's ``/internal/resume`` re-dispatch. Frames go through
 integrity on by default), peer calls through the standard-library client
 of ``serving/http.py``. Every failed pull or push degrades to local
 recompute (the same tokens, slower), counted on ``/metrics`` and traced.
-Tensor and expert parallelism (``--tensor-parallel-size``,
-``--expert-parallel-size``): rank 0 serves the
-API and broadcasts each engine-loop iteration's adds and aborts to the
-follower ranks (``serving/multihost.py``), which serve only ``/health``.
-With ``--distributed`` each rank is its own pod (``KGCT_*`` environment,
-``parallel/mesh.py``); without it, on one node, rank 0 starts the other
-ranks as local processes on the next cards. KV handoff, migration and the
-fleet prefix cache are off under a leader. pp and sp are refused (ROADMAP
-A7b, A7c).
+Tensor, expert, pipeline and sequence parallelism
+(``--tensor-parallel-size``, ``--expert-parallel-size``,
+``--pipeline-parallel-size``, ``--sequence-parallel-size``): rank 0 serves
+the API and broadcasts each engine-loop iteration's adds and aborts to the
+follower ranks of every stage (``serving/multihost.py``), which serve only
+``/health``. With ``--distributed`` each rank is its own pod (``KGCT_*``
+environment, ``parallel/mesh.py``); without it, on one node, rank 0 starts
+the other ranks as local processes on the next cards. KV handoff,
+migration and the fleet prefix cache are off under a leader.
 """
 
 from __future__ import annotations
@@ -85,7 +85,6 @@ from ..engine import SamplingParams
 from ..engine.qos import resolve_tier_name, tenant_key_of
 from ..observability import Histogram
 from ..parallel.mesh import initialize_distributed, mesh_from_config
-from ..parallel.sharding import validate
 from ..resilience import (AdmissionController, DrainState, ResilienceHub,
                           StepWatchdog)
 from ..resilience.drain import drain_and_notify
@@ -2117,15 +2116,17 @@ def main(argv: Optional[list[str]] = None) -> None:
     checkpoints only; the all-reduce is torch.distributed's; eager
     PyTorch).
 
-    tp or ep above 1: with ``--distributed`` this process is one rank of
-    the ``KGCT_*`` environment (rank 0 serves, the others follow);
-    without it rank 0 starts the other ranks itself on ``cuda:1..`` (or
-    the CPU) and forms the group over localhost."""
+    tp, ep, pp or sp above 1: with ``--distributed`` this process is one
+    rank of the ``KGCT_*`` environment (rank 0 serves, the others
+    follow); without it rank 0 starts the other ranks itself on
+    ``cuda:1..`` (or the CPU) and forms the group over localhost. A layout
+    the engine refuses (``engine.validate_layout``) is refused before any
+    rank starts."""
     import argparse
 
     from ..config import (CacheConfig, ParallelConfig, SchedulerConfig,
                           get_model_config)
-    from ..engine.engine import refuse_unported
+    from ..engine.engine import validate_layout
     from ..engine.qos import parse_qos_tiers
 
     p = argparse.ArgumentParser()
@@ -2240,7 +2241,6 @@ def main(argv: Optional[list[str]] = None) -> None:
                               pp=args.pipeline_parallel_size,
                               sp=args.sequence_parallel_size,
                               ep=args.expert_parallel_size)
-    refuse_unported(dataclasses.asdict(parallel))
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; the server runs on "
@@ -2285,8 +2285,9 @@ def main(argv: Optional[list[str]] = None) -> None:
         # ep on a dense model replicates all work across the axis.
         p.error(f"--expert-parallel-size {args.expert_parallel_size} "
                 f"requires an MoE model; {model_cfg.name} is dense")
-    # Refuse a layout the model cannot split before any rank starts.
-    validate(model_cfg, parallel.tp, parallel.ep)
+    # Refuse a layout the engine refuses before any rank starts.
+    validate_layout(EngineConfig(model=model_cfg, parallel=parallel),
+                    dataclasses.asdict(parallel))
     follower, local_ranks = None, []
     if args.distributed:
         from .multihost import CONTROL_PORT, DirectiveFollower

@@ -1,10 +1,12 @@
 """Multi-rank serving: step-directive replication from rank 0.
 
 The JAX package's ``serving/multihost.py`` over the port's engine. Under
-tensor or expert parallelism every rank (one process per card, joined by
-``torch.distributed``, ``parallel/mesh.py``) must run the SAME engine-step
-sequence — each step's forward enters all-reduces, and a rank that steps
-alone hangs the process group. But only rank 0 receives client traffic
+tensor, expert, pipeline or sequence parallelism every rank (one process
+per card, joined by ``torch.distributed``, ``parallel/mesh.py``) must run
+the SAME engine-step sequence — each step's forward enters all-reduces,
+stage-to-stage sends or ring hops, and a rank that steps alone hangs the
+process group. The leader's directives go to every other rank of the
+world, every stage's and every sp rank's alike. But only rank 0 receives client traffic
 (the Service pins to pod-index 0 on a multi-node deployment; on one node
 rank 0 is the container's server). The reference solved this with Ray:
 vLLM's rank 0 shipped work to its workers (old_README.md:1615-1625). Here:

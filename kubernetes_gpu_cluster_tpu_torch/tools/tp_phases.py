@@ -1,14 +1,18 @@
-"""Phases 12, 12c, 12e and 12b of ``chip_smoke.py`` alone, on the card.
+"""Phases 12, 12c, 12e and 12b (or 13, 13b and 13c) of ``chip_smoke.py``
+alone, on the card.
 
 Run from the repository root on a machine with an H100:
 
-    python -m kubernetes_gpu_cluster_tpu_torch.tools.tp_phases [--diagnose-12b]
+    python -m kubernetes_gpu_cluster_tpu_torch.tools.tp_phases \
+        [--diagnose-12b] [--pp] [--sp]
 
 Builds the kernels, draws llama-3-8b's bf16 weights from the script's seed
 and runs its ``check_tp`` (12 and 12c: tp 2 as two ranks on card 0 over
 gloo), ``check_cli_tp`` (12e: the server's CLI as two ``--distributed``
 ranks) and then ``check_ep`` (12b: mixtral-8x7b int4 at ep 2), in minutes
-instead of the whole script's. ``--diagnose-12b`` first serves 12b's
+instead of the whole script's. ``--pp`` runs ``check_pp_sp`` at pp 2 (13)
+and the CLI at pp 2 (13c) instead, ``--sp`` ``check_pp_sp`` at sp 2
+(13b); both flags run all three. ``--diagnose-12b`` first serves 12b's
 requests on one device and teacher forces each request's tokens on the
 same weights twice, through the int4 kernel and through its plain
 version, printing the three widest gaps (over the logits' deviation) of
@@ -67,6 +71,10 @@ def _diagnose_12b(C, device) -> None:
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--diagnose-12b", action="store_true")
+    p.add_argument("--pp", action="store_true",
+                   help="phases 13 and 13c (pp 2) instead of 12-12b")
+    p.add_argument("--sp", action="store_true",
+                   help="phase 13b (sp 2) instead of 12-12b")
     args = p.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import chip_smoke as C
@@ -82,6 +90,19 @@ def main() -> None:
     cfg = get_model_config(C.MODEL)
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(
         C.SEED), device)
+    if args.pp or args.sp:
+        if args.pp:
+            print("pp:", json.dumps(C.check_pp_sp(cfg, params, device, card,
+                                                  "pp")), flush=True)
+        if args.sp:
+            print("sp:", json.dumps(C.check_pp_sp(cfg, params, device, card,
+                                                  "sp")), flush=True)
+        if args.pp:
+            print("cli pp:", json.dumps(C.check_cli_tp(
+                cfg, params, device, card, "--pipeline-parallel-size",
+                "13c")), flush=True)
+        print(card)
+        return
     print("tp:", json.dumps(C.check_tp(cfg, params, device, card, [0, 0],
                                        "gloo", abort=True)), flush=True)
     print("cli tp:", json.dumps(C.check_cli_tp(cfg, params, device, card)),

@@ -1104,14 +1104,15 @@ class TestWorkerOpShutdownGuard:
     (["--distributed", "--tensor-parallel-size", "2"], ValueError,
      "KGCT_COORDINATOR"),
     (["--tensor-parallel-size", "8"], ValueError, "not divisible by tp=8"),
-    (["--pipeline-parallel-size", "2"], NotImplementedError, "A7b"),
-    (["--sequence-parallel-size", "2"], NotImplementedError, "A7c"),
+    (["--pipeline-parallel-size", "4"], ValueError, "not divisible by pp"),
+    (["--pipeline-parallel-size", "2", "--sequence-parallel-size", "2"],
+     ValueError, "sp and pp cannot combine"),
     (["--expert-parallel-size", "2"], SystemExit, None)])
 def test_cli_refuses_fleet_and_parallel_flags(argv, exc, match, capsys):
-    """What the CLI still refuses, before any rank starts: pp and sp wait
-    for ROADMAP A7b and A7c; tp that does not divide the heads; ep on a
-    dense model; ``--distributed`` across ranks without the ``KGCT_*``
-    rendezvous. tp and ep themselves serve
+    """What the CLI refuses, before any rank starts: pp that does not
+    divide the layers (debug-tiny has 2); sp and pp together; tp that does
+    not divide the heads; ep on a dense model; ``--distributed`` across
+    ranks without the ``KGCT_*`` rendezvous. tp, ep, pp and sp serve
     (``tests/test_torch_distributed.py``), as do the fleet flags
     (``tests/test_torch_fleet.py``)."""
     from kubernetes_gpu_cluster_tpu_torch.serving.api_server import main

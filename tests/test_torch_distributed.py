@@ -12,7 +12,8 @@ the JAX package's ``tests/test_distributed.py`` re-pointed at the port.
   DirectiveLeader)`` with a second request submitted mid-flight, rank 1
   follows the directive stream; the tokens equal the single-process
   engine's.
-- The CLI on one node: ``--tensor-parallel-size 2`` without
+- The CLI on one node: ``--tensor-parallel-size 2`` (and
+  ``--pipeline-parallel-size 2``, ``--sequence-parallel-size 2``) without
   ``--distributed`` starts its second rank itself, answers a completion
   exactly as a one-rank server on the same seed does, and on SIGINT stops
   the rank it started.
@@ -266,13 +267,26 @@ def _one_rank_text(body: dict) -> str:
 
 @pytest.mark.skipif(sys.platform != "linux", reason="localhost gloo test")
 def test_cli_tp2_on_one_node_starts_and_stops_its_rank(tmp_path):
+    _cli_on_one_node(tmp_path, "--tensor-parallel-size")
+
+
+@pytest.mark.skipif(sys.platform != "linux", reason="localhost gloo test")
+@pytest.mark.parametrize("flag", ["--pipeline-parallel-size",
+                                  "--sequence-parallel-size"])
+def test_cli_pp_and_sp_on_one_node(tmp_path, flag):
+    """The same at pp 2 (a stage each) and sp 2 (the prefill's attention
+    around the ring)."""
+    _cli_on_one_node(tmp_path, flag)
+
+
+def _cli_on_one_node(tmp_path, flag: str) -> None:
     port = free_port()
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1",
                KGCT_FLIGHT_DIR=str(tmp_path))
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubernetes_gpu_cluster_tpu_torch.serving."
          "api_server", "--model", "debug-tiny", "--device", "cpu",
-         "--tensor-parallel-size", "2", "--max-num-seqs", "4",
+         flag, "2", "--max-num-seqs", "4",
          "--host", "127.0.0.1", "--port", str(port)],
         cwd=str(Path(__file__).resolve().parents[1]), env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -269,18 +269,15 @@ def test_no_device_default_raises(monkeypatch, weights):
 
 
 def test_unported_engine_options_raise(weights):
-    """pp and sp still raise (ROADMAP A7b, A7c); tp above 1 needs the
-    process group (tests/test_torch_parallel.py runs it); the host KV tier
-    is ported, so swap_space_gb > 0 builds a swapper, on the CPU too."""
-    for axis, ref in (("pp", "A7b"), ("sp", "A7c")):
-        with pytest.raises(NotImplementedError, match=ref):
+    """tp, pp and sp above 1 need the process group
+    (tests/test_torch_parallel.py, test_torch_pp.py and test_torch_sp.py
+    run them); the host KV tier is ported, so swap_space_gb > 0 builds a
+    swapper, on the CPU too."""
+    for axis in ("pp", "sp", "tp"):
+        with pytest.raises(RuntimeError, match="initialize_distributed"):
             LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
                                    parallel=ParallelConfig(**{axis: 2})),
                       params=weights[1], device="cpu")
-    with pytest.raises(RuntimeError, match="initialize_distributed"):
-        LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
-                               parallel=ParallelConfig(tp=2)),
-                  params=weights[1], device="cpu")
     eng = LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
                                  cache=CacheConfig(swap_space_gb=0.1)),
                     params=weights[1], device="cpu")

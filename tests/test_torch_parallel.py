@@ -8,8 +8,8 @@ CPU over gloo.
   on the axis its ``PartitionSpec`` names and the rank slices tile the
   full tensor. Where tp exceeds the kv heads the JAX package replicates
   them; the port keeps the one head a rank's q heads read.
-- The ``not divisible`` errors, the straddling-kv-head refusal and the
-  int4 group rule; pp and sp refused.
+- The ``not divisible`` errors and the int4 group rule; pp and sp
+  refused without process groups.
 - Engines in spawned rank processes (gloo, no JAX imported there): greedy
   tokens of tp 2, tp 4 (kv heads kept one per rank), tp 2 x ep 2 and
   tp 2 x dp 2 equal the port's tp 1 and the JAX engine on
@@ -19,8 +19,10 @@ CPU over gloo.
   qwen2-like and int4 models at tp 2 equal tp 1; seeded sampling with
   penalties and logit_bias, n-gram speculative decoding and swap
   preemption at tp 2 equal tp 1; ``moe_block_ep`` at
-  tp 2 x ep 2 equals the JAX dense block within 2e-5. Every rank of a
-  group returns the same tokens, and every step ran the lockstep hash.
+  tp 2 x ep 2 equals the JAX dense block within 2e-5; a 12 q / 6 kv
+  model at tp 4 (q heads straddling kv heads: one kv head kept per local
+  q head) equals the JAX tp 4 engine. Every rank of a group returns the
+  same tokens, and every step ran the lockstep hash.
 """
 
 from __future__ import annotations
@@ -204,6 +206,9 @@ SAMPLED = [dict(max_tokens=10, temperature=0.8, seed=5,
 SPEC_SCHED = dict(SCHED, spec_decode_enabled=True, num_speculative_tokens=3)
 SPEC_PROMPTS = [[7, 3, 9, 11] * 6, [5, 6, 7, 8, 5, 6, 7] * 3]
 SWAP_CACHE = dict(page_size=8, num_pages=24, swap_space_gb=0.05)
+# At tp 4 a rank's 3 q heads straddle kv heads (q heads 2j and 2j+1 read
+# kv head j): neither of tp and the 6 kv heads divides the other.
+STRADDLE = dict(num_heads=12, num_kv_heads=6)
 
 
 def _save(np_params: dict, path: Path) -> str:
@@ -226,9 +231,9 @@ def _port_tokens(preset, model, np_params, prompts, params, cache=CACHE,
     return [o.output_token_ids for o in eng.generate(prompts, plist)]
 
 
-def _jax_tokens(preset, np_params, prompts, **mesh) -> list:
-    cfg = JEngineConfig(model=jax_model(preset), cache=JCache(**CACHE),
-                        scheduler=JSched(**SCHED))
+def _jax_tokens(preset, np_params, prompts, model=None, **mesh) -> list:
+    cfg = JEngineConfig(model=jax_model(preset).replace(**(model or {})),
+                        cache=JCache(**CACHE), scheduler=JSched(**SCHED))
     jp = jax.tree.map(jnp.asarray, np_params)
     eng = JaxEngine(cfg, params=jp, mesh=jax_mesh(**mesh))
     return [o.output_token_ids for o in eng.generate(
@@ -248,7 +253,10 @@ def weights():
         jax.random.key(5)))
     opt = variant_params(variant_cfgs("opt-relu")[0], 6)
     qwen2 = variant_params(variant_cfgs("qwen2")[0], 7)
-    return dict(tiny=tiny, moe=moe, int4=int4, opt=opt, qwen2=qwen2)
+    straddle = jax.tree.map(np.asarray, JM.init_params(
+        jax_model("debug-tiny").replace(**STRADDLE), jax.random.key(9)))
+    return dict(tiny=tiny, moe=moe, int4=int4, opt=opt, qwen2=qwen2,
+                straddle=straddle)
 
 
 def _variant_model(name):
@@ -286,7 +294,9 @@ def _jobs(weights, tmp: Path) -> tuple[list, list]:
             job("tp2ep2", "debug-moe", {}, "moe", dict(tp=2, ep=2)),
             job("tp2dp2", "debug-tiny", {}, "tiny", dict(tp=2, dp=2)),
             job("moe_block", "debug-moe", {}, "moe", dict(tp=2, ep=2),
-                moe_block=str(tmp / "moe_x.npy"))]
+                moe_block=str(tmp / "moe_x.npy")),
+            job("straddle", "debug-tiny", STRADDLE, "straddle",
+                dict(tp=4))]
     return two, four
 
 
@@ -389,10 +399,10 @@ def test_kv_heads_below_tp_keep_one_head_per_rank():
 @pytest.mark.parametrize("model,tp,ep,match", [
     (dict(), 8, 1, "num_heads=4 not divisible by tp=8"),
     (dict(num_experts=4), 1, 3, "num_experts=4 not divisible by ep=3"),
-    (dict(num_heads=12, num_kv_heads=6), 4, 1, "straddle"),
+    (dict(vocab_size=510), 4, 1, "vocab_size=510 not divisible by tp=4"),
     (dict(quantization="int4", quant_group_size=128), 2, 1,
      "whole number of 128-row groups"),
-], ids=["heads", "experts", "straddling-kv", "int4-groups"])
+], ids=["heads", "experts", "vocab", "int4-groups"])
 def test_layouts_the_rules_refuse(model, tp, ep, match):
     cfg = get_model_config("debug-moe" if "num_experts" in model
                            else "debug-tiny").replace(**model)
@@ -404,11 +414,13 @@ def test_layouts_the_rules_refuse(model, tp, ep, match):
                                     "cpu"), cfg, make)
 
 
-@pytest.mark.parametrize("axis,ref", [("pp", "A7b"), ("sp", "A7c")])
-def test_engine_refuses_pp_and_sp(axis, ref):
+@pytest.mark.parametrize("axis", ["pp", "sp"])
+def test_engine_refuses_pp_and_sp(axis):
+    """pp and sp serve (tests/test_torch_pp.py, test_torch_sp.py) but,
+    as tp, not without this rank's process groups."""
     cfg = EngineConfig(model=get_model_config("debug-tiny"),
                        parallel=ParallelConfig(**{axis: 2}))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {ref}"):
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         LLMEngine(cfg, device="cpu")
 
 
@@ -484,6 +496,21 @@ def test_rank_pool_and_weight_geometry(ranks):
                                      local_kv_heads(cfg, tp) * hd]
             assert r["wq_shape"] == [L, cfg.hidden_size,
                                      cfg.num_heads // tp * hd]
+
+
+def test_straddling_kv_heads_serve_at_tp4(ranks, weights):
+    """12 q / 6 kv heads at tp 4: each rank keeps one kv head per local q
+    head (3, repeating the kv head each reads) and serves the JAX tp 4
+    engine's greedy tokens (which replicates the 6 kv heads), token for
+    token, on every rank."""
+    cfg = get_model_config("debug-tiny").replace(**STRADDLE)
+    got = ranks["straddle"]
+    assert all(r["tokens"] == got[0]["tokens"] for r in got), "ranks differ"
+    for r in got:
+        assert r["kv_shape"] == [cfg.num_layers, CACHE["num_pages"], 8,
+                                 3 * cfg.head_dim]
+    assert got[0]["tokens"] == _jax_tokens("debug-tiny", weights["straddle"],
+                                           _prompts(), model=STRADDLE, tp=4)
 
 
 def test_moe_block_ep_matches_dense(ranks, weights):

@@ -822,8 +822,9 @@ class TestInterop:
     def test_spec_engine_constructs_other_options_still_raise(self, params):
         """Spec decoding serves with and without a draft model (the async
         front door passes the draft weights through); swap builds its host
-        tier; pp still raises (ROADMAP A7b) and tp needs the process
-        group."""
+        tier; under pp (a stage's layout, here rank 0 of pp 2) spec is
+        turned off with the JAX package's warning, and tp needs the
+        process group."""
         from kubernetes_gpu_cluster_tpu_torch.serving.async_engine import \
             AsyncLLMEngine
         aeng = AsyncLLMEngine(_cfg(True, draft="debug-tiny"), params=params,
@@ -837,10 +838,19 @@ class TestInterop:
                                       cache=CacheConfig(swap_space_gb=0.1)),
                          params=params, device="cpu")
         assert swap.swapper is not None
-        with pytest.raises(NotImplementedError, match="A7b"):
-            LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
-                                   parallel=ParallelConfig(pp=2)),
-                      params=params, device="cpu")
+        import dataclasses
+        from unittest import mock
+
+        from kubernetes_gpu_cluster_tpu_torch.engine import engine as E
+        from kubernetes_gpu_cluster_tpu_torch.parallel import make_mesh
+        with mock.patch.object(E.logger, "warning") as warn:
+            pp = LLMEngine(dataclasses.replace(
+                _cfg(True), parallel=ParallelConfig(pp=2)), params=params,
+                device="cpu", groups=make_mesh(pp=2, rank=0))
+        assert any("spec decode disabled" in c.args[0]
+                   for c in warn.call_args_list)
+        assert not pp.scheduler.spec_enabled
+        assert pp.kv_cache.k.shape[0] == 1          # stage 0's one layer
         with pytest.raises(RuntimeError, match="initialize_distributed"):
             LLMEngine(EngineConfig(model=get_model_config("debug-tiny"),
                                    parallel=ParallelConfig(tp=2)),

@@ -306,3 +306,28 @@ def test_sharded_load_is_the_rank_slice_of_the_full_load(
             assert torch.equal(got[key], want[key]), key
         assert got["layers"]["wq"].shape[-1] * tp == \
             full["layers"]["wq"].shape[-1]
+
+
+@pytest.mark.parametrize("name", ["llama", "mixtral", "opt"])
+def test_pp_load_keeps_the_stage_layers(hf_llama, hf_family, name):
+    """Under pp 2 ``load_weights(groups=)`` keeps each stage's half of
+    every stacked layer tensor and the embedding, final norm and head
+    whole (with tp 2, their tp slices of those halves)."""
+    path = hf_llama[1] if name == "llama" else hf_family[name][1]
+    cfg = TW.config_from_hf(path)
+    full = TW.load_weights(path, cfg, device="cpu")
+    half = cfg.num_layers // 2
+    for rank in range(2):
+        got = TW.load_weights(path, cfg, device="cpu",
+                              groups=make_mesh(pp=2, rank=rank))
+        for key, t in full["layers"].items():
+            assert torch.equal(got["layers"][key],
+                               t[rank * half:(rank + 1) * half]), key
+        for key in (k for k in full if k != "layers"):
+            assert torch.equal(got[key], full[key]), key
+    groups = make_mesh(pp=2, tp=2, rank=3)          # stage 1, tp rank 1
+    got = TW.load_weights(path, cfg, device="cpu", groups=groups)
+    want = shard_params(full, cfg, groups)
+    for key in want["layers"]:
+        assert torch.equal(got["layers"][key], want["layers"][key]), key
+        assert got["layers"][key].shape[0] == half
