@@ -288,6 +288,29 @@ first records the tp=1 engine's greedy tokens for the same requests:
      largest difference from it.
 13c. The server's CLI with ``--pipeline-parallel-size 2``: 12e's requests
      and checks with pp in place of tp.
+14.  The phase-4 weights written as an HF safetensors checkpoint in
+     ``CKPT_FILES`` files (plain Python: header length, JSON header, raw
+     bytes; the card's machine has no ``safetensors``) under
+     ``build/llama-3-8b``, a name that maps ``--model <dir>`` to the
+     preset, at full depth (``CKPT_LAYERS``). Logged: GB and seconds.
+14a. The streamed load: two ranks on card 0 over gloo (``--tp-child``
+     with ``weights``) at tp 2 and at pp 2 each read only their byte
+     ranges of the checkpoint; every local tensor is ``torch.equal`` to
+     ``shard_tensor`` of phase 4's draw of the full tensor; each logs its
+     load seconds and host peak (the resident set's growth over the load,
+     ``engine.weights.HostPeak``). A separate process logs the same for
+     the whole-then-slice path (the whole load on the host, then
+     ``shard_params``). The tp 2 ranks then serve phase 12's requests,
+     held to phase 12's tp=1 run as 12 holds its ranks.
+14b. Manifests rendered from values whose ``modelURL`` is the checkpoint:
+     the ``requestGPU: 1`` Deployment's container (its module and args,
+     ``--tokenizer byte`` appended through ``extraArgs``: the rendered
+     ``--tokenizer <modelURL>`` needs ``transformers``) on card 0; its
+     readiness probe answered, four completions held to the in-process
+     engine, exit 0 within the rendered grace after SIGTERM. Then the
+     ``pipelineParallelSize: 2`` StatefulSet's two pods as two ranks on
+     card 0 through 13c's harness, each streaming its stage, held as 13c.
+     The checkpoint directory is deleted at the end, on failure too.
 12d. With two cards, phase 12 over NCCL on cards 0 and 1; with one, the
      line ``nccl tp: not run (1 card)``.
 12b. ep 2: mixtral-8x7b int4 at tp 1, ep 2, full width (depth
@@ -309,10 +332,12 @@ import gc
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 from unittest import mock
 
 import numpy as np
@@ -3500,6 +3525,54 @@ async def _fail_midstream(aeng, reqs) -> list:
     return errors
 
 
+def _param_gb(params) -> float:
+    return sum(t.numel() * t.element_size()
+               for t in [*params["layers"].values(),
+                         *(v for k, v in params.items() if k != "layers")]
+               ) / 1e9
+
+
+def host_peak(load) -> tuple:
+    """(``load()``, its seconds and this process's host peak over it:
+    ``engine.weights.HostPeak``, the growth of the resident set, sampled
+    every 2 ms, and exact where the kernel keeps a resettable ``VmHWM``).
+    ``engine/weights.py`` reads with ``preadv``, never a memory map, so
+    the resident set counts what the process holds."""
+    from kubernetes_gpu_cluster_tpu_torch.engine.weights import HostPeak
+    gc.collect()
+    t0 = time.perf_counter()
+    with HostPeak() as hp:
+        out = load()
+    return out, {"s": time.perf_counter() - t0, "peak_gb": hp.peak / 1e9,
+                 "rss_before_gb": hp.before / 1e9, "exact": hp.exact}
+
+
+def _held_to_draw(params, cfg, groups, device) -> int:
+    """Every local tensor of ``params`` is ``torch.equal`` to
+    ``shard_tensor`` of phase 4's draw of its full tensor (the seed's
+    ``init_params`` on this card, one full tensor at a time, nothing
+    kept). Returns the number of tensors compared."""
+    from kubernetes_gpu_cluster_tpu_torch.models import llama as M
+    from kubernetes_gpu_cluster_tpu_torch.parallel.sharding import \
+        init_shard_fn
+    shard = init_shard_fn(cfg, groups)
+    seen, bad = [], []
+
+    def check(name, full, top):
+        local = shard(name, full, top)
+        got = params[name] if top else params["layers"][name]
+        seen.append(name)
+        if not torch.equal(got, local):
+            bad.append(name)
+        return local[:0]
+    M.init_params(cfg, torch.Generator(device=device).manual_seed(SEED),
+                  device, shard=check)
+    if bad or len(seen) != len(params["layers"]) + len(params) - 1:
+        raise RuntimeError(f"streamed tensors differ from the seed's slices: "
+                           f"{bad} ({len(seen)} compared)")
+    return len(seen)
+
+
 def tp_child(spec: dict) -> None:
     """One rank of phase 12/12b/12c/12d. Rank 0 serves ``spec["reqs"]``
     through ``AsyncLLMEngine(leader=DirectiveLeader)``; rank 1 follows.
@@ -3546,20 +3619,38 @@ def tp_child(spec: dict) -> None:
                 "flash_prefill_hist": flash_prefill_hist,
                 "int4_matmul": int4_matmul}
     res: dict = {"rank": rank, "coords": groups.coords}
+    params = None
+    if spec.get("weights"):
+        # 14a: this rank's slices streamed from the checkpoint, each held
+        # to the seed's draw of the full tensor sliced by shard_tensor.
+        from kubernetes_gpu_cluster_tpu_torch.engine.weights import \
+            load_weights
+
+        def load():
+            out = load_weights(spec["weights"], model, device=device,
+                               groups=groups)
+            torch.cuda.synchronize(device)
+            return out
+        params, res["load"] = host_peak(load)
+        res["load"]["tensors_equal"] = _held_to_draw(params, model, groups,
+                                                     device)
+        res["load"]["local_gb"] = _param_gb(params)
+        if not spec.get("serve", True):
+            Path(spec["out"]).write_text(json.dumps(res))
+            import torch.distributed as dist
+            dist.destroy_process_group()
+            return
     if rank == 0:
         addrs = [f"127.0.0.1:{ctrl[2 * k]}" for k in range(1, world)]
-        aeng = AsyncLLMEngine(cfg, device=device, groups=groups,
-                              leader=DirectiveLeader(addrs))
+        aeng = AsyncLLMEngine(cfg, params=params, device=device,
+                              groups=groups, leader=DirectiveLeader(addrs))
         engine = aeng.engine
     else:
-        engine = LLMEngine(cfg, device=device, groups=groups)
+        engine = LLMEngine(cfg, params=params, device=device, groups=groups)
+    del params
     torch.cuda.synchronize(device)
     res["init_s"] = time.perf_counter() - t0
-    res["weight_gb"] = sum(
-        t.numel() * t.element_size()
-        for t in [*engine.params["layers"].values(),
-                  *(v for k, v in engine.params.items() if k != "layers")]
-    ) / 1e9
+    res["weight_gb"] = _param_gb(engine.params)
     res["kv_shape"] = list(engine.kv_cache.k.shape)
     for mod in counters.values():
         mod.launches = 0
@@ -3719,10 +3810,31 @@ def _launched(what, results: list, names: tuple) -> None:
                                    f"{r['rank']}: {r['launches']}")
 
 
+def _hold_tp_lead(tag: str, what: str, ranks: list, reqs, ref, params,
+                  cfg, device) -> tuple[list, list]:
+    """Phase 12's checks of a tp 2 run against the tp=1 run ``ref``: the
+    same step schedule, each request's tokens held by ``_held_forced``, the
+    three attention kernels launched on every rank, every step kind run.
+    Returns (the requests equal to tp=1, the tokens off the top)."""
+    lead = ranks[0]
+    _same_schedule(tag, lead["schedule"], ref["schedule"])
+    ties: list = []
+    equal = [rid for _, rid, prompt, _ in reqs if _held_forced(
+        f"{what} {rid}", lead["tokens"][rid], ref["tokens"][rid],
+        prompt, params, cfg, device, ties)]
+    _launched(tag, ranks, ("paged_decode", "flash_prefill",
+                           "flash_prefill_hist"))
+    for kind in ("prefill", "chunked", "mixed", "decode"):
+        if lead["kinds"].get(kind, 0) <= 0:
+            raise RuntimeError(f"{tag}: no {kind} step ran: {lead['kinds']}")
+    return equal, ties
+
+
 def check_tp(cfg, params, device, card: str, devices: list,
-             backend: str, abort: bool) -> dict:
+             backend: str, abort: bool) -> tuple[dict, dict]:
     """Phase 12 (12d with NCCL on two cards): llama-3-8b bf16 at tp 2
-    against the tp=1 engine on the same seed; 12c on the same ranks."""
+    against the tp=1 engine on the same seed; 12c on the same ranks.
+    Returns the record and the tp=1 run (14a holds its ranks to it)."""
     from kubernetes_gpu_cluster_tpu_torch.config import (
         CacheConfig, EngineConfig, SchedulerConfig)
     from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
@@ -3746,16 +3858,8 @@ def check_tp(cfg, params, device, card: str, devices: list,
                                   abort=abort),
                         devices, backend, timeout_s=600)
     lead = ranks[0]
-    _same_schedule(tag, lead["schedule"], ref["schedule"])
-    ties: list = []
-    equal = [rid for _, rid, prompt, _ in reqs if _held_forced(
-        f"tp 2 ({backend}) {rid}", lead["tokens"][rid], ref["tokens"][rid],
-        prompt, params, cfg, device, ties)]
-    _launched(tag, ranks, ("paged_decode", "flash_prefill",
-                           "flash_prefill_hist"))
-    for kind in ("prefill", "chunked", "mixed", "decode"):
-        if lead["kinds"].get(kind, 0) <= 0:
-            raise RuntimeError(f"{tag}: no {kind} step ran: {lead['kinds']}")
+    equal, ties = _hold_tp_lead(tag, f"tp 2 ({backend})", ranks, reqs, ref,
+                                params, cfg, device)
     out = {"backend": backend, "devices": devices,
            "tp1_tokens_per_s": ref["tokens_per_s"],
            "tp2_tokens_per_s": lead["tokens_per_s"],
@@ -3787,7 +3891,7 @@ def check_tp(cfg, params, device, card: str, devices: list,
             raise RuntimeError(f"12c: ranks took over {ABORT_BOUND_S} s")
         out["abort"] = {"leader": a0, "follower": a1}
         log("group abort (12c):", json.dumps(out["abort"]))
-    return out
+    return out, ref
 
 
 def check_pp_sp(cfg, params, device, card: str, axis: str) -> dict:
@@ -3932,12 +4036,15 @@ CLI_TP_TOKENS = 16
 
 
 def cli_rank_child(spec: dict) -> None:
-    """One rank of phase 12e: the server's CLI (``api_server.main`` with
-    ``--distributed``) in this process, which first joins the group over
-    gloo: two ranks share one card, where NCCL, the CLI's own choice on a
-    card, refuses. Writes the kernel launches, counted from this rank's
-    first admitted request, and the engine's tokens by prompt to
-    ``spec["out"]``."""
+    """One rank of phase 12e (13c, 14b): the server's CLI (the module
+    ``spec["module"]``, ``api_server`` by default, run as ``__main__`` with
+    ``spec["argv"]``) in this process. A rank of a group first joins it
+    over gloo: two ranks share one card, where NCCL, the CLI's own choice
+    on a card, refuses; 14b's one-rank Deployment joins nothing. Writes
+    the kernel launches, counted from this process's first admitted
+    request, and the engine's tokens by prompt to ``spec["out"]``."""
+    import runpy
+
     import torch.distributed as dist
 
     from kubernetes_gpu_cluster_tpu_torch.engine.engine import LLMEngine
@@ -3945,9 +4052,10 @@ def cli_rank_child(spec: dict) -> None:
         flash_prefill, flash_prefill_hist, paged_decode)
     from kubernetes_gpu_cluster_tpu_torch.parallel import \
         initialize_distributed
-    from kubernetes_gpu_cluster_tpu_torch.serving import api_server
-    initialize_distributed(backend="gloo", device=spec["device"],
-                           timeout_s=300)
+    group = spec.get("group", True)
+    if group:
+        initialize_distributed(backend="gloo", device=spec["device"],
+                               timeout_s=300)
     counters = {"paged_decode": paged_decode, "flash_prefill": flash_prefill,
                 "flash_prefill_hist": flash_prefill_hist}
     prompts, tokens = {}, {}
@@ -3967,15 +4075,19 @@ def cli_rank_child(spec: dict) -> None:
                 tokens[out.request_id] = list(out.output_token_ids)
         return outs
     LLMEngine.add_request, LLMEngine.step = counted_add, recorded_step
+    module = spec.get("module", "kubernetes_gpu_cluster_tpu_torch.serving."
+                                "api_server")
+    sys.argv = [module, *spec["argv"]]
     try:
-        api_server.main(spec["argv"])
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
     finally:
         Path(spec["out"]).write_text(json.dumps({
             "rank": spec["rank"],
             "launches": {n: m.launches if prompts else 0
                          for n, m in counters.items()},
             "requests": [[prompts[r], t] for r, t in tokens.items()]}))
-        dist.destroy_process_group()
+        if group:
+            dist.destroy_process_group()
 
 
 async def _drive_cli_tp(port: int, health: int, procs: list,
@@ -4024,14 +4136,15 @@ async def _drive_cli_tp(port: int, health: int, procs: list,
 
 def check_cli_tp(cfg, params, device, card: str,
                  flag: str = "--tensor-parallel-size",
-                 tag: str = "12e") -> dict:
-    """Phase 12e (13c with ``flag`` --pipeline-parallel-size): the
-    server's CLI at size 2 of ``flag``, two ``--distributed`` ranks on
-    card 0 (each ``chip_smoke.py --cli-rank``). Requests over HTTP; the
-    engine's tokens held to the one-device weights by teacher forcing; the
-    attention kernels launched on both ranks; the follower's /health 200;
-    SIGTERM drains rank 0, whose stop directive lets rank 1 exit, both
-    with 0."""
+                 tag: str = "12e", argv: Optional[list] = None,
+                 module: Optional[str] = None) -> dict:
+    """Phase 12e (13c with ``flag`` --pipeline-parallel-size; 14b with a
+    rendered pod's ``argv`` and command ``module``): the server's CLI at
+    size 2 of ``flag``, two ``--distributed`` ranks on card 0 (each
+    ``chip_smoke.py --cli-rank``). Requests over HTTP; the engine's tokens
+    held to the one-device weights by teacher forcing; the attention
+    kernels launched on both ranks; the follower's /health 200; SIGTERM
+    drains rank 0, whose stop directive lets rank 1 exit, both with 0."""
     import signal
     work = REPO / "build" / f"cli-{tag}"
     work.mkdir(parents=True, exist_ok=True)
@@ -4047,16 +4160,19 @@ def check_cli_tp(cfg, params, device, card: str,
                    KGCT_NUM_PROCESSES="2", KGCT_PROCESS_ID=str(rank),
                    KGCT_CONTROL_PORT=str(ctrl),
                    KGCT_FOLLOWER_ADDRS=f"127.0.0.1:{ctrl}")
-        argv = ["--model", MODEL, flag, "2",
-                "--distributed", "--device", "cuda:0",
-                "--hbm-utilization", "0.1", "--max-num-seqs", "8",
-                "--host", "127.0.0.1",
-                "--port", str(port if rank == 0 else health)]
+        rank_argv = (argv or ["--model", MODEL, flag, "2", "--distributed",
+                              "--hbm-utilization", "0.1",
+                              "--max-num-seqs", "8"]) + [
+            "--device", "cuda:0", "--host", "127.0.0.1",
+            "--port", str(port if rank == 0 else health)]
         logs.append(open(work / f"rank{rank}.log", "w"))
+        child = {"rank": rank, "device": "cuda:0", "argv": rank_argv,
+                 "out": str(out)}
+        if module:
+            child["module"] = module
         procs.append(subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--cli-rank",
-             json.dumps({"rank": rank, "device": "cuda:0", "argv": argv,
-                         "out": str(out)})],
+             json.dumps(child)],
             cwd=REPO, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
     try:
         res = asyncio.run(_drive_cli_tp(port, health, procs, cfg.vocab_size,
@@ -4102,6 +4218,335 @@ def check_cli_tp(cfg, params, device, card: str,
     log(f"CLI {flag} 2 ({tag}): up in {res['up_s']:.1f} s, "
         f"{len(CLI_TP_PROMPTS)} requests in {res['wall_s']:.2f} s | {card}")
     return res
+
+
+CKPT_DIR = REPO / "build" / MODEL   # the name maps --model to the preset
+CKPT_FILES = 4                      # HF's sharded save: ~4 GB files
+CKPT_LAYERS = 32                    # full depth: 16.1 GB of bf16
+DEPLOY_PROMPTS = (64, 300, 900, 2500)  # 14b: the Deployment's requests
+DEPLOY_TOKENS = 32
+TERM_GRACE_S = 150                  # the rendered terminationGracePeriod
+
+
+def _hf_llama_tensors(params, cfg):
+    """(HF name, the tensor as HF stores it) of llama ``params``, lazily:
+    ``[out, in]`` matrices, one layer at a time."""
+    yield "model.embed_tokens.weight", lambda: params["embed"]
+    yield "model.norm.weight", lambda: params["final_norm"]
+    yield "lm_head.weight", lambda: params["lm_head"].T
+    hf = {"input_norm": "input_layernorm.weight",
+          "post_attn_norm": "post_attention_layernorm.weight",
+          "wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
+          "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
+          "w_gate": "mlp.gate_proj.weight", "w_up": "mlp.up_proj.weight",
+          "w_down": "mlp.down_proj.weight"}
+    for layer in range(cfg.num_layers):
+        for ours, theirs in hf.items():
+            t = params["layers"][ours]
+            yield (f"model.layers.{layer}.{theirs}",
+                   (lambda t=t, layer=layer: t[layer].T) if t.dim() == 3
+                   else (lambda t=t, layer=layer: t[layer]))
+
+
+def write_checkpoint(params, cfg, path: Path, n_files: int) -> dict:
+    """Phase 14: ``params`` (llama, bf16, on the card) as an HF
+    safetensors checkpoint in ``n_files`` files of about equal size, with
+    ``model.safetensors.index.json`` and ``config.json``. Plain Python: an
+    8-byte little-endian header length, the JSON header of dtype, shape
+    and offsets, then each tensor's bytes, copied off the card one layer
+    at a time."""
+    if cfg.num_layers != CKPT_LAYERS:
+        raise RuntimeError(f"{cfg.name}: {cfg.num_layers} layers, the "
+                           f"checkpoint is written at {CKPT_LAYERS}")
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    items = list(_hf_llama_tensors(params, cfg))
+    shapes, sizes = {}, []
+    for name, get in items:
+        t = get()
+        shapes[name] = list(t.shape)
+        sizes.append(t.numel() * 2)
+    per_file = -(-sum(sizes) // n_files)
+    files: list[list] = [[]]
+    acc = 0
+    for (name, get), n in zip(items, sizes):
+        if acc + n > per_file and files[-1] and len(files) < n_files:
+            files.append([])
+            acc = 0
+        files[-1].append((name, get, n))
+        acc += n
+    t0 = time.perf_counter()
+    weight_map = {}
+    for i, group in enumerate(files):
+        fname = f"model-{i + 1:05d}-of-{len(files):05d}.safetensors"
+        header, at = {}, 0
+        for name, _, n in group:
+            header[name] = {"dtype": "BF16", "shape": shapes[name],
+                            "data_offsets": [at, at + n]}
+            at += n
+            weight_map[name] = fname
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(path / fname, "wb") as f:
+            f.write(len(raw).to_bytes(8, "little"))
+            f.write(raw)
+            for name, get, n in group:
+                t = get().contiguous().view(torch.int16).cpu().numpy()
+                f.write(t.tobytes())
+    (path / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": sum(sizes)}, "weight_map": weight_map}))
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+        "rope_scaling": dict(cfg.rope_scaling or ()) or None,
+        "max_position_embeddings": cfg.max_model_len,
+        "tie_word_embeddings": False, "torch_dtype": "bfloat16"}))
+    secs = time.perf_counter() - t0
+    return {"gb": sum(sizes) / 1e9, "files": len(files), "s": secs,
+            "gb_per_s": sum(sizes) / 1e9 / secs}
+
+
+def whole_load_child(spec: dict) -> None:
+    """14a's whole-then-slice reading, in a process of its own: the whole
+    checkpoint loaded on the host (``load_weights(device="cpu")``), then
+    rank 0's tp 2 slices (``shard_params``), as every rank loaded before
+    the streamed load; its seconds and host peak to ``spec["out"]``."""
+    from kubernetes_gpu_cluster_tpu_torch.config import get_model_config
+    from kubernetes_gpu_cluster_tpu_torch.engine.weights import load_weights
+    from kubernetes_gpu_cluster_tpu_torch.parallel import make_mesh
+    from kubernetes_gpu_cluster_tpu_torch.parallel.sharding import \
+        shard_params
+    cfg = get_model_config(MODEL)
+    groups = make_mesh(tp=2, rank=0)
+    local, rec = host_peak(lambda: shard_params(
+        load_weights(spec["path"], cfg, device="cpu"), cfg, groups))
+    rec["local_gb"] = _param_gb(local)
+    Path(spec["out"]).write_text(json.dumps(rec))
+
+
+def _whole_load(path: Path) -> dict:
+    out = TP_DIR / "14a-whole.json"
+    out.unlink(missing_ok=True)
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    with open(TP_DIR / "14a-whole.log", "w") as logf:
+        rc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--whole-load",
+             json.dumps({"path": str(path), "out": str(out)})],
+            stdout=logf, stderr=subprocess.STDOUT, timeout=600).returncode
+    if rc != 0 or not out.exists():
+        raise RuntimeError(f"14a whole load exited {rc}:\n"
+                           + (TP_DIR / "14a-whole.log").read_text()[-3000:])
+    return json.loads(out.read_text())
+
+
+def check_streamed(cfg, params, device, card: str, path: Path,
+                   tp_ref: dict) -> dict:
+    """Phase 14a: two ranks on card 0 over gloo stream their slices of the
+    phase-14 checkpoint, at tp 2 and at pp 2; every local tensor is
+    ``torch.equal`` to ``shard_tensor`` of phase 4's weights (the seed's
+    draw); each logs its load seconds and host peak, and a separate
+    process the whole-then-slice path's. The tp 2 ranks then serve phase
+    12's requests on the streamed weights, held to phase 12's tp=1 run as
+    12 holds its ranks."""
+    ps = 16
+    reqs = tp_requests(cfg.vocab_size, n_req=7, long_len=TP_LONG)
+    base = dict(model=cfg.name, quant=None, ep=1, page_size=ps,
+                pages=TP_PAGES, reqs=_req_spec(reqs), weights=str(path))
+    out: dict = {}
+    for axis in ("tp", "pp"):
+        tag = f"14a-{axis}"
+        sizes = {"tp": 1, "pp": 1, axis: 2}
+        ranks = spawn_ranks(tag, dict(base, **sizes, serve=axis == "tp"),
+                            [0, 0], "gloo", timeout_s=600)
+        out[axis] = {"load": [r["load"] for r in ranks]}
+        if axis == "tp":
+            equal, ties = _hold_tp_lead(tag, "streamed tp 2", ranks, reqs,
+                                        tp_ref, params, cfg, device)
+            out[axis].update(
+                equal_to_tp1=f"{len(equal)} of {len(reqs)}", near_ties=ties,
+                tokens_per_s=ranks[0]["tokens_per_s"],
+                launches=[r["launches"] for r in ranks])
+        for r in ranks:
+            ld = r["load"]
+            log(f"{tag} rank {r['rank']}: {ld['tensors_equal']} tensors "
+                f"equal to the seed's slices; {ld['local_gb']:.3f} GB "
+                f"streamed in {ld['s']:.2f} s, host peak "
+                f"{ld['peak_gb']:.3f} GB over {ld['rss_before_gb']:.3f} "
+                f"(exact {ld['exact']}) | {card}")
+    out["whole"] = _whole_load(path)
+    w = out["whole"]
+    log(f"14a whole-then-slice (tp 2 rank 0): {w['local_gb']:.3f} GB kept "
+        f"after {w['s']:.2f} s, host peak {w['peak_gb']:.3f} GB over "
+        f"{w['rss_before_gb']:.3f} (exact {w['exact']}) | {card}")
+    return out
+
+
+def _values(path: Path, **vllm) -> dict:
+    """14b's values: the reference schema, ``modelURL`` the checkpoint.
+    ``--tokenizer byte`` follows the rendered ``--tokenizer <modelURL>``:
+    an HF tokenizer needs ``transformers``, which the card's machine lacks,
+    and the checkpoint ships none."""
+    return {"servingEngineSpec": {"modelSpec": [{
+        "name": "llama", "modelURL": str(path), "requestGPU": 1,
+        "vllmConfig": {"gpuMemoryUtilization": 0.1,
+                       "extraArgs": ["--tokenizer", "byte",
+                                     "--max-num-seqs", "8"], **vllm}}]}}
+
+
+async def _drive_deployment(port: int, probe: str, proc, prompts) -> dict:
+    deadline = time.monotonic() + 600
+    while True:
+        if proc.poll() is not None:
+            raise RuntimeError(f"14b: the pod exited {proc.returncode} "
+                               "before its readiness probe passed")
+        try:
+            if (await http_call(port, "GET", probe))["status"] == 200:
+                break
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"14b: {probe} on port {port} never passed")
+        await asyncio.sleep(0.5)
+    up_s = 600 - (deadline - time.monotonic())
+    t0 = time.perf_counter()
+    replies = [await http_call(port, "POST", "/v1/completions",
+                               {"prompt": p, "max_tokens": DEPLOY_TOKENS,
+                                "temperature": 0.0}) for p in prompts]
+    for r in replies:
+        if r["status"] != 200:
+            raise RuntimeError(f"14b request: {r['status']} "
+                               f"{r['body'][:300]}")
+    return {"up_s": up_s, "wall_s": time.perf_counter() - t0,
+            "bodies": [json.loads(r["body"]) for r in replies]}
+
+
+def check_rendered(cfg, params, device, card: str, path: Path) -> dict:
+    """Phase 14b: manifests rendered by ``deploy/render.py`` from values
+    whose ``modelURL`` is the phase-14 checkpoint. (1) ``requestGPU: 1``:
+    the Deployment's container (its command's module run by ``chip_smoke.py
+    --cli-rank``, which records the engine's tokens, with the rendered
+    args) on card 0; its readiness probe's path and port answered; four
+    completions, each held to the in-process engine on phase 4's weights
+    serving the prompt alone (equal, or teacher forced under
+    ``RESUME_DRIFT``); SIGTERM, exit 0 within the rendered
+    ``terminationGracePeriodSeconds``. (2) ``pipelineParallelSize: 2``:
+    the StatefulSet's two pods as two ranks on card 0 through 13c's
+    harness (gloo, ``KGCT_FOLLOWER_ADDRS``: pod DNS does not exist here),
+    each streaming its stage; held as 13c holds its ranks."""
+    import signal
+
+    from kubernetes_gpu_cluster_tpu_torch.config import (
+        CacheConfig, EngineConfig, SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.deploy.render import render_values
+    from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
+                                                         SamplingParams)
+    ms = render_values(_values(path))
+    pod = ms["llama-engine-deployment.yaml"]["spec"]["template"]["spec"]
+    c = pod["containers"][0]
+    if c["resources"]["limits"].get("nvidia.com/gpu") != 1 or \
+            pod["terminationGracePeriodSeconds"] != TERM_GRACE_S:
+        raise RuntimeError(f"14b: unexpected Deployment pod {pod}")
+    if c["command"][:2] != ["python", "-m"]:
+        raise RuntimeError(f"14b: unexpected command {c['command']}")
+    probe = c["readinessProbe"]["httpGet"]
+    rng = np.random.default_rng(SEED + 14)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in DEPLOY_PROMPTS]
+    engine = LLMEngine(EngineConfig(
+        model=cfg, seed=SEED, cache=CacheConfig(page_size=16,
+                                                num_pages=1024),
+        scheduler=SchedulerConfig(max_num_seqs=8)), params=params,
+        device=device)
+    greedy = SamplingParams(max_tokens=DEPLOY_TOKENS, temperature=0.0)
+    ref = [engine.generate([p], greedy)[0].output_token_ids for p in prompts]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = REPO / "build" / "deploy-14b"
+    work.mkdir(parents=True, exist_ok=True)
+    out_file = work / "deployment.json"
+    out_file.unlink(missing_ok=True)
+    env = dict(os.environ, TMPDIR=str(work),
+               KGCT_FLIGHT_DIR=str(work / "flight"))
+    for e in c.get("env") or []:
+        env[e["name"]] = e["value"]
+    with open(work / "deployment.log", "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--cli-rank",
+             json.dumps({"rank": 0, "group": False, "module": c["command"][2],
+                         "argv": c["args"], "out": str(out_file)})],
+            cwd=REPO, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            res = asyncio.run(_drive_deployment(probe["port"], probe["path"],
+                                                proc, prompts))
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=pod["terminationGracePeriodSeconds"])
+            res["sigterm_exit_s"] = time.perf_counter() - t0
+            if rc != 0:
+                raise RuntimeError(f"14b: the pod exited {rc} after SIGTERM")
+        except BaseException:
+            logf.flush()
+            log("14b deployment log tail:\n"
+                + (work / "deployment.log").read_text()[-4000:])
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    served = {tuple(p): t for p, t in
+              json.loads(out_file.read_text())["requests"]}
+    ties: list = []
+    equal = 0
+    for i, (prompt, body, want) in enumerate(zip(prompts, res.pop("bodies"),
+                                                 ref)):
+        got = served.get(tuple(prompt))
+        if got is None or body["usage"]["completion_tokens"] != len(got):
+            raise RuntimeError(f"14b request {i}: served {got}, the reply "
+                               f"says {body['usage']}")
+        equal += _held_forced(f"14b deployment request {i}", got, want,
+                              prompt, params, cfg, device, ties)
+    res.update(equal_to_in_process=f"{equal} of {len(prompts)}",
+               near_ties=ties)
+    log(f"14b deployment: up in {res['up_s']:.1f} s, {len(prompts)} "
+        f"requests in {res['wall_s']:.2f} s, {equal} of {len(prompts)} "
+        f"equal to the in-process engine, exit 0 "
+        f"{res['sigterm_exit_s']:.2f} s after SIGTERM | {card}")
+    sts = render_values(_values(path, pipelineParallelSize=2))[
+        "llama-engine-statefulset.yaml"]
+    sc = sts["spec"]["template"]["spec"]["containers"][0]
+    env = {e["name"]: e.get("value") for e in sc["env"]}
+    if sts["spec"]["replicas"] != 2 or env["KGCT_NUM_PROCESSES"] != "2":
+        raise RuntimeError(f"14b: unexpected StatefulSet {sts['spec']}")
+    res["statefulset"] = check_cli_tp(
+        cfg, params, device, card, "--pipeline-parallel-size", "14b",
+        argv=sc["args"], module=sc["command"][2])
+    return res
+
+
+def checkpoint_phases(cfg, params, device, card: str, tp_ref: dict,
+                      phase=lambda name: None) -> None:
+    """Phase 14: the phase-4 weights written as an HF checkpoint; 14a the
+    streamed load from it at tp 2 and pp 2; 14b rendered manifests that
+    serve it. The checkpoint goes at the end, on failure too."""
+    try:
+        ckpt = write_checkpoint(params, cfg, CKPT_DIR, CKPT_FILES)
+        log(f"checkpoint (14): {ckpt['gb']:.3f} GB in {ckpt['files']} files "
+            f"in {ckpt['s']:.1f} s ({ckpt['gb_per_s']:.2f} GB/s) | {card}")
+        phase(f"{MODEL} bf16 checkpoint (14)")
+        log("streamed:", json.dumps(check_streamed(
+            cfg, params, device, card, CKPT_DIR, tp_ref)), "|", card)
+        phase(f"{MODEL} bf16 streamed load (14a)")
+        log("deploy:", json.dumps(check_rendered(
+            cfg, params, device, card, CKPT_DIR)), "|", card)
+        phase(f"{MODEL} bf16 rendered manifests (14b)")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
 
 def main() -> int:
@@ -4218,8 +4663,9 @@ def main() -> int:
 
     # Phases 12 and 12c: tp 2 as two ranks on this card (gloo), held to
     # the tp=1 tokens of these weights; then the group abort.
-    log("tp:", json.dumps(check_tp(cfg, params, device, card, [0, 0],
-                                   "gloo", abort=True)), "|", card)
+    tp, tp_ref = check_tp(cfg, params, device, card, [0, 0], "gloo",
+                          abort=True)
+    log("tp:", json.dumps(tp), "|", card)
     phase(f"{MODEL} bf16 tp 2 (12, 12c)")
     # Phase 12e: the server's CLI at tp 2, two --distributed ranks.
     log("cli tp:", json.dumps(check_cli_tp(cfg, params, device, card)), "|",
@@ -4237,10 +4683,11 @@ def main() -> int:
         cfg, params, device, card, "--pipeline-parallel-size", "13c")), "|",
         card)
     phase(f"{MODEL} bf16 CLI pp 2 (13c)")
+    checkpoint_phases(cfg, params, device, card, tp_ref, phase)
     # Phase 12d: the same over NCCL, where two cards exist.
     if torch.cuda.device_count() >= 2:
         log("nccl tp:", json.dumps(check_tp(cfg, params, device, card,
-                                            [0, 1], "nccl", abort=False)))
+                                            [0, 1], "nccl", abort=False)[0]))
         phase(f"{MODEL} bf16 nccl tp 2 (12d)")
     else:
         log("nccl tp: not run (1 card)")
@@ -4342,5 +4789,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--cli-rank"]:
         cli_rank_child(json.loads(sys.argv[2]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--whole-load"]:
+        whole_load_child(json.loads(sys.argv[2]))
         sys.exit(0)
     sys.exit(main())

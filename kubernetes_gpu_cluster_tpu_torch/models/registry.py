@@ -10,7 +10,7 @@ weights source and a tokenizer source. Every family shares one decoder
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
@@ -35,8 +35,7 @@ def resolve(model_url: str, name: Optional[str] = None) -> ResolvedModel:
                          tokenizer_path=tokenizer)
 
 
-def load(resolved: ResolvedModel, device: torch.device | str = "cuda",
-         shardings: Optional[Any] = None):
+def load(resolved: ResolvedModel, device: torch.device | str = "cuda"):
     """The params of a resolved model on ``device`` (the card unless the
     caller asks for the CPU): the checkpoint's weights when it has one,
     None otherwise (the engine then draws random weights)."""
@@ -45,7 +44,7 @@ def load(resolved: ResolvedModel, device: torch.device | str = "cuda",
     from ..engine.weights import load_weights
 
     return load_weights(resolved.weights_path, resolved.config,
-                        device=device, shardings=shardings)
+                        device=device)
 
 
 def list_models() -> list[str]:

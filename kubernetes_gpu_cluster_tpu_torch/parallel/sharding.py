@@ -141,26 +141,51 @@ def split_rules(cfg: ModelConfig) -> tuple[dict[str, Rules],
     return layers, top
 
 
+# Per axis, the [start, stop) index runs one rank keeps, in order.
+Runs = tuple[tuple[int, int], ...]
+
+
 def _span(cfg: ModelConfig, mesh_axis: str, size: int, groups,
-          name: str) -> tuple[int, int] | list[int]:
-    """One rank's part of an axis of ``size``: (start, length), or under
-    a kv-head straddle the list of indices it gathers."""
+          name: str) -> Runs:
+    """One rank's part of an axis of ``size``: one run, or under a kv-head
+    straddle one run per kv head its q heads read (adjacent heads merge; a
+    head read again starts a run of its own)."""
     tp = groups.tp
     if mesh_axis == "kv" and cfg.num_kv_heads % tp:
         width = size // cfg.num_kv_heads
         q_per_kv = cfg.num_heads // cfg.num_kv_heads
         if not straddles(cfg, tp):
-            return (groups.tp_rank // (tp // cfg.num_kv_heads)) * width, width
+            start = (groups.tp_rank // (tp // cfg.num_kv_heads)) * width
+            return ((start, start + width),)
         nh = cfg.num_heads // tp
-        heads = [(groups.tp_rank * nh + j) // q_per_kv for j in range(nh)]
-        return [h * width + i for h in heads for i in range(width)]
+        runs: list[list[int]] = []
+        for j in range(nh):
+            head = (groups.tp_rank * nh + j) // q_per_kv
+            if runs and runs[-1][1] == head * width:
+                runs[-1][1] += width
+            else:
+                runs.append([head * width, (head + 1) * width])
+        return tuple((a, b) for a, b in runs)
     n, i = {"ep": (groups.ep, groups.ep_rank),
             "pp": (groups.pp, groups.pp_rank)}.get(
                 mesh_axis, (tp, groups.tp_rank))
     if size % n:
         raise ValueError(f"{name}: axis of {size} not divisible by "
                          f"{mesh_axis}={n}")
-    return i * (size // n), size // n
+    return ((i * (size // n), (i + 1) * (size // n)),)
+
+
+def local_ranges(shape: tuple, rules: Rules, cfg: ModelConfig, groups,
+                 name: str = "") -> tuple[Runs, ...]:
+    """This rank's part of a tensor of ``shape`` under ``rules``, without
+    the tensor: per axis the index runs it keeps, concatenated in order.
+    An axis that is whole or split into blocks has one run; under a kv-head
+    straddle the kv axis has a run per kv head its q heads read. The one
+    source of ``shard_tensor``, ``local_shape`` and the streamed load."""
+    out = [((0, n),) for n in shape]
+    for axis, mesh_axis in rules:
+        out[axis] = _span(cfg, mesh_axis, shape[axis], groups, name)
+    return tuple(out)
 
 
 def shard_tensor(t: torch.Tensor, rules: Rules, cfg: ModelConfig, groups,
@@ -171,42 +196,39 @@ def shard_tensor(t: torch.Tensor, rules: Rules, cfg: ModelConfig, groups,
     if not rules:
         return t
     out = t
-    for axis, mesh_axis in rules:
-        span = _span(cfg, mesh_axis, t.shape[axis], groups, name)
-        if isinstance(span, list):
-            out = out.index_select(axis, torch.tensor(span,
-                                                      device=out.device))
-        else:
-            out = out.narrow(axis, *span)
+    for axis, runs in enumerate(local_ranges(tuple(t.shape), rules, cfg,
+                                             groups, name)):
+        parts = [out.narrow(axis, a, b - a) for a, b in runs]
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, axis)
     return out.clone(memory_format=torch.contiguous_format)
 
 
 def local_shape(shape: tuple, rules: Rules, cfg: ModelConfig,
                 groups) -> tuple:
-    shape = list(shape)
-    for axis, mesh_axis in rules:
-        span = _span(cfg, mesh_axis, shape[axis], groups, "")
-        shape[axis] = len(span) if isinstance(span, list) else span[1]
-    return tuple(shape)
+    return tuple(sum(b - a for a, b in runs)
+                 for runs in local_ranges(shape, rules, cfg, groups))
 
 
-def _rule_sets(cfg: ModelConfig, groups) -> tuple[dict, dict, Rules]:
-    """(layer rules, top-level rules, the rule every layer tensor takes
-    first: its layer axis over pp)."""
+def rules_fn(cfg: ModelConfig, groups):
+    """``rules(name, top)``: the rules of a parameter, its layer axis over
+    pp first for a layer tensor; validates the layout once."""
     validate(cfg, groups.tp, groups.ep, groups.pp)
     layer_rules, top_rules = split_rules(cfg)
-    return layer_rules, top_rules, (((0, "pp"),) if groups.pp > 1 else ())
+    stage: Rules = ((0, "pp"),) if groups.pp > 1 else ()
+
+    def rules(name: str, top: bool) -> Rules:
+        return (top_rules.get(name, ()) if top
+                else stage + layer_rules.get(name, ()))
+    return rules
 
 
 def init_shard_fn(cfg: ModelConfig, groups):
     """``models.llama.init_params``'s ``shard`` hook: each full tensor is
     sliced to this rank's part right after it is drawn."""
-    layer_rules, top_rules, stage = _rule_sets(cfg, groups)
+    rules = rules_fn(cfg, groups)
 
     def shard(name: str, t: torch.Tensor, top: bool) -> torch.Tensor:
-        rules = (top_rules.get(name, ()) if top
-                 else stage + layer_rules.get(name, ()))
-        return shard_tensor(t, rules, cfg, groups, name)
+        return shard_tensor(t, rules(name, top), cfg, groups, name)
     return shard
 
 
@@ -214,21 +236,21 @@ def shard_params(params: dict, cfg: ModelConfig, groups) -> dict:
     """The full parameter dict -> this rank's local tensors. A tensor
     already at its local shape (a sharded load) is kept as it is; any
     other shape raises."""
-    layer_rules, top_rules, stage = _rule_sets(cfg, groups)
+    rules = rules_fn(cfg, groups)
     want_layers, want_top = model_lib.param_layouts(cfg)
 
-    def one(name, t, full, rules):
+    def one(name, t, full, top):
+        r = rules(name, top)
         if tuple(t.shape) == tuple(full):
-            return shard_tensor(t, rules, cfg, groups, name)
-        if tuple(t.shape) == local_shape(full, rules, cfg, groups):
+            return shard_tensor(t, r, cfg, groups, name)
+        if tuple(t.shape) == local_shape(full, r, cfg, groups):
             return t
         raise ValueError(f"{name}: shape {tuple(t.shape)} is neither the "
                          f"full {tuple(full)} nor this rank's slice")
 
-    out = {"layers": {n: one(n, t, want_layers[n][0],
-                             stage + layer_rules.get(n, ()))
+    out = {"layers": {n: one(n, t, want_layers[n][0], False)
                       for n, t in params["layers"].items()}}
-    out.update({n: one(n, t, want_top[n][0], top_rules.get(n, ()))
+    out.update({n: one(n, t, want_top[n][0], True)
                 for n, t in params.items() if n != "layers"})
     return out
 

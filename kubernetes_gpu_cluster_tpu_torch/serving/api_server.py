@@ -2104,30 +2104,10 @@ def _url_list(arg: Optional[str]) -> Optional[list[str]]:
     return [u.strip() for u in arg.split(",") if u.strip()] or None
 
 
-def main(argv: Optional[list[str]] = None) -> None:
-    """CLI: python -m kubernetes_gpu_cluster_tpu_torch.serving.api_server
-    --model tinyllama-1.1b --port 8000 [--tokenizer /models/TinyLlama]
-    [--device cuda|cpu]
-
-    Flag names are the JAX package's CLI, which mirrors the reference's
-    vllmConfig/extraArgs surface, so rendered manifests carry over.
-    ``--trust-remote-code``, ``--disable-custom-all-reduce`` and
-    ``--enforce-eager`` are accepted and change nothing here (local
-    checkpoints only; the all-reduce is torch.distributed's; eager
-    PyTorch).
-
-    tp, ep, pp or sp above 1: with ``--distributed`` this process is one
-    rank of the ``KGCT_*`` environment (rank 0 serves, the others
-    follow); without it rank 0 starts the other ranks itself on
-    ``cuda:1..`` (or the CPU) and forms the group over localhost. A layout
-    the engine refuses (``engine.validate_layout``) is refused before any
-    rank starts."""
+def build_parser():
+    """The server CLI's argument parser (``main`` adds the checks that
+    span flags)."""
     import argparse
-
-    from ..config import (CacheConfig, ParallelConfig, SchedulerConfig,
-                          get_model_config)
-    from ..engine.engine import validate_layout
-    from ..engine.qos import parse_qos_tiers
 
     p = argparse.ArgumentParser()
     p.add_argument("--model", required=True)
@@ -2235,6 +2215,38 @@ def main(argv: Optional[list[str]] = None) -> None:
                    help="this process is one rank of a multi-process group "
                    "(coordinator, world and rank from KGCT_COORDINATOR, "
                    "KGCT_NUM_PROCESSES, KGCT_PROCESS_ID; parallel/mesh.py)")
+    return p
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    """CLI: python -m kubernetes_gpu_cluster_tpu_torch.serving.api_server
+    --model tinyllama-1.1b --port 8000 [--tokenizer /models/TinyLlama]
+    [--device cuda|cpu]
+
+    Flag names are the JAX package's CLI, which mirrors the reference's
+    vllmConfig/extraArgs surface, so rendered manifests carry over.
+    ``--trust-remote-code``, ``--disable-custom-all-reduce`` and
+    ``--enforce-eager`` are accepted and change nothing here (local
+    checkpoints only; the all-reduce is torch.distributed's; eager
+    PyTorch).
+
+    tp, ep, pp or sp above 1: with ``--distributed`` this process is the
+    first rank of pod ``KGCT_PROCESS_ID`` of the ``KGCT_NUM_PROCESSES``
+    pods the deploy renderer starts (global rank 0 serves, the others
+    follow); where the layout has more ranks than pods, it starts its
+    pod's ``world / pods`` - 1 other ranks on ``cuda:1..``, global rank
+    ``pod * local + k`` with control port ``KGCT_CONTROL_PORT + k``.
+    Without ``--distributed`` rank 0 starts the other ranks itself on
+    ``cuda:1..`` (or the CPU) and forms the group over localhost. With
+    ``--weights`` each rank streams its own slices of the checkpoint. A
+    layout the engine refuses (``engine.validate_layout``) is refused
+    before any rank starts."""
+    from ..config import (CacheConfig, ParallelConfig, SchedulerConfig,
+                          get_model_config)
+    from ..engine.engine import validate_layout
+    from ..engine.qos import parse_qos_tiers
+
+    p = build_parser()
     args = p.parse_args(argv)
 
     parallel = ParallelConfig(tp=args.tensor_parallel_size,
@@ -2290,19 +2302,34 @@ def main(argv: Optional[list[str]] = None) -> None:
                     dataclasses.asdict(parallel))
     follower, local_ranks = None, []
     if args.distributed:
-        from .multihost import CONTROL_PORT, DirectiveFollower
-        if parallel.world_size > 1 and not os.environ.get("KGCT_COORDINATOR"):
+        from .multihost import CONTROL_PORT, DirectiveFollower, ranks_per_pod
+        world = parallel.world_size
+        coord = os.environ.get("KGCT_COORDINATOR")
+        if world > 1 and not coord:
             raise ValueError(
-                f"--distributed at world size {parallel.world_size} needs "
+                f"--distributed at world size {world} needs "
                 "KGCT_COORDINATOR, KGCT_NUM_PROCESSES and KGCT_PROCESS_ID "
                 "(without --distributed one node starts its own ranks)")
-        if int(os.environ.get("KGCT_PROCESS_ID", "0")) > 0:
+        # A pod runs world / pods ranks, one a card: this process is the
+        # pod's first, and starts the others.
+        local = ranks_per_pod(world,
+                              int(os.environ.get("KGCT_NUM_PROCESSES", "1")))
+        rank = int(os.environ.get("KGCT_PROCESS_ID", "0")) * local
+        ctrl = int(os.environ.get("KGCT_CONTROL_PORT", CONTROL_PORT))
+        local_ranks = _start_ranks(argv, device, world, coord,
+                                   [(rank + k, k, ctrl + k)
+                                    for k in range(1, local)])
+        if rank > 0:
             # Bound before the rendezvous blocks, so the leader's connect
             # finds the listener.
-            follower = DirectiveFollower(
-                port=int(os.environ.get("KGCT_CONTROL_PORT", CONTROL_PORT)))
+            follower = DirectiveFollower(port=ctrl)
             _exit_with_parent()
-        initialize_distributed(device=device)
+        try:
+            initialize_distributed(num_processes=world, process_id=rank,
+                                   device=device)
+        except BaseException:
+            _reap(local_ranks)
+            raise
     elif parallel.world_size > 1:
         local_ranks = _start_local_ranks(argv, parallel.world_size, device)
     groups = mesh_from_config(parallel)
@@ -2333,6 +2360,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     params = None
     if args.weights:
         from ..engine.weights import load_weights
+        # Under a layout of more than one rank the load streams: each rank
+        # reads only its own byte ranges.
         params = load_weights(args.weights, config.model, device=device,
                               groups=groups)
     draft_params = None
@@ -2345,14 +2374,17 @@ def main(argv: Optional[list[str]] = None) -> None:
             get_model_config(args.spec_draft_model).replace(
                 dtype=model_cfg.dtype), device=device)
     if follower is not None:
-        _serve_follower(follower, config, args, params, device, groups,
-                        draft_params)
+        try:
+            _serve_follower(follower, config, args, params, device, groups,
+                            draft_params)
+        finally:
+            _reap(local_ranks)
         return
     leader = None
     if groups is not None:
         from .multihost import DirectiveLeader, follower_addrs_from_env
         leader = DirectiveLeader(
-            follower_addrs_from_env(),
+            follower_addrs_from_env(groups.world_size),
             heartbeat_interval_s=config.resilience.heartbeat_interval_s)
     server = build_server(config, args.tokenizer, args.model, params=params,
                           device=device, role=args.role,
@@ -2397,40 +2429,50 @@ def _free_port() -> int:
 
 def _start_local_ranks(argv: Optional[list[str]], world: int,
                        device: torch.device) -> list:
-    """One node, one container: start ranks 1..world-1 as this CLI with
-    ``--distributed`` (rank k on ``cuda:<index+k>``, or the CPU), a
-    control port each and an ephemeral health port, join the group over
-    localhost as rank 0, and point the leader at them. The followers exit
-    when the leader's channel closes or this process dies."""
-    import subprocess
-    import sys
-
-    argv = list(sys.argv[1:] if argv is None else argv)
+    """One node, one container: start ranks 1..world-1 (``_start_ranks``)
+    with a control port each, join the group over localhost as rank 0, and
+    point the leader at them."""
     # The group never leaves this host: gloo binds the loopback.
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     coord = f"127.0.0.1:{_free_port()}"
     ctrl = [_free_port() for _ in range(1, world)]
-    procs = []
-    for k in range(1, world):
-        dev = (f"cuda:{(device.index or 0) + k}" if device.type == "cuda"
-               else "cpu")
-        env = dict(os.environ, KGCT_COORDINATOR=coord,
-                   KGCT_NUM_PROCESSES=str(world), KGCT_PROCESS_ID=str(k),
-                   KGCT_CONTROL_PORT=str(ctrl[k - 1]),
-                   KGCT_PARENT_PID=str(os.getpid()))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", __spec__.name, *argv, "--distributed",
-             "--device", dev, "--port", "0", "--host", "127.0.0.1"],
-            env=env))
+    procs = _start_ranks(argv, device, world, coord,
+                         [(k, k, ctrl[k - 1]) for k in range(1, world)])
     os.environ["KGCT_FOLLOWER_ADDRS"] = ",".join(
         f"127.0.0.1:{c}" for c in ctrl)
-    logger.info("started %d local ranks (pids %s); coordinator %s",
-                world - 1, [q.pid for q in procs], coord)
     try:
         initialize_distributed(coord, world, 0, device=device)
     except BaseException:
         _reap(procs)
         raise
+    return procs
+
+
+def _start_ranks(argv: Optional[list[str]], device: torch.device,
+                 world: int, coord: str, ranks: list) -> list:
+    """Start each ``(global rank, k, control port)`` of ``ranks`` as this
+    CLI with ``--distributed`` on ``cuda:<index+k>`` (or the CPU), with an
+    ephemeral health port, in the group of ``world`` ranks at ``coord``.
+    They exit when the leader's channel closes or this process dies."""
+    import subprocess
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    procs = []
+    for rank, k, ctrl in ranks:
+        dev = (f"cuda:{(device.index or 0) + k}" if device.type == "cuda"
+               else "cpu")
+        env = dict(os.environ, KGCT_COORDINATOR=coord,
+                   KGCT_NUM_PROCESSES=str(world), KGCT_PROCESS_ID=str(rank),
+                   KGCT_CONTROL_PORT=str(ctrl),
+                   KGCT_PARENT_PID=str(os.getpid()))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", __spec__.name, *argv, "--distributed",
+             "--device", dev, "--port", "0", "--host", "127.0.0.1"],
+            env=env))
+    if procs:
+        logger.info("started ranks %s (pids %s); coordinator %s",
+                    [r for r, _, _ in ranks], [q.pid for q in procs], coord)
     return procs
 
 

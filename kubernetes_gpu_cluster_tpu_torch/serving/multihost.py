@@ -354,22 +354,42 @@ def serve_follower_health(port: int, host: str = "0.0.0.0",
     return srv
 
 
-def follower_addrs_from_env() -> list[str]:
-    """The follower directive endpoints for rank 0.
+def ranks_per_pod(world: int, pods: int) -> int:
+    """The ranks one pod runs, one a card: ``world / pods``. The deploy
+    renderer gives each pod ``KGCT_NUM_PROCESSES`` = the pod count (one pod
+    per pp stage), and tp, innermost in the rank layout, fills a pod's
+    cards. A world that the pods do not divide fails here, before any
+    rendezvous could hang on it."""
+    if pods < 1 or world % pods:
+        raise ValueError(
+            f"a parallel world of {world} ranks does not divide over "
+            f"KGCT_NUM_PROCESSES={pods} pods (each pod runs world / pods "
+            "ranks, one a card)")
+    return world // pods
+
+
+def follower_addrs_from_env(world: Optional[int] = None) -> list[str]:
+    """The follower directive endpoints for rank 0, one for each of the
+    ``world`` ranks but rank 0 (``world`` defaults to
+    KGCT_NUM_PROCESSES).
 
     KGCT_FOLLOWER_ADDRS (comma-separated host:port) when set — tests and
     custom topologies; otherwise derived from the StatefulSet DNS pattern in
-    KGCT_COORDINATOR (…-0.<svc>:<port> -> …-{k}.<svc>:CONTROL_PORT) for
-    k in 1..KGCT_NUM_PROCESSES-1, matching deploy/render.py's layout."""
+    KGCT_COORDINATOR: rank ``r`` is local rank ``k = r % local`` of pod
+    ``r // local`` (``local`` = ``world`` / KGCT_NUM_PROCESSES), at
+    ``…-0.<svc>`` with ``-0.`` -> ``-<pod>.`` and port CONTROL_PORT + k,
+    matching deploy/render.py's layout and the CLI's ranks per pod."""
     import os
 
     explicit = os.environ.get("KGCT_FOLLOWER_ADDRS")
     if explicit:
         return [a for a in explicit.split(",") if a]
     coord = os.environ.get("KGCT_COORDINATOR", "")
-    n = int(os.environ.get("KGCT_NUM_PROCESSES", "1"))
-    if n <= 1:
+    pods = int(os.environ.get("KGCT_NUM_PROCESSES", "1"))
+    world = pods if world is None else world
+    if world <= 1:
         return []
+    local = ranks_per_pod(world, pods)
     if "-0." not in coord:
         # Broadcasting to nobody would hang the whole group silently at the
         # first collective — refuse the misconfiguration instead.
@@ -378,9 +398,9 @@ def follower_addrs_from_env() -> list[str]:
             "does not follow the StatefulSet '<name>-0.<svc>:<port>' "
             "pattern; set KGCT_FOLLOWER_ADDRS explicitly")
     host = coord.rpartition(":")[0]
-    # Followers bind KGCT_CONTROL_PORT when set; a StatefulSet template
-    # shares env across ranks, so derive dial addresses from the same
-    # override or the leader would dial the default port forever.
+    # Followers bind KGCT_CONTROL_PORT (+ k) when set; a StatefulSet
+    # template shares env across ranks, so derive dial addresses from the
+    # same override or the leader would dial the default port forever.
     port = int(os.environ.get("KGCT_CONTROL_PORT", CONTROL_PORT))
-    return [f"{host.replace('-0.', f'-{k}.', 1)}:{port}"
-            for k in range(1, n)]
+    return [f"{host.replace('-0.', f'-{r // local}.', 1)}:{port + r % local}"
+            for r in range(1, world)]

@@ -1,10 +1,10 @@
-"""Phases 12, 12c, 12e and 12b (or 13, 13b and 13c) of ``chip_smoke.py``
-alone, on the card.
+"""Phases 12, 12c, 12e and 12b (or 13, 13b and 13c, or 14-14b) of
+``chip_smoke.py`` alone, on the card.
 
 Run from the repository root on a machine with an H100:
 
     python -m kubernetes_gpu_cluster_tpu_torch.tools.tp_phases \
-        [--diagnose-12b] [--pp] [--sp]
+        [--diagnose-12b] [--pp] [--sp] [--checkpoint]
 
 Builds the kernels, draws llama-3-8b's bf16 weights from the script's seed
 and runs its ``check_tp`` (12 and 12c: tp 2 as two ranks on card 0 over
@@ -12,7 +12,10 @@ gloo), ``check_cli_tp`` (12e: the server's CLI as two ``--distributed``
 ranks) and then ``check_ep`` (12b: mixtral-8x7b int4 at ep 2), in minutes
 instead of the whole script's. ``--pp`` runs ``check_pp_sp`` at pp 2 (13)
 and the CLI at pp 2 (13c) instead, ``--sp`` ``check_pp_sp`` at sp 2
-(13b); both flags run all three. ``--diagnose-12b`` first serves 12b's
+(13b); both flags run all three. ``--checkpoint`` runs 12 (its tp=1 run is
+14a's reference) and then 14, 14a and 14b (``checkpoint_phases``: the
+weights written as a checkpoint, the streamed load at tp 2 and pp 2,
+rendered manifests serving it). ``--diagnose-12b`` first serves 12b's
 requests on one device and teacher forces each request's tokens on the
 same weights twice, through the int4 kernel and through its plain
 version, printing the three widest gaps (over the logits' deviation) of
@@ -75,6 +78,8 @@ def main() -> None:
                    help="phases 13 and 13c (pp 2) instead of 12-12b")
     p.add_argument("--sp", action="store_true",
                    help="phase 13b (sp 2) instead of 12-12b")
+    p.add_argument("--checkpoint", action="store_true",
+                   help="phases 12, 14, 14a and 14b instead of 12-12b")
     args = p.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import chip_smoke as C
@@ -103,8 +108,13 @@ def main() -> None:
                 "13c")), flush=True)
         print(card)
         return
-    print("tp:", json.dumps(C.check_tp(cfg, params, device, card, [0, 0],
-                                       "gloo", abort=True)), flush=True)
+    tp, tp_ref = C.check_tp(cfg, params, device, card, [0, 0], "gloo",
+                            abort=not args.checkpoint)
+    print("tp:", json.dumps(tp), flush=True)
+    if args.checkpoint:
+        C.checkpoint_phases(cfg, params, device, card, tp_ref)
+        print(card)
+        return
     print("cli tp:", json.dumps(C.check_cli_tp(cfg, params, device, card)),
           flush=True)
     del params

@@ -156,8 +156,11 @@ def test_config_and_unported_checkpoints(hf_llama, tmp_path, monkeypatch):
     cfg, wpath, tpath = TW.resolve_model(path)
     assert (cfg, wpath, tpath) == (got, path, path)
     assert TW.resolve_model("llama-3-8b")[1:] == (None, None)
-    with pytest.raises(NotImplementedError, match="A7d"):
-        TW.load_weights(path, got, device="cpu", shardings={})
+    # A checkpoint that does not fit the config fails the streamed load too.
+    with pytest.raises(ValueError, match="does not fit"):
+        TW.load_weights(path, got.replace(
+            intermediate_size=2 * got.intermediate_size), device="cpu",
+            groups=make_mesh(tp=2, rank=0))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TW.load_weights(path, got)
