@@ -231,6 +231,35 @@ the same order:
 The three attention kernels must have launched on the replicas across
 phase 11. Each phase logs its seconds.
 
+Then the analysis package, in this process on the phase-4 weights
+(``kubernetes_gpu_cluster_tpu_torch/analysis``; a wrapper in this script
+counts each sanitizer hook's calls and host seconds and refuses any
+device tensor handed to one):
+
+15a. An engine built with ``KGCT_SANITIZE=1`` and a plain one (80-page
+     pool, 1 GB host tier, n-gram spec k 4, mixed batching on) serve ten
+     greedy and one seeded requests (six at step 0, then one every three
+     steps; half repeat a pattern): identical tokens; decode-window, spec,
+     spec×mixed, swap-restore and output hooks each checked > 0; swap
+     preemptions; the three attention kernels launched (counts set to 0
+     just before the sanitized run). Logged: tokens/s both ways, the
+     hooks' host ms per step.
+15b. ``nan_step_output`` raises ``SanitizerError`` in the ``step()`` call
+     whose fetched window it poisoned. ``kv_commit_stomp`` aims row 0's
+     first draft write at its committed position 0: with the sanitizer
+     off, that slot's pool bytes change; with it on, the step is refused
+     before any upload and the bytes are unchanged.
+15c. Both 15a engines again under ``torch.cuda.set_sync_debug_mode``:
+     the same count of synchronizing calls at each source line, > 0.
+15d. ``AsyncLLMEngine`` with ``KGCT_SANITIZE_INTERLEAVE=1`` under seeds
+     1-3 and unperturbed, four concurrent streams: a seed that stepped the
+     unperturbed schedule gives its tokens exactly; one whose yields moved
+     an admission is held by ``_held_forced``.
+15e. The draft-model proposer (the phase-4 model drafting for itself)
+     with ``KGCT_SANITIZE=1``: ``check_feed`` on every planned feed, the
+     tokens of a plain run.
+15f. ``kgct-torch-lint`` over the port: ``0 finding(s) (18 rule(s))``.
+
 Then, still on the phase-4 weights, tensor and expert parallelism, each
 rank a child process (``chip_smoke.py --tp-child``) that builds its engine
 from the seed, drawing each full tensor and keeping its slice; the script
@@ -326,6 +355,7 @@ with code 2 and prints no result.
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -336,6 +366,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from typing import Optional
 from unittest import mock
@@ -3296,6 +3327,454 @@ def check_router(cfg_engine, params, device, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: the analysis package on the card (sanitizers and the linter)
+# ---------------------------------------------------------------------------
+
+ANALYSIS_PAGES = 80      # 15a's device pool: six running requests overflow it
+ANALYSIS_SWAP_GB = 1.0   # 15a's host tier: 512 pages
+INTERLEAVE_SEEDS = (1, 2, 3)
+
+
+@contextlib.contextmanager
+def sanitize_env(**env):
+    """``KGCT_*`` variables set while engines are built (the sanitizers
+    read them at construction), restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def sync_sites():
+    """Counts the synchronizing CUDA calls made inside the block
+    (``torch.cuda.set_sync_debug_mode("warn")``: one warning each) by the
+    source line that made them, into the yielded Counter."""
+    sites: collections.Counter = collections.Counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield sites
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites.update(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message))
+
+
+def _tensor_args(args) -> list:
+    """The torch tensors among ``args`` and their batch fields: a hook must
+    be handed host arrays only (``np.asarray`` of a CUDA tensor raises, a
+    ``.cpu()`` inside the hook would be a hidden sync)."""
+    out = []
+    for a in args:
+        for x in (a, *(getattr(a, f, None) for f in (
+                "slot_mapping", "positions", "seg_ids", "draft_lens"))):
+            if isinstance(x, torch.Tensor):
+                out.append(type(a).__name__)
+    return out
+
+
+class HookAudit:
+    """Wraps one engine's sanitizer hooks (in this script only): calls per
+    hook (on_decode_dispatch split into decode windows and mixed steps'
+    one-token windows, on_spec_dispatch into spec and spec×mixed by its
+    ``seqs`` argument), host seconds inside them, and a refusal of any
+    tensor."""
+
+    def __init__(self, engine):
+        san = engine._sanitizer
+        self.checks = dict.fromkeys(("decode", "mixed", "spec", "spec_mixed",
+                                     "spec_commit", "swap_restore",
+                                     "outputs"), 0)
+        self.host_s = 0.0
+
+        def wrap(kind, fn):
+            def hook(*args, **kw):
+                bad = _tensor_args(list(args) + list(kw.values()))
+                if bad:
+                    raise RuntimeError(f"sanitizer hook {kind} handed a "
+                                       f"device tensor: {bad}")
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                self.host_s += time.perf_counter() - t0
+                self.checks[kind(args, kw) if callable(kind) else kind] += 1
+                return out
+            return hook
+
+        san.on_decode_dispatch = wrap(
+            lambda a, kw: "mixed" if a[2] == 1 else "decode",
+            san.on_decode_dispatch)
+        san.on_spec_dispatch = wrap(
+            lambda a, kw: "spec" if kw.get("seqs") is None else "spec_mixed",
+            san.on_spec_dispatch)
+        san.on_spec_commit = wrap("spec_commit", san.on_spec_commit)
+        san.check_outputs = wrap("outputs", san.check_outputs)
+        engine.swapper.on_restored = wrap("swap_restore",
+                                          engine.swapper.on_restored)
+
+
+def analysis_workload(vocab: int):
+    """Phase 4's workload shape at a size 15a's pool overflows: six
+    150-230-token requests at step 0, then a 40-90-token one every three
+    steps while they decode (each alone: a mixed or spec×mixed step), half
+    of them repeating a random 8-32 token pattern (n-gram drafts), one
+    seeded sampled request."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    rng = np.random.default_rng(SEED + 15)
+    reqs = []
+    for i in range(10):
+        n = int(rng.integers(150, 231) if i < 6 else rng.integers(40, 91))
+        prompt = [int(t) for t in rng.integers(1, vocab, n)]
+        if i % 2:
+            pattern = prompt[:int(rng.integers(8, 33))]
+            prompt = (pattern * (n // len(pattern) + 1))[:n]
+        max_tokens = int(rng.integers(48, 65))
+        sp = (SamplingParams(max_tokens=max_tokens, temperature=0.8,
+                             top_p=0.95, seed=4321) if i == 3 else
+              SamplingParams(max_tokens=max_tokens, temperature=0.0))
+        reqs.append((0 if i < 6 else 3 * (i - 5), f"q{i}", prompt, sp))
+    return reqs
+
+
+def _analysis_cfg(cfg_engine, **sched):
+    from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                         SchedulerConfig)
+    return dataclasses.replace(
+        cfg_engine, cache=CacheConfig(
+            page_size=cfg_engine.cache.page_size, num_pages=ANALYSIS_PAGES,
+            swap_space_gb=ANALYSIS_SWAP_GB),
+        scheduler=SchedulerConfig(
+            max_num_seqs=12, spec_decode_enabled=True,
+            num_speculative_tokens=4, mixed_batch_enabled=True, **sched))
+
+
+def check_sanitized_engine(cfg_engine, params, device, counters) -> dict:
+    """15a and 15c: the same workload through a sanitized and a plain
+    engine (n-gram spec, mixed on, swap forced by the pool): identical
+    tokens, every hook kind checked, tokens/s both ways and the hooks' host
+    ms per step; then both again under sync-debug mode, with equal counts
+    of synchronizing calls."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
+    cfg = _analysis_cfg(cfg_engine)
+    reqs = analysis_workload(cfg.model.vocab_size)
+    hist = counters["flash_prefill_hist"]
+    with sanitize_env(KGCT_SANITIZE=1):
+        on = LLMEngine(cfg, params=params, device=device)
+    off = LLMEngine(cfg, params=params, device=device)
+    if on._sanitizer is None or off._sanitizer is not None:
+        raise RuntimeError("KGCT_SANITIZE was not read at construction")
+    audit = HookAudit(on)
+    # The warm-up also runs under sync-debug mode: a warning torch gives
+    # once a process (seen in the first measured run on the card) must not
+    # land in 15c's counts.
+    for eng in (on, off):
+        with sync_sites():
+            drive(eng, reqs[1:3], "warm", hist)
+    for mod in counters.values():
+        mod.launches = 0
+    audit.checks = dict.fromkeys(audit.checks, 0)
+    audit.host_s = 0.0
+    run_on = drive(on, reqs, "a", hist)
+    launches = {n: mod.launches for n, mod in counters.items()}
+    checks = dict(audit.checks)
+    run_off = drive(off, reqs, "a", hist)
+    log("analysis sanitized:", _loggable(run_on), "checks:",
+        json.dumps(checks), "launches:", json.dumps(launches))
+    log("analysis plain:", _loggable(run_off))
+    for kind in ("decode", "spec", "spec_mixed", "swap_restore", "outputs"):
+        if checks[kind] <= 0:
+            raise RuntimeError(f"sanitizer hook {kind} never ran: {checks}")
+    for name in ("paged_decode", "flash_prefill", "flash_prefill_hist"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never launched in 15a")
+    if run_on["tokens"] != run_off["tokens"] or \
+            set(run_on["tokens"]) != {r[1] for r in reqs}:
+        raise RuntimeError("the sanitizer changed the tokens")
+    swaps = [eng.scheduler.num_preemptions_by_kind["swap"]
+             for eng in (on, off)]
+    if min(swaps) <= 0 or swaps[0] != swaps[1]:
+        raise RuntimeError(f"swap preemptions {swaps}")
+    sites, again = {}, {}
+    for tag, eng in (("on", on), ("off", off)):
+        with sync_sites() as sites[tag]:
+            again[tag] = drive(eng, reqs, f"s{tag}", hist)
+    syncs = {tag: sum(c.values()) for tag, c in sites.items()}
+    log("analysis sync-debug:", json.dumps(syncs), "by line:",
+        json.dumps(dict(sites["on"].most_common())), "tokens/s:",
+        json.dumps({t: r["tokens_per_s"] for t, r in again.items()}))
+    if again["on"]["tokens"] != run_on["tokens"] or \
+            again["off"]["tokens"] != run_on["tokens"]:
+        raise RuntimeError("15c: the sync-debug runs changed the tokens")
+    if sites["on"] != sites["off"] or syncs["on"] <= 0:
+        raise RuntimeError(
+            f"15c: synchronizing calls {syncs}, on - off "
+            f"{dict(sites['on'] - sites['off'])}, off - on "
+            f"{dict(sites['off'] - sites['on'])}")
+    out = {"checks": checks, "checks_total": on._sanitizer.checks,
+           "tokens_per_s_on": run_on["tokens_per_s"],
+           "tokens_per_s_off": run_off["tokens_per_s"],
+           "hook_ms_per_step": audit.host_s * 1e3 / run_on["steps"],
+           "steps": run_on["steps"], "kinds": run_on["kinds"],
+           "swap_preemptions": swaps[0], "launches": launches,
+           "sync_calls": syncs,
+           "tokens_per_s_sync_debug": {t: r["tokens_per_s"]
+                                       for t, r in again.items()}}
+    del on, off, audit
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_seeded_faults(cfg_engine, params, device) -> dict:
+    """15b: ``nan_step_output`` raises SanitizerError in the step() call
+    whose window it poisoned; ``kv_commit_stomp`` rewrites row 0's first
+    draft slot to its committed position 0: with the sanitizer off the
+    pool bytes there change, with it on the step is refused before any
+    upload and the bytes stay."""
+    from kubernetes_gpu_cluster_tpu_torch.analysis.sanitize import \
+        SanitizerError
+    from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
+                                                         SamplingParams)
+    from kubernetes_gpu_cluster_tpu_torch.engine import engine as E
+    from kubernetes_gpu_cluster_tpu_torch.resilience.faults import (
+        configure_faults, get_injector)
+    cfg = _analysis_cfg(cfg_engine)
+    rng = np.random.default_rng(SEED + 16)
+    pattern = [int(t) for t in rng.integers(1, cfg.model.vocab_size, 16)]
+    sp = SamplingParams(max_tokens=32, temperature=0.0)
+    out = {}
+
+    with sanitize_env(KGCT_SANITIZE=1):
+        eng = LLMEngine(cfg, params=params, device=device)
+    configure_faults("nan_step_output:after=2,times=1")
+    rule = get_injector().rules["nan_step_output"]
+    eng.add_request("nan", pattern * 8, sp)
+    raised = None
+    try:
+        for call in range(1, 64):
+            fired = rule.fires
+            try:
+                eng.step()
+            except SanitizerError as e:
+                raised = (call, fired, rule.fires, str(e))
+                break
+    finally:
+        configure_faults(None)
+    if raised is None or raised[1:3] != (0, 1) or \
+            "non-finite logprob" not in raised[3]:
+        raise RuntimeError(f"15b nan_step_output not caught at its step: "
+                           f"{raised}")
+    out["nan_step_output"] = {"step_call": raised[0], "error": raised[3][:80]}
+    del eng
+    gc.collect()
+
+    for sanitize in (False, True):
+        with sanitize_env(KGCT_SANITIZE=int(sanitize)):
+            eng = LLMEngine(cfg, params=params, device=device)
+        seen = {"uploads": 0}
+        up = eng._up
+
+        def counted_up(a, _up=up):
+            seen["uploads"] += 1
+            return _up(a)
+        eng._up = counted_up
+
+        def stomp(batch, page_size, S, token_start=0, _eng=eng, _seen=seen):
+            page = batch.seqs[0].pages[0]
+            _sync(device)
+            kv = _eng.kv_cache
+            _seen.update(page=page, at_stomp=_seen["uploads"],
+                         before=(kv.k[:, page, 0].clone(),
+                                 kv.v[:, page, 0].clone()))
+            stomp_orig(batch, page_size, S, token_start)
+
+        stomp_orig = E._stomp_committed_slot
+        eng.add_request("stomp", pattern * 8, sp)
+        configure_faults("kv_commit_stomp:times=1")
+        error = None
+        try:
+            with mock.patch.object(E, "_stomp_committed_slot", stomp):
+                while "page" not in seen and eng.has_unfinished_requests():
+                    try:
+                        eng.step()
+                    except SanitizerError as e:
+                        error = str(e)
+                        break
+        finally:
+            configure_faults(None)
+        if "page" not in seen:
+            raise RuntimeError("15b: no spec step ran the stomp")
+        _sync(device)
+        kv = eng.kv_cache
+        page = seen["page"]
+        same = (torch.equal(kv.k[:, page, 0], seen["before"][0])
+                and torch.equal(kv.v[:, page, 0], seen["before"][1]))
+        uploads_after = seen["uploads"] - seen["at_stomp"]
+        tag = "on" if sanitize else "off"
+        log(f"15b kv_commit_stomp sanitizer {tag}: page {page} position 0 "
+            f"bytes {'unchanged' if same else 'changed'}, uploads after the "
+            f"stomp {uploads_after}, error {error!r}")
+        if sanitize and (error is None or "COMMITTED slot" not in error
+                         or not same or uploads_after):
+            raise RuntimeError("15b: the stomp was not refused before the "
+                               "upload")
+        if not sanitize and (error is not None or same):
+            raise RuntimeError("15b: with the sanitizer off the stomp did "
+                               "not reach the pool (a vacuous fault)")
+        out[f"kv_commit_stomp_{tag}"] = {
+            "pool_bytes_changed": not same, "refused": error is not None,
+            "uploads_after_stomp": uploads_after}
+        del eng
+        gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_interleave(cfg_engine, params, device) -> dict:
+    """15d: ``AsyncLLMEngine`` with ``KGCT_SANITIZE_INTERLEAVE=1`` under
+    three seeds serves four concurrent streams; each seed's sanitizer
+    yielded at least once. The yields move admissions between steps, so a
+    seed may batch the streams otherwise than the unperturbed run: where it
+    stepped the same schedule its tokens must be the unperturbed ones;
+    where not, they are held as the tp phases hold a sum in another order
+    (``_held_forced``: equal up to a first difference, then each token the
+    top one teacher forced, or under ``RESUME_DRIFT`` of the logit std
+    below it)."""
+    from kubernetes_gpu_cluster_tpu_torch.config import CacheConfig
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    from kubernetes_gpu_cluster_tpu_torch.serving.async_engine import \
+        AsyncLLMEngine
+    cfg = dataclasses.replace(cfg_engine, cache=CacheConfig(
+        page_size=cfg_engine.cache.page_size, num_pages=256))
+    rng = np.random.default_rng(SEED + 17)
+    prompts = [[int(t) for t in rng.integers(1, cfg.model.vocab_size, n)]
+               for n in (48, 200, 500, 17)]
+    sp = SamplingParams(max_tokens=16, temperature=0.0)
+    runs, schedules, yields = {}, {}, {}
+    for seed in (None, *INTERLEAVE_SEEDS):
+        env = ({} if seed is None else
+               {"KGCT_SANITIZE_INTERLEAVE": 1, "KGCT_INTERLEAVE_SEED": seed})
+        with sanitize_env(**env):
+            aeng = AsyncLLMEngine(cfg, params=params, device=device)
+        izer = aeng._interleave
+        if (izer is None) != (seed is None):
+            raise RuntimeError("KGCT_SANITIZE_INTERLEAVE not read")
+        eng, schedule = aeng.engine, []
+        step = eng.step
+
+        def recorded(_step=step, _eng=eng, _schedule=schedule):
+            outs = _step()
+            info = _eng._last_step_info
+            _schedule.append(info[:2] if info else None)
+            return outs
+        eng.step = recorded
+        runs[seed] = [t for t, _ in asyncio.run(_streams(aeng, prompts, sp))]
+        schedules[seed] = schedule
+        if izer is not None:
+            yields[seed] = sum(y for _, _, y in izer.trace)
+            if not yields[seed]:
+                raise RuntimeError(f"seed {seed}: no crossing yielded")
+        del aeng, eng
+        gc.collect()
+    ties, equal, same_schedule = [], {}, {}
+    for seed in INTERLEAVE_SEEDS:
+        same_schedule[seed] = schedules[seed] == schedules[None]
+        if same_schedule[seed] and runs[seed] != runs[None]:
+            raise RuntimeError(f"interleave seed {seed}: the unperturbed "
+                               "schedule gave other tokens")
+        equal[seed] = sum(
+            _held_forced(f"15d seed {seed} stream {i}", got, ref, prompts[i],
+                         params, cfg.model, device, ties)
+            for i, (got, ref) in enumerate(zip(runs[seed], runs[None])))
+    torch.cuda.empty_cache()
+    return {"seeds": list(INTERLEAVE_SEEDS), "yields": yields,
+            "streams": len(prompts), "streams_equal": equal,
+            "same_schedule": same_schedule, "tokens_off_top": len(ties),
+            "widest_gap_over_std": max((t["gap_over_std"] for t in ties),
+                                       default=0.0)}
+
+
+def check_draft_shadow(cfg_engine, params, device) -> dict:
+    """15e: the draft-model proposer (the phase-4 model drafting for
+    itself through its own pool) with ``KGCT_SANITIZE=1``: ``check_feed``
+    ran on every planned feed, and the tokens equal a plain run's."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                         SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
+                                                         SamplingParams)
+    cfg = dataclasses.replace(
+        cfg_engine, cache=CacheConfig(page_size=cfg_engine.cache.page_size,
+                                      num_pages=256),
+        scheduler=SchedulerConfig(
+            max_num_seqs=4, spec_decode_enabled=True,
+            num_speculative_tokens=4, spec_draft_model=cfg_engine.model.name))
+    rng = np.random.default_rng(SEED + 18)
+    pattern = [int(t) for t in rng.integers(1, cfg.model.vocab_size, 12)]
+    prompts = [pattern * 10,
+               [int(t) for t in rng.integers(1, cfg.model.vocab_size, 90)]]
+    sp = SamplingParams(max_tokens=24, temperature=0.0)
+    toks, feeds = {}, 0
+    for sanitize in (True, False):
+        with sanitize_env(KGCT_SANITIZE=int(sanitize)):
+            eng = LLMEngine(cfg, params=params, device=device,
+                            draft_params=params)
+        runner = eng.scheduler.spec_proposer
+        if (runner._shadow is None) == sanitize:
+            raise RuntimeError("the draft shadow did not follow "
+                               "KGCT_SANITIZE")
+        if sanitize:
+            check = runner._shadow.check_feed
+
+            def counted(*a, _check=check):
+                nonlocal feeds
+                feeds += 1
+                return _check(*a)
+            runner._shadow.check_feed = counted
+        toks[sanitize] = [o.output_token_ids
+                          for o in eng.generate(prompts, sp)]
+        dispatches = runner.num_dispatches
+        del eng, runner
+        gc.collect()
+    if feeds <= 0 or toks[True] != toks[False]:
+        raise RuntimeError(f"15e: {feeds} feeds checked, tokens "
+                           f"{'equal' if toks[True] == toks[False] else 'differ'}")
+    torch.cuda.empty_cache()
+    return {"feeds_checked": feeds, "draft_dispatches": dispatches}
+
+
+def check_lint() -> dict:
+    """15f: ``kgct-torch-lint`` over the port tree in this checkout."""
+    import io
+    from kubernetes_gpu_cluster_tpu_torch.analysis.cli import main as lint
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = lint([])
+    summary = err.getvalue().strip().splitlines()[-1]
+    if rc != 0 or "0 finding(s) (18 rule(s))" not in summary:
+        raise RuntimeError(f"kgct-torch-lint: rc {rc}: {err.getvalue()}")
+    return {"rc": rc, "summary": summary}
+
+
+def check_analysis(cfg_engine, params, device, counters) -> dict:
+    t0 = time.perf_counter()
+    out = {"15a_15c": check_sanitized_engine(cfg_engine, params, device,
+                                             counters)}
+    out["15b"] = check_seeded_faults(cfg_engine, params, device)
+    out["15d"] = check_interleave(cfg_engine, params, device)
+    out["15e"] = check_draft_shadow(cfg_engine, params, device)
+    out["15f"] = check_lint()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 12: tensor and expert parallelism, ranks in child processes
 # ---------------------------------------------------------------------------
 
@@ -3755,14 +4234,16 @@ def _forced_gaps(params, cfg, prompt, toks, device) -> list[float]:
 
 def _held_forced(what, got, ref, prompt, params, cfg, device,
                  ties: list) -> bool:
-    """``got`` (a run on more than one rank) equals ``ref`` (the
-    one-device engine's tokens; None: none to compare) up to its first
+    """``got`` (a run on more than one rank, or 15d's perturbed run)
+    equals ``ref`` (the reference run's tokens: the one-device engine's,
+    or the unperturbed run's; None: none to compare) up to its first
     difference j. From j on, each token is, teacher forced on the
     one-device weights ``params`` (one prefill of prompt + got), the top
     token or under ``RESUME_DRIFT`` of the logits' deviation below it: the
     one-device greedy continuation of what came before, but for near-ties
-    that the all-reduce's other summation order may flip. Each token off
-    the top goes into ``ties``. Returns whether ``got`` equals ``ref``."""
+    that another summation order (the all-reduce's, another batching) may
+    flip. Each token off the top goes into ``ties``. Returns whether
+    ``got`` equals ``ref``."""
     if not got:
         raise RuntimeError(f"{what}: no tokens")
     j = 0
@@ -3771,9 +4252,9 @@ def _held_forced(what, got, ref, prompt, params, cfg, device,
         if j == min(len(got), len(ref)):
             if len(got) != len(ref):
                 raise RuntimeError(f"{what}: {len(got)} tokens, the "
-                                   f"one-device run {len(ref)}")
+                                   f"reference run {len(ref)}")
             return True
-        log(f"{what}: tokens differ from the one-device run at output {j}")
+        log(f"{what}: tokens differ from the reference run at output {j}")
     gaps = _forced_gaps(params, cfg, prompt, got, device)
     off = [(i, gaps[i]) for i in range(j, len(got)) if gaps[i] > 0]
     ties += [{"what": what, "at": i, "gap_over_std": g} for i, g in off]
@@ -4660,6 +5141,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase(f"{MODEL} bf16 router (11)")
+
+    # Phase 15: the analysis package on the same weights.
+    log("analysis:", json.dumps(check_analysis(cfg_engine, params, device,
+                                               attn)), "|", card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"{MODEL} bf16 analysis (15)")
 
     # Phases 12 and 12c: tp 2 as two ranks on this card (gloo), held to
     # the tp=1 tokens of these weights; then the group abort.

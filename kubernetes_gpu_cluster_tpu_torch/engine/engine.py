@@ -62,8 +62,14 @@ history chunks run on every rank. Neither has a mixed or a spec-verify
 forward, so both turn off mixed batching and speculative decoding (with
 the JAX package's warnings), and they do not combine with each other.
 
-Not ported yet: the runtime sanitizers (with them the spec path's KV-slot
-shadow, its ``kv_commit_stomp`` chaos site and the swap-restore hook).
+Runtime sanitizers (``KGCT_SANITIZE=1``, ``analysis/sanitize.py``), at
+the JAX engine's sites: the KV-slot shadow checks every spec, spec×mixed
+and decode-window dispatch before its inputs are uploaded and learns of
+swap restores and imports; the step-output guard checks every fetched
+window. Each hook is handed the host arrays the step already holds
+(``batch.*`` before ``_up``, the fetched ``toks_np`` / ``lps_np``), so the
+sanitizer adds no device->host synchronization. Off, the engine holds
+``None`` and each hook is one ``is None`` test.
 """
 
 from __future__ import annotations
@@ -77,6 +83,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..analysis.sanitize import build_step_sanitizer
 from ..config import EngineConfig
 from ..models import llama as model_lib
 from ..observability import Observability
@@ -325,6 +332,11 @@ class LLMEngine:
                     "bucket grid (max %d); steps with more running sequences"
                     " than the grid covers keep the legacy policy",
                     sc.max_num_seqs, sc.decode_buckets[-1])
+        # Runtime sanitizers (KGCT_SANITIZE=1, analysis/sanitize.py):
+        # step-output NaN/vocab guard + KV-slot shadow for the spec-decode
+        # rollback contract. None when off — every hook is one is-None
+        # test and outputs are byte-identical with the sanitizer absent.
+        self._sanitizer = build_step_sanitizer(config.cache.page_size)
         # Two-tier KV cache (CacheConfig.swap_space_gb > 0): a pinned host
         # page pool; the scheduler preempts by swap instead of recompute,
         # and the prefix cache spills evicted pages for a second-chance
@@ -340,6 +352,10 @@ class LLMEngine:
             self.scheduler.attach_swapper(self.swapper)
             if self.scheduler.prefix_cache is not None:
                 self.scheduler.prefix_cache.attach_swapper(self.swapper)
+            if self._sanitizer is not None:
+                # The KV-slot shadow learns that a swapped-in slot is
+                # committed history (stale spec slots died with the swap).
+                self.swapper.on_restored = self._sanitizer.on_swap_restore
         self.kv_io = KVPageIO(get_kv=lambda: self.kv_cache,
                               programs=self._kv_programs)
         self.stats = EngineStats()
@@ -728,6 +744,10 @@ class LLMEngine:
         self.obs.tracer.emit("migrate" if mid_stream else "handoff",
                              request_id, side="import",
                              pages=need, tokens=len(out_ids))
+        if self._sanitizer is not None:
+            # The KV-slot shadow learns the imported slots are committed
+            # history — same contract as a swap restore.
+            self._sanitizer.on_swap_restore(seq)
         reason = seq.check_stop(self.config.effective_max_len)
         if reason is not None:
             sched.finish(seq, reason)
@@ -1181,6 +1201,16 @@ class LLMEngine:
         ph = self.obs.phases.phase
         cfg = self.model_config
         chunk_seq = batch.seqs[-1]
+        if self._sanitizer is not None:
+            # Every decode row writes one KV slot, at its next position: a
+            # one-token decode window for the KV shadow, which so learns of
+            # the rejected-draft slots these writes overwrite. (The JAX
+            # engine has no hook here, and its shadow then flags such a
+            # slot as stale at the next spec step.)
+            Tp = len(batch.tokens) - batch.page_tables.shape[0]
+            D = len(batch.seqs) - 1
+            self._sanitizer.on_decode_dispatch(
+                batch.seqs[:D], batch.positions[Tp:Tp + D], 1)
         with ph("host_prep"):
             smp = self._sampling(batch)
             tokens = self._up(batch.tokens)
@@ -1271,6 +1301,15 @@ class LLMEngine:
         S = len(batch.tokens) // R_pad
         width = verify_table_width(batch.context_lens,
                                    self.config.cache.page_size)
+        # Chaos site: KGCT_FAULT=kv_commit_stomp corrupts one KV write slot
+        # BEFORE the upload (``_up`` copies at once: a later change would
+        # never reach the card), so the device really would stomp
+        # committed history — the KV shadow (KGCT_SANITIZE=1) must catch it
+        # here.
+        if _inject_fault("kv_commit_stomp"):
+            _stomp_committed_slot(batch, self.config.cache.page_size, S)
+        if self._sanitizer is not None:
+            self._sanitizer.on_spec_dispatch(batch)
         with ph("host_prep"):
             smp = self._sampling(batch)
             tokens = self._up(batch.tokens)
@@ -1302,6 +1341,10 @@ class LLMEngine:
         B = batch.num_seqs
         emit, drafted, accepted = self._spec_outcome(batch, n_acc_np, B, S)
         greedy = bool(np.all(batch.temperature[:B] <= 0))
+        if self._sanitizer is not None:
+            # Before _process_window appends tokens: rejected-draft slots
+            # (past each row's accepted prefix) become stale in the shadow.
+            self._sanitizer.on_spec_commit(batch, emit)
         with ph("postproc"):
             outs = self._process_window(batch, toks_np, lps_np, set(),
                                         defer=False, top_ids=top_i,
@@ -1334,8 +1377,18 @@ class LLMEngine:
         D = len(batch.seqs) - 1
         R_pad = batch.page_tables.shape[0]
         S = batch.spec_S
+        Tp = len(batch.tokens) - R_pad * S
         width = verify_table_width(batch.context_lens,
                                    self.config.cache.page_size)
+        if _inject_fault("kv_commit_stomp"):
+            _stomp_committed_slot(batch, self.config.cache.page_size, S,
+                                  token_start=Tp)
+        if self._sanitizer is not None:
+            # Verify slices only: the chunk half's writes target
+            # uncommitted prompt positions by design (KGCT005's static
+            # scope), exactly like the plain mixed step.
+            self._sanitizer.on_spec_dispatch(batch, seqs=batch.seqs[:D],
+                                             token_start=Tp)
         with ph("host_prep"):
             smp_s = self._sampling(batch, slice(0, R_pad))
             smp_c = self._sampling(batch, slice(R_pad, R_pad + 1))
@@ -1359,7 +1412,6 @@ class LLMEngine:
                 groups=self.groups)
             logits = model_lib.compute_logits(self.params, cfg, hidden,
                                               groups=self.groups)
-            Tp = len(batch.tokens) - R_pad * S
             toks, n_acc, lps, tids, tlps = self._verify(
                 logits[:R_pad * S], smp_s, tokens[Tp:], meta.context_lens, S,
                 step_key, out_tokens[:R_pad] if smp_s.any_pen else None)
@@ -1398,6 +1450,8 @@ class LLMEngine:
         emit[:D], drafted, accepted = self._spec_outcome(batch, n_acc_np, D,
                                                          S)
         greedy = bool(np.all(batch.temperature <= 0))
+        if self._sanitizer is not None:
+            self._sanitizer.on_spec_commit(batch, emit)
         zombies = {chunk_seq.request_id} if batch.partial else set()
         with ph("postproc"):
             outs = self._process_window(batch, toks_np, lps_np, zombies,
@@ -1446,6 +1500,8 @@ class LLMEngine:
         ph = self.obs.phases.phase
         cfg = self.model_config
         W = self.config.scheduler.decode_window
+        if self._sanitizer is not None:
+            self._sanitizer.on_decode_dispatch(batch.seqs, positions, W)
         greedy = (not smp.any_sampled and not smp.any_pen
                   and smp.bias is None)
         with ph("host_prep"):
@@ -1529,6 +1585,15 @@ class LLMEngine:
         window may still write to them). ``emit_counts`` [B] caps the
         usable columns per row (spec steps: accepted drafts + 1; columns
         past the first rejection are garbage)."""
+        # Chaos site: KGCT_FAULT=nan_step_output poisons the fetched
+        # logprobs — the corruption class the KGCT_SANITIZE step-output
+        # guard must catch before any client sees it.
+        if _inject_fault("nan_step_output"):
+            logprobs = np.full_like(np.asarray(logprobs, np.float32), np.nan)
+        if self._sanitizer is not None:
+            self._sanitizer.check_outputs(
+                next_tokens, logprobs, emit_counts,
+                self.model_config.vocab_size, len(batch.seqs))
         outputs = []
         for s, seq in enumerate(batch.seqs):
             if seq.request_id in zombies:
@@ -1649,3 +1714,22 @@ class LLMEngine:
                 if out.finished:
                     final[out.request_id] = out
         return [final[f"req-{i}"] for i in range(len(prompts))]
+
+
+def _stomp_committed_slot(batch, page_size: int, S: int,
+                          token_start: int = 0) -> None:
+    """Chaos helper (``KGCT_FAULT=kv_commit_stomp``): redirect row 0's
+    first draft KV write to the sequence's position-0 slot — a REAL write
+    into committed history (``num_tokens - 1 > 0`` guarantees position 0
+    is committed). The KGCT_SANITIZE KV shadow must refuse the dispatch;
+    with the sanitizer off this genuinely corrupts context, which is the
+    point — the harness validates the detector, not a simulation of it.
+    ``token_start``: where the verify slices begin on the token axis
+    (spec×mixed offsets them past the prefill chunk)."""
+    if not batch.seqs:
+        return
+    seq = batch.seqs[0]
+    if seq.num_tokens < 2 or not seq.pages:
+        return
+    batch.slot_mapping[token_start + (1 if S > 1 else 0)] = \
+        seq.pages[0] * page_size

@@ -465,6 +465,9 @@ class KVSwapper:
         # one): asked to drop LRU spilled entries when a swap-out needs room
         # — live-session KV outranks re-computable spilled prefixes.
         self.reclaim = None
+        # Optional restore notification (the KGCT_SANITIZE KV-slot shadow
+        # registers one): a swapped-in slot is committed history.
+        self.on_restored = None
 
     def _emit(self, direction: str, pages: int, dt: float,
               request_id: str) -> None:
@@ -528,6 +531,10 @@ class KVSwapper:
     def free_host(self, host_pages: list[int]) -> None:
         if host_pages:
             self.host.free(host_pages)
+
+    def notify_restored(self, seq) -> None:
+        if self.on_restored is not None:
+            self.on_restored(seq)
 
 
 class KVPageIO:

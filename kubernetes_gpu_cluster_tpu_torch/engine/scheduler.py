@@ -459,6 +459,7 @@ class Scheduler:
             seq.host_pages = []
             seq.status = SequenceStatus.RUNNING
             self.running.append(seq)
+            self.swapper.notify_restored(seq)
             self.obs.on_scheduled(seq, 1)    # emits the "resume" event
 
     # -- QoS: weighted fair sharing + priority preemption --------------------

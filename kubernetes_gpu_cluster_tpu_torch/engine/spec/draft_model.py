@@ -48,8 +48,9 @@ process, on the engine's device, as a :class:`~.proposer.DraftProposer`:
   ``flash_prefill_hist`` kernel against the draft pool) — first sight of a
   sequence, or recovery after speculation was off.
 
-Not ported from the JAX package: the sanitizer's draft-pool shadow (the
-runtime sanitizers are not ported yet).
+With ``KGCT_SANITIZE=1`` the sanitizer's shadow extends to the draft pool
+(:class:`_DraftShadow`): every feed of a round's plan is checked on the
+host before the round is uploaded.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...analysis.sanitize import SanitizerError, sanitize_enabled
 from ...config import CacheConfig, EngineConfig, ModelConfig, get_model_config
 from ...models import llama as model_lib
 from ...models.llama import DecodeMeta, PrefillMeta
@@ -73,9 +75,9 @@ logger = get_logger("spec.draft_model")
 
 
 class _Row:
-    """Per-request draft-pool state. ``owner`` guards request-id recycling:
-    state must die with its Sequence object, not haunt a new request
-    wearing the same id."""
+    """Per-request draft-pool state. ``owner`` guards request-id recycling
+    (same discipline as the sanitizer's shadow): state must die with its
+    Sequence object, not haunt a new request wearing the same id."""
 
     __slots__ = ("owner", "pages", "valid", "tail")
 
@@ -93,6 +95,43 @@ def _common_prefix(a: list[int], b: list[int]) -> int:
             break
         n += 1
     return n
+
+
+def _feed_slot(pages: list[int], pos: int, page_size: int,
+               max_len: int) -> int:
+    """The draft-pool slot a feed at ``pos`` writes: the row's own page,
+    or the scrap page past the draft horizon."""
+    if pos >= max_len:
+        return pos % page_size
+    return pages[pos // page_size] * page_size + pos % page_size
+
+
+class _DraftShadow:
+    """KGCT_SANITIZE extension to the DRAFT pool: the KV-slot shadow's
+    invariants, restated for the draft side — (a) no feed rewrites a
+    position below the round's validated history with a different token
+    (accepted-draft KV must never be stomped), (b) every write slot is the
+    one the row's own page table derives (a mis-aimed slot would corrupt
+    another row's draft context), (c) committed-token replays carry the
+    committed token."""
+
+    def check_feed(self, seq, row: _Row, valid_start: int, pos: int,
+                   tok: int, slot: int, page_size: int, max_len: int) -> None:
+        if pos < valid_start:
+            committed = seq.all_token_ids
+            if pos >= len(committed) or committed[pos] != tok:
+                raise SanitizerError(
+                    f"draft KV shadow: feed of {seq.request_id} rewrites "
+                    f"validated draft position {pos} (< {valid_start}) with "
+                    f"token {tok} — accepted-draft KV stomped")
+        if pos < max_len:
+            want = row.pages[pos // page_size] * page_size + pos % page_size
+        else:
+            want = pos % page_size          # scrap-page routing
+        if slot != want:
+            raise SanitizerError(
+                f"draft KV shadow: feed of {seq.request_id} at position "
+                f"{pos} targets slot {slot}, page table derives {want}")
 
 
 def draft_pool_pages(want: int, free_bytes: Optional[int], page_bytes: int,
@@ -171,6 +210,7 @@ class DraftModelRunner(DraftProposer):
             params = model_lib.init_params(draft_config, gen, self.device)
         self.params = params
         self._rows: dict[str, _Row] = {}
+        self._shadow = _DraftShadow() if sanitize_enabled() else None
         # Cumulative draft-model decode dispatches and reset prefills.
         self.num_dispatches = 0
         self.num_reset_prefills = 0
@@ -263,9 +303,15 @@ class DraftModelRunner(DraftProposer):
                 pos = row.valid + j
                 pos_c = min(pos, max_len - 1)
                 positions[j, b] = pos_c
-                slots[j, b] = (row.pages[pos_c // ps] * ps + pos_c % ps
-                               if pos < max_len else pos % ps)
+                slots[j, b] = _feed_slot(row.pages, pos, ps, max_len)
                 context_lens[j, b] = pos_c + 1
+                if self._shadow is not None:
+                    # A replay feeds a committed token; a draft feed's
+                    # token is chosen on the device (-1: never committed).
+                    self._shadow.check_feed(
+                        seqs[i], row, row.valid, pos,
+                        queue[j] if j < len(queue) else -1,
+                        int(slots[j, b]), ps, max_len)
         out = self._dispatch(forced, replay, positions, slots, context_lens,
                              tables)
 

@@ -30,7 +30,10 @@ leader; a rank of a real process group then stops taking work (its
 collectives have no partner left) and flips the watchdog, so the pod is
 restarted.
 
-Not ported yet: the interleave sanitizer hook.
+``KGCT_SANITIZE_INTERLEAVE=1`` (``analysis/sanitize.py``) injects seeded
+yields at the four loop/worker seam crossings (``generate.submit``,
+``generate.stream``, ``worker.wake``, ``worker.step``), never under
+``_cv``; off, each hook is one ``is None`` test.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from typing import AsyncIterator, Optional
 
 import torch
 
+from ..analysis.sanitize import build_interleave_sanitizer
 from ..config import EngineConfig
 from ..engine import LLMEngine, RequestOutput, SamplingParams
 from ..engine.kv_cache import KVTransferRefused
@@ -104,6 +108,10 @@ class AsyncLLMEngine:
         # between steps, where every engine/scheduler/device touch is
         # single-threaded by construction.
         self._ops: list = []
+        # KGCT_SANITIZE_INTERLEAVE: deterministic seeded yields at the
+        # loop/worker seam crossings (None when off — every hook is one
+        # `is None` test, byte-identical to the sanitizer being absent).
+        self._interleave = build_interleave_sanitizer()
         self._cv = threading.Condition()
         self._shutdown = False
         self._counter = itertools.count()
@@ -183,6 +191,12 @@ class AsyncLLMEngine:
             raise ValueError("handoff, hold_kv, arrival_t0 and "
                              "resume_outputs are refused under a multihost "
                              "leader")
+        izer = self._interleave
+        if izer is not None and izer.decide("generate.submit")[0]:
+            # Equivalent to the caller being scheduled later: runs before
+            # the reservation consume, so no new await-window opens
+            # between a guard and its claim.
+            await asyncio.sleep(0)
         if request_id in self._reserved:
             self._reserved.discard(request_id)
             queue: asyncio.Queue = self._queues[request_id]
@@ -205,6 +219,8 @@ class AsyncLLMEngine:
         try:
             while True:
                 chunk = await queue.get()
+                if izer is not None and izer.decide("generate.stream")[0]:
+                    await asyncio.sleep(0)
                 if isinstance(chunk, Exception):
                     raise chunk
                 yield chunk
@@ -254,6 +270,7 @@ class AsyncLLMEngine:
     # -- worker thread -------------------------------------------------------
 
     def _worker(self) -> None:
+        izer = self._interleave
         while True:
             with self._cv:
                 while not (self._shutdown or self._inbox or self._aborts
@@ -269,6 +286,11 @@ class AsyncLLMEngine:
                             fut.set_exception(
                                 RuntimeError("engine shut down"))
                     return
+            if izer is not None:
+                # Post-wake, OUTSIDE _cv (a sleep under a loop-contended
+                # lock is the KGCT021 bug class itself): widen the window
+                # between inbox capture and ops/admission/step.
+                izer.worker_yield("worker.wake")
             for fn, fut in ops:
                 try:
                     result = fn(self.engine)
@@ -318,6 +340,10 @@ class AsyncLLMEngine:
                 except ValueError as e:   # oversized prompt etc.
                     self._post_exc(rid, e)
             if self.engine.has_unfinished_requests():
+                if izer is not None:
+                    # Between admission and dispatch: the window a loop-
+                    # side engine-state read (KGCT020) would race.
+                    izer.worker_yield("worker.step")
                 wd = self.watchdog
                 if wd is not None:
                     wd.arm()

@@ -614,6 +614,23 @@ class ClientResponse:
             self._mode, self._left = "length", self.content_length
             self._done = self._left == 0
 
+    async def _begin_chunk(self) -> None:
+        """Read the next chunk's size line into ``_left``; after the last
+        chunk (size 0), read the trailers and mark the body done. Both
+        writes follow every await of the header, and no guard of them
+        precedes one (KGCT019)."""
+        size_line = await self._readline("chunk-size line",
+                                         ClientPayloadError)
+        try:
+            size = int(size_line.split(b";")[0].strip(), 16)
+        except ValueError:
+            raise ClientError("malformed chunk size") from None
+        if size == 0:
+            while await self._readline("trailer line", ClientPayloadError):
+                pass
+            self._done = True
+        self._left = size
+
     async def _next_piece(self, n: int) -> bytes:
         """Up to ``n`` bytes of the body (b"" at its end): whatever has
         arrived, across chunk boundaries, waiting only when nothing has."""
@@ -622,19 +639,9 @@ class ClientResponse:
             if self._mode == "chunked" and self._left == 0:
                 if out and b"\n" not in self._buf:
                     break                   # the next chunk is not here yet
-                size_line = await self._readline("chunk-size line",
-                                                 ClientPayloadError)
-                try:
-                    size = int(size_line.split(b";")[0].strip(), 16)
-                except ValueError:
-                    raise ClientError("malformed chunk size") from None
-                if size == 0:
-                    while await self._readline("trailer line",
-                                               ClientPayloadError):
-                        pass
-                    self._done = True
+                await self._begin_chunk()
+                if self._done:
                     break
-                self._left = size
             if not self._buf:
                 if out:
                     break

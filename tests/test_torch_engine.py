@@ -286,9 +286,10 @@ def test_unported_engine_options_raise(weights):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Import every module of the port in a fresh interpreter: neither
-    ``jax`` nor ``kubernetes_gpu_cluster_tpu`` (exact package name — the
-    port's own name shares its prefix) may be loaded."""
+    """Import every module of the port in a fresh interpreter, ``analysis/``
+    (the linter and the sanitizers) included: neither ``jax`` nor
+    ``kubernetes_gpu_cluster_tpu`` (exact package name — the port's own
+    name shares its prefix) may be loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import kubernetes_gpu_cluster_tpu_torch as port\n"
@@ -297,11 +298,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kubernetes_gpu_cluster_tpu')]\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+        "analysis = [n for n in names if '.analysis.' in n]\n"
+        "print(len(names), len(analysis), bad, 'WALKED')\n"
+        "sys.exit(1 if bad or len(names) < 20 or len(analysis) < 20 "
+        "else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "WALKED" in proc.stdout, proc.stdout + proc.stderr
     # chip_smoke.py, the on-card entry, imports neither either.
     src = (REPO / "chip_smoke.py").read_text()
     assert "import jax" not in src and "kubernetes_gpu_cluster_tpu." \

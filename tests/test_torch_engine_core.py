@@ -27,10 +27,7 @@ The carried cases keep their names, prefixed by their file:
 from __future__ import annotations
 
 import functools
-import inspect
-import sys
 import types
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -39,11 +36,9 @@ from kubernetes_gpu_cluster_tpu_torch.config import CacheConfig
 from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import \
     allocate_kv_cache
 from kubernetes_gpu_cluster_tpu_torch.models import llama as TM
+from torch_carry import PORT, carry, expose
 
 torch.set_num_threads(2)
-
-TESTS = Path(__file__).resolve().parent
-PORT = "kubernetes_gpu_cluster_tpu_torch"
 
 
 def _port_prefill_whole(cfg, params, seq):
@@ -110,37 +105,13 @@ CARRIED = {
 
 
 def _carry(name: str, fixes: list) -> types.ModuleType:
-    """Load ``tests/<name>.py`` re-pointed at the port, engines on the
-    CPU."""
-    path = TESTS / f"{name}.py"
-    src = path.read_text().replace("kubernetes_gpu_cluster_tpu.", PORT + ".")
-    for old, new in fixes:
-        if old not in src:
-            raise AssertionError(f"{name}: seam {old!r} no longer matches")
-        src = src.replace(old, new)
-    mod = types.ModuleType(f"carried_{name}")
-    mod.__file__ = str(path)
-    mod.__dict__.update(_port_prefill_whole=_port_prefill_whole,
-                        _torch_jnp=_torch_jnp, _torch_jax=_torch_jax)
-    sys.modules[mod.__name__] = mod
-    exec(compile(src, str(path), "exec"), mod.__dict__)
+    """``tests/<name>.py`` re-pointed at the port, engines on the CPU."""
+    mod = carry(name, fixes, _port_prefill_whole=_port_prefill_whole,
+                _torch_jnp=_torch_jnp, _torch_jax=_torch_jax)
     if "LLMEngine" in mod.__dict__:
         mod.LLMEngine = functools.partial(mod.LLMEngine, device="cpu")
     return mod
 
 
-def _expose(name: str, mod: types.ModuleType, keep) -> None:
-    stem = "".join(p.capitalize() for p in name[len("test_"):].split("_"))
-    for attr, obj in list(vars(mod).items()):
-        if keep is not None and attr not in keep:
-            continue
-        if attr.startswith("Test") and inspect.isclass(obj):
-            globals()[f"Test{stem}_{attr[len('Test'):]}"] = obj
-        elif attr.startswith("test_") and callable(obj):
-            globals()[f"{name}__{attr[len('test_'):]}"] = obj
-        elif keep is not None:                     # a named fixture
-            globals()[attr] = obj
-
-
 for _name, (_fixes, _keep) in CARRIED.items():
-    _expose(_name, _carry(_name, _fixes), _keep)
+    expose(_name, _carry(_name, _fixes), _keep, globals())

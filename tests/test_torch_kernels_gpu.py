@@ -24,13 +24,19 @@ reuse fence, and drive small card engines through swap and import.
 Tensor parallelism: two rank processes at tp 2 give the one-card engine's
 tokens, over NCCL on two cards (skipped with one) and over gloo with both
 ranks on card 0.
+
+Runtime sanitizers: ``KGCT_SANITIZE=1`` on a card engine (n-gram spec,
+mixed batching, swap) gives the plain engine's tokens and makes the same
+number of synchronizing CUDA calls (``torch.cuda.set_sync_debug_mode``).
 """
 
+import dataclasses
 import json
 import os
 import socket
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import pytest
@@ -709,6 +715,50 @@ def test_swap_engine_twice_identical_on_the_card(cuda_device):
     assert eng.swapper.host.num_in_use == 0
     alloc = eng.scheduler.allocator
     assert alloc.num_free == alloc.num_pages - 1
+
+
+def _sync_calls(fn):
+    """(fn(), the synchronizing CUDA calls it made: one sync-debug warning
+    each)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+@pytest.mark.gpu
+def test_sanitizer_on_the_card_same_tokens_and_syncs(cuda_device,
+                                                     monkeypatch):
+    """The hooks read the host arrays the engine already holds: on the card
+    KGCT_SANITIZE=1 changes no token and adds no synchronizing call."""
+    base = _tiny_cfg(num_pages=24, swap_gb=0.01)
+    cfg = dataclasses.replace(base, scheduler=dataclasses.replace(
+        base.scheduler, spec_decode_enabled=True, num_speculative_tokens=4,
+        mixed_batch_enabled=True))
+    pattern = _prompts(1, 12, 13, seed=4)[0]
+    prompts = _prompts(4, 20, 80, seed=3) + [pattern * 5, pattern * 4]
+    sp = SamplingParams(max_tokens=40, temperature=0.0)
+    monkeypatch.setenv("KGCT_SANITIZE", "1")
+    on = LLMEngine(cfg, device=cuda_device)
+    monkeypatch.delenv("KGCT_SANITIZE")
+    off = LLMEngine(cfg, params=on.params, device=cuda_device)
+    assert on._sanitizer is not None and off._sanitizer is None
+    runs = {}
+    for tag, eng in (("on", on), ("off", off)):
+        # warm-up, under sync-debug too: torch warns once a process at one
+        # site, which must not land in the first measured run
+        _sync_calls(lambda e=eng: e.generate(prompts[:2], sp))
+        outs, syncs = _sync_calls(lambda e=eng: e.generate(prompts, sp))
+        runs[tag] = ([o.output_token_ids for o in outs], syncs)
+    assert runs["on"][0] == runs["off"][0]
+    assert runs["on"][1] == runs["off"][1] > 0
+    assert on.scheduler.num_preemptions_by_kind["swap"] > 0
+    assert on.obs.step_kind_counts["spec"] > 0
+    assert on._sanitizer.checks > 0
 
 
 @pytest.mark.gpu

@@ -22,9 +22,9 @@ One JAX weight set (``debug-tiny``, fp32) drives both packages:
 - swap with speculative decoding on (n-gram, then a draft model, whose
   runner re-ingests a restored sequence with a reset prefill).
 
-Waiting for later slices: the ``/metrics`` text of the host-pool gauges
-(``serving/metrics.py``, ROADMAP A5) and the sanitizer's swap-restore case
-(ROADMAP A9).
+Waiting for a later slice: the ``/metrics`` text of the host-pool gauges
+(``serving/metrics.py``, ROADMAP A5). The sanitizer's swap-restore case
+is carried in ``tests/test_torch_sanitize.py``.
 """
 
 import dataclasses
@@ -366,6 +366,9 @@ class FakeSwapper:
     def free_host(self, host_pages):
         self.freed_host.extend(host_pages)
         self.host.num_free += len(host_pages)
+
+    def notify_restored(self, seq):
+        pass
 
 
 REFUSED = TKV.KVTransferRefused("host KV pool full")
