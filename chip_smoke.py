@@ -143,11 +143,13 @@ the client here speaks HTTP/1.1 over asyncio streams on 127.0.0.1):
     server still answers. ``begin_drain()``: ``/health`` 503, a new request 503, the
     in-flight stream ends in ``[DONE]``.
 9b. The CLI in a subprocess on the card (tinyllama-1.1b int4, group 128,
-    8 seats, 0.3 of the free memory): ``/health`` polled until it answers,
-    plain, streamed and chat requests, then a long stream during which
+    8 seats, 0.3 of the free memory, prefix caching on): ``/health``
+    polled until it answers, plain, streamed and chat requests and a
+    1500-token prompt, then a long stream during which
     ``POST /debug/profile?seconds=2`` captures a torch.profiler trace
-    while one 1500-token prompt alone (a mixed step) and then a wave of
-    short prompts (a packed prefill step) arrive; the trace must hold CUDA kernel events of all four kernels
+    while that prompt extended by 64 tokens (a prefix hit: the new tokens
+    prefill over the cached pages) and then a wave of short prompts (a
+    packed prefill step) arrive; the trace must hold CUDA kernel events of all four kernels
     (found by their ``__global__`` names in ``csrc/``). SIGTERM: exit 0
     within the drain grace. On any failure the server's output is printed.
 
@@ -258,7 +260,47 @@ device tensor handed to one):
 15e. The draft-model proposer (the phase-4 model drafting for itself)
      with ``KGCT_SANITIZE=1``: ``check_feed`` on every planned feed, the
      tokens of a plain run.
-15f. ``kgct-torch-lint`` over the port: ``0 finding(s) (18 rule(s))``.
+15f. ``kgct-torch-lint`` over the port: ``0 finding(s) (21 rule(s))``.
+
+Then the decode window's step programs (``engine/step_programs.py``: every
+card engine captures each (greedy|sampled, decode bucket) window once into
+a CUDA graph and replays it; ``enforce_eager`` engines run it eagerly), on
+the phase-4 weights right after phase 15:
+
+16a. A server's engine (512 pages, 32 seats) and an ``enforce_eager``
+     engine on the same weights serve the same waves: per bucket 1-32 a
+     greedy wave, a wave of every sampled kind (seeded, unseeded, top-k
+     50 with top-p 0.95, top-k 1000, flat logits at temperature 5 with
+     top_p 0.9999, greedy rows with presence and frequency penalties, a
+     logit bias and top logprobs, seeded with a penalty) and one without
+     the full-sort row; 16-64-token prompts and 25 new tokens, so every
+     wave decodes at its bucket through chained windows. Greedy and seeded
+     rows give the same tokens both ways (logprobs' largest difference
+     logged); the captured engine holds the 12 programs (greedy|sampled x
+     buckets 1-32), the eager one none. Logged: captures, seconds per
+     capture, the shared pool's bytes.
+16b. One unseeded request's consecutive windows carry different step
+     keys, and the ("sampled", 32) program replayed on the same inputs
+     (turned unseeded) with keys k1, k2, k1 gives k1's first-substep
+     tokens twice and others under k2: the key is an input of the graph,
+     not a constant.
+16c. The 16a waves again on the captured engine: 0 new captures; its
+     ``/metrics`` (the server's own app on a free port) reads
+     ``kgct_jit_compiles_total`` equal to the engine's count.
+     Then phase 4's workload on a captured and an ``enforce_eager``
+     engine in turns (eager, captured, captured, eager): tokens/s, the
+     same tokens; and 15a's workload on both under
+     ``torch.cuda.set_sync_debug_mode``: synchronizing calls per step by
+     source line (15c's census), the same tokens.
+16d. A window body with a host read (``int()`` of an output) injected:
+     the engine raises ``CaptureError`` at the window's capture, the
+     window is not run on eagerly, the card still works after it, and the
+     caching allocator releases the engine's memory (reserved bytes back
+     within 256 MiB of before it).
+16e. (After 4b, on its int4 weights) phase 4b's workload on a captured
+     and an ``enforce_eager`` int4 engine: the same tokens; the int4
+     kernel recorded in the captured programs and its launches equal
+     both ways (a replay counts what its graph recorded).
 
 Then, still on the phase-4 weights, tensor and expert parallelism, each
 rank a child process (``chip_smoke.py --tp-child``) that builds its engine
@@ -418,6 +460,105 @@ FAMILIES = (
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+# Every process this script starts is started by ``start_child`` and asks
+# the kernel to be killed when this process dies (``die_with_parent``, the
+# first thing each child does), so none outlives the script, however it
+# ends: a failed phase kills its children in its ``finally``, the time
+# limit and SIGTERM raise ``Stopped`` (``main``'s ``finally`` kills what is
+# left), and a SIGKILL of this process reaches each child through the
+# kernel.
+PARENT_ENV = "KGCT_SMOKE_PARENT"
+PR_SET_PDEATHSIG = 1
+RUN_LIMIT_S = 1140          # the whole run, the build included
+_CHILDREN: list = []
+# A child that runs a module (the server's and the router's CLIs) asks
+# for the same before it imports anything.
+_MODULE_CHILD = (
+    "import ctypes, os, runpy, signal, sys\n"
+    f"ctypes.CDLL(None).prctl({PR_SET_PDEATHSIG}, signal.SIGKILL, 0, 0, 0)\n"
+    f"if os.getppid() != int(os.environ[{PARENT_ENV!r}]):\n"
+    "    os._exit(1)\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
+
+
+class Stopped(BaseException):
+    """The run's time limit or a SIGTERM: the phase in progress unwinds
+    (killing its children) and the run fails."""
+
+
+def start_child(args: list, module: Optional[str] = None,
+                **popen) -> subprocess.Popen:
+    """``chip_smoke.py`` with ``args`` (one of its child modes), or the
+    module ``module`` run as ``__main__`` with ``args``, in a process that
+    dies with this one."""
+    env = dict(popen.pop("env", None) or os.environ)
+    env[PARENT_ENV] = str(os.getpid())
+    head = ([sys.executable, "-c", _MODULE_CHILD, module] if module else
+            [sys.executable, str(Path(__file__).resolve())])
+    proc = subprocess.Popen([*head, *args], env=env, **popen)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def die_with_parent() -> None:
+    """In a child of ``start_child``: SIGKILL when the parent dies; exit
+    at once if it died already."""
+    import ctypes
+    import signal
+    ctypes.CDLL(None).prctl(PR_SET_PDEATHSIG, signal.SIGKILL, 0, 0, 0)
+    if os.getppid() != int(os.environ[PARENT_ENV]):
+        os._exit(1)
+
+
+def kill_children() -> None:
+    """Kill and reap every child still running."""
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+    for p in _CHILDREN:
+        with contextlib.suppress(subprocess.TimeoutExpired):
+            p.wait(timeout=30)
+
+
+def host_memory() -> dict:
+    """GB of this process's resident set (now and its peak), of the host's
+    available memory and, under a cgroup v2 limit, of the cgroup's use."""
+    gb = {}
+    for path, keys in (("/proc/self/status", ("VmRSS", "VmHWM")),
+                       ("/proc/meminfo", ("MemAvailable",))):
+        with contextlib.suppress(OSError):
+            for line in Path(path).read_text().splitlines():
+                k, _, v = line.partition(":")
+                if k in keys:
+                    gb[k] = round(int(v.split()[0]) / 2**20, 3)
+    for k in ("memory.current", "memory.peak", "memory.max"):
+        with contextlib.suppress(OSError, ValueError):
+            gb[k] = round(int(Path("/sys/fs/cgroup", k).read_text())
+                          / 2**30, 3)
+    return gb
+
+
+def mount_of(path: Path) -> dict:
+    """The mount that holds ``path``: its point and filesystem type."""
+    best = ("", "?")
+    with contextlib.suppress(OSError):
+        for line in Path("/proc/mounts").read_text().splitlines():
+            _, point, fs = line.split()[:3]
+            if str(path).startswith(point) and len(point) > len(best[0]):
+                best = (point, fs)
+    return {"mount": best[0], "fs": best[1]}
+
+
+def release_host_cache() -> None:
+    """Return PyTorch's cached pinned host blocks to the system (the
+    engines stage their uploads in pinned memory)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
 
 
 def card_line() -> str:
@@ -1887,7 +2028,7 @@ SEQ_PROMPTS = (64, 300, 900, 2500)   # 2500 > the 2048-token prefill budget
 SEQ_TOKENS = 32
 CLI_MODEL = ["--model", "tinyllama-1.1b", "--quantization", "int4",
              "--quant-group-size", "128"]
-CLI_LONG_PROMPT = 1500               # alone while another decodes: mixed
+CLI_LONG_PROMPT = 1500               # cached, then extended: a history prefill
 # Filled by _record_ids: the token ids each engine request produced.
 _PRODUCED: dict = {}
 
@@ -2234,11 +2375,19 @@ async def _drive_cli(port: int, proc, vocab: int) -> dict:
                          "max_tokens": 16, "temperature": 0.0}),
     ]
     sse_frames(first[1]["body"])
-    # The long request decodes while the profiler runs. Inside the window
-    # one prompt arrives alone (a mixed step: its chunk through the history
-    # kernel), then, once it is served, a wave of short prompts (a packed
-    # prefill step: flash_prefill). The profiler's start may hold the
-    # server's loop, so the first arrival waits a second.
+    # A long prompt served before the window leaves its pages in the
+    # prefix cache. Inside the window the same prompt arrives extended, so
+    # only its new tokens prefill, over the cached pages (the history
+    # kernel), then a wave of short prompts (a packed prefill step:
+    # flash_prefill), while the long request decodes. (A prompt that only
+    # arrives alone while another decodes rides a mixed step through the
+    # history kernel too, but captured decode windows can finish the other
+    # request first.) The profiler's start may hold the server's loop, so
+    # the first arrival waits a second.
+    cached = ids(CLI_LONG_PROMPT)
+    first.append(await http_call(port, "POST", "/v1/completions",
+                                 {"prompt": cached, "max_tokens": 4,
+                                  "temperature": 0.0}))
     long = asyncio.ensure_future(http_call(
         port, "POST", "/v1/completions",
         {"prompt": ids(64), "max_tokens": 300, "temperature": 0.0,
@@ -2248,7 +2397,7 @@ async def _drive_cli(port: int, proc, vocab: int) -> dict:
                                            "/debug/profile?seconds=2"))
     await asyncio.sleep(1.0)
     wave = [await http_call(port, "POST", "/v1/completions",
-                            {"prompt": ids(CLI_LONG_PROMPT), "max_tokens": 4,
+                            {"prompt": cached + ids(64), "max_tokens": 4,
                              "temperature": 0.0})]
     wave += await asyncio.gather(*(http_call(
         port, "POST", "/v1/completions",
@@ -2291,15 +2440,14 @@ def check_cli(vocab: int) -> dict:
                PYTHONPATH=os.pathsep.join(
                    [str(REPO)] + [p for p in os.environ.get(
                        "PYTHONPATH", "").split(os.pathsep) if p]))
-    cmd = [sys.executable, "-m",
-           "kubernetes_gpu_cluster_tpu_torch.serving.api_server",
-           *CLI_MODEL, "--max-num-seqs", "8",
-           "--hbm-utilization", "0.3", "--host", "127.0.0.1",
-           "--port", str(port)]
+    args = [*CLI_MODEL, "--max-num-seqs", "8", "--enable-prefix-caching",
+            "--hbm-utilization", "0.3", "--host", "127.0.0.1",
+            "--port", str(port)]
     log_path = work / "server.log"
     with open(log_path, "w") as logf:
-        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=logf,
-                                stderr=subprocess.STDOUT)
+        proc = start_child(
+            args, "kubernetes_gpu_cluster_tpu_torch.serving.api_server",
+            cwd=REPO, env=env, stdout=logf, stderr=subprocess.STDOUT)
         try:
             out = asyncio.run(_drive_cli(port, proc, vocab))
             t0 = time.perf_counter()
@@ -3178,12 +3326,11 @@ async def _router_cli(replica_url: str) -> dict:
     log_path = work / "router.log"
     t0 = time.perf_counter()
     with open(log_path, "w") as logf:
-        proc = subprocess.Popen(
-            [sys.executable, "-m",
-             "kubernetes_gpu_cluster_tpu_torch.serving.router",
-             "--replicas", replica_url, "--host", "127.0.0.1",
-             "--port", str(port)], cwd=REPO, env=env, stdout=logf,
-            stderr=subprocess.STDOUT)
+        proc = start_child(
+            ["--replicas", replica_url, "--host", "127.0.0.1",
+             "--port", str(port)],
+            "kubernetes_gpu_cluster_tpu_torch.serving.router", cwd=REPO,
+            env=env, stdout=logf, stderr=subprocess.STDOUT)
         try:
             while True:
                 if proc.poll() is not None:
@@ -3642,7 +3789,8 @@ def check_interleave(cfg_engine, params, device) -> dict:
     three seeds serves four concurrent streams; each seed's sanitizer
     yielded at least once. The yields move admissions between steps, so a
     seed may batch the streams otherwise than the unperturbed run: where it
-    stepped the same schedule its tokens must be the unperturbed ones;
+    stepped the same schedule (each step's kind, size and the requests it
+    advanced, in row order) its tokens must be the unperturbed ones;
     where not, they are held as the tp phases hold a sum in another order
     (``_held_forced``: equal up to a first difference, then each token the
     top one teacher forced, or under ``RESUME_DRIFT`` of the logit std
@@ -3672,7 +3820,14 @@ def check_interleave(cfg_engine, params, device) -> dict:
         def recorded(_step=step, _eng=eng, _schedule=schedule):
             outs = _step()
             info = _eng._last_step_info
-            _schedule.append(info[:2] if info else None)
+            # Each step's kind and size, and the requests it advanced in
+            # row order: a seed may batch other requests, or the same ones
+            # in other rows, at the same sizes, and a row's tokens depend
+            # on its batch's order (the prefill's packing), captured or
+            # eager alike.
+            _schedule.append((tuple(info[:2]),
+                              tuple(o.request_id for o in outs))
+                             if info else None)
             return outs
         eng.step = recorded
         runs[seed] = [t for t, _ in asyncio.run(_streams(aeng, prompts, sp))]
@@ -3683,9 +3838,11 @@ def check_interleave(cfg_engine, params, device) -> dict:
                 raise RuntimeError(f"seed {seed}: no crossing yielded")
         del aeng, eng
         gc.collect()
-    ties, equal, same_schedule = [], {}, {}
+    ties, equal, same_schedule, same_sizes = [], {}, {}, {}
     for seed in INTERLEAVE_SEEDS:
         same_schedule[seed] = schedules[seed] == schedules[None]
+        same_sizes[seed] = [s and s[0] for s in schedules[seed]] == \
+            [s and s[0] for s in schedules[None]]
         if same_schedule[seed] and runs[seed] != runs[None]:
             raise RuntimeError(f"interleave seed {seed}: the unperturbed "
                                "schedule gave other tokens")
@@ -3696,7 +3853,8 @@ def check_interleave(cfg_engine, params, device) -> dict:
     torch.cuda.empty_cache()
     return {"seeds": list(INTERLEAVE_SEEDS), "yields": yields,
             "streams": len(prompts), "streams_equal": equal,
-            "same_schedule": same_schedule, "tokens_off_top": len(ties),
+            "same_schedule": same_schedule, "same_sizes": same_sizes,
+            "tokens_off_top": len(ties),
             "widest_gap_over_std": max((t["gap_over_std"] for t in ties),
                                        default=0.0)}
 
@@ -3757,7 +3915,7 @@ def check_lint() -> dict:
     with contextlib.redirect_stderr(err):
         rc = lint([])
     summary = err.getvalue().strip().splitlines()[-1]
-    if rc != 0 or "0 finding(s) (18 rule(s))" not in summary:
+    if rc != 0 or "0 finding(s) (21 rule(s))" not in summary:
         raise RuntimeError(f"kgct-torch-lint: rc {rc}: {err.getvalue()}")
     return {"rc": rc, "summary": summary}
 
@@ -3771,6 +3929,384 @@ def check_analysis(cfg_engine, params, device, counters) -> dict:
     out["15e"] = check_draft_shadow(cfg_engine, params, device)
     out["15f"] = check_lint()
     out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the decode window as captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_PAGES = 512        # 16a's pools: 32 rows of 16-64 + 25 tokens
+GRAPH_TOKENS = 25        # one from the prefill, then three chained windows
+GRAPH_SEQS = 32          # buckets 1-32 of the default grid
+GRAPH_KEYS = (12345, 54321)   # 16b's two step keys
+
+
+def graph_buckets() -> tuple:
+    """The default decode buckets up to ``GRAPH_SEQS``."""
+    from kubernetes_gpu_cluster_tpu_torch.config import SchedulerConfig
+    return tuple(b for b in SchedulerConfig().decode_buckets
+                 if b <= GRAPH_SEQS)
+
+
+def graph_params(n: int, kinds: str) -> list:
+    """16a's rows of one wave of ``n``: "greedy" all greedy; "all" every
+    sampled kind in turn, the full-sort row among them (the batch then
+    takes the full sort); "wide" the same without it (a top_k 1000 row
+    makes the batch take the 2048-wide window)."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    T = GRAPH_TOKENS
+    if kinds == "greedy":
+        return [SamplingParams(max_tokens=T, temperature=0.0)] * n
+    rows = [
+        SamplingParams(max_tokens=T, temperature=0.9, top_k=1000, seed=1603),
+        SamplingParams(max_tokens=T, temperature=0.8, seed=1601),
+        SamplingParams(max_tokens=T, temperature=1.0),          # unseeded
+        SamplingParams(max_tokens=T, temperature=0.7, top_k=50, top_p=0.95,
+                       seed=1602),
+        SamplingParams(max_tokens=T, temperature=0.0, presence_penalty=0.6,
+                       frequency_penalty=0.4,
+                       logit_bias={13: 4.0, 17: -100.0}, logprobs=True,
+                       top_logprobs=5),
+        SamplingParams(max_tokens=T, temperature=0.6, frequency_penalty=0.5,
+                       seed=1605, logprobs=True, top_logprobs=2),
+    ]
+    if kinds == "all":
+        # Flat logits (temperature 5) and top_p 0.9999: no window covers
+        # the mass, the full sort decides.
+        rows.insert(1, SamplingParams(max_tokens=T, temperature=5.0,
+                                      top_p=0.9999, seed=1604))
+    return [rows[i % len(rows)] for i in range(n)]
+
+
+def graph_waves(eng, vocab: int) -> list:
+    """Per bucket 1-32: a greedy wave, an "all" wave, and (from 2 rows) a
+    "wide" wave; prompts of 16-64 tokens, so one prefill step takes a
+    whole wave and every window runs the wave's bucket. Returns per wave
+    (params, outputs)."""
+    rng = np.random.default_rng(SEED + 16)
+    out = []
+    for n in graph_buckets():
+        for kinds in ("greedy", "all") + (("wide",) if n > 1 else ()):
+            prompts = [[int(t) for t in rng.integers(1, vocab,
+                                                     int(rng.integers(16,
+                                                                      65)))]
+                       for _ in range(n)]
+            sps = graph_params(n, kinds)
+            out.append((sps, eng.generate(prompts, sps)))
+    return out
+
+
+def _held_rows(graph_run, eager_run) -> dict:
+    """Graph against eager, row by row: greedy and seeded rows must give
+    the same tokens (their logprobs' largest difference is logged);
+    unseeded rows are counted."""
+    checked = unseeded_equal = unseeded = 0
+    lp_diff = 0.0
+    for (sps, g), (_, e) in zip(graph_run, eager_run):
+        for sp, a, b in zip(sps, g, e):
+            if sp.temperature > 0 and sp.seed is None:
+                unseeded += 1
+                unseeded_equal += a.output_token_ids == b.output_token_ids
+                continue
+            if a.output_token_ids != b.output_token_ids:
+                raise RuntimeError(
+                    f"16a: captured and eager tokens differ for {sp}: "
+                    f"{a.output_token_ids} vs {b.output_token_ids}")
+            checked += 1
+            if a.output_logprobs:
+                lp_diff = max(lp_diff, max(abs(x - y) for x, y in zip(
+                    a.output_logprobs, b.output_logprobs)))
+    return {"rows_equal": checked, "unseeded_rows": unseeded,
+            "unseeded_equal": unseeded_equal, "max_logprob_diff": lp_diff}
+
+
+def _step_key_replays(eng) -> dict:
+    """16b: the engine refills the step key before every window, and the
+    graph reads it. Two consecutive windows of one unseeded request carry
+    different keys; then the ("sampled", 32) program is replayed three
+    times on the same inputs turned unseeded (temperature 1, nothing
+    filtered, penalised or biased) with keys k1, k2, k1: k1 twice gives
+    the same tokens, k2 others. A key baked into the graph would give k1's
+    tokens for k2."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    progs = eng._programs
+    seen = []
+    run = progs.run
+
+    def recording(key):
+        if key[0] == "sampled":
+            seen.append(int(progs.buffers(key)["step_key"][0]))
+        run(key)
+
+    progs.run = recording
+    try:
+        eng.generate([[7] * 20], SamplingParams(max_tokens=GRAPH_TOKENS,
+                                                temperature=1.0))
+    finally:
+        progs.run = run
+    if len(seen) < 2 or len(set(seen)) != len(seen):
+        raise RuntimeError(f"16b: windows' step keys {seen}")
+    key = ("sampled", GRAPH_SEQS)
+    bufs = progs.buffers(key)
+    snap = {n: t.clone() for n, t in bufs.tensors.items()}
+    outs = []
+    for k in GRAPH_KEYS + GRAPH_KEYS[:1]:
+        for n, t in snap.items():
+            bufs[n].copy_(t)
+        bufs["seed"].fill_(-1)
+        bufs["temperature"].fill_(1.0)
+        bufs["top_k"].zero_()
+        bufs["top_p"].fill_(1.0)
+        bufs["presence"].zero_()
+        bufs["frequency"].zero_()
+        bufs["bias_ids"].fill_(-1)
+        bufs["step_key"].fill_(k)
+        run(key)
+        torch.cuda.synchronize()
+        outs.append(bufs["out_tok"].clone())
+    # The program's last window ran past every row's token budget (the
+    # chain's successor of the wave's last window): from its second
+    # substep on, a row reads KV its first substep wrote to the scrap
+    # page, which every row writes, in no fixed order, and whose tokens
+    # the host discards. The first substep reads the rows' committed KV
+    # only: its column is compared, for the real rows (padded rows have
+    # an all-zero page table and read the scrap page throughout).
+    real = snap["page_tables"][:, 0] != 0
+    a, b, c = (o[real, 0] for o in outs)
+    rows = int((a != b).sum())
+    if not torch.equal(a, c) or rows == 0:
+        raise RuntimeError(f"16b: replays with keys {GRAPH_KEYS}: k1 twice "
+                           f"equal {torch.equal(a, c)}, rows that differ "
+                           f"under k2 {rows} of {int(real.sum())}")
+    return {"window_keys": seen, "rows_differing_under_k2": rows,
+            "rows": int(real.sum())}
+
+
+async def _scrape_metrics(api) -> str:
+    from kubernetes_gpu_cluster_tpu_torch.serving.http import Server
+    srv = Server(api.build_app())
+    await srv.start("127.0.0.1", 0)
+    try:
+        r = await http_call(srv.port, "GET", "/metrics")
+    finally:
+        await srv.close()
+    if r["status"] != 200:
+        raise RuntimeError(f"/metrics: {r['status']}")
+    return r["body"]
+
+
+def _capture_record(eng) -> dict:
+    progs = eng._programs
+    secs = progs.capture_seconds
+    return {"programs": eng.compiled_step_variants(), "captures": len(secs),
+            "capture_s_mean": sum(secs) / max(1, len(secs)),
+            "capture_s_max": max(secs, default=0.0),
+            "pool_bytes": progs.pool_bytes,
+            "keys": [list(k) for k in progs.keys()]}
+
+
+def check_graphs(cfg_engine, params, device, counters, card: str) -> dict:
+    """Phase 16 on the phase-4 weights: 16a-16d and the graph/eager
+    numbers (see the module docstring)."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                         SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
+                                                         SamplingParams)
+    from kubernetes_gpu_cluster_tpu_torch.engine.step_programs import \
+        CaptureError
+    from kubernetes_gpu_cluster_tpu_torch.serving import build_server
+    t0 = time.perf_counter()
+    vocab = cfg_engine.model.vocab_size
+    out = {}
+    cfg16 = dataclasses.replace(
+        cfg_engine, cache=CacheConfig(page_size=cfg_engine.cache.page_size,
+                                      num_pages=GRAPH_PAGES),
+        scheduler=SchedulerConfig(max_num_seqs=GRAPH_SEQS))
+    eager_cfg = dataclasses.replace(cfg16, enforce_eager=True)
+
+    # 16a: every bucket and variant, captured against eager.
+    api = build_server(cfg16, params=params, device=device,
+                       model_name=MODEL)
+    graph = api.engine.engine
+    eager = LLMEngine(eager_cfg, params=params, device=device,
+                      eos_token_id=graph.eos_token_id)
+    g_run = graph_waves(graph, vocab)
+    e_run = graph_waves(eager, vocab)
+    held = _held_rows(g_run, e_run)
+    want = {(v, b) for v in ("greedy", "sampled") for b in graph_buckets()}
+    if set(graph._programs.keys()) != want or eager.compiled_step_variants():
+        raise RuntimeError(f"16a: programs {graph._programs.keys()}, eager "
+                           f"{eager.compiled_step_variants()}")
+    out["16a"] = {**held, **_capture_record(graph)}
+    log("graphs 16a:", json.dumps(out["16a"]), "|", card)
+
+    # 16b: the step key is an input of the graph, refilled every window.
+    out["16b"] = _step_key_replays(graph)
+    log("graphs 16b:", json.dumps(out["16b"]))
+
+    # 16c: a second identical wave set captures nothing; /metrics agrees.
+    before = (graph.compiled_step_variants(),
+              len(graph._programs.capture_seconds))
+    again = graph_waves(graph, vocab)
+    after = (graph.compiled_step_variants(),
+             len(graph._programs.capture_seconds))
+    text = asyncio.run(_scrape_metrics(api))
+    gauge = _metric(text, "kgct_jit_compiles_total")
+    if after != before or gauge != after[0] or \
+            _held_rows(again, e_run)["rows_equal"] != held["rows_equal"]:
+        raise RuntimeError(f"16c: programs {before} -> {after}, /metrics "
+                           f"{gauge}")
+    out["16c"] = {"programs": after[0], "new_captures": after[1] - before[1],
+                  "kgct_jit_compiles_total": gauge}
+    log("graphs 16c:", json.dumps(out["16c"]))
+    del api, graph, eager, g_run, e_run, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 4's workload, captured against eager, in turns on one card.
+    reqs = workload(vocab)
+    hist = counters["flash_prefill_hist"]
+    engines = {"graph": LLMEngine(cfg_engine, params=params, device=device)}
+    engines["eager"] = LLMEngine(dataclasses.replace(cfg_engine,
+                                                     enforce_eager=True),
+                                 params=params, device=device)
+    for eng in engines.values():
+        drive(eng, reqs[1:3], "warm", hist)
+    runs = {k: [] for k in engines}
+    for tag in ("eager", "graph", "graph", "eager"):
+        runs[tag].append(drive(engines[tag], reqs, f"t{len(runs[tag])}",
+                               hist))
+    if any(r["tokens"] != runs["graph"][0]["tokens"]
+           for rs in runs.values() for r in rs):
+        raise RuntimeError("phase 4 workload: captured and eager tokens "
+                           "differ")
+    out["phase4"] = {k: [r["tokens_per_s"] for r in rs]
+                     for k, rs in runs.items()}
+    out["phase4"]["capture"] = _capture_record(engines["graph"])
+    log("graphs phase 4 tokens/s:", json.dumps(out["phase4"]), "|", card)
+    del engines, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15c's census: synchronizing calls per step, captured and eager.
+    cfg15 = _analysis_cfg(cfg_engine)
+    reqs15 = analysis_workload(vocab)
+    census = {}
+    for tag, cfg in (("graph", cfg15),
+                     ("eager", dataclasses.replace(cfg15,
+                                                   enforce_eager=True))):
+        eng = LLMEngine(cfg, params=params, device=device)
+        with sync_sites():
+            drive(eng, reqs15[1:3], "warm", hist)
+        with sync_sites() as sites:
+            run = drive(eng, reqs15, "c", hist)
+        census[tag] = {"sync_calls": sum(sites.values()),
+                       "steps": run["steps"],
+                       "per_step": sum(sites.values()) / run["steps"],
+                       "by_line": dict(sites.most_common()),
+                       "kinds": run["kinds"]}
+        census[tag]["tokens"] = run["tokens"]
+        del eng
+    if census["graph"].pop("tokens") != census["eager"].pop("tokens"):
+        raise RuntimeError("15c census: captured and eager tokens differ")
+    out["census"] = census
+    log("graphs census:", json.dumps(census), "|", card)
+
+    # 16d: a host read injected into the window body fails its capture,
+    # and leaves the caching allocator able to release memory.
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    eng = LLMEngine(cfg16, params=params, device=device)
+    body = eng._programs._body
+
+    def leaky(key, bufs):
+        body(key, bufs)
+        return int(bufs["out_tok"][0, 0])
+
+    eng._programs._body = leaky
+    try:
+        eng.generate([[5] * 30], SamplingParams(max_tokens=GRAPH_TOKENS))
+    except CaptureError as err:
+        out["16d"] = {"raised": type(err).__name__,
+                      "cause": type(err.__cause__).__name__,
+                      "message": str(err)[:200],
+                      "programs": eng.compiled_step_variants()}
+    else:
+        raise RuntimeError("16d: a host read in the window was captured")
+    del eng, body
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["16d"]["reserved_bytes"] = [reserved,
+                                    torch.cuda.memory_reserved(device)]
+    probe = torch.ones(4, device=device).sum()
+    if float(probe) != 4.0 or out["16d"]["reserved_bytes"][1] > \
+            reserved + (256 << 20):
+        raise RuntimeError(f"16d: after the failed capture the card gives "
+                           f"{float(probe)} for 4.0, reserved bytes "
+                           f"{out['16d']['reserved_bytes']}")
+    log("graphs 16d:", json.dumps(out["16d"]))
+
+    # The filter tiers chosen on the device at this vocabulary: every tier
+    # computed each call, the [B, V] full sort included (device time of
+    # calls captured in a graph, which the host-branch version could not
+    # be).
+    from kubernetes_gpu_cluster_tpu_torch.ops import sampling as S
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    scaled = torch.randn((GRAPH_SEQS, vocab), generator=gen, device=device)
+    top_k = torch.full((GRAPH_SEQS,), 50, dtype=torch.int32, device=device)
+    top_p = torch.full((GRAPH_SEQS,), 0.95, device=device)
+    out["filters"] = {
+        "B": GRAPH_SEQS, "V": vocab,
+        "apply_filters_ms": graph_ms(
+            lambda: S._apply_filters(scaled, top_k, top_p), 20),
+        "full_sort_ms": graph_ms(
+            lambda: torch.sort(scaled, dim=-1, descending=True), 20)}
+    log("graphs filters:", json.dumps(out["filters"]), "|", card)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_graph_int4(cfg_engine4, device, counters, card: str) -> dict:
+    """16e: phase 4b's workload on an int4 engine, captured against eager
+    on the same packed weights; ``int4_matmul`` launched by replays."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
+    reqs = workload(cfg_engine4.model.vocab_size, n_req=12, long_len=2500,
+                    max_prompt=768, wave=1)
+    hist = counters["flash_prefill_hist"]
+    graph = LLMEngine(cfg_engine4, device=device)
+    eager = LLMEngine(dataclasses.replace(cfg_engine4, enforce_eager=True),
+                      params=graph.params, device=device)
+    for eng in (graph, eager):
+        drive(eng, reqs[1:3], "warm", hist)
+    runs, launched = {}, {}
+    for tag, eng in (("eager", eager), ("graph", graph)):
+        for mod in counters.values():
+            mod.launches = 0
+        replays = eng._programs.replays
+        runs[tag] = drive(eng, reqs, tag, hist)
+        launched[tag] = {n: m.launches for n, m in counters.items()}
+        launched[tag]["replays"] = eng._programs.replays - replays
+    recorded = {repr(k): eng_launches for k, eng_launches in
+                graph._programs.recorded_launches().items()}
+    if runs["graph"]["tokens"] != runs["eager"]["tokens"]:
+        raise RuntimeError("16e: captured and eager int4 tokens differ")
+    if (launched["graph"]["replays"] <= 0
+            or any(launched["graph"][n] != launched["eager"][n]
+                   for n in counters)
+            or not all(r.get("int4_matmul", 0) > 0
+                       for r in recorded.values())):
+        raise RuntimeError(f"16e: launches {launched}, recorded {recorded}")
+    out = {"tokens_per_s": {t: r["tokens_per_s"] for t, r in runs.items()},
+           "launches": launched, "recorded": recorded,
+           "capture": _capture_record(graph),
+           "kinds": runs["graph"]["kinds"]}
+    log("graphs 16e int4:", json.dumps(out), "|", card)
+    del graph, eager
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3830,8 +4366,8 @@ def spawn_ranks(tag: str, spec: dict, devices: list, backend: str,
                    KGCT_COORDINATOR=spec["coordinator"],
                    KGCT_NUM_PROCESSES=str(world),
                    KGCT_PROCESS_ID=str(rank))
-        procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--tp-child",
+        procs.append(start_child(
+            ["--tp-child",
              json.dumps(dict(spec, rank=rank, device=dev, out=str(out)))],
             env=env, stdout=logf, stderr=subprocess.STDOUT))
     t0 = time.monotonic()
@@ -4651,9 +5187,8 @@ def check_cli_tp(cfg, params, device, card: str,
                  "out": str(out)}
         if module:
             child["module"] = module
-        procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--cli-rank",
-             json.dumps(child)],
+        procs.append(start_child(
+            ["--cli-rank", json.dumps(child)],
             cwd=REPO, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
     try:
         res = asyncio.run(_drive_cli_tp(port, health, procs, cfg.vocab_size,
@@ -4815,10 +5350,15 @@ def _whole_load(path: Path) -> dict:
     out.unlink(missing_ok=True)
     TP_DIR.mkdir(parents=True, exist_ok=True)
     with open(TP_DIR / "14a-whole.log", "w") as logf:
-        rc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--whole-load",
-             json.dumps({"path": str(path), "out": str(out)})],
-            stdout=logf, stderr=subprocess.STDOUT, timeout=600).returncode
+        proc = start_child(
+            ["--whole-load", json.dumps({"path": str(path), "out": str(out)})],
+            stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     if rc != 0 or not out.exists():
         raise RuntimeError(f"14a whole load exited {rc}:\n"
                            + (TP_DIR / "14a-whole.log").read_text()[-3000:])
@@ -4935,6 +5475,15 @@ def check_rendered(cfg, params, device, card: str, path: Path) -> dict:
     if c["command"][:2] != ["python", "-m"]:
         raise RuntimeError(f"14b: unexpected command {c['command']}")
     probe = c["readinessProbe"]["httpGet"]
+    # The container's --port is its probe's; here the pod shares the host's
+    # network, where a fixed port may be taken, so both move to a free one
+    # (the StatefulSet's ranks below get theirs from 13c's harness).
+    at = c["args"].index("--port") + 1
+    if int(c["args"][at]) != probe["port"]:
+        raise RuntimeError(f"14b: --port {c['args'][at]} but the readiness "
+                           f"probe asks port {probe['port']}")
+    port = _free_port()
+    args = [*c["args"][:at], str(port), *c["args"][at + 1:]]
     rng = np.random.default_rng(SEED + 14)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
                for n in DEPLOY_PROMPTS]
@@ -4957,14 +5506,14 @@ def check_rendered(cfg, params, device, card: str, path: Path) -> dict:
     for e in c.get("env") or []:
         env[e["name"]] = e["value"]
     with open(work / "deployment.log", "w") as logf:
-        proc = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--cli-rank",
+        proc = start_child(
+            ["--cli-rank",
              json.dumps({"rank": 0, "group": False, "module": c["command"][2],
-                         "argv": c["args"], "out": str(out_file)})],
+                         "argv": args, "out": str(out_file)})],
             cwd=REPO, env=env, stdout=logf, stderr=subprocess.STDOUT)
         try:
-            res = asyncio.run(_drive_deployment(probe["port"], probe["path"],
-                                                proc, prompts))
+            res = asyncio.run(_drive_deployment(port, probe["path"], proc,
+                                                prompts))
             t0 = time.perf_counter()
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=pod["terminationGracePeriodSeconds"])
@@ -5034,6 +5583,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    import signal
+
+    def stop(signum, frame):
+        raise Stopped("chip_smoke: the run's time limit of "
+                      f"{RUN_LIMIT_S} s" if signum == signal.SIGALRM
+                      else "chip_smoke: SIGTERM")
+    signal.signal(signal.SIGTERM, stop)
+    signal.signal(signal.SIGALRM, stop)
+    signal.alarm(RUN_LIMIT_S)
     from kubernetes_gpu_cluster_tpu_torch.config import (
         CacheConfig, EngineConfig, SchedulerConfig, get_model_config)
     from kubernetes_gpu_cluster_tpu_torch.engine.engine import \
@@ -5050,12 +5608,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log("card:", card, "|", kind, "| torch", torch.__version__,
         "cuda", torch.version.cuda)
+    log("host:", json.dumps({**host_memory(), **mount_of(REPO)}))
 
     t_phase = [time.perf_counter()]
 
     def phase(name: str) -> None:
         now = time.perf_counter()
         log(f"phase {name}: {now - t_phase[0]:.1f} s")
+        log("host memory (GB):", json.dumps(host_memory()))
         t_phase[0] = now
 
     # Phase 1: build.
@@ -5149,6 +5709,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase(f"{MODEL} bf16 analysis (15)")
 
+    # Phase 16: the decode window's captured graphs on the same weights.
+    log("graphs:", json.dumps(check_graphs(cfg_engine, params, device, attn,
+                                           card)), "|", card)
+    # The phases below start processes that load the model on the host.
+    release_host_cache()
+    phase(f"{MODEL} bf16 captured decode windows (16)")
+
     # Phases 12 and 12c: tp 2 as two ranks on this card (gloo), held to
     # the tp=1 tokens of these weights; then the group abort.
     tp, tp_ref = check_tp(cfg, params, device, card, [0, 0], "gloo",
@@ -5208,6 +5775,9 @@ def main() -> int:
                                  max_prompt=768, wave=1))
     gc.collect()
     torch.cuda.empty_cache()
+    # Phase 16e: the same int4 workload, captured against eager.
+    check_graph_int4(cfg_engine4, device, {**attn,
+                                           "int4_matmul": int4_matmul}, card)
 
     # Phase 4c: the int8 engine.
     cfg_engine8 = dataclasses.replace(
@@ -5272,6 +5842,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] in (["--tp-child"], ["--cli-rank"], ["--whole-load"]):
+        die_with_parent()
     if sys.argv[1:2] == ["--tp-child"]:
         tp_child(json.loads(sys.argv[2]))
         sys.exit(0)
@@ -5281,4 +5853,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--whole-load"]:
         whole_load_child(json.loads(sys.argv[2]))
         sys.exit(0)
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        kill_children()

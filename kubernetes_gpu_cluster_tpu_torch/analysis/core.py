@@ -16,9 +16,13 @@ Design constraints:
   invariant-holding code: the tier-1 baseline test enforces an empty
   baseline with no allowlist, so a rule that cries wolf cannot ship.
 
-Eager PyTorch has no traced function, jit cache or donated buffer, so the
-JAX package's trace-safety, recompile-risk and donation-safety analyses
-(KGCT001, KGCT003, KGCT004) have no counterpart here.
+The JAX package's traced functions, jit cache and donated buffers have
+their counterparts in the engine's step programs
+(``engine/step_programs.py``): a window body the program cache captures
+into a CUDA graph, one graph per (variant, decode bucket), and the static
+outputs each replay overwrites. :meth:`LintModule.captured_functions`
+finds the bodies as the JAX core finds jitted functions; KGCT001,
+KGCT003 and KGCT004 police them.
 """
 
 from __future__ import annotations
@@ -29,6 +33,28 @@ import hashlib
 from functools import cached_property
 from pathlib import Path
 from typing import Iterable, Iterator, Optional
+
+
+# Attributes and calls whose result on a tensor is host-side metadata, not
+# a device value: branching on them reads nothing back.
+STATIC_ATTRS = frozenset({"shape", "ndim", "dtype", "device", "is_cuda",
+                          "itemsize"})
+STATIC_CALLS = frozenset({"len", "isinstance", "type", "size", "dim",
+                          "numel", "element_size"})
+
+# The program cache: the class whose constructor takes a window body, and
+# its one capture method (where a graph may be captured).
+PROGRAM_CACHE = "StepPrograms"
+CAPTURE_METHOD = "_capture"
+
+
+@dataclasses.dataclass(frozen=True)
+class CapturedFn:
+    """A function the program cache captures: ``body(key, buffers)``. The
+    key is static Python data; ``tensor_params`` (the buffers) carry device
+    values."""
+    node: ast.AST
+    tensor_params: tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +84,71 @@ def _dotted(node: ast.AST) -> str:
         parts.append(node.id)
         return ".".join(reversed(parts))
     return ""
+
+
+def tainted_refs(expr: ast.AST, tainted: set) -> list:
+    """Names in ``expr`` that carry device values, EXCLUDING references
+    that resolve to host-side metadata (``.shape``, ``.dtype``,
+    ``len()``, ``.size()``)."""
+    hits: list = []
+
+    def visit(node: ast.AST) -> None:
+        if isinstance(node, ast.Attribute) and node.attr in STATIC_ATTRS:
+            return
+        if isinstance(node, ast.Call):
+            callee = node.func
+            name = (callee.id if isinstance(callee, ast.Name)
+                    else getattr(callee, "attr", ""))
+            if name in STATIC_CALLS:
+                return
+        if isinstance(node, ast.Name) and node.id in tainted:
+            hits.append(node.id)
+        for child in ast.iter_child_nodes(node):
+            visit(child)
+
+    visit(expr)
+    return hits
+
+
+def propagate_taint(fn: ast.AST, seeds: Iterable[str]) -> set:
+    """Fixpoint over simple assignments: a name assigned from a tainted
+    expression becomes tainted (one function's scope, nested defs
+    included)."""
+    tainted = set(seeds)
+    for _ in range(10):
+        grew = False
+        for node in ast.walk(fn):
+            value = targets = None
+            if isinstance(node, ast.Assign):
+                value, targets = node.value, node.targets
+            elif isinstance(node, (ast.AugAssign, ast.AnnAssign)):
+                value, targets = node.value, [node.target]
+            elif isinstance(node, ast.NamedExpr):
+                value, targets = node.value, [node.target]
+            elif isinstance(node, ast.For):
+                value, targets = node.iter, [node.target]
+            if value is None or not tainted_refs(value, tainted):
+                continue
+            for tgt in targets:
+                for leaf in ast.walk(tgt):
+                    if (isinstance(leaf, ast.Name)
+                            and leaf.id not in tainted):
+                        tainted.add(leaf.id)
+                        grew = True
+        if not grew:
+            break
+    return tainted
+
+
+def _params(fn: ast.AST) -> list:
+    a = fn.args
+    return [p.arg for p in a.posonlyargs + a.args]
+
+
+def is_program_cache_call(node: ast.AST) -> bool:
+    """``StepPrograms(...)`` or ``<module>.StepPrograms(...)``."""
+    return (isinstance(node, ast.Call)
+            and _dotted(node.func).split(".")[-1] == PROGRAM_CACHE)
 
 
 class LintModule:
@@ -125,6 +216,110 @@ class LintModule:
                     return True
         return False
 
+    def enclosing_class(self, node: ast.AST):
+        for anc in self.ancestors(node):
+            if isinstance(anc, ast.ClassDef):
+                return anc
+        return None
+
+    @staticmethod
+    def methods_of(cls: ast.ClassDef) -> dict:
+        return {n.name: n for n in cls.body
+                if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+
+    # -- step-program analysis ----------------------------------------------
+
+    @cached_property
+    def captured_functions(self) -> list:
+        """Every window body handed to the program cache
+        (``StepPrograms(body, ...)``), resolved like the JAX core's jitted
+        functions: ``self.<method>`` to the method of the enclosing class,
+        a bare name to the def of the enclosing scope or module. The cache
+        calls ``body(key, buffers)``: every parameter after the key (and
+        ``self``) carries tensors. The methods of the class the body calls
+        with tensor arguments run inside the capture too; they are
+        followed, with the parameters those arguments bind as seeds."""
+        out: list = []
+        defs: dict = {}
+        for fn in self.functions:
+            defs.setdefault(self.enclosing_function(fn), {})[fn.name] = fn
+        for node in ast.walk(self.tree):
+            if not (is_program_cache_call(node) and node.args):
+                continue
+            first, target, cls = node.args[0], None, None
+            if (isinstance(first, ast.Attribute)
+                    and isinstance(first.value, ast.Name)
+                    and first.value.id == "self"):
+                cls = self.enclosing_class(node)
+                if cls is not None:
+                    target = self.methods_of(cls).get(first.attr)
+            elif isinstance(first, ast.Name):
+                scope = self.enclosing_function(node)
+                target = (defs.get(scope, {}).get(first.id)
+                          or defs.get(None, {}).get(first.id))
+            if target is None:
+                continue
+            params = _params(target)
+            skip = 2 if params[:1] == ["self"] else 1
+            out.extend(self._follow_captured(
+                target, tuple(params[skip:]),
+                self.methods_of(cls) if cls is not None else {}))
+        return out
+
+    def _follow_captured(self, root, seeds: tuple, methods: dict) -> list:
+        """``root`` and every method of ``methods`` it reaches through
+        ``self.<m>(...)`` calls with tainted arguments, each with the
+        parameters those arguments bind (unioned over call sites)."""
+        seeded = {root.name: (root, set(seeds))}
+        frontier = [root.name]
+        while frontier:
+            fn, seeds_now = seeded[frontier.pop()]
+            tainted = propagate_taint(fn, seeds_now)
+            for call in ast.walk(fn):
+                if not (isinstance(call, ast.Call)
+                        and isinstance(call.func, ast.Attribute)
+                        and isinstance(call.func.value, ast.Name)
+                        and call.func.value.id == "self"
+                        and call.func.attr in methods):
+                    continue
+                callee = methods[call.func.attr]
+                params = _params(callee)[1:]
+                bound = {params[i] for i, a in enumerate(call.args)
+                         if i < len(params) and tainted_refs(a, tainted)}
+                bound |= {kw.arg for kw in call.keywords
+                          if kw.arg in params
+                          and tainted_refs(kw.value, tainted)}
+                if not bound:
+                    continue
+                known = seeded.get(callee.name, (callee, set()))[1]
+                if not bound <= known:
+                    seeded[callee.name] = (callee, known | bound)
+                    frontier.append(callee.name)
+        return [CapturedFn(fn, tuple(sorted(sd)))
+                for fn, sd in seeded.values()]
+
+    def program_cache_attrs(self, cls: ast.ClassDef) -> set:
+        """``self.<attr>`` names of ``cls`` bound to a program cache."""
+        return {tgt.attr for node in ast.walk(cls)
+                if isinstance(node, ast.Assign)
+                and is_program_cache_call(node.value)
+                for tgt in node.targets
+                if isinstance(tgt, ast.Attribute)
+                and isinstance(tgt.value, ast.Name)
+                and tgt.value.id == "self"}
+
+    def program_calls(self, fn: ast.AST, attrs: set, method: str) -> list:
+        """Calls ``self.<attr>.<method>(...)`` in ``fn`` on a program-cache
+        attribute."""
+        return [node for node in ast.walk(fn)
+                if isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == method
+                and isinstance(node.func.value, ast.Attribute)
+                and node.func.value.attr in attrs
+                and isinstance(node.func.value.value, ast.Name)
+                and node.func.value.value.id == "self"]
+
     # -- hot-path analysis ---------------------------------------------------
 
     def _step_reachable(self, skip_phase: Optional[str] = None) -> list:
@@ -138,9 +333,7 @@ class LintModule:
         for cls in self.classes:
             if "Engine" not in cls.name:
                 continue
-            methods = {n.name: n for n in cls.body
-                       if isinstance(n, (ast.FunctionDef,
-                                         ast.AsyncFunctionDef))}
+            methods = self.methods_of(cls)
             roots = [name for name in methods
                      if name == "step" or name.startswith("_step")]
             if not roots:

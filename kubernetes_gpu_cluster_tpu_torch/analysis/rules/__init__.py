@@ -2,15 +2,17 @@
 
 Each module owns one invariant class; every rule here runs in the tier-1
 empty-baseline test (tests/test_torch_lint.py): adding a rule means the
-whole package must already satisfy it. The codes are the JAX package's;
-KGCT001 (trace-safety), KGCT003 (recompile-risk) and KGCT004
-(donation-safety) are not registered: eager PyTorch has no traced
-function, jit cache or donated buffer. Their counterparts (no host sync
-inside a captured CUDA graph, one capture per bucketed shape) come with
-graph capture.
+whole package must already satisfy it. The codes are the JAX package's.
+KGCT001 (capture-safety), KGCT003 (recompile-risk) and KGCT004
+(donation-safety) police the engine's captured decode programs
+(``engine/step_programs.py``), the counterparts of the JAX package's
+traced functions, jit cache and donated buffers.
 """
 
+from .trace_safety import TraceSafetyRule
 from .host_sync import HostSyncRule
+from .recompile import RecompileRiskRule
+from .donation import DonationSafetyRule
 from .kv_commit import KVCommitSafetyRule
 from .asyncio_hygiene import AsyncioHygieneRule
 from .metric_hygiene import MetricHygieneRule
@@ -30,7 +32,10 @@ from .thread_ownership import ThreadOwnershipRule
 from .lock_discipline import LockDisciplineRule
 
 ALL_RULES = [
+    TraceSafetyRule(),
     HostSyncRule(),
+    RecompileRiskRule(),
+    DonationSafetyRule(),
     KVCommitSafetyRule(),
     AsyncioHygieneRule(),
     MetricHygieneRule(),

@@ -217,8 +217,9 @@ class EngineConfig:
         default_factory=ResilienceConfig)
     max_model_len: Optional[int] = None  # override model.max_model_len
     seed: int = 0
-    enforce_eager: bool = False          # parity with vllm --enforce-eager: disable
-                                         # jit caching (debug only; always slower)
+    enforce_eager: bool = False          # parity with vllm --enforce-eager: no CUDA
+                                         # graph capture of the decode window
+                                         # (debug only; always slower)
 
     @property
     def effective_max_len(self) -> int:

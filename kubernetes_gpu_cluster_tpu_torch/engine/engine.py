@@ -24,9 +24,20 @@ quantization is set. The page pool is sized from the device's free memory
 after the weights exist, so a quantized model's smaller footprint leaves
 room for more KV pages; nothing else in the engine depends on the rung.
 
-Eager PyTorch has no compile step, so the JAX package's bucketed program
-caches, its donation bookkeeping and its probe-and-fall-back kernel logic
-have no counterpart: on a CUDA device the attention runs the hand-written
+Step programs (``engine/step_programs.py``), the counterpart of the JAX
+engine's bucketed jit programs: on one card the decode window is captured
+once per (greedy|sampled, decode bucket) into a CUDA graph, at the
+bucket's first window, and replayed; the dispatcher fills the program's
+static inputs from pinned host buffers before each replay and starts the
+one fetch after it. ``compiled_step_variants`` counts the programs built
+(on the CPU the same keys around the eager window). ``EngineConfig.
+enforce_eager`` turns capture off, as in the JAX package. Outside the
+decode window everything runs eagerly on purpose: prefill, chunked, mixed
+and spec steps, the draft runner, the KV transfer programs, and every step
+of a rank under torch.distributed (tp, ep, pp, sp: gloo's host-staged
+collectives cannot be captured), whose engine builds no program. The JAX
+package's donation bookkeeping and probe-and-fall-back kernel logic have
+no counterpart: on a CUDA device the attention runs the hand-written
 kernels (``ops/cuda``) or raises.
 
 Speculative decoding (``SchedulerConfig.spec_decode_enabled``): the
@@ -88,10 +99,10 @@ from ..config import EngineConfig
 from ..models import llama as model_lib
 from ..observability import Observability
 from ..ops.attention import verify_table_width
-from ..ops.sampling import (apply_logit_bias, apply_penalties, build_counts,
-                            bump_counts, gated_top_logprobs, row_sample_keys,
+from ..ops.sampling import (TOP_LOGPROBS, apply_logit_bias, apply_penalties,
+                            build_counts, row_sample_keys,
                             sample_and_logprobs, spec_verify_sample,
-                            token_logprobs)
+                            token_logprobs, top_logprobs)
 from ..parallel.pp import pipeline_forward
 from ..parallel.sharding import (init_shard_fn, local_kv_config,
                                  shard_params, validate)
@@ -104,6 +115,7 @@ from .kv_cache import (KVPageIO, KVTransferPrograms, KVTransferRefused,
 from .sampling_params import LOGIT_BIAS_CAP, SamplingParams
 from .scheduler import ScheduledBatch, Scheduler
 from .sequence import FinishReason, Sequence, SequenceStatus
+from .step_programs import StepPrograms
 
 logger = get_logger("engine")
 
@@ -358,6 +370,12 @@ class LLMEngine:
                 self.swapper.on_restored = self._sanitizer.on_swap_restore
         self.kv_io = KVPageIO(get_kv=lambda: self.kv_cache,
                               programs=self._kv_programs)
+        # The decode window's programs, one per (variant, bucket): captured
+        # on the card, keyed around the eager window on the CPU, none with
+        # enforce_eager or under torch.distributed (see step_programs).
+        self._programs = StepPrograms(
+            self._window_body, self._window_layout, self.device,
+            enabled=not config.enforce_eager and groups is None)
         self.stats = EngineStats()
         self.step_count = 0
         # Speculative decode-window chain state (see _step).
@@ -394,7 +412,15 @@ class LLMEngine:
     # -- host <-> device ----------------------------------------------------
 
     def _up(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """A host array on the engine's device. On the card it is staged in
+        pinned memory and copied without blocking: a copy from pageable
+        memory waits for the stream, so a chained window's inputs would
+        wait for the window before it. PyTorch's pinned allocator keeps the
+        staging block from reuse until its copy has run."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -430,14 +456,7 @@ class LLMEngine:
         presence, frequency = batch.presence[rows], batch.frequency[rows]
         bias = None
         if any(seq.params.logit_bias for seq in batch.seqs):
-            B = len(batch.temperature)
-            ids = np.full((B, LOGIT_BIAS_CAP), -1, np.int32)
-            vals = np.zeros((B, LOGIT_BIAS_CAP), np.float32)
-            for s, seq in batch.device_seq_rows():
-                for j, (tok, b) in enumerate((seq.params.logit_bias
-                                              or {}).items()):
-                    ids[s, j] = tok
-                    vals[s, j] = b
+            ids, vals = self._bias_arrays(batch)
             if np.any(ids[rows] >= 0):
                 bias = (self._up(ids[rows]), self._up(vals[rows]))
         return _Sampling(
@@ -449,6 +468,20 @@ class LLMEngine:
             needs_filter=bool(np.any((top_k > 0) | (top_p < 1.0))),
             any_pen=bool(np.any(presence != 0) or np.any(frequency != 0)),
             with_top=bool(np.any(batch.top_n[rows] > 0)))
+
+    @staticmethod
+    def _bias_arrays(batch: ScheduledBatch) -> tuple[np.ndarray, np.ndarray]:
+        """[B, LOGIT_BIAS_CAP] token ids (-1 = empty slot) and values of
+        every device row's ``logit_bias``."""
+        B = len(batch.temperature)
+        ids = np.full((B, LOGIT_BIAS_CAP), -1, np.int32)
+        vals = np.zeros((B, LOGIT_BIAS_CAP), np.float32)
+        for s, seq in batch.device_seq_rows():
+            for j, (tok, b) in enumerate((seq.params.logit_bias
+                                          or {}).items()):
+                ids[s, j] = tok
+                vals[s, j] = b
+        return ids, vals
 
     def _penalty_out_tokens(self, batch: ScheduledBatch) -> torch.Tensor:
         """[B, out_cap] -1-padded output-token ids for the device-side
@@ -556,12 +589,15 @@ class LLMEngine:
         return self.scheduler.has_work() or self._inflight is not None
 
     def compiled_step_variants(self) -> int:
-        """Step programs compiled so far: always 0. Eager PyTorch compiles
-        no step programs (the JAX engine's bucketed jit caches have no
-        counterpart here); the CUDA kernels are built once, ahead of the
-        first step. Kept so ``kgct_jit_compiles_total`` names the same
-        family on both servers' /metrics."""
-        return 0
+        """Step programs built so far: the decode window's captured graphs,
+        one per (greedy|sampled, decode bucket) seen (on the CPU the same
+        keys around the eager window), so at most two per decode bucket.
+        0 with ``enforce_eager`` and on a rank under torch.distributed,
+        which capture nothing. Exported as ``kgct_jit_compiles_total``: a
+        steady serving process holds it flat, as the JAX engine's jit
+        cache count. Prefill, mixed and spec steps run eagerly and add
+        nothing."""
+        return len(self._programs)
 
     # -- KV handoff seams (disaggregated prefill/decode, live migration) ----
     #
@@ -1042,11 +1078,7 @@ class LLMEngine:
                 return drained + self._step_spec_mixed(batch)
             if batch.kind == "prefill":
                 return drained + self._step_prefill(batch)
-            with ph("host_prep"):
-                smp = self._sampling(batch)
-                tokens = self._up(batch.tokens)
-            inflight = self._dispatch_window(batch, tokens, batch.positions,
-                                             smp)
+            inflight = self._dispatch_window(batch, batch.positions)
             inflight["drained"] = drained
 
         successor = None
@@ -1484,70 +1516,132 @@ class LLMEngine:
                                     page_tables=page_tables,
                                     context_lens=pos_c + 1)
 
-    def _dispatch_window(self, batch: ScheduledBatch, tokens: torch.Tensor,
-                         positions: np.ndarray, smp: _Sampling,
-                         counts: Optional[torch.Tensor] = None) -> dict:
-        """Enqueue one W-substep decode window: every substep's sampled
-        tokens feed the next on the device; positions, slots and context
-        lengths are recomputed per substep from the page tables. Ends by
-        enqueueing the one device->host copy of the window's outputs.
+    def _window_layout(self, key) -> tuple[dict, dict]:
+        """The (inputs, state) buffers of decode program ``key`` = (variant,
+        B): inputs are uploaded before every window; state is the first
+        tokens (from the host, or the chained window's last column), the
+        penalty counts the sampled program carries across chained windows,
+        and the outputs each window overwrites."""
+        variant, B = key
+        cfg = self.config
+        W = cfg.scheduler.decode_window
+        pps = cdiv(cfg.effective_max_len, cfg.cache.page_size)
+        i32, f32 = torch.int32, torch.float32
+        inputs = {"positions": ((B,), i32), "page_tables": ((B, pps), i32)}
+        state = {"tokens0": ((B,), i32), "out_tok": ((B, W), i32),
+                 "out_lp": ((B, W), f32),
+                 "out_tid": ((B, W, TOP_LOGPROBS), i32),
+                 "out_tlp": ((B, W, TOP_LOGPROBS), f32)}
+        if variant == "sampled":
+            inputs.update(
+                {name: ((B,), i32) for name in ("top_k", "seed")},
+                step_key=((1,), i32),
+                bias_ids=((B, LOGIT_BIAS_CAP), i32),
+                bias_vals=((B, LOGIT_BIAS_CAP), f32),
+                **{name: ((B,), f32) for name in (
+                    "temperature", "top_p", "presence", "frequency")})
+            state["counts"] = ((B, self.model_config.vocab_size), i32)
+        return inputs, state
 
-        Greedy batches (all temperature 0, no penalties, no bias) take the
-        argmax-only path. ``counts`` [B, V] is the output-token histogram
-        for penalties: rebuilt from host-known outputs on a fresh window,
-        CARRIED across chained windows so penalties see the in-flight
-        window's tokens the host has not fetched yet."""
-        ph = self.obs.phases.phase
+    def _window_body(self, key, bufs) -> None:
+        """One W-substep decode window of program ``key`` over its static
+        buffers: every substep's sampled tokens feed the next; positions,
+        slots and context lengths are recomputed per substep from the page
+        tables. The function a program captures, so nothing here reads a
+        device value on the host, branches on one or uploads (KGCT001):
+        the greedy variant is argmax-only; the sampled one applies bias,
+        penalties, filters and the draw to every row, each row's own
+        parameters deciding on the device (``ops/sampling.py``), and bumps
+        the carried counts in place."""
+        variant, _ = key
         cfg = self.model_config
+        tokens, pos = bufs["tokens0"], bufs["positions"]
+        for i in range(self.config.scheduler.decode_window):
+            hidden = self._forward(
+                "decode", tokens, self._substep_meta(bufs["page_tables"], pos))
+            logits = model_lib.compute_logits(self.params, cfg, hidden,
+                                              groups=self.groups)
+            if variant == "greedy":
+                tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+                lps = token_logprobs(logits, tokens)
+                tids, tlps = top_logprobs(logits)
+            else:
+                logits = apply_logit_bias(logits, bufs["bias_ids"],
+                                          bufs["bias_vals"])
+                logits = apply_penalties(logits, bufs["counts"],
+                                         bufs["presence"], bufs["frequency"])
+                keys = row_sample_keys(bufs["step_key"], bufs["seed"],
+                                       pos + 1)
+                tokens, lps, tids, tlps = sample_and_logprobs(
+                    logits, keys, bufs["temperature"], bufs["top_k"],
+                    bufs["top_p"], any_sampled=True, needs_filter=True,
+                    with_top=True)
+                bufs["counts"].scatter_add_(
+                    1, tokens.to(torch.int64)[:, None],
+                    torch.ones_like(bufs["counts"][:, :1]))
+            bufs["out_tok"][:, i] = tokens
+            bufs["out_lp"][:, i] = lps
+            bufs["out_tid"][:, i] = tids
+            bufs["out_tlp"][:, i] = tlps
+            pos = pos + 1
+
+    def _dispatch_window(self, batch: ScheduledBatch, positions: np.ndarray,
+                         prev_out: Optional[torch.Tensor] = None) -> dict:
+        """Run one decode window of ``batch`` through its program: fill the
+        program's static inputs (one pinned upload per dtype), its first
+        tokens (the host's, or ``prev_out``'s last column: the chained
+        window's output, copied on the device in stream order) and, for a
+        fresh sampled window with penalties, its counts (rebuilt from the
+        host-known outputs; a chained window carries them, so penalties
+        see the in-flight window's tokens the host has not fetched yet);
+        then run or replay it and enqueue the one device->host copy of its
+        outputs.
+
+        The variant is chosen on the host, as the JAX engine does: greedy
+        for all-greedy, penalty-free, bias-free batches."""
+        ph = self.obs.phases.phase
         W = self.config.scheduler.decode_window
         if self._sanitizer is not None:
             self._sanitizer.on_decode_dispatch(batch.seqs, positions, W)
-        greedy = (not smp.any_sampled and not smp.any_pen
-                  and smp.bias is None)
-        with ph("host_prep"):
-            page_tables = self._up(batch.page_tables)
-            pos = self._up(positions)
-            if smp.any_pen and counts is None:
-                counts = build_counts(self._penalty_out_tokens(batch),
-                                      cfg.vocab_size)
+        B = batch.page_tables.shape[0]        # the scheduler's bucket
+        any_pen = bool(np.any(batch.presence) or np.any(batch.frequency))
+        bias = any(seq.params.logit_bias for seq in batch.seqs)
+        greedy = bool(np.all(batch.temperature <= 0)) and not (any_pen
+                                                              or bias)
+        with_top = bool(np.any(batch.top_n > 0))
+        key = ("greedy" if greedy else "sampled", B)
+        bufs = self._programs.buffers(key)
         step_key = self._next_step_key()
-        B = tokens.shape[0]
-        out_tok = torch.empty((B, W), dtype=torch.int32, device=self.device)
-        out_lp = torch.empty((B, W), dtype=torch.float32, device=self.device)
-        tops = []
+        with ph("host_prep"):
+            inputs = {"positions": positions,
+                      "page_tables": batch.page_tables}
+            if not greedy:
+                ids, vals = self._bias_arrays(batch)
+                inputs.update(top_k=batch.top_k, seed=batch.seed,
+                              step_key=[step_key], bias_ids=ids,
+                              bias_vals=vals, temperature=batch.temperature,
+                              top_p=batch.top_p, presence=batch.presence,
+                              frequency=batch.frequency)
+            bufs.upload(inputs)
+            bufs["tokens0"].copy_(self._up(batch.tokens) if prev_out is None
+                                  else prev_out[:, -1])
+            if any_pen and prev_out is None:
+                bufs["counts"].copy_(build_counts(
+                    self._penalty_out_tokens(batch),
+                    self.model_config.vocab_size))
         with ph("device_dispatch"):
-            for i in range(W):
-                hidden = self._forward(
-                    "decode", tokens, self._substep_meta(page_tables, pos))
-                logits = model_lib.compute_logits(self.params, cfg, hidden,
-                                                  groups=self.groups)
-                if greedy:
-                    tokens = torch.argmax(logits, dim=-1).to(torch.int32)
-                    lps = token_logprobs(logits, tokens)
-                    tids, tlps = gated_top_logprobs(logits, smp.with_top)
-                else:
-                    tokens, lps, tids, tlps = self._sample(
-                        logits, smp, pos + 1, step_key, counts)
-                    if smp.any_pen:
-                        counts = bump_counts(counts, tokens)
-                out_tok[:, i] = tokens
-                out_lp[:, i] = lps
-                if smp.with_top:
-                    tops.append((tids, tlps))
-                pos = pos + 1
-            fetch_src = [out_tok, out_lp]
-            if tops:
-                fetch_src += [torch.stack([t for t, _ in tops], dim=1),
-                              torch.stack([lp for _, lp in tops], dim=1)]
-            fetch = self._start_fetch(*fetch_src)
-        return {"batch": batch, "dev_out": out_tok, "fetch": fetch,
-                "positions": positions, "sampling": smp, "zombies": set(),
-                "counts": counts, "greedy": greedy}
+            self._programs.run(key)
+            outs = ("out_tok", "out_lp") + (("out_tid", "out_tlp")
+                                            if with_top else ())
+            fetch = self._start_fetch(*(bufs[name] for name in outs))
+        return {"batch": batch, "dev_out": bufs["out_tok"], "fetch": fetch,
+                "positions": positions, "zombies": set(), "greedy": greedy}
 
     def _advance_window(self, inflight: dict) -> Optional[dict]:
         """Build + enqueue the speculative successor window: same batch
-        composition, positions advanced by W, pages grown to cover the new
-        window. Returns None (chain breaks) if pages can't be grown."""
+        composition (so the same program), positions advanced by W, pages
+        grown to cover the new window. Returns None (chain breaks) if pages
+        can't be grown."""
         W = self.config.scheduler.decode_window
         ps = self.config.cache.page_size
         batch = inflight["batch"]
@@ -1567,9 +1661,8 @@ class LLMEngine:
             seq.pages.extend(self.scheduler.allocator.allocate(need))
             batch.page_tables[s, :len(seq.pages)] = seq.pages
         self.step_count += 1
-        return self._dispatch_window(batch, inflight["dev_out"][:, -1],
-                                     new_positions, inflight["sampling"],
-                                     counts=inflight["counts"])
+        return self._dispatch_window(batch, new_positions,
+                                     prev_out=inflight["dev_out"])
 
     def _process_window(self, batch: ScheduledBatch, next_tokens: np.ndarray,
                         logprobs: np.ndarray, zombies: set,

@@ -1,0 +1,224 @@
+"""The decode window's step programs: one captured CUDA graph per (variant,
+decode bucket), the counterpart of the JAX engine's per-bucket jit programs
+(``_maybe_jit`` and the jit cache behind ``compiled_step_variants``).
+
+A program is keyed ``(variant, B)``: variant "greedy" or "sampled" (the JAX
+engine's two decode programs), B a bucket of ``SchedulerConfig.
+decode_buckets`` (the page-table width is fixed per engine), so the cache
+holds at most two programs per bucket. Each key owns its
+``StaticBuffers``: inputs the dispatcher fills before every run, state it
+carries between runs (the first tokens, the penalty counts) and outputs
+that every run overwrites.
+
+- On the card, a key's first window is its warm-up: the body runs eagerly
+  on the capture stream (cuBLAS handles and workspaces, the kernels'
+  launch records and workspaces, the rope table all come to exist there)
+  and that run is the window's result. Then the body is captured into a
+  ``torch.cuda.CUDAGraph``, and every later window of the key replays it.
+  Capture happens lazily, as ``jax.jit`` compiles at the first call.
+- All graphs share one memory pool. Nothing allocated inside a capture
+  outlives it (the body writes into the static buffers), and replays never
+  overlap: they run on the engine's one stream. So one program's scratch
+  can be another's, and the kernels' shared workspaces too.
+- A capture that fails raises ``CaptureError``: the window is never run
+  eagerly in its place.
+- On the CPU nothing is captured (only CUDA captures): the cache keys the
+  same programs around the eager body, so the program count
+  (``kgct_jit_compiles_total``) and the compile guard read the same in the
+  CPU tests as on the card.
+- ``enabled=False`` (``EngineConfig.enforce_eager``; ranks under
+  torch.distributed, whose gloo collectives stage through the host and
+  cannot be captured) runs the body eagerly and builds no program.
+
+The body is called as ``body(key, buffers)``: the key is static Python
+data, the buffers are tensors; branching on the first is free, on the
+second it is a host read that capture refuses (KGCT001).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..ops import cuda as cuda_ops
+
+# (shape, dtype) of a static buffer, by name.
+Layout = dict[str, tuple[tuple[int, ...], torch.dtype]]
+
+
+class CaptureError(RuntimeError):
+    """A program's capture failed; its window does not run eagerly
+    instead."""
+
+
+class StaticBuffers:
+    """One program's static tensors. The inputs of one dtype are views of
+    one device buffer, so ``upload`` fills them all with one copy from one
+    pinned host buffer; ``state`` buffers (zeros at first) are written on
+    the device only."""
+
+    def __init__(self, device: torch.device, inputs: Layout, state: Layout):
+        self.device = device
+        self.tensors: dict[str, torch.Tensor] = {}
+        # dtype -> (device buffer, [(name, offset, shape)])
+        self._packs: dict[torch.dtype, tuple] = {}
+        by_dtype: dict[torch.dtype, list] = {}
+        for name, (shape, dtype) in inputs.items():
+            by_dtype.setdefault(dtype, []).append((name, shape))
+        for dtype, entries in by_dtype.items():
+            n = sum(int(np.prod(s)) for _, s in entries)
+            buf = torch.zeros(n, dtype=dtype, device=device)
+            segs, off = [], 0
+            for name, shape in entries:
+                size = int(np.prod(shape))
+                self.tensors[name] = buf[off:off + size].view(shape)
+                segs.append((name, off, shape))
+                off += size
+            self._packs[dtype] = (buf, segs)
+        for name, (shape, dtype) in state.items():
+            self.tensors[name] = torch.zeros(shape, dtype=dtype,
+                                             device=device)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.tensors[name]
+
+    def upload(self, arrays: dict) -> None:
+        """Every input from the host arrays of the same names (shapes must
+        match). On the card each dtype's inputs are packed into one pinned
+        buffer and copied without blocking: PyTorch's pinned allocator
+        keeps the buffer from reuse until its copy has run, so a chained
+        window's upload never waits for the window before it."""
+        pinned = self.device.type == "cuda"
+        for buf, segs in self._packs.values():
+            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=pinned)
+            flat = host.numpy()
+            for name, off, shape in segs:
+                a = np.asarray(arrays[name])
+                if a.shape != tuple(shape):
+                    raise ValueError(f"static input {name}: shape {a.shape}"
+                                     f", the program takes {tuple(shape)}")
+                flat[off:off + a.size] = a.reshape(-1)
+            buf.copy_(host, non_blocking=pinned)
+
+
+class StepPrograms:
+    """The program cache of one engine: ``buffers(key)`` gives a key's
+    static buffers (made at its first window), ``run(key)`` runs its
+    window: eagerly, or captured once and replayed."""
+
+    def __init__(self, body: Callable, layout: Callable, device: torch.device,
+                 enabled: bool):
+        """``body(key, buffers)`` is one window; ``layout(key)`` gives the
+        (inputs, state) ``Layout``s of a key's buffers."""
+        self._body = body
+        self._layout = layout
+        self.device = device
+        self.enabled = enabled
+        self.captures = enabled and device.type == "cuda"
+        self._buffers: dict = {}
+        self._programs: dict = {}
+        self._stream: Optional[torch.cuda.Stream] = None
+        self._pool = None
+        # Per capture: host seconds of the capture itself (the warm-up
+        # window is not in it); the shared pool's growth in reserved bytes;
+        # windows run by replay.
+        self.capture_seconds: list[float] = []
+        self.pool_bytes = 0
+        self.replays = 0
+
+    def __len__(self) -> int:
+        """Programs built: graphs captured on the card, keys seen on the
+        CPU; 0 when disabled."""
+        return len(self._programs)
+
+    def keys(self) -> list:
+        return sorted(self._programs)
+
+    def recorded_launches(self) -> dict:
+        """Per captured program, the kernel launches its graph holds."""
+        return {key: prog[1] for key, prog in sorted(self._programs.items())
+                if prog is not None}
+
+    def buffers(self, key) -> StaticBuffers:
+        bufs = self._buffers.get(key)
+        if bufs is None:
+            bufs = self._buffers[key] = StaticBuffers(self.device,
+                                                      *self._layout(key))
+        return bufs
+
+    def run(self, key) -> None:
+        """One window of ``key`` over its buffers, on the current stream."""
+        bufs = self.buffers(key)
+        if not self.enabled:
+            self._body(key, bufs)
+            return
+        prog = self._programs.get(key)
+        if not self.captures:
+            self._programs[key] = None
+            self._body(key, bufs)
+        elif prog is None:
+            self._programs[key] = self._capture(key, bufs)
+        else:
+            graph, launches = prog
+            graph.replay()
+            self.replays += 1
+            cuda_ops.add_launches(launches)
+
+    def _capture(self, key, bufs: StaticBuffers) -> tuple:
+        """Warm up (this window, eagerly, on the capture stream), then
+        capture the body into a graph in the shared pool. Returns (graph,
+        kernel launches the graph holds by kernel)."""
+        main = torch.cuda.current_stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        side = self._stream
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._body(key, bufs)
+            before = cuda_ops.launch_counts()
+            reserved = torch.cuda.memory_reserved(self.device)
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: another thread's CUDA calls (a /metrics scrape
+            # reading free memory) do not void this thread's capture.
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                self._body(key, bufs)
+                graph.capture_end()
+            except Exception as err:
+                self._abandon(graph)
+                cuda_ops.set_launch_counts(before)
+                raise CaptureError(f"capture of decode program {key} "
+                                   f"failed: {err}") from err
+        self.capture_seconds.append(time.perf_counter() - t0)
+        self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
+        main.wait_stream(side)
+        # A capture launches nothing: its wrapper counts move to the
+        # replays, each of which launches what the graph recorded.
+        after = cuda_ops.launch_counts()
+        cuda_ops.set_launch_counts(before)
+        return graph, {k: after[k] - before[k] for k in after
+                       if after[k] != before[k]}
+
+    def _abandon(self, graph: "torch.cuda.CUDAGraph") -> None:
+        """End a capture that failed. PyTorch ends a capture's routing of
+        this stream's allocations to the pool, and gives the pool back,
+        only for a capture that ended well: left as they are, the caching
+        allocator would defer every later free for the capture it still
+        sees and could release no cached memory again."""
+        try:
+            graph.capture_end()
+        except RuntimeError:
+            pass                    # the error voided the capture
+        index = self.device.index
+        for end in (torch._C._cuda_endAllocateToPool,
+                    torch._C._cuda_releasePool):
+            try:
+                end(index, self._pool)
+            except RuntimeError:
+                pass                # capture_end got this far already

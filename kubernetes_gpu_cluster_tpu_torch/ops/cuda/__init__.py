@@ -7,16 +7,45 @@ kernel, mirroring the JAX package's ``ops/pallas/``:
 - ``int4_matmul``         <- ops/pallas/int4_matmul.py::pallas_int4_matmul
 
 Each wrapper validates its inputs, allocates the output, launches on
-PyTorch's current stream, raises on a launch error, and counts its
-launches in a plain module-level integer ``launches``. A wrapper accepts
-CUDA tensors only: the plain PyTorch versions for the CPU live in
-``ops/attention.py`` and ``ops/quant.py``, whose dispatchers choose by
-device.
+PyTorch's current stream (a capture stream while the engine captures a
+decode window), raises on a launch error, and counts its launches in a
+plain module-level integer ``launches``. A replayed CUDA graph launches
+the kernels it recorded without calling the wrappers: the engine's
+program cache (``engine/step_programs.py``) takes a capture's counts back
+(a capture launches nothing) and adds what the graph recorded at every
+replay. A wrapper accepts CUDA tensors only: the plain PyTorch versions
+for the CPU live in ``ops/attention.py`` and ``ops/quant.py``, whose
+dispatchers choose by device.
 """
 
 from __future__ import annotations
 
+import importlib
+
 import torch
+
+from .build import KERNELS
+
+
+def _wrapper(name: str):
+    return importlib.import_module(f"{__name__}.{name}")
+
+
+def launch_counts() -> dict[str, int]:
+    """Every wrapper's ``launches``, by kernel."""
+    return {name: _wrapper(name).launches for name in KERNELS}
+
+
+def set_launch_counts(counts: dict[str, int]) -> None:
+    for name, n in counts.items():
+        _wrapper(name).launches = n
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """A replay's launches, added to each kernel's count."""
+    for name, n in counts.items():
+        _wrapper(name).launches += n
+
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PAGE_SIZES = (8, 16, 32, 64, 128)

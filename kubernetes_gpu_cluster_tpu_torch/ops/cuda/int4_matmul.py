@@ -174,7 +174,11 @@ _launch_cache: dict[tuple, _Launch] = {}
 # Per device index: the workspace (partials of cut tiles, two slots per
 # block) and the tile counters (all 0 between calls), grown by ``_prepare``
 # only; every cached launch of the device points at the current pair.
+# Graphs share them: replays run on one stream, so they never overlap.
 _scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+# Outgrown workspaces and counters, kept alive for the CUDA graphs captured
+# while they were current (a capture bakes their pointers in).
+_retired: list[torch.Tensor] = []
 
 
 def _grow_workspace(device: torch.device, p: Plan) -> tuple[int, int]:
@@ -182,9 +186,13 @@ def _grow_workspace(device: torch.device, p: Plan) -> tuple[int, int]:
     need_ws = 2 * p.blocks * p.tile_rows * p.tile_cols
     grown = False
     if ws is None or ws.numel() < need_ws:
+        if ws is not None:
+            _retired.append(ws)
         ws, grown = torch.empty(need_ws, dtype=torch.float32,
                                 device=device), True
     if cnt is None or cnt.numel() < p.tiles:
+        if cnt is not None:
+            _retired.append(cnt)
         cnt, grown = torch.zeros(p.tiles, dtype=torch.int32,
                                  device=device), True
     _scratch[device.index] = (ws, cnt)

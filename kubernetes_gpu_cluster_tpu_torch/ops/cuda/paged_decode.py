@@ -10,9 +10,12 @@ block of a (sequence, kv head) to finish merges the partials (the kernel's
 note says how). ``plan`` sizes the grid from the shapes and the SM count
 alone: no call reads a device value on the host. The
 workspace for the partials and the counters (all 0 between calls, left 0
-by the kernel) are allocated here, once per device, and grown on demand;
-a grown workspace keeps the old one alive, since a captured CUDA graph may
-still point at it. Shape checks, the plan and a C launch record are cached
+by the kernel) are allocated here, once per device, at the size of the
+largest grid a split call can have (``BLOCKS_PER_SM`` blocks per SM), so
+every decode bucket's call fits the first workspace and no bucket's graph
+capture grows it after another's; a head geometry that needs more grows
+it and keeps the old one alive, since a captured CUDA graph may still
+point at it. Shape checks, the plan and a C launch record are cached
 per (shapes, dtypes, scale, device) key, so a call makes its device and
 contiguity checks, one allocation and one ctypes call. A key seen once
 outside a capture can be captured in a CUDA graph. Workspace and counters
@@ -188,8 +191,11 @@ def _prepare(q, k_pool, v_pool, page_tables, context_lens, k_cur, v_cur,
     p = plan(B, n_kv, pps, ps, _sm_count(dev))
     ws = cnt = 0
     if dtype == DTYPE_CODES[torch.bfloat16] and p.splits > 1:
-        ws, cnt = _grow_scratch(dev, workspace_floats(p, B, n_kv, nh // n_kv,
-                                                      hd), B * n_kv)
+        # A split grid holds at most BLOCKS_PER_SM blocks an SM (``plan``:
+        # splits * B * n_kv <= slots), so this covers every B of the
+        # geometry: ``workspace_floats`` of any such plan is no larger.
+        slots = BLOCKS_PER_SM * _sm_count(dev)
+        ws, cnt = _grow_scratch(dev, slots * (nh // n_kv) * (hd + 2), slots)
     args = LaunchArgs(ws, cnt, B, nh, n_kv, hd, ps, pps, dtype,
                       p.min_split, p.splits, scale)
     return _Launch(layers, layer_bytes, ctypes.pointer(args), fn)

@@ -12,6 +12,7 @@ static transforms of ``inv_freq``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -45,12 +46,24 @@ def scaled_inv_freq(head_dim: int, theta: float,
                      "(supported: llama3, linear)")
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq_table(head_dim: int, theta: float, scaling: Optional[tuple],
+                    device: torch.device) -> torch.Tensor:
+    """``scaled_inv_freq`` as an fp32 tensor on ``device``, uploaded once:
+    a forward captured in a CUDA graph may not copy from pageable host
+    memory, and the table is the same for every forward of a model."""
+    return torch.from_numpy(scaled_inv_freq(
+        head_dim, theta, dict(scaling) if scaling else None)).to(device)
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                  scaling: Optional[dict] = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """positions: [...] int -> fp32 cos/sin of shape [..., head_dim//2]."""
-    inv_freq = torch.from_numpy(
-        scaled_inv_freq(head_dim, theta, scaling)).to(positions.device)
+    inv_freq = _inv_freq_table(
+        head_dim, float(theta),
+        tuple(sorted(scaling.items())) if scaling else None,
+        positions.device)
     angles = positions.to(torch.float32)[..., None] * inv_freq
     return torch.cos(angles), torch.sin(angles)
 

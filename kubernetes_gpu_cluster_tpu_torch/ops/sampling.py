@@ -5,7 +5,12 @@ the host. All sampling params are per-row tensors, so one step serves
 heterogeneous requests. What a batch needs (any sampled row, any filter,
 alternatives) is decided by the caller from the HOST copy of those params
 and passed as Python flags: the device never has to report back before
-sampling.
+sampling. The decode window's captured programs pass every flag True: the
+rows' own parameters then decide on the device (temperature <= 0 takes
+the argmax, top_k 0 and top_p 1 cut nothing, zero penalties and empty
+bias slots add exact zeros), so one program serves every mix of rows.
+Nothing here reads a device value on the host: a captured graph could
+not.
 
 Seeded rows: the JAX package derives per-row keys with threefry
 ``fold_in(seed, position)``. Here each row's noise comes from a
@@ -49,19 +54,24 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def row_sample_keys(step_key: int, seed: torch.Tensor,
+def row_sample_keys(step_key: int | torch.Tensor, seed: torch.Tensor,
                     pos_next: torch.Tensor) -> torch.Tensor:
     """Per-row 32-bit keys [B] (int64). Rows with seed >= 0 derive from
     (seed, absolute position of the sampled token) only — the same request
     with the same seed reproduces its tokens across engines, batches and
     window boundaries. Rows with seed < 0 derive from the engine's
     per-step ``step_key`` (drawn from its torch.Generator), the row and the
-    position — fresh randomness every step."""
+    position — fresh randomness every step. ``step_key`` is a Python int
+    or a one-element integer tensor on the rows' device (a captured
+    window's static input, refilled before every replay: a Python int
+    would be a constant of the graph); both give the same keys."""
     seed = seed.to(torch.int64)
     pos = pos_next.to(torch.int64) & _M32
     rows = torch.arange(seed.shape[0], device=seed.device, dtype=torch.int64)
+    if isinstance(step_key, torch.Tensor):
+        step_key = step_key.to(torch.int64)
     seeded = _mix32(_mix32((seed.clamp(min=0) & _M32) ^ 0x5EED1234) ^ pos)
-    unseeded = _mix32(_mix32((int(step_key) & _M32) ^ _mix32(rows + 0x632BE5AB))
+    unseeded = _mix32(_mix32((step_key & _M32) ^ _mix32(rows + 0x632BE5AB))
                       ^ pos)
     return torch.where(seed >= 0, seeded, unseeded)
 
@@ -120,9 +130,12 @@ def _apply_filters(scaled: torch.Tensor, top_k: torch.Tensor,
     First tier: one ``topk`` to TOP_K_CAP plus a full-row logsumexp, so the
     top-p mass is measured against the EXACT post-top-k distribution. When
     some row needs tokens beyond the window (top_k > cap, or a top-p prefix
-    wider than the cap) the wide window is tried, then the full sort. The
-    choice between tiers reads one flag back from the device; it is made
-    only for batches that filter at all."""
+    wider than the cap) the wide window is taken, then the full sort. The
+    choice is made on the device, for the batch as a whole: every tier is
+    computed and ``torch.where`` on each tier's all-rows flag picks the
+    thresholds, so the result is exactly the cut of the tier a host-side
+    branch would take, with no read-back (a captured window cannot read
+    one). It costs a [B, V] sort per filtering call (PERF.md §6)."""
     V = scaled.shape[-1]
     k = torch.clamp(torch.where(top_k <= 0, torch.full_like(top_k, V), top_k),
                     1, V)
@@ -154,16 +167,14 @@ def _apply_filters(scaled: torch.Tensor, top_k: torch.Tensor,
         k_t, p_t, covered = _filter_thresholds_sorted(top_vals, k, top_p, lse)
         ok = torch.all((k_in | (k >= V))
                        & ((top_p >= 1.0) | (covered >= top_p)))
-        return torch.maximum(k_t, p_t), bool(ok)
+        return torch.maximum(k_t, p_t), ok
 
-    thresh, ok = window_thresholds(scaled, TOP_K_CAP)
-    if ok:
-        return cut(scaled, thresh)
+    thresh = full_sort(scaled)
     if V > TOP_K_CAP_WIDE:
-        thresh, ok = window_thresholds(scaled, TOP_K_CAP_WIDE)
-        if ok:
-            return cut(scaled, thresh)
-    return cut(scaled, full_sort(scaled))
+        wide, ok = window_thresholds(scaled, TOP_K_CAP_WIDE)
+        thresh = torch.where(ok, wide, thresh)
+    narrow, ok = window_thresholds(scaled, TOP_K_CAP)
+    return cut(scaled, torch.where(ok, narrow, thresh))
 
 
 def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,

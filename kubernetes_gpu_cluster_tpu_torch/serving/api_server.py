@@ -2203,7 +2203,9 @@ def build_parser():
                    "literal 'default'")
     p.add_argument("--qos-default-tier", default=None)
     p.add_argument("--enforce-eager", action="store_true",
-                   help="accepted; eager PyTorch compiles no step programs")
+                   help="run every decode window eagerly: no CUDA graph "
+                   "capture, kgct_jit_compiles_total stays 0 (debug; "
+                   "slower)")
     p.add_argument("--trust-remote-code", action="store_true",
                    help="accepted; local checkpoints never execute remote "
                    "code here")
@@ -2225,10 +2227,11 @@ def main(argv: Optional[list[str]] = None) -> None:
 
     Flag names are the JAX package's CLI, which mirrors the reference's
     vllmConfig/extraArgs surface, so rendered manifests carry over.
-    ``--trust-remote-code``, ``--disable-custom-all-reduce`` and
-    ``--enforce-eager`` are accepted and change nothing here (local
-    checkpoints only; the all-reduce is torch.distributed's; eager
-    PyTorch).
+    ``--trust-remote-code`` and ``--disable-custom-all-reduce`` are
+    accepted and change nothing here (local checkpoints only; the
+    all-reduce is torch.distributed's). ``--enforce-eager`` turns off the
+    decode window's CUDA graph capture (``engine/step_programs.py``), as
+    the JAX package's turns off jit.
 
     tp, ep, pp or sp above 1: with ``--distributed`` this process is the
     first rank of pod ``KGCT_PROCESS_ID`` of the ``KGCT_NUM_PROCESSES``

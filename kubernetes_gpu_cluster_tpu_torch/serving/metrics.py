@@ -117,10 +117,11 @@ class Metrics:
         ]
         # Device telemetry (autoscaler inputs): the card's memory and the
         # caching allocator's live bytes (0/0 on the CPU — nan-free), and
-        # the step-program compile count, which eager PyTorch holds at 0
-        # (the family stays so both servers' /metrics name the same
-        # families). A gauge despite the _total spelling, as in the JAX
-        # package, where it reads a live cache that can shrink.
+        # the step programs built: the decode window's captured graphs, one
+        # per (greedy|sampled, decode bucket) seen (the same keys on the
+        # CPU, 0 with --enforce-eager or under torch.distributed). A gauge
+        # despite the _total spelling, as in the JAX package, where it
+        # reads a live cache that can shrink.
         hbm_limit, hbm_in_use = device_memory_stats(eng.device)
         lines += [
             "# TYPE kgct_hbm_bytes_limit gauge",

@@ -619,6 +619,52 @@ class TestAPIServer:
             assert value == value and value >= 0.0, line
 
 
+class TestFleetTelemetry:
+    """``test_serving.py::TestFleetTelemetry`` on the port's server: the
+    device/SLO gauges present and nan-free, and ``kgct_jit_compiles_total``
+    counting the decode programs the module's traffic built (keyed around
+    the eager window on the CPU, captured graphs on the card)."""
+
+    def test_new_gauges_present_and_nan_free(self, api_client):
+        loop, client = api_client
+
+        async def go():
+            r = await client.post("/v1/completions", json={
+                "prompt": "telemetry", "max_tokens": 6, "temperature": 0.0})
+            assert r.status == 200
+            r = await client.get("/metrics")
+            return await r.text()
+        text = loop.run_until_complete(go())
+        _assert_valid_exposition(text)
+
+        def val(prefix):
+            [line] = [ln for ln in text.splitlines() if ln.startswith(prefix)]
+            return float(line.rpartition(" ")[2])
+
+        assert val("kgct_hbm_bytes_limit ") >= 0
+        assert val("kgct_hbm_bytes_in_use ") >= 0
+        assert val("kgct_jit_compiles_total ") > 0
+        assert "# TYPE kgct_step_phase_mean_seconds gauge" in text
+        assert val('kgct_step_phase_mean_seconds{phase="device_dispatch"}'
+                   ) > 0
+        att = val("kgct_slo_ttft_attainment_ratio ")
+        assert 0.0 <= att <= 1.0
+        assert val("kgct_slo_ttft_budget_ms ") > 0
+        assert val("kgct_slo_goodput_tokens_per_sec ") >= 0
+
+    def test_flightrecorder_endpoint(self, api_client):
+        loop, client = api_client
+
+        async def go():
+            r = await client.get("/debug/flightrecorder")
+            assert r.status == 200
+            return await r.json()
+        doc = loop.run_until_complete(go())
+        assert doc["enabled"] is True
+        kinds = {e["kind"] for e in doc["events"]}
+        assert "arrival" in kinds and "snapshot" in kinds
+
+
 class TestObservability:
     def test_debug_trace_perfetto_export(self, api_client):
         loop, client = api_client

@@ -1,0 +1,334 @@
+"""The JAX package's compile guard, carried to the port's step programs,
+and the programs themselves, on the CPU.
+
+``tests/test_compile_guard.py`` is loaded with its imports re-pointed at
+the port (``torch_carry``) and its engines built on the CPU, where the
+program cache keys the same (greedy|sampled, decode bucket) programs
+around the eager window that the card captures (``engine/
+step_programs.py``). Exact substitutions (each must still match, or the
+load fails):
+
+- ``_compiled_variants`` cross-checks the engine's count against the
+  program cache's own keys (the JAX guard reads one raw jit cache);
+- each bound's terms for the families the port leaves eager this slice
+  (pure prefill, mixed, solo chunk, spec verify, spec×mixed, the draft
+  model's programs, the swap gather/scatter: ROADMAP A2) are multiplied
+  by 0 — they build no program, so the bound only tightens;
+- the draft wave runs no decode window (every step is a prefill, spec or
+  spec×mixed step), so its port count is exactly 0: ``0 < first`` becomes
+  ``0 == first`` there;
+- the engines take the JAX engine's default weights (its seed, through
+  ``params_from_numpy``), so each wave steps as the reference's does.
+
+Then the programs: keys per (variant, bucket) within two per bucket,
+``enforce_eager`` building none with the same tokens, the device-side
+filter-tier choice and the tensor step key against the host-branch
+functions they replace, and the sampled program's rows against the JAX
+engine.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from kubernetes_gpu_cluster_tpu.config import (CacheConfig as JCache,
+                                               EngineConfig as JEngineConfig,
+                                               SchedulerConfig as JSched,
+                                               get_model_config as jax_model)
+from kubernetes_gpu_cluster_tpu.engine import LLMEngine as JaxEngine
+from kubernetes_gpu_cluster_tpu.engine import SamplingParams as JSP
+from kubernetes_gpu_cluster_tpu.models import llama as JM
+from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                     EngineConfig,
+                                                     SchedulerConfig,
+                                                     get_model_config)
+from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine, SamplingParams
+from kubernetes_gpu_cluster_tpu_torch.engine.step_programs import (
+    StaticBuffers, StepPrograms)
+from kubernetes_gpu_cluster_tpu_torch.models import llama as TM
+from kubernetes_gpu_cluster_tpu_torch.ops import sampling as TS
+from torch_carry import carry, expose
+
+torch.set_num_threads(2)
+
+_EAGER = "eager in the port this slice (ROADMAP A2)"
+_FIXES = [
+    ("    if hasattr(eng._prefill_fn, \"_cache_size\"):\n"
+     "        assert total >= eng._prefill_fn._cache_size()\n",
+     "    assert total == len(eng._programs.keys())\n"),
+    ("    bound = (n_tp * n_rows          # pure prefill",
+     f"    bound = (0 * n_tp * n_rows      # pure prefill: {_EAGER}"),
+    ("             + n_tp * n_rows * 3    # mixed\n",
+     f"             + 0 * n_tp * n_rows * 3  # mixed: {_EAGER}\n"),
+    ("             + n_tp * 3             # solo chunk",
+     f"             + 0 * n_tp * 3         # solo chunk: {_EAGER}"),
+    ("             + n_rows               # spec verify: one per row bucket",
+     f"             + 0 * n_rows           # spec verify: {_EAGER}"),
+    ("             + n_tp * n_rows * 3    # spec_mixed: (Tp x rows x widths)",
+     f"             + 0 * n_tp * n_rows * 3  # spec_mixed: {_EAGER}"),
+    ("             + n_rows               # draft decode: one per row bucket",
+     f"             + 0 * n_rows           # draft decode: {_EAGER}"),
+    ("             + 12)                  # draft chunked prefill (T x width "
+     "grid)\n    assert 0 < first <= bound, (first, bound)",
+     f"             + 0 * 12)              # draft chunked prefill: {_EAGER}\n"
+     "    # Every step of this wave is a prefill, spec or spec×mixed step (no\n"
+     "    # decode window: the oracle draft always proposes), all eager in\n"
+     "    # the port this slice: it builds no program.\n"
+     "    assert 0 == first <= bound, (first, bound)"),
+    ("             + 2 * n_swap_sizes)    # swap gather + scatter, pow-2 "
+     "sizes",
+     f"             + 0 * 2 * n_swap_sizes)  # swap gather + scatter: "
+     f"{_EAGER}"),
+    ("model_lib.init_params(cfg.model, jax.random.key(0))",
+     "_jax_weights(cfg.model, 0)"),
+]
+
+
+def _jax_weights(cfg, seed: int):
+    """The weights the JAX engine draws from ``seed`` (its default), on the
+    port: the carried waves then take the reference's steps (n-gram drafts
+    hit where the JAX engine's do)."""
+    jparams = JM.init_params(jax_model(cfg.name), jax.random.key(seed))
+    return TM.params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                                "cpu")
+
+
+def _cpu_engine(config, params=None, **kw):
+    if params is None:
+        params = _jax_weights(config.model, config.seed)
+    return LLMEngine(config, params=params, device="cpu", **kw)
+
+
+def _carry_guard():
+    mod = carry("test_compile_guard", _FIXES, _jax_weights=_jax_weights)
+    mod.LLMEngine = _cpu_engine
+    return mod
+
+
+expose("test_compile_guard", _carry_guard(), None, globals())
+
+
+# -- the programs -------------------------------------------------------------
+
+BUCKETS = (1, 2, 4)
+
+
+def _engine(**kw):
+    cfg = EngineConfig(
+        model=get_model_config("debug-tiny"),
+        cache=CacheConfig(page_size=8, num_pages=160),
+        scheduler=SchedulerConfig(max_num_seqs=4, max_prefill_tokens=64,
+                                  decode_buckets=BUCKETS,
+                                  prefill_buckets=(32, 64), decode_window=3),
+        **kw)
+    return LLMEngine(cfg, device="cpu")
+
+
+_PARAMS = [
+    SamplingParams(max_tokens=9, temperature=0.0),
+    SamplingParams(max_tokens=9, temperature=0.9, seed=3),
+    SamplingParams(max_tokens=9, temperature=0.0, presence_penalty=0.4,
+                   frequency_penalty=0.2, logprobs=True, top_logprobs=2),
+    SamplingParams(max_tokens=9, temperature=0.7, top_k=7, top_p=0.8,
+                   seed=5, logit_bias={3: 2.0}),
+]
+
+
+def _waves(eng):
+    """Greedy alone, greedy pairs, then every variant at 1, 2 and 4 rows."""
+    rng = np.random.default_rng(11)
+    outs = []
+    for group in ([0], [0, 0], [1], [2, 3], [0, 1, 2, 3]):
+        prompts = [rng.integers(1, 500, int(rng.integers(4, 30))).tolist()
+                   for _ in group]
+        outs += [o.output_token_ids for o in
+                 eng.generate(prompts, [_PARAMS[i] for i in group])]
+    return outs
+
+
+def test_program_keys_per_variant_and_bucket_bounded():
+    eng = _engine()
+    outs = _waves(eng)
+    keys = eng._programs.keys()
+    assert keys and set(keys) <= {(v, b) for v in ("greedy", "sampled")
+                                  for b in BUCKETS}
+    assert {v for v, _ in keys} == {"greedy", "sampled"}
+    assert eng.compiled_step_variants() == len(keys) <= 2 * len(BUCKETS)
+    # Steady state: the same waves again build nothing new.
+    assert _waves(eng) == outs
+    assert eng.compiled_step_variants() == len(keys)
+
+
+def test_enforce_eager_builds_no_programs_same_tokens():
+    eager = _engine(enforce_eager=True)
+    outs = _waves(eager)
+    assert eager.compiled_step_variants() == 0
+    assert eager._programs.keys() == []
+    assert outs == _waves(_engine())
+
+
+def test_program_cache_counts_keys_only_when_enabled():
+    calls = []
+
+    def layout(key):
+        return {"x": ((2,), torch.int32)}, {"y": ((2,), torch.int32)}
+
+    def body(key, bufs):
+        calls.append(key)
+        bufs["y"].copy_(bufs["x"] * 2)
+
+    for enabled, count in ((True, 2), (False, 0)):
+        progs = StepPrograms(body, layout, torch.device("cpu"), enabled)
+        for key in ("a", "b", "a"):
+            progs.buffers(key).upload({"x": np.array([1, 2])})
+            progs.run(key)
+        assert len(progs) == count
+        assert progs.buffers("a")["y"].tolist() == [2, 4]
+        assert not progs.captures
+    assert calls == ["a", "b", "a"] * 2
+
+
+def test_static_buffers_upload_checks_shapes():
+    bufs = StaticBuffers(torch.device("cpu"),
+                         {"a": ((2, 3), torch.int32), "b": ((2,), torch.int32),
+                          "c": ((2,), torch.float32)}, {})
+    bufs.upload({"a": np.arange(6).reshape(2, 3), "b": np.array([7, 8]),
+                 "c": np.array([0.5, 1.5], np.float32)})
+    assert bufs["a"].tolist() == [[0, 1, 2], [3, 4, 5]]
+    assert bufs["b"].tolist() == [7, 8] and bufs["c"].tolist() == [0.5, 1.5]
+    with pytest.raises(ValueError, match="static input a"):
+        bufs.upload({"a": np.zeros((3, 2)), "b": np.zeros(2),
+                     "c": np.zeros(2)})
+
+
+# -- the device-side decisions against the host branches they replace ---------
+
+def _host_branch_filters(scaled, top_k, top_p):
+    """``ops/sampling.py::_apply_filters`` as it was before the decode
+    window was captured: the tier chosen on the host by ``bool(ok)``."""
+    V = scaled.shape[-1]
+    k = torch.clamp(torch.where(top_k <= 0, torch.full_like(top_k, V), top_k),
+                    1, V)
+    neg_inf = float("-inf")
+
+    def full_sort(s):
+        sorted_logits = torch.sort(s, dim=-1, descending=True).values
+        pos = torch.arange(V)[None, :]
+        lse = torch.logsumexp(torch.where(pos < k[:, None], sorted_logits,
+                                          torch.full_like(sorted_logits,
+                                                          neg_inf)), dim=-1)
+        k_t, p_t, _ = TS._filter_thresholds_sorted(sorted_logits, k, top_p,
+                                                   lse)
+        return torch.maximum(k_t, p_t)
+
+    def cut(s, thresh):
+        return torch.where(s < thresh, torch.full_like(s, neg_inf), s)
+
+    if V <= TS.TOP_K_CAP:
+        return cut(scaled, full_sort(scaled)), "full"
+
+    def window_thresholds(s, W):
+        top_vals = torch.topk(s, W, dim=-1).values
+        k_in = k <= W
+        pos = torch.arange(W)[None, :]
+        lse_win = torch.logsumexp(torch.where(pos < k[:, None], top_vals,
+                                              torch.full_like(top_vals,
+                                                              neg_inf)),
+                                  dim=-1)
+        lse = torch.where(k_in, lse_win, torch.logsumexp(s, dim=-1))
+        k_t, p_t, covered = TS._filter_thresholds_sorted(top_vals, k, top_p,
+                                                         lse)
+        ok = torch.all((k_in | (k >= V))
+                       & ((top_p >= 1.0) | (covered >= top_p)))
+        return torch.maximum(k_t, p_t), bool(ok)
+
+    thresh, ok = window_thresholds(scaled, TS.TOP_K_CAP)
+    if ok:
+        return cut(scaled, thresh), "narrow"
+    if V > TS.TOP_K_CAP_WIDE:
+        thresh, ok = window_thresholds(scaled, TS.TOP_K_CAP_WIDE)
+        if ok:
+            return cut(scaled, thresh), "wide"
+    return cut(scaled, full_sort(scaled)), "full"
+
+
+# Rows by the tier they need at V 4096 on peaked logits, plus flat rows.
+_ROWS = {
+    "narrow": [(0, 1.0), (40, 1.0), (0, 0.5), (100, 0.9)],
+    "wide": [(1500, 1.0), (0, 0.97), (700, 0.99)],
+    "full": [(3000, 1.0), (0, 0.9999)],
+}
+
+
+@pytest.mark.parametrize("tiers,flat", [
+    (("narrow",), False), (("narrow", "wide"), False),
+    (("narrow", "wide", "full"), False), (("wide",), False),
+    (("narrow",), True), (("full",), True)])
+def test_filter_tier_chosen_on_device_equals_host_branch(tiers, flat):
+    rng = np.random.default_rng(len(tiers) + 10 * flat)
+    rows = [r for t in tiers for r in _ROWS[t]]
+    V = 4096
+    scale = 0.01 if flat else 3.0
+    scaled = torch.from_numpy(
+        (rng.standard_normal((len(rows), V)) * scale).astype(np.float32))
+    top_k = torch.tensor([k for k, _ in rows], dtype=torch.int32)
+    top_p = torch.tensor([p for _, p in rows], dtype=torch.float32)
+    want, tier = _host_branch_filters(scaled, top_k, top_p)
+    if not flat:
+        assert tier == tiers[-1]            # the batch takes its widest row
+    got = TS._apply_filters(scaled, top_k, top_p)
+    assert torch.equal(got, want)
+
+
+def test_step_key_tensor_equals_int_key():
+    seed = torch.tensor([3, -1, 5, -1, -1], dtype=torch.int32)
+    pos = torch.tensor([0, 7, 2**20, 31, 2**31 - 1], dtype=torch.int32)
+    for key in (0, 1, 12345, 2**31 - 2):
+        want = TS.row_sample_keys(key, seed, pos)
+        got = TS.row_sample_keys(torch.tensor([key], dtype=torch.int32),
+                                 seed, pos)
+        assert torch.equal(got, want)
+    a = TS.row_sample_keys(torch.tensor([1], dtype=torch.int32), seed, pos)
+    b = TS.row_sample_keys(torch.tensor([2], dtype=torch.int32), seed, pos)
+    assert torch.equal(a[seed >= 0], b[seed >= 0])
+    assert not torch.equal(a[seed < 0], b[seed < 0])
+
+
+# -- the sampled program against the JAX engine -------------------------------
+
+def test_sampled_program_greedy_rows_match_jax_engine():
+    """Greedy rows with penalties and a logit bias ride the sampled program
+    (bias, penalties, filters and draw over every row); their tokens are
+    the JAX engine's, as the host-branch window's were."""
+    jcfg = jax_model("debug-tiny")
+    jparams = JM.init_params(jcfg, jax.random.key(3))
+    sched = dict(max_num_seqs=4, max_prefill_tokens=64,
+                 decode_buckets=BUCKETS, prefill_buckets=(32, 64),
+                 decode_window=3)
+    jeng = JaxEngine(JEngineConfig(model=jcfg, cache=JCache(page_size=8,
+                                                           num_pages=160),
+                                   scheduler=JSched(**sched)),
+                     params=jparams)
+    teng = LLMEngine(EngineConfig(
+        model=get_model_config("debug-tiny"),
+        cache=CacheConfig(page_size=8, num_pages=160),
+        scheduler=SchedulerConfig(**sched)),
+        params=TM.params_from_numpy(
+            jax.tree.map(np.asarray, jparams),
+            get_model_config("debug-tiny"), "cpu"), device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 500, n).tolist() for n in (6, 17, 28)]
+    kw = [dict(presence_penalty=0.6, frequency_penalty=0.3),
+          dict(logit_bias={7: 1.5, 11: -2.0}),
+          dict(top_k=5, top_p=0.9)]
+    j = jeng.generate(prompts, [JSP(max_tokens=10, temperature=0.0, **k)
+                                for k in kw])
+    t = teng.generate(prompts, [SamplingParams(max_tokens=10,
+                                               temperature=0.0, **k)
+                                for k in kw])
+    assert [o.output_token_ids for o in t] == \
+        [o.output_token_ids for o in j]
+    assert {v for v, _ in teng._programs.keys()} == {"sampled"}

@@ -25,6 +25,11 @@ Tensor parallelism: two rank processes at tp 2 give the one-card engine's
 tokens, over NCCL on two cards (skipped with one) and over gloo with both
 ranks on card 0.
 
+Step programs: card engines capture each decode window once per (variant,
+bucket) and replay it; against ``enforce_eager`` engines they give the
+same tokens and logprobs, and a window body that reads the device from
+the host fails its capture.
+
 Runtime sanitizers: ``KGCT_SANITIZE=1`` on a card engine (n-gram spec,
 mixed batching, swap) gives the plain engine's tokens and makes the same
 number of synchronizing CUDA calls (``torch.cuda.set_sync_debug_mode``).
@@ -715,6 +720,83 @@ def test_swap_engine_twice_identical_on_the_card(cuda_device):
     assert eng.swapper.host.num_in_use == 0
     alloc = eng.scheduler.allocator
     assert alloc.num_free == alloc.num_pages - 1
+
+
+_GRAPH_PARAMS = [
+    SamplingParams(max_tokens=24, temperature=0.0),
+    SamplingParams(max_tokens=24, temperature=0.9, seed=11),
+    SamplingParams(max_tokens=24, temperature=0.7, top_k=20, top_p=0.9,
+                   seed=12),
+    SamplingParams(max_tokens=24, temperature=0.0, presence_penalty=0.5,
+                   frequency_penalty=0.3, logit_bias={5: 2.0},
+                   logprobs=True, top_logprobs=3),
+]
+
+
+def _graph_waves(eng):
+    """Every bucket of ``_tiny_cfg`` (1, 2, 4, 8 rows), each with greedy
+    rows alone and with every sampled kind mixed in; 24 tokens make five
+    chained windows of 4 + 1 per request."""
+    outs = []
+    for n in (1, 2, 4, 8):
+        prompts = _prompts(n, 10, 70, seed=20 + n)
+        for params in ([_GRAPH_PARAMS[0]] * n,
+                       [_GRAPH_PARAMS[i % 4] for i in range(1, n + 1)]):
+            outs.append([(o.output_token_ids, o.output_logprobs)
+                         for o in eng.generate(prompts, params)])
+    return outs
+
+
+@pytest.mark.gpu
+def test_captured_windows_match_eager_per_bucket_and_variant(cuda_device):
+    """The decode window captured once per (variant, bucket) and replayed
+    gives the enforce_eager engine's tokens and logprobs in every bucket
+    and variant (greedy, seeded sampled with and without filters,
+    penalties with bias and top logprobs), and a second wave captures
+    nothing new."""
+    graph = LLMEngine(_tiny_cfg(num_pages=256), device=cuda_device)
+    eager = LLMEngine(dataclasses.replace(_tiny_cfg(num_pages=256),
+                                          enforce_eager=True),
+                      params=graph.params, device=cuda_device)
+    assert _graph_waves(graph) == _graph_waves(eager)
+    keys = graph._programs.keys()
+    assert keys == [(v, b) for v in ("greedy", "sampled")
+                    for b in (1, 2, 4, 8)]
+    assert graph.compiled_step_variants() == 8 == len(
+        graph._programs.capture_seconds)
+    assert eager.compiled_step_variants() == 0
+    assert _graph_waves(graph) == _graph_waves(eager)
+    assert graph.compiled_step_variants() == 8
+
+
+@pytest.mark.gpu
+def test_a_host_read_in_the_window_fails_its_capture(cuda_device):
+    """A window body that reads the device from the host raises
+    CaptureError at its capture; the engine does not go on eagerly, and
+    the caching allocator can release its memory after (a capture left
+    open would keep every later free deferred)."""
+    import gc
+    from kubernetes_gpu_cluster_tpu_torch.engine.step_programs import \
+        CaptureError
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    eng = LLMEngine(_tiny_cfg(), device=cuda_device)
+    body = eng._programs._body
+
+    def leaky(key, bufs):
+        body(key, bufs)
+        return int(bufs["out_tok"][0, 0])
+
+    eng._programs._body = leaky
+    with pytest.raises(CaptureError, match="capture of decode program"):
+        eng.generate(_prompts(1, 10, 20), SamplingParams(max_tokens=12))
+    assert eng.compiled_step_variants() == 0
+    torch.cuda.synchronize()
+    del eng, body
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= before + (256 << 20)
 
 
 def _sync_calls(fn):

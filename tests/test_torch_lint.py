@@ -4,16 +4,18 @@
   cases (``tests/test_lint_clean.py``) re-pointed at the port's
   ``analysis`` package (``torch_carry``: exact substitutions, carried cases
   named by their file). Left out: ``TestTraceSafety``,
-  ``TestRecompileRisk`` and ``TestDonationSafety`` (11 cases): KGCT001,
-  KGCT003 and KGCT004 are not registered on the port (eager PyTorch has no
-  traced function, jit cache or donated buffer). The two non-vacuity cases
+  ``TestRecompileRisk`` and ``TestDonationSafety`` (11 cases): their
+  snippets are JAX's (``jax.jit``, ``donate_argnums``); the port's KGCT001,
+  KGCT003 and KGCT004 police the engine's captured decode programs
+  (``engine/step_programs.py``) and are held below in torch's spelling.
+  The two non-vacuity cases
   of ``test_lint_clean.py`` are re-aimed at the port's engine, async
   engine and API server here, under their carried names.
 - Every registered rule visits the port's real structures: the shipped
   file it guards is clean, and one line of it changed the way the rule
   exists to catch is a finding.
-- The torch-spelled rules (KGCT002, 009, 012, 013, 018) each find a bad
-  snippet in torch's spelling and pass its clean twin.
+- The torch-spelled rules (KGCT001, 002, 003, 004, 009, 012, 013, 018)
+  each find a bad snippet in torch's spelling and pass its clean twin.
 - The port package is clean with an empty baseline and no allowlist, under
   this linter and under the JAX package's.
 """
@@ -130,6 +132,22 @@ _FEED_SLOT = '''               max_len: int) -> int:
 
 # code -> (file of the port, its text, the same line(s) as the rule's bug)
 MUTATIONS = {
+    # The step key read on the host inside the captured window: a constant
+    # of the graph, the same randomness every replay.
+    "KGCT001": ("engine/engine.py",
+                'keys = row_sample_keys(bufs["step_key"], bufs["seed"],',
+                'keys = row_sample_keys(int(bufs["step_key"]), bufs["seed"],'),
+    # The program keyed by the live row count instead of the bucket.
+    "KGCT003": ("engine/engine.py",
+                "B = batch.page_tables.shape[0]        # the scheduler's "
+                "bucket",
+                "B = len(batch.seqs)"),
+    # The predecessor's tokens fetched from its program's outputs after the
+    # successor's replay overwrote them.
+    "KGCT004": ("engine/engine.py",
+                'toks, lps, *tops = self._finish_fetch(inflight["fetch"])',
+                "toks, lps, *tops = self._finish_fetch(\n"
+                '                self._start_fetch(inflight["dev_out"]))'),
     "KGCT002": ("engine/engine.py",
                 '        with ph("device_fetch"):\n'
                 '            self._sync()\n'
@@ -203,7 +221,7 @@ MUTATIONS = {
 
 def test_every_registered_rule_has_a_real_structure_case():
     assert sorted(MUTATIONS) == sorted(r.code for r in ALL_RULES)
-    assert len(ALL_RULES) == 18
+    assert len(ALL_RULES) == 21
 
 
 @pytest.mark.parametrize("code", sorted(MUTATIONS))
@@ -327,6 +345,141 @@ def test_kv_boundary_torch_spellings(fetch):
     """, "KGCT013", relpath="engine/engine.py") == []
 
 
+_CAPTURED = """
+    class FooEngine:
+        def __init__(self):
+            self._programs = StepPrograms(self._body, self._layout, dev, True)
+
+        def _body(self, key, bufs):
+            variant, B = key
+            toks = bufs["tokens0"]
+            if variant == "greedy" and toks.shape[0] == B and len(toks):
+                toks = self._head(toks, B)
+            {line}
+            bufs["out"].copy_(toks)
+
+        def _head(self, toks, n):
+            return toks[:n]
+"""
+
+
+@pytest.mark.parametrize("line", [
+    "toks.item()", "toks.cpu()", "toks.tolist()", "toks.numpy()",
+    "torch.cuda.synchronize()", "self._done.synchronize()",
+    "n = int(toks[0])", "b = bool(toks.any())", "x = float(toks.sum())",
+    "if toks.sum() > 0: pass", "while toks.any(): pass",
+    "assert toks.max() < 5", "y = 1 if toks[0] else 2",
+    "z = torch.from_numpy(host).to(toks.device)"])
+def test_capture_safety_torch_spellings(line):
+    found = lint(_CAPTURED.format(line=line), "KGCT001")
+    assert len(found) == 1 and "_body" in found[0].message, found
+    # The same line in a method the program cache does not capture.
+    assert lint(_CAPTURED.format(line="pass").replace(
+        "            pass\n", "") + f"""
+        def _step(self, toks):
+            {line}
+    """, "KGCT001") == []
+
+
+def test_capture_safety_follows_the_bodys_tensor_calls():
+    found = lint(_CAPTURED.format(line="pass").replace(
+        "return toks[:n]", "return toks[:int(toks[0])]"), "KGCT001")
+    assert len(found) == 1 and "_head" in found[0].message
+    # ``n`` is bound to the key's B: static, silent.
+    assert lint(_CAPTURED.format(line="pass").replace(
+        "return toks[:n]", "return toks[:int(n)]"), "KGCT001") == []
+
+
+@pytest.mark.parametrize("capture", [
+    "torch.cuda.CUDAGraph()", "torch.cuda.graph(g)",
+    "g.capture_begin(pool=p)", "torch.cuda.make_graphed_callables(f, x)"])
+def test_recompile_risk_torch_captures(capture):
+    outside = lint(f"""
+        def timed(g, p, f, x):
+            return {capture}
+    """, "KGCT003")
+    assert len(outside) == 1 and "StepPrograms" in outside[0].message
+    in_loop = lint(f"""
+        class StepPrograms:
+            def _capture(self, g, p, f, x):
+                for _ in range(3):
+                    {capture}
+    """, "KGCT003")
+    assert len(in_loop) == 1 and "loop" in in_loop[0].message
+    assert lint(f"""
+        class StepPrograms:
+            def _capture(self, g, p, f, x):
+                return {capture}
+    """, "KGCT003") == []
+    assert lint(f"""
+        def timed(g, p, f, x):
+            return {capture}
+    """, "KGCT003", relpath="tools/sweep.py") == []
+
+
+def test_recompile_risk_program_key_from_len():
+    engine = """
+        class FooEngine:
+            def __init__(self):
+                self._programs = StepPrograms(self._body, self._layout,
+                                              dev, True)
+
+            def _dispatch(self, batch):
+                B = {size}
+                key = ("greedy", B)
+                self._programs.buffers(key).upload({{}})
+                self._programs.run(key)
+    """
+    bad = lint(engine.format(size="len(batch.seqs)"), "KGCT003")
+    assert len(bad) == 1 and "len()" in bad[0].message
+    for size in ("batch.page_tables.shape[0]",
+                 "_bucket(len(batch.seqs), self.buckets)",
+                 "next_power_of_2(len(batch.seqs))"):
+        assert lint(engine.format(size=size), "KGCT003") == []
+
+
+_REPLAYS = """
+    class FooEngine:
+        def __init__(self):
+            self._programs = StepPrograms(self._body, self._layout, dev, True)
+
+        def _dispatch(self, key, prev=None):
+            bufs = self._programs.buffers(key)
+            if prev is not None:
+                bufs["tokens0"].copy_(prev[:, -1])
+            self._programs.run(key)
+            fetch = self._start_fetch(bufs["out"])
+            return {{"dev_out": bufs["out"], "fetch": fetch}}
+
+        def _advance(self, w):
+            return self._dispatch(w["key"], prev=w["dev_out"])
+
+        def _step(self, w):
+            {before}
+            nxt = self._advance(w)
+            {after}
+"""
+
+
+@pytest.mark.parametrize("before,after", [
+    ("pass", 'return w["dev_out"].cpu()'),
+    ('out = w["dev_out"]', "return out[:, -1]"),
+    ("pass", 'return self._finish(self._start_fetch(w["dev_out"]))')])
+def test_donation_safety_replay_outputs(before, after):
+    found = lint(_REPLAYS.format(before=before, after=after), "KGCT004")
+    assert len(found) == 1 and "replay" in found[0].message, found
+
+
+@pytest.mark.parametrize("before,after", [
+    ("pass", 'return self._finish(w["fetch"])'),
+    ('last = w["dev_out"][:, -1].clone()', "return last"),
+    ("pass", 'w = nxt\n            return w["dev_out"]'),
+    ('return w["dev_out"]', "pass")])
+def test_donation_safety_copies_and_rebinds_are_safe(before, after):
+    assert lint(_REPLAYS.format(before=before, after=after),
+                "KGCT004") == []
+
+
 def test_wire_integrity_torch_frombuffer():
     found = lint("""
         def decode(blob):
@@ -352,6 +505,8 @@ def test_jax_linter_reads_the_port_clean_too():
 
 
 def test_module_main_prints_zero_findings_of_eighteen_rules(capsys):
+    """Named when the port had 18 rules; with the captured programs'
+    KGCT001, 003 and 004 it has the JAX package's 21."""
     from kubernetes_gpu_cluster_tpu_torch.analysis.cli import main
     assert main([]) == 0
-    assert "0 finding(s) (18 rule(s))" in capsys.readouterr().err
+    assert "0 finding(s) (21 rule(s))" in capsys.readouterr().err

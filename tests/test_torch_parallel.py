@@ -123,7 +123,8 @@ for job in json.load(open(os.environ["KGCT_TEST_JOBS"])):
         "kv_shape": list(eng.kv_cache.k.shape),
         "wq_shape": list(eng.params["layers"]["wq"].shape),
         "preemptions": eng.scheduler.num_preemptions_by_kind,
-        "drafted": eng.obs.spec_drafted_tokens}
+        "drafted": eng.obs.spec_drafted_tokens,
+        "programs": eng.compiled_step_variants()}
     del eng
 print("RESULT:" + json.dumps(out), flush=True)
 dist.destroy_process_group()
@@ -437,6 +438,9 @@ def test_greedy_matches_tp1_and_jax_mesh(job, ranks, weights):
     w, preset, mesh = JAX_MESHES[job]
     got = ranks[job]
     assert all(r["tokens"] == got[0]["tokens"] for r in got), "ranks differ"
+    # A rank's gloo collectives stage through the host and cannot be
+    # captured: its engine builds no step program.
+    assert all(r["programs"] == 0 for r in got)
     tp1 = _port_tokens(preset, {}, weights[w], _prompts(),
                        [GREEDY] * len(PROMPT_LENS))
     assert got[0]["tokens"] == tp1

@@ -149,7 +149,8 @@ for job in json.load(open(os.environ["KGCT_TEST_JOBS"])):
         "tokens": [o.output_token_ids for o in outs],
         "kv_shape": list(eng.kv_cache.k.shape),
         "mixed": eng.scheduler.mixed_enabled,
-        "kinds": dict(eng.obs.step_kind_counts)}
+        "kinds": dict(eng.obs.step_kind_counts),
+        "programs": eng.compiled_step_variants()}
     del eng
 print("RESULT:" + json.dumps(out), flush=True)
 dist.destroy_process_group()
@@ -361,6 +362,7 @@ def test_pp_engine_greedy_matches_jax(name, pool):
     for r in got:
         assert not r["mixed"] and r["kinds"].get("mixed", 0) == 0
         assert r["kv_shape"][0] == L // sizes["pp"]
+        assert r["programs"] == 0       # ranks capture nothing (gloo)
     if name == "chunked":
         assert got[0]["kinds"]["prefill"] >= 3     # 40 tokens in 16s
 

@@ -116,7 +116,8 @@ for job in json.load(open(os.environ["KGCT_TEST_JOBS"])):
                         [SamplingParams(**p) for p in job["params"]])
     out[job["name"]] = {"tokens": [o.output_token_ids for o in outs],
                         "kv_shape": list(eng.kv_cache.k.shape),
-                        "mixed": eng.scheduler.mixed_enabled}
+                        "mixed": eng.scheduler.mixed_enabled,
+                        "programs": eng.compiled_step_variants()}
     del eng
 print("RESULT:" + json.dumps(out), flush=True)
 dist.destroy_process_group()
@@ -226,6 +227,7 @@ def test_sp_engine_greedy_matches_jax(pool):
     assert got[0]["tokens"] == refs["engine"]
     for r in got:
         assert not r["mixed"]
+        assert r["programs"] == 0       # ranks capture nothing (gloo)
         assert r["kv_shape"] == [cfg.num_layers, CACHE["num_pages"], 8,
                                  cfg.num_kv_heads * cfg.head_dim]
 
