@@ -736,8 +736,8 @@ def _hist_case(gen, rng, T, hist, nh, n_kv, hd, ps, dt, device) -> dict:
     """flash_prefill_hist on a T-token chunk over ``hist`` pooled tokens
     (layer 1 of a 2-layer pool, the table as wide as the engine's: the next
     power of two in pages), against the plain version; the kernel called
-    as the engine calls it (n_valid computed once beforehand), timed in a
-    CUDA graph."""
+    as the engine calls it (n_valid computed once beforehand, hist_len an
+    int32 [1] on the card), timed in a CUDA graph."""
     from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
     from kubernetes_gpu_cluster_tpu_torch.ops.cuda import \
         flash_prefill_hist as fh
@@ -755,7 +755,9 @@ def _hist_case(gen, rng, T, hist, nh, n_kv, hd, ps, dt, device) -> dict:
             torch.arange(hist, hist + T, dtype=torch.int32, device=device),
             _randn(gen, (2, P, ps, kd), dt, device),
             _randn(gen, (2, P, ps, kd), dt, device),
-            torch.from_numpy(table).to(device), hist, hd ** -0.5)
+            torch.from_numpy(table).to(device),
+            torch.tensor([hist], dtype=torch.int32, device=device),
+            hd ** -0.5)
     n_valid = fh.valid_tokens(t_seg)
     got = fh.flash_prefill_hist(*args, layer=1, n_valid=n_valid)
     ref = A.prefill_history_attention_plain(*args, layer=1)
@@ -772,6 +774,56 @@ def _hist_case(gen, rng, T, hist, nh, n_kv, hd, ps, dt, device) -> dict:
                 plain=lambda: A.prefill_history_attention_plain(*args,
                                                                 layer=1),
                 shape=f"chunk={T} hist={hist} ps={ps}")
+
+
+HIST_REPLAYS = (0, 952, 2048, 3000)   # history lengths of one captured launch
+
+
+def _hist_replays(gen, rng, T, nh, n_kv, hd, ps, dt, device) -> dict:
+    """One flash_prefill_hist launch (a T-token chunk, layer 1 of a 2-layer
+    pool, a table covering the longest history) captured once in a CUDA
+    graph, then replayed at each ``HIST_REPLAYS`` length written into its
+    int32 [1] ``hist_len`` buffer, positions moved along: every replay
+    against the plain version at that length. A length baked into the
+    graph would give the first one's attention at every replay."""
+    from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import \
+        flash_prefill_hist as fh
+    from kubernetes_gpu_cluster_tpu_torch.utils import cdiv
+    kd = n_kv * hd
+    n_pages = cdiv(max(HIST_REPLAYS) + T, ps)
+    P = n_pages + 1
+    table = torch.from_numpy(rng.permutation(np.arange(1, P)).astype(
+        np.int32)).to(device)
+    seg = torch.zeros(T, dtype=torch.int32, device=device)
+    hist = torch.zeros(1, dtype=torch.int32, device=device)
+    pos = torch.arange(T, dtype=torch.int32, device=device)
+    args = (_randn(gen, (T, nh, hd), dt, device),
+            _randn(gen, (T, n_kv, hd), dt, device),
+            _randn(gen, (T, n_kv, hd), dt, device), seg, pos,
+            _randn(gen, (2, P, ps, kd), dt, device),
+            _randn(gen, (2, P, ps, kd), dt, device), table, hist,
+            hd ** -0.5)
+    n_valid = fh.valid_tokens(seg)
+    fh.flash_prefill_hist(*args, layer=1, n_valid=n_valid)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = fh.launches
+    with torch.cuda.graph(graph):
+        out = fh.flash_prefill_hist(*args, layer=1, n_valid=n_valid)
+    fh.launches = before            # the capture launched nothing
+    errs = {}
+    for h in HIST_REPLAYS:
+        hist.fill_(h)
+        pos.copy_(torch.arange(h, h + T, dtype=torch.int32, device=device))
+        graph.replay()
+        errs[h] = _compare(f"flash_prefill_hist replay at hist {h}", out,
+                           A.prefill_history_attention_plain(*args,
+                                                             layer=1))
+    del graph
+    return {"chunk": T, "hist_len": list(HIST_REPLAYS),
+            "max_abs_err": errs, "captures": 1,
+            "replays": len(HIST_REPLAYS)}
 
 
 def _logged(what, case) -> None:
@@ -836,6 +888,9 @@ def check_kernels(cfg, page_size: int, max_len: int, device) -> list[dict]:
     for T, hist in ((2048, 952), (64, 6000)):
         _logged(f"flash_prefill_hist chunk {T} hist {hist}", _hist_case(
             gen, rng, T, hist, nh, n_kv, hd, ps, dt, device))
+    replays = _hist_replays(gen, rng, 512, nh, n_kv, hd, ps, dt, device)
+    log("flash_prefill_hist captured once, replayed:", json.dumps(replays))
+    rows[-1]["replays"] = replays
     torch.cuda.synchronize()
     return rows
 
@@ -4135,8 +4190,9 @@ def check_graphs(cfg_engine, params, device, counters, card: str) -> dict:
     e_run = graph_waves(eager, vocab)
     held = _held_rows(g_run, e_run)
     want = {(v, b) for v in ("greedy", "sampled") for b in graph_buckets()}
-    if set(graph._programs.keys()) != want or eager.compiled_step_variants():
-        raise RuntimeError(f"16a: programs {graph._programs.keys()}, eager "
+    windows = graph._programs.keys("greedy") + graph._programs.keys("sampled")
+    if set(windows) != want or eager.compiled_step_variants():
+        raise RuntimeError(f"16a: programs {windows}, eager "
                            f"{eager.compiled_step_variants()}")
     out["16a"] = {**held, **_capture_record(graph)}
     log("graphs 16a:", json.dumps(out["16a"]), "|", card)
@@ -4219,13 +4275,15 @@ def check_graphs(cfg_engine, params, device, counters, card: str) -> dict:
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     eng = LLMEngine(cfg16, params=params, device=device)
-    body = eng._programs._body
+    bodies = eng._programs._bodies
 
-    def leaky(key, bufs):
-        body(key, bufs)
-        return int(bufs["out_tok"][0, 0])
+    def leaky(body):
+        def run(key, bufs):
+            body(key, bufs)
+            return int(bufs["out_tok"].reshape(-1)[0])
+        return run
 
-    eng._programs._body = leaky
+    eng._programs._bodies = {f: leaky(b) for f, b in bodies.items()}
     try:
         eng.generate([[5] * 30], SamplingParams(max_tokens=GRAPH_TOKENS))
     except CaptureError as err:
@@ -4234,8 +4292,8 @@ def check_graphs(cfg_engine, params, device, counters, card: str) -> dict:
                       "message": str(err)[:200],
                       "programs": eng.compiled_step_variants()}
     else:
-        raise RuntimeError("16d: a host read in the window was captured")
-    del eng, body
+        raise RuntimeError("16d: a host read in a step body was captured")
+    del eng, bodies
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4265,6 +4323,192 @@ def check_graphs(cfg_engine, params, device, counters, card: str) -> dict:
         "full_sort_ms": graph_ms(
             lambda: torch.sort(scaled, dim=-1, descending=True), 20)}
     log("graphs filters:", json.dumps(out["filters"]), "|", card)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+STEP_TOKENS = 24          # 16f: new tokens per request
+TTFT_PROMPT = 64          # 16f: the short prompt whose first token is timed
+TTFT_REPS = 10
+
+
+def step_requests(vocab: int) -> list:
+    """16f's requests (arrival step, id, prompt, SamplingParams): pure
+    prefills of one row (T 128, B 1) and of three (T 1024, B 4), then two
+    prompts arriving while those decode, chunked beside them as mixed steps
+    (a 700-token chunk: Tp 1024, R 8, W 64; a 2500-token prompt: Tp 2048
+    over W 128, then Tp 512 over W 256); every sampling kind, logprobs on
+    every row, EOS ignored so that every wave takes the same steps."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    rng = np.random.default_rng(SEED + 17)
+    T = STEP_TOKENS
+    kinds = [dict(temperature=0.0, top_logprobs=3),
+             dict(temperature=0.8, seed=1701),
+             dict(temperature=0.0, presence_penalty=0.5,
+                  frequency_penalty=0.3, logit_bias={13: 3.0}),
+             dict(temperature=0.7, top_k=50, top_p=0.95, seed=1702),
+             dict(temperature=1.0),                         # unseeded
+             dict(temperature=0.6, seed=1703, frequency_penalty=0.4,
+                  top_logprobs=2)]
+    shape = [(0, 100), (1, 150), (1, 200), (1, 250), (3, 700), (5, 2500)]
+    return [(step, f"s{i}", [int(t) for t in rng.integers(1, vocab, n)],
+             SamplingParams(max_tokens=T, logprobs=True, ignore_eos=True,
+                           **kinds[i]))
+            for i, (step, n) in enumerate(shape)]
+
+
+def _serve(engine, reqs, tag: str) -> dict:
+    """``reqs`` by arrival step; per request (tokens, logprobs)."""
+    pending = sorted(reqs, key=lambda r: r[0])
+    final, step = {}, 0
+    while pending or engine.has_unfinished_requests():
+        while pending and pending[0][0] <= step:
+            _, rid, prompt, sp = pending.pop(0)
+            engine.add_request(f"{tag}-{rid}", prompt, sp)
+        for out in engine.step():
+            if out.finished:
+                final[out.request_id[len(tag) + 1:]] = (
+                    out.output_token_ids, out.output_logprobs)
+        step += 1
+    return final
+
+
+def _step_waves(engine, vocab: int, tag: str) -> dict:
+    """16f's waves: the staggered requests, then a 3000-token prompt alone
+    (solo chunks: T 2048 over W 128, then T 1024 over W 256)."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    out = _serve(engine, step_requests(vocab), tag)
+    long = [int(t) for t in np.random.default_rng(SEED + 18).integers(
+        1, vocab, 3000)]
+    out.update(_serve(engine, [(0, "solo", long, SamplingParams(
+        max_tokens=STEP_TOKENS, temperature=0.0, logprobs=True,
+        ignore_eos=True))], tag))
+    return out
+
+
+UNSEEDED = ("s4",)        # 16f's unseeded row: its keys differ wave to wave
+
+
+def _first_token_ms(engine, vocab: int) -> float:
+    """Median ms from ``add_request`` of a ``TTFT_PROMPT``-token prompt on
+    an idle engine to its first token (one step: the prefill and its
+    fetch)."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
+    rng = np.random.default_rng(SEED + 19)
+    times = []
+    for i in range(TTFT_REPS + 1):
+        prompt = [int(t) for t in rng.integers(1, vocab, TTFT_PROMPT)]
+        t0 = time.perf_counter()
+        engine.add_request(f"ttft-{i}", prompt,
+                           SamplingParams(max_tokens=1, temperature=0.0))
+        outs = engine.step()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not outs or not outs[0].finished:
+            raise RuntimeError(f"16f: no first token in one step: {outs}")
+    return float(np.median(times[1:]))        # the first one captures
+
+
+def _sampling_stage_ms(engine, device, R: int = 32) -> dict:
+    """The programs' sampling stage (``_sample_rows``: bias, penalties, all
+    filter tiers, the draw, top logprobs) on every one of R rows, and a
+    chunk's penalty histogram (``build_counts`` of [R, out_cap]), device
+    time in CUDA graphs at the engine's vocabulary."""
+    from kubernetes_gpu_cluster_tpu_torch.engine.sampling_params import \
+        LOGIT_BIAS_CAP
+    from kubernetes_gpu_cluster_tpu_torch.ops import sampling as S
+    V = engine.model_config.vocab_size
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    i32 = dict(dtype=torch.int32, device=device)
+    bufs = {"bias_ids": torch.full((R, LOGIT_BIAS_CAP), -1, **i32),
+            "bias_vals": torch.zeros((R, LOGIT_BIAS_CAP), device=device),
+            "presence": torch.zeros(R, device=device),
+            "frequency": torch.zeros(R, device=device),
+            "step_key": torch.tensor([7], **i32),
+            "seed": torch.full((R,), -1, **i32),
+            "temperature": torch.full((R,), 0.8, device=device),
+            "top_k": torch.full((R,), 50, **i32),
+            "top_p": torch.full((R,), 0.95, device=device)}
+    logits = torch.randn((R, V), generator=gen, device=device)
+    counts = torch.zeros((R, V), **i32)
+    pos = torch.arange(R, **i32)
+    out_tokens = torch.full((R, engine._out_cap), -1, **i32)
+    return {"R": R, "V": V,
+            "sample_rows_ms": graph_ms(lambda: engine._sample_rows(
+                bufs, logits, counts, pos), 20),
+            "build_counts_ms": graph_ms(lambda: S.build_counts(out_tokens,
+                                                               V), 20)}
+
+
+def check_step_programs(cfg_engine, params, device, card: str) -> dict:
+    """16f on the phase-4 weights: a captured engine and an enforce_eager
+    one serve ``_step_waves`` (pure prefill at two (T, B), solo chunks at
+    two widths, mixed steps at three (Tp, R, W)): identical tokens and
+    logprobs, every family captured, a second identical wave captures
+    nothing and the gauge equals the programs built; then a short prompt's
+    first token captured against eager, and the sampling stage's time at
+    R 32 (ROADMAP C11)."""
+    from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
+                                                         SchedulerConfig)
+    from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
+    from kubernetes_gpu_cluster_tpu_torch.engine.step_programs import \
+        activation_bytes
+    from kubernetes_gpu_cluster_tpu_torch.serving import build_server
+    t0 = time.perf_counter()
+    vocab = cfg_engine.model.vocab_size
+    cfg = dataclasses.replace(
+        cfg_engine, cache=CacheConfig(page_size=cfg_engine.cache.page_size,
+                                      num_pages=GRAPH_PAGES),
+        scheduler=SchedulerConfig(max_num_seqs=GRAPH_SEQS))
+    api = build_server(cfg, params=params, device=device, model_name=MODEL)
+    graph = api.engine.engine
+    eager = LLMEngine(dataclasses.replace(cfg, enforce_eager=True),
+                      params=params, device=device,
+                      eos_token_id=graph.eos_token_id)
+    runs = {"graph": _step_waves(graph, vocab, "w1"),
+            "eager": _step_waves(eager, vocab, "w1")}
+    if runs["graph"] != runs["eager"]:
+        diff = sorted(r for r in runs["graph"]
+                      if runs["graph"][r] != runs["eager"].get(r))
+        raise RuntimeError(f"16f: captured and eager differ for {diff}")
+    progs = graph._programs
+    keys = {f: progs.keys(f) for f in ("prefill", "prefill_hist", "mixed")}
+    if (len(keys["prefill"]) < 2 or len(keys["prefill_hist"]) < 2
+            or len(keys["mixed"]) < 2 or eager.compiled_step_variants()):
+        raise RuntimeError(f"16f: programs {keys}, eager "
+                           f"{eager.compiled_step_variants()}")
+    out = {"16f": {"requests": len(runs["graph"]),
+                   "keys": {f: [list(k) for k in ks]
+                            for f, ks in keys.items()},
+                   **_capture_record(graph),
+                   "reckoned_bytes": activation_bytes(
+                       cfg.model, max(cfg.scheduler.prefill_buckets),
+                       max(cfg.scheduler.decode_buckets),
+                       cfg.effective_max_len)}}
+    before = (graph.compiled_step_variants(), len(progs.capture_seconds))
+    again = _step_waves(graph, vocab, "w2")
+    after = (graph.compiled_step_variants(), len(progs.capture_seconds))
+    gauge = _metric(asyncio.run(_scrape_metrics(api)),
+                    "kgct_jit_compiles_total")
+    same = all(again[r] == runs["graph"][r] for r in again
+               if r not in UNSEEDED)
+    if not same or after != before or gauge != after[0]:
+        raise RuntimeError(f"16f: second wave: programs {before} -> "
+                           f"{after}, gauge {gauge}, greedy and seeded rows "
+                           f"equal {same}")
+    out["16f"].update(new_captures=after[1] - before[1], programs=after[0],
+                      gauge=gauge)
+    log("step programs 16f:", json.dumps(out["16f"]), "|", card)
+    out["first_token_ms"] = {"graph": _first_token_ms(graph, vocab),
+                             "eager": _first_token_ms(eager, vocab),
+                             "prompt": TTFT_PROMPT}
+    log("step programs 16f first token:", json.dumps(out["first_token_ms"]),
+        "|", card)
+    out["sampling"] = _sampling_stage_ms(graph, device)
+    log("step programs 16f sampling stage:", json.dumps(out["sampling"]),
+        "|", card)
+    del api, graph, eager, runs, again
+    gc.collect()
+    torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -5712,9 +5956,13 @@ def main() -> int:
     # Phase 16: the decode window's captured graphs on the same weights.
     log("graphs:", json.dumps(check_graphs(cfg_engine, params, device, attn,
                                            card)), "|", card)
+    phase(f"{MODEL} bf16 captured decode windows (16)")
+    # Phase 16f: the prefill, solo-chunk and mixed programs.
+    log("step programs:", json.dumps(check_step_programs(
+        cfg_engine, params, device, card)), "|", card)
     # The phases below start processes that load the model on the host.
     release_host_cache()
-    phase(f"{MODEL} bf16 captured decode windows (16)")
+    phase(f"{MODEL} bf16 captured prefill and mixed steps (16f)")
 
     # Phases 12 and 12c: tp 2 as two ranks on this card (gloo), held to
     # the tp=1 tokens of these weights; then the group abort.

@@ -231,39 +231,46 @@ class LintModule:
 
     @cached_property
     def captured_functions(self) -> list:
-        """Every window body handed to the program cache
-        (``StepPrograms(body, ...)``), resolved like the JAX core's jitted
-        functions: ``self.<method>`` to the method of the enclosing class,
-        a bare name to the def of the enclosing scope or module. The cache
-        calls ``body(key, buffers)``: every parameter after the key (and
-        ``self``) carries tensors. The methods of the class the body calls
-        with tensor arguments run inside the capture too; they are
-        followed, with the parameters those arguments bind as seeds."""
+        """Every step body handed to the program cache (``StepPrograms(body,
+        ...)``, or each value of ``StepPrograms({family: body, ...},
+        ...)``), resolved like the JAX core's jitted functions:
+        ``self.<method>`` to the method of the enclosing class, a bare name
+        to the def of the enclosing scope or module; a body named twice is
+        taken once. The cache calls ``body(key, buffers)``: every parameter
+        after the key (and ``self``) carries tensors. The methods of the
+        class the body calls with tensor arguments run inside the capture
+        too; they are followed, with the parameters those arguments bind as
+        seeds."""
         out: list = []
         defs: dict = {}
         for fn in self.functions:
             defs.setdefault(self.enclosing_function(fn), {})[fn.name] = fn
+        seen: set = set()
         for node in ast.walk(self.tree):
             if not (is_program_cache_call(node) and node.args):
                 continue
-            first, target, cls = node.args[0], None, None
-            if (isinstance(first, ast.Attribute)
-                    and isinstance(first.value, ast.Name)
-                    and first.value.id == "self"):
-                cls = self.enclosing_class(node)
-                if cls is not None:
-                    target = self.methods_of(cls).get(first.attr)
-            elif isinstance(first, ast.Name):
-                scope = self.enclosing_function(node)
-                target = (defs.get(scope, {}).get(first.id)
-                          or defs.get(None, {}).get(first.id))
-            if target is None:
-                continue
-            params = _params(target)
-            skip = 2 if params[:1] == ["self"] else 1
-            out.extend(self._follow_captured(
-                target, tuple(params[skip:]),
-                self.methods_of(cls) if cls is not None else {}))
+            first = node.args[0]
+            bodies = first.values if isinstance(first, ast.Dict) else [first]
+            for body in bodies:
+                target, cls = None, None
+                if (isinstance(body, ast.Attribute)
+                        and isinstance(body.value, ast.Name)
+                        and body.value.id == "self"):
+                    cls = self.enclosing_class(node)
+                    if cls is not None:
+                        target = self.methods_of(cls).get(body.attr)
+                elif isinstance(body, ast.Name):
+                    scope = self.enclosing_function(node)
+                    target = (defs.get(scope, {}).get(body.id)
+                              or defs.get(None, {}).get(body.id))
+                if target is None or id(target) in seen:
+                    continue
+                seen.add(id(target))
+                params = _params(target)
+                skip = 2 if params[:1] == ["self"] else 1
+                out.extend(self._follow_captured(
+                    target, tuple(params[skip:]),
+                    self.methods_of(cls) if cls is not None else {}))
         return out
 
     def _follow_captured(self, root, seeds: tuple, methods: dict) -> list:

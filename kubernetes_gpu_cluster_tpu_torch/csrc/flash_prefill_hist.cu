@@ -6,6 +6,9 @@
 // T tokens attends fully to its hist_len tokens already committed to the
 // paged pool (through its page table), then causally within the chunk.
 // Tail padding is cut at n_valid = sum(seg >= 0); padding rows emit zeros.
+// n_valid and hist_len are read from device memory (int32 scalars), so one
+// launch captured in a CUDA graph serves every chunk a replay is given; the
+// grid depends on T alone.
 //
 // Bound on the H100: operations once the chunk is a few hundred tokens
 // (T * (hist_len + T/2) * hd * nh * 4 flops against hist_len * n_kv*hd * 4 B
@@ -57,8 +60,9 @@ flash_prefill_hist_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ vpool,
                               const int* __restrict__ table,
                               const int* __restrict__ n_valid_ptr,
+                              const int* __restrict__ hist_len_ptr,
                               __nv_bfloat16* __restrict__ out, int T, int nh, int n_kv,
-                              int ps_shift, int pps, int hist_len, float scale_log2) {
+                              int ps_shift, int pps, float scale_log2) {
   using S = MmaSmem<HD>;
   constexpr int RS = S::RS;
   constexpr int kChunks = HD / 8;  // 16-byte chunks per row
@@ -72,7 +76,8 @@ flash_prefill_hist_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int ps = 1 << ps_shift;
   const long long kd = static_cast<long long>(n_kv) * HD;
   const int n_valid = min(*n_valid_ptr, T);
-  const int hist = min(hist_len, pps * ps);
+  // A negative history is none: the scheduler never gives one.
+  const int hist = max(0, min(*hist_len_ptr, pps * ps));
 
   if (q0 >= n_valid) {  // only padding: zeros, no work
     for (int c = tid; c < kBQ * kChunks; c += kThreads) {
@@ -165,9 +170,9 @@ flash_prefill_hist_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* kp,
-                       const void* vp, const int* table, const int* n_valid, void* out,
-                       int T, int nh, int n_kv, int ps, int pps, int hist_len, float scale,
-                       cudaStream_t stream) {
+                       const void* vp, const int* table, const int* n_valid,
+                       const int* hist_len, void* out, int T, int nh, int n_kv, int ps,
+                       int pps, float scale, cudaStream_t stream) {
   auto kernel = flash_prefill_hist_mma_kernel<HD>;
   const size_t smem = MmaSmem<HD>::kBytes;
   static const cudaError_t attr = allow_smem(kernel, smem);  // once per process
@@ -176,8 +181,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   kernel<<<dim3(nq, nh), kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), table, n_valid,
-      static_cast<__nv_bfloat16*>(out), T, nh, n_kv, ilog2(ps), pps, hist_len,
+      static_cast<const __nv_bfloat16*>(vp), table, n_valid, hist_len,
+      static_cast<__nv_bfloat16*>(out), T, nh, n_kv, ilog2(ps), pps,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -192,9 +197,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_prefill_hist_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ kpool,
                               const float* __restrict__ vpool, const int* __restrict__ table,
-                              const int* __restrict__ n_valid_ptr, float* __restrict__ out,
-                              int T_total, int nh, int n_kv, int ps, int pps, int hist_len,
-                              float scale) {
+                              const int* __restrict__ n_valid_ptr,
+                              const int* __restrict__ hist_len_ptr, float* __restrict__ out,
+                              int T_total, int nh, int n_kv, int ps, int pps, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   using TileT = Tile<kFBQ, kFBK, HD>;
   TileT tile(smem);
@@ -203,7 +208,7 @@ flash_prefill_hist_f32_kernel(const float* __restrict__ q, const float* __restri
   const int q0 = qi * kFBQ;
   const long long kd = static_cast<long long>(n_kv) * HD;
   const int n_valid = min(*n_valid_ptr, T_total);
-  const int hist = min(hist_len, pps * ps);
+  const int hist = max(0, min(*hist_len_ptr, pps * ps));
   auto q_row = [&](int r) -> long long {
     const int t = q0 + r;
     return t < T_total ? (static_cast<long long>(t) * nh + head) * HD : -1;
@@ -248,9 +253,9 @@ flash_prefill_hist_f32_kernel(const float* __restrict__ q, const float* __restri
 
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* kp,
-                       const void* vp, const int* table, const int* n_valid, void* out,
-                       int T_total, int nh, int n_kv, int ps, int pps, int hist_len,
-                       float scale, cudaStream_t stream) {
+                       const void* vp, const int* table, const int* n_valid,
+                       const int* hist_len, void* out, int T_total, int nh, int n_kv,
+                       int ps, int pps, float scale, cudaStream_t stream) {
   auto kernel = flash_prefill_hist_f32_kernel<HD>;
   const size_t smem = Tile<kFBQ, kFBK, HD>::kBytes;
   static const cudaError_t attr = allow_smem(kernel, smem);
@@ -258,8 +263,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   const int nq = (T_total + kFBQ - 1) / kFBQ;
   kernel<<<dim3(nq, nh), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(kp), static_cast<const float*>(vp), table, n_valid,
-      static_cast<float*>(out), T_total, nh, n_kv, ps, pps, hist_len, scale);
+      static_cast<const float*>(kp), static_cast<const float*>(vp), table, n_valid, hist_len,
+      static_cast<float*>(out), T_total, nh, n_kv, ps, pps, scale);
   return cudaGetLastError();
 }
 
@@ -274,31 +279,32 @@ struct HistLaunch {
   float scale;
 };
 
-// Pool pointers address ONE layer [P, ps, n_kv*hd]; n_valid is a device
-// int32 scalar; hist_len >= 0. The wrapper has checked the shapes. Returns
-// the CUDA status of the launch.
+// Pool pointers address ONE layer [P, ps, n_kv*hd]; n_valid and hist_len
+// are device int32 scalars (a negative hist_len reads as 0). The wrapper
+// has checked the shapes. Returns the CUDA status of the launch.
 extern "C" int kgct_flash_prefill_hist(const void* q, const void* k, const void* v,
                                        const void* k_pool, const void* v_pool,
-                                       const int* page_table, const int* n_valid, void* out,
-                                       int hist_len, const HistLaunch* a, void* stream) {
+                                       const int* page_table, const int* n_valid,
+                                       const int* hist_len, void* out, const HistLaunch* a,
+                                       void* stream) {
   using namespace kgct;
   auto s = static_cast<cudaStream_t>(stream);
   const int T = a->T, nh = a->nh, n_kv = a->n_kv, ps = a->ps, pps = a->pps;
   if (T == 0) return cudaSuccess;
-  if (hist_len < 0 || n_kv <= 0 || nh % n_kv || ps <= 0 || (ps & (ps - 1)))
+  if (n_kv <= 0 || nh % n_kv || ps <= 0 || (ps & (ps - 1)))
     return cudaErrorInvalidValue;
   if (a->dtype == 1 && a->hd == 128)
-    return launch_mma<128>(q, k, v, k_pool, v_pool, page_table, n_valid, out, T, nh, n_kv,
-                           ps, pps, hist_len, a->scale, s);
+    return launch_mma<128>(q, k, v, k_pool, v_pool, page_table, n_valid, hist_len, out, T, nh,
+                           n_kv, ps, pps, a->scale, s);
   if (a->dtype == 1 && a->hd == 64)
-    return launch_mma<64>(q, k, v, k_pool, v_pool, page_table, n_valid, out, T, nh, n_kv,
-                          ps, pps, hist_len, a->scale, s);
+    return launch_mma<64>(q, k, v, k_pool, v_pool, page_table, n_valid, hist_len, out, T, nh,
+                          n_kv, ps, pps, a->scale, s);
   if (a->dtype == 0 && a->hd == 128)
-    return launch_f32<128>(q, k, v, k_pool, v_pool, page_table, n_valid, out, T, nh, n_kv,
-                           ps, pps, hist_len, a->scale, s);
+    return launch_f32<128>(q, k, v, k_pool, v_pool, page_table, n_valid, hist_len, out, T, nh,
+                           n_kv, ps, pps, a->scale, s);
   if (a->dtype == 0 && a->hd == 64)
-    return launch_f32<64>(q, k, v, k_pool, v_pool, page_table, n_valid, out, T, nh, n_kv,
-                          ps, pps, hist_len, a->scale, s);
+    return launch_f32<64>(q, k, v, k_pool, v_pool, page_table, n_valid, hist_len, out, T, nh,
+                          n_kv, ps, pps, a->scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -25,20 +25,24 @@ after the weights exist, so a quantized model's smaller footprint leaves
 room for more KV pages; nothing else in the engine depends on the rung.
 
 Step programs (``engine/step_programs.py``), the counterpart of the JAX
-engine's bucketed jit programs: on one card the decode window is captured
-once per (greedy|sampled, decode bucket) into a CUDA graph, at the
-bucket's first window, and replayed; the dispatcher fills the program's
-static inputs from pinned host buffers before each replay and starts the
-one fetch after it. ``compiled_step_variants`` counts the programs built
-(on the CPU the same keys around the eager window). ``EngineConfig.
-enforce_eager`` turns capture off, as in the JAX package. Outside the
-decode window everything runs eagerly on purpose: prefill, chunked, mixed
-and spec steps, the draft runner, the KV transfer programs, and every step
-of a rank under torch.distributed (tp, ep, pp, sp: gloo's host-staged
-collectives cannot be captured), whose engine builds no program. The JAX
-package's donation bookkeeping and probe-and-fall-back kernel logic have
-no counterpart: on a CUDA device the attention runs the hand-written
-kernels (``ops/cuda``) or raises.
+engine's bucketed jit programs: on one card the decode window (one program
+per (greedy|sampled, decode bucket)), the ragged prefill (per (prefill
+bucket, row bucket)), the solo chunk (per (prefill bucket, history
+width)) and the mixed step (per (prefill bucket, row bucket, history
+width)) are each captured into a CUDA graph at their key's first step and
+replayed, keyed as the JAX jit caches are; the dispatcher fills the
+program's static inputs from pinned host buffers before each replay and
+starts the one fetch after it. ``compiled_step_variants`` counts the
+programs built (on the CPU the same keys around the eager bodies).
+``EngineConfig.enforce_eager`` turns capture off, as in the JAX package,
+and runs the same bodies. Eager on purpose, listed for the next slices:
+spec verify, spec×mixed and the draft runner, the KV transfer programs,
+and every step of a rank under torch.distributed (tp, ep, pp, sp: gloo's
+host-staged collectives cannot be captured; sp's ring prefill and pp's
+pipeline forward run inside the same bodies), whose engine builds no
+program. The JAX package's donation bookkeeping and probe-and-fall-back
+kernel logic have no counterpart: on a CUDA device the attention runs the
+hand-written kernels (``ops/cuda``) or raises.
 
 Speculative decoding (``SchedulerConfig.spec_decode_enabled``): the
 scheduler's proposer (n-gram lookup, or with ``spec_draft_model`` a draft
@@ -113,9 +117,9 @@ from .kv_cache import (KVPageIO, KVTransferPrograms, KVTransferRefused,
                        allocate_kv_cache, build_kv_swapper, derive_num_pages,
                        dtype_name, host_tensor)
 from .sampling_params import LOGIT_BIAS_CAP, SamplingParams
-from .scheduler import ScheduledBatch, Scheduler
+from .scheduler import ScheduledBatch, Scheduler, _bucket
 from .sequence import FinishReason, Sequence, SequenceStatus
-from .step_programs import StepPrograms
+from .step_programs import StepPrograms, activation_bytes
 
 logger = get_logger("engine")
 
@@ -274,6 +278,13 @@ class LLMEngine:
 
         free = (torch.cuda.mem_get_info(self.device)[0]
                 if self.device.type == "cuda" else None)
+        programs = not config.enforce_eager and groups is None
+        if free is not None and programs:
+            # The largest prefill program's working memory stays in the
+            # graphs' shared pool once captured: kept out of the pages.
+            free -= activation_bytes(
+                config.model, max(sc.prefill_buckets), max(sc.decode_buckets),
+                config.effective_max_len)
         num_pages = derive_num_pages(
             kv_model, config.cache, config.effective_max_len,
             sc.max_num_seqs, free, groups=groups)
@@ -370,12 +381,16 @@ class LLMEngine:
                 self.swapper.on_restored = self._sanitizer.on_swap_restore
         self.kv_io = KVPageIO(get_kv=lambda: self.kv_cache,
                               programs=self._kv_programs)
-        # The decode window's programs, one per (variant, bucket): captured
-        # on the card, keyed around the eager window on the CPU, none with
-        # enforce_eager or under torch.distributed (see step_programs).
+        # The step programs, keyed per family as the JAX jit caches:
+        # captured on the card, keyed around the eager bodies on the CPU,
+        # none with enforce_eager or under torch.distributed (see
+        # step_programs).
         self._programs = StepPrograms(
-            self._window_body, self._window_layout, self.device,
-            enabled=not config.enforce_eager and groups is None)
+            {"greedy": self._window_body, "sampled": self._window_body,
+             "prefill": self._prefill_body,
+             "prefill_hist": self._prefill_hist_body,
+             "mixed": self._mixed_body},
+            self._program_layout, self.device, enabled=programs)
         self.stats = EngineStats()
         self.step_count = 0
         # Speculative decode-window chain state (see _step).
@@ -589,14 +604,15 @@ class LLMEngine:
         return self.scheduler.has_work() or self._inflight is not None
 
     def compiled_step_variants(self) -> int:
-        """Step programs built so far: the decode window's captured graphs,
-        one per (greedy|sampled, decode bucket) seen (on the CPU the same
-        keys around the eager window), so at most two per decode bucket.
-        0 with ``enforce_eager`` and on a rank under torch.distributed,
-        which capture nothing. Exported as ``kgct_jit_compiles_total``: a
-        steady serving process holds it flat, as the JAX engine's jit
-        cache count. Prefill, mixed and spec steps run eagerly and add
-        nothing."""
+        """Step programs built so far, every family's captured graphs (on
+        the CPU the same keys around the eager bodies): the decode window
+        at most two per decode bucket, the prefill, solo-chunk and mixed
+        steps one per key of the JAX bucket grid. 0 with
+        ``enforce_eager`` and on a rank under torch.distributed, which
+        capture nothing. Exported as ``kgct_jit_compiles_total``: a steady
+        serving process holds it flat, as the JAX engine's jit cache
+        count. Spec and spec×mixed steps, the draft runner and the KV
+        transfers run eagerly and add nothing."""
         return len(self._programs)
 
     # -- KV handoff seams (disaggregated prefill/decode, live migration) ----
@@ -1110,81 +1126,59 @@ class LLMEngine:
             "greedy" if inflight["greedy"] else "sampled")
         return outputs
 
-    def _fetch_step_outputs(self, next_tokens, lps, tids, tlps,
-                            batch: ScheduledBatch):
-        """Synchronous fetch of a prefill/mixed step's sampled rows, split
-        into device compute (the sync) and the copy itself for the TTFT
-        decomposition ("prefill" carries the compute, "first_fetch" only
-        the transfer)."""
-        ph = self.obs.phases.phase
-        with ph("device_fetch"):
-            t0f = time.perf_counter()
-            self._sync()
-            compute_s = time.perf_counter() - t0f
-            toks_np = next_tokens.cpu().numpy()[:, None]
-            lps_np = lps.cpu().numpy()[:, None]
-            top_i = top_l = None
-            if any(s.params.top_logprobs for s in batch.seqs):
-                top_i = tids.cpu().numpy()[:, None]
-                top_l = tlps.cpu().numpy()[:, None]
-        self._ttft_transfer_s = max(
-            self.obs.phases.current_durs.get("device_fetch", 0.0)
-            - compute_s, 0.0)
-        return toks_np, lps_np, top_i, top_l
-
     def _step_prefill(self, batch: ScheduledBatch) -> list[RequestOutput]:
         """One ragged prefill, or one solo chunk of a long prompt
-        (``batch.hist_len`` set) attending to its pool history."""
-        ph = self.obs.phases.phase
-        cfg = self.model_config
-        with ph("host_prep"):
-            smp = self._sampling(batch)
-            tokens = self._up(batch.tokens)
-            meta = model_lib.PrefillMeta(
-                seg_ids=self._up(batch.seg_ids),
-                positions=self._up(batch.positions),
-                slot_mapping=self._up(batch.slot_mapping),
-                logits_indices=self._up(batch.logits_indices))
-            page_table = (self._up(batch.page_tables[0])
-                          if batch.hist_len is not None else None)
-            out_tokens = (self._penalty_out_tokens(batch)
-                          if smp.any_pen and batch.hist_len is not None
-                          else None)
-        step_key = self._next_step_key()
-        with ph("device_dispatch"):
-            if batch.hist_len is not None:
-                self.stats.prefill_tokens += int(np.sum(batch.seg_ids >= 0))
-                hidden = self._forward("prefill_hist", tokens, meta,
-                                       page_table, int(batch.hist_len))
-            else:
-                self.stats.prefill_tokens += sum(s.num_tokens
-                                                 for s in batch.seqs)
-                hidden = self._forward("prefill", tokens, meta)
-            if batch.partial:
-                # Prompt not complete: KV is committed, there is nothing to
-                # sample yet.
-                self._last_step_info = ("prefill", batch.num_seqs, None)
-                return []
-            logits = model_lib.compute_logits(self.params, cfg, hidden,
-                                              groups=self.groups)
-            counts = None
-            if smp.any_pen:
-                if out_tokens is not None:
-                    # Chunked path: earlier chunks' ids live in the pool as
-                    # vectors only, so the histogram comes from the host.
-                    counts = build_counts(out_tokens, cfg.vocab_size)
-                else:
-                    counts = self._prefill_counts(batch, tokens, meta)
-            idx = meta.logits_indices.to(torch.int64)
-            pos_next = meta.positions[idx] + 1
-            outs = self._sample(logits, smp, pos_next, step_key, counts)
-        toks_np, lps_np, top_i, top_l = self._fetch_step_outputs(*outs, batch)
-        with ph("postproc"):
-            outputs = self._process_window(batch, toks_np, lps_np, set(),
-                                           defer=False, top_ids=top_i,
-                                           top_lps=top_l)
+        (``batch.hist_len`` set) attending to its pool history, through
+        its program. A partial chunk's sampled row is never read: its KV
+        is committed and nothing is fetched."""
+        if batch.hist_len is not None:
+            self.stats.prefill_tokens += int(np.sum(batch.seg_ids >= 0))
+        else:
+            self.stats.prefill_tokens += sum(s.num_tokens for s in batch.seqs)
+        pending = self._dispatch_step(batch)
         self._last_step_info = ("prefill", batch.num_seqs, None)
-        return outputs
+        if pending is None:
+            return []
+        toks_np, lps_np, top_i, top_l = self._fetch_step(pending)
+        with self.obs.phases.phase("postproc"):
+            return self._process_window(batch, toks_np, lps_np, set(),
+                                        defer=False, top_ids=top_i,
+                                        top_lps=top_l)
+
+    def _step_mixed(self, batch: ScheduledBatch) -> list[RequestOutput]:
+        """Execute one mixed step through its program: every decode row's
+        sampled token appends (with stop checks), the chunk's KV commits in
+        the forward's scatter, and the chunk row's sampled token is the
+        sequence's first generated token on a FINAL chunk — or discarded
+        (zombie row) while the prompt is partial. Mixed steps are
+        synchronous (the next step's batch depends on this one's chunk
+        progress), so finished rows release pages immediately."""
+        chunk_seq = batch.seqs[-1]
+        if self._sanitizer is not None:
+            # Every decode row writes one KV slot, at its next position: a
+            # one-token decode window for the KV shadow, which so learns of
+            # the rejected-draft slots these writes overwrite. (The JAX
+            # engine has no hook here, and its shadow then flags such a
+            # slot as stale at the next spec step.)
+            Tp = len(batch.tokens) - batch.page_tables.shape[0]
+            D = len(batch.seqs) - 1
+            self._sanitizer.on_decode_dispatch(
+                batch.seqs[:D], batch.positions[Tp:Tp + D], 1)
+        self.stats.prefill_tokens += batch.prefill_token_count
+        toks_np, lps_np, top_i, top_l = self._fetch_step(
+            self._dispatch_step(batch))
+        # A partial chunk's sampled row is meaningless (prompt unfinished):
+        # route it through the zombie set so _process_window skips it.
+        zombies = {chunk_seq.request_id} if batch.partial else set()
+        with self.obs.phases.phase("postproc"):
+            outs = self._process_window(batch, toks_np, lps_np, zombies,
+                                        defer=False, top_ids=top_i,
+                                        top_lps=top_l)
+        self._last_step_info = (
+            "mixed", batch.num_seqs, None,
+            {"prefill_tokens": batch.prefill_token_count,
+             "decode_tokens": batch.num_seqs - 1})
+        return outs
 
     def _forward(self, kind: str, tokens, meta, page_table=None,
                  hist_len=None) -> torch.Tensor:
@@ -1192,7 +1186,7 @@ class LLMEngine:
         that feed sampling: through the pipeline under pp, with ring
         attention for a prefill under sp, else the plain forward."""
         cfg = self.model_config
-        extra = () if page_table is None else (page_table, hist_len)
+        extra = (page_table, hist_len) if kind == "prefill_hist" else ()
         if self.pp_size > 1:
             return pipeline_forward(kind, self.params, cfg, tokens, meta,
                                     self.kv_cache, self.groups, *extra)[0]
@@ -1205,84 +1199,218 @@ class LLMEngine:
         return fwd(self.params, cfg, tokens, meta, self.kv_cache, *extra,
                    groups=self.groups)[0]
 
-    def _prefill_counts(self, batch: ScheduledBatch, tokens: torch.Tensor,
-                        meta) -> torch.Tensor:
-        """Output-token histogram at the PREFILL sampling point. A
+    # -- the prefill, solo-chunk and mixed programs --------------------------
+
+    @staticmethod
+    def _step_program_key(batch: ScheduledBatch) -> tuple:
+        """The program of a prefill, solo-chunk or mixed batch, keyed by the
+        shapes the JAX jit caches key it by: ("prefill", T, B),
+        ("prefill_hist", T, W), ("mixed", Tp, R, W); every one a bucket the
+        scheduler already chose."""
+        T = batch.tokens.shape[0]
+        R = batch.temperature.shape[0]
+        if batch.kind == "mixed":
+            return ("mixed", T - R, R, batch.chunk_page_table.shape[1])
+        if batch.hist_len is not None:
+            return ("prefill_hist", T, batch.page_tables.shape[1])
+        return ("prefill", T, R)
+
+    def _program_layout(self, key) -> tuple[dict, dict]:
+        return (self._window_layout(key) if key[0] in ("greedy", "sampled")
+                else self._step_layout(key))
+
+    def _step_layout(self, key) -> tuple[dict, dict]:
+        """The (inputs, state) buffers of a prefill, solo-chunk or mixed
+        program: the token axis, the sampled rows' parameters and bias
+        slots (-1 when empty), the step key, and the family's own inputs
+        (prompt lengths for the prefill's in-batch penalty counts; a
+        chunk's history length and page tables). State is a chunk's
+        ``[R, out_cap]`` penalty history, written only when a row has
+        penalties, and the outputs every run overwrites."""
+        family = key[0]
+        if family == "prefill":
+            _, n, R = key
+        elif family == "prefill_hist":
+            _, n, W = key
+            R = _bucket(1, self.config.scheduler.decode_buckets)
+        else:
+            _, Tp, R, W = key
+            n = Tp + R
+        i32, f32 = torch.int32, torch.float32
+        inputs = {name: ((n,), i32) for name in (
+            "tokens", "seg_ids", "positions", "slot_mapping")}
+        inputs.update(
+            {name: ((R,), i32) for name in ("logits_indices", "top_k",
+                                            "seed")},
+            step_key=((1,), i32), bias_ids=((R, LOGIT_BIAS_CAP), i32),
+            bias_vals=((R, LOGIT_BIAS_CAP), f32),
+            **{name: ((R,), f32) for name in (
+                "temperature", "top_p", "presence", "frequency")})
+        state = {"out_tok": ((R,), i32), "out_lp": ((R,), f32),
+                 "out_tid": ((R, TOP_LOGPROBS), i32),
+                 "out_tlp": ((R, TOP_LOGPROBS), f32)}
+        if family == "prefill":
+            inputs["prompt_lens"] = ((R,), i32)
+            return inputs, state
+        inputs["hist_len"] = ((1,), i32)
+        state["out_tokens"] = ((R, self._out_cap), i32)
+        if family == "prefill_hist":
+            inputs["page_table"] = ((1, W), i32)
+        else:
+            pps = cdiv(self.config.effective_max_len,
+                       self.config.cache.page_size)
+            inputs.update(chunk_page_table=((1, W), i32),
+                          page_tables=((R, pps), i32),
+                          context_lens=((R,), i32))
+        return inputs, state
+
+    def _prefill_meta(self, bufs) -> "model_lib.PrefillMeta":
+        return model_lib.PrefillMeta(
+            seg_ids=bufs["seg_ids"], positions=bufs["positions"],
+            slot_mapping=bufs["slot_mapping"],
+            logits_indices=bufs["logits_indices"])
+
+    def _prefill_body(self, key, bufs) -> None:
+        """One ragged prefill of program ``key`` over its static buffers:
+        the forward, then ``_sample_step`` with the in-batch penalty
+        counts. Like every body a program captures, nothing here reads a
+        device value on the host, branches on one or uploads (KGCT001)."""
+        hidden = self._forward("prefill", bufs["tokens"],
+                               self._prefill_meta(bufs))
+        self._sample_step(bufs, hidden, self._prefill_counts(bufs))
+
+    def _prefill_hist_body(self, key, bufs) -> None:
+        """One solo chunk of program ``key``: the chunk over its history
+        (``hist_len`` read on the device by every layer's kernel), then
+        ``_sample_step`` with counts from the penalty history."""
+        hidden = self._forward("prefill_hist", bufs["tokens"],
+                               self._prefill_meta(bufs),
+                               bufs["page_table"][0], bufs["hist_len"])
+        self._sample_step(bufs, hidden, build_counts(
+            bufs["out_tokens"], self.model_config.vocab_size))
+
+    def _mixed_body(self, key, bufs) -> None:
+        """One mixed step of program ``key``: the chunk and the decode rows
+        in one forward, then ``_sample_step`` on every row, the chunk's
+        included, with counts from the penalty history."""
+        meta = model_lib.MixedMeta(
+            seg_ids=bufs["seg_ids"], positions=bufs["positions"],
+            slot_mapping=bufs["slot_mapping"],
+            logits_indices=bufs["logits_indices"],
+            chunk_page_table=bufs["chunk_page_table"],
+            hist_len=bufs["hist_len"], page_tables=bufs["page_tables"],
+            context_lens=bufs["context_lens"])
+        hidden, _, _ = model_lib.forward_mixed(
+            self.params, self.model_config, bufs["tokens"], meta,
+            self.kv_cache, groups=self.groups)
+        self._sample_step(bufs, hidden, build_counts(
+            bufs["out_tokens"], self.model_config.vocab_size))
+
+    def _sample_step(self, bufs, hidden: torch.Tensor,
+                     counts: torch.Tensor) -> None:
+        """The logits of a step's sampled rows and their draw into the
+        program's outputs, on every row, as the JAX programs sample
+        whether the host reads a row or not."""
+        logits = model_lib.compute_logits(self.params, self.model_config,
+                                          hidden, groups=self.groups)
+        idx = bufs["logits_indices"].to(torch.int64)
+        toks, lps, tids, tlps = self._sample_rows(
+            bufs, logits, counts, bufs["positions"][idx] + 1)
+        bufs["out_tok"].copy_(toks)
+        bufs["out_lp"].copy_(lps)
+        bufs["out_tid"].copy_(tids)
+        bufs["out_tlp"].copy_(tlps)
+
+    def _prefill_counts(self, bufs) -> torch.Tensor:
+        """Output-token histogram [R, V] at the PREFILL sampling point. A
         recompute-preemption re-prefill carries the sequence's generated
         tokens IN the batch, so tokens at positions >= the row's prompt
-        length are outputs; fresh admissions penalize nothing."""
-        B = len(batch.temperature)
-        seg = meta.seg_ids.to(torch.int64)
-        row = torch.clamp(seg, 0, B - 1)
-        prompt_lens = self._up(batch.prompt_lens)
-        out_mask = (seg >= 0) & (meta.positions >= prompt_lens[row])
-        counts = torch.zeros((B, self.model_config.vocab_size),
-                             dtype=torch.int32, device=self.device)
-        counts.index_put_((row, tokens.to(torch.int64)),
-                          out_mask.to(torch.int32), accumulate=True)
-        return counts
+        length are outputs; fresh admissions count nothing. One flat
+        ``scatter_add_`` (an accumulating ``index_put_`` may not be
+        captured); ids outside the vocabulary count nowhere."""
+        V = self.model_config.vocab_size
+        R = bufs["prompt_lens"].shape[0]
+        seg = bufs["seg_ids"].to(torch.int64)
+        tok = bufs["tokens"].to(torch.int64)
+        row = torch.clamp(seg, 0, R - 1)
+        out = ((seg >= 0) & (bufs["positions"] >= bufs["prompt_lens"][row])
+               & (tok >= 0) & (tok < V))
+        counts = torch.zeros(R * V, dtype=torch.int32, device=tok.device)
+        counts.scatter_add_(0, torch.where(out, row * V + tok, 0),
+                            out.to(torch.int32))
+        return counts.view(R, V)
 
-    def _step_mixed(self, batch: ScheduledBatch) -> list[RequestOutput]:
-        """Execute one mixed step: every decode row's sampled token appends
-        (with stop checks), the chunk's KV commits in the forward's scatter,
-        and the chunk row's sampled token is the sequence's first generated
-        token on a FINAL chunk — or discarded (zombie row) while the prompt
-        is partial. Mixed steps are synchronous (the next step's batch
-        depends on this one's chunk progress), so finished rows release
-        pages immediately."""
+    def _dispatch_step(self, batch: ScheduledBatch) -> Optional[tuple]:
+        """Run a prefill, solo-chunk or mixed batch through its program:
+        fill its static inputs (one pinned upload per dtype) and, when a
+        chunk's row has penalties, its penalty history (rebuilt from the
+        host-known outputs, as ``_dispatch_window`` rebuilds its counts;
+        otherwise its stale contents meet zero penalties and change no
+        bit); run or replay it; then, unless nothing of the step is read
+        (a partial solo chunk), record the compute's end and enqueue the
+        one device->host copy of the outputs the batch reads. Returns
+        (event, fetch) or None."""
         ph = self.obs.phases.phase
-        cfg = self.model_config
-        chunk_seq = batch.seqs[-1]
-        if self._sanitizer is not None:
-            # Every decode row writes one KV slot, at its next position: a
-            # one-token decode window for the KV shadow, which so learns of
-            # the rejected-draft slots these writes overwrite. (The JAX
-            # engine has no hook here, and its shadow then flags such a
-            # slot as stale at the next spec step.)
-            Tp = len(batch.tokens) - batch.page_tables.shape[0]
-            D = len(batch.seqs) - 1
-            self._sanitizer.on_decode_dispatch(
-                batch.seqs[:D], batch.positions[Tp:Tp + D], 1)
-        with ph("host_prep"):
-            smp = self._sampling(batch)
-            tokens = self._up(batch.tokens)
-            meta = model_lib.MixedMeta(
-                seg_ids=self._up(batch.seg_ids),
-                positions=self._up(batch.positions),
-                slot_mapping=self._up(batch.slot_mapping),
-                logits_indices=self._up(batch.logits_indices),
-                chunk_page_table=self._up(batch.chunk_page_table),
-                hist_len=int(batch.hist_len),
-                page_tables=self._up(batch.page_tables),
-                context_lens=self._up(batch.context_lens))
-            out_tokens = (self._penalty_out_tokens(batch) if smp.any_pen
-                          else None)
-        self.stats.prefill_tokens += batch.prefill_token_count
+        key = self._step_program_key(batch)
+        family = key[0]
+        bufs = self._programs.buffers(key)
         step_key = self._next_step_key()
+        with ph("host_prep"):
+            ids, vals = self._bias_arrays(batch)
+            inputs = {name: getattr(batch, name) for name in (
+                "tokens", "seg_ids", "positions", "slot_mapping",
+                "logits_indices", "top_k", "seed", "temperature", "top_p",
+                "presence", "frequency")}
+            inputs.update(step_key=[step_key], bias_ids=ids, bias_vals=vals)
+            if family == "prefill":
+                inputs["prompt_lens"] = batch.prompt_lens
+            else:
+                inputs["hist_len"] = [batch.hist_len]
+                if np.any(batch.presence) or np.any(batch.frequency):
+                    bufs["out_tokens"].copy_(self._penalty_out_tokens(batch))
+            if family == "prefill_hist":
+                inputs["page_table"] = batch.page_tables
+            elif family == "mixed":
+                inputs.update(chunk_page_table=batch.chunk_page_table,
+                              page_tables=batch.page_tables,
+                              context_lens=batch.context_lens)
+            bufs.upload(inputs)
         with ph("device_dispatch"):
-            hidden, _, _ = model_lib.forward_mixed(
-                self.params, cfg, tokens, meta, self.kv_cache,
-                groups=self.groups)
-            logits = model_lib.compute_logits(self.params, cfg, hidden,
-                                              groups=self.groups)
-            counts = (build_counts(out_tokens, cfg.vocab_size)
-                      if out_tokens is not None else None)
-            idx = meta.logits_indices.to(torch.int64)
-            pos_next = meta.positions[idx] + 1
-            outs = self._sample(logits, smp, pos_next, step_key, counts)
-        toks_np, lps_np, top_i, top_l = self._fetch_step_outputs(*outs, batch)
-        # A partial chunk's sampled row is meaningless (prompt unfinished):
-        # route it through the zombie set so _process_window skips it.
-        zombies = {chunk_seq.request_id} if batch.partial else set()
-        with ph("postproc"):
-            outs = self._process_window(batch, toks_np, lps_np, zombies,
-                                        defer=False, top_ids=top_i,
-                                        top_lps=top_l)
-        self._last_step_info = (
-            "mixed", batch.num_seqs, None,
-            {"prefill_tokens": batch.prefill_token_count,
-             "decode_tokens": batch.num_seqs - 1})
-        return outs
+            self._programs.run(key)
+            if batch.kind == "prefill" and batch.partial:
+                return None
+            done = self._record_event()
+            outs = ("out_tok", "out_lp") + (
+                ("out_tid", "out_tlp")
+                if any(s.params.top_logprobs for s in batch.seqs) else ())
+            return done, self._start_fetch(*(bufs[name] for name in outs))
+
+    def _record_event(self) -> Optional["torch.cuda.Event"]:
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def _fetch_step(self, pending: tuple):
+        """Wait for a dispatched step's outputs, split into device compute
+        (its event) and the copy itself for the TTFT decomposition
+        ("prefill" carries the compute, "first_fetch" only the transfer).
+        Returns tokens and logprobs [R, 1] and the alternatives [R, 1, 5]
+        (None when the batch asked for none)."""
+        done, fetch = pending
+        with self.obs.phases.phase("device_fetch"):
+            t0f = time.perf_counter()
+            if done is not None:
+                done.synchronize()
+            compute_s = time.perf_counter() - t0f
+            toks, lps, *tops = self._finish_fetch(fetch)
+        self._ttft_transfer_s = max(
+            self.obs.phases.current_durs.get("device_fetch", 0.0)
+            - compute_s, 0.0)
+        top_i, top_l = ((t[:, None] for t in tops) if tops
+                        else (None, None))
+        return toks[:, None], lps[:, None], top_i, top_l
 
     def _verify(self, logits: torch.Tensor, smp: _Sampling, drafts_flat,
                 context_lens: torch.Tensor, S: int, step_key: int,
@@ -1431,7 +1559,7 @@ class LLMEngine:
                 slot_mapping=self._up(batch.slot_mapping),
                 logits_indices=self._up(batch.logits_indices),
                 chunk_page_table=self._up(batch.chunk_page_table),
-                hist_len=int(batch.hist_len),
+                hist_len=self._up(np.array([batch.hist_len], np.int32)),
                 page_tables=self._up(batch.page_tables[:, :width]),
                 context_lens=self._up(batch.context_lens))
             out_tokens = (self._penalty_out_tokens(batch)
@@ -1543,16 +1671,30 @@ class LLMEngine:
             state["counts"] = ((B, self.model_config.vocab_size), i32)
         return inputs, state
 
+    def _sample_rows(self, bufs, logits: torch.Tensor, counts: torch.Tensor,
+                     pos_next: torch.Tensor) -> tuple:
+        """The sampled programs' stage over every row: bias, penalties,
+        filters and the draw, each row's own parameters deciding on the
+        device (temperature 0 takes the argmax, top_k 0 and top_p 1 cut
+        nothing, zero penalties and empty bias slots add exact zeros).
+        Returns (tokens, logprobs, top ids, top logprobs)."""
+        logits = apply_logit_bias(logits, bufs["bias_ids"], bufs["bias_vals"])
+        logits = apply_penalties(logits, counts, bufs["presence"],
+                                 bufs["frequency"])
+        keys = row_sample_keys(bufs["step_key"], bufs["seed"],
+                               pos_next)
+        return sample_and_logprobs(
+            logits, keys, bufs["temperature"], bufs["top_k"], bufs["top_p"],
+            any_sampled=True, needs_filter=True, with_top=True)
+
     def _window_body(self, key, bufs) -> None:
         """One W-substep decode window of program ``key`` over its static
         buffers: every substep's sampled tokens feed the next; positions,
         slots and context lengths are recomputed per substep from the page
         tables. The function a program captures, so nothing here reads a
         device value on the host, branches on one or uploads (KGCT001):
-        the greedy variant is argmax-only; the sampled one applies bias,
-        penalties, filters and the draw to every row, each row's own
-        parameters deciding on the device (``ops/sampling.py``), and bumps
-        the carried counts in place."""
+        the greedy variant is argmax-only; the sampled one runs
+        ``_sample_rows`` and bumps the carried counts in place."""
         variant, _ = key
         cfg = self.model_config
         tokens, pos = bufs["tokens0"], bufs["positions"]
@@ -1566,16 +1708,8 @@ class LLMEngine:
                 lps = token_logprobs(logits, tokens)
                 tids, tlps = top_logprobs(logits)
             else:
-                logits = apply_logit_bias(logits, bufs["bias_ids"],
-                                          bufs["bias_vals"])
-                logits = apply_penalties(logits, bufs["counts"],
-                                         bufs["presence"], bufs["frequency"])
-                keys = row_sample_keys(bufs["step_key"], bufs["seed"],
-                                       pos + 1)
-                tokens, lps, tids, tlps = sample_and_logprobs(
-                    logits, keys, bufs["temperature"], bufs["top_k"],
-                    bufs["top_p"], any_sampled=True, needs_filter=True,
-                    with_top=True)
+                tokens, lps, tids, tlps = self._sample_rows(
+                    bufs, logits, bufs["counts"], pos + 1)
                 bufs["counts"].scatter_add_(
                     1, tokens.to(torch.int64)[:, None],
                     torch.ones_like(bufs["counts"][:, :1]))

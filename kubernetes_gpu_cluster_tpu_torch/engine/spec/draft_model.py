@@ -404,8 +404,9 @@ class DraftModelRunner(DraftProposer):
             meta = PrefillMeta(seg_ids=self._up(seg), positions=self._up(pos),
                                slot_mapping=self._up(slot),
                                logits_indices=self._up(np.zeros(1, np.int32)))
-            model_lib.forward_prefill_hist(self.params, cfg, self._up(tokens),
-                                           meta, self.kv_cache, table, start)
+            model_lib.forward_prefill_hist(
+                self.params, cfg, self._up(tokens), meta, self.kv_cache,
+                table, self._up(np.array([start], np.int32)))
             self.num_reset_prefills += 1
             start = end
         row.valid = n_hist

@@ -1,38 +1,49 @@
-"""The decode window's step programs: one captured CUDA graph per (variant,
-decode bucket), the counterpart of the JAX engine's per-bucket jit programs
-(``_maybe_jit`` and the jit cache behind ``compiled_step_variants``).
+"""The engine's step programs: one captured CUDA graph per program key, the
+counterpart of the JAX engine's per-bucket jit programs (``_maybe_jit`` and
+the jit caches behind ``compiled_step_variants``).
 
-A program is keyed ``(variant, B)``: variant "greedy" or "sampled" (the JAX
-engine's two decode programs), B a bucket of ``SchedulerConfig.
-decode_buckets`` (the page-table width is fixed per engine), so the cache
-holds at most two programs per bucket. Each key owns its
-``StaticBuffers``: inputs the dispatcher fills before every run, state it
-carries between runs (the first tokens, the penalty counts) and outputs
-that every run overwrites.
+A key's first element names its family; the rest are the bucketed shapes
+its JAX jit cache is keyed by:
 
-- On the card, a key's first window is its warm-up: the body runs eagerly
-  on the capture stream (cuBLAS handles and workspaces, the kernels'
-  launch records and workspaces, the rope table all come to exist there)
-  and that run is the window's result. Then the body is captured into a
-  ``torch.cuda.CUDAGraph``, and every later window of the key replays it.
+- ``("greedy" | "sampled", B)``: the decode window (the JAX engine's two
+  decode programs), B a bucket of ``SchedulerConfig.decode_buckets``;
+- ``("prefill", T, B)``: a ragged prefill of T tokens (a prefill bucket)
+  sampling B rows (a decode bucket);
+- ``("prefill_hist", T, W)``: one sequence's solo chunk of T tokens over
+  a page table W pages wide (the power of two of
+  ``Scheduler._chunk_page_table``);
+- ``("mixed", Tp, R, W)``: a chunk of Tp tokens, R decode rows (the chunk
+  samples on one of them) and the chunk's table width W.
+
+Each key owns its ``StaticBuffers``: inputs the dispatcher fills before
+every run, state it carries between runs or writes only when it changes
+(the decode window's first tokens and penalty counts, a chunk's penalty
+history) and outputs that every run overwrites.
+
+- On the card, a key's first run is its warm-up: the body runs eagerly on
+  the capture stream (cuBLAS handles and workspaces, the kernels' launch
+  records and workspaces, the rope table all come to exist there) and that
+  run is the step's result. Then the body is captured into a
+  ``torch.cuda.CUDAGraph``, and every later run of the key replays it.
   Capture happens lazily, as ``jax.jit`` compiles at the first call.
 - All graphs share one memory pool. Nothing allocated inside a capture
   outlives it (the body writes into the static buffers), and replays never
   overlap: they run on the engine's one stream. So one program's scratch
   can be another's, and the kernels' shared workspaces too.
-- A capture that fails raises ``CaptureError``: the window is never run
-  eagerly in its place.
+- A capture that fails raises ``CaptureError`` (a capture out of memory
+  too): the step is never run eagerly in its place.
 - On the CPU nothing is captured (only CUDA captures): the cache keys the
   same programs around the eager body, so the program count
   (``kgct_jit_compiles_total``) and the compile guard read the same in the
   CPU tests as on the card.
 - ``enabled=False`` (``EngineConfig.enforce_eager``; ranks under
   torch.distributed, whose gloo collectives stage through the host and
-  cannot be captured) runs the body eagerly and builds no program.
+  cannot be captured) runs the same body eagerly over the same buffers and
+  builds no program.
 
-The body is called as ``body(key, buffers)``: the key is static Python
-data, the buffers are tensors; branching on the first is free, on the
-second it is a host read that capture refuses (KGCT001).
+A body is called as ``body(key, buffers)``: the key is static Python data,
+the buffers are tensors; branching on the first is free, on the second it
+is a host read that capture refuses (KGCT001).
 """
 
 from __future__ import annotations
@@ -49,8 +60,27 @@ from ..ops import cuda as cuda_ops
 Layout = dict[str, tuple[tuple[int, ...], torch.dtype]]
 
 
+def activation_bytes(cfg, tokens: int, rows: int, out_cap: int) -> int:
+    """A reckoning from above of what one prefill program of ``tokens``
+    tokens and ``rows`` sampled rows allocates while it runs, which the
+    graphs' shared pool keeps once the program is captured: per layer the
+    MLP's fp32 gate and up, their fp32 product and its model-dtype cast (14
+    bytes a token and ffn column; one expert more in flight under the
+    dense MoE dispatch), the fp32 projections, RoPE and norm rows; every
+    layer's new K/V until the one scatter; and the sampling stage's [rows,
+    vocab] fp32 temporaries (the filter tiers' sort among them, 16 rows'
+    worth) with a chunk's penalty history."""
+    item = 4 if cfg.dtype == "float32" else 2
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    mlp = 14 * cfg.intermediate_size * (2 if cfg.is_moe else 1)
+    layer = tokens * (mlp + 16 * cfg.hidden_size + 12 * qkv)
+    kv = 2 * cfg.num_layers * tokens * cfg.num_kv_heads * cfg.head_dim * item
+    sampling = rows * (16 * 4 * cfg.vocab_size + 4 * out_cap)
+    return layer + kv + sampling
+
+
 class CaptureError(RuntimeError):
-    """A program's capture failed; its window does not run eagerly
+    """A program's capture failed; its step does not run eagerly
     instead."""
 
 
@@ -106,14 +136,15 @@ class StaticBuffers:
 
 class StepPrograms:
     """The program cache of one engine: ``buffers(key)`` gives a key's
-    static buffers (made at its first window), ``run(key)`` runs its
-    window: eagerly, or captured once and replayed."""
+    static buffers (made at its first run), ``run(key)`` runs its step:
+    eagerly, or captured once and replayed."""
 
-    def __init__(self, body: Callable, layout: Callable, device: torch.device,
-                 enabled: bool):
-        """``body(key, buffers)`` is one window; ``layout(key)`` gives the
-        (inputs, state) ``Layout``s of a key's buffers."""
-        self._body = body
+    def __init__(self, bodies: dict[str, Callable], layout: Callable,
+                 device: torch.device, enabled: bool):
+        """``bodies[family](key, buffers)`` is one step of a key of that
+        family (``key[0]``); ``layout(key)`` gives the (inputs, state)
+        ``Layout``s of a key's buffers."""
+        self._bodies = bodies
         self._layout = layout
         self.device = device
         self.enabled = enabled
@@ -123,8 +154,8 @@ class StepPrograms:
         self._stream: Optional[torch.cuda.Stream] = None
         self._pool = None
         # Per capture: host seconds of the capture itself (the warm-up
-        # window is not in it); the shared pool's growth in reserved bytes;
-        # windows run by replay.
+        # run is not in it); the shared pool's growth in reserved bytes;
+        # steps run by replay.
         self.capture_seconds: list[float] = []
         self.pool_bytes = 0
         self.replays = 0
@@ -134,8 +165,10 @@ class StepPrograms:
         CPU; 0 when disabled."""
         return len(self._programs)
 
-    def keys(self) -> list:
-        return sorted(self._programs)
+    def keys(self, family: Optional[str] = None) -> list:
+        """The programs built, sorted; only ``family``'s when given."""
+        return sorted(k for k in self._programs
+                      if family is None or k[0] == family)
 
     def recorded_launches(self) -> dict:
         """Per captured program, the kernel launches its graph holds."""
@@ -150,25 +183,26 @@ class StepPrograms:
         return bufs
 
     def run(self, key) -> None:
-        """One window of ``key`` over its buffers, on the current stream."""
+        """One step of ``key`` over its buffers, on the current stream."""
         bufs = self.buffers(key)
+        body = self._bodies[key[0]]
         if not self.enabled:
-            self._body(key, bufs)
+            body(key, bufs)
             return
         prog = self._programs.get(key)
         if not self.captures:
             self._programs[key] = None
-            self._body(key, bufs)
+            body(key, bufs)
         elif prog is None:
-            self._programs[key] = self._capture(key, bufs)
+            self._programs[key] = self._capture(key, body, bufs)
         else:
             graph, launches = prog
             graph.replay()
             self.replays += 1
             cuda_ops.add_launches(launches)
 
-    def _capture(self, key, bufs: StaticBuffers) -> tuple:
-        """Warm up (this window, eagerly, on the capture stream), then
+    def _capture(self, key, body: Callable, bufs: StaticBuffers) -> tuple:
+        """Warm up (this step, eagerly, on the capture stream), then
         capture the body into a graph in the shared pool. Returns (graph,
         kernel launches the graph holds by kernel)."""
         main = torch.cuda.current_stream(self.device)
@@ -178,7 +212,7 @@ class StepPrograms:
         side = self._stream
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            self._body(key, bufs)
+            body(key, bufs)
             before = cuda_ops.launch_counts()
             reserved = torch.cuda.memory_reserved(self.device)
             t0 = time.perf_counter()
@@ -188,12 +222,12 @@ class StepPrograms:
             graph.capture_begin(pool=self._pool,
                                 capture_error_mode="thread_local")
             try:
-                self._body(key, bufs)
+                body(key, bufs)
                 graph.capture_end()
-            except Exception as err:
+            except Exception as err:    # out of memory too
                 self._abandon(graph)
                 cuda_ops.set_launch_counts(before)
-                raise CaptureError(f"capture of decode program {key} "
+                raise CaptureError(f"capture of step program {key} "
                                    f"failed: {err}") from err
         self.capture_seconds.append(time.perf_counter() - t0)
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved

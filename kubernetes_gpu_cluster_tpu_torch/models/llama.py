@@ -105,7 +105,7 @@ class MixedMeta(NamedTuple):
     slot_mapping: torch.Tensor     # [T] KV write slot (pad -> scrap page)
     logits_indices: torch.Tensor   # [R_pad] decode rows, then the chunk's last
     chunk_page_table: torch.Tensor # [1, hist_width] the chunk seq's pages
-    hist_len: int                  # chunk history already in the pool
+    hist_len: torch.Tensor         # [1] int32 chunk history in the pool
     page_tables: torch.Tensor      # [R_pad, pages_bucket] decode page tables
     context_lens: torch.Tensor     # [R_pad] decode valid tokens incl. current
 
@@ -571,10 +571,12 @@ def forward_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def forward_prefill_hist(params: Params, cfg: ModelConfig,
                          tokens: torch.Tensor, meta: PrefillMeta, kv: KVCache,
-                         page_table: torch.Tensor, hist_len: int,
+                         page_table: torch.Tensor, hist_len: torch.Tensor,
                          groups=None, hidden_in=None):
     """Chunked prefill: one sequence's chunk attending to its pool history
-    plus itself causally. Returns (normed_selected [1, d], kv, raw_hidden)."""
+    plus itself causally. ``hist_len``: [1] int32 on the step's device,
+    made once per forward (every layer's kernel reads it there). Returns
+    (normed_selected [1, d], kv, raw_hidden)."""
     scale = cfg.head_dim ** -0.5
     n_valid = prefill_history_valid(meta.seg_ids)  # once for all layers
 

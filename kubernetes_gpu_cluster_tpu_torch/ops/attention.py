@@ -120,7 +120,8 @@ def prefill_history_attention_plain(
     k_pool: torch.Tensor,     # [P, ps, n_kv*hd] or [L, P, ps, n_kv*hd]
     v_pool: torch.Tensor,
     page_table: torch.Tensor, # [pages_per_seq] (this sequence's pages)
-    hist_len,                 # int (or 0-d tensor): tokens already committed
+    hist_len,                 # int, or an int32 [1] / 0-d tensor: tokens
+                              # already committed
     scale: float,
     layer: Optional[int] = None,
 ) -> torch.Tensor:
@@ -270,9 +271,10 @@ def prefill_history_valid(seg_ids: torch.Tensor) -> torch.Tensor:
 def prefill_history_attention(q, k, v, seg_ids, positions, k_pool, v_pool,
                               page_table, hist_len, scale, *, layer=None,
                               n_valid=None):
-    """``n_valid``: the kernel's chunk length (``prefill_history_valid``),
-    when the caller computed it once for all layers; the plain path needs
-    none."""
+    """``hist_len``: an int32 [1] tensor on q's device (the kernel reads it
+    there; the plain path also takes an int). ``n_valid``: the kernel's
+    chunk length (``prefill_history_valid``), when the caller computed it
+    once for all layers; the plain path needs none."""
     if _on_cpu(q):
         return prefill_history_attention_plain(
             q, k, v, seg_ids, positions, k_pool, v_pool, page_table,

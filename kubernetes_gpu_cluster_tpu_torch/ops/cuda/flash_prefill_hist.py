@@ -7,9 +7,13 @@ JAX package. The plain version is
 
 Shape checks and a C launch record are cached per (shapes, dtypes, scale,
 device) key, so a call makes its device and contiguity checks, one
-allocation and one ctypes call. The chunk's valid length ``n_valid`` stays
-on the device: the caller computes it once per forward (``valid_tokens``)
-and every layer's call reads it; a call without it computes it itself.
+allocation and one ctypes call. The chunk's valid length ``n_valid`` and
+its history length ``hist_len`` stay on the device as int32 [1] tensors
+that the kernel reads: nothing of one chunk is passed by value, so a launch
+captured in a CUDA graph serves every chunk a replay writes into them. The
+caller computes ``n_valid`` once per forward (``valid_tokens``) and every
+layer's call reads it; a call without it computes it itself. ``hist_len``
+is the caller's, uploaded once per forward.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("flash_prefill_hist")
     fn = lib.kgct_flash_prefill_hist
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I, ctypes.POINTER(LaunchArgs), _P]
+        fn.argtypes = [_P] * 9 + [ctypes.POINTER(LaunchArgs), _P]
         fn.restype = _I
     return lib
 
@@ -61,6 +65,15 @@ class _Launch(NamedTuple):
 
 # (shapes, dtypes, scale, device index) -> _Launch
 _launch_cache: dict[tuple, _Launch] = {}
+
+
+def _check_scalar(name: str, t, dev: int) -> None:
+    if not (isinstance(t, torch.Tensor) and t.dtype == torch.int32
+            and t.get_device() == dev and t.numel() == 1):
+        what = (f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                if isinstance(t, torch.Tensor) else type(t).__name__)
+        raise ValueError(f"flash_prefill_hist: {name} must be one int32 on "
+                         f"cuda:{dev}, got {what}")
 
 
 def _prepare(q, k, v, seg_ids, k_pool, v_pool, page_table,
@@ -96,12 +109,14 @@ def _prepare(q, k, v, seg_ids, k_pool, v_pool, page_table,
 def flash_prefill_hist(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        seg_ids: torch.Tensor, positions: torch.Tensor,
                        k_pool: torch.Tensor, v_pool: torch.Tensor,
-                       page_table: torch.Tensor, hist_len: int, scale: float,
+                       page_table: torch.Tensor, hist_len: torch.Tensor,
+                       scale: float,
                        *, layer: int | None = None,
                        n_valid: torch.Tensor | None = None) -> torch.Tensor:
     """q: [T, nh, hd]; k/v: [T, n_kv, hd] (this chunk); k_pool/v_pool:
     [P, ps, n_kv*hd] or [L, P, ps, n_kv*hd] with ``layer``; page_table:
-    [pps] int32; hist_len: tokens already committed (may be 0); seg_ids:
+    [pps] int32; hist_len: int32 [1] on the card, tokens already committed
+    (may be 0; a negative value reads as 0); seg_ids:
     [T] int32 (0 = chunk token, -1 = tail padding). ``positions`` is implied
     by the flat order and accepted for signature parity. ``n_valid`` is
     ``valid_tokens(seg_ids)`` when the caller has it already (one forward
@@ -120,24 +135,19 @@ def flash_prefill_hist(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if c is None:
         c = _launch_cache[key] = _prepare(q, k, v, seg_ids, k_pool, v_pool,
                                           page_table, scale)
-    hist_len = int(hist_len)
-    if hist_len < 0:
-        raise ValueError(f"flash_prefill_hist: hist_len {hist_len} < 0")
+    _check_scalar("hist_len", hist_len, dev)
     off = layer_offset("flash_prefill_hist", c.layers, c.layer_bytes, layer)
     out = torch.empty_like(q)
     if c.args is None:
         return out
     if n_valid is None:
         n_valid = valid_tokens(seg_ids)
-    elif (n_valid.dtype != torch.int32 or n_valid.get_device() != dev
-          or n_valid.numel() != 1):
-        raise ValueError(f"flash_prefill_hist: n_valid must be one int32 on "
-                         f"cuda:{dev}, got {n_valid.dtype} "
-                         f"{tuple(n_valid.shape)} on {n_valid.device}")
+    else:
+        _check_scalar("n_valid", n_valid, dev)
     code = c.fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 k_pool.data_ptr() + off, v_pool.data_ptr() + off,
-                page_table.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
-                hist_len, c.args, raw_stream(dev))
+                page_table.data_ptr(), n_valid.data_ptr(),
+                hist_len.data_ptr(), out.data_ptr(), c.args, raw_stream(dev))
     if code:
         build.check_status(_lib(), "flash_prefill_hist", code)
     launches += 1

@@ -82,7 +82,7 @@ def _microbatch(kind: str, tokens, meta, j: int, n: int, page_table,
         seg_ids=meta.seg_ids[rows], positions=meta.positions[rows],
         slot_mapping=meta.slot_mapping[rows],
         logits_indices=torch.zeros_like(meta.logits_indices[:1]))
-    return tokens[rows], sub, (page_table, int(hist_len) + j * n)
+    return tokens[rows], sub, (page_table, hist_len + j * n)
 
 
 _FORWARDS = {"prefill": model_lib.forward_prefill,
@@ -137,7 +137,8 @@ def pipeline_forward(kind: str, params, cfg: ModelConfig, tokens, meta, kv,
     the pipeline: the contract of ``models.llama.forward_<kind>`` on
     every rank of every stage. ``params`` and ``kv`` are this stage's
     (``L / S`` layers); ``tokens`` and ``meta`` the whole step's;
-    ``page_table`` and ``hist_len`` those of a history chunk. Returns
+    ``page_table`` and ``hist_len`` (an int32 [1] tensor) those of a
+    history chunk. Returns
     (normed rows that feed sampling, kv, the last stage's raw hidden
     ``[N, d]``), the same on every rank."""
     N = tokens.shape[0]

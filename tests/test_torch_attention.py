@@ -130,6 +130,37 @@ class TestPrefillHistory:
         _close(got, pallas)
         assert np.all(got[n_valid:] == 0)
 
+    @pytest.mark.parametrize("hist_len", [0, 5, 29])
+    def test_hist_len_tensor_matches_jax(self, hist_len):
+        """``hist_len`` as the int32 [1] tensor the engine's programs pass
+        (the kernel reads it on the device): the dispatcher's plain path
+        against the JAX reference at the same value, and bit-equal to the
+        int."""
+        T, n_valid, L, layer, nh, nkv, hd, ps = 16, 11, 2, 0, 4, 2, 32, 8
+        pps = 8
+        P = pps + 2
+        rng = np.random.default_rng(100 + hist_len)
+        q = rng.standard_normal((T, nh, hd)).astype(np.float32)
+        k = rng.standard_normal((T, nkv, hd)).astype(np.float32)
+        v = rng.standard_normal((T, nkv, hd)).astype(np.float32)
+        kp = rng.standard_normal((L, P, ps, nkv * hd)).astype(np.float32)
+        vp = rng.standard_normal((L, P, ps, nkv * hd)).astype(np.float32)
+        table = rng.permutation(np.arange(1, P))[:pps].astype(np.int32)
+        seg = np.where(np.arange(T) < n_valid, 0, -1).astype(np.int32)
+        pos = (hist_len + np.arange(T)).astype(np.int32)
+        scale = hd ** -0.5
+        args = (_t(q), _t(k), _t(v), _t(seg), _t(pos), _t(kp), _t(vp),
+                _t(table))
+        got = TA.prefill_history_attention(
+            *args, torch.tensor([hist_len], dtype=torch.int32), scale,
+            layer=layer).numpy()
+        want = JA.prefill_history_attention_xla(
+            q, k, v, seg, pos, kp, vp, table, jnp.int32(hist_len), scale,
+            layer=jnp.int32(layer))
+        _close(got, want)
+        np.testing.assert_array_equal(got, TA.prefill_history_attention(
+            *args, hist_len, scale, layer=layer).numpy())
+
 
 class TestPagedDecode:
     @pytest.mark.parametrize("nh,nkv,hd,ps", [(4, 2, 32, 8), (8, 8, 64, 16)])
@@ -301,7 +332,8 @@ def test_history_valid_tokens():
         torch.zeros(4, 2, 64), torch.zeros(4, 1, 64), torch.zeros(4, 1, 64),
         torch.zeros(4, dtype=torch.int32), torch.arange(4),
         torch.zeros(2, 8, 64), torch.zeros(2, 8, 64),
-        torch.zeros(1, dtype=torch.int32), 0, 0.1)),
+        torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
+        0.1)),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(fn, args):
     """A wrapper never falls back: a non-CUDA tensor is an error."""

@@ -3,28 +3,29 @@ and the programs themselves, on the CPU.
 
 ``tests/test_compile_guard.py`` is loaded with its imports re-pointed at
 the port (``torch_carry``) and its engines built on the CPU, where the
-program cache keys the same (greedy|sampled, decode bucket) programs
-around the eager window that the card captures (``engine/
-step_programs.py``). Exact substitutions (each must still match, or the
-load fails):
+program cache keys the same programs around the eager bodies that the
+card captures (``engine/step_programs.py``): the decode window per
+(greedy|sampled, decode bucket), the pure prefill, solo chunk and mixed
+step per key of the JAX bucket grid. Exact substitutions (each must still
+match, or the load fails):
 
 - ``_compiled_variants`` cross-checks the engine's count against the
   program cache's own keys (the JAX guard reads one raw jit cache);
-- each bound's terms for the families the port leaves eager this slice
-  (pure prefill, mixed, solo chunk, spec verify, spec×mixed, the draft
-  model's programs, the swap gather/scatter: ROADMAP A2) are multiplied
-  by 0 — they build no program, so the bound only tightens;
-- the draft wave runs no decode window (every step is a prefill, spec or
-  spec×mixed step), so its port count is exactly 0: ``0 < first`` becomes
-  ``0 == first`` there;
+- each bound's terms for the families the port still leaves eager (spec
+  verify, spec×mixed, the draft model's programs, the swap
+  gather/scatter: ROADMAP A2) are multiplied by 0 — they build no
+  program, so the bound only tightens; the pure-prefill, mixed and
+  solo-chunk terms stand as the JAX guard wrote them;
 - the engines take the JAX engine's default weights (its seed, through
   ``params_from_numpy``), so each wave steps as the reference's does.
 
-Then the programs: keys per (variant, bucket) within two per bucket,
-``enforce_eager`` building none with the same tokens, the device-side
-filter-tier choice and the tensor step key against the host-branch
-functions they replace, and the sampled program's rows against the JAX
-engine.
+Then the programs: per family the port's keys against the JAX jit
+caches on the guard's wave (equal on the greedy wave, no more on a
+sampled, penalized and biased one, none new on a repeat), keys per
+(variant, bucket) within two per bucket, ``enforce_eager`` building none
+with the same tokens, the device-side filter-tier choice and the tensor
+step key against the host-branch functions they replace, and the sampled
+program's rows against the JAX engine.
 """
 
 from __future__ import annotations
@@ -54,17 +55,11 @@ from torch_carry import carry, expose
 
 torch.set_num_threads(2)
 
-_EAGER = "eager in the port this slice (ROADMAP A2)"
+_EAGER = "eager in the port (ROADMAP A2)"
 _FIXES = [
     ("    if hasattr(eng._prefill_fn, \"_cache_size\"):\n"
      "        assert total >= eng._prefill_fn._cache_size()\n",
      "    assert total == len(eng._programs.keys())\n"),
-    ("    bound = (n_tp * n_rows          # pure prefill",
-     f"    bound = (0 * n_tp * n_rows      # pure prefill: {_EAGER}"),
-    ("             + n_tp * n_rows * 3    # mixed\n",
-     f"             + 0 * n_tp * n_rows * 3  # mixed: {_EAGER}\n"),
-    ("             + n_tp * 3             # solo chunk",
-     f"             + 0 * n_tp * 3         # solo chunk: {_EAGER}"),
     ("             + n_rows               # spec verify: one per row bucket",
      f"             + 0 * n_rows           # spec verify: {_EAGER}"),
     ("             + n_tp * n_rows * 3    # spec_mixed: (Tp x rows x widths)",
@@ -72,12 +67,8 @@ _FIXES = [
     ("             + n_rows               # draft decode: one per row bucket",
      f"             + 0 * n_rows           # draft decode: {_EAGER}"),
     ("             + 12)                  # draft chunked prefill (T x width "
-     "grid)\n    assert 0 < first <= bound, (first, bound)",
-     f"             + 0 * 12)              # draft chunked prefill: {_EAGER}\n"
-     "    # Every step of this wave is a prefill, spec or spec×mixed step (no\n"
-     "    # decode window: the oracle draft always proposes), all eager in\n"
-     "    # the port this slice: it builds no program.\n"
-     "    assert 0 == first <= bound, (first, bound)"),
+     "grid)\n",
+     f"             + 0 * 12)              # draft chunked prefill: {_EAGER}\n"),
     ("             + 2 * n_swap_sizes)    # swap gather + scatter, pow-2 "
      "sizes",
      f"             + 0 * 2 * n_swap_sizes)  # swap gather + scatter: "
@@ -108,7 +99,89 @@ def _carry_guard():
     return mod
 
 
-expose("test_compile_guard", _carry_guard(), None, globals())
+_GUARD = _carry_guard()
+expose("test_compile_guard", _GUARD, None, globals())
+
+
+# -- per family against the JAX jit caches -------------------------------------
+
+# The port's program family -> the JAX engine's jitted step function.
+_JAX_FNS = {"prefill": "_prefill_fn", "prefill_hist": "_prefill_hist_fn",
+            "mixed": "_mixed_fn", "greedy": "_decode_fn_greedy",
+            "sampled": "_decode_fn"}
+
+
+def _families(eng) -> dict:
+    if isinstance(eng, LLMEngine):
+        return {f: len(eng._programs.keys(f)) for f in _JAX_FNS}
+    return {f: getattr(eng, fn)._cache_size() for f, fn in _JAX_FNS.items()}
+
+
+def _sampled_wave(eng, tag: str, sp) -> None:
+    """The guard's wave (``_run_wave``: the same lengths and arrivals) with
+    a sampled, penalized, biased or alternatives-asking row per request."""
+    rng = np.random.default_rng(0)
+    lengths = [5, 16, 33, 60, 90, 12]
+    rows = [dict(temperature=0.8, seed=7),
+            dict(temperature=0.0, presence_penalty=0.5,
+                 frequency_penalty=0.3),
+            dict(temperature=0.7, top_k=5, top_p=0.9, logit_bias={3: 2.0}),
+            dict(temperature=1.0, logprobs=True, top_logprobs=2),
+            dict(temperature=0.0, logit_bias={11: -3.0}),
+            dict(temperature=0.9, seed=2, frequency_penalty=0.4)]
+    pending = [(f"{tag}-{i}", rng.integers(1, 500, n).tolist(),
+                sp(max_tokens=4, **rows[i]))
+               for i, n in enumerate(lengths)]
+    while pending or eng.has_unfinished_requests():
+        if pending:
+            eng.add_request(*pending.pop(0))
+        for _ in range(2):
+            if eng.has_unfinished_requests():
+                eng.step()
+    while eng.has_unfinished_requests():
+        eng.step()
+
+
+def _solo_wave(eng, tag: str, sp) -> None:
+    """One 70-token prompt on an idle engine: solo chunks of 32, 32 and 6
+    tokens over 4-, 8- and 16-page tables (the guard's wave mixes every
+    chunk)."""
+    prompt = np.random.default_rng(1).integers(1, 500, 70).tolist()
+    eng.add_request(f"{tag}-solo", prompt, sp(max_tokens=3,
+                                              temperature=0.0))
+    while eng.has_unfinished_requests():
+        eng.step()
+
+
+def test_families_match_the_jax_jit_caches():
+    """The guard's greedy wave, and a lone long prompt's solo chunks,
+    through the JAX engine and the port on one weight set: per family, the
+    port's programs equal the JAX function's ``_cache_size()``; a sampled,
+    penalized and biased wave adds no more programs to the port than to
+    JAX (one program per key, where the JAX decode window splits greedy
+    from sampled); a repeated wave adds none to either."""
+    import test_compile_guard as jguard
+    engines = {"jax": jguard._engine(), "port": _GUARD._engine()}
+    for name, sp in (("jax", JSP), ("port", SamplingParams)):
+        jguard._run_wave(engines[name], "w1")
+        _solo_wave(engines[name], "w1", sp)
+    counts = {k: _families(e) for k, e in engines.items()}
+    assert counts["port"] == counts["jax"], counts
+    assert all(counts["port"][f] > 0 for f in ("prefill", "prefill_hist",
+                                                "mixed", "greedy"))
+    for name, sp in (("jax", JSP), ("port", SamplingParams)):
+        jguard._run_wave(engines[name], "w2")
+        _solo_wave(engines[name], "w2", sp)
+    assert {k: _families(e) for k, e in engines.items()} == counts
+    for name, sp in (("jax", JSP), ("port", SamplingParams)):
+        _sampled_wave(engines[name], "s1", sp)
+    grown = {k: _families(e) for k, e in engines.items()}
+    for f in _JAX_FNS:
+        assert (grown["port"][f] - counts["port"][f]
+                <= grown["jax"][f] - counts["jax"][f]), (f, counts, grown)
+    assert grown["port"]["sampled"] > 0
+    _sampled_wave(engines["port"], "s2", SamplingParams)
+    assert _families(engines["port"]) == grown["port"]
 
 
 # -- the programs -------------------------------------------------------------
@@ -152,14 +225,16 @@ def _waves(eng):
 def test_program_keys_per_variant_and_bucket_bounded():
     eng = _engine()
     outs = _waves(eng)
-    keys = eng._programs.keys()
+    keys = eng._programs.keys("greedy") + eng._programs.keys("sampled")
     assert keys and set(keys) <= {(v, b) for v in ("greedy", "sampled")
                                   for b in BUCKETS}
     assert {v for v, _ in keys} == {"greedy", "sampled"}
-    assert eng.compiled_step_variants() == len(keys) <= 2 * len(BUCKETS)
+    assert len(keys) <= 2 * len(BUCKETS)
+    assert eng.compiled_step_variants() == len(eng._programs.keys())
     # Steady state: the same waves again build nothing new.
+    built = eng._programs.keys()
     assert _waves(eng) == outs
-    assert eng.compiled_step_variants() == len(keys)
+    assert eng._programs.keys() == built
 
 
 def test_enforce_eager_builds_no_programs_same_tokens():
@@ -181,14 +256,16 @@ def test_program_cache_counts_keys_only_when_enabled():
         bufs["y"].copy_(bufs["x"] * 2)
 
     for enabled, count in ((True, 2), (False, 0)):
-        progs = StepPrograms(body, layout, torch.device("cpu"), enabled)
-        for key in ("a", "b", "a"):
+        progs = StepPrograms({"a": body, "b": body}, layout,
+                             torch.device("cpu"), enabled)
+        for key in (("a", 1), ("b", 1), ("a", 1)):
             progs.buffers(key).upload({"x": np.array([1, 2])})
             progs.run(key)
         assert len(progs) == count
-        assert progs.buffers("a")["y"].tolist() == [2, 4]
+        assert progs.keys("a") == ([("a", 1)] if enabled else [])
+        assert progs.buffers(("a", 1))["y"].tolist() == [2, 4]
         assert not progs.captures
-    assert calls == ["a", "b", "a"] * 2
+    assert calls == [("a", 1), ("b", 1), ("a", 1)] * 2
 
 
 def test_static_buffers_upload_checks_shapes():
@@ -331,4 +408,5 @@ def test_sampled_program_greedy_rows_match_jax_engine():
                                 for k in kw])
     assert [o.output_token_ids for o in t] == \
         [o.output_token_ids for o in j]
-    assert {v for v, _ in teng._programs.keys()} == {"sampled"}
+    assert teng._programs.keys("greedy") == []
+    assert teng._programs.keys("sampled")

@@ -26,9 +26,13 @@ tokens, over NCCL on two cards (skipped with one) and over gloo with both
 ranks on card 0.
 
 Step programs: card engines capture each decode window once per (variant,
-bucket) and replay it; against ``enforce_eager`` engines they give the
-same tokens and logprobs, and a window body that reads the device from
-the host fails its capture.
+bucket), and each prefill, solo chunk and mixed step once per key of the
+JAX bucket grid, and replay them; against ``enforce_eager`` engines they
+give the same tokens and logprobs, and a body that reads the device from
+the host fails its capture. The history kernel reads ``hist_len`` from
+device memory: one launch captured in a graph, replayed at several
+history lengths written into its buffer, matches the plain version at
+each.
 
 Runtime sanitizers: ``KGCT_SANITIZE=1`` on a card engine (n-gram spec,
 mixed batching, swap) gives the plain engine's tokens and makes the same
@@ -275,7 +279,8 @@ def test_flash_prefill_hist_matches_plain(cuda_device, dtype, hist_len, nh,
             (torch.arange(T, dtype=torch.int32) + hist_len).to(cuda_device),
             _rn(g, dtype, cuda_device, L, P, ps, n_kv * hd),
             _rn(g, dtype, cuda_device, L, P, ps, n_kv * hd),
-            table.to(cuda_device), hist_len, hd ** -0.5)
+            table.to(cuda_device), _scalar(hist_len, cuda_device),
+            hd ** -0.5)
     got = cfh.flash_prefill_hist(*args, layer=1)
     torch.testing.assert_close(got, A.prefill_history_attention_plain(
         *args, layer=1), atol=TOL[dtype], rtol=0)
@@ -315,7 +320,8 @@ def test_flash_prefill_hist_engine_shapes(cuda_device, dtype, case):
             (torch.arange(T, dtype=torch.int32) + hist_len).to(cuda_device),
             _rn(g, dtype, cuda_device, L, P, ps, n_kv * hd),
             _rn(g, dtype, cuda_device, L, P, ps, n_kv * hd),
-            table.to(cuda_device), hist_len, hd ** -0.5)
+            table.to(cuda_device), _scalar(hist_len, cuda_device),
+            hd ** -0.5)
     before = cfh.launches
     got = cfh.flash_prefill_hist(*args, layer=1)
     assert cfh.launches == before + 1
@@ -344,7 +350,47 @@ def _hist_args(gen, dtype, device, nh, n_kv, hd, ps, T, n_valid, hist_len,
             (torch.arange(T, dtype=torch.int32) + hist_len).to(device),
             _rn(gen, dtype, device, L, P, ps, n_kv * hd),
             _rn(gen, dtype, device, L, P, ps, n_kv * hd),
-            table.to(device), hist_len, hd ** -0.5)
+            table.to(device), _scalar(hist_len, device), hd ** -0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_hist_captured_once_replayed_per_hist_len(cuda_device,
+                                                                dtype):
+    """One launch captured in a CUDA graph serves every chunk: the history
+    length is read from its int32 [1] buffer at each replay (none baked
+    into the graph), so replays at four lengths written into that buffer
+    each match the plain version at that length; a negative length reads
+    as no history."""
+    nh, n_kv, hd, ps, T, n_valid, pps = 32, 8, 128, 16, 256, 230, 128
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    args = list(_hist_args(g, dtype, cuda_device, nh, n_kv, hd, ps, T,
+                           n_valid, 1500, 2, pps, 32))
+    hist = args[8]
+    n_valid_t = cfh.valid_tokens(args[3])
+    cfh.flash_prefill_hist(*args, layer=1, n_valid=n_valid_t)  # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cfh.flash_prefill_hist(*args, layer=1, n_valid=n_valid_t)
+    for h in (0, 37, 1500, 2000 - T):
+        hist.fill_(h)
+        args[4].copy_(torch.arange(T, dtype=torch.int32,
+                                   device=cuda_device) + h)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, A.prefill_history_attention_plain(
+            *args, layer=1), atol=TOL[dtype], rtol=0)
+    hist.fill_(-5)
+    graph.replay()
+    hist.fill_(0)
+    torch.testing.assert_close(out, A.prefill_history_attention_plain(
+        *args, layer=1), atol=TOL[dtype], rtol=0)
+
+
+def _scalar(value: int, device) -> torch.Tensor:
+    """An int32 [1] on ``device``: how the kernel takes ``hist_len``."""
+    return torch.tensor([value], dtype=torch.int32, device=device)
 
 
 @pytest.mark.gpu
@@ -416,8 +462,8 @@ def test_spec_mixed_attention_chunk_half_through_the_kernel(cuda_device,
     pos = torch.cat([pos_c, torch.zeros(R * S, dtype=torch.int32,
                                         device=cuda_device)])
     args = (torch.cat([q, qs]), torch.cat([k, ks]), torch.cat([v, vs]), seg,
-            pos, kp, vp, table[None], hist_len, tables.to(cuda_device),
-            ctx.to(cuda_device), scale)
+            pos, kp, vp, table[None], _scalar(hist_len, cuda_device),
+            tables.to(cuda_device), ctx.to(cuda_device), scale)
     before = cfh.launches
     got = A.spec_mixed_attention(*args, n_prefill=Tp, layer=1)
     assert cfh.launches == before + 1
@@ -759,14 +805,51 @@ def test_captured_windows_match_eager_per_bucket_and_variant(cuda_device):
                                           enforce_eager=True),
                       params=graph.params, device=cuda_device)
     assert _graph_waves(graph) == _graph_waves(eager)
-    keys = graph._programs.keys()
-    assert keys == [(v, b) for v in ("greedy", "sampled")
-                    for b in (1, 2, 4, 8)]
-    assert graph.compiled_step_variants() == 8 == len(
-        graph._programs.capture_seconds)
+    progs = graph._programs
+    assert progs.keys("greedy") + progs.keys("sampled") == [
+        (v, b) for v in ("greedy", "sampled") for b in (1, 2, 4, 8)]
+    assert progs.keys("prefill")
+    built = graph.compiled_step_variants()
+    assert built == len(progs.keys()) == len(progs.capture_seconds)
     assert eager.compiled_step_variants() == 0
     assert _graph_waves(graph) == _graph_waves(eager)
-    assert graph.compiled_step_variants() == 8
+    assert graph.compiled_step_variants() == built
+
+
+@pytest.mark.gpu
+def test_captured_prefill_chunk_and_mixed_steps_match_eager(cuda_device):
+    """Staggered arrivals on the card: a 450-token prompt alone (solo
+    chunks of 256 and 194 over 16- and 32-page tables), then prompts of
+    every sampling kind, the long ones chunked beside decoding rows. The prefill, solo-chunk
+    and mixed programs give the enforce_eager engine's tokens and
+    logprobs; the same arrivals again capture nothing new."""
+    def wave(eng):
+        outs = [eng.generate(_prompts(1, 450, 451, seed=40),
+                             _GRAPH_PARAMS[3:4])]
+        pending = [(f"m{i}", p, _GRAPH_PARAMS[i % 4]) for i, p in
+                   enumerate(_prompts(6, 10, 480, seed=41))]
+        final = {}
+        while pending or eng.has_unfinished_requests():
+            if pending:
+                eng.add_request(*pending.pop(0))
+            for o in eng.step():
+                if o.finished:
+                    final[o.request_id] = o
+        outs.append([final[f"m{i}"] for i in range(6)])
+        return [[(o.output_token_ids, o.output_logprobs) for o in group]
+                for group in outs]
+
+    graph = LLMEngine(_tiny_cfg(num_pages=256), device=cuda_device)
+    eager = LLMEngine(dataclasses.replace(_tiny_cfg(num_pages=256),
+                                          enforce_eager=True),
+                      params=graph.params, device=cuda_device)
+    assert wave(graph) == wave(eager)
+    progs = graph._programs
+    for family in ("prefill", "prefill_hist", "mixed"):
+        assert progs.keys(family), family
+    built = len(progs.capture_seconds)
+    assert wave(graph) == wave(eager)
+    assert len(progs.capture_seconds) == built
 
 
 @pytest.mark.gpu
@@ -782,18 +865,20 @@ def test_a_host_read_in_the_window_fails_its_capture(cuda_device):
     torch.cuda.empty_cache()
     before = torch.cuda.memory_reserved()
     eng = LLMEngine(_tiny_cfg(), device=cuda_device)
-    body = eng._programs._body
+    bodies = eng._programs._bodies
 
-    def leaky(key, bufs):
-        body(key, bufs)
-        return int(bufs["out_tok"][0, 0])
+    def leaky(body):
+        def run(key, bufs):
+            body(key, bufs)
+            return int(bufs["out_tok"].reshape(-1)[0])
+        return run
 
-    eng._programs._body = leaky
-    with pytest.raises(CaptureError, match="capture of decode program"):
+    eng._programs._bodies = {f: leaky(b) for f, b in bodies.items()}
+    with pytest.raises(CaptureError, match="capture of step program"):
         eng.generate(_prompts(1, 10, 20), SamplingParams(max_tokens=12))
     assert eng.compiled_step_variants() == 0
     torch.cuda.synchronize()
-    del eng, body
+    del eng, bodies
     gc.collect()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved() <= before + (256 << 20)

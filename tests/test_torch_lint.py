@@ -82,7 +82,7 @@ def test_lint_clean__all_rules_actually_ran_against_real_structures():
     unfetched = {f.name for f in mod.unfetched_hot_path_functions}
     assert {"_sync", "_finish_fetch"} <= hot - unfetched
     assert {"_step", "_step_spec", "_process_window",
-            "_fetch_step_outputs"} <= unfetched
+            "_fetch_step"} <= unfetched
     in_window = [
         node for fn in mod.unfetched_hot_path_functions
         for node in ast.walk(fn)
@@ -236,6 +236,25 @@ def test_rule_reaches_the_ports_real_structure(code):
     broken = LintModule(path, source=src.replace(old, new), root=REPO)
     found = list(rule.check(broken))
     assert found and all(f.rule == code for f in found), found
+
+
+def test_capture_safety_reaches_the_mixed_body():
+    """The mixed step's program body (``_mixed_body``, handed to the cache
+    in its family dict) with the chunk's history length read on the host:
+    a constant of the graph, every replay's chunk attending to the first
+    one's history."""
+    path = PACKAGE / "engine/engine.py"
+    src = path.read_text()
+    old = 'hist_len=bufs["hist_len"], page_tables=bufs["page_tables"],'
+    new = ('hist_len=int(bufs["hist_len"]), '
+           'page_tables=bufs["page_tables"],')
+    assert src.count(old) == 1, "the mixed body's anchor no longer matches"
+    [rule] = rules_by_code(["KGCT001"])
+    assert list(rule.check(LintModule(path, source=src, root=REPO))) == []
+    found = list(rule.check(LintModule(path, source=src.replace(old, new),
+                                       root=REPO)))
+    assert [f.rule for f in found] == ["KGCT001"]
+    assert "_mixed_body" in found[0].message
 
 
 # -- torch spellings -----------------------------------------------------------
