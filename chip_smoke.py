@@ -20,7 +20,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    them: decode at one 8191-token sequence and at B 32 over contexts
    64-256; flash prefill at one 2048-token segment and at 16 segments of
    128; the history kernel at a 2048-token chunk over 952 and a 64-token
-   chunk over 6000; int4 at a 2048-row prefill, w_down and lm_head.
+   chunk over 6000; int4 at a 2048-row prefill, w_down and lm_head. Then
+   the verify attention kernel (no TPU kernel: the JAX package computes
+   it in XLA), R 32 rows of S 5 over contexts 512-2048 on the engine's
+   whole 512-page table, beside ``paged_decode`` at the same rows; logged
+   only: two padding rows, S 9, opt-125m's heads (bf16, hd 64) and
+   tinyllama-1.1b's (fp32, hd 64).
 3. Model: the llama-3-8b forward through the kernels against the same
    forward through the plain attention versions, on one small ragged batch.
 4. Engine: ``LLMEngine`` serving llama-3-8b at full width and depth (random
@@ -63,12 +68,11 @@ Then speculative decoding:
     phase 4's workload shape, where half the prompts repeat a random 8-32
     token pattern and one more request samples with a seed; served twice
     (the same tokens; spec and spec×mixed steps ran, drafts were made, the
-    three attention kernels launched), and once by the spec-off engine.
-    Logged: tokens/s on and off, the acceptance ratio, the share of greedy
-    requests whose tokens equal spec off (bf16: verify attention is fp32
-    PyTorch, decode the bf16 kernel, so near-ties may flip), and the
-    verify attention's ms per call at the engine's shape beside
-    ``paged_decode``'s.
+    four attention kernels launched, the verify kernel's count in run 1
+    is its ``launches``), and once by the spec-off engine. Logged:
+    tokens/s on and off, the acceptance ratio, the share of greedy
+    requests whose tokens equal spec off (bf16: the verify and decode
+    kernels round differently, so near-ties may flip).
 7b. tinyllama-1.1b fp32 at full width and depth, drafting for itself (the
     draft model's own pool, the target's weights: an oracle), k 4,
     adaptive k and mixed batching on: acceptance >= 0.9, ``paged_decode``
@@ -76,6 +80,18 @@ Then speculative decoding:
     engine on every request, except where the printed top-2 logit gap at
     the first differing position is below 1e-3 of that position's logit
     standard deviation (counted).
+16g. The spec family's step programs (``("spec", R, S)``,
+    ``("spec_mixed", Tp, R, W, S)``, the draft runner's ``("draft_decode",
+    B)`` and ``("draft_prefill", T, W)``), run inside 7a and 7b: each spec
+    engine there is captured, and an ``enforce_eager`` twin serves the
+    same requests (logprobs on): greedy and seeded tokens and logprobs
+    identical, drafted and accepted totals equal, the twin builds
+    nothing. Logged: programs by family, 7a's repeat run building 0 new
+    programs, ``kgct_jit_compiles_total`` equal to the programs built,
+    tokens/s captured against eager and against spec off captured, and
+    the verify programs' sampling stage (``_verify_rows``) at R 32, S 5
+    beside one position's. Phase 16's census must find no synchronizing
+    call left in the spec steps or the draft round.
 
 Then the KV transfer layer, on the phase-4 weights (after 7a, before they
 are freed; each engine freed before the next is built):
@@ -252,7 +268,8 @@ device tensor handed to one):
      off, that slot's pool bytes change; with it on, the step is refused
      before any upload and the bytes are unchanged.
 15c. Both 15a engines again under ``torch.cuda.set_sync_debug_mode``:
-     the same count of synchronizing calls at each source line, > 0.
+     the same count of synchronizing calls at each source line, > 0 (the
+     page-index uploads).
 15d. ``AsyncLLMEngine`` with ``KGCT_SANITIZE_INTERLEAVE=1`` under seeds
      1-3 and unperturbed, four concurrent streams: a seed that stepped the
      unperturbed schedule gives its tokens exactly; one whose yields moved
@@ -291,7 +308,8 @@ the phase-4 weights right after phase 15:
      engine in turns (eager, captured, captured, eager): tokens/s, the
      same tokens; and 15a's workload on both under
      ``torch.cuda.set_sync_debug_mode``: synchronizing calls per step by
-     source line (15c's census), the same tokens.
+     source line (15c's census), the same tokens, none in the spec steps
+     (their fetch is one pinned copy and an event).
 16d. A window body with a host read (``int()`` of an output) injected:
      the engine raises ``CaptureError`` at the window's capture, the
      window is not run on eagerly, the card still works after it, and the
@@ -300,7 +318,10 @@ the phase-4 weights right after phase 15:
 16e. (After 4b, on its int4 weights) phase 4b's workload on a captured
      and an ``enforce_eager`` int4 engine: the same tokens; the int4
      kernel recorded in the captured programs and its launches equal
-     both ways (a replay counts what its graph recorded).
+     both ways (a replay counts what its graph recorded). Then n-gram
+     speculation on the same weights, four repetitive requests both ways:
+     the same tokens and logprobs, the int4 and verify kernels recorded
+     in every spec program.
 
 Then, still on the phase-4 weights, tensor and expert parallelism, each
 rank a child process (``chip_smoke.py --tp-child``) that builds its engine
@@ -389,7 +410,8 @@ first records the tp=1 engine's greedy tokens for the same requests:
      the same token check against the one-device engine; ``int4_matmul``
      launches on both ranks.
 
-The line before the last is the ``kernels`` JSON record; the last line is
+The line before the last is the ``kernels`` JSON record (the four TPU
+kernels' ports and the verify kernel); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with code 2 and prints no result.
 """
@@ -776,6 +798,59 @@ def _hist_case(gen, rng, T, hist, nh, n_kv, hd, ps, dt, device) -> dict:
                 shape=f"chunk={T} hist={hist} ps={ps}")
 
 
+def _verify_case(gen, rng, R, S, ctx_lo, ctx_hi, nh, n_kv, hd, ps, pps, dt,
+                 device, padding: int = 0) -> dict:
+    """spec_verify on R rows of S queries, contexts drawn from [ctx_lo,
+    ctx_hi] (the last ``padding`` rows padding rows, context 0, on the
+    scrap page), over the engine's whole ``pps``-page table (layer 1 of a
+    2-layer pool), against the plain version; the kernel called as the
+    engine calls it, timed in a CUDA graph, beside ``paged_decode`` on the
+    same pool, tables and contexts (one query a row). Bound: the inputs
+    and the output moved once, each row's history read once, against the
+    operations over each row's history and causal slice at the peak of
+    the kernel's type (the bf16 tensor cores, or fp32 outside them)."""
+    from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import spec_verify as sv
+    dec = _decode_case(gen, rng, R, ctx_lo, ctx_hi, nh, n_kv, hd, ps, pps,
+                       dt, device)
+    _, kpool, vpool, tables, ctx, _, _, scale = dec["args"]
+    if padding:
+        ctx[R - padding:] = 0
+        tables[R - padding:] = 0
+    args = (_randn(gen, (R * S, nh, hd), dt, device),
+            _randn(gen, (R * S, n_kv, hd), dt, device),
+            _randn(gen, (R * S, n_kv, hd), dt, device), kpool, vpool,
+            tables, ctx, scale)
+    got = sv.spec_verify(*args, layer=1)
+    ref = A.spec_verify_attention_plain(*args, layer=1)
+    what = (f"spec_verify R={R} S={S} nh={nh} n_kv={n_kv} hd={hd} "
+            f"{str(dt)[6:]}")
+    err = _compare(what, got, ref)
+    if not torch.equal(sv.spec_verify(*args, layer=1), got):
+        raise RuntimeError(f"{what}: a second call gave other bits")
+    item = 2 if dt == torch.bfloat16 else 4
+    hist = int((ctx - 1).clamp(min=0).sum())
+    nbytes = item * (R * S * (2 * nh * hd + 2 * n_kv * hd)
+                     + 2 * n_kv * hd * hist) + 4 * (R * pps + R)
+    flops = 4 * nh * hd * (S * hist + R * S * (S + 1) // 2)
+    if dt == torch.bfloat16:
+        bms, by = bound_ms(nbytes, flops)
+    else:
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FP32_FLOPS * 1e3
+        bms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                   else (t_ops, "operations"))
+    kernel = lambda: sv.spec_verify(*args, layer=1)  # noqa: E731
+    c = [int(x) for x in ctx.tolist() if x > 0]
+    return dict(max_abs_err=err, ms=graph_ms(kernel, 20), bound_ms=bms,
+                bound_by=by, kernel=kernel,
+                plain=lambda: A.spec_verify_attention_plain(*args, layer=1),
+                paged_decode_ms=dec["ms"],
+                shape=f"R={R} S={S} ctx={min(c)}-{max(c)} padding={padding} "
+                      f"ps={ps} pps={pps} nh={nh} n_kv={n_kv} hd={hd} "
+                      f"{str(dt)[6:]}")
+
+
 HIST_REPLAYS = (0, 952, 2048, 3000)   # history lengths of one captured launch
 
 
@@ -891,6 +966,35 @@ def check_kernels(cfg, page_size: int, max_len: int, device) -> list[dict]:
     replays = _hist_replays(gen, rng, 512, nh, n_kv, hd, ps, dt, device)
     log("flash_prefill_hist captured once, replayed:", json.dumps(replays))
     rows[-1]["replays"] = replays
+
+    # -- verify attention (no TPU kernel: the JAX package computes it in
+    #    XLA): R 32 x S 5 over contexts 512-2048 on the engine's whole
+    #    table (the row), beside paged_decode at the same rows; then logged
+    #    only: a padding row, S 9, and the hd-64 heads of opt-125m (bf16)
+    #    and tinyllama-1.1b (fp32, phase 7b's dtype) over 128-page tables.
+    case = _verify_case(gen, rng, 32, 5, 512, 2048, nh, n_kv, hd, ps, pps,
+                        dt, device)
+    rows.append(row("spec_verify", case,
+                    "kubernetes_gpu_cluster_tpu/ops/attention.py:258"))
+    rows[-1]["paged_decode_ms"] = case["paged_decode_ms"]
+    rows[-1]["tpu_kernel"] = ("none: the JAX package computes it in XLA "
+                              "(spec_verify_attention_xla)")
+    del case
+    for what, args in (
+            ("padding row", (8, 5, 512, 2048, nh, n_kv, hd, ps, pps, dt)),
+            ("S 9", (32, 9, 512, 2048, nh, n_kv, hd, ps, pps, dt)),
+            ("opt-125m heads", (32, 5, 256, 1500, 12, 12, 64, ps, 128, dt)),
+            ("tinyllama-1.1b heads fp32",
+             (32, 5, 256, 1500, 32, 4, 64, ps, 128, torch.float32))):
+        case = _verify_case(gen, rng, *args, device,
+                            padding=2 if what == "padding row" else 0)
+        log(f"spec_verify {what}:", json.dumps(
+            {k: case[k] for k in ("ms", "bound_ms", "bound_by",
+                                  "max_abs_err", "paged_decode_ms",
+                                  "shape")}
+            | {"ms_with_launch": cuda_ms(case["kernel"], 20),
+               "plain_ms": cuda_ms(case["plain"], 3)}))
+        del case
     torch.cuda.synchronize()
     return rows
 
@@ -1144,6 +1248,7 @@ def drive(engine, reqs, tag: str, hist_counter) -> dict:
     schedule = []
     step = 0
     t0 = time.perf_counter()
+    logprobs = {}
     while pending or engine.has_unfinished_requests():
         while pending and pending[0][0] <= step:
             _, rid, prompt, sp = pending.pop(0)
@@ -1152,6 +1257,7 @@ def drive(engine, reqs, tag: str, hist_counter) -> dict:
         for out in engine.step():
             if out.finished:
                 final[out.request_id[len(tag) + 1:]] = out.output_token_ids
+                logprobs[out.request_id[len(tag) + 1:]] = out.output_logprobs
         schedule.append(_step_record(engine, hist_counter, hist_before))
         if schedule[-1] is not None:
             kinds[schedule[-1][0]] += 1
@@ -1161,7 +1267,7 @@ def drive(engine, reqs, tag: str, hist_counter) -> dict:
     n_tok = sum(len(t) for t in final.values())
     return {"tokens": final, "kinds": kinds, "wall_s": wall,
             "generated_tokens": n_tok, "tokens_per_s": n_tok / wall,
-            "steps": step, "schedule": schedule}
+            "steps": step, "schedule": schedule, "logprobs": logprobs}
 
 
 def _step_record(engine, hist_counter, hist_before):
@@ -1359,65 +1465,82 @@ def _spec_run(engine, reqs, tag, counters) -> dict:
 
 def _summary(run) -> dict:
     """``drive``'s result without its per-request and per-step lists."""
-    return {k: v for k, v in run.items() if k not in ("tokens", "schedule")}
+    return {k: v for k, v in run.items()
+            if k not in ("tokens", "schedule", "logprobs")}
 
 
 def _loggable(run) -> str:
     return json.dumps(_summary(run))
 
 
-def time_verify(cfg, page_size, max_len, device, S: int) -> dict:
-    """The verify attention (PyTorch, fp32) per call at the engine's shape,
-    B 32 rows of S tokens over contexts 512-2048 with the table cut to the
-    longest, beside ``paged_decode`` on the same pool and contexts (one
-    token per row), each timed in CUDA events. Its bound: the bf16 inputs
-    and output moved once, against the fp32 operations over each row's
-    history and causal slice at the fp32 peak."""
-    from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
-    from kubernetes_gpu_cluster_tpu_torch.utils import cdiv
-    nh, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    gen = torch.Generator(device=device).manual_seed(SEED + 8)
-    rng = np.random.default_rng(SEED + 8)
-    B, dt = 32, torch.bfloat16
-    case = _decode_case(gen, rng, B, 512, 2048, nh, n_kv, hd, page_size,
-                        cdiv(max_len, page_size), dt, device)
-    _, kpool, vpool, tables, ctx, _, _, scale = case["args"]
-    width = A.verify_table_width(ctx.cpu().numpy(), page_size)
-    tables = tables[:, :width].contiguous()
-    q = _randn(gen, (B * S, nh, hd), dt, device)
-    k = _randn(gen, (B * S, n_kv, hd), dt, device)
-    v = _randn(gen, (B * S, n_kv, hd), dt, device)
-
-    def verify():
-        return A.spec_verify_attention(q, k, v, kpool, vpool, tables, ctx,
-                                       scale, layer=1)
-
-    out = verify()
-    if not torch.isfinite(out.float()).all():
-        raise RuntimeError("verify attention: non-finite output")
-    hist = int((ctx - 1).clamp(min=0).sum())
-    nbytes = 2 * (2 * B * S * (nh * hd + n_kv * hd) + 2 * n_kv * hd * hist) \
-        + 4 * (B * width + B)
-    flops = 4 * nh * hd * (S * hist + B * S * (S + 1) // 2)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    return {"verify_ms": cuda_ms(verify, 10),
-            "verify_bound_ms": max(t_bytes, t_ops),
-            "verify_bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "paged_decode_ms": cuda_ms(case["kernel"], 20),
-            "paged_decode_graph_ms": case["ms"], "rows": B, "S": S,
-            "table_width": width, "shape": case["shape"]}
+def _with_logprobs(reqs) -> list:
+    """``reqs`` with every request asking for its logprobs."""
+    return [(a, rid, p, dataclasses.replace(sp, logprobs=True))
+            for a, rid, p, sp in reqs]
 
 
-def check_spec_ngram(cfg_engine, params, device, counters) -> dict:
-    """Phase 7a: n-gram speculation on the phase-4 engine, twice, then the
-    spec-off engine once on the same requests."""
+def _held_spec(what, got, ref, reqs) -> dict:
+    """Greedy and seeded requests' tokens and logprobs of two runs must be
+    identical (an unseeded row draws from its engine's generator)."""
+    rows = [rid for _, rid, _, sp in reqs
+            if sp.temperature == 0.0 or sp.seed is not None]
+    diff = [rid for rid in rows
+            if got["tokens"][rid] != ref["tokens"][rid]
+            or got["logprobs"][rid] != ref["logprobs"][rid]]
+    if diff:
+        raise RuntimeError(f"{what}: captured and eager tokens or logprobs "
+                           f"differ for {diff}")
+    return {"rows_identical": len(rows), "requests": len(reqs)}
+
+
+def _programs_by_family(eng) -> dict:
+    keys = eng._programs.keys()
+    return {f: len([k for k in keys if k[0] == f])
+            for f in sorted({k[0] for k in keys})}
+
+
+def _verify_stage_ms(engine, device, R: int = 32, S: int = 5) -> dict:
+    """The verify programs' sampling stage (``_verify_rows``: bias on S
+    positions, penalties, every filter tier, the acceptance draw and the
+    bonus, top logprobs, at each position) on R rows, device time in a
+    CUDA graph at the engine's vocabulary, beside one position's stage
+    (``_sample_rows``) on the same rows."""
+    V = engine.model_config.vocab_size
+    bufs = engine._programs.buffers(("spec", R, S))
+    bufs["temperature"].fill_(0.8)
+    bufs["top_k"].fill_(50)
+    bufs["top_p"].fill_(0.95)
+    bufs["seed"].fill_(-1)
+    bufs["bias_ids"].fill_(-1)
+    bufs["out_tokens"].fill_(-1)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    logits = torch.randn((R * S, V), generator=gen, device=device)
+    drafts = torch.randint(0, V, (R * S,), generator=gen, device=device,
+                           dtype=torch.int32)
+    counts = torch.zeros((R, V), dtype=torch.int32, device=device)
+    pos = torch.arange(R, dtype=torch.int32, device=device)
+    out = {"R": R, "S": S, "V": V,
+           "verify_rows_ms": graph_ms(lambda: engine._verify_rows(
+               bufs, logits, drafts, R, S), 10),
+           "sample_rows_ms": graph_ms(lambda: engine._sample_rows(
+               bufs, logits[:R], counts, pos, slice(0, R)), 10)}
+    out["per_position_ms"] = out["verify_rows_ms"] / S
+    return out
+
+
+def check_spec_ngram(cfg_engine, params, device, counters, card) -> dict:
+    """Phase 7a: n-gram speculation on the phase-4 engine (captured step
+    programs), twice, then the spec-off engine once on the same requests;
+    then 16g's first half: an enforce_eager twin of the spec engine on the
+    same requests, held to the captured runs (see the module
+    docstring)."""
     from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
+    from kubernetes_gpu_cluster_tpu_torch.serving.metrics import Metrics
     sc = dataclasses.replace(cfg_engine.scheduler, spec_decode_enabled=True,
                              num_speculative_tokens=4,
                              mixed_batch_enabled=True)
     cfg_spec = dataclasses.replace(cfg_engine, scheduler=sc)
-    reqs = spec_workload(cfg_engine.model.vocab_size)
+    reqs = _with_logprobs(spec_workload(cfg_engine.model.vocab_size))
     engine = LLMEngine(cfg_spec, params=params, device=device)
     drive(engine, reqs[1:3], "warm", counters["flash_prefill_hist"])
     run1 = _spec_run(engine, reqs, "a", counters)
@@ -1427,37 +1550,73 @@ def check_spec_ngram(cfg_engine, params, device, counters) -> dict:
         raise RuntimeError(f"spec / spec_mixed steps did not run: {kinds}")
     if run1["drafted"] <= 0:
         raise RuntimeError("the n-gram proposer drafted nothing")
-    for name in ("paged_decode", "flash_prefill", "flash_prefill_hist"):
+    for name in ("paged_decode", "flash_prefill", "flash_prefill_hist",
+                 "spec_verify"):
         if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never launched in the spec run")
     if set(run1["tokens"]) != {r[1] for r in reqs}:
         raise RuntimeError("spec engine: not every request finished")
+    progs = engine._programs
+    built = (engine.compiled_step_variants(), len(progs.capture_seconds))
     run2 = _spec_run(engine, reqs, "b", counters)
     log("spec engine run 2:", _loggable(run2))
     diff = sorted(r for r in run1["tokens"]
                   if run1["tokens"][r] != run2["tokens"][r])
     if diff:
         raise RuntimeError(f"spec engine: the second run differs for {diff}")
+    again = (engine.compiled_step_variants(), len(progs.capture_seconds))
+    gauge = _metric(Metrics(engine).render(), "kgct_jit_compiles_total")
+    if again != built or gauge != again[0] or not progs.keys("spec") \
+            or not progs.keys("spec_mixed"):
+        raise RuntimeError(f"16g: programs {built} -> {again}, gauge "
+                           f"{gauge}, keys {progs.keys()}")
+    g16 = {"programs": _programs_by_family(engine),
+           "new_captures_on_repeat": again[1] - built[1],
+           "kgct_jit_compiles_total": gauge,
+           "capture": _capture_record(engine),
+           "verify_stage": _verify_stage_ms(engine, device)}
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    eager = LLMEngine(dataclasses.replace(cfg_spec, enforce_eager=True),
+                      params=params, device=device)
+    drive(eager, reqs[1:3], "warm", counters["flash_prefill_hist"])
+    run_eager = _spec_run(eager, reqs, "e", counters)
+    log("spec engine eager:", _loggable(run_eager))
+    if eager.compiled_step_variants():
+        raise RuntimeError("16g: the enforce_eager spec engine built "
+                           "programs")
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    g16["held"] = _held_spec("16g n-gram", run1, run_eager, reqs)
     off = LLMEngine(cfg_engine, params=params, device=device)
     drive(off, reqs[1:3], "warm", counters["flash_prefill_hist"])
     run_off = drive(off, reqs, "off", counters["flash_prefill_hist"])
     del off
+    g16["tokens_per_s"] = {"spec_captured": [run1["tokens_per_s"],
+                                             run2["tokens_per_s"]],
+                           "spec_eager": run_eager["tokens_per_s"],
+                           "off_captured": run_off["tokens_per_s"]}
+    g16["drafted_accepted"] = {"captured": [run1["drafted"],
+                                            run1["accepted"]],
+                               "eager": [run_eager["drafted"],
+                                         run_eager["accepted"]]}
+    if g16["drafted_accepted"]["captured"] != \
+            g16["drafted_accepted"]["eager"]:
+        raise RuntimeError(f"16g: drafted / accepted differ: "
+                           f"{g16['drafted_accepted']}")
+    log("spec programs 16g n-gram:", json.dumps(g16), "|", card)
     greedy = [r[1] for r in reqs if r[3].temperature == 0.0]
     same = sum(run1["tokens"][r] == run_off["tokens"][r] for r in greedy)
-    out = {"tokens_per_s_spec": run1["tokens_per_s"],
-           "tokens_per_s_spec_run2": run2["tokens_per_s"],
-           "tokens_per_s_off": run_off["tokens_per_s"],
-           "acceptance": run1["acceptance"], "drafted": run1["drafted"],
-           "accepted": run1["accepted"], "kinds": kinds,
-           "kinds_off": run_off["kinds"], "launches": launches,
-           "greedy_identical_to_off": same / len(greedy),
-           "greedy_requests": len(greedy)}
-    out.update(time_verify(cfg_engine.model, cfg_engine.cache.page_size,
-                           cfg_engine.effective_max_len, device, 5))
-    return out
+    return {"tokens_per_s_spec": run1["tokens_per_s"],
+            "tokens_per_s_spec_run2": run2["tokens_per_s"],
+            "tokens_per_s_off": run_off["tokens_per_s"],
+            "acceptance": run1["acceptance"], "drafted": run1["drafted"],
+            "accepted": run1["accepted"], "kinds": kinds,
+            "kinds_off": run_off["kinds"], "launches": launches,
+            "greedy_identical_to_off": same / len(greedy),
+            "greedy_requests": len(greedy), "16g": g16}
 
 
 def _prefill_logits(params, cfg, ids, at, device) -> torch.Tensor:
@@ -1485,13 +1644,16 @@ def _top2_gap(params, cfg, ids, device) -> tuple[float, float]:
     return float(top[0] - top[1]), float(logits.std())
 
 
-def check_spec_draft(cfg, params, device, counters) -> dict:
+def check_spec_draft(cfg, params, device, counters, card) -> dict:
     """Phase 7b: tinyllama-1.1b fp32 drafting for itself (an oracle), the
-    draft model's own pool; spec off on the same requests."""
+    draft model's own pool, the draft runner's programs in the engine's
+    cache; the same requests again (no new program), then 16g's second
+    half (an enforce_eager twin, held to the captured run) and spec off."""
     from kubernetes_gpu_cluster_tpu_torch.config import (
         CacheConfig, EngineConfig, SchedulerConfig)
     from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
                                                          SamplingParams)
+    from kubernetes_gpu_cluster_tpu_torch.serving.metrics import Metrics
     base = EngineConfig(model=cfg, seed=SEED,
                         cache=CacheConfig(page_size=16, num_pages=2048),
                         scheduler=SchedulerConfig(max_num_seqs=32,
@@ -1500,7 +1662,7 @@ def check_spec_draft(cfg, params, device, counters) -> dict:
         base.scheduler, spec_decode_enabled=True, num_speculative_tokens=4,
         spec_adaptive_k=True, spec_draft_model="tinyllama-1.1b"))
     rng = np.random.default_rng(SEED + 9)
-    greedy = SamplingParams(max_tokens=40, temperature=0.0)
+    greedy = SamplingParams(max_tokens=40, temperature=0.0, logprobs=True)
     reqs = [(0 if i < 6 else 2 + 2 * (i - 6), f"r{i}",
              [int(t) for t in rng.integers(1, cfg.vocab_size,
                                            int(rng.integers(24, 400)))],
@@ -1529,6 +1691,17 @@ def check_spec_draft(cfg, params, device, counters) -> dict:
     run["draft_dispatches"] = runner.num_dispatches
     run["draft_reset_prefills"] = runner.num_reset_prefills
     log("draft spec engine:", _loggable(run))
+    progs = engine._programs
+    if not (progs.keys("draft_decode") and progs.keys("draft_prefill")):
+        raise RuntimeError(f"16g: no draft program built: {progs.keys()}")
+    g16 = {"programs": _programs_by_family(engine),
+           "kgct_jit_compiles_total": _metric(Metrics(engine).render(),
+                                              "kgct_jit_compiles_total"),
+           "capture": _capture_record(engine)}
+    if g16["kgct_jit_compiles_total"] != engine.compiled_step_variants():
+        raise RuntimeError(f"16g: gauge {g16['kgct_jit_compiles_total']}")
+    run2 = _spec_run(engine, reqs, "b", counters)
+    g16["programs_after_repeat"] = _programs_by_family(engine)
     del engine, runner
     gc.collect()
     torch.cuda.empty_cache()
@@ -1538,9 +1711,34 @@ def check_spec_draft(cfg, params, device, counters) -> dict:
         raise RuntimeError("the draft runner never launched paged_decode")
     if run["kinds"]["spec"] + run["kinds"]["spec_mixed"] < 1:
         raise RuntimeError(f"no spec step ran: {run['kinds']}")
+    if run["launches"]["spec_verify"] <= 0:
+        raise RuntimeError("the verify kernel never launched in 7b")
+    eager = LLMEngine(dataclasses.replace(spec, enforce_eager=True),
+                      params=params, device=device, draft_params=params)
+    drive(eager, reqs[1:3], "warm", counters["flash_prefill_hist"])
+    run_eager = _spec_run(eager, reqs, "e", counters)
+    if eager.compiled_step_variants():
+        raise RuntimeError("16g: the enforce_eager draft engine built "
+                           "programs")
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    g16["held"] = _held_spec("16g draft", run, run_eager, reqs)
+    g16["drafted_accepted"] = {"captured": [run["drafted"], run["accepted"]],
+                               "eager": [run_eager["drafted"],
+                                         run_eager["accepted"]]}
+    if (g16["drafted_accepted"]["captured"]
+            != g16["drafted_accepted"]["eager"]):
+        raise RuntimeError(f"16g: drafted / accepted differ: "
+                           f"{g16['drafted_accepted']}")
     off = LLMEngine(base, params=params, device=device)
     run_off = drive(off, reqs, "off", counters["flash_prefill_hist"])
     del off
+    g16["tokens_per_s"] = {"spec_captured": [run["tokens_per_s"],
+                                             run2["tokens_per_s"]],
+                           "spec_eager": run_eager["tokens_per_s"],
+                           "off_captured": run_off["tokens_per_s"]}
+    log("spec programs 16g draft:", json.dumps(g16), "|", card)
     ties, faults = [], []
     for _, rid, prompt, _ in reqs:
         a, b = run["tokens"][rid], run_off["tokens"][rid]
@@ -1561,7 +1759,8 @@ def check_spec_draft(cfg, params, device, counters) -> dict:
             "acceptance": run["acceptance"], "kinds": run["kinds"],
             "launches": run["launches"],
             "launches_by_draft_runner": run["launches_by_draft_runner"],
-            "near_tie_divergences": len(ties), "requests": len(reqs)}
+            "near_tie_divergences": len(ties), "requests": len(reqs),
+            "16g": g16}
 
 
 # ---------------------------------------------------------------------------
@@ -2471,7 +2670,8 @@ async def _drive_cli(port: int, proc, vocab: int) -> dict:
     events = json.loads(trace.read_text())["traceEvents"]
     kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     found = {mod: sum(any(n in k for n in names) for k in kernels)
-             for mod, names in _kernel_names().items()}
+             for mod, names in _kernel_names().items()
+             if mod != "spec_verify"}          # the CLI serves spec off
     if min(found.values()) <= 0:
         raise RuntimeError(f"profiler trace lacks kernels: {found} "
                            f"({len(kernels)} kernel events)")
@@ -2482,8 +2682,8 @@ async def _drive_cli(port: int, proc, vocab: int) -> dict:
 
 def check_cli(vocab: int) -> dict:
     """Phase 9b: the CLI on the card in a subprocess (tinyllama-1.1b int4):
-    requests, a profiler capture holding all four kernels, SIGTERM exit 0
-    within the drain grace."""
+    requests, a profiler capture holding the four TPU kernels' ports,
+    SIGTERM exit 0 within the drain grace."""
     import signal
     port = _free_port()
     work = REPO / "build" / "cli-9b"
@@ -3745,6 +3945,8 @@ def check_seeded_faults(cfg_engine, params, device) -> dict:
     from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
                                                          SamplingParams)
     from kubernetes_gpu_cluster_tpu_torch.engine import engine as E
+    from kubernetes_gpu_cluster_tpu_torch.engine.step_programs import \
+        StaticBuffers
     from kubernetes_gpu_cluster_tpu_torch.resilience.faults import (
         configure_faults, get_injector)
     cfg = _analysis_cfg(cfg_engine)
@@ -3782,10 +3984,15 @@ def check_seeded_faults(cfg_engine, params, device) -> dict:
             eng = LLMEngine(cfg, params=params, device=device)
         seen = {"uploads": 0}
         up = eng._up
+        upload = StaticBuffers.upload
 
         def counted_up(a, _up=up):
             seen["uploads"] += 1
             return _up(a)
+
+        def counted_upload(bufs, arrays, _seen=seen):
+            _seen["uploads"] += 1
+            return upload(bufs, arrays)
         eng._up = counted_up
 
         def stomp(batch, page_size, S, token_start=0, _eng=eng, _seen=seen):
@@ -3802,7 +4009,9 @@ def check_seeded_faults(cfg_engine, params, device) -> dict:
         configure_faults("kv_commit_stomp:times=1")
         error = None
         try:
-            with mock.patch.object(E, "_stomp_committed_slot", stomp):
+            with mock.patch.object(E, "_stomp_committed_slot", stomp), \
+                    mock.patch.object(StaticBuffers, "upload",
+                                      counted_upload):
                 while "page" not in seen and eng.has_unfinished_requests():
                     try:
                         eng.step()
@@ -4161,6 +4370,30 @@ def _capture_record(eng) -> dict:
             "keys": [list(k) for k in progs.keys()]}
 
 
+def _spec_fetch_sites(census) -> list:
+    """Census sites inside the spec and spec×mixed steps or the draft
+    round (``_step_spec``, ``_step_spec_mixed``, ``_wait_step``,
+    ``DraftModelRunner._dispatch``): none since the spec family runs as
+    step programs with one pinned fetch."""
+    import inspect
+    from kubernetes_gpu_cluster_tpu_torch.engine.engine import LLMEngine
+    from kubernetes_gpu_cluster_tpu_torch.engine.spec.draft_model import \
+        DraftModelRunner
+    spans = []
+    for fn in (LLMEngine._step_spec, LLMEngine._step_spec_mixed,
+               LLMEngine._wait_step, DraftModelRunner._dispatch):
+        lines, first = inspect.getsourcelines(fn)
+        name = Path(inspect.getsourcefile(fn)).name
+        spans.append((name, first, first + len(lines)))
+    out = []
+    for run in census.values():
+        for site in run["by_line"]:
+            name, _, line = site.rpartition(":")
+            if any(name == n and a <= int(line) < b for n, a, b in spans):
+                out.append(site)
+    return sorted(set(out))
+
+
 def check_graphs(cfg_engine, params, device, counters, card: str) -> dict:
     """Phase 16 on the phase-4 weights: 16a-16d and the graph/eager
     numbers (see the module docstring)."""
@@ -4266,6 +4499,10 @@ def check_graphs(cfg_engine, params, device, counters, card: str) -> dict:
         del eng
     if census["graph"].pop("tokens") != census["eager"].pop("tokens"):
         raise RuntimeError("15c census: captured and eager tokens differ")
+    spec_sites = _spec_fetch_sites(census)
+    if spec_sites:
+        raise RuntimeError(f"15c census: spec steps still synchronize at "
+                           f"{spec_sites}")
     out["census"] = census
     log("graphs census:", json.dumps(census), "|", card)
 
@@ -4451,7 +4688,7 @@ def check_step_programs(cfg_engine, params, device, card: str) -> dict:
                                                          SchedulerConfig)
     from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
     from kubernetes_gpu_cluster_tpu_torch.engine.step_programs import \
-        activation_bytes
+        program_bytes
     from kubernetes_gpu_cluster_tpu_torch.serving import build_server
     t0 = time.perf_counter()
     vocab = cfg_engine.model.vocab_size
@@ -4480,10 +4717,7 @@ def check_step_programs(cfg_engine, params, device, card: str) -> dict:
                    "keys": {f: [list(k) for k in ks]
                             for f, ks in keys.items()},
                    **_capture_record(graph),
-                   "reckoned_bytes": activation_bytes(
-                       cfg.model, max(cfg.scheduler.prefill_buckets),
-                       max(cfg.scheduler.decode_buckets),
-                       cfg.effective_max_len)}}
+                   "reckoned_bytes": program_bytes(cfg)}}
     before = (graph.compiled_step_variants(), len(progs.capture_seconds))
     again = _step_waves(graph, vocab, "w2")
     after = (graph.compiled_step_variants(), len(progs.capture_seconds))
@@ -4548,10 +4782,56 @@ def check_graph_int4(cfg_engine4, device, counters, card: str) -> dict:
            "capture": _capture_record(graph),
            "kinds": runs["graph"]["kinds"]}
     log("graphs 16e int4:", json.dumps(out), "|", card)
+    params4 = graph.params
     del graph, eager
     gc.collect()
     torch.cuda.empty_cache()
+    out["spec"] = _int4_spec_round(cfg_engine4, params4, device, counters)
+    log("graphs 16e int4 spec:", json.dumps(out["spec"]), "|", card)
     return out
+
+
+def _int4_spec_round(cfg_engine4, params4, device, counters) -> dict:
+    """16e's spec case: n-gram speculation (k 4, mixing on) on the int4
+    weights, four repetitive requests, captured against enforce_eager:
+    the same tokens and logprobs, and the verify programs' graphs hold the
+    int4 kernel and the verify kernel."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
+                                                         SamplingParams)
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import spec_verify
+    sc = dataclasses.replace(cfg_engine4.scheduler, spec_decode_enabled=True,
+                             num_speculative_tokens=4,
+                             mixed_batch_enabled=True)
+    cfg = dataclasses.replace(cfg_engine4, scheduler=sc)
+    rng = np.random.default_rng(SEED + 21)
+    pattern = [int(t) for t in rng.integers(1, cfg.model.vocab_size, 16)]
+    sp = SamplingParams(max_tokens=24, temperature=0.0, logprobs=True)
+    reqs = [(2 * i, f"q{i}", (pattern * 40)[i:i + 100 + 150 * i], sp)
+            for i in range(4)]
+    counters = {**counters, "spec_verify": spec_verify}
+    runs, recorded = {}, {}
+    for tag, eager in (("graph", False), ("eager", True)):
+        eng = LLMEngine(dataclasses.replace(cfg, enforce_eager=eager),
+                        params=params4, device=device)
+        runs[tag] = _spec_run(eng, reqs, tag, counters)
+        if not eager:
+            recorded = {repr(k): n for k, n in
+                        eng._programs.recorded_launches().items()
+                        if k[0] in ("spec", "spec_mixed")}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    held = _held_spec("16e int4 spec", runs["graph"], runs["eager"], reqs)
+    if (not recorded or not all(n.get("int4_matmul", 0) > 0
+                                and n.get("spec_verify", 0) > 0
+                                for n in recorded.values())
+            or runs["graph"]["drafted"] <= 0):
+        raise RuntimeError(f"16e int4 spec: recorded {recorded}, drafted "
+                           f"{runs['graph']['drafted']}")
+    return {"held": held, "recorded": recorded,
+            "kinds": runs["graph"]["kinds"],
+            "acceptance": runs["graph"]["acceptance"],
+            "tokens_per_s": {t: r["tokens_per_s"] for t, r in runs.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -5844,7 +6124,8 @@ def main() -> int:
     from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
     from kubernetes_gpu_cluster_tpu_torch.ops import quant as Q
     from kubernetes_gpu_cluster_tpu_torch.ops.cuda import (
-        build, flash_prefill, flash_prefill_hist, int4_matmul, paged_decode)
+        build, flash_prefill, flash_prefill_hist, int4_matmul, paged_decode,
+        spec_verify)
 
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -5918,10 +6199,13 @@ def main() -> int:
                                            attn)), "|", card)
     phase(f"{MODEL} bf16 server (9a)")
 
-    # Phase 7a: n-gram speculative decoding on the same weights.
-    log("spec ngram:", json.dumps(check_spec_ngram(cfg_engine, params, device,
-                                                   attn)))
-    phase(f"{MODEL} bf16 spec (7a)")
+    # Phase 7a: n-gram speculative decoding on the same weights, its
+    # captured programs against an enforce_eager twin (16g, first half).
+    spec_counters = {**attn, "spec_verify": spec_verify}
+    spec7a = check_spec_ngram(cfg_engine, params, device, spec_counters,
+                              card)
+    log("spec ngram:", json.dumps(spec7a))
+    phase(f"{MODEL} bf16 spec (7a, 16g)")
 
     # Phase 8: the KV transfer layer on the same weights.
     swap = check_swap(cfg_engine, params, device, attn, SWAP_GB,
@@ -6057,8 +6341,8 @@ def main() -> int:
     params = M.init_params(cfg_tiny, torch.Generator(
         device=device).manual_seed(SEED), device)
     log("spec draft:", json.dumps(check_spec_draft(cfg_tiny, params, device,
-                                                   attn)))
-    phase("tinyllama-1.1b fp32 draft spec (7b)")
+                                                   spec_counters, card)))
+    phase("tinyllama-1.1b fp32 draft spec (7b, 16g)")
 
     # Phase 8d: swap on the same fp32 weights, held to the never-preempted
     # engine but for near-ties.
@@ -6077,6 +6361,7 @@ def main() -> int:
     phase("tinyllama-1.1b int4 CLI (9b)")
 
     eng["launches"]["int4_matmul"] = eng4["launches"]["int4_matmul"]
+    eng["launches"]["spec_verify"] = spec7a["launches"]["spec_verify"]
     for r in rows:
         r["launches"] = eng["launches"][r["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -18,9 +18,10 @@ Design constraints:
 
 The JAX package's traced functions, jit cache and donated buffers have
 their counterparts in the engine's step programs
-(``engine/step_programs.py``): a window body the program cache captures
-into a CUDA graph, one graph per (variant, decode bucket), and the static
-outputs each replay overwrites. :meth:`LintModule.captured_functions`
+(``engine/step_programs.py``): a step body the program cache captures
+into a CUDA graph, one graph per key of its family (the draft runner's
+bodies registered in the engine's cache too), and the static outputs each
+replay overwrites. :meth:`LintModule.captured_functions`
 finds the bodies as the JAX core finds jitted functions; KGCT001,
 KGCT003 and KGCT004 police them.
 """
@@ -42,9 +43,12 @@ STATIC_ATTRS = frozenset({"shape", "ndim", "dtype", "device", "is_cuda",
 STATIC_CALLS = frozenset({"len", "isinstance", "type", "size", "dim",
                           "numel", "element_size"})
 
-# The program cache: the class whose constructor takes a window body, and
-# its one capture method (where a graph may be captured).
+# The program cache: the class whose constructor takes step bodies, the
+# method by which another owner registers more (the draft runner in its
+# engine's cache, which returns the cache), and its one capture method
+# (where a graph may be captured).
 PROGRAM_CACHE = "StepPrograms"
+PROGRAM_REGISTER = "add_families"
 CAPTURE_METHOD = "_capture"
 
 
@@ -146,9 +150,14 @@ def _params(fn: ast.AST) -> list:
 
 
 def is_program_cache_call(node: ast.AST) -> bool:
-    """``StepPrograms(...)`` or ``<module>.StepPrograms(...)``."""
-    return (isinstance(node, ast.Call)
-            and _dotted(node.func).split(".")[-1] == PROGRAM_CACHE)
+    """``StepPrograms(...)``, ``<module>.StepPrograms(...)`` or
+    ``<cache>.add_families(...)``: a call that hands step bodies to a
+    program cache and returns the cache."""
+    if not isinstance(node, ast.Call):
+        return False
+    return (_dotted(node.func).split(".")[-1] == PROGRAM_CACHE
+            or (isinstance(node.func, ast.Attribute)
+                and node.func.attr == PROGRAM_REGISTER))
 
 
 class LintModule:
@@ -233,7 +242,8 @@ class LintModule:
     def captured_functions(self) -> list:
         """Every step body handed to the program cache (``StepPrograms(body,
         ...)``, or each value of ``StepPrograms({family: body, ...},
-        ...)``), resolved like the JAX core's jitted functions:
+        ...)`` or of ``<cache>.add_families({family: body, ...}, ...)``),
+        resolved like the JAX core's jitted functions:
         ``self.<method>`` to the method of the enclosing class, a bare name
         to the def of the enclosing scope or module; a body named twice is
         taken once. The cache calls ``body(key, buffers)``: every parameter

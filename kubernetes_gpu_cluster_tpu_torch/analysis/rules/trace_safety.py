@@ -14,9 +14,9 @@ same randomness every window). Branching on host-side metadata
 the body routes runtime decisions through ``torch.where`` on the device
 instead (the JAX package's trace-safety rule, for captured graphs).
 
-Scope: every body the module hands to ``StepPrograms`` and the methods of
-its class it calls with tensor arguments
-(``LintModule.captured_functions``).
+Scope: every body the module hands to ``StepPrograms`` (or registers
+with ``add_families``) and the methods of its class it calls with tensor
+arguments (``LintModule.captured_functions``).
 """
 
 from __future__ import annotations
@@ -71,12 +71,14 @@ class TraceSafetyRule(Rule):
                    "program cache captures into a CUDA graph")
 
     def check(self, mod: LintModule) -> Iterator[Finding]:
+        seen: set = set()       # a helper two bodies share is reported once
         for cf in mod.captured_functions:
             tainted = propagate_taint(cf.node, cf.tensor_params)
             for node in ast.walk(cf.node):
                 hit = _problem(node, tainted)
-                if hit is None:
+                if hit is None or id(node) in seen:
                     continue
+                seen.add(id(node))
                 what, kind = hit
                 yield self.finding(
                     mod, node,

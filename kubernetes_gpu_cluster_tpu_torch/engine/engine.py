@@ -28,16 +28,18 @@ Step programs (``engine/step_programs.py``), the counterpart of the JAX
 engine's bucketed jit programs: on one card the decode window (one program
 per (greedy|sampled, decode bucket)), the ragged prefill (per (prefill
 bucket, row bucket)), the solo chunk (per (prefill bucket, history
-width)) and the mixed step (per (prefill bucket, row bucket, history
-width)) are each captured into a CUDA graph at their key's first step and
-replayed, keyed as the JAX jit caches are; the dispatcher fills the
-program's static inputs from pinned host buffers before each replay and
-starts the one fetch after it. ``compiled_step_variants`` counts the
-programs built (on the CPU the same keys around the eager bodies).
-``EngineConfig.enforce_eager`` turns capture off, as in the JAX package,
-and runs the same bodies. Eager on purpose, listed for the next slices:
-spec verify, spec×mixed and the draft runner, the KV transfer programs,
-and every step of a rank under torch.distributed (tp, ep, pp, sp: gloo's
+width)), the mixed step (per (prefill bucket, row bucket, history width)),
+the spec verify step (per (row bucket, S)), the spec×mixed step (per
+(prefill bucket, row bucket, history width, S)) and the draft runner's
+decode dispatch and reset chunk are each captured into a CUDA graph at
+their key's first step and replayed, keyed as the JAX jit caches are; the
+dispatcher fills the program's static inputs from pinned host buffers
+before each replay and starts the one fetch after it.
+``compiled_step_variants`` counts the programs built (on the CPU the same
+keys around the eager bodies). ``EngineConfig.enforce_eager`` turns
+capture off, as in the JAX package, and runs the same bodies. Eager on
+purpose, listed for the next slices: the KV transfer programs, and every
+step of a rank under torch.distributed (tp, ep, pp, sp: gloo's
 host-staged collectives cannot be captured; sp's ring prefill and pp's
 pipeline forward run inside the same bodies), whose engine builds no
 program. The JAX package's donation bookkeeping and probe-and-fall-back
@@ -82,8 +84,9 @@ the JAX engine's sites: the KV-slot shadow checks every spec, spec×mixed
 and decode-window dispatch before its inputs are uploaded and learns of
 swap restores and imports; the step-output guard checks every fetched
 window. Each hook is handed the host arrays the step already holds
-(``batch.*`` before ``_up``, the fetched ``toks_np`` / ``lps_np``), so the
-sanitizer adds no device->host synchronization. Off, the engine holds
+(``batch.*`` before a program's static inputs are filled, the fetched
+``toks_np`` / ``lps_np``), so the sanitizer adds no device->host
+synchronization. Off, the engine holds
 ``None`` and each hook is one ``is None`` test.
 """
 
@@ -93,7 +96,7 @@ import dataclasses
 import functools
 import hashlib
 import time
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -102,7 +105,6 @@ from ..analysis.sanitize import build_step_sanitizer
 from ..config import EngineConfig
 from ..models import llama as model_lib
 from ..observability import Observability
-from ..ops.attention import verify_table_width
 from ..ops.sampling import (TOP_LOGPROBS, apply_logit_bias, apply_penalties,
                             build_counts, row_sample_keys,
                             sample_and_logprobs, spec_verify_sample,
@@ -119,7 +121,7 @@ from .kv_cache import (KVPageIO, KVTransferPrograms, KVTransferRefused,
 from .sampling_params import LOGIT_BIAS_CAP, SamplingParams
 from .scheduler import ScheduledBatch, Scheduler, _bucket
 from .sequence import FinishReason, Sequence, SequenceStatus
-from .step_programs import StepPrograms, activation_bytes
+from .step_programs import StepPrograms, program_bytes
 
 logger = get_logger("engine")
 
@@ -149,22 +151,6 @@ class RequestOutput:
     # of the N most likely tokens (N = SamplingParams.top_logprobs).
     new_top_logprobs: Optional[list[list[tuple[int, float]]]] = None
     output_top_logprobs: Optional[list[list[tuple[int, float]]]] = None
-
-
-class _Sampling(NamedTuple):
-    """One batch's sampling inputs on the device, plus what the batch needs,
-    decided from the host copy (no device read-back)."""
-    temperature: torch.Tensor
-    top_k: torch.Tensor
-    top_p: torch.Tensor
-    presence: torch.Tensor
-    frequency: torch.Tensor
-    seed: torch.Tensor
-    bias: Optional[tuple[torch.Tensor, torch.Tensor]]   # (ids, vals) or None
-    any_sampled: bool
-    needs_filter: bool
-    any_pen: bool
-    with_top: bool
 
 
 def resolve_device(device) -> torch.device:
@@ -279,12 +265,16 @@ class LLMEngine:
         free = (torch.cuda.mem_get_info(self.device)[0]
                 if self.device.type == "cuda" else None)
         programs = not config.enforce_eager and groups is None
+        # The largest program's working memory stays in the graphs' shared
+        # pool once captured: kept out of the pages, the draft pool's too.
+        reserve = 0
         if free is not None and programs:
-            # The largest prefill program's working memory stays in the
-            # graphs' shared pool once captured: kept out of the pages.
-            free -= activation_bytes(
-                config.model, max(sc.prefill_buckets), max(sc.decode_buckets),
-                config.effective_max_len)
+            draft = None
+            if sc.spec_decode_enabled and sc.spec_draft_model:
+                from .spec.draft_model import resolve_draft_config
+                draft = resolve_draft_config(config, sc.spec_draft_model)
+            reserve = program_bytes(config, draft)
+            free -= reserve
         num_pages = derive_num_pages(
             kv_model, config.cache, config.effective_max_len,
             sc.max_num_seqs, free, groups=groups)
@@ -324,16 +314,28 @@ class LLMEngine:
                     "pp=%d/sp=%d meshes", self.pp_size, self.sp_size)
                 self.scheduler.spec_enabled = False
             self.scheduler.spec_mixed_enabled = False
+        # The step programs, keyed per family as the JAX jit caches:
+        # captured on the card, keyed around the eager bodies on the CPU,
+        # none with enforce_eager or under torch.distributed (see
+        # step_programs). The draft runner registers its families here.
+        self._programs = StepPrograms(
+            {"greedy": self._window_body, "sampled": self._window_body,
+             "prefill": self._prefill_body,
+             "prefill_hist": self._prefill_hist_body,
+             "mixed": self._mixed_body, "spec": self._spec_body,
+             "spec_mixed": self._spec_mixed_body},
+            self._program_layout, self.device, enabled=programs)
         if self.scheduler.spec_enabled:
             if sc.spec_draft_model:
                 # Built after the target pool: its own pool takes at most
-                # half of the memory left. The one installation site; the
-                # engine and scheduler reach draft state only through the
-                # proposer seam.
+                # half of the memory left beside the programs' reckoning.
+                # The one installation site; the engine and scheduler reach
+                # draft state only through the proposer seam.
                 from .spec.draft_model import build_draft_runner
                 self.scheduler.spec_proposer = build_draft_runner(
                     config, sc.spec_draft_model, params=draft_params,
-                    device=self.device, groups=groups)
+                    device=self.device, groups=groups,
+                    programs=self._programs, reserve_bytes=reserve)
             ctrl = self.scheduler.spec_controller
             self.obs.spec_current_k = (ctrl.current_k if ctrl is not None
                                        else sc.effective_spec_k_max)
@@ -381,16 +383,6 @@ class LLMEngine:
                 self.swapper.on_restored = self._sanitizer.on_swap_restore
         self.kv_io = KVPageIO(get_kv=lambda: self.kv_cache,
                               programs=self._kv_programs)
-        # The step programs, keyed per family as the JAX jit caches:
-        # captured on the card, keyed around the eager bodies on the CPU,
-        # none with enforce_eager or under torch.distributed (see
-        # step_programs).
-        self._programs = StepPrograms(
-            {"greedy": self._window_body, "sampled": self._window_body,
-             "prefill": self._prefill_body,
-             "prefill_hist": self._prefill_hist_body,
-             "mixed": self._mixed_body},
-            self._program_layout, self.device, enabled=programs)
         self.stats = EngineStats()
         self.step_count = 0
         # Speculative decode-window chain state (see _step).
@@ -437,10 +429,6 @@ class LLMEngine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def _start_fetch(self, *tensors: torch.Tensor):
         """Enqueue device->host copies of ``tensors`` right behind the work
         that produces them; returns (host tensors, event). Waiting on the
@@ -461,28 +449,6 @@ class LLMEngine:
         if event is not None:
             event.synchronize()
         return [h.numpy() for h in host]
-
-    def _sampling(self, batch: ScheduledBatch,
-                  rows: slice = slice(None)) -> _Sampling:
-        """The sampling inputs of the batch's device ``rows`` (a spec×mixed
-        step samples its verify rows and its chunk row apart)."""
-        temperature, top_k, top_p = (batch.temperature[rows],
-                                     batch.top_k[rows], batch.top_p[rows])
-        presence, frequency = batch.presence[rows], batch.frequency[rows]
-        bias = None
-        if any(seq.params.logit_bias for seq in batch.seqs):
-            ids, vals = self._bias_arrays(batch)
-            if np.any(ids[rows] >= 0):
-                bias = (self._up(ids[rows]), self._up(vals[rows]))
-        return _Sampling(
-            temperature=self._up(temperature),
-            top_k=self._up(top_k), top_p=self._up(top_p),
-            presence=self._up(presence), frequency=self._up(frequency),
-            seed=self._up(batch.seed[rows]), bias=bias,
-            any_sampled=bool(np.any(temperature > 0)),
-            needs_filter=bool(np.any((top_k > 0) | (top_p < 1.0))),
-            any_pen=bool(np.any(presence != 0) or np.any(frequency != 0)),
-            with_top=bool(np.any(batch.top_n[rows] > 0)))
 
     @staticmethod
     def _bias_arrays(batch: ScheduledBatch) -> tuple[np.ndarray, np.ndarray]:
@@ -510,21 +476,6 @@ class LLMEngine:
     def _next_step_key(self) -> int:
         return int(torch.randint(0, 2 ** 31 - 1, (1,),
                                  generator=self._generator))
-
-    def _sample(self, logits, smp: _Sampling, pos_next, step_key: int,
-                counts=None):
-        """Bias -> penalties -> temperature/filters/draw, the JAX package's
-        logits-processor order."""
-        if smp.bias is not None:
-            logits = apply_logit_bias(logits, *smp.bias)
-        if smp.any_pen and counts is not None:
-            logits = apply_penalties(logits, counts, smp.presence,
-                                     smp.frequency)
-        keys = row_sample_keys(step_key, smp.seed, pos_next)
-        return sample_and_logprobs(
-            logits, keys, smp.temperature, smp.top_k, smp.top_p,
-            any_sampled=smp.any_sampled, needs_filter=smp.needs_filter,
-            with_top=smp.with_top)
 
     # -- public API ---------------------------------------------------------
 
@@ -606,13 +557,13 @@ class LLMEngine:
     def compiled_step_variants(self) -> int:
         """Step programs built so far, every family's captured graphs (on
         the CPU the same keys around the eager bodies): the decode window
-        at most two per decode bucket, the prefill, solo-chunk and mixed
-        steps one per key of the JAX bucket grid. 0 with
-        ``enforce_eager`` and on a rank under torch.distributed, which
-        capture nothing. Exported as ``kgct_jit_compiles_total``: a steady
-        serving process holds it flat, as the JAX engine's jit cache
-        count. Spec and spec×mixed steps, the draft runner and the KV
-        transfers run eagerly and add nothing."""
+        at most two per decode bucket, the prefill, solo-chunk, mixed,
+        spec and spec×mixed steps and the draft runner's two families one
+        per key of the JAX bucket grid. 0 with ``enforce_eager`` and on a
+        rank under torch.distributed, which capture nothing. Exported as
+        ``kgct_jit_compiles_total``: a steady serving process holds it
+        flat, as the JAX engine's jit cache count. The KV transfers run
+        eagerly and add nothing."""
         return len(self._programs)
 
     # -- KV handoff seams (disaggregated prefill/decode, live migration) ----
@@ -1199,16 +1150,24 @@ class LLMEngine:
         return fwd(self.params, cfg, tokens, meta, self.kv_cache, *extra,
                    groups=self.groups)[0]
 
-    # -- the prefill, solo-chunk and mixed programs --------------------------
+    # -- the prefill, solo-chunk, mixed, spec and spec×mixed programs --------
 
     @staticmethod
     def _step_program_key(batch: ScheduledBatch) -> tuple:
-        """The program of a prefill, solo-chunk or mixed batch, keyed by the
-        shapes the JAX jit caches key it by: ("prefill", T, B),
-        ("prefill_hist", T, W), ("mixed", Tp, R, W); every one a bucket the
-        scheduler already chose."""
+        """The program of a prefill, solo-chunk, mixed, spec or spec×mixed
+        batch, keyed by the shapes the JAX jit caches key it by:
+        ("prefill", T, B), ("prefill_hist", T, W), ("mixed", Tp, R, W),
+        ("spec", R, S), ("spec_mixed", Tp, R, W, S); every one a bucket the
+        scheduler already chose (S the adaptive ladder's rung)."""
         T = batch.tokens.shape[0]
         R = batch.temperature.shape[0]
+        if batch.kind in ("spec", "spec_mixed"):
+            R = batch.page_tables.shape[0]
+            S = batch.spec_S
+            if batch.kind == "spec":
+                return ("spec", R, S)
+            return ("spec_mixed", T - R * S, R,
+                    batch.chunk_page_table.shape[1], S)
         if batch.kind == "mixed":
             return ("mixed", T - R, R, batch.chunk_page_table.shape[1])
         if batch.hist_len is not None:
@@ -1220,48 +1179,69 @@ class LLMEngine:
                 else self._step_layout(key))
 
     def _step_layout(self, key) -> tuple[dict, dict]:
-        """The (inputs, state) buffers of a prefill, solo-chunk or mixed
-        program: the token axis, the sampled rows' parameters and bias
-        slots (-1 when empty), the step key, and the family's own inputs
-        (prompt lengths for the prefill's in-batch penalty counts; a
-        chunk's history length and page tables). State is a chunk's
-        ``[R, out_cap]`` penalty history, written only when a row has
-        penalties, and the outputs every run overwrites."""
+        """The (inputs, state) buffers of a prefill, solo-chunk, mixed,
+        spec or spec×mixed program: the token axis, the sampled rows'
+        parameters and bias slots (-1 when empty), the step key, and the
+        family's own inputs (prompt lengths for the prefill's in-batch
+        penalty counts; a chunk's history length and table; the verify
+        rows' whole ``[R, pps]`` tables and context lengths; a spec×mixed
+        step samples R verify rows and the chunk's row R). State is the
+        ``[rows, out_cap]`` penalty history of every family but the
+        prefill, written only when a row has penalties, and the outputs
+        every run overwrites (a verify step's ``[R, S]`` tokens and
+        logprobs, ``[R, S, 5]`` alternatives and ``[R]`` accepted counts;
+        spec×mixed adds the chunk row's ``out_c*``)."""
         family = key[0]
+        S = 1
         if family == "prefill":
             _, n, R = key
         elif family == "prefill_hist":
             _, n, W = key
             R = _bucket(1, self.config.scheduler.decode_buckets)
-        else:
+        elif family == "mixed":
             _, Tp, R, W = key
             n = Tp + R
+        elif family == "spec":
+            _, R, S = key
+            n = R * S
+        else:
+            _, Tp, R, W, S = key
+            n = Tp + R * S
+        rows = R + 1 if family == "spec_mixed" else R
         i32, f32 = torch.int32, torch.float32
         inputs = {name: ((n,), i32) for name in (
             "tokens", "seg_ids", "positions", "slot_mapping")}
         inputs.update(
-            {name: ((R,), i32) for name in ("logits_indices", "top_k",
-                                            "seed")},
-            step_key=((1,), i32), bias_ids=((R, LOGIT_BIAS_CAP), i32),
-            bias_vals=((R, LOGIT_BIAS_CAP), f32),
-            **{name: ((R,), f32) for name in (
+            {name: ((rows,), i32) for name in ("top_k", "seed")},
+            step_key=((1,), i32), bias_ids=((rows, LOGIT_BIAS_CAP), i32),
+            bias_vals=((rows, LOGIT_BIAS_CAP), f32),
+            **{name: ((rows,), f32) for name in (
                 "temperature", "top_p", "presence", "frequency")})
-        state = {"out_tok": ((R,), i32), "out_lp": ((R,), f32),
-                 "out_tid": ((R, TOP_LOGPROBS), i32),
-                 "out_tlp": ((R, TOP_LOGPROBS), f32)}
+        outs = (R, S) if family in ("spec", "spec_mixed") else (R,)
+        state = {"out_tok": (outs, i32), "out_lp": (outs, f32),
+                 "out_tid": (outs + (TOP_LOGPROBS,), i32),
+                 "out_tlp": (outs + (TOP_LOGPROBS,), f32)}
         if family == "prefill":
-            inputs["prompt_lens"] = ((R,), i32)
+            inputs.update(logits_indices=((R,), i32), prompt_lens=((R,), i32))
             return inputs, state
-        inputs["hist_len"] = ((1,), i32)
-        state["out_tokens"] = ((R, self._out_cap), i32)
+        state["out_tokens"] = ((rows, self._out_cap), i32)
         if family == "prefill_hist":
-            inputs["page_table"] = ((1, W), i32)
-        else:
-            pps = cdiv(self.config.effective_max_len,
-                       self.config.cache.page_size)
-            inputs.update(chunk_page_table=((1, W), i32),
-                          page_tables=((R, pps), i32),
-                          context_lens=((R,), i32))
+            inputs.update(logits_indices=((R,), i32), hist_len=((1,), i32),
+                          page_table=((1, W), i32))
+            return inputs, state
+        pps = cdiv(self.config.effective_max_len, self.config.cache.page_size)
+        inputs.update(page_tables=((R, pps), i32), context_lens=((R,), i32))
+        if family != "spec":
+            sampled = R * S + 1 if family == "spec_mixed" else R
+            inputs.update(logits_indices=((sampled,), i32),
+                          hist_len=((1,), i32),
+                          chunk_page_table=((1, W), i32))
+        if family in ("spec", "spec_mixed"):
+            state["out_n_acc"] = ((R,), i32)
+        if family == "spec_mixed":
+            state.update(out_ctok=((1,), i32), out_clp=((1,), f32),
+                         out_ctid=((1, TOP_LOGPROBS), i32),
+                         out_ctlp=((1, TOP_LOGPROBS), f32))
         return inputs, state
 
     def _prefill_meta(self, bufs) -> "model_lib.PrefillMeta":
@@ -1269,6 +1249,15 @@ class LLMEngine:
             seg_ids=bufs["seg_ids"], positions=bufs["positions"],
             slot_mapping=bufs["slot_mapping"],
             logits_indices=bufs["logits_indices"])
+
+    def _mixed_meta(self, bufs) -> "model_lib.MixedMeta":
+        return model_lib.MixedMeta(
+            seg_ids=bufs["seg_ids"], positions=bufs["positions"],
+            slot_mapping=bufs["slot_mapping"],
+            logits_indices=bufs["logits_indices"],
+            chunk_page_table=bufs["chunk_page_table"],
+            hist_len=bufs["hist_len"], page_tables=bufs["page_tables"],
+            context_lens=bufs["context_lens"])
 
     def _prefill_body(self, key, bufs) -> None:
         """One ragged prefill of program ``key`` over its static buffers:
@@ -1293,18 +1282,80 @@ class LLMEngine:
         """One mixed step of program ``key``: the chunk and the decode rows
         in one forward, then ``_sample_step`` on every row, the chunk's
         included, with counts from the penalty history."""
-        meta = model_lib.MixedMeta(
-            seg_ids=bufs["seg_ids"], positions=bufs["positions"],
-            slot_mapping=bufs["slot_mapping"],
-            logits_indices=bufs["logits_indices"],
-            chunk_page_table=bufs["chunk_page_table"],
-            hist_len=bufs["hist_len"], page_tables=bufs["page_tables"],
-            context_lens=bufs["context_lens"])
         hidden, _, _ = model_lib.forward_mixed(
-            self.params, self.model_config, bufs["tokens"], meta,
-            self.kv_cache, groups=self.groups)
+            self.params, self.model_config, bufs["tokens"],
+            self._mixed_meta(bufs), self.kv_cache, groups=self.groups)
         self._sample_step(bufs, hidden, build_counts(
             bufs["out_tokens"], self.model_config.vocab_size))
+
+    def _spec_body(self, key, bufs) -> None:
+        """One verify step of program ``key`` = ("spec", R, S): every row's
+        ``[last token, k drafts]`` slice in one forward (the verify
+        attention reads each row's context length on the device, over the
+        whole table), the logits of every slot, then ``_verify_rows``."""
+        _, R, S = key
+        meta = model_lib.SpecMeta(
+            seg_ids=bufs["seg_ids"], positions=bufs["positions"],
+            slot_mapping=bufs["slot_mapping"],
+            page_tables=bufs["page_tables"],
+            context_lens=bufs["context_lens"])
+        hidden, _, _ = model_lib.forward_spec_verify(
+            self.params, self.model_config, bufs["tokens"], meta,
+            self.kv_cache, groups=self.groups)
+        logits = model_lib.compute_logits(self.params, self.model_config,
+                                          hidden, groups=self.groups)
+        self._verify_rows(bufs, logits, bufs["tokens"], R, S)
+
+    def _spec_mixed_body(self, key, bufs) -> None:
+        """One spec×mixed step of program ``key`` = ("spec_mixed", Tp, R,
+        W, S): the chunk and the R verify slices in one forward, then
+        ``_verify_rows`` on the verify slots and, on the chunk's
+        last-token logits, the mixed step's one sampled row (device row
+        R), with counts from its penalty history."""
+        _, Tp, R, _, S = key
+        hidden, _, _ = model_lib.forward_spec_mixed(
+            self.params, self.model_config, bufs["tokens"],
+            self._mixed_meta(bufs), self.kv_cache, S, groups=self.groups)
+        logits = model_lib.compute_logits(self.params, self.model_config,
+                                          hidden, groups=self.groups)
+        self._verify_rows(bufs, logits[:R * S], bufs["tokens"][Tp:], R, S)
+        chunk = slice(R, R + 1)
+        idx = bufs["logits_indices"][R * S:].to(torch.int64)
+        tok, lp, tid, tlp = self._sample_rows(
+            bufs, logits[R * S:], build_counts(bufs["out_tokens"][chunk],
+                                               self.model_config.vocab_size),
+            bufs["positions"][idx] + 1, chunk)
+        bufs["out_ctok"].copy_(tok)
+        bufs["out_clp"].copy_(lp)
+        bufs["out_ctid"].copy_(tid)
+        bufs["out_ctlp"].copy_(tlp)
+
+    def _verify_rows(self, bufs, logits: torch.Tensor,
+                     drafts_flat: torch.Tensor, R: int, S: int) -> None:
+        """Acceptance over the R verify rows' logits [R*S, V] into the
+        program's outputs: each row's bias on its S positions, then
+        ``spec_verify_sample`` with counts from the penalty history (spec
+        steps are synchronous, so the host knows every output token), each
+        row's own parameters deciding on the device, as ``_sample_rows``
+        does."""
+        V = logits.shape[-1]
+        rows = slice(0, R)
+        logits = apply_logit_bias(
+            logits, bufs["bias_ids"][rows].repeat_interleave(S, dim=0),
+            bufs["bias_vals"][rows].repeat_interleave(S, dim=0))
+        toks, n_acc, lps, tids, tlps = spec_verify_sample(
+            logits.reshape(R, S, V), drafts_flat.reshape(R, S)[:, 1:],
+            bufs["context_lens"], bufs["step_key"], bufs["seed"][rows],
+            bufs["temperature"][rows], bufs["top_k"][rows],
+            bufs["top_p"][rows], bufs["presence"][rows],
+            bufs["frequency"][rows],
+            build_counts(bufs["out_tokens"][rows], V), any_sampled=True,
+            needs_filter=True, any_pen=True, with_top=True)
+        bufs["out_tok"].copy_(toks)
+        bufs["out_n_acc"].copy_(n_acc)
+        bufs["out_lp"].copy_(lps)
+        bufs["out_tid"].copy_(tids)
+        bufs["out_tlp"].copy_(tlps)
 
     def _sample_step(self, bufs, hidden: torch.Tensor,
                      counts: torch.Tensor) -> None:
@@ -1341,15 +1392,15 @@ class LLMEngine:
         return counts.view(R, V)
 
     def _dispatch_step(self, batch: ScheduledBatch) -> Optional[tuple]:
-        """Run a prefill, solo-chunk or mixed batch through its program:
-        fill its static inputs (one pinned upload per dtype) and, when a
-        chunk's row has penalties, its penalty history (rebuilt from the
-        host-known outputs, as ``_dispatch_window`` rebuilds its counts;
-        otherwise its stale contents meet zero penalties and change no
-        bit); run or replay it; then, unless nothing of the step is read
-        (a partial solo chunk), record the compute's end and enqueue the
-        one device->host copy of the outputs the batch reads. Returns
-        (event, fetch) or None."""
+        """Run a prefill, solo-chunk, mixed, spec or spec×mixed batch
+        through its program: fill its static inputs (one pinned upload per
+        dtype) and, when a row of a family with a penalty history has
+        penalties, that history (rebuilt from the host-known outputs, as
+        ``_dispatch_window`` rebuilds its counts; otherwise its stale
+        contents meet zero penalties and change no bit); run or replay it;
+        then, unless nothing of the step is read (a partial solo chunk),
+        record the compute's end and enqueue the one device->host copy of
+        the outputs the batch reads. Returns (event, fetch) or None."""
         ph = self.obs.phases.phase
         key = self._step_program_key(batch)
         family = key[0]
@@ -1358,31 +1409,39 @@ class LLMEngine:
         with ph("host_prep"):
             ids, vals = self._bias_arrays(batch)
             inputs = {name: getattr(batch, name) for name in (
-                "tokens", "seg_ids", "positions", "slot_mapping",
-                "logits_indices", "top_k", "seed", "temperature", "top_p",
-                "presence", "frequency")}
+                "tokens", "seg_ids", "positions", "slot_mapping", "top_k",
+                "seed", "temperature", "top_p", "presence", "frequency")}
             inputs.update(step_key=[step_key], bias_ids=ids, bias_vals=vals)
+            if family != "spec":
+                inputs["logits_indices"] = batch.logits_indices
             if family == "prefill":
                 inputs["prompt_lens"] = batch.prompt_lens
-            else:
-                inputs["hist_len"] = [batch.hist_len]
-                if np.any(batch.presence) or np.any(batch.frequency):
-                    bufs["out_tokens"].copy_(self._penalty_out_tokens(batch))
+            elif np.any(batch.presence) or np.any(batch.frequency):
+                bufs["out_tokens"].copy_(self._penalty_out_tokens(batch))
             if family == "prefill_hist":
-                inputs["page_table"] = batch.page_tables
-            elif family == "mixed":
-                inputs.update(chunk_page_table=batch.chunk_page_table,
-                              page_tables=batch.page_tables,
+                inputs.update(hist_len=[batch.hist_len],
+                              page_table=batch.page_tables)
+            elif family != "prefill":
+                inputs.update(page_tables=batch.page_tables,
                               context_lens=batch.context_lens)
+            if family in ("mixed", "spec_mixed"):
+                inputs.update(hist_len=[batch.hist_len],
+                              chunk_page_table=batch.chunk_page_table)
             bufs.upload(inputs)
         with ph("device_dispatch"):
             self._programs.run(key)
             if batch.kind == "prefill" and batch.partial:
                 return None
             done = self._record_event()
-            outs = ("out_tok", "out_lp") + (
-                ("out_tid", "out_tlp")
-                if any(s.params.top_logprobs for s in batch.seqs) else ())
+            outs = ["out_tok", "out_lp"]
+            if family in ("spec", "spec_mixed"):
+                outs.append("out_n_acc")
+            if family == "spec_mixed":
+                outs += ["out_ctok", "out_clp"]
+            if any(s.params.top_logprobs for s in batch.seqs):
+                outs += ["out_tid", "out_tlp"]
+                if family == "spec_mixed":
+                    outs += ["out_ctid", "out_ctlp"]
             return done, self._start_fetch(*(bufs[name] for name in outs))
 
     def _record_event(self) -> Optional["torch.cuda.Event"]:
@@ -1392,46 +1451,31 @@ class LLMEngine:
         event.record(torch.cuda.current_stream(self.device))
         return event
 
-    def _fetch_step(self, pending: tuple):
-        """Wait for a dispatched step's outputs, split into device compute
-        (its event) and the copy itself for the TTFT decomposition
-        ("prefill" carries the compute, "first_fetch" only the transfer).
-        Returns tokens and logprobs [R, 1] and the alternatives [R, 1, 5]
-        (None when the batch asked for none)."""
+    def _wait_step(self, pending: tuple) -> list[np.ndarray]:
+        """Wait for a dispatched step's outputs (in ``_dispatch_step``'s
+        order), split into device compute (its event) and the copy itself
+        for the TTFT decomposition ("prefill" carries the compute,
+        "first_fetch" only the transfer)."""
         done, fetch = pending
         with self.obs.phases.phase("device_fetch"):
             t0f = time.perf_counter()
             if done is not None:
                 done.synchronize()
             compute_s = time.perf_counter() - t0f
-            toks, lps, *tops = self._finish_fetch(fetch)
+            arrays = self._finish_fetch(fetch)
         self._ttft_transfer_s = max(
             self.obs.phases.current_durs.get("device_fetch", 0.0)
             - compute_s, 0.0)
+        return arrays
+
+    def _fetch_step(self, pending: tuple):
+        """A prefill, solo-chunk or mixed step's outputs: tokens and
+        logprobs [R, 1] and the alternatives [R, 1, 5] (None when the
+        batch asked for none)."""
+        toks, lps, *tops = self._wait_step(pending)
         top_i, top_l = ((t[:, None] for t in tops) if tops
                         else (None, None))
         return toks[:, None], lps[:, None], top_i, top_l
-
-    def _verify(self, logits: torch.Tensor, smp: _Sampling, drafts_flat,
-                context_lens: torch.Tensor, S: int, step_key: int,
-                out_tokens: Optional[torch.Tensor]):
-        """Acceptance over a verify half's logits [R*S, V]: the bias of each
-        row on all of its S positions, then ``spec_verify_sample`` with the
-        host-resynced penalty histogram (spec steps are synchronous, so the
-        host knows every output token)."""
-        R = context_lens.shape[0]
-        V = logits.shape[-1]
-        if smp.bias is not None:
-            logits = apply_logit_bias(
-                logits, *(t.repeat_interleave(S, dim=0) for t in smp.bias))
-        counts = (build_counts(out_tokens, V) if out_tokens is not None
-                  else None)
-        return spec_verify_sample(
-            logits.reshape(R, S, V), drafts_flat.reshape(R, S)[:, 1:],
-            context_lens, step_key, smp.seed, smp.temperature, smp.top_k,
-            smp.top_p, smp.presence, smp.frequency, counts,
-            any_sampled=smp.any_sampled, needs_filter=smp.needs_filter,
-            any_pen=smp.any_pen, with_top=smp.with_top)
 
     def _spec_outcome(self, batch: ScheduledBatch, n_acc: np.ndarray,
                       D: int, S: int) -> tuple[np.ndarray, int, int]:
@@ -1447,57 +1491,27 @@ class LLMEngine:
         return emit, drafted, accepted
 
     def _step_spec(self, batch: ScheduledBatch) -> list[RequestOutput]:
-        """One speculative-verification step: every row advances by
-        ``accepted + 1`` tokens through the regular stop-check loop, so EOS
-        and max_tokens inside the accepted prefix truncate exactly as in the
-        decode path. Synchronous (the next drafts depend on this step's
-        tokens), so finished rows release pages at once. Rejected drafts'
-        K/V sit past the new committed length: verify reads history only
-        below ``context_lens - 1`` and the next step's append overwrites
-        them before any read, so nothing is rolled back on the device."""
-        ph = self.obs.phases.phase
-        cfg = self.model_config
-        R_pad = batch.page_tables.shape[0]
-        S = len(batch.tokens) // R_pad
-        width = verify_table_width(batch.context_lens,
-                                   self.config.cache.page_size)
+        """One speculative-verification step through its program: every
+        row advances by ``accepted + 1`` tokens through the regular
+        stop-check loop, so EOS and max_tokens inside the accepted prefix
+        truncate exactly as in the decode path. Synchronous (the next
+        drafts depend on this step's tokens), so finished rows release
+        pages at once. Rejected drafts' K/V sit past the new committed
+        length: verify reads history only below ``context_lens - 1`` and
+        the next step's append overwrites them before any read, so nothing
+        is rolled back on the device."""
+        S = batch.spec_S
         # Chaos site: KGCT_FAULT=kv_commit_stomp corrupts one KV write slot
-        # BEFORE the upload (``_up`` copies at once: a later change would
-        # never reach the card), so the device really would stomp
-        # committed history — the KV shadow (KGCT_SANITIZE=1) must catch it
-        # here.
+        # BEFORE the static inputs are filled (a later change would never
+        # reach the card), so the device really would stomp committed
+        # history — the KV shadow (KGCT_SANITIZE=1) must catch it here.
         if _inject_fault("kv_commit_stomp"):
             _stomp_committed_slot(batch, self.config.cache.page_size, S)
         if self._sanitizer is not None:
             self._sanitizer.on_spec_dispatch(batch)
-        with ph("host_prep"):
-            smp = self._sampling(batch)
-            tokens = self._up(batch.tokens)
-            meta = model_lib.SpecMeta(
-                seg_ids=self._up(batch.seg_ids),
-                positions=self._up(batch.positions),
-                slot_mapping=self._up(batch.slot_mapping),
-                page_tables=self._up(batch.page_tables[:, :width]),
-                context_lens=self._up(batch.context_lens))
-            out_tokens = (self._penalty_out_tokens(batch) if smp.any_pen
-                          else None)
-        step_key = self._next_step_key()
-        with ph("device_dispatch"):
-            hidden, _, _ = model_lib.forward_spec_verify(
-                self.params, cfg, tokens, meta, self.kv_cache,
-                groups=self.groups)
-            logits = model_lib.compute_logits(self.params, cfg, hidden,
-                                              groups=self.groups)
-            toks, n_acc, lps, tids, tlps = self._verify(
-                logits, smp, tokens, meta.context_lens, S, step_key,
-                out_tokens)
-        with ph("device_fetch"):
-            self._sync()
-            toks_np, n_acc_np, lps_np = (t.cpu().numpy()
-                                         for t in (toks, n_acc, lps))
-            top_i = top_l = None
-            if any(s.params.top_logprobs for s in batch.seqs):
-                top_i, top_l = tids.cpu().numpy(), tlps.cpu().numpy()
+        toks_np, lps_np, n_acc_np, *tops = self._wait_step(
+            self._dispatch_step(batch))
+        top_i, top_l = tops if tops else (None, None)
         B = batch.num_seqs
         emit, drafted, accepted = self._spec_outcome(batch, n_acc_np, B, S)
         greedy = bool(np.all(batch.temperature[:B] <= 0))
@@ -1505,7 +1519,7 @@ class LLMEngine:
             # Before _process_window appends tokens: rejected-draft slots
             # (past each row's accepted prefix) become stale in the shadow.
             self._sanitizer.on_spec_commit(batch, emit)
-        with ph("postproc"):
+        with self.obs.phases.phase("postproc"):
             outs = self._process_window(batch, toks_np, lps_np, set(),
                                         defer=False, top_ids=top_i,
                                         top_lps=top_l, emit_counts=emit)
@@ -1525,21 +1539,17 @@ class LLMEngine:
         self.obs.spec_current_k = ctrl.current_k
 
     def _step_spec_mixed(self, batch: ScheduledBatch) -> list[RequestOutput]:
-        """One spec×mixed step: every running row advances by ``accepted +
-        1`` tokens (the spec step's commit) and the queue-head prompt by one
-        chunk (the mixed step's commit), in one forward. The chunk row
-        samples on device row R_pad: its token is the sequence's first on a
-        final chunk and is dropped (zombie row) while the prompt is
-        partial. Synchronous, like both."""
-        ph = self.obs.phases.phase
-        cfg = self.model_config
+        """One spec×mixed step through its program: every running row
+        advances by ``accepted + 1`` tokens (the spec step's commit) and
+        the queue-head prompt by one chunk (the mixed step's commit), in
+        one forward. The chunk row samples on device row R_pad: its token
+        is the sequence's first on a final chunk and is dropped (zombie
+        row) while the prompt is partial. Synchronous, like both."""
         chunk_seq = batch.seqs[-1]
         D = len(batch.seqs) - 1
         R_pad = batch.page_tables.shape[0]
         S = batch.spec_S
         Tp = len(batch.tokens) - R_pad * S
-        width = verify_table_width(batch.context_lens,
-                                   self.config.cache.page_size)
         if _inject_fault("kv_commit_stomp"):
             _stomp_committed_slot(batch, self.config.cache.page_size, S,
                                   token_start=Tp)
@@ -1549,63 +1559,22 @@ class LLMEngine:
             # scope), exactly like the plain mixed step.
             self._sanitizer.on_spec_dispatch(batch, seqs=batch.seqs[:D],
                                              token_start=Tp)
-        with ph("host_prep"):
-            smp_s = self._sampling(batch, slice(0, R_pad))
-            smp_c = self._sampling(batch, slice(R_pad, R_pad + 1))
-            tokens = self._up(batch.tokens)
-            meta = model_lib.MixedMeta(
-                seg_ids=self._up(batch.seg_ids),
-                positions=self._up(batch.positions),
-                slot_mapping=self._up(batch.slot_mapping),
-                logits_indices=self._up(batch.logits_indices),
-                chunk_page_table=self._up(batch.chunk_page_table),
-                hist_len=self._up(np.array([batch.hist_len], np.int32)),
-                page_tables=self._up(batch.page_tables[:, :width]),
-                context_lens=self._up(batch.context_lens))
-            out_tokens = (self._penalty_out_tokens(batch)
-                          if smp_s.any_pen or smp_c.any_pen else None)
         self.stats.prefill_tokens += batch.prefill_token_count
-        step_key = self._next_step_key()
-        with ph("device_dispatch"):
-            hidden, _, _ = model_lib.forward_spec_mixed(
-                self.params, cfg, tokens, meta, self.kv_cache, S,
-                groups=self.groups)
-            logits = model_lib.compute_logits(self.params, cfg, hidden,
-                                              groups=self.groups)
-            toks, n_acc, lps, tids, tlps = self._verify(
-                logits[:R_pad * S], smp_s, tokens[Tp:], meta.context_lens, S,
-                step_key, out_tokens[:R_pad] if smp_s.any_pen else None)
-            # The chunk row: the mixed step's one sampled row, on the
-            # chunk's last-token logits.
-            idx = meta.logits_indices[R_pad * S:].to(torch.int64)
-            counts_c = (build_counts(out_tokens[R_pad:], cfg.vocab_size)
-                        if smp_c.any_pen else None)
-            tok_c, lp_c, tid_c, tlp_c = self._sample(
-                logits[R_pad * S:], smp_c, meta.positions[idx] + 1, step_key,
-                counts_c)
-        want_top = any(s.params.top_logprobs for s in batch.seqs)
-        with ph("device_fetch"):
-            t0f = time.perf_counter()
-            self._sync()
-            compute_s = time.perf_counter() - t0f
-            # Host rows: the D real verify rows, then the chunk's row with
-            # its one token in column 0 (its emit count is 1).
-            toks_np = np.zeros((D + 1, S), np.int64)
-            lps_np = np.zeros((D + 1, S), np.float32)
-            toks_np[:D], toks_np[D, 0] = toks[:D].cpu().numpy(), int(tok_c[0])
-            lps_np[:D], lps_np[D, 0] = lps[:D].cpu().numpy(), float(lp_c[0])
-            n_acc_np = n_acc.cpu().numpy()
-            top_i = top_l = None
-            if want_top:
-                top_i = np.zeros((D + 1,) + tuple(tids.shape[1:]), np.int64)
-                top_l = np.zeros(top_i.shape, np.float32)
-                top_i[:D], top_l[:D] = tids[:D].cpu().numpy(), \
-                    tlps[:D].cpu().numpy()
-                top_i[D, 0], top_l[D, 0] = tid_c[0].cpu().numpy(), \
-                    tlp_c[0].cpu().numpy()
-        self._ttft_transfer_s = max(
-            self.obs.phases.current_durs.get("device_fetch", 0.0)
-            - compute_s, 0.0)
+        toks, lps, n_acc_np, ctok, clp, *tops = self._wait_step(
+            self._dispatch_step(batch))
+        # Host rows: the D real verify rows, then the chunk's row with its
+        # one token in column 0 (its emit count is 1).
+        toks_np = np.zeros((D + 1, S), np.int64)
+        lps_np = np.zeros((D + 1, S), np.float32)
+        toks_np[:D], toks_np[D, 0] = toks[:D], ctok[0]
+        lps_np[:D], lps_np[D, 0] = lps[:D], clp[0]
+        top_i = top_l = None
+        if tops:
+            tids, tlps, ctid, ctlp = tops
+            top_i = np.zeros((D + 1,) + tids.shape[1:], np.int64)
+            top_l = np.zeros(top_i.shape, np.float32)
+            top_i[:D], top_l[:D] = tids[:D], tlps[:D]
+            top_i[D, 0], top_l[D, 0] = ctid[0], ctlp[0]
         emit = np.ones(D + 1, np.int64)
         emit[:D], drafted, accepted = self._spec_outcome(batch, n_acc_np, D,
                                                          S)
@@ -1613,7 +1582,7 @@ class LLMEngine:
         if self._sanitizer is not None:
             self._sanitizer.on_spec_commit(batch, emit)
         zombies = {chunk_seq.request_id} if batch.partial else set()
-        with ph("postproc"):
+        with self.obs.phases.phase("postproc"):
             outs = self._process_window(batch, toks_np, lps_np, zombies,
                                         defer=False, top_ids=top_i,
                                         top_lps=top_l, emit_counts=emit)
@@ -1672,19 +1641,24 @@ class LLMEngine:
         return inputs, state
 
     def _sample_rows(self, bufs, logits: torch.Tensor, counts: torch.Tensor,
-                     pos_next: torch.Tensor) -> tuple:
-        """The sampled programs' stage over every row: bias, penalties,
+                     pos_next: torch.Tensor, rows: slice = slice(None)
+                     ) -> tuple:
+        """The sampled programs' stage over the buffers' ``rows`` (every
+        row by default; a spec×mixed step's chunk row): bias, penalties,
         filters and the draw, each row's own parameters deciding on the
         device (temperature 0 takes the argmax, top_k 0 and top_p 1 cut
         nothing, zero penalties and empty bias slots add exact zeros).
         Returns (tokens, logprobs, top ids, top logprobs)."""
-        logits = apply_logit_bias(logits, bufs["bias_ids"], bufs["bias_vals"])
-        logits = apply_penalties(logits, counts, bufs["presence"],
-                                 bufs["frequency"])
-        keys = row_sample_keys(bufs["step_key"], bufs["seed"],
+        p = {name: bufs[name][rows] for name in (
+            "bias_ids", "bias_vals", "presence", "frequency", "seed",
+            "temperature", "top_k", "top_p")}
+        logits = apply_logit_bias(logits, p["bias_ids"], p["bias_vals"])
+        logits = apply_penalties(logits, counts, p["presence"],
+                                 p["frequency"])
+        keys = row_sample_keys(bufs["step_key"], p["seed"],
                                pos_next)
         return sample_and_logprobs(
-            logits, keys, bufs["temperature"], bufs["top_k"], bufs["top_p"],
+            logits, keys, p["temperature"], p["top_k"], p["top_p"],
             any_sampled=True, needs_filter=True, with_top=True)
 
     def _window_body(self, key, bufs) -> None:

@@ -20,14 +20,26 @@ process, on the engine's device, as a :class:`~.proposer.DraftProposer`:
   ``forward_decode`` over every spec row (padded to the target's decode
   bucket), k times a round. Everything a dispatch needs except its input
   tokens (positions, write slots, context lengths, committed tokens still
-  to replay) is known on the host before the round, so the k dispatches are
-  enqueued back to back, each feeding the previous one's argmax forward on
-  the device, and the round's drafts cross to the host once. Greedy
-  drafting keeps the proposal distribution q ONE-HOT, which is the case the
+  to replay) is known on the host before the round, so the round's plan
+  is uploaded once and the k dispatches are enqueued back to back, each
+  feeding the previous one's argmax forward on the device, and the round's
+  drafts cross to the host once, through one pinned copy. Greedy drafting
+  keeps the proposal distribution q ONE-HOT, which is the case the
   verifier's lossless accept/resample rule is written for: draft quality
   moves the acceptance rate, never correctness. On the card the
   dispatches run the ``paged_decode`` kernel against the draft pool, the
   same wrapper the target's decode steps use against theirs.
+
+- **Step programs.** The dispatch is the program ``("draft_decode", B)``,
+  one per row bucket and replayed k times a round (JAX
+  ``_build_decode_fn``: k calls of one program, not a program per k), its
+  per-dispatch inputs copied on the device from the round's plan before
+  each replay; the reset chunk is ``("draft_prefill", T, W)`` (JAX
+  ``_build_prefill_fn``, ``hist_len`` read on the device). Both families
+  live in the engine's program cache (``engine/step_programs.py``,
+  ``add_families``): one capture pool, and ``kgct_jit_compiles_total``
+  counts them, as the JAX engine folds the draft runner's jit caches into
+  its own. A runner built alone keeps a cache of its own.
 
 - **Rollback-consistent draft KV.** The draft pool follows the target
   pool's append-only contract: per row, ``valid`` (the leading positions
@@ -69,6 +81,7 @@ from ...utils import cdiv, get_logger
 from ...utils.math import next_power_of_2
 from ..kv_cache import (PageAllocator, allocate_kv_cache,
                         kv_cache_bytes_per_page)
+from ..step_programs import StepPrograms
 from .proposer import DraftProposer
 
 logger = get_logger("spec.draft_model")
@@ -160,7 +173,14 @@ class DraftModelRunner(DraftProposer):
 
     def __init__(self, config: EngineConfig, draft_config: ModelConfig,
                  params=None, seed: Optional[int] = None,
-                 device: torch.device | str = "cuda", groups=None):
+                 device: torch.device | str = "cuda", groups=None,
+                 programs: Optional[StepPrograms] = None,
+                 reserve_bytes: int = 0):
+        """``programs``: the engine's program cache, where the runner's two
+        families are registered (a cache of its own when None, capturing
+        unless ``groups`` is given). ``reserve_bytes``: device memory the
+        engine keeps for its programs' pool, left out of the draft pool's
+        share of the free memory."""
         from ..engine import resolve_device
 
         target = config.model
@@ -196,7 +216,7 @@ class DraftModelRunner(DraftProposer):
         # cannot hold sit spec rounds out (no drafts: lossless).
         num_pages = draft_pool_pages(
             sc.max_num_seqs * self.pages_bucket + 1,
-            (torch.cuda.mem_get_info(self.device)[0]
+            (torch.cuda.mem_get_info(self.device)[0] - reserve_bytes
              if self.device.type == "cuda" else None),
             kv_cache_bytes_per_page(draft_config, draft_cache), groups)
         self.kv_cache = allocate_kv_cache(draft_config, draft_cache,
@@ -214,11 +234,77 @@ class DraftModelRunner(DraftProposer):
         # Cumulative draft-model decode dispatches and reset prefills.
         self.num_dispatches = 0
         self.num_reset_prefills = 0
+        if programs is None:
+            programs = StepPrograms({}, None, self.device,
+                                    enabled=groups is None)
+        self._programs = programs.add_families(
+            {"draft_decode": self._decode_body,
+             "draft_prefill": self._prefill_body}, self._program_layout)
         logger.info("draft model %s: %d pages x %d tokens (draft KV pool)",
                     draft_config.name, num_pages, self.page_size)
 
-    def _up(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    # -- the draft programs --------------------------------------------------
+
+    def _program_layout(self, key) -> tuple[dict, dict]:
+        """(inputs, state) of ``("draft_decode", B)``: the round's plan
+        ``[k_max, 5, B]`` (forced token, replay flag, position, write slot,
+        context length of each dispatch) and the rows' tables; state is
+        one dispatch's plan row (copied from the plan on the device before
+        each replay), its argmax (the next dispatch's input) and the
+        round's outputs. Of ``("draft_prefill", T, W)``: the chunk's token
+        axis, its table and history length; state the one (unused)
+        sampled row's index."""
+        i32 = torch.int32
+        if key[0] == "draft_decode":
+            _, B = key
+            return ({"plan": ((self.k, 5, B), i32),
+                     "page_tables": ((B, self.pages_bucket), i32)},
+                    {"step": ((5, B), i32), "out_tok": ((B,), i32),
+                     "outs": ((self.k, B), i32)})
+        _, T, W = key
+        inputs = {name: ((T,), i32) for name in (
+            "tokens", "seg_ids", "positions", "slot_mapping")}
+        inputs.update(page_table=((1, W), i32), hist_len=((1,), i32))
+        return inputs, {"logits_indices": ((1,), i32)}
+
+    def _decode_body(self, key, bufs) -> None:
+        """One greedy draft dispatch of program ``key`` over its buffers:
+        the plan row's forced token where it replays a committed one, else
+        the previous dispatch's argmax, chosen on the device."""
+        step = bufs["step"]
+        tokens = torch.where(step[1] != 0, step[0], bufs["out_tok"])
+        meta = DecodeMeta(positions=step[2], slot_mapping=step[3],
+                          page_tables=bufs["page_tables"],
+                          context_lens=step[4])
+        hidden, _, _ = model_lib.forward_decode(
+            self.params, self.draft_config, tokens, meta, self.kv_cache)
+        logits = model_lib.compute_logits(self.params, self.draft_config,
+                                          hidden)
+        bufs["out_tok"].copy_(torch.argmax(logits, dim=-1).to(torch.int32))
+
+    def _prefill_body(self, key, bufs) -> None:
+        """One reset chunk of program ``key``: the chunk over the row's
+        draft-pool history (``hist_len`` read on the device); its KV is
+        the result, no logits are taken."""
+        meta = PrefillMeta(seg_ids=bufs["seg_ids"],
+                           positions=bufs["positions"],
+                           slot_mapping=bufs["slot_mapping"],
+                           logits_indices=bufs["logits_indices"])
+        model_lib.forward_prefill_hist(
+            self.params, self.draft_config, bufs["tokens"], meta,
+            self.kv_cache, bufs["page_table"][0], bufs["hist_len"])
+
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` on the host: one pinned copy behind the round's work on
+        the card, then a wait for that copy's event."""
+        if self.device.type != "cuda":
+            return t.numpy().copy()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        done.synchronize()
+        return host.numpy()
 
     # -- proposer seam -------------------------------------------------------
 
@@ -334,25 +420,22 @@ class DraftModelRunner(DraftProposer):
                   tables) -> np.ndarray:
         """k greedy decode dispatches [k, B_pad] -> argmax ids [k, B_pad]:
         dispatch j's input token is ``forced[j]`` where ``replay[j]``, else
-        dispatch j-1's output, chosen on the device. One fetch at the end."""
-        cfg = self.draft_config
-        forced, replay = self._up(forced), self._up(replay)
-        positions, slots = self._up(positions), self._up(slots)
-        context_lens, tables = self._up(context_lens), self._up(tables)
-        outs = []
-        tokens = forced[0]
-        for j in range(forced.shape[0]):
-            if j:
-                tokens = torch.where(replay[j], forced[j], outs[-1])
-            meta = DecodeMeta(positions=positions[j], slot_mapping=slots[j],
-                              page_tables=tables,
-                              context_lens=context_lens[j])
-            hidden, _, _ = model_lib.forward_decode(
-                self.params, cfg, tokens, meta, self.kv_cache)
-            logits = model_lib.compute_logits(self.params, cfg, hidden)
-            outs.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        dispatch j-1's output, chosen on the device. The plan goes up in
+        one upload, each dispatch is a run of the ``("draft_decode",
+        B_pad)`` program, and one fetch ends the round."""
+        k, B = forced.shape
+        key = ("draft_decode", B)
+        bufs = self._programs.buffers(key)
+        plan = np.zeros((self.k, 5, B), np.int32)
+        plan[:k] = np.stack([forced, replay, positions, slots, context_lens],
+                            axis=1)
+        bufs.upload({"plan": plan, "page_tables": tables})
+        for j in range(k):
+            bufs["step"].copy_(bufs["plan"][j])
+            self._programs.run(key)
+            bufs["outs"][j].copy_(bufs["out_tok"])
             self.num_dispatches += 1
-        return torch.stack(outs).cpu().numpy()
+        return self._fetch(bufs["outs"][:k])
 
     def _grow(self, row: _Row, end_tokens: int) -> bool:
         """Pages covering positions [0, min(end_tokens, max_len))."""
@@ -380,13 +463,11 @@ class DraftModelRunner(DraftProposer):
         if not self._grow(row, n_hist):
             return False
         ps = self.page_size
-        cfg = self.draft_config
         pages = np.asarray(row.pages, np.int64)
         width = min(next_power_of_2(max(len(row.pages), 1)),
                     self.pages_bucket)
-        table = np.zeros(width, np.int32)
-        table[:len(row.pages)] = row.pages
-        table = self._up(table)
+        table = np.zeros((1, width), np.int32)
+        table[0, :len(row.pages)] = row.pages
         start = row.valid
         while start < n_hist:
             end = min(start + self.chunk_buckets[-1], n_hist)
@@ -401,12 +482,12 @@ class DraftModelRunner(DraftProposer):
             p = np.arange(start, end)
             pos[:chunk] = p
             slot[:chunk] = pages[p // ps] * ps + p % ps
-            meta = PrefillMeta(seg_ids=self._up(seg), positions=self._up(pos),
-                               slot_mapping=self._up(slot),
-                               logits_indices=self._up(np.zeros(1, np.int32)))
-            model_lib.forward_prefill_hist(
-                self.params, cfg, self._up(tokens), meta, self.kv_cache,
-                table, self._up(np.array([start], np.int32)))
+            key = ("draft_prefill", T, width)
+            self._programs.buffers(key).upload(
+                {"tokens": tokens, "seg_ids": seg, "positions": pos,
+                 "slot_mapping": slot, "page_table": table,
+                 "hist_len": [start]})
+            self._programs.run(key)
             self.num_reset_prefills += 1
             start = end
         row.valid = n_hist
@@ -414,19 +495,29 @@ class DraftModelRunner(DraftProposer):
         return True
 
 
+def resolve_draft_config(config: EngineConfig, draft_model: str
+                         ) -> ModelConfig:
+    """The draft preset, in the target's serving dtype: only its argmax
+    leaves the runner."""
+    draft_cfg = get_model_config(draft_model)
+    if draft_cfg.dtype != config.model.dtype:
+        draft_cfg = dataclasses.replace(draft_cfg, dtype=config.model.dtype)
+    return draft_cfg
+
+
 def build_draft_runner(config: EngineConfig, draft_model: str,
                        params=None, seed: Optional[int] = None,
-                       device: torch.device | str = "cuda", groups=None
-                       ) -> DraftModelRunner:
+                       device: torch.device | str = "cuda", groups=None,
+                       programs: Optional[StepPrograms] = None,
+                       reserve_bytes: int = 0) -> DraftModelRunner:
     """The engine's construction seam (mirrors ``build_proposer``): resolve
     the draft preset and build the runner. ``params`` injects loaded draft
     weights; None draws them from ``seed`` (default: the config's).
     ``groups``: the engine's ``ParallelGroups``, over which the pool's
-    size is agreed (``draft_pool_pages``)."""
-    draft_cfg = get_model_config(draft_model)
-    if draft_cfg.dtype != config.model.dtype:
-        # Keep the draft in the target's serving dtype: only its argmax
-        # leaves the runner.
-        draft_cfg = dataclasses.replace(draft_cfg, dtype=config.model.dtype)
-    return DraftModelRunner(config, draft_cfg, params=params, seed=seed,
-                            device=device, groups=groups)
+    size is agreed (``draft_pool_pages``). ``programs`` and
+    ``reserve_bytes``: the engine's program cache and the memory kept for
+    its pool (``DraftModelRunner``)."""
+    return DraftModelRunner(config, resolve_draft_config(config, draft_model),
+                            params=params, seed=seed, device=device,
+                            groups=groups, programs=programs,
+                            reserve_bytes=reserve_bytes)

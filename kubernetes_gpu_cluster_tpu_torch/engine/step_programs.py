@@ -13,12 +13,22 @@ its JAX jit cache is keyed by:
   a page table W pages wide (the power of two of
   ``Scheduler._chunk_page_table``);
 - ``("mixed", Tp, R, W)``: a chunk of Tp tokens, R decode rows (the chunk
-  samples on one of them) and the chunk's table width W.
+  samples on one of them) and the chunk's table width W;
+- ``("spec", R, S)``: a verify step of R rows of S = k + 1 tokens over
+  the whole ``[R, pps]`` page tables (the JAX program's token width
+  ``R * S``; each rung of the adaptive ladder is its own S);
+- ``("spec_mixed", Tp, R, W, S)``: a chunk of Tp tokens beside R verify
+  rows of S tokens, the chunk's table W wide;
+- ``("draft_decode", B)`` and ``("draft_prefill", T, W)``: the draft
+  model's greedy dispatch (replayed k times a round) and its reset chunk,
+  registered by the draft runner (``add_families``) so that one pool and
+  one count serve them, as the JAX engine folds the draft runner's jit
+  caches into its own.
 
 Each key owns its ``StaticBuffers``: inputs the dispatcher fills before
 every run, state it carries between runs or writes only when it changes
-(the decode window's first tokens and penalty counts, a chunk's penalty
-history) and outputs that every run overwrites.
+(the decode window's first tokens and penalty counts, a chunk's or a
+verify step's penalty history) and outputs that every run overwrites.
 
 - On the card, a key's first run is its warm-up: the body runs eagerly on
   the capture stream (cuBLAS handles and workspaces, the kernels' launch
@@ -60,23 +70,48 @@ from ..ops import cuda as cuda_ops
 Layout = dict[str, tuple[tuple[int, ...], torch.dtype]]
 
 
-def activation_bytes(cfg, tokens: int, rows: int, out_cap: int) -> int:
-    """A reckoning from above of what one prefill program of ``tokens``
-    tokens and ``rows`` sampled rows allocates while it runs, which the
-    graphs' shared pool keeps once the program is captured: per layer the
-    MLP's fp32 gate and up, their fp32 product and its model-dtype cast (14
-    bytes a token and ffn column; one expert more in flight under the
-    dense MoE dispatch), the fp32 projections, RoPE and norm rows; every
-    layer's new K/V until the one scatter; and the sampling stage's [rows,
-    vocab] fp32 temporaries (the filter tiers' sort among them, 16 rows'
-    worth) with a chunk's penalty history."""
+def activation_bytes(cfg, tokens: int, rows: int, out_cap: int,
+                     positions: int = 1) -> int:
+    """A reckoning from above of what one program of ``tokens`` tokens and
+    ``rows`` sampled rows, each sampled at ``positions`` positions (a
+    verify step's S), allocates while it runs, which the graphs' shared
+    pool keeps once the program is captured: per layer the MLP's fp32 gate
+    and up, their fp32 product and its model-dtype cast (14 bytes a token
+    and ffn column; one expert more in flight under the dense MoE
+    dispatch), the fp32 projections, RoPE and norm rows; every layer's new
+    K/V until the one scatter; the [rows * positions, vocab] fp32 logits,
+    held while the positions are sampled one after another; and one
+    position's sampling stage, [rows, vocab] fp32 temporaries (the filter
+    tiers' sort among them, 16 rows' worth) with the penalty history."""
     item = 4 if cfg.dtype == "float32" else 2
     qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
     mlp = 14 * cfg.intermediate_size * (2 if cfg.is_moe else 1)
     layer = tokens * (mlp + 16 * cfg.hidden_size + 12 * qkv)
     kv = 2 * cfg.num_layers * tokens * cfg.num_kv_heads * cfg.head_dim * item
+    logits = rows * positions * 4 * cfg.vocab_size
     sampling = rows * (16 * 4 * cfg.vocab_size + 4 * out_cap)
-    return layer + kv + sampling
+    return layer + kv + logits + sampling
+
+
+def program_bytes(config, draft=None) -> int:
+    """The largest program of every family ``config``'s engine may build,
+    by ``activation_bytes``: the prefill and mixed steps (a prefill bucket
+    of tokens beside a decode bucket of rows), with speculation on the
+    spec×mixed step at the ladder's top rung (a chunk beside R verify
+    rows of S tokens, every slot's logits kept), and ``draft``'s (the
+    draft model's config) decode dispatch and reset chunk. The pool is
+    shared and replays never overlap, so the largest, not the sum."""
+    sc = config.scheduler
+    T, B = max(sc.prefill_buckets), max(sc.decode_buckets)
+    cap = config.effective_max_len
+    sizes = [activation_bytes(config.model, T + B, B + 1, cap)]
+    if sc.spec_decode_enabled:
+        S = sc.effective_spec_k_max + 1
+        sizes.append(activation_bytes(config.model, T + B * S, B + 1, cap,
+                                      positions=S))
+        if draft is not None:
+            sizes.append(activation_bytes(draft, max(512, B), B, 0))
+    return max(sizes)
 
 
 class CaptureError(RuntimeError):
@@ -139,13 +174,16 @@ class StepPrograms:
     static buffers (made at its first run), ``run(key)`` runs its step:
     eagerly, or captured once and replayed."""
 
-    def __init__(self, bodies: dict[str, Callable], layout: Callable,
-                 device: torch.device, enabled: bool):
+    def __init__(self, bodies: dict[str, Callable],
+                 layout: Optional[Callable], device: torch.device,
+                 enabled: bool):
         """``bodies[family](key, buffers)`` is one step of a key of that
         family (``key[0]``); ``layout(key)`` gives the (inputs, state)
-        ``Layout``s of a key's buffers."""
-        self._bodies = bodies
-        self._layout = layout
+        ``Layout``s of a key's buffers (None with no bodies: a cache whose
+        families are all registered later)."""
+        self._bodies: dict[str, Callable] = {}
+        self._layouts: dict[str, Callable] = {}
+        self.add_families(bodies, layout)
         self.device = device
         self.enabled = enabled
         self.captures = enabled and device.type == "cuda"
@@ -159,6 +197,19 @@ class StepPrograms:
         self.capture_seconds: list[float] = []
         self.pool_bytes = 0
         self.replays = 0
+
+    def add_families(self, bodies: dict[str, Callable],
+                     layout: Callable) -> "StepPrograms":
+        """Register more families, with their own layout, in this cache
+        (the draft runner's bodies in its engine's: one pool, one count).
+        Returns the cache."""
+        for family, body in bodies.items():
+            if family in self._bodies:
+                raise ValueError(f"step program family {family!r} is "
+                                 "registered already")
+            self._bodies[family] = body
+            self._layouts[family] = layout
+        return self
 
     def __len__(self) -> int:
         """Programs built: graphs captured on the card, keys seen on the
@@ -178,8 +229,8 @@ class StepPrograms:
     def buffers(self, key) -> StaticBuffers:
         bufs = self._buffers.get(key)
         if bufs is None:
-            bufs = self._buffers[key] = StaticBuffers(self.device,
-                                                      *self._layout(key))
+            bufs = self._buffers[key] = StaticBuffers(
+                self.device, *self._layouts[key[0]](key))
         return bufs
 
     def run(self, key) -> None:

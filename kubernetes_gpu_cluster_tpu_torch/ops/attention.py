@@ -18,9 +18,10 @@ the JAX package's XLA oracles term for term): the CPU path and the yardstick
 the CUDA kernels are held against. The dispatchers choose by device: a CPU
 tensor takes the plain version, a CUDA tensor takes the hand-written kernel
 in ``ops/cuda/`` or raises — there is no fallback between the two. Verify
-attention is the exception: the JAX package has no Pallas kernel for it
-(its dispatcher sends every backend to the XLA version), so its plain
-version runs on both devices.
+attention has no Pallas kernel in the JAX package (its dispatcher sends
+every backend to the XLA version); the port runs its own kernel for it
+on the card (``ops/cuda/spec_verify.py``), since a captured verify step
+takes the whole page table.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from .cuda.flash_prefill import flash_prefill
 from .cuda.flash_prefill import kb_min as flash_prefill_kb_min
 from .cuda.flash_prefill_hist import flash_prefill_hist, valid_tokens
 from .cuda.paged_decode import paged_decode
+from .cuda.spec_verify import spec_verify
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -295,17 +297,21 @@ def paged_decode_attention(q, k_cache_l, v_cache_l, page_tables, context_lens,
 
 
 # Most fp32 history bytes (K and V) one spec_verify_attention_plain call
-# gathers; a larger batch is split over rows.
+# gathers on the CPU; a larger batch is split over rows.
 VERIFY_GATHER_BYTES = 1 << 30
 
 
 def spec_verify_attention(q, k, v, k_pool, v_pool, page_tables, context_lens,
                           scale, *, layer=None):
-    """Spec-verify dispatcher: the plain version on either device (the JAX
-    package's dispatcher sends every backend to its XLA version; there is no
-    TPU kernel to port). Rows go in groups whose gathered fp32 history stays
-    within ``VERIFY_GATHER_BYTES``; callers pass tables cut to the columns
-    the batch's longest context needs (``verify_table_width``)."""
+    """Spec-verify dispatcher. The JAX package has no Pallas kernel for
+    this function (its dispatcher sends every backend to the XLA version);
+    on the card it runs the port's own kernel (``ops/cuda/spec_verify.py``)
+    over the whole table, reading ``context_lens`` on the device. On the
+    CPU the plain version runs in groups of rows whose gathered fp32
+    history stays within ``VERIFY_GATHER_BYTES``."""
+    if not _on_cpu(q):
+        return spec_verify(q, k, v, k_pool, v_pool, page_tables,
+                           context_lens, scale, layer=layer)
     B, pps = page_tables.shape
     S = q.shape[0] // B
     per_row = 2 * pps * k_pool.shape[-2] * k_pool.shape[-1] * 4
@@ -319,14 +325,6 @@ def spec_verify_attention(q, k, v, k_pool, v_pool, page_tables, context_lens,
         v[b * S:(b + rows) * S], k_pool, v_pool, page_tables[b:b + rows],
         context_lens[b:b + rows], scale, layer=layer)
         for b in range(0, B, rows)], dim=0)
-
-
-def verify_table_width(context_lens, page_size: int) -> int:
-    """Page-table columns a verify step reads: its longest pooled history
-    (``context_len - 1`` tokens), at least one column. Computed on the host
-    from the batch's context lengths; columns past it are masked anyway."""
-    longest = int(max(context_lens, default=1)) - 1
-    return max(1, -(-longest // page_size))
 
 
 # ---------------------------------------------------------------------------

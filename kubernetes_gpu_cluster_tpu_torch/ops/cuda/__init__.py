@@ -5,10 +5,13 @@ kernel, mirroring the JAX package's ``ops/pallas/``:
 - ``flash_prefill``       <- ops/pallas/flash_prefill.py::flash_ragged_prefill
 - ``flash_prefill_hist``  <- ops/pallas/flash_prefill_hist.py::flash_prefill_history
 - ``int4_matmul``         <- ops/pallas/int4_matmul.py::pallas_int4_matmul
+- ``spec_verify``         <- no TPU kernel: the JAX package's XLA
+  ``ops/attention.py::spec_verify_attention_xla``, which a captured verify
+  program needs over its whole page table
 
 Each wrapper validates its inputs, allocates the output, launches on
 PyTorch's current stream (a capture stream while the engine captures a
-decode window), raises on a launch error, and counts its launches in a
+step program), raises on a launch error, and counts its launches in a
 plain module-level integer ``launches``. A replayed CUDA graph launches
 the kernels it recorded without calling the wrappers: the engine's
 program cache (``engine/step_programs.py``) takes a capture's counts back

@@ -25,7 +25,8 @@ logger = get_logger("ops.cuda.build")
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-KERNELS = ("paged_decode", "flash_prefill", "flash_prefill_hist", "int4_matmul")
+KERNELS = ("paged_decode", "flash_prefill", "flash_prefill_hist", "int4_matmul",
+           "spec_verify")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 

@@ -307,7 +307,8 @@ def spec_verify_sample(
     logits: torch.Tensor,        # [B, S, V] f32, bias already applied
     drafts: torch.Tensor,        # [B, S-1] int draft tokens d_1..d_k
     pos0: torch.Tensor,          # [B] absolute position of the first emitted token
-    step_key: int,               # the engine's per-step key
+    step_key: int | torch.Tensor,  # the engine's per-step key (an int32
+                                   # [1] tensor inside a captured program)
     seed: torch.Tensor,          # [B] int; -1 = unseeded
     temperature: torch.Tensor,   # [B]; 0 => greedy (exact-match acceptance)
     top_k: torch.Tensor,         # [B]; 0 => disabled
@@ -346,7 +347,8 @@ def spec_verify_sample(
 
     The flags (any sampled row, any filter, any penalty, alternatives
     wanted) come from the host copy of the params, as in
-    ``sample_and_logprobs``. Returns (tokens [B, S] int32, n_accepted [B]
+    ``sample_and_logprobs``; the captured verify programs pass them all
+    True and let each row's own parameters decide on the device. Returns (tokens [B, S] int32, n_accepted [B]
     int32, logprobs [B, S], top ids [B, S, 5], top logprobs [B, S, 5]),
     logprobs under the temperature-scaled pre-truncation distribution
     (raw for greedy rows)."""

@@ -117,9 +117,9 @@ class Metrics:
         ]
         # Device telemetry (autoscaler inputs): the card's memory and the
         # caching allocator's live bytes (0/0 on the CPU — nan-free), and
-        # the step programs built: the decode window's captured graphs, one
-        # per (greedy|sampled, decode bucket) seen (the same keys on the
-        # CPU, 0 with --enforce-eager or under torch.distributed). A gauge
+        # the step programs built: every family's captured graphs, one per
+        # key seen (the same keys on the CPU, 0 with --enforce-eager or
+        # under torch.distributed). A gauge
         # despite the _total spelling, as in the JAX package, where it
         # reads a live cache that can shrink.
         hbm_limit, hbm_in_use = device_memory_stats(eng.device)

@@ -33,6 +33,7 @@ from kubernetes_gpu_cluster_tpu_torch.ops import attention as TA
 from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill as cfp
 from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill_hist as cfh
 from kubernetes_gpu_cluster_tpu_torch.ops.cuda import paged_decode as cpd
+from kubernetes_gpu_cluster_tpu_torch.ops.cuda import spec_verify as csv
 
 torch.set_num_threads(2)
 
@@ -313,6 +314,96 @@ def test_paged_decode_plan_engine_shape():
         assert B * 8 * cpd.plan(B, 8, 512, 16, 132).splits <= 4 * 132
 
 
+# (nh, n_kv, hd, S, contexts per row (0: padding row), page size, table
+# pages): verify rows over the WHOLE table, as a captured verify program
+# takes it, ragged contexts from 1 to nearly the table's width.
+WHOLE_TABLE_CASES = [
+    (8, 2, 32, 5, [1, 37, 0, 120, 9, 0], 8, 16),
+    (4, 4, 64, 9, [60, 3, 0, 2], 16, 8),
+    (16, 1, 32, 2, [100, 0, 17], 8, 32),
+]
+
+
+@pytest.mark.parametrize("nh,nkv,hd,S,ctx,ps,pps", WHOLE_TABLE_CASES)
+def test_spec_verify_plain_whole_table_matches_jax(nh, nkv, hd, S, ctx, ps,
+                                                   pps):
+    """The plain verify over the whole ``[R, pps]`` table (columns past a
+    row's pages on the scrap page 0, padding rows all scrap) equals the
+    JAX XLA verify on the same inputs: the pool's stale bytes past each
+    row's history and the scrap page's garbage must not leak in."""
+    rng = np.random.default_rng(len(ctx) + S)
+    R = len(ctx)
+    P = 1 + sum(-(-c // ps) for c in ctx) + 2
+    perm = rng.permutation(np.arange(1, P)).astype(np.int32)
+    tables = np.zeros((R, pps), np.int32)
+    o = 0
+    for r, c in enumerate(ctx):
+        n = -(-c // ps)
+        tables[r, :n] = perm[o:o + n]
+        o += n
+    f = lambda *sh: rng.standard_normal(sh).astype(np.float32)  # noqa: E731
+    args = dict(q=f(R * S, nh, hd), k=f(R * S, nkv, hd), v=f(R * S, nkv, hd),
+                k_pool=f(2, P, ps, nkv * hd), v_pool=f(2, P, ps, nkv * hd),
+                page_tables=tables, context_lens=np.array(ctx, np.int32))
+    want = JA.spec_verify_attention_xla(
+        **{k: jnp.asarray(v) for k, v in args.items()}, scale=hd ** -0.5,
+        layer=1)
+    got = TA.spec_verify_attention(**{k: _t(v) for k, v in args.items()},
+                                   scale=hd ** -0.5, layer=1)
+    _close(got.numpy(), want)
+    pad = np.repeat(np.array(ctx) == 0, S)
+    assert np.isfinite(got.numpy()[pad]).all()
+
+
+@pytest.mark.parametrize("S,g", [(2, 1), (5, 4), (9, 4), (5, 7), (5, 8),
+                                 (9, 16), (16, 16)])
+def test_spec_verify_blocks_hold_every_query_once(S, g):
+    """A (row, kv head)'s S * g queries in blocks of ``block_rows``: the
+    fewest 16-row tiles that hold them, at most four, ``groups`` blocks
+    covering them once."""
+    M = S * g
+    rows = csv.block_rows(M)
+    assert rows in (16, 32, 64) and (rows >= M or rows == 64)
+    assert rows == 16 or rows // 2 < M
+    p = csv.plan(32, S, g, 8, 512, 16, 132)
+    assert p.groups == -(-M // rows)
+    covered = [q for grp in range(p.groups)
+               for q in range(grp * rows, min((grp + 1) * rows, M))]
+    assert covered == list(range(M))
+
+
+@pytest.mark.parametrize("R,S,g,n_kv", [(32, 5, 4, 8), (1, 5, 4, 8),
+                                        (4, 9, 16, 1), (8, 2, 1, 12)])
+@pytest.mark.parametrize("pps,ps", [(512, 16), (1, 8), (33, 64)])
+def test_spec_verify_plan_covers_every_token_once(R, S, g, n_kv, pps, ps):
+    """The verify kernel's split plan, ``paged_decode``'s rule over its R *
+    groups blocks of queries: host math on the shapes and the SM count
+    alone, the grid within BLOCKS_PER_SM blocks an SM whenever it splits
+    (the workspace's size), every pooled token in one split."""
+    p = csv.plan(R, S, g, n_kv, pps, ps, 132)
+    assert p == csv.plan(R, S, g, n_kv, pps, ps, 132)
+    assert 1 <= p.splits <= csv.MAX_SPLITS
+    assert p.min_split % csv.STAGE_KEYS == 0
+    if p.splits > 1:
+        assert p.splits * R * p.groups * n_kv <= csv.BLOCKS_PER_SM * 132
+    width = pps * ps
+    for n_tok in sorted({0, 1, ps, p.min_split + 1, width // 2, width}):
+        ranges = csv.split_ranges(p, n_tok)
+        assert 1 <= len(ranges) <= p.splits
+        assert [t for lo, hi in ranges for t in range(lo, hi)] == list(
+            range(n_tok))
+
+
+def test_spec_verify_plan_engine_shape():
+    """llama-3-8b (g 4, 8 kv heads) at the engine's 512-page table on 132
+    SMs: 20 queries a (row, kv head) at k 4 take one block of two tiles;
+    at R 32 the grid splits each row in 2, at R 1 in 16."""
+    assert csv.plan(32, 5, 4, 8, 512, 16, 132) == csv.Plan(512, 2, 1)
+    assert csv.plan(1, 5, 4, 8, 512, 16, 132) == csv.Plan(512, 16, 1)
+    assert csv.plan(32, 9, 4, 8, 512, 16, 132) == csv.Plan(512, 2, 1)
+    assert csv.plan(32, 5, 16, 1, 512, 16, 132).groups == 2
+
+
 def test_history_valid_tokens():
     seg = torch.tensor([0] * 13 + [-1] * 3, dtype=torch.int32)
     n = TA.prefill_history_valid(seg)
@@ -334,6 +425,11 @@ def test_history_valid_tokens():
         torch.zeros(2, 8, 64), torch.zeros(2, 8, 64),
         torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
         0.1)),
+    (csv.spec_verify, lambda: (
+        torch.zeros(6, 2, 64), torch.zeros(6, 1, 64), torch.zeros(6, 1, 64),
+        torch.zeros(2, 8, 64), torch.zeros(2, 8, 64),
+        torch.zeros(2, 1, dtype=torch.int32),
+        torch.ones(2, dtype=torch.int32), 0.1)),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(fn, args):
     """A wrapper never falls back: a non-CUDA tensor is an error."""

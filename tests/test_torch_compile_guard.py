@@ -11,17 +11,19 @@ match, or the load fails):
 
 - ``_compiled_variants`` cross-checks the engine's count against the
   program cache's own keys (the JAX guard reads one raw jit cache);
-- each bound's terms for the families the port still leaves eager (spec
-  verify, spec×mixed, the draft model's programs, the swap
-  gather/scatter: ROADMAP A2) are multiplied by 0 — they build no
-  program, so the bound only tightens; the pure-prefill, mixed and
-  solo-chunk terms stand as the JAX guard wrote them;
+- the bound's swap gather/scatter term is multiplied by 0: the port still
+  runs the KV transfers eagerly (ROADMAP A2), so it builds no program
+  there and the bound only tightens; every other term (pure prefill,
+  mixed, solo chunk, decode, spec verify, spec×mixed, the draft model's
+  decode and chunked prefill) stands as the JAX guard wrote it;
 - the engines take the JAX engine's default weights (its seed, through
   ``params_from_numpy``), so each wave steps as the reference's does.
 
 Then the programs: per family the port's keys against the JAX jit
 caches on the guard's wave (equal on the greedy wave, no more on a
-sampled, penalized and biased one, none new on a repeat), keys per
+sampled, penalized and biased one, none new on a repeat) and on its spec
+and spec×mixed/draft waves (the verify, spec×mixed and both draft
+families equal, none new on a repeat), keys per
 (variant, bucket) within two per bucket, ``enforce_eager`` building none
 with the same tokens, the device-side filter-tier choice and the tensor
 step key against the host-branch functions they replace, and the sampled
@@ -60,15 +62,6 @@ _FIXES = [
     ("    if hasattr(eng._prefill_fn, \"_cache_size\"):\n"
      "        assert total >= eng._prefill_fn._cache_size()\n",
      "    assert total == len(eng._programs.keys())\n"),
-    ("             + n_rows               # spec verify: one per row bucket",
-     f"             + 0 * n_rows           # spec verify: {_EAGER}"),
-    ("             + n_tp * n_rows * 3    # spec_mixed: (Tp x rows x widths)",
-     f"             + 0 * n_tp * n_rows * 3  # spec_mixed: {_EAGER}"),
-    ("             + n_rows               # draft decode: one per row bucket",
-     f"             + 0 * n_rows           # draft decode: {_EAGER}"),
-    ("             + 12)                  # draft chunked prefill (T x width "
-     "grid)\n",
-     f"             + 0 * 12)              # draft chunked prefill: {_EAGER}\n"),
     ("             + 2 * n_swap_sizes)    # swap gather + scatter, pow-2 "
      "sizes",
      f"             + 0 * 2 * n_swap_sizes)  # swap gather + scatter: "
@@ -105,16 +98,27 @@ expose("test_compile_guard", _GUARD, None, globals())
 
 # -- per family against the JAX jit caches -------------------------------------
 
-# The port's program family -> the JAX engine's jitted step function.
+# The port's program family -> the JAX engine's jitted step function (None
+# there when the engine's configuration has no such step).
 _JAX_FNS = {"prefill": "_prefill_fn", "prefill_hist": "_prefill_hist_fn",
             "mixed": "_mixed_fn", "greedy": "_decode_fn_greedy",
-            "sampled": "_decode_fn"}
+            "sampled": "_decode_fn", "spec": "_spec_verify_fn",
+            "spec_mixed": "_spec_mixed_fn"}
+# The draft runner's families -> the JAX draft runner's jitted functions.
+_JAX_DRAFT_FNS = {"draft_decode": "_decode_fn",
+                  "draft_prefill": "_prefill_fn"}
 
 
 def _families(eng) -> dict:
     if isinstance(eng, LLMEngine):
-        return {f: len(eng._programs.keys(f)) for f in _JAX_FNS}
-    return {f: getattr(eng, fn)._cache_size() for f, fn in _JAX_FNS.items()}
+        return {f: len(eng._programs.keys(f))
+                for f in (*_JAX_FNS, *_JAX_DRAFT_FNS)}
+    draft = eng.scheduler.spec_proposer
+    fns = {**{f: getattr(eng, fn) for f, fn in _JAX_FNS.items()},
+           **{f: getattr(draft, fn, None)
+              for f, fn in _JAX_DRAFT_FNS.items()}}
+    return {f: 0 if fn is None else fn._cache_size()
+            for f, fn in fns.items()}
 
 
 def _sampled_wave(eng, tag: str, sp) -> None:
@@ -182,6 +186,37 @@ def test_families_match_the_jax_jit_caches():
     assert grown["port"]["sampled"] > 0
     _sampled_wave(engines["port"], "s2", SamplingParams)
     assert _families(engines["port"]) == grown["port"]
+
+
+# The guard's spec waves: (engine builder, wave) of ``test_compile_guard``,
+# and the families each must build.
+_SPEC_WAVES = {
+    "spec": ("_spec_engine", "_run_spec_wave", ("spec",)),
+    "spec_mixed_draft": ("_spec_draft_engine", "_run_spec_mixed_wave",
+                         ("spec", "spec_mixed", "draft_decode",
+                          "draft_prefill")),
+}
+
+
+@pytest.mark.parametrize("wave", sorted(_SPEC_WAVES))
+def test_spec_families_match_the_jax_jit_caches(wave):
+    """The guard's spec wave (n-gram drafts, k 3) and its spec×mixed wave
+    (an oracle draft model, mixing on) through the JAX engine and the
+    port on one weight set: per family, the verify, spec×mixed and both
+    draft programs (and every other family) equal the JAX functions'
+    ``_cache_size()``; a repeated wave builds none on either."""
+    import test_compile_guard as jguard
+    make, run, built = _SPEC_WAVES[wave]
+    mods = {"jax": jguard, "port": _GUARD}
+    engines = {k: getattr(m, make)() for k, m in mods.items()}
+    for k, m in mods.items():
+        getattr(m, run)(engines[k], "w1")
+    counts = {k: _families(e) for k, e in engines.items()}
+    assert counts["port"] == counts["jax"], counts
+    assert all(counts["port"][f] > 0 for f in built), counts
+    for k, m in mods.items():
+        getattr(m, run)(engines[k], "w2")
+    assert {k: _families(e) for k, e in engines.items()} == counts
 
 
 # -- the programs -------------------------------------------------------------

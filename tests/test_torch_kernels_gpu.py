@@ -26,10 +26,13 @@ tokens, over NCCL on two cards (skipped with one) and over gloo with both
 ranks on card 0.
 
 Step programs: card engines capture each decode window once per (variant,
-bucket), and each prefill, solo chunk and mixed step once per key of the
-JAX bucket grid, and replay them; against ``enforce_eager`` engines they
-give the same tokens and logprobs, and a body that reads the device from
-the host fails its capture. The history kernel reads ``hist_len`` from
+bucket), each prefill, solo chunk, mixed, spec and spec×mixed step and
+each draft dispatch and reset chunk once per key of the JAX bucket grid,
+and replay them; against ``enforce_eager`` engines they give the same
+tokens and logprobs, and a body that reads the device from the host fails
+its capture. The verify attention kernel (no TPU kernel: the JAX package
+computes it in XLA) holds to its plain version over the whole table, at
+split edges, on a padding row and replayed at other contexts. The history kernel reads ``hist_len`` from
 device memory: one launch captured in a graph, replayed at several
 history lengths written into its buffer, matches the plain version at
 each.
@@ -64,6 +67,7 @@ from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill as cfp
 from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill_hist as cfh
 from kubernetes_gpu_cluster_tpu_torch.ops.cuda import int4_matmul as c4
 from kubernetes_gpu_cluster_tpu_torch.ops.cuda import paged_decode as cpd
+from kubernetes_gpu_cluster_tpu_torch.ops.cuda import spec_verify as csv
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -437,9 +441,9 @@ def test_spec_mixed_attention_chunk_half_through_the_kernel(cuda_device,
     """A spec×mixed step's attention at llama-3-8b heads: a 512-slot chunk
     (470 real tokens over 1037 pooled) through the history kernel, then 8
     verify rows of S 5 (one padding) through the plain verify attention.
-    Each half equals its plain version (the verify half IS the plain
-    version, fed row slices of the step's token axis); the chunk length
-    computed once (``n_valid``) gives the same bits."""
+    Each half equals its plain version (the verify half through the
+    verify kernel, fed row slices of the step's token axis); the chunk
+    length computed once (``n_valid``) gives the same bits."""
     nh, n_kv, hd, ps, L = 32, 8, 128, 16, 2
     Tp, n_real, hist_len, R, S = 512, 470, 1037, 8, 5
     g = torch.Generator(device=cuda_device).manual_seed(24)
@@ -464,9 +468,9 @@ def test_spec_mixed_attention_chunk_half_through_the_kernel(cuda_device,
     args = (torch.cat([q, qs]), torch.cat([k, ks]), torch.cat([v, vs]), seg,
             pos, kp, vp, table[None], _scalar(hist_len, cuda_device),
             tables.to(cuda_device), ctx.to(cuda_device), scale)
-    before = cfh.launches
+    before = cfh.launches, csv.launches
     got = A.spec_mixed_attention(*args, n_prefill=Tp, layer=1)
-    assert cfh.launches == before + 1
+    assert (cfh.launches, csv.launches) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(got[:Tp], A.prefill_history_attention_plain(
         q, k, v, seg_c, pos_c, kp, vp, table, hist_len, scale, layer=1),
         atol=TOL[dtype], rtol=0)
@@ -476,6 +480,85 @@ def test_spec_mixed_attention_chunk_half_through_the_kernel(cuda_device,
     again = A.spec_mixed_attention(*args, n_prefill=Tp, layer=1,
                                    n_valid=cfh.valid_tokens(seg_c))
     assert torch.equal(got, again)
+
+
+def _verify_case(gen, dtype, device, nh, n_kv, hd, ps, ctx, pps, S, L=2):
+    """Verify arguments for rows of context lengths ``ctx`` (0 = padding
+    row) over a ``pps``-wide table, as the engine passes it: each row's
+    pages random, the rest of its columns on the scrap page 0."""
+    q, kp, vp, tables, t_ctx, _, _, scale = _decode_case(
+        gen, dtype, device, nh, n_kv, hd, ps, ctx, pps, L)
+    R = len(ctx)
+    return (_rn(gen, dtype, device, R * S, nh, hd),
+            _rn(gen, dtype, device, R * S, n_kv, hd),
+            _rn(gen, dtype, device, R * S, n_kv, hd), kp, vp, tables, t_ctx,
+            scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [2, 5, 9])
+@pytest.mark.parametrize("nh,n_kv,hd,ps", GEOMETRIES)
+def test_spec_verify_matches_plain(cuda_device, dtype, S, nh, n_kv, hd, ps):
+    """Rows of one token, a page and a few, the whole table and a padding
+    row, at every head geometry (up to 144 queries a kv head: three
+    blocks of 64), S 2, 5 and 9."""
+    pps = 6
+    ctx = [1, ps + 3, pps * ps, 0, 2 * ps]
+    g = torch.Generator(device=cuda_device).manual_seed(40 + S)
+    args = _verify_case(g, dtype, cuda_device, nh, n_kv, hd, ps, ctx, pps, S)
+    before = csv.launches
+    got = csv.spec_verify(*args, layer=1)
+    assert csv.launches == before + 1
+    torch.testing.assert_close(got, A.spec_verify_attention_plain(
+        *args, layer=1), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 8, 32])
+def test_spec_verify_split_contexts(cuda_device, dtype, R):
+    """llama-3-8b heads over the engine's table (8192 keys): contexts at a
+    split's edge and past it, 4097 and 8191 keys, a padding row; R 1 runs
+    16 splits a row, R 32 two. The same bits on a second call (splits
+    merged in a fixed order, counters left at 0)."""
+    nh, n_kv, hd, ps, S = 32, 8, 128, 16, 5
+    M = csv.MIN_SPLIT_TOKENS
+    base = [8191, 1, ps, M, M + 1, M + 2, 4097, 0]
+    ctx = (base * 4)[:R] if R > 1 else [8191]
+    g = torch.Generator(device=cuda_device).manual_seed(41)
+    args = _verify_case(g, dtype, cuda_device, nh, n_kv, hd, ps, ctx,
+                        8192 // ps, S)
+    got = csv.spec_verify(*args, layer=1)
+    torch.testing.assert_close(got, A.spec_verify_attention_plain(
+        *args, layer=1), atol=TOL[dtype], rtol=0)
+    assert torch.equal(csv.spec_verify(*args, layer=1), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spec_verify_captured_once_replayed_per_context(cuda_device, dtype):
+    """One launch captured in a CUDA graph serves every verify step: each
+    row's context is read from the device at each replay (none baked into
+    the graph), so replays at other contexts written into that buffer
+    match the plain version at each."""
+    nh, n_kv, hd, ps, S, pps = 32, 8, 128, 16, 5, 128
+    g = torch.Generator(device=cuda_device).manual_seed(42)
+    args = list(_verify_case(g, dtype, cuda_device, nh, n_kv, hd, ps,
+                             [2048] * 8, pps, S))
+    ctx = args[6]
+    csv.spec_verify(*args, layer=1)                       # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = csv.spec_verify(*args, layer=1)
+    for lens in ([2048] * 8, [1, 0, 700, 2048, 513, 64, 1999, 3],
+                 [0] * 8):
+        ctx.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, A.spec_verify_attention_plain(
+            *args, layer=1), atol=TOL[dtype], rtol=0)
 
 
 @pytest.mark.gpu
@@ -850,6 +933,72 @@ def test_captured_prefill_chunk_and_mixed_steps_match_eager(cuda_device):
     built = len(progs.capture_seconds)
     assert wave(graph) == wave(eager)
     assert len(progs.capture_seconds) == built
+
+
+def _spec_cfg(draft=None, adaptive=False):
+    base = _tiny_cfg(num_pages=256)
+    return dataclasses.replace(base, scheduler=dataclasses.replace(
+        base.scheduler, mixed_batch_enabled=True, spec_decode_enabled=True,
+        num_speculative_tokens=4, spec_draft_model=draft,
+        spec_adaptive_k=adaptive))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("draft", [None, "oracle"])
+def test_captured_spec_steps_match_eager(cuda_device, draft):
+    """Spec and spec×mixed steps (n-gram drafts, or the target drafting
+    for itself under adaptive k through the draft runner's programs) on
+    the card: repetitive prompts of every sampling kind arriving while
+    others decode, the long ones chunked (beside verify rows where drafts
+    exist). The captured engine gives the enforce_eager engine's tokens,
+    logprobs and drafted / accepted totals; the verify kernel launched in
+    both."""
+    pattern = _prompts(1, 12, 13, seed=50)[0]
+
+    def wave(eng):
+        d0, a0 = eng.obs.spec_drafted_tokens, eng.obs.spec_accepted_tokens
+        pending = [(f"s{i}", (pattern * 40)[i:i + n], _GRAPH_PARAMS[i % 4])
+                   for i, n in enumerate((40, 300, 60, 420, 25, 90))]
+        final = {}
+        while pending or eng.has_unfinished_requests():
+            if pending:
+                eng.add_request(*pending.pop(0))
+            for o in eng.step():
+                if o.finished:
+                    final[o.request_id] = o
+        return ([(final[f"s{i}"].output_token_ids,
+                  final[f"s{i}"].output_logprobs) for i in range(6)],
+                eng.obs.spec_drafted_tokens - d0,
+                eng.obs.spec_accepted_tokens - a0)
+
+    from kubernetes_gpu_cluster_tpu_torch.engine.spec.draft_model import \
+        DraftModelRunner
+    cfg = _spec_cfg(adaptive=bool(draft))
+    graph = LLMEngine(cfg, device=cuda_device)
+    eager = LLMEngine(dataclasses.replace(cfg, enforce_eager=True),
+                      params=graph.params, device=cuda_device)
+    if draft:
+        # The hd-64 model drafting for itself (no preset has its heads):
+        # each runner registers its programs in its engine's cache.
+        for eng in (graph, eager):
+            eng.scheduler.spec_proposer = DraftModelRunner(
+                eng.config, eng.model_config, params=graph.params,
+                device=cuda_device, programs=eng._programs)
+    runs = {}
+    for tag, eng in (("graph", graph), ("eager", eager)):
+        before = csv.launches
+        runs[tag] = wave(eng)
+        assert csv.launches > before, tag
+    assert runs["graph"] == runs["eager"]
+    assert runs["graph"][1] > 0
+    kinds = graph.obs.step_kind_counts
+    assert kinds["spec"] > 0, kinds
+    progs = graph._programs
+    families = [k for k in ("spec", "spec_mixed") if kinds[k]] + (
+        ["draft_decode", "draft_prefill"] if draft else [])
+    assert all(progs.keys(f) for f in families), progs.keys()
+    assert len(progs.capture_seconds) == graph.compiled_step_variants()
+    assert eager.compiled_step_variants() == 0
 
 
 @pytest.mark.gpu

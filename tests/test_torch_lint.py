@@ -80,15 +80,19 @@ def test_lint_clean__all_rules_actually_ran_against_real_structures():
     assert {"step", "_step", "_step_spec", "_dispatch_window",
             "_process_window"} <= hot
     unfetched = {f.name for f in mod.unfetched_hot_path_functions}
-    assert {"_sync", "_finish_fetch"} <= hot - unfetched
-    assert {"_step", "_step_spec", "_process_window",
-            "_fetch_step"} <= unfetched
+    assert {"_finish_fetch"} <= hot - unfetched
+    assert {"_step", "_step_spec", "_step_spec_mixed", "_process_window",
+            "_fetch_step", "_wait_step"} <= unfetched
+    # Every step's one wait: the window's fetch in _step, the step
+    # programs' event and fetch in _wait_step; no .cpu() is left.
     in_window = [
         node for fn in mod.unfetched_hot_path_functions
         for node in ast.walk(fn)
-        if getattr(node, "attr", None) in ("cpu", "_finish_fetch", "_sync")
+        if getattr(node, "attr", None) in ("cpu", "_finish_fetch",
+                                           "synchronize")
         and mod.inside_phase_block(node, "device_fetch")]
-    assert len(in_window) >= 6
+    assert sorted(n.attr for n in in_window) == [
+        "_finish_fetch", "_finish_fetch", "synchronize"]
 
 
 def test_lint_clean__concurrency_graph_resolves_real_seam_not_vacuous():
@@ -135,8 +139,8 @@ MUTATIONS = {
     # The step key read on the host inside the captured window: a constant
     # of the graph, the same randomness every replay.
     "KGCT001": ("engine/engine.py",
-                'keys = row_sample_keys(bufs["step_key"], bufs["seed"],',
-                'keys = row_sample_keys(int(bufs["step_key"]), bufs["seed"],'),
+                'keys = row_sample_keys(bufs["step_key"], p["seed"],',
+                'keys = row_sample_keys(int(bufs["step_key"]), p["seed"],'),
     # The program keyed by the live row count instead of the bucket.
     "KGCT003": ("engine/engine.py",
                 "B = batch.page_tables.shape[0]        # the scheduler's "
@@ -148,13 +152,13 @@ MUTATIONS = {
                 'toks, lps, *tops = self._finish_fetch(inflight["fetch"])',
                 "toks, lps, *tops = self._finish_fetch(\n"
                 '                self._start_fetch(inflight["dev_out"]))'),
+    # A step program's wait moved out of its device_fetch window.
     "KGCT002": ("engine/engine.py",
-                '        with ph("device_fetch"):\n'
-                '            self._sync()\n'
-                '            toks_np, n_acc_np, lps_np = (',
-                '        self._sync()\n'
-                '        with ph("device_fetch"):\n'
-                '            toks_np, n_acc_np, lps_np = ('),
+                '        done, fetch = pending\n'
+                '        with self.obs.phases.phase("device_fetch"):\n',
+                '        done, fetch = pending\n'
+                '        done.synchronize()\n'
+                '        with self.obs.phases.phase("device_fetch"):\n'),
     "KGCT005": ("engine/spec/draft_model.py", _FEED_SLOT,
                 _FEED_SLOT.replace("max_len", "horizon")),
     "KGCT006": ("serving/async_engine.py",
@@ -240,9 +244,10 @@ def test_rule_reaches_the_ports_real_structure(code):
 
 def test_capture_safety_reaches_the_mixed_body():
     """The mixed step's program body (``_mixed_body``, handed to the cache
-    in its family dict) with the chunk's history length read on the host:
-    a constant of the graph, every replay's chunk attending to the first
-    one's history."""
+    in its family dict) with the chunk's history length read on the host
+    in the metadata it builds (``_mixed_meta``, which the spec×mixed body
+    shares: one finding): a constant of the graph, every replay's chunk
+    attending to the first one's history."""
     path = PACKAGE / "engine/engine.py"
     src = path.read_text()
     old = 'hist_len=bufs["hist_len"], page_tables=bufs["page_tables"],'
@@ -254,7 +259,107 @@ def test_capture_safety_reaches_the_mixed_body():
     found = list(rule.check(LintModule(path, source=src.replace(old, new),
                                        root=REPO)))
     assert [f.rule for f in found] == ["KGCT001"]
-    assert "_mixed_body" in found[0].message
+    assert "_mixed_meta" in found[0].message
+
+
+# (file, anchor, planted host read, the captured function named): the
+# verify rows' step key, the spec×mixed chunk row's position, the draft
+# dispatch's previous argmax and the draft reset chunk's history length.
+_SPEC_HOST_READS = {
+    "spec": ("engine/engine.py",
+             'bufs["context_lens"], bufs["step_key"], bufs["seed"][rows],',
+             'bufs["context_lens"], int(bufs["step_key"]), '
+             'bufs["seed"][rows],', "_verify_rows"),
+    "spec_mixed": ("engine/engine.py",
+                   'bufs["positions"][idx] + 1, chunk)',
+                   'bufs["positions"][idx].item() + 1, chunk)',
+                   "_spec_mixed_body"),
+    "draft_decode": ("engine/spec/draft_model.py",
+                     'tokens = torch.where(step[1] != 0, step[0], '
+                     'bufs["out_tok"])',
+                     'tokens = torch.where(step[1] != 0, step[0], '
+                     'bufs["out_tok"].cpu())', "_decode_body"),
+    "draft_prefill": ("engine/spec/draft_model.py",
+                      'self.kv_cache, bufs["page_table"][0], bufs["hist_len"])',
+                      'self.kv_cache, bufs["page_table"][0], '
+                      'int(bufs["hist_len"]))', "_prefill_body"),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_SPEC_HOST_READS))
+def test_capture_safety_reaches_the_spec_and_draft_bodies(family):
+    """A host read planted in the spec, spec×mixed and draft bodies (the
+    draft runner's registered in its engine's cache through
+    ``add_families``): KGCT001 finds it in the captured function."""
+    rel, old, new, where = _SPEC_HOST_READS[family]
+    path = PACKAGE / rel
+    src = path.read_text()
+    assert src.count(old) == 1, f"{family}: the anchor no longer matches"
+    [rule] = rules_by_code(["KGCT001"])
+    assert list(rule.check(LintModule(path, source=src, root=REPO))) == []
+    found = list(rule.check(LintModule(path, source=src.replace(old, new),
+                                       root=REPO)))
+    assert [f.rule for f in found] == ["KGCT001"], found
+    assert where in found[0].message
+
+
+# (file, anchor, the key built from a live count instead of the bucket)
+_SPEC_KEYS = {
+    "spec": ("engine/engine.py",
+             "        key = self._step_program_key(batch)\n",
+             '        key = ("spec", len(batch.seqs), batch.spec_S)\n'),
+    "draft_decode": ("engine/spec/draft_model.py",
+                     '        key = ("draft_decode", B)\n',
+                     '        key = ("draft_decode", len(tables))\n'),
+    "draft_prefill": ("engine/spec/draft_model.py",
+                      '            key = ("draft_prefill", T, width)\n',
+                      '            key = ("draft_prefill", len(row.pages), '
+                      'width)\n'),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_SPEC_KEYS))
+def test_recompile_risk_reaches_the_spec_and_draft_keys(family):
+    """A spec or draft program keyed by a live, unbucketed count: KGCT003
+    finds it in the engine's and in the draft runner's dispatch."""
+    rel, old, new = _SPEC_KEYS[family]
+    path = PACKAGE / rel
+    src = path.read_text()
+    assert src.count(old) == 1, f"{family}: the anchor no longer matches"
+    [rule] = rules_by_code(["KGCT003"])
+    assert list(rule.check(LintModule(path, source=src, root=REPO))) == []
+    found = list(rule.check(LintModule(path, source=src.replace(old, new),
+                                       root=REPO)))
+    assert found and all(f.rule == "KGCT003" for f in found), found
+
+
+def test_donation_safety_reaches_the_draft_runner():
+    """The draft runner's cache (its engine's, bound through
+    ``add_families``) and its replaying methods resolve for KGCT004; the
+    runner fetches each round right after its last replay, so the rule is
+    silent on it, and fires when a round's outputs are handed out
+    unfetched and read after a later replay (a reset chunk)."""
+    path = PACKAGE / "engine/spec/draft_model.py"
+    src = path.read_text()
+    mod = LintModule(path, source=src, root=REPO)
+    [cls] = [c for c in mod.classes if c.name == "DraftModelRunner"]
+    assert mod.program_cache_attrs(cls) == {"_programs"}
+    [rule] = rules_by_code(["KGCT004"])
+    assert list(rule.check(mod)) == []
+    old_ret = '        return self._fetch(bufs["outs"][:k])\n'
+    new_ret = '        return {"drafts": bufs["outs"]}\n'
+    old_use = ("        out = self._dispatch(forced, replay, positions, "
+               "slots, context_lens,\n                             tables)\n")
+    new_use = ("        held = self._dispatch(forced, replay, positions, "
+               "slots, context_lens,\n                              tables)\n"
+               "        self._reset_row(seqs[active[0]], "
+               "self._rows[seqs[active[0]].request_id])\n"
+               '        out = self._fetch(held["drafts"])\n')
+    assert src.count(old_ret) == 1 and src.count(old_use) == 1
+    broken = LintModule(path, source=src.replace(old_ret, new_ret).replace(
+        old_use, new_use), root=REPO)
+    found = list(rule.check(broken))
+    assert [f.rule for f in found] == ["KGCT004"], found
 
 
 # -- torch spellings -----------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The prefill, solo-chunk and mixed step programs (``engine/
-step_programs.py``) against ``enforce_eager`` on the CPU.
+"""The prefill, solo-chunk, mixed, spec, spec×mixed and draft step
+programs (``engine/step_programs.py``) against ``enforce_eager`` on the
+CPU.
 
 On the CPU the program cache keys each step's program around the same
 body an ``enforce_eager`` engine runs over its own buffers, so tokens,
@@ -11,6 +12,14 @@ recompute preemption (whose penalty counts come from the batch itself).
 The stale-buffer case: a chunk's penalty history is uploaded only when a
 row has penalties, so a program that ran a penalized row and then runs
 without one keeps the old history, which must not change a bit.
+
+Speculation: with n-gram drafts, an oracle draft model (the target's
+weights) under adaptive k, and a mismatched draft model (other weights)
+under adaptive k, whose rungs change S from step to step, staggered
+requests of every sampling kind (greedy with alternatives, seeded,
+unseeded, penalized and biased, top-k/top-p) give the same tokens,
+logprobs, alternatives and drafted / accepted totals through the spec,
+spec×mixed and draft programs as through the same bodies run eagerly.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
                                                      SchedulerConfig,
                                                      get_model_config)
 from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine, SamplingParams
+from kubernetes_gpu_cluster_tpu_torch.models import llama as model_lib
 
 torch.set_num_threads(2)
 
@@ -171,3 +181,118 @@ def test_stale_penalty_history_changes_no_bit():
     assert used._programs.keys("mixed") == keys
     for k, t in stale.items():             # nothing was uploaded again
         assert torch.equal(used._programs.buffers(k)["out_tokens"], t)
+
+
+# -- speculation ---------------------------------------------------------------
+
+# name -> (draft model, adaptive k, seed of the draft's weights: None is
+# the target's own, an oracle)
+_DRAFTS = {"ngram": (None, False, None),
+           "oracle": ("debug-tiny", True, None),
+           "mismatched": ("debug-tiny", True, 123)}
+_PATTERN = [7, 3, 9, 11, 5]
+
+
+def _spec_config(draft, adaptive: bool) -> EngineConfig:
+    cfg = _config(160)
+    return dataclasses.replace(cfg, scheduler=dataclasses.replace(
+        cfg.scheduler, mixed_batch_enabled=True, spec_decode_enabled=True,
+        num_speculative_tokens=4, spec_draft_model=draft,
+        spec_adaptive_k=adaptive))
+
+
+@pytest.fixture(scope="module", params=sorted(_DRAFTS))
+def spec_engines(request):
+    draft, adaptive, seed = _DRAFTS[request.param]
+    cfg = _spec_config(draft, adaptive)
+    graph = LLMEngine(cfg, device="cpu")
+    draft_params = None
+    if draft is not None:
+        draft_params = graph.params if seed is None else model_lib.init_params(
+            get_model_config(draft), torch.Generator().manual_seed(seed),
+            "cpu")
+        graph = LLMEngine(cfg, params=graph.params, device="cpu",
+                          draft_params=draft_params)
+    eager = LLMEngine(dataclasses.replace(cfg, enforce_eager=True),
+                      params=graph.params, device="cpu",
+                      draft_params=draft_params)
+    return request.param, {"graph": graph, "eager": eager}
+
+
+def _spec_wave(eng, tag: str) -> tuple:
+    """Repetitive prompts (drafts hit) of every sampling kind arriving one
+    per two steps, a long one chunking beside verify rows (spec×mixed);
+    returns the outputs and the wave's drafted / accepted totals."""
+    obs = eng.obs
+    d0, a0 = obs.spec_drafted_tokens, obs.spec_accepted_tokens
+    lengths = [20, 12, 45, 9, 30, 16]
+    rows = _ROWS[:2] + [dict(temperature=1.0, seed=21, logprobs=True,
+                             top_logprobs=1)] + _ROWS[2:]
+    pending = [(f"{tag}-{i}", (_PATTERN * 10)[i:i + n],
+                SP(max_tokens=14, **rows[i % len(rows)]))
+               for i, n in enumerate(lengths)]
+    final = {}
+    while pending or eng.has_unfinished_requests():
+        if pending:
+            eng.add_request(*pending.pop(0))
+        for _ in range(2):
+            for o in eng.step():
+                if o.finished:
+                    final[o.request_id] = o
+    outs = _outputs([final[f"{tag}-{i}"] for i in range(len(lengths))])
+    return outs, (obs.spec_drafted_tokens - d0,
+                  obs.spec_accepted_tokens - a0)
+
+
+def test_spec_programs_match_eager(spec_engines):
+    name, engines = spec_engines
+    got, want = (_spec_wave(engines[k], "a") for k in ("graph", "eager"))
+    assert got == want
+    assert got[1][0] > 0
+    graph = engines["graph"]
+    kinds = graph.obs.step_kind_counts
+    assert kinds["spec"] > 0 and kinds["spec_mixed"] > 0, kinds
+    progs = graph._programs
+    families = ["spec", "spec_mixed"] + (
+        ["draft_decode", "draft_prefill"] if name != "ngram" else [])
+    for family in families:
+        assert progs.keys(family), family
+    assert engines["eager"].compiled_step_variants() == 0
+    assert graph.compiled_step_variants() == len(progs.keys())
+    if name == "mismatched":       # adaptive k moved: more than one rung
+        assert len({k[-1] for k in progs.keys("spec")
+                    + progs.keys("spec_mixed")}) > 1
+    # The same wave again: the same outputs both ways (the unseeded row's
+    # keys move with the engine's generator, and the adaptive controller
+    # starts the wave where the first left it: compared between the two
+    # engines only); at a static k nothing new is built.
+    keys = progs.keys()
+    again = {k: _spec_wave(e, "b") for k, e in engines.items()}
+    assert again["graph"] == again["eager"]
+    if name == "ngram":
+        assert progs.keys() == keys
+
+
+def test_program_bytes_reckons_the_largest_program_of_every_family():
+    """The shared pool's reckoning takes the largest program of every
+    family the engine may build: with speculation, the spec×mixed step at
+    the ladder's top rung, whose ``[R * S, V]`` fp32 logits alone are 148
+    MB for llama-3-8b at 32 rows and S 9; with a draft model, the draft's
+    programs too (never above the target's here, so the same max)."""
+    from kubernetes_gpu_cluster_tpu_torch.engine.step_programs import (
+        activation_bytes, program_bytes)
+    cfg = EngineConfig(model=get_model_config("llama-3-8b"),
+                       scheduler=SchedulerConfig(max_num_seqs=32))
+    off = program_bytes(cfg)
+    sc = dataclasses.replace(cfg.scheduler, spec_decode_enabled=True,
+                             num_speculative_tokens=8)
+    spec = program_bytes(dataclasses.replace(cfg, scheduler=sc))
+    T, R, V = max(sc.prefill_buckets), max(sc.decode_buckets), \
+        cfg.model.vocab_size
+    assert off == activation_bytes(cfg.model, T + R, R + 1,
+                                   cfg.effective_max_len)
+    assert spec - off >= R * 9 * 4 * V - (R + 1) * 4 * V
+    assert R * 9 * 4 * V > 147 * 2 ** 20
+    draft = get_model_config("tinyllama-1.1b")
+    assert program_bytes(dataclasses.replace(cfg, scheduler=sc),
+                         draft) == spec
