@@ -7,7 +7,12 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. Card: name and power limit, kernel build from ``csrc/`` with nvcc.
+1. Card: name and power limit; the kernels built from ``csrc/`` with nvcc
+   through the serving image's own command (``python -m BUILD_MODULE`` in
+   a child, as ``docker/Dockerfile.cuda-serving``'s kernel stage runs it)
+   into the kernel directory (``KGCT_KERNEL_DIR``, set for every child);
+   the in-process loader must then find every stamp current
+   (``build.build()`` returns 0.0).
 2. Kernels against their plain PyTorch versions at llama-3-8b shapes
    (attention: nh 32, n_kv 8, hd 128, bf16, the engine's page size; int4
    matmul: the w_gate projection at a decode batch of 32): max-abs error
@@ -399,10 +404,20 @@ first records the tp=1 engine's greedy tokens for the same requests:
      ``--tokenizer byte`` appended through ``extraArgs``: the rendered
      ``--tokenizer <modelURL>`` needs ``transformers``) on card 0; its
      readiness probe answered, four completions held to the in-process
-     engine, exit 0 within the rendered grace after SIGTERM. Then the
+     engine, exit 0 within the rendered grace after SIGTERM. The pod runs
+     as in the runtime image: no directory that holds ``nvcc`` on ``PATH``,
+     no ``CUDA_HOME``, no ``CUDA_PATH``, ``KGCT_KERNEL_DIR`` phase 1's
+     directory, whose libraries and stamps must keep their sizes and
+     mtimes (nothing rebuilt). Then the
      ``pipelineParallelSize: 2`` StatefulSet's two pods as two ranks on
      card 0 through 13c's harness, each streaming its stage, held as 13c.
      The checkpoint directory is deleted at the end, on failure too.
+14c. The image's refusals, each a child with no ``nvcc`` reachable: (a)
+     ``build.library("paged_decode")`` over an empty kernel directory exits
+     non-zero naming the kernel and the directory; (b) the server's CLI at
+     ``--tensor-parallel-size`` one above the cards seen exits non-zero
+     within ``REFUSAL_BOUND_S`` with the start-time refusal, before any
+     weight, and leaves no rank behind.
 12d. With two cards, phase 12 over NCCL on cards 0 and 1; with one, the
      line ``nccl tp: not run (1 card)``.
 12b. ep 2: mixtral-8x7b int4 at tp 1, ep 2, full width (depth
@@ -491,6 +506,9 @@ def log(*a) -> None:
 # limit and SIGTERM raise ``Stopped`` (``main``'s ``finally`` kills what is
 # left), and a SIGKILL of this process reaches each child through the
 # kernel.
+# The serving image's kernel stage runs ``python -m BUILD_MODULE``
+# (docker/Dockerfile.cuda-serving); phase 1 runs the same.
+BUILD_MODULE = "kubernetes_gpu_cluster_tpu_torch.ops.cuda.build"
 PARENT_ENV = "KGCT_SMOKE_PARENT"
 PR_SET_PDEATHSIG = 1
 RUN_LIMIT_S = 1140          # the whole run, the build included
@@ -589,6 +607,59 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def build_kernels(build, card: str) -> dict:
+    """Phase 1: ``python -m BUILD_MODULE`` in a child builds every kernel
+    into the kernel directory; this process's loader must then read every
+    stamp current (``build.build()`` returns 0.0)."""
+    t0 = time.perf_counter()
+    proc = start_child([], module=BUILD_MODULE, cwd=REPO,
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    out, _ = proc.communicate(timeout=900)
+    secs = time.perf_counter() - t0
+    for line in out.splitlines():
+        log(f"  {line.rstrip()}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 1: {BUILD_MODULE} exited "
+                           f"{proc.returncode}")
+    in_process = build.build()
+    if in_process != 0.0:
+        raise RuntimeError(f"phase 1: the loader rebuilt for {in_process} s "
+                           "after the build command: stamps not current")
+    per_kernel = {}
+    for line in out.splitlines():
+        name, _, rest = line.partition(": built in ")
+        if rest:
+            per_kernel[name.strip()] = float(rest.split()[0])
+    res = {"dir": str(build.kernel_dir()), "command_s": secs,
+           "kernels_s": per_kernel, "in_process_s": in_process}
+    log(f"kernels built by {BUILD_MODULE} in {secs:.1f} s "
+        f"{json.dumps(per_kernel)}; in-process check {in_process} s | {card}")
+    return res
+
+
+def without_nvcc(env: dict, kernel_dir: Path) -> dict:
+    """``env`` as the runtime image gives it: no directory that holds
+    ``nvcc`` on ``PATH``, no ``CUDA_HOME``, no ``CUDA_PATH``; the kernels
+    from ``kernel_dir``. The interpreter is started by its full path and
+    ``libcuda`` comes from the dynamic loader's cache, so both stay
+    reachable."""
+    env = {k: v for k, v in env.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if d and not (Path(d) / "nvcc").exists())
+    env["KGCT_KERNEL_DIR"] = str(kernel_dir)
+    if shutil.which("nvcc", path=env["PATH"]):
+        raise RuntimeError(f"nvcc still on PATH {env['PATH']}")
+    return env
+
+
+def kernel_files(kernel_dir: Path) -> dict:
+    """Size and mtime of every library and stamp in ``kernel_dir``."""
+    return {p.name: (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in sorted(kernel_dir.iterdir()) if p.is_file()}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -4466,10 +4537,18 @@ def check_graphs(cfg_engine, params, device, counters, card: str) -> dict:
     for tag in ("eager", "graph", "graph", "eager"):
         runs[tag].append(drive(engines[tag], reqs, f"t{len(runs[tag])}",
                                hist))
-    if any(r["tokens"] != runs["graph"][0]["tokens"]
-           for rs in runs.values() for r in rs):
+    first = runs["graph"][0]
+    differ = {f"{k}{i}": {
+        "same_schedule": r["schedule"] == first["schedule"],
+        **{rid: _first_diff(t, first["tokens"].get(rid, []))
+           for rid, t in r["tokens"].items()
+           if t != first["tokens"].get(rid)}}
+        for k, rs in runs.items() for i, r in enumerate(rs)
+        if r["tokens"] != first["tokens"]}
+    if differ:
         raise RuntimeError("phase 4 workload: captured and eager tokens "
-                           "differ")
+                           "differ from the first captured run (request: "
+                           f"first differing output) {differ}")
     out["phase4"] = {k: [r["tokens_per_s"] for r in rs]
                      for k, rs in runs.items()}
     out["phase4"]["capture"] = _capture_record(engines["graph"])
@@ -5990,6 +6069,7 @@ def check_rendered(cfg, params, device, card: str, path: Path) -> dict:
     from kubernetes_gpu_cluster_tpu_torch.deploy.render import render_values
     from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
                                                          SamplingParams)
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import build
     ms = render_values(_values(path))
     pod = ms["llama-engine-deployment.yaml"]["spec"]["template"]["spec"]
     c = pod["containers"][0]
@@ -6025,10 +6105,15 @@ def check_rendered(cfg, params, device, card: str, path: Path) -> dict:
     work.mkdir(parents=True, exist_ok=True)
     out_file = work / "deployment.json"
     out_file.unlink(missing_ok=True)
-    env = dict(os.environ, TMPDIR=str(work),
-               KGCT_FLIGHT_DIR=str(work / "flight"))
+    # The runtime image's situation: no nvcc, the prebuilt kernels.
+    kdir = build.kernel_dir()
+    env = without_nvcc(dict(os.environ, TMPDIR=str(work),
+                            KGCT_FLIGHT_DIR=str(work / "flight")), kdir)
     for e in c.get("env") or []:
         env[e["name"]] = e["value"]
+    before = kernel_files(kdir)
+    if len(before) != 2 * len(build.KERNELS):
+        raise RuntimeError(f"14b: {kdir} holds {sorted(before)}")
     with open(work / "deployment.log", "w") as logf:
         proc = start_child(
             ["--cli-rank",
@@ -6053,6 +6138,14 @@ def check_rendered(cfg, params, device, card: str, path: Path) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    after = kernel_files(kdir)
+    if after != before:
+        raise RuntimeError(f"14b: the pod changed {kdir}: {before} -> "
+                           f"{after}")
+    res.update(nvcc_on_path=False, kernel_files_unchanged=len(after))
+    log(f"14b deployment: no nvcc reachable (PATH without it, no CUDA_HOME "
+        f"or CUDA_PATH), {len(after)} libraries and stamps in {kdir} "
+        "unchanged in size and mtime")
     served = {tuple(p): t for p, t in
               json.loads(out_file.read_text())["requests"]}
     ties: list = []
@@ -6080,6 +6173,89 @@ def check_rendered(cfg, params, device, card: str, path: Path) -> dict:
     res["statefulset"] = check_cli_tp(
         cfg, params, device, card, "--pipeline-parallel-size", "14b",
         argv=sc["args"], module=sc["command"][2])
+    return res
+
+
+REFUSAL_BOUND_S = 60      # 14c (b): the refusal's exit, import included
+
+
+def _ranks_of(pid: int) -> list:
+    """pids of live processes that a server ``pid`` started as its ranks
+    (``KGCT_PARENT_PID`` in their environment)."""
+    mark = f"KGCT_PARENT_PID={pid}".encode()
+    found = []
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            with contextlib.suppress(OSError):
+                if mark in (d / "environ").read_bytes().split(b"\0"):
+                    found.append(int(d.name))
+    return found
+
+
+def load_kernel_child(spec: dict) -> None:
+    """14c (a): load one kernel library, as a wrapper's first call does."""
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import build
+    build.library(spec["name"])
+
+
+def check_image_refusals(card: str) -> dict:
+    """Phase 14c: what the runtime image refuses, each in a child with no
+    nvcc reachable. (a) ``build.library("paged_decode")`` over an empty
+    kernel directory: non-zero, the kernel and the directory named, nothing
+    written there. (b) The server's CLI at ``--tensor-parallel-size``
+    ``device_count() + 1``, no ``--distributed``, the prebuilt kernels:
+    non-zero within ``REFUSAL_BOUND_S`` with the start-time refusal, no
+    engine built, no weight drawn, no rank left running."""
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import build
+    res = {}
+    empty = REPO / "build" / "kernels-14c"
+    shutil.rmtree(empty, ignore_errors=True)
+    empty.mkdir(parents=True)
+    t0 = time.perf_counter()
+    proc = start_child(["--load-kernel", json.dumps({"name": "paged_decode"})],
+                       cwd=REPO, env=without_nvcc(dict(os.environ), empty),
+                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                       text=True)
+    _, err = proc.communicate(timeout=REFUSAL_BOUND_S)
+    res["a"] = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+                "message": err.strip().splitlines()[-1] if err.strip() else ""}
+    if proc.returncode == 0 or "paged_decode" not in err or \
+            str(empty) not in err or any(empty.iterdir()):
+        raise RuntimeError(f"14c (a): exit {proc.returncode}, stderr "
+                           f"{err[-2000:]}, dir {list(empty.iterdir())}")
+    shutil.rmtree(empty)
+    tp = torch.cuda.device_count() + 1
+    t0 = time.perf_counter()
+    proc = start_child(["--model", MODEL, "--tensor-parallel-size", str(tp),
+                        "--host", "127.0.0.1", "--port", str(_free_port())],
+                       module="kubernetes_gpu_cluster_tpu_torch.serving."
+                              "api_server",
+                       cwd=REPO, env=without_nvcc(dict(os.environ),
+                                                  build.kernel_dir()),
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    try:
+        out, _ = proc.communicate(timeout=REFUSAL_BOUND_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise RuntimeError(f"14c (b): tp {tp} still running after "
+                           f"{REFUSAL_BOUND_S} s:\n{out[-3000:]}") from None
+    secs = time.perf_counter() - t0
+    left = _ranks_of(proc.pid)
+    want = (f"refused: the layout tp {tp} x pp 1 (world {tp}) would start "
+            f"ranks {list(range(1, tp))} on this pod")
+    lines = out.strip().splitlines()
+    res["b"] = {"rc": proc.returncode, "s": secs, "tp": tp,
+                "message": lines[-1] if lines else "", "ranks_left": left}
+    if proc.returncode == 0 or want not in out or left or \
+            "initializing random weights" in out or "started ranks" in out:
+        raise RuntimeError(f"14c (b): exit {proc.returncode} in {secs:.1f} s, "
+                           f"ranks left {left}, output:\n{out[-3000:]}")
+    log(f"14c: (a) exit {res['a']['rc']} in {res['a']['s']:.2f} s: "
+        f"{res['a']['message']}")
+    log(f"14c: (b) tp {tp} exit {res['b']['rc']} in {secs:.2f} s, no rank "
+        f"left: {res['b']['message']} | {card}")
     return res
 
 
@@ -6143,13 +6319,10 @@ def main() -> int:
         log("host memory (GB):", json.dumps(host_memory()))
         t_phase[0] = now
 
-    # Phase 1: build.
-    secs = build.build()
-    log(f"kernels built in {secs:.1f} s")
-    for name, text in build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "error" in line.lower():
-                log(f"  [{name}] {line.strip()}")
+    # Phase 1: build through the image's command; every child of this run
+    # loads from the same kernel directory.
+    os.environ["KGCT_KERNEL_DIR"] = str(build.kernel_dir())
+    build_kernels(build, card)
     phase("build (1)")
 
     cfg = get_model_config(MODEL)
@@ -6271,6 +6444,9 @@ def main() -> int:
         card)
     phase(f"{MODEL} bf16 CLI pp 2 (13c)")
     checkpoint_phases(cfg, params, device, card, tp_ref, phase)
+    # Phase 14c: what the runtime image refuses, with no nvcc.
+    log("image refusals:", json.dumps(check_image_refusals(card)))
+    phase("image refusals (14c)")
     # Phase 12d: the same over NCCL, where two cards exist.
     if torch.cuda.device_count() >= 2:
         log("nccl tp:", json.dumps(check_tp(cfg, params, device, card,
@@ -6375,8 +6551,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["--tp-child"], ["--cli-rank"], ["--whole-load"]):
+    if sys.argv[1:2] in (["--tp-child"], ["--cli-rank"], ["--whole-load"],
+                         ["--load-kernel"]):
         die_with_parent()
+    if sys.argv[1:2] == ["--load-kernel"]:
+        load_kernel_child(json.loads(sys.argv[2]))
+        sys.exit(0)
     if sys.argv[1:2] == ["--tp-child"]:
         tp_child(json.loads(sys.argv[2]))
         sys.exit(0)

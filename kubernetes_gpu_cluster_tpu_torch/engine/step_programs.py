@@ -42,6 +42,10 @@ verify step's penalty history) and outputs that every run overwrites.
   can be another's, and the kernels' shared workspaces too.
 - A capture that fails raises ``CaptureError`` (a capture out of memory
   too): the step is never run eagerly in its place.
+- Python's cyclic garbage collector is paused while any capture is open:
+  a collection run by the capturing thread, which allocates as the body
+  runs, could free a dead engine's graphs and pool there, calls that void
+  the capture.
 - On the CPU nothing is captured (only CUDA captures): the cache keys the
   same programs around the eager body, so the program count
   (``kgct_jit_compiles_total``) and the compile guard read the same in the
@@ -58,6 +62,8 @@ is a host read that capture refuses (KGCT001).
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from typing import Callable, Optional
 
@@ -68,6 +74,27 @@ from ..ops import cuda as cuda_ops
 
 # (shape, dtype) of a static buffer, by name.
 Layout = dict[str, tuple[tuple[int, ...], torch.dtype]]
+
+# One token per capture open in this process: engines in several threads
+# may capture at once (list.append and list.remove hold the interpreter
+# lock). Outside captures the collector runs as Python's default has it.
+_open_captures: list = []
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """No cyclic garbage collection while any capture is open."""
+    token = object()
+    _open_captures.append(token)
+    gc.disable()
+    try:
+        yield
+    finally:
+        _open_captures.remove(token)
+        if not _open_captures:
+            gc.enable()
+            if _open_captures:      # another thread opened one meanwhile
+                gc.disable()
 
 
 def activation_bytes(cfg, tokens: int, rows: int, out_cap: int,
@@ -268,18 +295,20 @@ class StepPrograms:
             reserved = torch.cuda.memory_reserved(self.device)
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
-            # thread_local: another thread's CUDA calls (a /metrics scrape
-            # reading free memory) do not void this thread's capture.
-            graph.capture_begin(pool=self._pool,
-                                capture_error_mode="thread_local")
-            try:
-                body(key, bufs)
-                graph.capture_end()
-            except Exception as err:    # out of memory too
-                self._abandon(graph)
-                cuda_ops.set_launch_counts(before)
-                raise CaptureError(f"capture of step program {key} "
-                                   f"failed: {err}") from err
+            with _collector_paused():
+                # thread_local: another thread's CUDA calls (a /metrics
+                # scrape reading free memory) do not void this thread's
+                # capture.
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    body(key, bufs)
+                    graph.capture_end()
+                except Exception as err:    # out of memory too
+                    self._abandon(graph)
+                    cuda_ops.set_launch_counts(before)
+                    raise CaptureError(f"capture of step program {key} "
+                                       f"failed: {err}") from err
         self.capture_seconds.append(time.perf_counter() - t0)
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         main.wait_stream(side)

@@ -27,8 +27,6 @@ import importlib
 
 import torch
 
-from .build import KERNELS
-
 
 def _wrapper(name: str):
     return importlib.import_module(f"{__name__}.{name}")
@@ -36,7 +34,9 @@ def _wrapper(name: str):
 
 def launch_counts() -> dict[str, int]:
     """Every wrapper's ``launches``, by kernel."""
-    return {name: _wrapper(name).launches for name in KERNELS}
+    # ``build`` is not imported with the package: ``python -m`` runs it.
+    return {name: _wrapper(name).launches
+            for name in _wrapper("build").KERNELS}
 
 
 def set_launch_counts(counts: dict[str, int]) -> None:

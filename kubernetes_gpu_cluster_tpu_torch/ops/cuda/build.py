@@ -1,19 +1,34 @@
 """Builds the port's CUDA kernels with nvcc and loads them through ctypes.
 
 Each source under ``kubernetes_gpu_cluster_tpu_torch/csrc/`` compiles on its
-own into ``build/kernels/lib<name>.so`` beside the package (one ``nvcc``
-per source, all started together) for ``sm_90a``, with a plain C interface:
-no PyTorch headers, so a build takes seconds. Builds run at first use and
-again only when a source or the shared header is newer than its library.
-Nothing here runs at import: the CPU tests import every module.
+own into ``lib<name>.so`` in the kernel directory (one ``nvcc`` per source,
+all started together) for ``sm_90a``, with a plain C interface: no PyTorch
+headers, so a build takes seconds. The kernel directory is
+``KGCT_KERNEL_DIR``, read at every build or load, else ``build/kernels``
+beside the package.
+
+Each library has a stamp beside it, ``lib<name>.so.sha256``: the sha256 of
+the source, of every shared header and of ``NVCC_FLAGS``. A library is
+current when its stamp matches the sources in the package, whatever the
+files' times say, so libraries built ahead of time (a serving image's
+kernel stage) load where no ``nvcc`` exists. A missing or stale library is
+built at first use; with no ``nvcc`` that raises.
+
+    python -m kubernetes_gpu_cluster_tpu_torch.ops.cuda.build
+
+builds every stale kernel into the kernel directory and prints each one's
+seconds and ptxas register lines. It needs no card: nvcc cross-compiles
+``sm_90a``. Nothing here runs at import: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -24,7 +39,8 @@ logger = get_logger("ops.cuda.build")
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+DEFAULT_KERNEL_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+KERNEL_DIR_ENV = "KGCT_KERNEL_DIR"
 KERNELS = ("paged_decode", "flash_prefill", "flash_prefill_hist", "int4_matmul",
            "spec_verify")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,61 +48,114 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# nvcc's output (ptxas register/shared-memory report) per kernel built in
-# this process.
+# nvcc's output (ptxas register/shared-memory report) and wall seconds per
+# kernel built in this process.
 build_log: dict[str, str] = {}
+build_seconds: dict[str, float] = {}
+
+
+def kernel_dir() -> Path:
+    """Where the libraries and their stamps live: ``KGCT_KERNEL_DIR``, else
+    ``build/kernels`` beside the package."""
+    return Path(os.environ.get(KERNEL_DIR_ENV) or DEFAULT_KERNEL_DIR)
 
 
 def nvcc_path() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
-            "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]:
-        if cand and Path(cand).is_file():
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
-                       "build from source at first use")
+    """nvcc under ``CUDA_HOME`` or ``CUDA_PATH``, else on ``PATH``."""
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found on PATH, CUDA_HOME or CUDA_PATH")
 
 
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+    return kernel_dir() / f"lib{name}.so"
 
 
-def _stale(name: str) -> bool:
-    lib = library_path(name)
-    if not lib.exists():
+def stamp_path(name: str) -> Path:
+    return kernel_dir() / f"lib{name}.so.sha256"
+
+
+def source_digest(name: str) -> str:
+    """sha256 of ``<name>.cu``, every ``csrc/*.cuh`` in name order and
+    ``NVCC_FLAGS``: what a library built from these sources is stamped
+    with."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        data = path.read_bytes()
+        h.update(f"{path.name}\0{len(data)}\0".encode())
+        h.update(data)
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def stale(name: str) -> bool:
+    """True when the library, its stamp, or their agreement with the
+    sources is missing."""
+    lib, stamp = library_path(name), stamp_path(name)
+    if not lib.is_file() or not stamp.is_file():
         return True
-    newest = max(p.stat().st_mtime for p in
-                 [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
-    return lib.stat().st_mtime < newest
+    return stamp.read_text().strip() != source_digest(name)
+
+
+def _compile(nvcc: str, name: str, out_dir: Path) -> tuple:
+    """Start nvcc on ``name`` into a temp file of this process; a thread
+    collects its output and the seconds until it ended."""
+    tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
+    proc = subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+         str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    done: dict = {}
+    t0 = time.perf_counter()
+
+    def wait():
+        done["out"] = proc.communicate()[0]
+        done["s"] = time.perf_counter() - t0
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    return tmp, proc, waiter, done
 
 
 def build(names=KERNELS) -> float:
     """Compile every stale kernel of ``names`` in parallel; returns the
     build's wall seconds (0 when all were current). Raises RuntimeError
-    with nvcc's output when any compile fails."""
+    with nvcc's output when any compile fails, and when one is stale and no
+    nvcc exists."""
     with _lock:
-        todo = [n for n in names if _stale(n)]
+        todo = [n for n in names if stale(n)]
         if not todo:
             return 0.0
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = nvcc_path()
+        out_dir = kernel_dir()
+        try:
+            nvcc = nvcc_path()
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"kernel {', '.join(todo)}: no library with a current stamp "
+                f"in {out_dir} ({KERNEL_DIR_ENV}={os.environ.get(KERNEL_DIR_ENV)!r}"
+                f") and {e}; build them ahead of time with `python -m "
+                f"{__spec__.name}` into that directory") from None
+        out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        procs = {}
-        for n in todo:
-            tmp = BUILD_DIR / f"lib{n}.so.tmp{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / f"{n}.cu")]
-            procs[n] = (tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
+        jobs = {n: _compile(nvcc, n, out_dir) for n in todo}
         failed = []
-        for n, (tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            build_log[n] = out
+        for n, (tmp, proc, waiter, done) in jobs.items():
+            waiter.join()
+            build_log[n], build_seconds[n] = done["out"], done["s"]
             if proc.returncode != 0:
-                failed.append(f"--- {n} (exit {proc.returncode}) ---\n{out}")
-            else:
-                os.replace(tmp, library_path(n))
+                failed.append(f"--- {n} (exit {proc.returncode}) ---\n"
+                              f"{done['out']}")
+                tmp.unlink(missing_ok=True)
+                continue
+            # The library first, then its stamp, each by rename: a reader
+            # never pairs a new stamp with an old library.
+            os.replace(tmp, library_path(n))
+            stamp_tmp = Path(f"{stamp_path(n)}.tmp{os.getpid()}")
+            stamp_tmp.write_text(source_digest(n) + "\n")
+            os.replace(stamp_tmp, stamp_path(n))
         seconds = time.perf_counter() - t0
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -114,3 +183,29 @@ def check_status(lib: ctypes.CDLL, name: str, code: int) -> None:
         err.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{err(code).decode()} (cudaError {code})")
+
+
+def main() -> int:
+    """Build every kernel of ``KERNELS`` into the kernel directory; print
+    each one's seconds and ptxas register lines."""
+    todo = [n for n in KERNELS if stale(n)]
+    try:
+        seconds = build(todo)
+    except RuntimeError as e:
+        print(f"kernel build failed: {e}", file=sys.stderr)
+        return 1
+    print(f"kernel dir {kernel_dir()}", flush=True)
+    for n in KERNELS:
+        if n not in todo:
+            print(f"{n}: current", flush=True)
+            continue
+        print(f"{n}: built in {build_seconds[n]:.1f} s", flush=True)
+        for line in build_log[n].splitlines():
+            if "registers" in line:
+                print(f"  [{n}] {line.strip()}", flush=True)
+    print(f"built in {seconds:.1f} s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

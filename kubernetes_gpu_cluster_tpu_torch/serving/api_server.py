@@ -2319,7 +2319,7 @@ def main(argv: Optional[list[str]] = None) -> None:
                               int(os.environ.get("KGCT_NUM_PROCESSES", "1")))
         rank = int(os.environ.get("KGCT_PROCESS_ID", "0")) * local
         ctrl = int(os.environ.get("KGCT_CONTROL_PORT", CONTROL_PORT))
-        local_ranks = _start_ranks(argv, device, world, coord,
+        local_ranks = _start_ranks(argv, device, parallel, coord,
                                    [(rank + k, k, ctrl + k)
                                     for k in range(1, local)])
         if rank > 0:
@@ -2334,7 +2334,7 @@ def main(argv: Optional[list[str]] = None) -> None:
             _reap(local_ranks)
             raise
     elif parallel.world_size > 1:
-        local_ranks = _start_local_ranks(argv, parallel.world_size, device)
+        local_ranks = _start_local_ranks(argv, parallel, device)
     groups = mesh_from_config(parallel)
     config = EngineConfig(
         model=model_cfg,
@@ -2430,16 +2430,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _start_local_ranks(argv: Optional[list[str]], world: int,
+def _start_local_ranks(argv: Optional[list[str]], parallel,
                        device: torch.device) -> list:
     """One node, one container: start ranks 1..world-1 (``_start_ranks``)
     with a control port each, join the group over localhost as rank 0, and
     point the leader at them."""
     # The group never leaves this host: gloo binds the loopback.
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    world = parallel.world_size
     coord = f"127.0.0.1:{_free_port()}"
     ctrl = [_free_port() for _ in range(1, world)]
-    procs = _start_ranks(argv, device, world, coord,
+    procs = _start_ranks(argv, device, parallel, coord,
                          [(k, k, ctrl[k - 1]) for k in range(1, world)])
     os.environ["KGCT_FOLLOWER_ADDRS"] = ",".join(
         f"127.0.0.1:{c}" for c in ctrl)
@@ -2452,14 +2453,32 @@ def _start_local_ranks(argv: Optional[list[str]], world: int,
 
 
 def _start_ranks(argv: Optional[list[str]], device: torch.device,
-                 world: int, coord: str, ranks: list) -> list:
+                 parallel, coord: str, ranks: list) -> list:
     """Start each ``(global rank, k, control port)`` of ``ranks`` as this
     CLI with ``--distributed`` on ``cuda:<index+k>`` (or the CPU), with an
-    ephemeral health port, in the group of ``world`` ranks at ``coord``.
-    They exit when the leader's channel closes or this process dies."""
+    ephemeral health port, in the group of ``parallel``'s ranks at
+    ``coord``. They exit when the leader's channel closes or this process
+    dies. A layout that needs a card this process does not see is refused
+    (``SystemExit``) before any rank starts."""
     import subprocess
     import sys
 
+    world = parallel.world_size
+    if ranks and device.type == "cuda":
+        first = device.index or 0
+        seen = torch.cuda.device_count()
+        last = first + max(k for _, k, _ in ranks)
+        if last >= seen:
+            sizes = dataclasses.asdict(parallel)
+            layout = " x ".join(f"{a} {sizes[a]}" for a in ("tp", "pp", "sp",
+                                                           "ep", "dp")
+                                if a in ("tp", "pp") or sizes[a] > 1)
+            raise SystemExit(
+                f"refused: the layout {layout} (world {world}) would start "
+                f"ranks {[r for r, _, _ in ranks]} on this pod on cards "
+                f"cuda:{first + 1}..cuda:{last}, but it sees {seen} card(s) "
+                f"(cuda:0..cuda:{seen - 1}); give the pod {last + 1} cards "
+                "or lower the parallel sizes")
     argv = list(sys.argv[1:] if argv is None else argv)
     procs = []
     for rank, k, ctrl in ranks:

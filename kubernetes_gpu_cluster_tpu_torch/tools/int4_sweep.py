@@ -76,7 +76,7 @@ ABLATIONS = {
 def _build(tag: str, defines: dict, cuts=()) -> tuple[Path, list[str]]:
     """The library path and nvcc command of one build; ``cuts`` are applied
     to a copy of the source."""
-    out = build.BUILD_DIR / "sweep" / tag
+    out = build.kernel_dir() / "sweep" / tag
     out.mkdir(parents=True, exist_ok=True)
     src = build.CSRC / "int4_matmul.cu"
     if cuts:

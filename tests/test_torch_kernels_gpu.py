@@ -30,7 +30,8 @@ bucket), each prefill, solo chunk, mixed, spec and spec×mixed step and
 each draft dispatch and reset chunk once per key of the JAX bucket grid,
 and replay them; against ``enforce_eager`` engines they give the same
 tokens and logprobs, and a body that reads the device from the host fails
-its capture. The verify attention kernel (no TPU kernel: the JAX package
+its capture, and the cyclic collector is paused while a capture is
+open. The verify attention kernel (no TPU kernel: the JAX package
 computes it in XLA) holds to its plain version over the whole table, at
 split edges, on a padding row and replayed at other contexts. The history kernel reads ``hist_len`` from
 device memory: one launch captured in a graph, replayed at several
@@ -999,6 +1000,33 @@ def test_captured_spec_steps_match_eager(cuda_device, draft):
     assert all(progs.keys(f) for f in families), progs.keys()
     assert len(progs.capture_seconds) == graph.compiled_step_variants()
     assert eager.compiled_step_variants() == 0
+
+
+@pytest.mark.gpu
+def test_no_collection_runs_inside_a_capture(cuda_device):
+    """Each program's body runs twice at its key's first step: its warm-up
+    with the cyclic collector on, its capture with the collector paused (a
+    collection there could free a dead engine's graphs and pool, calls
+    that void the capture). The collector is on again after."""
+    import gc
+    eng = LLMEngine(_tiny_cfg(), device=cuda_device)
+    seen = []
+
+    def watched(body):
+        def run(key, bufs):
+            seen.append((key, gc.isenabled()))
+            body(key, bufs)
+        return run
+
+    eng._programs._bodies = {f: watched(b)
+                             for f, b in eng._programs._bodies.items()}
+    eng.generate(_prompts(4, 10, 70, seed=60),
+                 SamplingParams(max_tokens=12, temperature=0.0))
+    keys = eng._programs.keys()
+    assert keys
+    for key in keys:
+        assert [on for k, on in seen if k == key] == [True, False], key
+    assert gc.isenabled()
 
 
 @pytest.mark.gpu

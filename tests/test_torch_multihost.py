@@ -14,12 +14,16 @@
   while an idle one stops cleanly.
 - The follower address contract of ``follower_addrs_from_env`` and the
   port's handoff gates under a leader.
+- The server's start-time refusal: a layout whose ranks need more cards
+  than the pod sees exits before any rank starts or weight loads; a
+  layout that fits, the CPU and one ``--distributed`` rank a pod go on.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import subprocess
 import json
 import socket
 import threading
@@ -34,6 +38,7 @@ import torch
 from kubernetes_gpu_cluster_tpu_torch.engine import SamplingParams
 from kubernetes_gpu_cluster_tpu_torch.resilience import (LoopLiveness,
                                                          configure_faults)
+from kubernetes_gpu_cluster_tpu_torch.serving import api_server
 from kubernetes_gpu_cluster_tpu_torch.serving.api_server import build_server
 from kubernetes_gpu_cluster_tpu_torch.serving.multihost import (
     CONTROL_PORT, DirectiveFollower, DirectiveLeader, follower_addrs_from_env,
@@ -306,3 +311,82 @@ class TestFollowerAddrs:
         monkeypatch.setenv("KGCT_COORDINATOR", "10.0.0.1:8476")
         with pytest.raises(RuntimeError, match="KGCT_FOLLOWER_ADDRS"):
             follower_addrs_from_env()
+
+
+class _Reached(Exception):
+    """Raised where the server would join its group or build its engine:
+    the start got past the refusal."""
+
+
+class TestCardRefusal:
+    """``_start_ranks`` refuses a layout whose ranks need more cards than
+    ``torch.cuda.device_count()`` shows, before any child starts (no
+    ``subprocess.Popen``) and before the engine or a weight exists."""
+
+    @pytest.fixture
+    def cards(self, monkeypatch):
+        started = []
+
+        def popen(cmd, **kw):
+            started.append(cmd)
+            return types.SimpleNamespace(pid=0, wait=lambda timeout=None: 0,
+                                         kill=lambda: None)
+
+        def reached(*a, **k):
+            raise _Reached
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(subprocess, "Popen", popen)
+        monkeypatch.setattr(api_server, "initialize_distributed", reached)
+        monkeypatch.setattr(api_server, "build_server", reached)
+        monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+        for k in ("KGCT_COORDINATOR", "KGCT_NUM_PROCESSES",
+                  "KGCT_PROCESS_ID", "KGCT_CONTROL_PORT"):
+            monkeypatch.delenv(k, raising=False)
+
+        def with_cards(n):
+            monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+            return started
+        return with_cards
+
+    @pytest.mark.parametrize("n_cards,flags,pods,refusal", [
+        (1, ["--tensor-parallel-size", "2"], None,
+         "tp 2 x pp 1 (world 2) would start ranks [1] on this pod on cards "
+         "cuda:1..cuda:1, but it sees 1 card(s)"),
+        (2, ["--tensor-parallel-size", "2", "--pipeline-parallel-size", "2",
+             "--distributed"], "1",
+         "tp 2 x pp 2 (world 4) would start ranks [1, 2, 3] on this pod on "
+         "cards cuda:1..cuda:3, but it sees 2 card(s)"),
+    ], ids=["tp2-one-card", "multihost-pp2xtp2-two-cards"])
+    def test_layout_beyond_the_cards_is_refused_before_any_rank(
+            self, cards, monkeypatch, n_cards, flags, pods, refusal):
+        started = cards(n_cards)
+        if pods:
+            monkeypatch.setenv("KGCT_COORDINATOR", "127.0.0.1:1")
+            monkeypatch.setenv("KGCT_NUM_PROCESSES", pods)
+        with pytest.raises(SystemExit) as exc:
+            api_server.main(["--model", "debug-tiny", "--device", "cuda",
+                             *flags])
+        assert refusal in str(exc.value.code)
+        assert started == []
+
+    @pytest.mark.parametrize("n_cards,device,flags,pods,n_started", [
+        (1, "cuda", [], None, 0),
+        (1, "cpu", ["--tensor-parallel-size", "2"], None, 1),
+        (1, "cuda", ["--tensor-parallel-size", "2", "--distributed"], "2", 0),
+        (2, "cuda", ["--tensor-parallel-size", "2"], None, 1),
+    ], ids=["tp1-cuda", "tp2-cpu", "one-distributed-rank-a-pod",
+            "tp2-two-cards"])
+    def test_layouts_that_fit_go_on(self, cards, monkeypatch, n_cards,
+                                    device, flags, pods, n_started):
+        started = cards(n_cards)
+        if pods:
+            monkeypatch.setenv("KGCT_COORDINATOR", "127.0.0.1:1")
+            monkeypatch.setenv("KGCT_NUM_PROCESSES", pods)
+        with pytest.raises(_Reached):
+            api_server.main(["--model", "debug-tiny", "--device", device,
+                             *flags])
+        assert len(started) == n_started
+        for cmd in started:
+            # The rank's own --device follows the parent's argv.
+            at = len(cmd) - cmd[::-1].index("--device")
+            assert cmd[at] == ("cpu" if device == "cpu" else "cuda:1")

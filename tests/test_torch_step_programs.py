@@ -20,11 +20,16 @@ requests of every sampling kind (greedy with alternatives, seeded,
 unseeded, penalized and biased, top-k/top-p) give the same tokens,
 logprobs, alternatives and drafted / accepted totals through the spec,
 spec×mixed and draft programs as through the same bodies run eagerly.
+
+The cyclic garbage collector is paused while any capture is open, and
+captures may overlap across threads: it runs again only once the last
+one closes, also when a capture raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -296,3 +301,22 @@ def test_program_bytes_reckons_the_largest_program_of_every_family():
     draft = get_model_config("tinyllama-1.1b")
     assert program_bytes(dataclasses.replace(cfg, scheduler=sc),
                          draft) == spec
+
+
+def test_the_collector_is_paused_while_any_capture_is_open():
+    from kubernetes_gpu_cluster_tpu_torch.engine.step_programs import \
+        _collector_paused
+    assert gc.isenabled()
+    first, second = _collector_paused(), _collector_paused()
+    first.__enter__()
+    assert not gc.isenabled()
+    second.__enter__()
+    first.__exit__(None, None, None)
+    assert not gc.isenabled()           # the second capture is still open
+    second.__exit__(None, None, None)
+    assert gc.isenabled()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        with _collector_paused():
+            assert not gc.isenabled()
+            raise RuntimeError("capture failed")
+    assert gc.isenabled()
