@@ -131,6 +131,15 @@ are freed; each engine freed before the next is built):
     its suffix through the history kernel (launched), with tokens equal to
     the other engine's. A 256-token prefix crosses page by page into the
     host tier (``accept_remote_spill``) and is restored the same way.
+8a-8c run their KV transfers as step programs (``("kv_gather", n_pad)``,
+    ``("kv_scatter", n_pad)``): each phase logs its transfer programs by
+    family, each a power of two no larger than the largest bucket; 8a's
+    repeat builds none, its ``kgct_jit_compiles_total`` counts them, and
+    each transfer key's capture seconds and pool growth are logged. Every
+    exported buffer equals the pages it came from and every imported page
+    the buffer, bit for bit. Beside each captured engine an
+    ``enforce_eager`` twin serves the same requests (8a: run 1; 8b, 8c:
+    the whole flow), with the same preemptions, tokens and moved bytes.
 
 After 7b, on its tinyllama-1.1b fp32 weights:
 
@@ -188,7 +197,9 @@ near-ties as in 7b (counted):
      logprobs 2, one seeded sampled, compared by length). D counts 6
      imports ``ok`` and 0 fallbacks, P 6 exports; each handoff's bytes and
      seconds from ``/metrics``; the streamed ones also colocated on C for
-     the TTFT beside D's.
+     the TTFT beside D's. Each server's ``kgct_jit_compiles_total`` over
+     HTTP equals its engine's programs, its KV gather (P) or scatter (D)
+     programs among them.
 10b. The same pair with ``kv_wire_corrupt`` armed: the corruption is
      caught, the request falls back to local prefill with its tokens, P is
      quarantined on D.
@@ -273,8 +284,9 @@ device tensor handed to one):
      off, that slot's pool bytes change; with it on, the step is refused
      before any upload and the bytes are unchanged.
 15c. Both 15a engines again under ``torch.cuda.set_sync_debug_mode``:
-     the same count of synchronizing calls at each source line, > 0 (the
-     page-index uploads).
+     the same count of synchronizing calls at each source line (0 since
+     the KV transfers upload their page indices through pinned buffers),
+     and a known synchronizing call counted (the count is live).
 15d. ``AsyncLLMEngine`` with ``KGCT_SANITIZE_INTERLEAVE=1`` under seeds
      1-3 and unperturbed, four concurrent streams: a seed that stepped the
      unperturbed schedule gives its tokens exactly; one whose yields moved
@@ -424,6 +436,16 @@ first records the tp=1 engine's greedy tokens for the same requests:
      ``EP_LAYERS``, None for all 32), two ranks on card 0, four requests,
      the same token check against the one-device engine; ``int4_matmul``
      launches on both ranks.
+
+Last, the entry twin:
+
+17. ``graft_entry.entry()`` on the card (tinyllama-1.1b bf16 at full
+    width and depth, random weights from seed 0; its strict probes of
+    ``paged_decode`` and ``flash_prefill`` first): the decode step of
+    batch 8 run eagerly (``paged_decode`` launched), through the plain
+    attention version, and captured with ``torch.cuda.graph`` and
+    replayed: the same tokens all three ways; the replay's device ms
+    beside one ``paged_decode`` call at the step's shapes.
 
 The line before the last is the ``kernels`` JSON record (the four TPU
 kernels' ports and the verify kernel); the last line is
@@ -1866,6 +1888,70 @@ def link_bound(device) -> dict:
             "bytes": n}
 
 
+def transfer_keys(what: str, engine) -> dict:
+    """The engine's KV transfer programs by family, as page buckets; each
+    must be a power of two no larger than the largest bucket."""
+    from kubernetes_gpu_cluster_tpu_torch.engine.kv_cache import \
+        transfer_pages
+    top = transfer_pages(engine.config.effective_max_len,
+                         engine.config.cache.page_size)
+    keys = {f: [k[1] for k in engine._programs.keys(f)]
+            for f in ("kv_gather", "kv_scatter")}
+    for family, buckets in keys.items():
+        for n in buckets:
+            if n & (n - 1) or n > top:
+                raise RuntimeError(f"{what}: transfer program ({family}, "
+                                   f"{n}) is not a power of two up to the "
+                                   f"largest bucket, {top}")
+    return keys
+
+
+def capture_log(programs) -> dict:
+    """Wraps a program cache's capture (in this script only): the returned
+    dict fills with each key's capture seconds and the shared pool's
+    growth in bytes, as it is captured."""
+    log_: dict = {}
+    capture = programs._capture
+
+    def logged(key, body, bufs):
+        n, pool = len(programs.capture_seconds), programs.pool_bytes
+        prog = capture(key, body, bufs)
+        log_[key] = {"s": programs.capture_seconds[n],
+                     "pool_bytes": programs.pool_bytes - pool}
+        return prog
+    programs._capture = logged
+    return log_
+
+
+def held_pages(what: str, engine, pages: list, k, v) -> None:
+    """``engine``'s pool pages ``pages`` equal the host buffers ``k``,
+    ``v`` bit for bit."""
+    idx = torch.tensor(pages, device=engine.device)
+    for pool, want in zip(engine.kv_cache, (k, v)):
+        if not torch.equal(pool.index_select(1, idx).cpu(), want):
+            raise RuntimeError(f"{what}: pool pages differ from the moved "
+                               f"buffers")
+
+
+def twins_equal(what: str, got: dict, ref: dict) -> int:
+    """The captured flow's ``record`` against its ``enforce_eager`` twin's:
+    the same tokens for every request and the same bytes in every moved
+    buffer. Returns the buffers compared."""
+    if got["tokens"] != ref["tokens"]:
+        diff = sorted(r for r in got["tokens"]
+                      if got["tokens"][r] != ref["tokens"].get(r))
+        raise RuntimeError(f"{what}: captured and eager tokens differ for "
+                           f"{diff}")
+    if got["moved"].keys() != ref["moved"].keys():
+        raise RuntimeError(f"{what}: captured and eager moved other states")
+    for name, bufs in got["moved"].items():
+        if not all(torch.equal(a, b)
+                   for a, b in zip(bufs, ref["moved"][name])):
+            raise RuntimeError(f"{what}: captured and eager {name} buffers "
+                               f"differ")
+    return 2 * len(got["moved"])
+
+
 class SwapAudit:
     """Wraps an engine's swapper (in this script only): keeps a device copy
     of every page set that goes out, checks every restored page against it
@@ -1918,6 +2004,10 @@ class SwapAudit:
                                    f"{hp}) differs from what went out")
             self.compared += 1
 
+    def reset(self) -> None:
+        self.pages = {"out": 0, "in": 0}
+        self.seconds = {"out": 0.0, "in": 0.0}
+
     def rates(self, page_bytes: int) -> dict:
         out = {}
         for d in ("out", "in"):
@@ -1941,15 +2031,20 @@ def swap_workload(vocab: int):
 
 
 def check_swap(cfg_engine, params, device, counters, swap_gb: float,
-               near_ties_only: bool) -> dict:
+               near_ties_only: bool, eager_twin: bool = False) -> dict:
     """Swap preemption on ``params`` through a ``SWAP_PAGES`` pool: the
-    same requests twice (identical tokens), every restored page bit-equal
-    to what went out, then a never-preempted engine on the same requests.
-    Greedy differences from it are logged with their top-2 gap: batch
-    composition changes the GEMM shapes and ``paged_decode``'s split plan.
-    Phase 8a (llama-3-8b bf16) counts them; with ``near_ties_only`` (8d,
-    fp32, where the two batchings agree to ~1e-6) each one must be a
-    near-tie, below ``NEAR_TIE`` of the logit standard deviation."""
+    same requests twice (identical tokens, the second run building no
+    transfer program), every restored page bit-equal to what went out,
+    then a never-preempted engine on the same requests. Greedy differences
+    from it are logged with their top-2 gap: batch composition changes the
+    GEMM shapes and ``paged_decode``'s split plan. Phase 8a (llama-3-8b
+    bf16) counts them; with ``near_ties_only`` (8d, fp32, where the two
+    batchings agree to ~1e-6) each one must be a near-tie, below
+    ``NEAR_TIE`` of the logit standard deviation. With ``eager_twin`` an
+    ``enforce_eager`` engine serves the first run's requests too: the same
+    preemptions and tokens, its restored pages compared as well, no
+    program built."""
+    from kubernetes_gpu_cluster_tpu_torch.serving.metrics import Metrics
     from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
                                                          SchedulerConfig)
     from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
@@ -1968,6 +2063,7 @@ def check_swap(cfg_engine, params, device, counters, swap_gb: float,
     engine = LLMEngine(cfg_swap, params=params, device=device)
     host = engine.swapper.host
     audit = SwapAudit(engine)
+    captures = capture_log(engine._programs)
     drive(engine, reqs[:2], "warm", hist)
     for mod in counters.values():
         mod.launches = 0
@@ -1977,9 +2073,19 @@ def check_swap(cfg_engine, params, device, counters, swap_gb: float,
     kinds = {k: v - kinds0[k]
              for k, v in engine.scheduler.num_preemptions_by_kind.items()}
     rates = audit.rates(page_bytes)
+    audit.reset()
     compared = audit.compared
+    keys = transfer_keys("8a", engine)
+    gauge = _metric(Metrics(engine).render(), "kgct_jit_compiles_total")
     log("swap run 1:", _loggable(run1),
-        "preemptions:", json.dumps(kinds), "launches:", json.dumps(launches))
+        "preemptions:", json.dumps(kinds), "launches:", json.dumps(launches),
+        "transfer programs:", json.dumps(keys), "kgct_jit_compiles_total:",
+        gauge)
+    if not (keys["kv_gather"] and keys["kv_scatter"]):
+        raise RuntimeError(f"swap: no transfer program built: {keys}")
+    if gauge != len(engine._programs.keys()):
+        raise RuntimeError(f"swap: kgct_jit_compiles_total {gauge} != "
+                           f"{len(engine._programs.keys())} programs")
     if kinds["swap"] <= 0 or kinds["recompute"] != 0:
         raise RuntimeError(f"swap: expected swap preemptions only: {kinds}")
     if compared <= 0 or audit.pages["in"] != audit.pages["out"]:
@@ -1996,12 +2102,22 @@ def check_swap(cfg_engine, params, device, counters, swap_gb: float,
                   if run1["tokens"][r] != run2["tokens"][r])
     if diff:
         raise RuntimeError(f"swap: the second run differs for {diff}")
+    if transfer_keys("8a", engine) != keys:
+        raise RuntimeError(f"swap: the second run built transfer programs: "
+                           f"{transfer_keys('8a', engine)} after {keys}")
     if (host.num_in_use or engine.scheduler.allocator.num_free
             != engine.scheduler.allocator.num_pages - 1):
         raise RuntimeError("swap: pages left in use after the runs")
     out = {"preemptions": kinds, "restored_pages_compared": compared,
            "restored_pages_compared_run2": audit.compared - compared,
-           "transfers": rates, "page_bytes": page_bytes,
+           "transfers": rates, "transfers_run2": audit.rates(page_bytes),
+           "transfer_programs": keys, "kgct_jit_compiles_total": gauge,
+           "transfer_captures": {f"{k[0]} {k[1]}": c
+                                 for k, c in captures.items()
+                                 if k[0].startswith("kv_")},
+           "staging_bytes": sum(t.nbytes
+                                for t in engine._kv_programs._staging),
+           "page_bytes": page_bytes,
            "host_pages": host.num_pages, "host_pin_s": host.pin_s,
            "tokens_per_s": run1["tokens_per_s"],
            "tokens_per_s_run2": run2["tokens_per_s"],
@@ -2009,6 +2125,30 @@ def check_swap(cfg_engine, params, device, counters, swap_gb: float,
     del engine, audit, host
     gc.collect()
     torch.cuda.empty_cache()
+    if eager_twin:
+        twin = LLMEngine(dataclasses.replace(cfg_swap, enforce_eager=True),
+                         params=params, device=device)
+        audit = SwapAudit(twin)
+        drive(twin, reqs[:2], "warm", hist)
+        kinds0 = dict(twin.scheduler.num_preemptions_by_kind)
+        run_e = drive(twin, reqs, "a", hist)
+        kinds_e = {k: v - kinds0[k] for k, v in
+                   twin.scheduler.num_preemptions_by_kind.items()}
+        twins_equal("8a", {"tokens": run1["tokens"], "moved": {}},
+                    {"tokens": run_e["tokens"], "moved": {}})
+        if kinds_e != kinds or twin.compiled_step_variants() != 0:
+            raise RuntimeError(f"swap: the eager twin preempted {kinds_e} "
+                               f"against {kinds}, built "
+                               f"{twin.compiled_step_variants()} programs")
+        if audit.compared <= 0:
+            raise RuntimeError("swap: the eager twin restored no page")
+        out["eager_twin"] = {"tokens_identical": len(run_e["tokens"]),
+                             "restored_pages_compared": audit.compared,
+                             "transfers": audit.rates(page_bytes),
+                             "tokens_per_s": run_e["tokens_per_s"]}
+        del twin, audit
+        gc.collect()
+        torch.cuda.empty_cache()
     off = LLMEngine(dataclasses.replace(
         cfg_engine, scheduler=sched,
         cache=CacheConfig(page_size=ps, num_pages=HANDOFF_PAGES)),
@@ -2050,7 +2190,21 @@ def _serve_one(engine, rid, prompt, sp) -> list[int]:
     return final
 
 
-def check_handoff(cfg_engine, params, device, counters) -> dict:
+def _kept(state: dict) -> tuple:
+    """Pageable copies of a state's K and V for the twin's comparison: the
+    pinned originals go back to PyTorch's pinned-memory cache, as a
+    server's would, instead of making every later export pin anew."""
+    return state["k"].clone(), state["v"].clone()
+
+
+def pool_pages(engine, pages: list) -> list:
+    """Host copies of ``engine``'s pool pages ``pages``, K and V."""
+    idx = torch.tensor(pages, device=engine.device)
+    return [pool.index_select(1, idx).cpu() for pool in engine.kv_cache]
+
+
+def check_handoff(cfg_engine, params, device, counters, eager: bool = False,
+                  record: Optional[dict] = None) -> dict:
     """Phase 8b: a prefill replica and a decode replica (two engines on
     the phase-4 weights, each with its own pool). Each request, one at a
     time: prefill with hold_kv and max_tokens 1, export_held,
@@ -2059,17 +2213,25 @@ def check_handoff(cfg_engine, params, device, counters) -> dict:
     request moves mid-decode (export_running -> import_request). Then one
     1024-token prefix goes export_prefix -> begin/import_prefix_chunk/
     commit, and a prompt extending it hits the imported pages, with tokens
-    equal to the prefill replica (which hits its own cached pages)."""
+    equal to the prefill replica (which hits its own cached pages). Every
+    exported buffer equals the pages it was gathered from, and every
+    imported page the buffer it came from (the prefix exported back),
+    bit for bit. ``eager``: both engines ``enforce_eager``. ``record``
+    takes every request's tokens and every moved buffer pair, for the
+    twin's comparison."""
     from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
                                                          SchedulerConfig)
     from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
                                                          SamplingParams)
+    from kubernetes_gpu_cluster_tpu_torch.utils import cdiv
     cfg = cfg_engine.model
     ps = cfg_engine.cache.page_size
+    record = {"tokens": {}, "moved": {}} if record is None else record
     cfg_pair = dataclasses.replace(
         cfg_engine, cache=CacheConfig(page_size=ps, num_pages=HANDOFF_PAGES),
         scheduler=SchedulerConfig(max_num_seqs=8,
-                                  enable_prefix_caching=True))
+                                  enable_prefix_caching=True),
+        enforce_eager=eager)
     pre = LLMEngine(cfg_pair, params=params, device=device)
     dec = LLMEngine(cfg_pair, params=params, device=device)
     rng = np.random.default_rng(SEED + 12)
@@ -2087,15 +2249,23 @@ def check_handoff(cfg_engine, params, device, counters) -> dict:
                         dataclasses.replace(sp, max_tokens=1), hold_kv=True)
         while pre.has_unfinished_requests():
             pre.step()
+        held = pre.scheduler.held[f"pf-{i}"]
+        n_pages = cdiv(held.num_tokens - 1, ps)
+        want = pool_pages(pre, held.pages[:n_pages])
         _sync(device)
         t0 = time.perf_counter()
         state = pre.export_held(f"pf-{i}")
         t_exp = time.perf_counter() - t0
+        if not all(torch.equal(state[t], w) for t, w in zip("kv", want)):
+            raise RuntimeError(f"8b: export {i} differs from its pages")
         nbytes = state["k"].nbytes + state["v"].nbytes
         t0 = time.perf_counter()
         outs = dec.import_request(f"dc-{i}", prompt, sp, state)
         _sync(device)
         t_imp = time.perf_counter() - t0
+        held_pages(f"8b import {i}", dec,
+                   dec.scheduler.find_running(f"dc-{i}").pages[:n_pages],
+                   state["k"], state["v"])
         got = list(outs[0].output_token_ids)
         while dec.has_unfinished_requests():
             for o in dec.step():
@@ -2104,12 +2274,14 @@ def check_handoff(cfg_engine, params, device, counters) -> dict:
         if got != ref:
             raise RuntimeError(f"8b: handoff of {n}-token prompt differs "
                                f"from colocated: {got[:8]} vs {ref[:8]}")
+        record["tokens"][f"handoff-{i}"] = got
+        record["moved"][f"handoff-{i}"] = _kept(state)
         handoffs.append({"prompt": n, "pages": state["k"].shape[1],
                          "bytes": nbytes, "export_ms": t_exp * 1e3,
                          "export_gb_s": nbytes / t_exp / 1e9,
                          "import_ms": t_imp * 1e3,
                          "import_gb_s": nbytes / t_imp / 1e9})
-    migration = _migrate_one(pre, dec, rng, sp, device)
+    migration = _migrate_one(pre, dec, rng, sp, device, record)
     prefix = [int(t) for t in rng.integers(1, cfg.vocab_size, PREFIX_TOKENS)]
     ext = [int(t) for t in rng.integers(1, cfg.vocab_size, 200)]
     _serve_one(pre, "pfx", prefix + ext[:1],
@@ -2133,6 +2305,11 @@ def check_handoff(cfg_engine, params, device, counters) -> dict:
     t_imp = time.perf_counter() - t0
     if dec.prefix_peek(prefix + ext) != PREFIX_TOKENS:
         raise RuntimeError("8b: the imported prefix is not in the cache")
+    back = dec.export_prefix(prefix + ext)
+    if not all(torch.equal(back[t], state[t]) for t in "kv"):
+        raise RuntimeError("8b: the imported prefix's pages differ from "
+                           "the buffers they came from")
+    record["moved"]["prefix"] = _kept(state)
     hits0 = dec.scheduler.prefix_cache.hits
     got = _serve_one(dec, "ext-dc", prefix + ext, sp)
     hit = dec.scheduler.prefix_cache.hits - hits0
@@ -2140,10 +2317,17 @@ def check_handoff(cfg_engine, params, device, counters) -> dict:
     if hit != 1 or got != ref:
         raise RuntimeError(f"8b: prefix import hit {hit}; tokens "
                            f"{'equal' if got == ref else 'differ'}")
+    record["tokens"]["prefix"] = got
     launches = {name: mod.launches for name, mod in counters.items()}
     for name, n in launches.items():
         if n <= 0:
             raise RuntimeError(f"8b: kernel {name} never launched")
+    keys = {"prefill": transfer_keys("8b", pre),
+            "decode": transfer_keys("8b", dec)}
+    if eager != (keys["prefill"]["kv_gather"] == []
+                 and keys["decode"]["kv_scatter"] == []):
+        raise RuntimeError(f"8b: transfer programs {keys} "
+                           f"({'eager' if eager else 'captured'})")
     del pre, dec
     gc.collect()
     torch.cuda.empty_cache()
@@ -2155,14 +2339,15 @@ def check_handoff(cfg_engine, params, device, counters) -> dict:
                        "import_ms": t_imp * 1e3,
                        "import_gb_s": nbytes / t_imp / 1e9,
                        "cache_hit": hit, "tokens_identical": got == ref},
-            "launches": launches}
+            "transfer_programs": keys, "launches": launches}
 
 
-def _migrate_one(src, dst, rng, sp, device) -> dict:
+def _migrate_one(src, dst, rng, sp, device, record: dict) -> dict:
     """Live migration of one request between two engines: decode on
     ``src`` until at least nine tokens are out, ``export_running``, drain
-    ``src``, ``import_request`` on ``dst`` and decode to the end; the tokens
-    must equal ``dst`` serving the request uninterrupted."""
+    ``src``, ``import_request`` on ``dst`` (the imported pages bit-equal
+    to the state's) and decode to the end; the tokens must equal ``dst``
+    serving the request uninterrupted."""
     prompt = [int(t) for t in rng.integers(1, src.model_config.vocab_size,
                                            900)]
     ref = _serve_one(dst, "mig-colo", prompt, sp)
@@ -2185,6 +2370,9 @@ def _migrate_one(src, dst, rng, sp, device) -> dict:
     moved = len(state["output_token_ids"])
     nbytes = state["k"].nbytes + state["v"].nbytes
     outs = dst.import_request("mig-dc", prompt, sp, state)
+    held_pages("8b migration import", dst,
+               dst.scheduler.find_running("mig-dc").pages[
+                   :state["k"].shape[1]], state["k"], state["v"])
     got = list(outs[0].output_token_ids)
     while dst.has_unfinished_requests():
         for o in dst.step():
@@ -2193,13 +2381,17 @@ def _migrate_one(src, dst, rng, sp, device) -> dict:
     if got != ref:
         raise RuntimeError(f"8b: migrated request differs from "
                            f"uninterrupted: {got} vs {ref}")
+    record["tokens"]["migration"] = got
+    record["moved"]["migration"] = _kept(state)
     return {"prompt": len(prompt), "tokens_moved": moved,
             "pages": state["k"].shape[1], "bytes": nbytes,
             "export_ms": t_exp * 1e3, "export_gb_s": nbytes / t_exp / 1e9,
             "tokens_identical": True}
 
 
-def check_prefix_spill(cfg_engine, params, device, counters) -> dict:
+def check_prefix_spill(cfg_engine, params, device, counters,
+                       eager: bool = False,
+                       record: Optional[dict] = None) -> dict:
     """Phase 8c: the prefix cache's host spill tier on the phase-4 weights.
     A ``SPILL_PAGES`` engine with prefix caching and a pinned host tier
     (``spill``) and a 1024-page engine that never evicts (``keep``) each
@@ -2212,7 +2404,9 @@ def check_prefix_spill(cfg_engine, params, device, counters) -> dict:
     the history kernel; its tokens must equal ``keep``'s, served from
     device pages. Last, ``keep`` exports a 256-token prefix page by page
     into ``spill``'s host tier (``accept_remote_spill``), and a prompt
-    behind it restores those pages, with tokens equal to ``keep``'s."""
+    behind it restores those pages, with tokens equal to ``keep``'s.
+    ``eager``: both engines ``enforce_eager``. ``record`` takes the
+    tokens and the exported buffers, for the twin's comparison."""
     from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
                                                          SchedulerConfig)
     from kubernetes_gpu_cluster_tpu_torch.engine import (LLMEngine,
@@ -2221,15 +2415,16 @@ def check_prefix_spill(cfg_engine, params, device, counters) -> dict:
     cfg = cfg_engine.model
     ps = cfg_engine.cache.page_size
     sched = SchedulerConfig(max_num_seqs=8, enable_prefix_caching=True)
+    record = {"tokens": {}, "moved": {}} if record is None else record
     spill = LLMEngine(dataclasses.replace(
         cfg_engine, scheduler=sched,
         cache=CacheConfig(page_size=ps, num_pages=SPILL_PAGES,
-                          swap_space_gb=SPILL_GB)),
+                          swap_space_gb=SPILL_GB), enforce_eager=eager),
         params=params, device=device)
     keep = LLMEngine(dataclasses.replace(
         cfg_engine, scheduler=sched,
-        cache=CacheConfig(page_size=ps, num_pages=HANDOFF_PAGES)),
-        params=params, device=device)
+        cache=CacheConfig(page_size=ps, num_pages=HANDOFF_PAGES),
+        enforce_eager=eager), params=params, device=device)
     pc = spill.scheduler.prefix_cache
     rng = np.random.default_rng(SEED + 13)
 
@@ -2261,6 +2456,7 @@ def check_prefix_spill(cfg_engine, params, device, counters) -> dict:
         raise RuntimeError("8c: the export read from the host tier differs "
                            "from the device pages it spilled")
     nbytes = got_state["k"].nbytes + got_state["v"].nbytes
+    record["moved"]["export_from_host"] = _kept(got_state)
     for mod in counters.values():
         mod.launches = 0
     hits0 = pc.host_hits
@@ -2279,9 +2475,11 @@ def check_prefix_spill(cfg_engine, params, device, counters) -> dict:
     if got != want:
         raise RuntimeError("8c: tokens after the host restore differ from "
                            "the engine that kept the prefix on the card")
+    record["tokens"]["second"] = got
     _serve_one(keep, "remote", remote + toks(64), one)
     tail = remote + toks(150)
     st = keep.export_prefix(tail)
+    record["moved"]["remote"] = _kept(st)
     n_remote = REMOTE_TOKENS // ps
     accepted = sum(spill.accept_remote_spill(
         d.hex(), st["k"][:, j:j + 1], st["v"][:, j:j + 1])
@@ -2294,19 +2492,38 @@ def check_prefix_spill(cfg_engine, params, device, counters) -> dict:
         raise RuntimeError(f"8c: {accepted} remote spills accepted, "
                            f"{remote_hits} restored, tokens "
                            f"{'equal' if got == want else 'differ'}")
+    record["tokens"]["remote"] = got
     host = spill.swapper.host
     if host.num_in_use != len(pc._host_entries):
         raise RuntimeError(f"8c: {host.num_in_use} host pages in use for "
                            f"{len(pc._host_entries)} spilled entries")
-    out = {"host_entries": len(pc._host_entries), "host_hits": host_hits, "remote_spills_accepted": accepted,
+    keys = transfer_keys("8c", spill)
+    if eager != (keys["kv_gather"] == [] and keys["kv_scatter"] == []):
+        raise RuntimeError(f"8c: transfer programs {keys} "
+                           f"({'eager' if eager else 'captured'})")
+    out = {"host_entries": len(pc._host_entries), "host_hits": host_hits,
+           "remote_spills_accepted": accepted,
            "remote_host_hits": remote_hits,
            "export_from_host": {"pages": n_shared, "bytes": nbytes,
                                 "ms": t_exp * 1e3,
                                 "gb_s": nbytes / t_exp / 1e9},
-           "tokens_identical": 2, "launches": launches}
+           "tokens_identical": 2, "transfer_programs": keys,
+           "launches": launches}
     del spill, keep, pc, host
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def with_eager_twin(what: str, check, *args) -> dict:
+    """``check`` (8b's or 8c's) on captured engines, then on their
+    ``enforce_eager`` twins: the same tokens and moved bytes both ways."""
+    records = [{"tokens": {}, "moved": {}} for _ in range(2)]
+    out = check(*args, eager=False, record=records[0])
+    twin = check(*args, eager=True, record=records[1])
+    out["eager_twin"] = {"buffers_equal": twins_equal(what, *records),
+                         "tokens_identical": len(records[0]["tokens"]),
+                         "launches": twin["launches"]}
     return out
 
 
@@ -2794,6 +3011,71 @@ def check_cli(vocab: int) -> dict:
     return out
 
 
+def check_entry(device, counters) -> dict:
+    """Phase 17: ``graft_entry.entry()`` on the card (tinyllama-1.1b bf16
+    at full width and depth, its strict kernel probes first): the decode
+    step run eagerly (``paged_decode`` launched, counts set to 0 just
+    before it), through the plain versions, then captured with
+    ``torch.cuda.graph`` after a warm-up on a side stream and replayed:
+    the same eight tokens all three ways. Logged: the replay's device ms
+    beside one ``paged_decode`` call at the step's shapes."""
+    from kubernetes_gpu_cluster_tpu_torch.config import get_model_config
+    from kubernetes_gpu_cluster_tpu_torch.graft_entry import entry
+    from kubernetes_gpu_cluster_tpu_torch.models import llama as M
+    from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
+    t0 = time.perf_counter()
+    fn, args = entry()
+    entry_s = time.perf_counter() - t0
+    for mod in counters.values():
+        mod.launches = 0
+    eager = fn(*args)[0].clone()
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in counters.items()}
+    if launches["paged_decode"] <= 0:
+        raise RuntimeError(f"17: paged_decode never launched: {launches}")
+    with mock.patch.object(M, "paged_decode_attention",
+                           A.paged_decode_attention_plain):
+        plain = fn(*args)[0].clone()
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        fn(*args)
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = counters["paged_decode"].launches
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph):
+        out = fn(*args)[0]
+    capture_s = time.perf_counter() - t0
+    recorded = counters["paged_decode"].launches - before
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = out.clone()
+    if not (torch.equal(replayed, eager) and torch.equal(plain, eager)):
+        raise RuntimeError(f"17: tokens differ: eager {eager.tolist()}, "
+                           f"replayed {replayed.tolist()}, plain "
+                           f"{plain.tolist()}")
+    replay_ms = cuda_ms(graph.replay, 20)
+    cfg = get_model_config("tinyllama-1.1b")
+    _, kv, _, meta, *_ = args
+    q = torch.randn((8, cfg.num_heads, cfg.head_dim), device=device).to(
+        kv.k.dtype)
+    cur = torch.randn((8, cfg.num_kv_heads, cfg.head_dim),
+                      device=device).to(kv.k.dtype)
+    decode_ms = graph_ms(lambda: counters["paged_decode"].paged_decode(
+        q, kv.k, kv.v, meta.page_tables, meta.context_lens, cur, cur,
+        cfg.head_dim ** -0.5, layer=0), 200)
+    del graph, fn, args, kv, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tokens": eager.tolist(), "equal_eager_replay_plain": True,
+            "entry_s": entry_s, "capture_s": capture_s,
+            "launches": launches, "paged_decode_recorded": recorded,
+            "replay_ms": replay_ms, "paged_decode_ms": decode_ms,
+            "paged_decode_ms_x_layers": decode_ms * launches["paged_decode"]}
+
+
 # ---------------------------------------------------------------------------
 # Phase 10: the fleet plane (in process on the phase-4 weights)
 # ---------------------------------------------------------------------------
@@ -2943,7 +3225,19 @@ async def _fleet_10abd(srv, refs, prompts, ctx) -> dict:
                   "export_ok": _metric(mP, h % ("export", "ok"))}
         if counts != {"import_ok": 6, "import_fallback": 0, "export_ok": 6}:
             raise RuntimeError(f"10a: handoff counters {counts}")
-        out["10a"] = {"handoffs": rows, "counters": counts}
+        # Each server's gauge counts its KV transfer programs with the rest.
+        programs = {}
+        for name, text, family in (("P", mP, "kv_gather"),
+                                   ("D", mD, "kv_scatter")):
+            eng = srv[name]["api"].engine.engine
+            gauge = _metric(text, "kgct_jit_compiles_total")
+            keys = transfer_keys("10a", eng)
+            if not keys[family] or gauge != len(eng._programs.keys()):
+                raise RuntimeError(f"10a: {name} kgct_jit_compiles_total "
+                                   f"{gauge}, transfer programs {keys}")
+            programs[name] = {"kgct_jit_compiles_total": gauge, **keys}
+        out["10a"] = {"handoffs": rows, "counters": counts,
+                      "programs": programs}
         # The frame 10e times: P's export of the 1500-token prompt.
         r = await http_call(port["P"], "POST", "/internal/kv_handoff", {
             "prompt_token_ids": prompts["a"][DISAGG_PROMPTS.index(
@@ -3978,6 +4272,10 @@ def check_sanitized_engine(cfg_engine, params, device, counters) -> dict:
     for tag, eng in (("on", on), ("off", off)):
         with sync_sites() as sites[tag]:
             again[tag] = drive(eng, reqs, f"s{tag}", hist)
+    # The census is live: a known synchronizing call is counted (since
+    # PR 19 the engine itself may make none).
+    with sync_sites() as probe:
+        torch.ones(1, device=device).item()
     syncs = {tag: sum(c.values()) for tag, c in sites.items()}
     log("analysis sync-debug:", json.dumps(syncs), "by line:",
         json.dumps(dict(sites["on"].most_common())), "tokens/s:",
@@ -3985,9 +4283,9 @@ def check_sanitized_engine(cfg_engine, params, device, counters) -> dict:
     if again["on"]["tokens"] != run_on["tokens"] or \
             again["off"]["tokens"] != run_on["tokens"]:
         raise RuntimeError("15c: the sync-debug runs changed the tokens")
-    if sites["on"] != sites["off"] or syncs["on"] <= 0:
+    if sites["on"] != sites["off"] or sum(probe.values()) < 1:
         raise RuntimeError(
-            f"15c: synchronizing calls {syncs}, on - off "
+            f"15c: synchronizing calls {syncs}, probe {dict(probe)}, on - off "
             f"{dict(sites['on'] - sites['off'])}, off - on "
             f"{dict(sites['off'] - sites['on'])}")
     out = {"checks": checks, "checks_total": on._sanitizer.checks,
@@ -6382,13 +6680,14 @@ def main() -> int:
 
     # Phase 8: the KV transfer layer on the same weights.
     swap = check_swap(cfg_engine, params, device, attn, SWAP_GB,
-                      near_ties_only=False)
+                      near_ties_only=False, eager_twin=True)
     swap["link"] = link_bound(device)
     log("swap:", json.dumps(swap), "|", card)
-    log("handoff:", json.dumps(check_handoff(cfg_engine, params, device,
-                                             attn)), "|", card)
-    log("prefix spill:", json.dumps(check_prefix_spill(
-        cfg_engine, params, device, attn)), "|", card)
+    log("handoff:", json.dumps(with_eager_twin(
+        "8b", check_handoff, cfg_engine, params, device, attn)), "|", card)
+    log("prefix spill:", json.dumps(with_eager_twin(
+        "8c", check_prefix_spill, cfg_engine, params, device, attn)), "|",
+        card)
     phase(f"{MODEL} bf16 KV transfer (8)")
 
     # Phase 10: the fleet plane on the same weights.
@@ -6535,6 +6834,10 @@ def main() -> int:
     # Phase 9b: the CLI server in a subprocess.
     log("cli:", json.dumps(check_cli(cfg_tiny.vocab_size)), "|", card)
     phase("tinyllama-1.1b int4 CLI (9b)")
+
+    # Phase 17: the entry twin's decode step, captured and replayed.
+    log("entry:", json.dumps(check_entry(device, attn)), "|", card)
+    phase("tinyllama-1.1b entry step (17)")
 
     eng["launches"]["int4_matmul"] = eng4["launches"]["int4_matmul"]
     eng["launches"]["spec_verify"] = spec7a["launches"]["spec_verify"]

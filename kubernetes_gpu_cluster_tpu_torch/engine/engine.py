@@ -35,16 +35,19 @@ decode dispatch and reset chunk are each captured into a CUDA graph at
 their key's first step and replayed, keyed as the JAX jit caches are; the
 dispatcher fills the program's static inputs from pinned host buffers
 before each replay and starts the one fetch after it.
-``compiled_step_variants`` counts the programs built (on the CPU the same
-keys around the eager bodies). ``EngineConfig.enforce_eager`` turns
-capture off, as in the JAX package, and runs the same bodies. Eager on
-purpose, listed for the next slices: the KV transfer programs, and every
-step of a rank under torch.distributed (tp, ep, pp, sp: gloo's
-host-staged collectives cannot be captured; sp's ring prefill and pp's
-pipeline forward run inside the same bodies), whose engine builds no
-program. The JAX package's donation bookkeeping and probe-and-fall-back
-kernel logic have no counterpart: on a CUDA device the attention runs the
-hand-written kernels (``ops/cuda``) or raises.
+The KV transfers (swap, prefix spill and restore, handoff export and
+import) are the cache's ``kv_gather`` and ``kv_scatter`` programs, keyed
+by the page count's power of two as the JAX gather and scatter jit caches
+(``engine/kv_cache.py``). ``compiled_step_variants`` counts the programs
+built (on the CPU the same keys around the eager bodies).
+``EngineConfig.enforce_eager`` turns capture off, as in the JAX package,
+and runs the same bodies. Eager on purpose: every step of a rank under
+torch.distributed (tp, ep, pp, sp: gloo's host-staged collectives cannot
+be captured; sp's ring prefill and pp's pipeline forward run inside the
+same bodies), whose engine builds no program. The JAX package's donation
+bookkeeping and probe-and-fall-back kernel logic have no counterpart: on a
+CUDA device the attention runs the hand-written kernels (``ops/cuda``) or
+raises.
 
 Speculative decoding (``SchedulerConfig.spec_decode_enabled``): the
 scheduler's proposer (n-gram lookup, or with ``spec_draft_model`` a draft
@@ -117,7 +120,8 @@ from ..resilience.faults import inject as _inject_fault
 from ..utils import cdiv, get_logger
 from .kv_cache import (KVPageIO, KVTransferPrograms, KVTransferRefused,
                        allocate_kv_cache, build_kv_swapper, derive_num_pages,
-                       dtype_name, host_tensor)
+                       dtype_name, host_tensor, transfer_bytes,
+                       transfer_pages)
 from .sampling_params import LOGIT_BIAS_CAP, SamplingParams
 from .scheduler import ScheduledBatch, Scheduler, _bucket
 from .sequence import FinishReason, Sequence, SequenceStatus
@@ -266,14 +270,18 @@ class LLMEngine:
                 if self.device.type == "cuda" else None)
         programs = not config.enforce_eager and groups is None
         # The largest program's working memory stays in the graphs' shared
-        # pool once captured: kept out of the pages, the draft pool's too.
+        # pool once captured, and the KV transfer programs' staging sits at
+        # one address for every replay: both kept out of the pages, the
+        # draft pool's too. Without programs nothing is reckoned.
         reserve = 0
         if free is not None and programs:
             draft = None
             if sc.spec_decode_enabled and sc.spec_draft_model:
                 from .spec.draft_model import resolve_draft_config
                 draft = resolve_draft_config(config, sc.spec_draft_model)
-            reserve = program_bytes(config, draft)
+            reserve = (program_bytes(config, draft)
+                       + transfer_bytes(kv_model, config.cache,
+                                        config.effective_max_len))
             free -= reserve
         num_pages = derive_num_pages(
             kv_model, config.cache, config.effective_max_len,
@@ -366,9 +374,13 @@ class LLMEngine:
         # page pool; the scheduler preempts by swap instead of recompute,
         # and the prefix cache spills evicted pages for a second-chance
         # restore. None when off. One gather/scatter pair serves both
-        # transfer seams (host tier and cross-replica handoff); both write
-        # into self.kv_cache in place, so the pool is never rebound.
-        self._kv_programs = KVTransferPrograms(self.device)
+        # transfer seams (host tier and cross-replica handoff), two program
+        # families of the engine's cache; both write into self.kv_cache in
+        # place, so the pool is never rebound.
+        self._kv_programs = KVTransferPrograms(
+            self.device, self._programs,
+            max_pages=transfer_pages(config.effective_max_len,
+                                     config.cache.page_size))
         self.swapper = build_kv_swapper(
             kv_model, config.cache, self.kv_cache,
             get_kv=lambda: self.kv_cache, programs=self._kv_programs,
@@ -558,12 +570,13 @@ class LLMEngine:
         """Step programs built so far, every family's captured graphs (on
         the CPU the same keys around the eager bodies): the decode window
         at most two per decode bucket, the prefill, solo-chunk, mixed,
-        spec and spec×mixed steps and the draft runner's two families one
-        per key of the JAX bucket grid. 0 with ``enforce_eager`` and on a
-        rank under torch.distributed, which capture nothing. Exported as
+        spec and spec×mixed steps, the draft runner's two families and
+        the KV gather and scatter one per key of the JAX bucket grid (the
+        transfers one per power of two of pages, as the JAX engine counts
+        its gather and scatter jit caches). 0 with ``enforce_eager`` and on
+        a rank under torch.distributed, which capture nothing. Exported as
         ``kgct_jit_compiles_total``: a steady serving process holds it
-        flat, as the JAX engine's jit cache count. The KV transfers run
-        eagerly and add nothing."""
+        flat, as the JAX engine's jit cache count."""
         return len(self._programs)
 
     # -- KV handoff seams (disaggregated prefill/decode, live migration) ----

@@ -21,21 +21,17 @@ cross-replica seam (``KVPageIO``: disaggregated prefill/decode, live
 migration, the fleet prefix cache) rides the same gather/scatter pair
 (``KVTransferPrograms``).
 
-Transfer discipline, on one CUDA stream:
-
-- A gather is ``index_select`` on the pool's page axis, queued behind every
-  kernel already on the stream, so it reads what they wrote. Its
-  device->host copy into pinned memory is asynchronous: every call that
-  moves pages to the host waits on an event recorded after the copy, so
-  the bytes are on the host when it returns and the caller may free and
-  reuse the device pages at once.
-- A scatter is ``index_copy_`` INTO the engine's pool tensors (the kernel
-  wrappers take the pool pointers per call, so the pool is never rebound).
-  Its host->device copy reads pinned host pages after the call returns;
-  those pages go back to the host free list with the copy's event and are
-  handed out again only once it completed (``HostKVPool.allocate`` waits).
-
-Page lists are not padded: PyTorch compiles nothing per shape.
+Transfer discipline, on one CUDA stream: the gather and the scatter are
+step programs of the engine's cache, keyed as the JAX package's jit caches
+by the page count's power of two (``KVTransferPrograms``). A gather is
+queued behind every kernel already on the stream, so it reads what they
+wrote; its copies to pinned host memory follow it, and every call that
+moves pages to the host waits on an event recorded after them, so the
+caller may free and reuse the device pages at once. A scatter writes the
+engine's pool tensors in place; its copies read pinned host pages after
+the call returns, and those pages go back to the host free list with the
+copy's event and are handed out again only once it completed
+(``HostKVPool.allocate`` waits).
 """
 
 from __future__ import annotations
@@ -52,6 +48,7 @@ import torch
 from ..config import ModelConfig, CacheConfig
 from ..resilience.faults import inject as _inject_fault
 from ..utils import cdiv, get_logger
+from ..utils.math import next_power_of_2
 
 logger = get_logger("kv_cache")
 
@@ -90,6 +87,20 @@ def kv_cache_bytes_per_page(model: ModelConfig, cache: CacheConfig) -> int:
     itemsize = torch.empty((), dtype=kv_dtype(model, cache)).element_size()
     per_tok = model.num_kv_heads * model.head_dim * itemsize
     return 2 * model.num_layers * cache.page_size * per_tok
+
+
+def transfer_pages(max_model_len: int, page_size: int) -> int:
+    """The largest KV transfer bucket: the power of two of one full-length
+    sequence's pages."""
+    return next_power_of_2(cdiv(max_model_len, page_size))
+
+
+def transfer_bytes(model: ModelConfig, cache: CacheConfig,
+                   max_model_len: int) -> int:
+    """Device bytes of the KV transfers' staging (K and V of the largest
+    bucket), which the engine keeps out of the page pool."""
+    return (kv_cache_bytes_per_page(model, cache)
+            * transfer_pages(max_model_len, cache.page_size))
 
 
 def derive_num_pages(
@@ -218,6 +229,12 @@ def _runs(pages: list[int]) -> list[tuple[int, int, int]]:
     return runs
 
 
+def _page_rows(pool: torch.Tensor) -> torch.Tensor:
+    """A ``[L, P, ps, kd]`` pool tensor as ``[L * P, ps * kd]`` page rows
+    (a view: writes land in the pool)."""
+    return pool.view(pool.shape[0] * pool.shape[1], -1)
+
+
 def _pin(t: torch.Tensor) -> None:
     rc = int(torch.cuda.cudart().cudaHostRegister(
         t.data_ptr(), t.numel() * t.element_size(), 0))
@@ -329,24 +346,104 @@ class KVTransferPrograms:
     (cross-replica handoff) share one instance, so the transfer discipline
     lives in one place.
 
-    A gather is ``index_select`` on the pool's page axis into a contiguous
-    ``[L, n, ps, kd]`` device buffer, then copies into host memory; a
-    scatter copies host buffers to the device and ``index_copy_``s them
-    into the pool IN PLACE. The JAX package computes both with jitted XLA
-    indexing (no Pallas kernel) and pads page lists to powers of two to
-    bound its recompiles; here nothing is padded. Both devices run the
-    same copies; only a CUDA engine records events and waits on them (a
-    CPU engine's copies have completed when they return)."""
+    Two families of step programs in the engine's program cache
+    (``engine/step_programs.py``), keyed as the JAX package's gather and
+    donated scatter jit caches: ``("kv_gather", n_pad)`` and
+    ``("kv_scatter", n_pad)``, ``n_pad = next_power_of_2(len(pages))``.
+    The programs move page rows (one page of one layer, ``ps * kd``
+    elements) between the pool and one device staging buffer per tensor,
+    through one row index of ``L * n_pad`` entries: the n pages of every
+    layer first, layer by layer, so that the staging's first ``L * n``
+    rows hold a ``[L, n, ps, kd]`` host buffer's bytes in order, then the
+    padded rows, each at its layer's ``SCRAP_PAGE``.
 
-    def __init__(self, device: torch.device):
+    - gather: ``index_select`` of the pool's rows into the staging;
+    - scatter: ``index_copy_`` of the staging's rows INTO the engine's pool
+      tensors (the kernel wrappers take the pool pointers per call, so the
+      pool is never rebound). The padded staging rows are zero, as the JAX
+      ``k_data`` is, so the duplicate ``SCRAP_PAGE`` writes all write the
+      same bytes.
+
+    A captured program reads and writes its staging at one address on
+    every replay, so with programs the staging is made once, at the first
+    transfer, sized for the largest bucket (``transfer_pages``), outside
+    the programs' shared pool, and the engine reckons it out of the page
+    pool (``transfer_bytes``). With programs disabled (``enforce_eager``,
+    a rank) it grows to the largest bucket moved, as an eager transfer's
+    buffers stay in the caching allocator, and nothing is reckoned.
+
+    Between the staging and host memory the copies run on the same stream
+    outside the graph: one DMA per tensor for an export's or an import's
+    buffers (one per layer for a page range sliced out of a larger
+    buffer), one per run of consecutive host pages, layer and tensor to
+    or from the host pool. A gather completes inside its call (an event
+    after its copies), so the caller may free and reuse the device pages
+    at once; a scatter returns the event after its program, until which
+    its host pages are read. Only a CUDA engine records events (a CPU
+    engine's copies have completed when they return)."""
+
+    def __init__(self, device: torch.device, programs, max_pages: int):
+        """``programs``: the engine's ``StepPrograms``, where the two
+        families are registered. ``max_pages``: the largest bucket, a power
+        of two (``transfer_pages``)."""
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
+        self.programs = programs.add_families(
+            {"kv_gather": self._gather_body,
+             "kv_scatter": self._scatter_body}, self._layout)
+        self.max_pages = max_pages
+        self._kv: Optional[KVCache] = None
+        self._staging: tuple = ()
 
-    def _idx(self, pages: list[int]) -> torch.Tensor:
-        return torch.tensor(pages, dtype=torch.int64).to(self.device)
+    def _layout(self, key) -> tuple[dict, dict]:
+        rows = self._kv.k.shape[0] * key[1]
+        return {"rows": ((rows,), torch.int64)}, {}
+
+    def _gather_body(self, key, bufs) -> None:
+        rows = bufs["rows"]
+        for pool, stage in zip(self._kv, self._staging):
+            torch.index_select(_page_rows(pool), 0, rows,
+                               out=stage[:rows.shape[0]])
+
+    def _scatter_body(self, key, bufs) -> None:
+        rows = bufs["rows"]
+        for pool, stage in zip(self._kv, self._staging):
+            _page_rows(pool).index_copy_(0, rows, stage[:rows.shape[0]])
+
+    def _stage(self, kv: "KVCache", n: int) -> tuple[int, tuple]:
+        """Bind the programs to ``kv`` at the first transfer; returns the
+        bucket of ``n`` pages and the staging rows of that bucket, K and
+        V."""
+        if self._kv is None:
+            self._kv = kv
+        elif kv.k.data_ptr() != self._kv.k.data_ptr():
+            raise ValueError("the KV transfer programs serve one pool")
+        n_pad = next_power_of_2(n)
+        if n_pad > self.max_pages:
+            raise ValueError(f"a transfer of {n} pages exceeds the largest "
+                             f"bucket, {self.max_pages} pages")
+        L, _, ps, kd = kv.k.shape
+        pages = self.max_pages if self.programs.enabled else n_pad
+        if not self._staging or len(self._staging[0]) < L * pages:
+            self._staging = tuple(
+                torch.empty((L * pages, ps * kd), dtype=kv.k.dtype,
+                            device=kv.k.device) for _ in range(2))
+        return n_pad, tuple(s[:L * n_pad] for s in self._staging)
+
+    def _run(self, family: str, n_pad: int, pages: list[int]) -> None:
+        """Run ``family``'s program over ``pages``, padded to ``n_pad``
+        with ``SCRAP_PAGE``."""
+        L, P = self._kv.k.shape[:2]
+        base = np.arange(L, dtype=np.int64) * P
+        rows = np.concatenate([
+            (base[:, None] + np.asarray(pages, np.int64)).reshape(-1),
+            np.repeat(base + SCRAP_PAGE, n_pad - len(pages))])
+        key = (family, n_pad)
+        self.programs.buffers(key).upload({"rows": rows})
+        self.programs.run(key)
 
     def _event(self) -> Optional[torch.cuda.Event]:
-        """The event after the copies queued so far on a CUDA engine; None
+        """The event after the work queued so far on a CUDA engine; None
         on a CPU engine, whose copies have completed on return."""
         if not self.cuda:
             return None
@@ -359,33 +456,21 @@ class KVTransferPrograms:
         if self.cuda:
             self._event().synchronize()
 
-    def _upload(self, t: torch.Tensor) -> torch.Tensor:
-        """Host buffer ``t`` [L, n, ps, kd] on the device. A page range
-        sliced out of a larger buffer is not contiguous: ``Tensor.to`` would
-        first gather it on the host, so it is copied layer by layer (each
-        layer's slice is one contiguous run)."""
-        if t.is_contiguous():
-            return t.to(self.device, non_blocking=True)
-        out = torch.empty(t.shape, dtype=t.dtype, device=self.device)
-        for layer in range(t.shape[0]):
-            out[layer].copy_(t[layer], non_blocking=True)
-        return out
-
-    def _gather(self, kv: "KVCache", pages: list[int]):
-        idx = self._idx(pages)
-        return kv.k.index_select(1, idx), kv.v.index_select(1, idx)
-
     def gather_pages(self, kv: "KVCache", pages: list[int]
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Gather ``pages`` into one contiguous host buffer pair ``(k, v)``
-        of shape ``[L, n, ps, kd]`` (pinned on a CUDA engine). The copy
-        COMPLETES inside this call: after return the device pages are free
-        to be released and reallocated."""
+        """Gather ``pages`` into a contiguous host buffer per tensor, each
+        of shape ``[L, n, ps, kd]`` (pinned on a CUDA engine), one copy
+        each. The copy COMPLETES inside this call: after return the device
+        pages are free to be released and reallocated."""
+        n = len(pages)
+        n_pad, staged = self._stage(kv, n)
+        self._run("kv_gather", n_pad, pages)
+        L, _, ps, kd = kv.k.shape
         out = []
-        for src in self._gather(kv, pages):
-            host = torch.empty(src.shape, dtype=src.dtype,
+        for src in staged:
+            host = torch.empty((L, n, ps, kd), dtype=src.dtype,
                                pin_memory=self.cuda)
-            host.copy_(src, non_blocking=True)
+            host.view(L * n, -1).copy_(src[:L * n], non_blocking=True)
             out.append(host)
         self._fence()
         return out[0], out[1]
@@ -393,48 +478,65 @@ class KVTransferPrograms:
     def gather_to_host(self, kv: "KVCache", pages: list[int],
                        host: HostKVPool, host_pages: list[int]) -> None:
         """Gather device ``pages`` into the host pool's ``host_pages`` (one
-        copy per run of consecutive host pages and layer, straight into the
-        pool). Completes inside the call, like :meth:`gather_pages`."""
-        for src, dst in zip(self._gather(kv, pages), (host.k, host.v)):
+        copy per run of consecutive host pages, layer and tensor, straight
+        into the pool). Completes inside the call, like
+        :meth:`gather_pages`."""
+        n = len(pages)
+        n_pad, staged = self._stage(kv, n)
+        self._run("kv_gather", n_pad, pages)
+        for src, dst in zip(staged, (host.k, host.v)):
             for h0, i0, m in _runs(host_pages):
-                for layer in range(src.shape[0]):
-                    dst[layer, h0:h0 + m].copy_(src[layer, i0:i0 + m],
-                                                non_blocking=True)
+                for layer in range(dst.shape[0]):
+                    r = layer * n + i0
+                    dst[layer, h0:h0 + m].view(m, -1).copy_(
+                        src[r:r + m], non_blocking=True)
         self._fence()
 
     def scatter_pages(self, kv: "KVCache", device_pages: list[int],
                       k: torch.Tensor, v: torch.Tensor
                       ) -> Optional[torch.cuda.Event]:
         """Write host buffers ``[L, n, ps, kd]`` into ``device_pages`` of
-        the pool, in place. Returns the event after the copies on a CUDA
-        engine (the host buffers are read until it completes), else None."""
-        idx = self._idx(device_pages)
-        kv.k.index_copy_(1, idx, self._upload(k))
-        kv.v.index_copy_(1, idx, self._upload(v))
-        return self._event()
+        the pool, in place (one copy per tensor into the staging, one per
+        layer for a page range sliced out of a larger buffer, then the
+        program). Returns the event after the program on a CUDA engine
+        (the host buffers are read until it completes), else None."""
+        n = len(device_pages)
+        n_pad, staged = self._stage(kv, n)
+        for dst, src in zip(staged, (k, v)):
+            L = src.shape[0]
+            if src.is_contiguous():
+                dst[:L * n].copy_(src.view(L * n, -1), non_blocking=True)
+            else:
+                for layer in range(L):
+                    dst[layer * n:(layer + 1) * n].copy_(
+                        src[layer].reshape(n, -1), non_blocking=True)
+        return self._scatter(n_pad, device_pages, staged)
 
     def scatter_from_host(self, kv: "KVCache", device_pages: list[int],
                           host: HostKVPool, host_pages: list[int]
                           ) -> Optional[torch.cuda.Event]:
         """Write the host pool's ``host_pages`` into ``device_pages`` (one
-        copy per run of consecutive host pages and layer into a device
-        buffer, then the in-place scatter). Returns the event after the
-        copies on a CUDA engine (the host pages are read until it
-        completes), else None."""
-        L, _, ps, kd = kv.k.shape
+        copy per run of consecutive host pages, layer and tensor into the
+        staging, then the program). Returns the event after the program on
+        a CUDA engine (the host pages are read until it completes), else
+        None."""
         n = len(host_pages)
-        bufs = []
-        for src in (host.k, host.v):
-            buf = torch.empty((L, n, ps, kd), dtype=src.dtype,
-                              device=self.device)
+        n_pad, staged = self._stage(kv, n)
+        for dst, src in zip(staged, (host.k, host.v)):
             for h0, i0, m in _runs(host_pages):
-                for layer in range(L):
-                    buf[layer, i0:i0 + m].copy_(src[layer, h0:h0 + m],
-                                                non_blocking=True)
-            bufs.append(buf)
-        idx = self._idx(device_pages)
-        kv.k.index_copy_(1, idx, bufs[0])
-        kv.v.index_copy_(1, idx, bufs[1])
+                for layer in range(src.shape[0]):
+                    r = layer * n + i0
+                    dst[r:r + m].copy_(src[layer, h0:h0 + m].view(m, -1),
+                                       non_blocking=True)
+        return self._scatter(n_pad, device_pages, staged)
+
+    def _scatter(self, n_pad: int, device_pages: list[int], staged
+                 ) -> Optional[torch.cuda.Event]:
+        """Zero the staging's padded rows and run the scatter program."""
+        real = self._kv.k.shape[0] * len(device_pages)
+        for s in staged:
+            s[real:].zero_()
+        self._run("kv_scatter", n_pad, device_pages)
         return self._event()
 
 
@@ -444,8 +546,8 @@ class KVSwapper:
 
     - ``swap_out`` returns only after the pages' bytes are in the host
       pool: the caller may free the device pages at once.
-    - ``swap_in`` queues the copies and the in-place scatter and returns;
-      the host pages go back to the pool with the copy's event, so a
+    - ``swap_in`` queues the copies and the scatter program and returns;
+      the host pages go back to the pool with the program's event, so a
       swap-out in the same ``schedule()`` never overwrites a host page
       still being read. Its latency sample (``obs.on_swap``) is therefore
       the time to queue the transfer, not to finish it.

@@ -23,7 +23,12 @@ its JAX jit cache is keyed by:
   model's greedy dispatch (replayed k times a round) and its reset chunk,
   registered by the draft runner (``add_families``) so that one pool and
   one count serve them, as the JAX engine folds the draft runner's jit
-  caches into its own.
+  caches into its own;
+- ``("kv_gather", n_pad)`` and ``("kv_scatter", n_pad)``: the KV
+  transfers (swap, prefix spill and restore, handoff export and import)
+  of n_pad pages, the power of two of the page count, registered by
+  ``engine/kv_cache.py::KVTransferPrograms`` (``add_families``), as the
+  JAX engine counts its gather and donated scatter jit caches.
 
 Each key owns its ``StaticBuffers``: inputs the dispatcher fills before
 every run, state it carries between runs or writes only when it changes
@@ -127,7 +132,9 @@ def program_bytes(config, draft=None) -> int:
     spec×mixed step at the ladder's top rung (a chunk beside R verify
     rows of S tokens, every slot's logits kept), and ``draft``'s (the
     draft model's config) decode dispatch and reset chunk. The pool is
-    shared and replays never overlap, so the largest, not the sum."""
+    shared and replays never overlap, so the largest, not the sum. The KV
+    transfer programs allocate nothing there: they move pages through
+    their own staging (``engine/kv_cache.py::transfer_bytes``)."""
     sc = config.scheduler
     T, B = max(sc.prefill_buckets), max(sc.decode_buckets)
     cap = config.effective_max_len

@@ -11,19 +11,19 @@ match, or the load fails):
 
 - ``_compiled_variants`` cross-checks the engine's count against the
   program cache's own keys (the JAX guard reads one raw jit cache);
-- the bound's swap gather/scatter term is multiplied by 0: the port still
-  runs the KV transfers eagerly (ROADMAP A2), so it builds no program
-  there and the bound only tightens; every other term (pure prefill,
-  mixed, solo chunk, decode, spec verify, spec×mixed, the draft model's
+- every term of the bounds (pure prefill, mixed, solo chunk, decode, the
+  swap gather and scatter, spec verify, spec×mixed, the draft model's
   decode and chunked prefill) stands as the JAX guard wrote it;
 - the engines take the JAX engine's default weights (its seed, through
   ``params_from_numpy``), so each wave steps as the reference's does.
 
 Then the programs: per family the port's keys against the JAX jit
 caches on the guard's wave (equal on the greedy wave, no more on a
-sampled, penalized and biased one, none new on a repeat) and on its spec
+sampled, penalized and biased one, none new on a repeat), on its spec
 and spec×mixed/draft waves (the verify, spec×mixed and both draft
-families equal, none new on a repeat), keys per
+families equal, none new on a repeat) and on its swap wave and a
+handoff's export and import (the KV gather and scatter families equal,
+none new on a repeat); a padded scatter against the JAX scatter, keys per
 (variant, bucket) within two per bucket, ``enforce_eager`` building none
 with the same tokens, the device-side filter-tier choice and the tensor
 step key against the host-branch functions they replace, and the sampled
@@ -43,12 +43,14 @@ from kubernetes_gpu_cluster_tpu.config import (CacheConfig as JCache,
                                                get_model_config as jax_model)
 from kubernetes_gpu_cluster_tpu.engine import LLMEngine as JaxEngine
 from kubernetes_gpu_cluster_tpu.engine import SamplingParams as JSP
+from kubernetes_gpu_cluster_tpu.engine import kv_cache as JKV
 from kubernetes_gpu_cluster_tpu.models import llama as JM
 from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
                                                      EngineConfig,
                                                      SchedulerConfig,
                                                      get_model_config)
 from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine, SamplingParams
+from kubernetes_gpu_cluster_tpu_torch.engine import kv_cache as TKV
 from kubernetes_gpu_cluster_tpu_torch.engine.step_programs import (
     StaticBuffers, StepPrograms)
 from kubernetes_gpu_cluster_tpu_torch.models import llama as TM
@@ -57,15 +59,10 @@ from torch_carry import carry, expose
 
 torch.set_num_threads(2)
 
-_EAGER = "eager in the port (ROADMAP A2)"
 _FIXES = [
     ("    if hasattr(eng._prefill_fn, \"_cache_size\"):\n"
      "        assert total >= eng._prefill_fn._cache_size()\n",
      "    assert total == len(eng._programs.keys())\n"),
-    ("             + 2 * n_swap_sizes)    # swap gather + scatter, pow-2 "
-     "sizes",
-     f"             + 0 * 2 * n_swap_sizes)  # swap gather + scatter: "
-     f"{_EAGER}"),
     ("model_lib.init_params(cfg.model, jax.random.key(0))",
      "_jax_weights(cfg.model, 0)"),
 ]
@@ -107,16 +104,20 @@ _JAX_FNS = {"prefill": "_prefill_fn", "prefill_hist": "_prefill_hist_fn",
 # The draft runner's families -> the JAX draft runner's jitted functions.
 _JAX_DRAFT_FNS = {"draft_decode": "_decode_fn",
                   "draft_prefill": "_prefill_fn"}
+# The KV transfer families -> the JAX engine's shared gather/scatter pair.
+_JAX_KV_FNS = {"kv_gather": "_gather_fn", "kv_scatter": "_scatter_fn"}
 
 
 def _families(eng) -> dict:
     if isinstance(eng, LLMEngine):
         return {f: len(eng._programs.keys(f))
-                for f in (*_JAX_FNS, *_JAX_DRAFT_FNS)}
+                for f in (*_JAX_FNS, *_JAX_DRAFT_FNS, *_JAX_KV_FNS)}
     draft = eng.scheduler.spec_proposer
     fns = {**{f: getattr(eng, fn) for f, fn in _JAX_FNS.items()},
            **{f: getattr(draft, fn, None)
-              for f, fn in _JAX_DRAFT_FNS.items()}}
+              for f, fn in _JAX_DRAFT_FNS.items()},
+           **{f: getattr(eng._kv_programs, fn)
+              for f, fn in _JAX_KV_FNS.items()}}
     return {f: 0 if fn is None else fn._cache_size()
             for f, fn in fns.items()}
 
@@ -217,6 +218,140 @@ def test_spec_families_match_the_jax_jit_caches(wave):
     for k, m in mods.items():
         getattr(m, run)(engines[k], "w2")
     assert {k: _families(e) for k, e in engines.items()} == counts
+
+
+def _kv_families(eng) -> dict:
+    return {f: n for f, n in _families(eng).items() if f in _JAX_KV_FNS}
+
+
+def test_kv_transfer_families_match_the_jax_jit_caches_on_the_swap_wave():
+    """The guard's swap wave (a 13-page pool with a host tier: swap
+    preemptions and restores) through the JAX engine and the port on one
+    weight set: the port's ``kv_gather`` and ``kv_scatter`` programs equal
+    the JAX gather and scatter ``_cache_size()`` (and every other family
+    its jit cache); a repeated wave builds none on either."""
+    import test_compile_guard as jguard
+    mods = {"jax": jguard, "port": _GUARD}
+    engines = {k: m._swap_engine() for k, m in mods.items()}
+    for k, m in mods.items():
+        m._run_swap_wave(engines[k], "w1")
+    counts = {k: _families(e) for k, e in engines.items()}
+    assert counts["port"] == counts["jax"], counts
+    assert all(counts["port"][f] > 0 for f in _JAX_KV_FNS), counts
+    assert (engines["port"].scheduler.num_preemptions_by_kind
+            == engines["jax"].scheduler.num_preemptions_by_kind)
+    for k, m in mods.items():
+        m._run_swap_wave(engines[k], "w2")
+    assert {k: _families(e) for k, e in engines.items()} == counts
+
+
+def _handoffs(pre, dec, sp, tag: str) -> list:
+    """Prompts of 1, 3, 5 and 9 committed pages, each prefilled on ``pre``
+    with ``hold_kv``, exported and imported into ``dec``, then decoded
+    there; the tokens each import produced."""
+    rng = np.random.default_rng(4)
+    toks = []
+    for i, n in enumerate((6, 20, 40, 70)):
+        prompt = rng.integers(1, 500, n).tolist()
+        pre.add_request(f"{tag}-pf-{i}", prompt,
+                        sp(max_tokens=1, temperature=0.0), hold_kv=True)
+        while pre.has_unfinished_requests():
+            pre.step()
+        state = pre.export_held(f"{tag}-pf-{i}")
+        outs = dec.import_request(f"{tag}-dc-{i}", prompt,
+                                  sp(max_tokens=5, temperature=0.0), state)
+        got = list(outs[0].output_token_ids)
+        while dec.has_unfinished_requests():
+            for o in dec.step():
+                if o.request_id == f"{tag}-dc-{i}":
+                    got = list(o.output_token_ids)
+        toks.append(got)
+    return toks
+
+
+def test_kv_transfer_families_match_the_jax_jit_caches_on_handoffs():
+    """A prefill and a decode engine of each package on one weight set
+    hand four requests over (``export_held`` -> ``import_request``): the
+    exporter's ``kv_gather`` and the importer's ``kv_scatter`` programs
+    equal the JAX engines' gather and scatter ``_cache_size()``, the
+    imported requests decode the JAX tokens, and handing the same
+    requests over again builds none."""
+    import test_compile_guard as jguard
+    mods = {"jax": (jguard, JSP), "port": (_GUARD, SamplingParams)}
+    pairs = {k: (m._engine(), m._engine()) for k, (m, _) in mods.items()}
+    toks = {k: _handoffs(*pairs[k], sp, "h1")
+            for k, (_, sp) in mods.items()}
+    assert toks["port"] == toks["jax"]
+    counts = {k: [_kv_families(e) for e in pair]
+              for k, pair in pairs.items()}
+    assert counts["port"] == counts["jax"], counts
+    pre, dec = counts["port"]
+    assert pre["kv_gather"] == 4 and dec["kv_scatter"] == 4, counts
+    for k, (_, sp) in mods.items():
+        _handoffs(*pairs[k], sp, "h2")
+    assert {k: [_kv_families(e) for e in pair]
+            for k, pair in pairs.items()} == counts
+
+
+def test_padded_scatter_zeroes_the_scrap_page_as_the_jax_scatter():
+    """Five pages scatter as a key of eight: the three padded rows write
+    zeros into ``SCRAP_PAGE`` (whatever it held), as the JAX scatter's
+    zero ``k_data`` rows do, and every page equals the JAX pool's bit for
+    bit; the gather of the same pages equals the JAX gather."""
+    L, P, ps, kd = 2, 16, 8, 32
+    rng = np.random.default_rng(9)
+    k, v = (rng.standard_normal((L, P, ps, kd)).astype(np.float32)
+            for _ in range(2))
+    hk, hv = (rng.standard_normal((L, 5, ps, kd)).astype(np.float32)
+              for _ in range(2))
+    pages = [3, 12, 4, 9, 15]
+    jprog = JKV.KVTransferPrograms()
+    jkv = jprog.scatter_pages(JKV.KVCache(k=jax.numpy.asarray(k),
+                                          v=jax.numpy.asarray(v)),
+                              pages, hk, hv)
+    tkv = TKV.KVCache(k=torch.from_numpy(k.copy()),
+                      v=torch.from_numpy(v.copy()))
+    tprog = TKV.KVTransferPrograms(
+        "cpu", StepPrograms({}, None, torch.device("cpu"), enabled=True), 8)
+    tprog.scatter_pages(tkv, pages, torch.from_numpy(hk),
+                        torch.from_numpy(hv))
+    assert tprog.programs.keys() == [("kv_scatter", 8)]
+    for got, want in zip(tkv, jkv):
+        assert not got[:, TKV.SCRAP_PAGE].any()
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for got, want in zip(tprog.gather_pages(tkv, pages),
+                         jprog.gather_pages(jkv, pages)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert tprog.programs.keys() == [("kv_gather", 8), ("kv_scatter", 8)]
+
+
+def test_transfer_staging_sized_once_with_programs_grown_without():
+    """With programs the staging holds the largest bucket from the first
+    transfer on (a captured program keeps its address); with programs
+    disabled it grows to the largest bucket moved. Both give the same
+    buffers and pools, and only the first builds keys."""
+    L, P, ps, kd, top = 2, 40, 4, 8, 32
+    rng = np.random.default_rng(10)
+    k, v = (torch.from_numpy(rng.standard_normal((L, P, ps, kd))
+                             .astype(np.float32)) for _ in range(2))
+    pools = [TKV.KVCache(k.clone(), v.clone()) for _ in range(2)]
+    progs = [TKV.KVTransferPrograms("cpu", StepPrograms(
+        {}, None, torch.device("cpu"), enabled=on), top)
+        for on in (True, False)]
+    for pages, dst in (([5, 6, 7], [30, 2, 9]),
+                       (list(range(1, 10)), list(range(20, 29))),
+                       ([11, 3], [12, 13])):
+        got = [p.gather_pages(kv, pages) for p, kv in zip(progs, pools)]
+        for a, b, pool in zip(*got, pools[0]):
+            assert torch.equal(a, b)
+            assert torch.equal(a, pool[:, pages])
+        for p, kv in zip(progs, pools):
+            p.scatter_pages(kv, dst, *got[0])
+        assert all(torch.equal(a, b) for a, b in zip(*pools))
+    assert [len(p._staging[0]) for p in progs] == [L * top, L * 16]
+    assert progs[0].programs.keys() == [
+        (f, n) for f in ("kv_gather", "kv_scatter") for n in (2, 4, 16)]
+    assert progs[1].programs.keys() == []
 
 
 # -- the programs -------------------------------------------------------------

@@ -51,6 +51,7 @@ from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
 from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine, SamplingParams
 from kubernetes_gpu_cluster_tpu_torch.engine import kv_cache as TKV
 from kubernetes_gpu_cluster_tpu_torch.engine.scheduler import Scheduler
+from kubernetes_gpu_cluster_tpu_torch.engine.step_programs import StepPrograms
 from kubernetes_gpu_cluster_tpu_torch.engine.sequence import (Sequence,
                                                               SequenceStatus)
 from kubernetes_gpu_cluster_tpu_torch.models import llama as TM
@@ -246,7 +247,8 @@ def test_host_pool_round_trip_bit_identical_to_jax(dtype):
     jhost.put(jhp, jk, jv)
     tswap = TKV.KVSwapper(
         TKV.HostKVPool(8, L, ps, kd, tkv.k.dtype), lambda: tkv,
-        TKV.KVTransferPrograms("cpu"))
+        TKV.KVTransferPrograms("cpu", StepPrograms(
+            {}, None, torch.device("cpu"), enabled=True), 16))
     thp = tswap.swap_out(out_pages)
     assert thp == jhp
     np.testing.assert_array_equal(_bits(tswap.host.k[:, thp]),
