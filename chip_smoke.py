@@ -419,8 +419,8 @@ first records the tp=1 engine's greedy tokens for the same requests:
      engine, exit 0 within the rendered grace after SIGTERM. The pod runs
      as in the runtime image: no directory that holds ``nvcc`` on ``PATH``,
      no ``CUDA_HOME``, no ``CUDA_PATH``, ``KGCT_KERNEL_DIR`` phase 1's
-     directory, whose libraries and stamps must keep their sizes and
-     mtimes (nothing rebuilt). Then the
+     directory, whose libraries, stamps and ptxas reports must keep their
+     sizes and mtimes (nothing rebuilt). Then the
      ``pipelineParallelSize: 2`` StatefulSet's two pods as two ranks on
      card 0 through 13c's harness, each streaming its stage, held as 13c.
      The checkpoint directory is deleted at the end, on failure too.
@@ -655,8 +655,20 @@ def build_kernels(build, card: str) -> dict:
         name, _, rest = line.partition(": built in ")
         if rest:
             per_kernel[name.strip()] = float(rest.split()[0])
+    # The verify kernel's bf16 instances (TMA ring, wgmma): registers,
+    # shared memory and spills as ptxas reported them when the library was
+    # built (kept beside it, so a current library has them too); a spill
+    # fails.
+    verify = [f for f in build.ptxas_of("spec_verify") or []
+              if "spec_verify_kernel" in f["function"]]
+    log("spec_verify ptxas (bf16 kernel):", json.dumps(verify))
+    if not verify or any(f.get("spill_stores", 0) or f.get("spill_loads", 0)
+                         for f in verify):
+        raise RuntimeError(f"phase 1: spec_verify's bf16 kernel spills or "
+                           f"was not reported: {verify}")
     res = {"dir": str(build.kernel_dir()), "command_s": secs,
-           "kernels_s": per_kernel, "in_process_s": in_process}
+           "kernels_s": per_kernel, "in_process_s": in_process,
+           "spec_verify_ptxas": verify}
     log(f"kernels built by {BUILD_MODULE} in {secs:.1f} s "
         f"{json.dumps(per_kernel)}; in-process check {in_process} s | {card}")
     return res
@@ -679,7 +691,8 @@ def without_nvcc(env: dict, kernel_dir: Path) -> dict:
 
 
 def kernel_files(kernel_dir: Path) -> dict:
-    """Size and mtime of every library and stamp in ``kernel_dir``."""
+    """Size and mtime of every file in ``kernel_dir``: each kernel's
+    library, stamp and ptxas report."""
     return {p.name: (p.stat().st_size, p.stat().st_mtime_ns)
             for p in sorted(kernel_dir.iterdir()) if p.is_file()}
 
@@ -703,12 +716,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 def graph_ms(fn, reps: int) -> float:
     """Device time of one call of ``fn``: ``reps`` calls captured in one
     CUDA graph and replayed, so the host's launch overhead between calls
-    (which exceeds a decode-sized kernel's run time) is not counted."""
+    (which exceeds a decode-sized kernel's run time) is not counted. The
+    capture takes one scratch set for its calls, as an engine's does."""
+    from kubernetes_gpu_cluster_tpu_torch.ops import cuda as cuda_ops
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with cuda_ops.capture_scratch() as scratch, torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -719,7 +734,7 @@ def graph_ms(fn, reps: int) -> float:
     e1.record()
     e1.synchronize()
     ms = e0.elapsed_time(e1) / reps
-    del graph
+    del graph, scratch
     return ms
 
 
@@ -1063,7 +1078,8 @@ def check_kernels(cfg, page_size: int, max_len: int, device) -> list[dict]:
     # -- verify attention (no TPU kernel: the JAX package computes it in
     #    XLA): R 32 x S 5 over contexts 512-2048 on the engine's whole
     #    table (the row), beside paged_decode at the same rows; then logged
-    #    only: a padding row, S 9, and the hd-64 heads of opt-125m (bf16)
+    #    only: a padding row, S 9, qwen2.5-7b's heads (g 7: 35 queries a
+    #    kv head), and the hd-64 heads of opt-125m (bf16)
     #    and tinyllama-1.1b (fp32, phase 7b's dtype) over 128-page tables.
     case = _verify_case(gen, rng, 32, 5, 512, 2048, nh, n_kv, hd, ps, pps,
                         dt, device)
@@ -1076,6 +1092,7 @@ def check_kernels(cfg, page_size: int, max_len: int, device) -> list[dict]:
     for what, args in (
             ("padding row", (8, 5, 512, 2048, nh, n_kv, hd, ps, pps, dt)),
             ("S 9", (32, 9, 512, 2048, nh, n_kv, hd, ps, pps, dt)),
+            ("qwen2.5-7b heads", (32, 5, 512, 2048, 28, 4, 128, ps, pps, dt)),
             ("opt-125m heads", (32, 5, 256, 1500, 12, 12, 64, ps, 128, dt)),
             ("tinyllama-1.1b heads fp32",
              (32, 5, 256, 1500, 32, 4, 64, ps, 128, torch.float32))):
@@ -1904,6 +1921,21 @@ def transfer_keys(what: str, engine) -> dict:
                                    f"{n}) is not a power of two up to the "
                                    f"largest bucket, {top}")
     return keys
+
+
+def counters_clear(where: str) -> None:
+    """Every split kernel's counters outside captures are 0, as each
+    kernel leaves them: checked after the phases whose engines step in
+    threads of their own."""
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import (int4_matmul,
+                                                           paged_decode,
+                                                           spec_verify)
+    torch.cuda.synchronize()
+    left = {m.__name__.rpartition(".")[2]: m.SCRATCH.counters_in_use()
+            for m in (paged_decode, spec_verify, int4_matmul)}
+    log(f"{where}: split counters not 0:", json.dumps(left))
+    if any(left.values()):
+        raise RuntimeError(f"{where}: split counters left non-zero {left}")
 
 
 def capture_log(programs) -> dict:
@@ -3023,6 +3055,7 @@ def check_entry(device, counters) -> dict:
     from kubernetes_gpu_cluster_tpu_torch.graft_entry import entry
     from kubernetes_gpu_cluster_tpu_torch.models import llama as M
     from kubernetes_gpu_cluster_tpu_torch.ops import attention as A
+    from kubernetes_gpu_cluster_tpu_torch.ops import cuda as cuda_ops
     t0 = time.perf_counter()
     fn, args = entry()
     entry_s = time.perf_counter() - t0
@@ -3045,7 +3078,7 @@ def check_entry(device, counters) -> dict:
     graph = torch.cuda.CUDAGraph()
     before = counters["paged_decode"].launches
     t0 = time.perf_counter()
-    with torch.cuda.graph(graph):
+    with cuda_ops.capture_scratch() as scratch, torch.cuda.graph(graph):
         out = fn(*args)[0]
     capture_s = time.perf_counter() - t0
     recorded = counters["paged_decode"].launches - before
@@ -3066,7 +3099,7 @@ def check_entry(device, counters) -> dict:
     decode_ms = graph_ms(lambda: counters["paged_decode"].paged_decode(
         q, kv.k, kv.v, meta.page_tables, meta.context_lens, cur, cur,
         cfg.head_dim ** -0.5, layer=0), 200)
-    del graph, fn, args, kv, out
+    del graph, scratch, fn, args, kv, out
     gc.collect()
     torch.cuda.empty_cache()
     return {"tokens": eager.tolist(), "equal_eager_replay_plain": True,
@@ -6410,7 +6443,8 @@ def check_rendered(cfg, params, device, card: str, path: Path) -> dict:
     for e in c.get("env") or []:
         env[e["name"]] = e["value"]
     before = kernel_files(kdir)
-    if len(before) != 2 * len(build.KERNELS):
+    if set(before) != {f(n).name for n in build.KERNELS for f in (
+            build.library_path, build.stamp_path, build.ptxas_path)}:
         raise RuntimeError(f"14b: {kdir} holds {sorted(before)}")
     with open(work / "deployment.log", "w") as logf:
         proc = start_child(
@@ -6442,7 +6476,8 @@ def check_rendered(cfg, params, device, card: str, path: Path) -> dict:
                            f"{after}")
     res.update(nvcc_on_path=False, kernel_files_unchanged=len(after))
     log(f"14b deployment: no nvcc reachable (PATH without it, no CUDA_HOME "
-        f"or CUDA_PATH), {len(after)} libraries and stamps in {kdir} "
+        f"or CUDA_PATH), {len(after)} libraries, stamps and ptxas reports "
+        f"in {kdir} "
         "unchanged in size and mtime")
     served = {tuple(p): t for p, t in
               json.loads(out_file.read_text())["requests"]}
@@ -6620,7 +6655,7 @@ def main() -> int:
     # Phase 1: build through the image's command; every child of this run
     # loads from the same kernel directory.
     os.environ["KGCT_KERNEL_DIR"] = str(build.kernel_dir())
-    build_kernels(build, card)
+    built = build_kernels(build, card)
     phase("build (1)")
 
     cfg = get_model_config(MODEL)
@@ -6629,6 +6664,9 @@ def main() -> int:
     # Phase 2: kernels.
     rows = check_kernels(cfg, ps, cfg.max_model_len, device)
     rows.append(check_int4(cfg, device))
+    for r in rows:
+        if r["name"] == "spec_verify":
+            r["ptxas"] = built["spec_verify_ptxas"]
     for r in rows:
         log("kernel:", json.dumps(r))
     gc.collect()
@@ -6698,6 +6736,7 @@ def main() -> int:
     # Phase 11: the router in front of replicas on the same weights.
     log("router:", json.dumps(check_router(cfg_engine, params, device,
                                            attn)), "|", card)
+    counters_clear("phase 11")
     gc.collect()
     torch.cuda.empty_cache()
     phase(f"{MODEL} bf16 router (11)")
@@ -6712,6 +6751,7 @@ def main() -> int:
     # Phase 16: the decode window's captured graphs on the same weights.
     log("graphs:", json.dumps(check_graphs(cfg_engine, params, device, attn,
                                            card)), "|", card)
+    counters_clear("phase 16")
     phase(f"{MODEL} bf16 captured decode windows (16)")
     # Phase 16f: the prefill, solo-chunk and mixed programs.
     log("step programs:", json.dumps(check_step_programs(

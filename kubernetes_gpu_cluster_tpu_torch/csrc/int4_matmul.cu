@@ -71,10 +71,8 @@
 // registers are capped for (-DKGCT_INT4_DECODE_MIN_BLOCKS=b) can be set at
 // build time.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "flash_mma.cuh"
+#include "hopper.cuh"
 
 #ifndef KGCT_INT4_DECODE_STAGES
 #define KGCT_INT4_DECODE_STAGES 3
@@ -94,6 +92,7 @@ namespace {
 
 using mma::as_bf162;
 using mma::as_u32;
+using namespace sm90;
 
 template <typename XT> struct XSplit;
 template <> struct XSplit<__nv_bfloat16> { static constexpr int k = 1; };
@@ -579,13 +578,6 @@ struct PStage {
   static_assert(kXOff % kAtom == 0 && kBytes % kAtom == 0, "atoms stay aligned");
 };
 
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // The scale rows g0 .. g0 + s_rows - 1 of columns [n0, n0 + kPBN), by
 // producer thread t, as 16-byte copies (N % 16 == 0); zeros past N.
 __device__ __forceinline__ void prefill_load_scales(float* ss, int t, const float* scale, int N,
@@ -596,39 +588,6 @@ __device__ __forceinline__ void prefill_load_scales(float* ss, int t, const floa
     mma::cp_async16(ss + r * kPBN + j,
                     ok ? scale + static_cast<long long>(g0 + r) * N + n0 + j : scale, ok);
   }
-}
-
-// mbarriers and the tensor-memory copy (TMA): one thread arms the slot's
-// barrier with the bytes to come and starts the copies; every waiting
-// thread then watches the barrier's phase.
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(mma::smem_addr(b)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   mma::smem_addr(b)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(mma::smem_addr(b)), "r"(parity)
-        : "memory");
-}
-// The box of `map` at element coordinates (c0 innermost, c1) into dst.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* b) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(mma::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(mma::smem_addr(b))
-      : "memory");
 }
 
 // Stage, by producer thread t, for K rows [k0, min(k0 + kPKC, kend)) and
@@ -741,35 +700,9 @@ __device__ __forceinline__ void prefill_decode(unsigned char* st, int t) {
 // 64-column blocks kBBlock apart (leading), atoms of 8 k kAtom apart
 // (stride); the k step s starts at atom 2 s. The swizzle applies to the
 // address.
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p, int lead, int stride) {
-  const uint64_t a = mma::smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lead >> 4) << 16) |
-         (static_cast<uint64_t>(stride >> 4) << 32) | (1ull << 62);
-}
 __device__ __forceinline__ uint64_t desc_a(const void* p) { return wgmma_desc(p, 16, kAtom); }
 __device__ __forceinline__ uint64_t desc_b(const void* p) {
   return wgmma_desc(p, kBBlock, kAtom);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Shared-memory writes of this thread (st.shared, completed cp.async) are
-// ordered before later reads by wgmma (the async proxy) once a barrier
-// follows.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Keeps the compiler from moving accesses of d between a wgmma and its wait.
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A (64 x 16, shared, k-major) * B (16 x 128, shared, n-major), fp32; with
@@ -833,7 +766,7 @@ int4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
   uint64_t* mbar = reinterpret_cast<uint64_t*>(smem + PStage::kMbarOff);
   if (threadIdx.x == 0 && tma) {
     for (int s = 0; s < kPStages; ++s) mbar_init(mbar + s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();  // the barriers are set up before anyone uses them
 
@@ -1030,31 +963,6 @@ PrefillKernel prefill_kernel(bool whole) {
                          allow(int4_prefill_kernel<false>, PStage::kSmem) == cudaSuccess;
   if (!ok) return nullptr;
   return whole ? int4_prefill_kernel<true> : int4_prefill_kernel<false>;
-}
-
-// A 2-D tensor map for TMA: inner dimension d0 elements (stride 1), d1 rows
-// `stride` bytes apart, a box of b0 x b1 elements, the 128-byte swizzle,
-// zeros outside the tensor.
-bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t d0,
-                uint64_t d1, uint64_t stride, uint32_t b0, uint32_t b1) {
-  static const PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &res) !=
-            cudaSuccess ||
-        res != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {d0, d1};
-  const cuuint64_t strides[1] = {stride};
-  const cuuint32_t box[2] = {b0, b1};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

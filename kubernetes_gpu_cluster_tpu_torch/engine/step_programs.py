@@ -281,7 +281,7 @@ class StepPrograms:
         elif prog is None:
             self._programs[key] = self._capture(key, body, bufs)
         else:
-            graph, launches = prog
+            graph, launches, _ = prog
             graph.replay()
             self.replays += 1
             cuda_ops.add_launches(launches)
@@ -289,7 +289,8 @@ class StepPrograms:
     def _capture(self, key, body: Callable, bufs: StaticBuffers) -> tuple:
         """Warm up (this step, eagerly, on the capture stream), then
         capture the body into a graph in the shared pool. Returns (graph,
-        kernel launches the graph holds by kernel)."""
+        kernel launches the graph holds by kernel, the scratch tensors its
+        kernels use, kept alive with it)."""
         main = torch.cuda.current_stream(self.device)
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
@@ -298,11 +299,17 @@ class StepPrograms:
         side.wait_stream(main)
         with torch.cuda.stream(side):
             body(key, bufs)
-            before = cuda_ops.launch_counts()
             reserved = torch.cuda.memory_reserved(self.device)
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
-            with _collector_paused():
+            # A capture launches nothing: the wrapper counts of this
+            # thread's capture (other engines' threads launch meanwhile)
+            # are taken back and move to the replays, each of which
+            # launches what the graph recorded. The capture's kernels get
+            # workspaces and counters of their own: a replay may run while
+            # another engine's thread warms a capture up on its side stream.
+            with _collector_paused(), cuda_ops.tally_launches() as recorded, \
+                    cuda_ops.capture_scratch() as scratch:
                 # thread_local: another thread's CUDA calls (a /metrics
                 # scrape reading free memory) do not void this thread's
                 # capture.
@@ -313,18 +320,14 @@ class StepPrograms:
                     graph.capture_end()
                 except Exception as err:    # out of memory too
                     self._abandon(graph)
-                    cuda_ops.set_launch_counts(before)
                     raise CaptureError(f"capture of step program {key} "
                                        f"failed: {err}") from err
+                finally:
+                    cuda_ops.add_launches({k: -n for k, n in recorded.items()})
         self.capture_seconds.append(time.perf_counter() - t0)
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         main.wait_stream(side)
-        # A capture launches nothing: its wrapper counts move to the
-        # replays, each of which launches what the graph recorded.
-        after = cuda_ops.launch_counts()
-        cuda_ops.set_launch_counts(before)
-        return graph, {k: after[k] - before[k] for k in after
-                       if after[k] != before[k]}
+        return graph, dict(recorded), scratch
 
     def _abandon(self, graph: "torch.cuda.CUDAGraph") -> None:
         """End a capture that failed. PyTorch ends a capture's routing of

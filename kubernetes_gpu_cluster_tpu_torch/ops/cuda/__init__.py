@@ -11,43 +11,144 @@ kernel, mirroring the JAX package's ``ops/pallas/``:
 
 Each wrapper validates its inputs, allocates the output, launches on
 PyTorch's current stream (a capture stream while the engine captures a
-step program), raises on a launch error, and counts its launches in a
-plain module-level integer ``launches``. A replayed CUDA graph launches
-the kernels it recorded without calling the wrappers: the engine's
-program cache (``engine/step_programs.py``) takes a capture's counts back
-(a capture launches nothing) and adds what the graph recorded at every
-replay. A wrapper accepts CUDA tensors only: the plain PyTorch versions
-for the CPU live in ``ops/attention.py`` and ``ops/quant.py``, whose
-dispatchers choose by device.
+step program), raises on a launch error, and counts its launches with
+``note_launch``: in a plain module-level integer ``launches`` and in its
+thread's open tally. A replayed CUDA graph launches the kernels it
+recorded without calling the wrappers: the engine's program cache
+(``engine/step_programs.py``) tallies what a capture recorded on its own
+thread (``tally_launches``; engines of one process step in threads of
+their own), takes those counts back (a capture launches nothing) and adds
+them at every replay. A split kernel's workspace and counters come from
+its ``Scratch``: one set per stream, and one per capture opened with
+``capture_scratch``, so calls that can run at once share none. A wrapper accepts CUDA tensors only: the plain
+PyTorch versions for the CPU live in ``ops/attention.py`` and
+``ops/quant.py``, whose dispatchers choose by device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import threading
 
 import torch
+
+_tally = threading.local()
 
 
 def _wrapper(name: str):
     return importlib.import_module(f"{__name__}.{name}")
 
 
-def launch_counts() -> dict[str, int]:
-    """Every wrapper's ``launches``, by kernel."""
-    # ``build`` is not imported with the package: ``python -m`` runs it.
-    return {name: _wrapper(name).launches
-            for name in _wrapper("build").KERNELS}
+def note_launch(kernel: str) -> None:
+    """One launch of ``kernel``: counted in its wrapper's ``launches`` and
+    in this thread's open tally. A wrapper calls it where it launches its
+    kernel, and nowhere else."""
+    _wrapper(kernel).launches += 1
+    counts = getattr(_tally, "counts", None)
+    if counts is not None:
+        counts[kernel] = counts.get(kernel, 0) + 1
 
 
-def set_launch_counts(counts: dict[str, int]) -> None:
-    for name, n in counts.items():
-        _wrapper(name).launches = n
+@contextlib.contextmanager
+def tally_launches():
+    """This thread's launches while open, by kernel: what a capture
+    recorded, whatever other threads launch meanwhile (a snapshot of the
+    global counts would take theirs too, or lose them)."""
+    outer = getattr(_tally, "counts", None)
+    _tally.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _tally.counts = outer
 
 
 def add_launches(counts: dict[str, int]) -> None:
-    """A replay's launches, added to each kernel's count."""
+    """Launches added to each kernel's count (a replay's; negative to take
+    a capture's back)."""
     for name, n in counts.items():
         _wrapper(name).launches += n
+
+
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def capture_scratch():
+    """Open around a CUDA graph capture on this thread: every kernel's
+    workspace and counters that the capture takes are allocated in it (its
+    counters zeroed by the graph at each replay), for this graph alone.
+    Yields the tensors, which the caller keeps alive as long as the
+    graph."""
+    outer = getattr(_capture, "sets", None)
+    _capture.sets = sets = _Sets()
+    try:
+        yield sets
+    finally:
+        _capture.sets = outer
+
+
+class _Sets(dict):
+    """key -> (workspace, counters), and every set outgrown: a graph
+    captured while it was current may still point at it."""
+
+    def __init__(self):
+        super().__init__()
+        self.retired: list[torch.Tensor] = []
+
+
+class Scratch:
+    """A split kernel's fp32 workspace and int32 counters (all 0 between
+    calls; the kernel leaves them so). Two calls that can run at once never
+    share a set: outside a capture each CUDA stream has its own (an
+    engine's capture warm-up runs on its side stream while other engines'
+    threads launch on the default one), and a capture opened with
+    ``capture_scratch`` has its own. A capture without one uses its
+    stream's set, or, where that set must be made or grown, a set of the
+    call's own, kept for the life of the process. A set grows to the
+    largest call it has served."""
+
+    def __init__(self):
+        self._sets = _Sets()       # (device index, stream) -> set
+        self._kept: list[torch.Tensor] = []
+
+    def pointers(self, dev: int, stream: int, ws_floats: int,
+                 n_counters: int) -> tuple[int, int]:
+        """(workspace, counters) addresses for a call on ``stream``."""
+        sets, key = getattr(_capture, "sets", None), (id(self), dev)
+        if sets is None:
+            sets, key = self._sets, (dev, stream)
+        ws, cnt = sets.get(key, (None, None))
+        if ws is None or ws.numel() < ws_floats or cnt.numel() < n_counters:
+            if sets is self._sets and torch.cuda.is_current_stream_capturing():
+                # Counters made here are zeroed only when the graph runs.
+                ws, cnt = self._new(dev, ws_floats, n_counters)
+                self._kept += [ws, cnt]
+                return ws.data_ptr(), cnt.data_ptr()
+            if ws is not None:
+                sets.retired += [ws, cnt]
+                ws_floats = max(ws_floats, ws.numel())
+                n_counters = max(n_counters, cnt.numel())
+            ws, cnt = sets[key] = self._new(dev, ws_floats, n_counters)
+        return ws.data_ptr(), cnt.data_ptr()
+
+    @staticmethod
+    def _new(dev: int, ws_floats: int, n_counters: int) -> tuple:
+        device = torch.device("cuda", dev)
+        return (torch.empty(max(ws_floats, 1), dtype=torch.float32,
+                            device=device),
+                torch.zeros(max(n_counters, 1), dtype=torch.int32,
+                            device=device))
+
+    def counters_in_use(self) -> int:
+        """Counters outside a capture that are not 0 (each is left 0 by
+        the kernel: any other value is a fault). Synchronizes."""
+        return sum(int(cnt.count_nonzero()) for _, cnt in self._sets.values())
+
+    def clear(self) -> None:
+        """Forget the per-stream sets (a fresh start for a tool; graphs
+        captured with them must be gone)."""
+        self._sets = _Sets()
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -12,12 +12,15 @@ the source, of every shared header and of ``NVCC_FLAGS``. A library is
 current when its stamp matches the sources in the package, whatever the
 files' times say, so libraries built ahead of time (a serving image's
 kernel stage) load where no ``nvcc`` exists. A missing or stale library is
-built at first use; with no ``nvcc`` that raises.
+built at first use; with no ``nvcc`` that raises. The build also keeps
+ptxas's report of each entry function (registers, shared memory, stack,
+spills) beside the library, ``lib<name>.so.ptxas.json``, so it can be read
+when the library is current.
 
     python -m kubernetes_gpu_cluster_tpu_torch.ops.cuda.build
 
 builds every stale kernel into the kernel directory and prints each one's
-seconds and ptxas register lines. It needs no card: nvcc cross-compiles
+seconds and ptxas register lines, and every kernel's kept ptxas report. It needs no card: nvcc cross-compiles
 ``sm_90a``. Nothing here runs at import: the CPU tests import every module.
 """
 
@@ -25,7 +28,9 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -77,6 +82,19 @@ def library_path(name: str) -> Path:
 
 def stamp_path(name: str) -> Path:
     return kernel_dir() / f"lib{name}.so.sha256"
+
+
+def ptxas_path(name: str) -> Path:
+    return kernel_dir() / f"lib{name}.so.ptxas.json"
+
+
+def ptxas_of(name: str) -> list[dict] | None:
+    """The ptxas report kept by the build of ``name``'s library (see
+    ``ptxas_report``), None when there is none."""
+    try:
+        return json.loads(ptxas_path(name).read_text())
+    except FileNotFoundError:
+        return None
 
 
 def source_digest(name: str) -> str:
@@ -150,12 +168,15 @@ def build(names=KERNELS) -> float:
                               f"{done['out']}")
                 tmp.unlink(missing_ok=True)
                 continue
-            # The library first, then its stamp, each by rename: a reader
-            # never pairs a new stamp with an old library.
+            # The library, its ptxas report, then its stamp, each by
+            # rename: a reader never pairs a new stamp with an old library.
             os.replace(tmp, library_path(n))
-            stamp_tmp = Path(f"{stamp_path(n)}.tmp{os.getpid()}")
-            stamp_tmp.write_text(source_digest(n) + "\n")
-            os.replace(stamp_tmp, stamp_path(n))
+            for path, text in (
+                    (ptxas_path(n), json.dumps(ptxas_report(done["out"]))),
+                    (stamp_path(n), source_digest(n) + "\n")):
+                part = Path(f"{path}.tmp{os.getpid()}")
+                part.write_text(text)
+                os.replace(part, path)
         seconds = time.perf_counter() - t0
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -185,9 +206,36 @@ def check_status(lib: ctypes.CDLL, name: str, code: int) -> None:
                            f"{err(code).decode()} (cudaError {code})")
 
 
+_PTXAS = (("function", re.compile(r"Compiling entry function '([^']+)'")),
+          ("stack", re.compile(r"(\d+) bytes stack frame")),
+          ("spill_stores", re.compile(r"(\d+) bytes spill stores")),
+          ("spill_loads", re.compile(r"(\d+) bytes spill loads")),
+          ("registers", re.compile(r"Used (\d+) registers")),
+          ("smem", re.compile(r"(\d+) bytes smem")))
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Each entry function of nvcc's ``-Xptxas -v`` output with its
+    registers, static shared memory, stack and spill bytes."""
+    funcs: list[dict] = []
+    for line in log.splitlines():
+        for key, pattern in _PTXAS:
+            m = pattern.search(line)
+            if not m:
+                continue
+            if key == "function":
+                funcs.append({"function": m.group(1)})
+            elif funcs:
+                funcs[-1][key] = int(m.group(1))
+    return funcs
+
+
 def main() -> int:
     """Build every kernel of ``KERNELS`` into the kernel directory; print
-    each one's seconds and ptxas register lines."""
+    each built one's seconds and ptxas register lines, and for every
+    kernel, current ones too, a JSON line of its kept ptxas report (each
+    entry function's registers, shared memory and spills; null if none
+    was kept)."""
     todo = [n for n in KERNELS if stale(n)]
     try:
         seconds = build(todo)
@@ -198,11 +246,12 @@ def main() -> int:
     for n in KERNELS:
         if n not in todo:
             print(f"{n}: current", flush=True)
-            continue
-        print(f"{n}: built in {build_seconds[n]:.1f} s", flush=True)
-        for line in build_log[n].splitlines():
-            if "registers" in line:
-                print(f"  [{n}] {line.strip()}", flush=True)
+        else:
+            print(f"{n}: built in {build_seconds[n]:.1f} s", flush=True)
+            for line in build_log[n].splitlines():
+                if "registers" in line:
+                    print(f"  [{n}] {line.strip()}", flush=True)
+        print(f"  [{n}] ptxas: {json.dumps(ptxas_of(n))}", flush=True)
     print(f"built in {seconds:.1f} s", flush=True)
     return 0
 

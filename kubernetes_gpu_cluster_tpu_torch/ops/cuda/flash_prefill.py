@@ -13,7 +13,7 @@ import ctypes
 import torch
 
 from ...utils import cdiv
-from . import build, check_geometry, check_tensors, raw_stream
+from . import build, check_geometry, check_tensors, note_launch, raw_stream
 
 # Kernel launches since the last reset (the caller may set it to 0).
 launches = 0
@@ -70,7 +70,6 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     segment) and accepted for signature parity. ``window`` is
     ``kb_min(seg_ids)`` when the caller has it already (one forward shares
     it across layers); it is computed here otherwise. Returns [T, nh, hd]."""
-    global launches
     del positions
     dtype = check_tensors("flash_prefill", dict(q=q, k=k, v=v),
                           dict(seg_ids=seg_ids))
@@ -96,5 +95,5 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kbm.data_ptr(), out.data_ptr(), T, nh, n_kv, hd, float(scale), dtype,
         raw_stream(q.get_device()))
     build.check_status(lib, "flash_prefill", code)
-    launches += 1
+    note_launch("flash_prefill")
     return out

@@ -23,8 +23,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import (build, check_geometry, check_tensors, device_of,
-               layer_offset, pool_layers, raw_stream)
+from . import (build, check_geometry, check_tensors, device_of, layer_offset,
+               note_launch, pool_layers, raw_stream)
 
 # Kernel launches since the last reset (the caller may set it to 0).
 launches = 0
@@ -122,7 +122,6 @@ def flash_prefill_hist(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``valid_tokens(seg_ids)`` when the caller has it already (one forward
     shares it across layers); it is computed here otherwise. Returns
     [T, nh, hd]."""
-    global launches
     del positions
     dev = device_of("flash_prefill_hist", (q, k, v, seg_ids, k_pool, v_pool,
                                            page_table))
@@ -150,5 +149,5 @@ def flash_prefill_hist(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 hist_len.data_ptr(), out.data_ptr(), c.args, raw_stream(dev))
     if code:
         build.check_status(_lib(), "flash_prefill_hist", code)
-    launches += 1
+    note_launch("flash_prefill_hist")
     return out

@@ -7,11 +7,10 @@ takes any T and N, and this wrapper raises on what it does not take.
 
 One call is one kernel launch. The kernel splits the work over exactly the
 blocks the card keeps resident (``plan``) and sums cut tiles itself, through
-a workspace and per-tile counters that this module allocates once per
-device and grows on demand. The kernel leaves the counters at 0, so calls
-may follow each other, or be captured in a CUDA graph and replayed, without
-a reset. Workspace and counters are shared by every call on a device: the
-wrapper assumes one stream, as the engine runs.
+a workspace and per-tile counters from ``SCRATCH`` (``ops.cuda.Scratch``:
+one set per stream, one per capture, grown on demand). The kernel leaves
+the counters at 0, so calls may follow each other, or be captured in a
+CUDA graph and replayed, without a reset.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build, raw_stream
+from . import Scratch, build, note_launch, raw_stream
 
 # Kernel launches since the last reset (the caller may set it to 0).
 launches = 0
@@ -165,49 +164,23 @@ class _Launch(NamedTuple):
     plan: Plan | None           # None: T == 0 or N == 0, nothing to launch
     args: object                # pointer to LaunchArgs, or None
     fn: object                  # the library's kgct_int4_matmul
+    ws_floats: int              # workspace and counters a call takes
+    n_counters: int
 
 
 # (x shape, x dtype, w shape, w dtype, scale shape, scale dtype, device index)
 # -> _Launch: the shape checks and the plan run once per key.
 _launch_cache: dict[tuple, _Launch] = {}
 
-# Per device index: the workspace (partials of cut tiles, two slots per
-# block) and the tile counters (all 0 between calls), grown by ``_prepare``
-# only; every cached launch of the device points at the current pair.
-# Graphs share them: replays run on one stream, so they never overlap.
-_scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-# Outgrown workspaces and counters, kept alive for the CUDA graphs captured
-# while they were current (a capture bakes their pointers in).
-_retired: list[torch.Tensor] = []
-
-
-def _grow_workspace(device: torch.device, p: Plan) -> tuple[int, int]:
-    ws, cnt = _scratch.get(device.index, (None, None))
-    need_ws = 2 * p.blocks * p.tile_rows * p.tile_cols
-    grown = False
-    if ws is None or ws.numel() < need_ws:
-        if ws is not None:
-            _retired.append(ws)
-        ws, grown = torch.empty(need_ws, dtype=torch.float32,
-                                device=device), True
-    if cnt is None or cnt.numel() < p.tiles:
-        if cnt is not None:
-            _retired.append(cnt)
-        cnt, grown = torch.zeros(p.tiles, dtype=torch.int32,
-                                 device=device), True
-    _scratch[device.index] = (ws, cnt)
-    if grown:
-        for c in _launch_cache.values():
-            if c.args is not None and c.device == device:
-                c.args.contents.ws = ws.data_ptr()
-                c.args.contents.counters = cnt.data_ptr()
-    return ws.data_ptr(), cnt.data_ptr()
+# The workspace (partials of cut tiles, two slots per block) and the tile
+# counters.
+SCRATCH = Scratch()
 
 
 def _prepare(x: torch.Tensor, w_packed: torch.Tensor,
              scale: torch.Tensor) -> _Launch:
-    """The dtype and shape checks of a new key, its plan, and the device's
-    workspace grown to cover it."""
+    """The dtype and shape checks of a new key, its plan, and the scratch
+    its calls take."""
     x_dtype = X_DTYPES.get(x.dtype)
     if x_dtype is None:
         raise ValueError(f"int4_matmul: x dtype {x.dtype} not supported "
@@ -236,13 +209,12 @@ def _prepare(x: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError(f"int4_matmul: group size {gs} is not a multiple "
                          f"of {GROUP_MULTIPLE}")
     if T == 0 or N == 0:
-        return _Launch((T, N), x.device, False, None, None, None)
+        return _Launch((T, N), x.device, False, None, None, None, 0, 0)
     fn = _lib().kgct_int4_matmul
     p = _plan_for(T, K, N, gs, x_dtype, x.device)
-    ws, cnt = _grow_workspace(x.device, p)
-    args = LaunchArgs(ws, cnt, T, K, N, gs, x_dtype, p.kind, p.mt, p.blocks)
+    args = LaunchArgs(0, 0, T, K, N, gs, x_dtype, p.kind, p.mt, p.blocks)
     return _Launch((T, N), x.device, N % 16 == 0, p, ctypes.pointer(args),
-                   fn)
+                   fn, 2 * p.blocks * p.tile_rows * p.tile_cols, p.tiles)
 
 
 def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
@@ -254,7 +226,6 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     Per call the wrapper checks devices and contiguity, looks up the key's
     checked shapes, plan and launch record, allocates the output and
     launches once."""
-    global launches
     dev = x.get_device()
     if dev < 0 or w_packed.get_device() != dev or scale.get_device() != dev:
         raise ValueError(f"int4_matmul: x on {x.device}, w_packed on "
@@ -272,10 +243,14 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     out = torch.empty(c.out_shape, dtype=_F32, device=c.device)
     if c.args is None:
         return out
+    stream = raw_stream(dev)
+    a = c.args.contents
+    a.ws, a.counters = SCRATCH.pointers(dev, stream, c.ws_floats,
+                                        c.n_counters)
     xp, wp, sp = x.data_ptr(), w_packed.data_ptr(), scale.data_ptr()
     code = c.fn(xp, wp, sp, out.data_ptr(), c.args,
-                c.n16 and not (xp | wp | sp) & 15, raw_stream(dev))
+                c.n16 and not (xp | wp | sp) & 15, stream)
     if code:
         build.check_status(_lib(), "int4_matmul", code)
-    launches += 1
+    note_launch("int4_matmul")
     return out

@@ -10,17 +10,13 @@ block of a (sequence, kv head) to finish merges the partials (the kernel's
 note says how). ``plan`` sizes the grid from the shapes and the SM count
 alone: no call reads a device value on the host. The
 workspace for the partials and the counters (all 0 between calls, left 0
-by the kernel) are allocated here, once per device, at the size of the
-largest grid a split call can have (``BLOCKS_PER_SM`` blocks per SM), so
-every decode bucket's call fits the first workspace and no bucket's graph
-capture grows it after another's; a head geometry that needs more grows
-it and keeps the old one alive, since a captured CUDA graph may still
-point at it. Shape checks, the plan and a C launch record are cached
-per (shapes, dtypes, scale, device) key, so a call makes its device and
-contiguity checks, one allocation and one ctypes call. A key seen once
-outside a capture can be captured in a CUDA graph. Workspace and counters
-are shared by every call on a device: the wrapper assumes one stream, as
-the engine runs.
+by the kernel) come from ``SCRATCH`` (``ops.cuda.Scratch``: one set per
+stream, one per capture), sized for the largest grid a split call of the
+head geometry can have (``BLOCKS_PER_SM`` blocks per SM), so every decode
+bucket's call fits the first set. Shape checks, the plan and a C launch
+record are cached per (shapes, dtypes, scale, device) key, so a call makes
+its device and contiguity checks, one allocation and one ctypes call. A
+key seen once outside a capture can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -32,8 +28,8 @@ from typing import NamedTuple
 import torch
 
 from ...utils import cdiv
-from . import (DTYPE_CODES, build, check_geometry, check_tensors, device_of,
-               layer_offset, pool_layers, raw_stream)
+from . import (DTYPE_CODES, Scratch, build, check_geometry, check_tensors,
+               device_of, layer_offset, note_launch, pool_layers, raw_stream)
 
 # Kernel launches since the last reset (the caller may set it to 0).
 launches = 0
@@ -123,43 +119,20 @@ class _Launch(NamedTuple):
     layer_bytes: int    # bytes between two layers of a stacked pool
     args: object        # pointer to LaunchArgs, or None when B == 0
     fn: object          # the library's kgct_paged_decode
+    ws_floats: int      # workspace and counters a call takes (0: none)
+    n_counters: int
 
 
 # (shapes, dtypes, scale, device index) -> _Launch
 _launch_cache: dict[tuple, _Launch] = {}
-# Per device index: the current workspace and counters; every cached
-# launch of the device points at them.
-_scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-# Outgrown workspaces, kept alive for graphs captured while they were current.
-_retired: list[torch.Tensor] = []
-
-
-def _grow_scratch(dev: int, ws_floats: int, n_counters: int) -> tuple[int, int]:
-    ws, cnt = _scratch.get(dev, (None, None))
-    grown = False
-    if ws is None or ws.numel() < ws_floats:
-        if ws is not None:
-            _retired.append(ws)
-        ws, grown = torch.empty(ws_floats, dtype=torch.float32,
-                                device=torch.device("cuda", dev)), True
-    if cnt is None or cnt.numel() < n_counters:
-        if cnt is not None:
-            _retired.append(cnt)
-        cnt, grown = torch.zeros(n_counters, dtype=torch.int32,
-                                 device=torch.device("cuda", dev)), True
-    _scratch[dev] = (ws, cnt)
-    if grown:
-        for key, c in _launch_cache.items():
-            if c.args is not None and key[-1] == dev:
-                c.args.contents.ws = ws.data_ptr()
-                c.args.contents.counters = cnt.data_ptr()
-    return ws.data_ptr(), cnt.data_ptr()
+# The split grid's workspace and counters.
+SCRATCH = Scratch()
 
 
 def _prepare(q, k_pool, v_pool, page_tables, context_lens, k_cur, v_cur,
              scale: float, dev: int) -> _Launch:
-    """The dtype and shape checks of a new key, its plan, and the device's
-    workspace grown to cover it."""
+    """The dtype and shape checks of a new key, its plan, and the scratch
+    its calls take."""
     dtype = check_tensors(
         "paged_decode",
         dict(q=q, k_pool=k_pool, v_pool=v_pool, k_cur=k_cur, v_cur=v_cur),
@@ -187,7 +160,7 @@ def _prepare(q, k_pool, v_pool, page_tables, context_lens, k_cur, v_cur,
             f"ctx={tuple(context_lens.shape)}")
     fn = _lib().kgct_paged_decode
     if B == 0:
-        return _Launch(layers, layer_bytes, None, fn)
+        return _Launch(layers, layer_bytes, None, fn, 0, 0)
     p = plan(B, n_kv, pps, ps, _sm_count(dev))
     ws = cnt = 0
     if dtype == DTYPE_CODES[torch.bfloat16] and p.splits > 1:
@@ -195,10 +168,10 @@ def _prepare(q, k_pool, v_pool, page_tables, context_lens, k_cur, v_cur,
         # splits * B * n_kv <= slots), so this covers every B of the
         # geometry: ``workspace_floats`` of any such plan is no larger.
         slots = BLOCKS_PER_SM * _sm_count(dev)
-        ws, cnt = _grow_scratch(dev, slots * (nh // n_kv) * (hd + 2), slots)
-    args = LaunchArgs(ws, cnt, B, nh, n_kv, hd, ps, pps, dtype,
+        ws, cnt = slots * (nh // n_kv) * (hd + 2), slots
+    args = LaunchArgs(0, 0, B, nh, n_kv, hd, ps, pps, dtype,
                       p.min_split, p.splits, scale)
-    return _Launch(layers, layer_bytes, ctypes.pointer(args), fn)
+    return _Launch(layers, layer_bytes, ctypes.pointer(args), fn, ws, cnt)
 
 
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -209,7 +182,6 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     [L, P, ps, n_kv*hd] with ``layer``; page_tables: [B, pps] int32;
     context_lens: [B] int32 (incl. the current token, 0 on padded rows);
     k_cur/v_cur: [B, n_kv, hd]. Returns [B, nh, hd] in q's dtype."""
-    global launches
     dev = device_of("paged_decode", (q, k_pool, v_pool, page_tables,
                                      context_lens, k_cur, v_cur))
     scale = float(scale)
@@ -226,11 +198,16 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     out = torch.empty_like(q)
     if c.args is None:
         return out
+    stream = raw_stream(dev)
+    if c.n_counters:
+        a = c.args.contents
+        a.ws, a.counters = SCRATCH.pointers(dev, stream, c.ws_floats,
+                                            c.n_counters)
     code = c.fn(q.data_ptr(), k_pool.data_ptr() + off,
                 v_pool.data_ptr() + off, page_tables.data_ptr(),
                 context_lens.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(),
-                out.data_ptr(), c.args, raw_stream(dev))
+                out.data_ptr(), c.args, stream)
     if code:
         build.check_status(_lib(), "paged_decode", code)
-    launches += 1
+    note_launch("paged_decode")
     return out

@@ -6,19 +6,26 @@ Replaces no TPU kernel: the JAX package computes this function in XLA
 ``ops.attention.spec_verify_attention_plain``; the kernel's note says why
 it exists and how it works.
 
-bf16 runs split-K as ``paged_decode`` does: the grid holds ``splits``
-blocks per (row, query group, kv head), each row's pooled tokens are cut
-evenly over them in the kernel, and the last block to finish merges the
-partials and the in-slice block. ``plan`` sizes the grid from the shapes
-and the SM count alone; the contexts stay on the device. A (row, kv head)
-has ``S * g`` queries, held by blocks of ``block_rows`` of them (16, 32 or
-64: one, two or four 16-row tensor-core tiles), ``groups`` blocks of a
-split when there are more than 64. The workspace and counters are this
-kernel's own, allocated once per device at the size of the largest grid
-a split call can have, and grown (the old ones kept alive for captured
-graphs) only for a wider head geometry; launch records are cached per
+bf16 cuts the call into units: segment (row, kv head, query group) has one
+unit per 64-key stage of the row's pooled history and one for its slice.
+The grid is the blocks the card keeps resident (``plan``: the SM count
+times the occupancy API's blocks an SM, one), and block c of the first
+P = min(grid, U) takes units [c U / P, (c + 1) U / P); every block
+computes U and its range from the contexts on the device, so the host
+plans from shapes alone.
+``schedule`` mirrors that cut for the tests. A (row, kv head) has
+``S * g`` queries, held by ``tile_groups`` 64-row tiles. The kernel
+reads the pool through TMA tensor maps over the whole stacked pool
+``[L * P * ps, n_kv * hd]`` (``layer_row`` is a layer's first row); a map
+holds the pool's address, so the library encodes the pair from each
+call's pool pointers. The workspace (two partial slots a block) and
+counters come from ``SCRATCH`` (``ops.cuda.Scratch``: one set per stream,
+one per capture), grown to the largest call; launch records are cached per
 (shapes, dtypes, scale, device) key, as in ``paged_decode``, and a key
 seen once outside a capture can be captured.
+
+fp32 keeps the CUDA-core tile: one block per (row, kv head, group of
+``block_rows`` queries).
 """
 
 from __future__ import annotations
@@ -30,87 +37,158 @@ from typing import NamedTuple
 import torch
 
 from ...utils import cdiv
-from . import (DTYPE_CODES, build, check_geometry, check_tensors, device_of,
-               layer_offset, pool_layers, raw_stream)
+from . import (DTYPE_CODES, Scratch, build, check_geometry, check_tensors,
+               device_of, layer_offset, note_launch, pool_layers, raw_stream)
 
 # Kernel launches since the last reset (the caller may set it to 0).
 launches = 0
 
-# Keys per stage of the bf16 kernel (csrc kSK, checked against the library
-# at load); the split rule is paged_decode's (ops/cuda/paged_decode.py).
+# Keys per stage and query rows per tile of the bf16 kernel (csrc kSK and
+# kTile); the most queries per row (S = k + 1). Checked against the library
+# at load.
 STAGE_KEYS = 64
-MIN_SPLIT_TOKENS = 512
-MAX_SPLITS = 16
-# Blocks per SM the grid may fill: two waves of the two a bf16 block's
-# 87 KB of shared memory (hd 128) lets the card keep resident.
-BLOCKS_PER_SM = 4
-# Most queries per row (S = k + 1) and per block (four 16-row tiles).
+TILE_ROWS = 64
 MAX_S = 16
-MAX_BLOCK_ROWS = 64
+# K and V bytes of the bf16 kernel's ring, one block an SM (csrc kRingBytes).
+RING_BYTES = 224 * 1024
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def ring_stages(hd: int) -> int:
+    """Ring slots of the bf16 kernel: 7 at hd 128, 14 at hd 64."""
+    return RING_BYTES // (4 * STAGE_KEYS * hd)
+
+
+def box_rows(ps: int) -> int:
+    """Rows of one TMA box: a page, or a stage's 64-key piece of a larger
+    page."""
+    return min(ps, STAGE_KEYS)
+
+
+def stage_boxes(ps: int, hd: int) -> int:
+    """TMA boxes of K (and as many of V) a whole stage takes: one per page
+    piece and 64-column half of the head."""
+    return STAGE_KEYS // box_rows(ps) * (hd // 64)
+
+
+def layer_row(layer: int, pages: int, ps: int) -> int:
+    """The first row of ``layer`` in the map over the stacked pool
+    ``[L * pages * ps, n_kv * hd]``."""
+    return layer * pages * ps
+
+
+def tile_groups(M: int) -> int:
+    """64-row wgmma tiles over the M = S * g queries of a (row, kv head)."""
+    return cdiv(M, TILE_ROWS)
+
+
+def seg_units(n_tok: int) -> int:
+    """Units of one segment over ``n_tok`` pooled keys: its 64-key stages
+    and the slice."""
+    return cdiv(n_tok, STAGE_KEYS) + 1
 
 
 def block_rows(M: int) -> int:
-    """Queries one block holds for M = S * g queries per (row, kv head):
-    the fewest 16-row tiles that hold them, at most four (csrc
-    ``block_rows``)."""
-    return 16 if M <= 16 else 32 if M <= 32 else MAX_BLOCK_ROWS
+    """Queries one fp32 block holds for M = S * g queries per (row, kv
+    head): 16, 32 or 64 (csrc ``block_rows``)."""
+    return 16 if M <= 16 else 32 if M <= 32 else 64
 
 
-class Plan(NamedTuple):
-    min_split: int      # fewest keys per split, a multiple of STAGE_KEYS
-    splits: int         # blocks per (row, group, kv head) in the grid
-    groups: int         # blocks of queries per (row, kv head)
+def plan(sms: int, resident: int) -> int:
+    """The bf16 grid: every block the card keeps resident, ``resident`` on
+    each of ``sms`` SMs. From the kernel and the card alone, never from
+    the context lengths."""
+    if resident < 1:
+        raise RuntimeError(f"spec_verify: the card keeps {resident} blocks "
+                           "of the kernel resident")
+    return sms * resident
 
 
-def plan(R: int, S: int, g: int, n_kv: int, pps: int, ps: int,
-         sms: int) -> Plan:
-    """The grid of an R-row call of S queries a row at g query heads per
-    kv head, over ``pps``-page tables of page size ``ps`` on a card of
-    ``sms`` SMs: ``paged_decode``'s rule over R * groups rows. From the
-    shapes alone, never from the context lengths."""
-    M = S * g
-    groups = cdiv(M, block_rows(M))
-    most = min(MAX_SPLITS, cdiv(pps * ps, MIN_SPLIT_TOKENS))
-    fit = BLOCKS_PER_SM * sms // max(1, R * groups * n_kv)
-    return Plan(MIN_SPLIT_TOKENS, max(1, min(most, fit)), groups)
+def block_of(U: int, blocks: int, u: int) -> int:
+    """The block whose units [c U / P, (c + 1) U / P) hold unit u (csrc
+    ``block_of``)."""
+    return ((u + 1) * blocks - 1) // U
 
 
-def split_ranges(p: Plan, n_tok: int) -> list[tuple[int, int]]:
-    """Key ranges [lo, hi) of the blocks that run for a row with ``n_tok``
-    pooled tokens, as the kernel cuts them (``paged_decode``'s cut)."""
-    size = max(p.min_split,
-               cdiv(cdiv(n_tok, p.splits), STAGE_KEYS) * STAGE_KEYS)
-    return [(s * size, min((s + 1) * size, n_tok))
-            for s in range(max(1, cdiv(n_tok, size)))]
+class Segment(NamedTuple):
+    row: int
+    kv_head: int
+    group: int
+    start: int          # first unit
+    units: int          # its stages, then the slice
+    blocks: tuple       # contributors, in merge order: (block, slot, lo, hi)
+
+
+def schedule(ctx, cap: int, n_kv: int, groups: int,
+             blocks: int) -> list[Segment]:
+    """The kernel's cut of a call, on the host: each segment with the
+    blocks that take its units [lo, hi) (segment-relative), found as the
+    kernel's merge finds them, and the workspace slot each leaves its
+    partial in (2c for block c's first segment, 2c + 1 for its last).
+    ``cap``: pooled keys a table covers (pps * ps)."""
+    units = [seg_units(min(max(int(c) - 1, 0), cap)) for c in ctx]
+    U = n_kv * groups * sum(units)
+    blocks = min(blocks, U)             # the blocks that take units
+    lo = [U * c // blocks for c in range(blocks + 1)]
+    segs, start = [], 0
+    for b, u in enumerate(units):
+        for seg in range(n_kv * groups):
+            parts = tuple(
+                (c, 2 * c + (lo[c] < start), max(lo[c], start) - start,
+                 min(lo[c + 1], start + u) - start)
+                for c in range(block_of(U, blocks, start),
+                               block_of(U, blocks, start + u - 1) + 1))
+            segs.append(Segment(b, seg // groups, seg % groups, start, u,
+                                parts))
+            start += u
+    return segs
 
 
 class LaunchArgs(ctypes.Structure):
     """csrc/spec_verify.cu's SpecVerifyLaunch: what every call of one key
     passes unchanged."""
     _fields_ = [("ws", _P), ("counters", _P)] + [
-        (f, _I) for f in ("R", "S", "nh", "n_kv", "hd", "ps", "pps", "dtype",
-                          "min_split", "splits")] + [
+        (f, _I) for f in ("R", "S", "nh", "n_kv", "hd", "ps", "pps", "pages",
+                          "layers", "dtype", "blocks")] + [
         ("scale", ctypes.c_float)]
+
+
+_HOST_MIRRORS = (  # (library function, argument tuples, wrapper function)
+    ("stages", [(64,), (128,)], ring_stages),
+    ("box_rows", [(ps,) for ps in (8, 16, 32, 64, 128)], box_rows),
+    ("stage_boxes", [(ps, hd) for ps in (8, 16, 32, 64, 128)
+                     for hd in (64, 128)], stage_boxes),
+    ("layer_row", [(0, 512, 16), (1, 512, 16), (31, 6144, 16),
+                   (3, 100, 128)], layer_row),
+    ("tile_groups", [(m,) for m in range(1, MAX_S * 16 + 1)], tile_groups),
+    ("seg_units", [(n,) for n in (0, 1, 63, 64, 65, 8191)], seg_units),
+    ("block_rows", [(m,) for m in range(1, MAX_S * 16 + 1)], block_rows),
+)
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.library("spec_verify")
     fn = lib.kgct_spec_verify
     if fn.argtypes is None:
-        for name in ("kgct_spec_verify_stage_keys", "kgct_spec_verify_max_s"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = _I
-        lib.kgct_spec_verify_block_rows.argtypes = [_I]
-        lib.kgct_spec_verify_block_rows.restype = _I
-        if (lib.kgct_spec_verify_stage_keys() != STAGE_KEYS
-                or lib.kgct_spec_verify_max_s() != MAX_S
-                or any(lib.kgct_spec_verify_block_rows(m) != block_rows(m)
-                       for m in range(1, MAX_S * 16 + 1))):
+        for name in ("stage_keys", "tile_rows", "max_s"):
+            f = getattr(lib, f"kgct_spec_verify_{name}")
+            f.argtypes, f.restype = [], _I
+        consts = (lib.kgct_spec_verify_stage_keys(),
+                  lib.kgct_spec_verify_tile_rows(),
+                  lib.kgct_spec_verify_max_s())
+        differ = [] if consts == (STAGE_KEYS, TILE_ROWS, MAX_S) else [consts]
+        for name, cases, mirror in _HOST_MIRRORS:
+            f = getattr(lib, f"kgct_spec_verify_{name}")
+            f.argtypes = [_I] * len(cases[0])
+            f.restype = _LL if name == "layer_row" else _I
+            differ += [(name, c) for c in cases if f(*c) != mirror(*c)]
+        if differ:
             raise RuntimeError("spec_verify: library constants differ from "
-                               "the wrapper's")
-        fn.argtypes = [_P] * 8 + [ctypes.POINTER(LaunchArgs), _P]
+                               f"the wrapper's: {differ[:4]}")
+        lib.kgct_spec_verify_resident.argtypes = [_I]
+        lib.kgct_spec_verify_resident.restype = _I
+        fn.argtypes = [_P] * 8 + [ctypes.POINTER(LaunchArgs), _I, _P]
         fn.restype = _I
     return lib
 
@@ -120,48 +198,35 @@ def _sm_count(dev: int) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _resident(dev: int, hd: int) -> int:
+    with torch.cuda.device(dev):
+        n = _lib().kgct_spec_verify_resident(hd)
+    if n < 0:
+        build.check_status(_lib(), "spec_verify", -n)
+    return n
+
+
 class _Launch(NamedTuple):
     """What a call of one key reuses."""
     layers: int         # L of a stacked pool, 0 for a one-layer pool
     layer_bytes: int    # bytes between two layers of a stacked pool
     args: object        # pointer to LaunchArgs, or None when R == 0
     fn: object          # the library's kgct_spec_verify
+    ws_floats: int      # workspace and counters a call takes (0: none)
+    n_counters: int
 
 
 # (shapes, dtypes, scale, device index) -> _Launch
 _launch_cache: dict[tuple, _Launch] = {}
-# Per device index: the current workspace and counters.
-_scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-# Outgrown workspaces, kept alive for graphs captured while they were current.
-_retired: list[torch.Tensor] = []
-
-
-def _grow_scratch(dev: int, ws_floats: int, n_counters: int) -> tuple[int, int]:
-    ws, cnt = _scratch.get(dev, (None, None))
-    grown = False
-    if ws is None or ws.numel() < ws_floats:
-        if ws is not None:
-            _retired.append(ws)
-        ws, grown = torch.empty(ws_floats, dtype=torch.float32,
-                                device=torch.device("cuda", dev)), True
-    if cnt is None or cnt.numel() < n_counters:
-        if cnt is not None:
-            _retired.append(cnt)
-        cnt, grown = torch.zeros(n_counters, dtype=torch.int32,
-                                 device=torch.device("cuda", dev)), True
-    _scratch[dev] = (ws, cnt)
-    if grown:
-        for key, c in _launch_cache.items():
-            if c.args is not None and key[-1] == dev:
-                c.args.contents.ws = ws.data_ptr()
-                c.args.contents.counters = cnt.data_ptr()
-    return ws.data_ptr(), cnt.data_ptr()
+# The split plan's workspace and counters.
+SCRATCH = Scratch()
 
 
 def _prepare(q, k_pool, v_pool, page_tables, context_lens, k_new, v_new,
              scale: float, dev: int) -> _Launch:
-    """The dtype and shape checks of a new key, its plan, and the device's
-    workspace grown to cover it."""
+    """The dtype and shape checks of a new key, its plan, and the scratch
+    its calls take."""
     dtype = check_tensors(
         "spec_verify",
         dict(q=q, k_pool=k_pool, v_pool=v_pool, k_new=k_new, v_new=v_new),
@@ -194,17 +259,15 @@ def _prepare(q, k_pool, v_pool, page_tables, context_lens, k_new, v_new,
             f"ctx={tuple(context_lens.shape)}")
     fn = _lib().kgct_spec_verify
     if R == 0:
-        return _Launch(layers, layer_bytes, None, fn)
-    p = plan(R, S, nh // n_kv, n_kv, pps, ps, _sm_count(dev))
-    ws = cnt = 0
-    if dtype == DTYPE_CODES[torch.bfloat16] and p.splits > 1:
-        # A split grid holds at most BLOCKS_PER_SM blocks an SM (``plan``),
-        # so this covers every R of the geometry.
-        slots = BLOCKS_PER_SM * _sm_count(dev)
-        ws, cnt = _grow_scratch(dev, slots * MAX_BLOCK_ROWS * (hd + 2), slots)
-    args = LaunchArgs(ws, cnt, R, S, nh, n_kv, hd, ps, pps, dtype,
-                      p.min_split, p.splits, scale)
-    return _Launch(layers, layer_bytes, ctypes.pointer(args), fn)
+        return _Launch(layers, layer_bytes, None, fn, 0, 0)
+    blocks = ws = cnt = 0
+    if dtype == DTYPE_CODES[torch.bfloat16]:
+        blocks = plan(_sm_count(dev), _resident(dev, hd))
+        ws = 2 * blocks * TILE_ROWS * (hd + 2)
+        cnt = R * n_kv * tile_groups(S * (nh // n_kv))
+    args = LaunchArgs(0, 0, R, S, nh, n_kv, hd, ps, pps, P, max(layers, 1),
+                      dtype, blocks, scale)
+    return _Launch(layers, layer_bytes, ctypes.pointer(args), fn, ws, cnt)
 
 
 def spec_verify(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -216,7 +279,6 @@ def spec_verify(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     layer) or [L, P, ps, n_kv*hd] with ``layer``; page_tables: [R, pps]
     int32; context_lens: [R] int32 (committed tokens incl. the slice's
     first, 0 on padding rows). Returns [R*S, nh, hd] in q's dtype."""
-    global launches
     dev = device_of("spec_verify", (q, k_new, v_new, k_pool, v_pool,
                                     page_tables, context_lens))
     scale = float(scale)
@@ -229,15 +291,20 @@ def spec_verify(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
         c = _launch_cache[key] = _prepare(q, k_pool, v_pool, page_tables,
                                           context_lens, k_new, v_new, scale,
                                           dev)
-    off = layer_offset("spec_verify", c.layers, c.layer_bytes, layer)
+    layer_offset("spec_verify", c.layers, c.layer_bytes, layer)  # checks it
     out = torch.empty_like(q)
     if c.args is None:
         return out
-    code = c.fn(q.data_ptr(), k_pool.data_ptr() + off,
-                v_pool.data_ptr() + off, page_tables.data_ptr(),
-                context_lens.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                out.data_ptr(), c.args, raw_stream(dev))
+    stream = raw_stream(dev)
+    if c.n_counters:
+        a = c.args.contents
+        a.ws, a.counters = SCRATCH.pointers(dev, stream, c.ws_floats,
+                                            c.n_counters)
+    code = c.fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                page_tables.data_ptr(), context_lens.data_ptr(),
+                k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), c.args,
+                layer or 0, stream)
     if code:
         build.check_status(_lib(), "spec_verify", code)
-    launches += 1
+    note_launch("spec_verify")
     return out

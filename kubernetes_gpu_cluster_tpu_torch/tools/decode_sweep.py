@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops import attention as A
+from ..ops.cuda import capture_scratch
 from ..ops.cuda import paged_decode as pd
 
 NH, N_KV, HD, PS, PPS = 32, 8, 128, 16, 512
@@ -68,7 +69,7 @@ def graph_ms(fn, reps: int = 20) -> float:
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture_scratch() as scratch, torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()

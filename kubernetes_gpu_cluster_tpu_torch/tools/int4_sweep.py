@@ -39,7 +39,7 @@ from pathlib import Path
 import torch
 
 from ..ops import quant as Q
-from ..ops.cuda import build
+from ..ops.cuda import build, capture_scratch
 from ..ops.cuda import int4_matmul as C4
 
 L2_BYTES = 50 * 2 ** 20
@@ -114,7 +114,7 @@ def graph_ms(fn, reps: int) -> float:
         fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with capture_scratch() as scratch, torch.cuda.graph(g):
         for _ in range(reps):
             fn()
     g.replay()
@@ -151,7 +151,7 @@ def _use(lib: ctypes.CDLL, resident: int | None,
     lib.kgct_int4_matmul_tile_cols.restype = ctypes.c_int
     C4._lib = lambda: lib
     C4._launch_cache.clear()
-    C4._scratch.clear()
+    C4.SCRATCH.clear()
     max_r = lib.kgct_int4_matmul_resident
     cols = lib.kgct_int4_matmul_tile_cols(C4.DECODE)
 

@@ -358,16 +358,21 @@ def test_spec_verify_plain_whole_table_matches_jax(nh, nkv, hd, S, ctx, ps,
 @pytest.mark.parametrize("S,g", [(2, 1), (5, 4), (9, 4), (5, 7), (5, 8),
                                  (9, 16), (16, 16)])
 def test_spec_verify_blocks_hold_every_query_once(S, g):
-    """A (row, kv head)'s S * g queries in blocks of ``block_rows``: the
-    fewest 16-row tiles that hold them, at most four, ``groups`` blocks
-    covering them once."""
+    """A (row, kv head)'s S * g queries: bf16 in ``tile_groups`` 64-row
+    wgmma tiles, the fewest that hold them (one up to 64 queries); fp32 in
+    blocks of ``block_rows``, the fewest 16-row tiles, at most four. Each
+    cover holds every query once."""
     M = S * g
+    groups = csv.tile_groups(M)
+    assert groups == -(-M // csv.TILE_ROWS) and (groups == 1) == (M <= 64)
+    tiles = [list(range(grp * 64, min((grp + 1) * 64, M)))
+             for grp in range(groups)]
+    assert [x for t in tiles for x in t] == list(range(M))
+    assert all(0 < len(t) <= csv.TILE_ROWS for t in tiles)
     rows = csv.block_rows(M)
     assert rows in (16, 32, 64) and (rows >= M or rows == 64)
     assert rows == 16 or rows // 2 < M
-    p = csv.plan(32, S, g, 8, 512, 16, 132)
-    assert p.groups == -(-M // rows)
-    covered = [q for grp in range(p.groups)
+    covered = [q for grp in range(-(-M // rows))
                for q in range(grp * rows, min((grp + 1) * rows, M))]
     assert covered == list(range(M))
 
@@ -376,32 +381,89 @@ def test_spec_verify_blocks_hold_every_query_once(S, g):
                                         (4, 9, 16, 1), (8, 2, 1, 12)])
 @pytest.mark.parametrize("pps,ps", [(512, 16), (1, 8), (33, 64)])
 def test_spec_verify_plan_covers_every_token_once(R, S, g, n_kv, pps, ps):
-    """The verify kernel's split plan, ``paged_decode``'s rule over its R *
-    groups blocks of queries: host math on the shapes and the SM count
-    alone, the grid within BLOCKS_PER_SM blocks an SM whenever it splits
-    (the workspace's size), every pooled token in one split."""
-    p = csv.plan(R, S, g, n_kv, pps, ps, 132)
-    assert p == csv.plan(R, S, g, n_kv, pps, ps, 132)
-    assert 1 <= p.splits <= csv.MAX_SPLITS
-    assert p.min_split % csv.STAGE_KEYS == 0
-    if p.splits > 1:
-        assert p.splits * R * p.groups * n_kv <= csv.BLOCKS_PER_SM * 132
+    """The verify kernel's cut, mirrored by ``schedule``: on 132 SMs at one
+    block each, every segment's units (its 64-key stages, then the slice)
+    taken once, in order, by the blocks the kernel's merge finds, each with
+    units; every pooled token in one stage; each (block, slot) holds one
+    partial; every block's share within one unit of the others'."""
+    blocks = csv.plan(132, 1)
     width = pps * ps
-    for n_tok in sorted({0, 1, ps, p.min_split + 1, width // 2, width}):
-        ranges = csv.split_ranges(p, n_tok)
-        assert 1 <= len(ranges) <= p.splits
-        assert [t for lo, hi in ranges for t in range(lo, hi)] == list(
-            range(n_tok))
+    lens = [0, 1, 2, ps, ps + 1, 65, width // 2 + 1, width, width + 7]
+    ctx = [lens[(i * 5) % len(lens)] for i in range(R)]
+    groups = csv.tile_groups(S * g)
+    segs = csv.schedule(ctx, width, n_kv, groups, blocks)
+    assert len(segs) == R * n_kv * groups
+    U = sum(s.units for s in segs)
+    P = min(blocks, U)
+    shares = [U * (c + 1) // P - U * c // P for c in range(P)]
+    assert min(shares) >= 1 and max(shares) - min(shares) <= 1
+    slots = set()
+    for s in segs:
+        n_tok = min(max(ctx[s.row] - 1, 0), width)
+        assert s.units == -(-n_tok // 64) + 1
+        assert s.blocks[0][2] == 0 and s.blocks[-1][3] == s.units
+        assert all(x[3] == y[2] for x, y in zip(s.blocks, s.blocks[1:]))
+        assert [c for c, *_ in s.blocks] == sorted(c for c, *_ in s.blocks)
+        keys = [t for i in range(s.units - 1)
+                for t in range(64 * i, min(64 * (i + 1), n_tok))]
+        assert keys == list(range(n_tok))
+        if len(s.blocks) > 1:
+            slots.update((c, slot) for c, slot, *_ in s.blocks)
+            assert all(slot in (2 * c, 2 * c + 1) for c, slot, *_ in s.blocks)
+    assert len(slots) == sum(len(s.blocks) for s in segs
+                             if len(s.blocks) > 1)
 
 
 def test_spec_verify_plan_engine_shape():
     """llama-3-8b (g 4, 8 kv heads) at the engine's 512-page table on 132
-    SMs: 20 queries a (row, kv head) at k 4 take one block of two tiles;
-    at R 32 the grid splits each row in 2, at R 1 in 16."""
-    assert csv.plan(32, 5, 4, 8, 512, 16, 132) == csv.Plan(512, 2, 1)
-    assert csv.plan(1, 5, 4, 8, 512, 16, 132) == csv.Plan(512, 16, 1)
-    assert csv.plan(32, 9, 4, 8, 512, 16, 132) == csv.Plan(512, 2, 1)
-    assert csv.plan(32, 5, 16, 1, 512, 16, 132).groups == 2
+    SMs at one block each: 132 blocks whatever R; 20 queries a (row, kv
+    head) at k 4 in one tile, 36 at k 8, qwen2.5-7b's 35 (g 7) too, 256
+    at g 16 x S 16 in four. At R 32 over contexts 512-2048 every block
+    takes 43 or 44 units, about two segments' worth, and half the segments
+    are cut in two, none in more; at R 1 and 8191 keys each of the row's 8
+    segments is cut over 17 blocks."""
+    assert csv.plan(132, 1) == 132
+    assert [csv.tile_groups(M) for M in (20, 36, 35, 64, 65, 256)] == [
+        1, 1, 1, 1, 2, 4]
+    ctx = np.random.default_rng(0).integers(512, 2049, 32)
+    segs = csv.schedule(ctx, 8192, 8, 1, 132)
+    U = sum(s.units for s in segs)
+    assert U == 8 * sum(-(-(int(c) - 1) // 64) + 1 for c in ctx)
+    assert U // 132 == 43
+    assert sum(len(s.blocks) > 1 for s in segs) == len(segs) // 2
+    assert max(len(s.blocks) for s in segs) == 2
+    segs = csv.schedule([8191], 8192, 8, 1, 132)
+    assert {len(s.blocks) for s in segs} == {17}
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("ps", [8, 16, 32, 64, 128])
+def test_spec_verify_tma_boxes_per_stage(ps, hd):
+    """A stage of 64 keys as TMA boxes: a box is one page (or a 64-key
+    piece of a larger page) by one 64-column half (128 bytes, the
+    swizzle's line), whole 8-row atoms, so every box lands 1024-aligned;
+    K's and V's boxes fit the producer warp's 32 lanes; the ring holds at
+    least three stages in 96 KB."""
+    br = csv.box_rows(ps)
+    assert br % 8 == 0 and (ps % br == 0) and 64 % br == 0
+    pieces = csv.stage_boxes(ps, hd) // (hd // 64)
+    assert pieces * br == csv.STAGE_KEYS
+    assert 2 * csv.stage_boxes(ps, hd) <= 32
+    stage_bytes = 2 * csv.STAGE_KEYS * hd * 2
+    assert csv.ring_stages(hd) >= 3
+    assert csv.ring_stages(hd) * stage_bytes <= csv.RING_BYTES
+
+
+@pytest.mark.parametrize("L,layer", [(1, 0), (2, 1), (32, 31)])
+def test_spec_verify_layer_row_offset(L, layer):
+    """The tensor map covers the stacked pool as rows of n_kv * hd:
+    ``layer_row(layer, P, ps) + page * ps + t`` is pool[layer, page, t]."""
+    P, ps, kd = 5, 16, 24
+    pool = torch.arange(L * P * ps * kd).reshape(L, P, ps, kd)
+    flat = pool.reshape(-1, kd)
+    for page, t in ((0, 0), (3, 7), (P - 1, ps - 1)):
+        row = csv.layer_row(layer, P, ps) + page * ps + t
+        assert torch.equal(flat[row], pool[layer, page, t])
 
 
 def test_history_valid_tokens():

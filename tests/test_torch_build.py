@@ -6,12 +6,14 @@ each ``lib<name>.so`` holds the sha256 of its source, the shared headers and
 and a copy of ``csrc/`` at a temp dir, make ``nvcc_path`` raise, and hold
 what counts as current, what as stale, and what a stale library with no
 ``nvcc`` does. A stand-in ``nvcc`` (a Python script that writes its ``-o``
-file) drives the build path itself: the library and its stamp, the
-per-kernel seconds and register lines of the command line, a failed compile.
+file) drives the build path itself: the library, its ptxas report and its
+stamp, the per-kernel seconds and register lines of the command line, a
+failed compile.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import stat
@@ -35,8 +37,13 @@ if "FAIL" in open(src).read():
     sys.exit(2)
 with open(args[args.index("-o") + 1], "wb") as f:
     f.write(b"\\x7fELF fake " + src.encode())
+print("ptxas info    : Compiling entry function 'kgct_fake' for 'sm_90a'")
+print("    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
 print("ptxas info    : Used 42 registers, 0 bytes smem")
 """
+
+FAKE_REPORT = [{"function": "kgct_fake", "stack": 0, "spill_stores": 0,
+                "spill_loads": 0, "registers": 42, "smem": 0}]
 
 
 def _no_nvcc():
@@ -173,6 +180,21 @@ def test_int4_sweep_builds_under_the_kernel_dir(kdir, monkeypatch):
     assert cmd[cmd.index("-o") + 1] == str(lib)
 
 
+def test_spec_vs_parent_gives_each_tree_its_own_kernels(tmp_path,
+                                                       monkeypatch):
+    """The two trees' verify kernels differ, so each child and build runs
+    with its own tree on the path and its own default kernel directory;
+    the child's script is valid Python; an unknown tree name is refused."""
+    from kubernetes_gpu_cluster_tpu_torch.tools import spec_vs_parent as svp
+    monkeypatch.setenv("KGCT_KERNEL_DIR", str(tmp_path / "shared"))
+    env = svp._env(tmp_path)
+    assert "KGCT_KERNEL_DIR" not in env
+    assert env["PYTHONPATH"] == str(tmp_path)
+    compile(svp.CHILD, "spec_vs_parent child", "exec")
+    with pytest.raises(SystemExit):
+        svp.main(["--parent", str(tmp_path), "--order", "tree,other"])
+
+
 def test_build_writes_library_then_stamp(kdir, fake_nvcc):
     secs = build.build(("paged_decode", "spec_verify"))
     assert secs > 0
@@ -183,9 +205,12 @@ def test_build_writes_library_then_stamp(kdir, fake_nvcc):
         assert not build.stale(n)
         assert "42 registers" in build.build_log[n]
         assert build.build_seconds[n] > 0
+        assert build.ptxas_of(n) == FAKE_REPORT
     assert sorted(p.name for p in kdir.iterdir()) == [
-        "libpaged_decode.so", "libpaged_decode.so.sha256",
-        "libspec_verify.so", "libspec_verify.so.sha256"]
+        "libpaged_decode.so", "libpaged_decode.so.ptxas.json",
+        "libpaged_decode.so.sha256",
+        "libspec_verify.so", "libspec_verify.so.ptxas.json",
+        "libspec_verify.so.sha256"]
     assert build.build(("paged_decode", "spec_verify")) == 0.0
 
 
@@ -196,7 +221,8 @@ def test_a_failed_compile_raises_and_leaves_nothing(kdir, fake_nvcc):
     assert not build.stale("paged_decode")
     assert build.stale("spec_verify")
     assert sorted(p.name for p in kdir.iterdir()) == [
-        "libpaged_decode.so", "libpaged_decode.so.sha256"]
+        "libpaged_decode.so", "libpaged_decode.so.ptxas.json",
+        "libpaged_decode.so.sha256"]
 
 
 def test_command_line_prints_seconds_and_registers(kdir, fake_nvcc, capsys):
@@ -212,6 +238,42 @@ def test_command_line_prints_seconds_and_registers(kdir, fake_nvcc, capsys):
     assert build.main() == 0
     out = capsys.readouterr().out
     assert all(f"{n}: current" in out for n in build.KERNELS)
+
+
+def test_command_line_prints_the_kept_ptxas_report_of_current_kernels(
+        kdir, fake_nvcc, capsys):
+    """A second run builds nothing and still prints every kernel's ptxas
+    report, read from beside its library; a library built with no report
+    (by an older build) prints null."""
+    _current("int4_matmul")
+    assert build.main() == 0
+    first = capsys.readouterr().out
+    assert build.main() == 0
+    again = capsys.readouterr().out
+    assert ": built in" not in again
+    for n in build.KERNELS:
+        want = "null" if n == "int4_matmul" else json.dumps(FAKE_REPORT)
+        for out in (first, again):
+            assert f"  [{n}] ptxas: {want}\n" in out
+
+
+def test_ptxas_report_reads_each_entry_function():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelILi128EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi128EEvv
+    8 bytes stack frame, 244 bytes spill stores, 196 bytes spill loads
+ptxas info    : Used 168 registers, 16 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z6kernelILi64EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi64EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 213 registers, 400 bytes cmem[0]
+"""
+    assert build.ptxas_report(log) == [
+        {"function": "_Z6kernelILi128EEvv", "stack": 8, "spill_stores": 244,
+         "spill_loads": 196, "registers": 168, "smem": 16},
+        {"function": "_Z6kernelILi64EEvv", "stack": 0, "spill_stores": 0,
+         "spill_loads": 0, "registers": 213}]
+    assert build.ptxas_report("nvcc: no entry functions\n") == []
 
 
 def test_command_line_with_no_nvcc_exits_non_zero(tmp_path):

@@ -403,6 +403,36 @@ def _scalar(value: int, device) -> torch.Tensor:
 
 
 @pytest.mark.gpu
+def test_split_calls_on_two_streams_at_once_share_no_scratch(cuda_device):
+    """An engine's capture warm-up runs on its side stream while another
+    engine's thread launches on the default one: split-K calls on the two
+    streams at once, from two threads, give the bits of the same call made
+    alone, and leave every counter at 0."""
+    import threading
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    args = _decode_case(g, torch.bfloat16, cuda_device, 32, 8, 128, 16,
+                        [2048, 1500, 700, 1], 128)
+    want = cpd.paged_decode(*args, layer=1)
+    torch.cuda.synchronize()
+    outs = {}
+    go = threading.Barrier(2)
+
+    def run(name, stream):
+        with torch.cuda.stream(stream):
+            go.wait()
+            outs[name] = [cpd.paged_decode(*args, layer=1)
+                          for _ in range(200)]
+        stream.synchronize()
+    other = threading.Thread(target=run, args=("side", torch.cuda.Stream()))
+    other.start()
+    run("default", torch.cuda.current_stream())
+    other.join()
+    for name, got in outs.items():
+        assert all(torch.equal(o, want) for o in got), name
+    assert cpd.SCRATCH.counters_in_use() == 0
+
+
+@pytest.mark.gpu
 def test_two_pools_interleaved_through_one_wrapper(cuda_device):
     """Draft-model speculation alternates the target pool and the draft
     model's pool on one stream: llama-3-8b heads over a 4-layer pool and
@@ -524,12 +554,13 @@ def test_spec_verify_matches_plain(cuda_device, dtype, S, nh, n_kv, hd, ps):
 @pytest.mark.parametrize("R", [1, 8, 32])
 def test_spec_verify_split_contexts(cuda_device, dtype, R):
     """llama-3-8b heads over the engine's table (8192 keys): contexts at a
-    split's edge and past it, 4097 and 8191 keys, a padding row; R 1 runs
-    16 splits a row, R 32 two. The same bits on a second call (splits
-    merged in a fixed order, counters left at 0)."""
+    stage's edge and past it, 4097 and 8191 keys, a padding row; at R 1
+    the row's eight segments are cut over every block of the grid, at R 32
+    most segments over two or three. The same bits on a second call
+    (partials merged in block order, counters left at 0)."""
     nh, n_kv, hd, ps, S = 32, 8, 128, 16, 5
-    M = csv.MIN_SPLIT_TOKENS
-    base = [8191, 1, ps, M, M + 1, M + 2, 4097, 0]
+    K = csv.STAGE_KEYS
+    base = [8191, 1, ps, K, K + 1, K + 2, 4097, 0]
     ctx = (base * 4)[:R] if R > 1 else [8191]
     g = torch.Generator(device=cuda_device).manual_seed(41)
     args = _verify_case(g, dtype, cuda_device, nh, n_kv, hd, ps, ctx,
@@ -564,6 +595,86 @@ def test_spec_verify_captured_once_replayed_per_context(cuda_device, dtype):
         torch.cuda.synchronize()
         torch.testing.assert_close(out, A.spec_verify_attention_plain(
             *args, layer=1), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("nh,n_kv,S", [(8, 8, 5), (32, 8, 5), (28, 4, 5),
+                                       (32, 8, 16), (32, 4, 9), (16, 1, 16)])
+def test_spec_verify_tile_regimes(cuda_device, nh, n_kv, S, ps):
+    """bf16 at M = S * g queries a (row, kv head) in each tile regime: 5,
+    20 (llama-3-8b), 35 (qwen2.5-7b's g 7), 64 (one full tile), 72 (two
+    tiles) and 256 (four), over contexts at page and stage edges (1, ps,
+    64, 65, 8191 and beside them) and padding rows, against the plain
+    version; the same bits on a second call."""
+    hd = 128
+    ctx = [1, ps, 64, 65, 8191, 0, ps + 1, 129, 0, 2]
+    g = torch.Generator(device=cuda_device).manual_seed(43 + S)
+    args = _verify_case(g, torch.bfloat16, cuda_device, nh, n_kv, hd, ps,
+                        ctx, 8192 // ps, S)
+    before = csv.launches
+    got = csv.spec_verify(*args, layer=1)
+    assert csv.launches == before + 1
+    torch.testing.assert_close(got, A.spec_verify_attention_plain(
+        *args, layer=1), atol=TOL[torch.bfloat16], rtol=0)
+    assert torch.equal(csv.spec_verify(*args, layer=1), got)
+
+
+@pytest.mark.gpu
+def test_spec_verify_two_pools_of_one_shape(cuda_device):
+    """A target's and a draft's pools of one shape, read alternately through
+    one wrapper: each call reads its own pool (a tensor map holds a pool's
+    address; the launch encodes the pair from each call's pool pointers),
+    layer 0 and layer 1 alike."""
+    nh, n_kv, hd, ps, S = 32, 8, 128, 16, 5
+    ctx = [700, 1, 2048, 0, 65]
+    g = torch.Generator(device=cuda_device).manual_seed(44)
+    a = _verify_case(g, torch.bfloat16, cuda_device, nh, n_kv, hd, ps, ctx,
+                     128, S)
+    b = list(_verify_case(g, torch.bfloat16, cuda_device, nh, n_kv, hd, ps,
+                          ctx, 128, S))
+    b[:3] = a[:3]                       # the same queries, other pools
+    want = {id(x): {layer: A.spec_verify_attention_plain(*x, layer=layer)
+                    for layer in (0, 1)} for x in (a, b)}
+    outs = {}
+    for _ in range(2):
+        for x in (a, b, a, b):
+            for layer in (1, 0):
+                got = csv.spec_verify(*x, layer=layer)
+                torch.testing.assert_close(got, want[id(x)][layer],
+                                           atol=TOL[torch.bfloat16], rtol=0)
+                key = (id(x), layer)
+                assert key not in outs or torch.equal(outs[key], got)
+                outs[key] = got
+    assert not torch.equal(outs[(id(a), 1)], outs[(id(b), 1)])
+
+
+@pytest.mark.gpu
+def test_spec_verify_replays_are_bit_identical(cuda_device):
+    """One bf16 launch captured once, replayed twice at each of several
+    contexts written into its buffer: both replays and an eager call at
+    those contexts give the same bits."""
+    nh, n_kv, hd, ps, S, pps = 32, 8, 128, 16, 5, 512
+    g = torch.Generator(device=cuda_device).manual_seed(45)
+    args = list(_verify_case(g, torch.bfloat16, cuda_device, nh, n_kv, hd,
+                             ps, [8191] * 8, pps, S))
+    ctx = args[6]
+    csv.spec_verify(*args, layer=1)                       # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = csv.spec_verify(*args, layer=1)
+    for lens in ([8191] * 8, [1, 0, 64, 65, 8191, 513, 2, 4096],
+                 [0] * 8, [16, 17, 1000, 1, 0, 3000, 8000, 63]):
+        ctx.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        first = out.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(first, out)
+        assert torch.equal(csv.spec_verify(*args, layer=1), out)
+        torch.testing.assert_close(out, A.spec_verify_attention_plain(
+            *args, layer=1), atol=TOL[torch.bfloat16], rtol=0)
 
 
 @pytest.mark.gpu

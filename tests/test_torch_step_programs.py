@@ -320,3 +320,156 @@ def test_the_collector_is_paused_while_any_capture_is_open():
             assert not gc.isenabled()
             raise RuntimeError("capture failed")
     assert gc.isenabled()
+
+
+@pytest.mark.parametrize("kernel", ["paged_decode", "flash_prefill",
+                                    "flash_prefill_hist", "int4_matmul",
+                                    "spec_verify"])
+def test_note_launch_counts_in_the_wrappers_launches(kernel):
+    """The one call at a wrapper's launch site counts the launch in that
+    wrapper's ``launches`` and no other's."""
+    import importlib
+
+    from kubernetes_gpu_cluster_tpu_torch.ops import cuda as cuda_ops
+    mods = {n: importlib.import_module(f"{cuda_ops.__name__}.{n}")
+            for n in ("paged_decode", "flash_prefill", "flash_prefill_hist",
+                      "int4_matmul", "spec_verify")}
+    saved = {n: m.launches for n, m in mods.items()}
+    try:
+        for m in mods.values():
+            m.launches = 5
+        with cuda_ops.tally_launches() as tally:
+            cuda_ops.note_launch(kernel)
+            cuda_ops.note_launch(kernel)
+        assert tally == {kernel: 2}
+        assert {n: m.launches for n, m in mods.items()} == {
+            n: 7 if n == kernel else 5 for n in mods}
+        cuda_ops.note_launch(kernel)            # no tally open: global only
+        assert mods[kernel].launches == 8
+    finally:
+        for n, m in mods.items():
+            m.launches = saved[n]
+
+
+def test_a_capture_tallies_only_its_own_threads_launches():
+    """Engines of one process step in threads of their own: a capture's
+    tally holds its thread's kernel launches only, whatever another thread
+    launches (or captures) meanwhile, and taking it back leaves the other
+    thread's counts whole. Each launch also counts in its wrapper's
+    global ``launches``."""
+    import threading
+
+    from kubernetes_gpu_cluster_tpu_torch.ops import cuda as cuda_ops
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import paged_decode as pd
+    from kubernetes_gpu_cluster_tpu_torch.ops.cuda import spec_verify as sv
+    saved = pd.launches, sv.launches
+    opened, done = threading.Event(), threading.Event()
+    other = {}
+
+    def engine_b():
+        opened.wait()
+        with cuda_ops.tally_launches() as tally:
+            for _ in range(7):
+                cuda_ops.note_launch("paged_decode")
+        other.update(tally)
+        done.set()
+    try:
+        pd.launches, sv.launches = 100, 0
+        worker = threading.Thread(target=engine_b)
+        worker.start()
+        with cuda_ops.tally_launches() as recorded:
+            cuda_ops.note_launch("paged_decode")
+            opened.set()
+            done.wait()
+            with cuda_ops.tally_launches() as inner:   # nested: its own
+                cuda_ops.note_launch("spec_verify")
+            cuda_ops.note_launch("paged_decode")
+        worker.join()
+        assert recorded == {"paged_decode": 2} and inner == {"spec_verify": 1}
+        assert other == {"paged_decode": 7}
+        assert (pd.launches, sv.launches) == (100 + 2 + 7, 1)
+        cuda_ops.add_launches({k: -n for k, n in recorded.items()})
+        assert pd.launches == 100 + 7           # the other thread's stay
+    finally:
+        pd.launches, sv.launches = saved
+
+
+@pytest.fixture
+def host_scratch(monkeypatch):
+    """A ``Scratch`` whose sets are host tensors, and a switch for
+    whether the current stream is capturing (the CPU tests have no card)."""
+    from kubernetes_gpu_cluster_tpu_torch.ops import cuda as cuda_ops
+    monkeypatch.setattr(cuda_ops.Scratch, "_new", staticmethod(
+        lambda dev, ws, n: (torch.empty(max(ws, 1)),
+                            torch.zeros(max(n, 1), dtype=torch.int32))))
+    capturing = {"on": False}
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing["on"])
+    return cuda_ops.Scratch(), capturing
+
+
+def test_scratch_gives_each_stream_a_set_of_its_own(host_scratch):
+    """Calls on one stream share a set, grown to the largest call; calls
+    on two streams (an engine's capture warm-up on its side stream, other
+    engines on the default one) never share one."""
+    s, _ = host_scratch
+    main = s.pointers(0, 0, 10, 4)
+    assert s.pointers(0, 0, 8, 2) == main
+    side = s.pointers(0, 0x7f01, 10, 4)
+    assert not set(side) & set(main)
+    grown = s.pointers(0, 0, 20, 2)
+    assert grown != main
+    ws, cnt = s._sets[(0, 0)]
+    assert (ws.numel(), cnt.numel()) == (20, 4)       # the largest of each
+    assert len(s._sets.retired) == 2                  # the outgrown pair lives
+    assert s.pointers(1, 0, 10, 4) not in (main, grown)   # another device
+    assert s.counters_in_use() == 0
+    cnt[1] = 1
+    assert s.counters_in_use() == 1
+
+
+def test_scratch_gives_each_capture_a_set_of_its_own(host_scratch):
+    """Inside ``capture_scratch`` every call of the capture takes the
+    capture's one set, apart from its stream's and from any other
+    capture's; the set is handed to the caller to keep with the graph.
+    The context is this thread's only."""
+    import threading
+
+    from kubernetes_gpu_cluster_tpu_torch.ops import cuda as cuda_ops
+    s, capturing = host_scratch
+    eager = s.pointers(0, 0x7f01, 10, 4)
+    capturing["on"] = True
+    with cuda_ops.capture_scratch() as first:
+        a = s.pointers(0, 0x7f01, 10, 4)
+        assert s.pointers(0, 0x7f01, 6, 2) == a
+        seen = {}
+        t = threading.Thread(target=lambda: seen.update(
+            p=s.pointers(0, 0x7f01, 10, 4)))
+        t.start()
+        t.join()
+    with cuda_ops.capture_scratch() as second:
+        b = s.pointers(0, 0x7f01, 10, 4)
+    capturing["on"] = False
+    assert seen["p"] == eager              # the other thread: its stream's
+    assert len({eager, a, b}) == 3
+    assert [tuple(t.data_ptr() for t in v) for v in first.values()] == [a]
+    assert [tuple(t.data_ptr() for t in v) for v in second.values()] == [b]
+    assert s.pointers(0, 0x7f01, 10, 4) == eager
+
+
+def test_a_capture_without_its_context_makes_no_stream_set(host_scratch):
+    """A capture outside ``capture_scratch`` uses its stream's set when
+    that is made and large enough; else it takes a set of the call's own
+    (zeroed only when the graph runs), and never leaves one behind as the
+    stream's."""
+    s, capturing = host_scratch
+    capturing["on"] = True
+    own = s.pointers(0, 5, 10, 4)
+    assert (0, 5) not in s._sets and len(s._kept) == 2
+    capturing["on"] = False
+    stream = s.pointers(0, 5, 10, 4)
+    assert stream != own
+    capturing["on"] = True
+    assert s.pointers(0, 5, 10, 4) == stream
+    assert s.pointers(0, 5, 40, 4) not in (stream, own)
+    assert s._sets[(0, 5)][0].numel() == 10 and len(s._kept) == 4
