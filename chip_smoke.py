@@ -95,8 +95,10 @@ Then speculative decoding:
     programs, ``kgct_jit_compiles_total`` equal to the programs built,
     tokens/s captured against eager and against spec off captured, and
     the verify programs' sampling stage (``_verify_rows``) at R 32, S 5
-    beside one position's. Phase 16's census must find no synchronizing
-    call left in the spec steps or the draft round.
+    beside one position's, each with its gates closed, at the sampled mix
+    and all open (``gated_graph_ms``: one graph, its conditional nodes
+    replayed at each mix of flags). Phase 16's census must find no
+    synchronizing call left in the spec steps or the draft round.
 
 Then the KV transfer layer, on the phase-4 weights (after 7a, before they
 are freed; each engine freed before the next is built):
@@ -176,10 +178,11 @@ the client here speaks HTTP/1.1 over asyncio streams on 127.0.0.1):
     8 seats, 0.3 of the free memory, prefix caching on): ``/health``
     polled until it answers, plain, streamed and chat requests and a
     1500-token prompt, then a long stream during which
-    ``POST /debug/profile?seconds=2`` captures a torch.profiler trace
+    ``POST /debug/profile?seconds=5`` captures a torch.profiler trace
     while that prompt extended by 64 tokens (a prefix hit: the new tokens
     prefill over the cached pages) and then a wave of short prompts (a
-    packed prefill step) arrive; the trace must hold CUDA kernel events of all four kernels
+    packed prefill step) arrive (their steps may capture new program
+    keys inside the window; 2 s did not always hold them); the trace must hold CUDA kernel events of all four kernels
     (found by their ``__global__`` names in ``csrc/``). SIGTERM: exit 0
     within the drain grace. On any failure the server's output is printed.
 
@@ -340,10 +343,15 @@ the phase-4 weights right after phase 15:
      the same tokens and logprobs, the int4 and verify kernels recorded
      in every spec program.
 
-Then, still on the phase-4 weights, tensor and expert parallelism, each
-rank a child process (``chip_smoke.py --tp-child``) that builds its engine
-from the seed, drawing each full tensor and keeping its slice; the script
-first records the tp=1 engine's greedy tokens for the same requests:
+Then tensor and expert parallelism, each rank a child process
+(``chip_smoke.py --tp-child``) that builds its engine from the seed,
+drawing each full tensor and keeping its slice; the script first records
+the one-device engine's greedy tokens for the same requests. 12, 12c and
+13b run llama-3-8b at full width cut to ``RANK_LAYERS`` layers, drawn from
+the seed at that depth (two ranks on one card over gloo stage every
+layer's all-reduce through host memory, which sets their pace); 13, whose
+stage split depends on the depth, and 12e, 13c and 14-14b keep the
+phase-4 weights at full depth:
 
 12.  tp 2: two ranks on card 0 joined by gloo (NCCL refuses two ranks on
      one device; gloo stages each all-reduce through host memory, so this
@@ -375,8 +383,8 @@ first records the tp=1 engine's greedy tokens for the same requests:
      drains and its stop directive lets rank 1 exit, both with 0.
 13.  pp 2: llama-3-8b bf16 at full width and depth as two pipeline
      stages on card 0 over gloo (16 layers and their slab of a 1024-page
-     pool each; the embedding and head whole on both), phase 12's
-     requests through ``AsyncLLMEngine(leader=)``. pp turns mixed
+     pool each; the embedding and head whole on both),
+     phase 12's requests through ``AsyncLLMEngine(leader=)``. pp turns mixed
      batching off, so the one-device reference runs with mixed (and spec)
      off too; arrivals follow it step for step and the two runs must step
      the same batches. Tokens held as in 12. ``paged_decode``,
@@ -409,8 +417,9 @@ first records the tp=1 engine's greedy tokens for the same requests:
      load seconds and host peak (the resident set's growth over the load,
      ``engine.weights.HostPeak``). A separate process logs the same for
      the whole-then-slice path (the whole load on the host, then
-     ``shard_params``). The tp 2 ranks then serve phase 12's requests,
-     held to phase 12's tp=1 run as 12 holds its ranks.
+     ``shard_params``), run beside the ranks. The tp 2 ranks then serve
+     the long request and ``STREAMED_REQS`` more of phase 12's, held to
+     their tp=1 run at full depth as 12 holds its ranks.
 14b. Manifests rendered from values whose ``modelURL`` is the checkpoint:
      the ``requestGPU: 1`` Deployment's container (its module and args,
      ``--tokenizer byte`` appended through ``extraArgs``: the rendered
@@ -429,7 +438,8 @@ first records the tp=1 engine's greedy tokens for the same requests:
      non-zero naming the kernel and the directory; (b) the server's CLI at
      ``--tensor-parallel-size`` one above the cards seen exits non-zero
      within ``REFUSAL_BOUND_S`` with the start-time refusal, before any
-     weight, and leaves no rank behind.
+     weight, and leaves no rank behind. Its children run in a thread of
+     their own beside 12d and 12b (they load no weights).
 12d. With two cards, phase 12 over NCCL on cards 0 and 1; with one, the
      line ``nccl tp: not run (1 card)``.
 12b. ep 2: mixtral-8x7b int4 at tp 1, ep 2, full width (depth
@@ -457,6 +467,7 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -534,6 +545,17 @@ BUILD_MODULE = "kubernetes_gpu_cluster_tpu_torch.ops.cuda.build"
 PARENT_ENV = "KGCT_SMOKE_PARENT"
 PR_SET_PDEATHSIG = 1
 RUN_LIMIT_S = 1140          # the whole run, the build included
+# Phase 4's and 7a's tokens/s on the tree before the step programs' stages
+# were gated (commit 483ea15), printed beside this run's:
+# ``tools/spec_vs_parent.py --parent`` (that tree) in one call on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, order parent, tree, tree, parent; the
+# parent's two children, in order (7a: each child's first engine). Run 1
+# holds the captures. Compare two trees only within one call.
+UNGATED_TOKENS_PER_S = {
+    "4": {"run_1": [182.6672819358523, 181.84976935344633],
+          "run_2": [548.6547133204442, 566.0284226921681]},
+    "7a": {"run_1": [233.80219596177596, 239.13055687086597],
+           "run_2": [487.0392217949685, 482.5553504667722]}}
 _CHILDREN: list = []
 # A child that runs a module (the server's and the router's CLIs) asks
 # for the same before it imports anything.
@@ -1429,7 +1451,7 @@ def check_engine(cfg_engine, params, device, counters, reqs) -> dict:
     log("engine run 2: identical tokens for", len(same), "requests;",
         _loggable(run2))
     del engine
-    return {"run1": _summary(run1),
+    return {"run1": _summary(run1), "run2_tokens_per_s": run2["tokens_per_s"],
             "launches": launches}
 
 
@@ -1609,12 +1631,70 @@ def _programs_by_family(eng) -> dict:
             for f in sorted({k[0] for k in keys})}
 
 
+# Gate mixes a stage is timed at (the step's flags, engine.STEP_FLAGS):
+# every gate closed (greedy, no penalties, no bias, no alternatives), the
+# sampled mix the stage was timed at before it was gated (temperature 0.8,
+# top_k 50, top_p 0.95: the sampled path and the filters), and every stage
+# open, as the programs ran before they were gated.
+GATE_MIXES = {"closed": (), "sampled": ("any_sampled", "needs_filter",
+                                         "chunk_sampled", "chunk_filter"),
+              "open": None}
+
+
+def gated_graph_ms(fn, reps: int, flags: torch.Tensor) -> dict:
+    """Device time of one call of ``fn`` at each of ``GATE_MIXES``:
+    ``reps`` calls captured in one CUDA graph with their gated stages as
+    conditional nodes (``ops/gates.py``, as a step program captures them)
+    on the int32 ``flags`` (``STEP_FLAGS`` order), the graph replayed once
+    per mix after ``flags`` is filled with it. ``fn`` runs twice eagerly
+    first, with the host flags it was built with."""
+    from kubernetes_gpu_cluster_tpu_torch.engine.engine import STEP_FLAGS
+    from kubernetes_gpu_cluster_tpu_torch.ops import cuda as cuda_ops
+    from kubernetes_gpu_cluster_tpu_torch.ops import gates
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    pool = torch.cuda.graph_pool_handle()
+    graph = torch.cuda.CUDAGraph()
+    with cuda_ops.capture_scratch() as scratch, \
+            torch.cuda.graph(graph, pool=pool), \
+            gates.capturing(flags.device, pool, []):
+        for _ in range(reps):
+            fn()
+    out = {}
+    for mix, names in GATE_MIXES.items():
+        flags.copy_(torch.tensor([names is None or n in names
+                                  for n in STEP_FLAGS], dtype=torch.int32))
+        graph.replay()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        out[mix] = e0.elapsed_time(e1) / reps
+    del graph, scratch
+    return out
+
+
+def _open_flags(device) -> tuple:
+    """An int32 flags tensor and its ``gates.Flag``s, every host value set
+    (the eager warm-up runs every stage)."""
+    from kubernetes_gpu_cluster_tpu_torch.engine.engine import STEP_FLAGS
+    from kubernetes_gpu_cluster_tpu_torch.ops import gates
+    flags = torch.ones(len(STEP_FLAGS), dtype=torch.int32, device=device)
+    return flags, {n: gates.Flag(True, flags[i:i + 1])
+                   for i, n in enumerate(STEP_FLAGS)}
+
+
 def _verify_stage_ms(engine, device, R: int = 32, S: int = 5) -> dict:
-    """The verify programs' sampling stage (``_verify_rows``: bias on S
-    positions, penalties, every filter tier, the acceptance draw and the
-    bonus, top logprobs, at each position) on R rows, device time in a
-    CUDA graph at the engine's vocabulary, beside one position's stage
-    (``_sample_rows``) on the same rows."""
+    """The verify programs' sampling stage (``_verify_rows``: the counts,
+    at each position penalties, the filter thresholds, the acceptance draw
+    or the argmax, the count bump and top logprobs, then the bonus) on R
+    rows at the engine's vocabulary, device time at each gate mix
+    (``gated_graph_ms``: the same graph, its conditional nodes on the
+    flags), beside one position's stage (``_sample_rows``, its bias
+    included) on the same rows."""
     V = engine.model_config.vocab_size
     bufs = engine._programs.buffers(("spec", R, S))
     bufs["temperature"].fill_(0.8)
@@ -1629,12 +1709,14 @@ def _verify_stage_ms(engine, device, R: int = 32, S: int = 5) -> dict:
                            dtype=torch.int32)
     counts = torch.zeros((R, V), dtype=torch.int32, device=device)
     pos = torch.arange(R, dtype=torch.int32, device=device)
+    flags, gated = _open_flags(device)
     out = {"R": R, "S": S, "V": V,
-           "verify_rows_ms": graph_ms(lambda: engine._verify_rows(
-               bufs, logits, drafts, R, S), 10),
-           "sample_rows_ms": graph_ms(lambda: engine._sample_rows(
-               bufs, logits[:R], counts, pos, slice(0, R)), 10)}
-    out["per_position_ms"] = out["verify_rows_ms"] / S
+           "verify_rows_ms": gated_graph_ms(lambda: engine._verify_rows(
+               bufs, logits, drafts, R, S, gated), 10, flags),
+           "sample_rows_ms": gated_graph_ms(lambda: engine._sample_rows(
+               bufs, logits[:R], lambda: counts, gated, pos), 10, flags)}
+    out["per_position_ms"] = {m: t / S
+                              for m, t in out["verify_rows_ms"].items()}
     return out
 
 
@@ -2968,7 +3050,7 @@ async def _drive_cli(port: int, proc, vocab: int) -> dict:
          "stream": True}))
     await asyncio.sleep(1.0)
     prof = asyncio.ensure_future(http_call(port, "POST",
-                                           "/debug/profile?seconds=2"))
+                                           "/debug/profile?seconds=5"))
     await asyncio.sleep(1.0)
     wave = [await http_call(port, "POST", "/v1/completions",
                             {"prompt": cached + ids(64), "max_tokens": 4,
@@ -2989,9 +3071,11 @@ async def _drive_cli(port: int, proc, vocab: int) -> dict:
     [trace] = sorted(trace_dir.glob("trace-*.json"))
     events = json.loads(trace.read_text())["traceEvents"]
     kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    # The CLI serves spec off; the graph gate's flag kernel is not one of
+    # the ported kernels this trace is checked for.
     found = {mod: sum(any(n in k for n in names) for k in kernels)
              for mod, names in _kernel_names().items()
-             if mod != "spec_verify"}          # the CLI serves spec off
+             if mod not in ("spec_verify", "graph_gate")}
     if min(found.values()) <= 0:
         raise RuntimeError(f"profiler trace lacks kernels: {found} "
                            f"({len(kernels)} kernel events)")
@@ -5056,10 +5140,12 @@ def _first_token_ms(engine, vocab: int) -> float:
 
 
 def _sampling_stage_ms(engine, device, R: int = 32) -> dict:
-    """The programs' sampling stage (``_sample_rows``: bias, penalties, all
-    filter tiers, the draw, top logprobs) on every one of R rows, and a
-    chunk's penalty histogram (``build_counts`` of [R, out_cap]), device
-    time in CUDA graphs at the engine's vocabulary."""
+    """The programs' sampling stage (``_sample_rows``: bias, penalties with
+    a chunk's penalty histogram built inside (``build_counts`` of [R,
+    out_cap]), the sampled path and its filter tiers or the argmax, top
+    logprobs) on every one of R rows at the engine's vocabulary, device
+    time at each gate mix (``gated_graph_ms``), and the histogram alone in
+    a CUDA graph."""
     from kubernetes_gpu_cluster_tpu_torch.engine.sampling_params import \
         LOGIT_BIAS_CAP
     from kubernetes_gpu_cluster_tpu_torch.ops import sampling as S
@@ -5076,12 +5162,13 @@ def _sampling_stage_ms(engine, device, R: int = 32) -> dict:
             "top_k": torch.full((R,), 50, **i32),
             "top_p": torch.full((R,), 0.95, device=device)}
     logits = torch.randn((R, V), generator=gen, device=device)
-    counts = torch.zeros((R, V), **i32)
     pos = torch.arange(R, **i32)
     out_tokens = torch.full((R, engine._out_cap), -1, **i32)
+    flags, gated = _open_flags(device)
     return {"R": R, "V": V,
-            "sample_rows_ms": graph_ms(lambda: engine._sample_rows(
-                bufs, logits, counts, pos), 20),
+            "sample_rows_ms": gated_graph_ms(lambda: engine._sample_rows(
+                bufs, logits, lambda: S.build_counts(out_tokens, V), gated,
+                pos), 20, flags),
             "build_counts_ms": graph_ms(lambda: S.build_counts(out_tokens,
                                                                V), 20)}
 
@@ -5093,7 +5180,8 @@ def check_step_programs(cfg_engine, params, device, card: str) -> dict:
     logprobs, every family captured, a second identical wave captures
     nothing and the gauge equals the programs built; then a short prompt's
     first token captured against eager, and the sampling stage's time at
-    R 32 (ROADMAP C11)."""
+    R 32 with its gates closed, at the sampled mix and all open (the JAX
+    programs' lax.cond stages as conditional nodes)."""
     from kubernetes_gpu_cluster_tpu_torch.config import (CacheConfig,
                                                          SchedulerConfig)
     from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
@@ -5248,6 +5336,9 @@ def _int4_spec_round(cfg_engine4, params4, device, counters) -> dict:
 # Phase 12: tensor and expert parallelism, ranks in child processes
 # ---------------------------------------------------------------------------
 
+RANK_LAYERS = 8      # phases 12, 12c, 13b: llama-3-8b's width, this depth
+STREAMED_REQS = 4    # 14a: requests beside the long one (12 has 7); the
+                     # fourth arrives while the others decode (a mixed step)
 TP_PAGES = 1024      # each rank's pool, fixed: ranks sharing one card see
 TP_SEQS = 8          # one mem_get_info, so none is derived from it
 TP_LONG = 2500       # > the 2048-token prefill budget: chunked
@@ -5781,19 +5872,18 @@ def _hold_tp_lead(tag: str, what: str, ranks: list, reqs, ref, params,
     return equal, ties
 
 
-def check_tp(cfg, params, device, card: str, devices: list,
-             backend: str, abort: bool) -> tuple[dict, dict]:
-    """Phase 12 (12d with NCCL on two cards): llama-3-8b bf16 at tp 2
-    against the tp=1 engine on the same seed; 12c on the same ranks.
-    Returns the record and the tp=1 run (14a holds its ranks to it)."""
+def tp1_reference(cfg, params, device, n_req: int = 7
+                  ) -> tuple[list, dict]:
+    """Phase 12's requests (the long one and ``n_req`` more) and their run
+    on the one-device engine (tp 1): the run tp 2 (12, 12d) and the
+    streamed tp 2 ranks (14a, ``STREAMED_REQS``) are held to."""
     from kubernetes_gpu_cluster_tpu_torch.config import (
         CacheConfig, EngineConfig, SchedulerConfig)
     from kubernetes_gpu_cluster_tpu_torch.engine import LLMEngine
     from kubernetes_gpu_cluster_tpu_torch.ops.cuda import flash_prefill_hist
-    ps = 16
-    reqs = tp_requests(cfg.vocab_size, n_req=7, long_len=TP_LONG)
+    reqs = tp_requests(cfg.vocab_size, n_req=n_req, long_len=TP_LONG)
     engine = LLMEngine(EngineConfig(
-        model=cfg, seed=SEED, cache=CacheConfig(page_size=ps,
+        model=cfg, seed=SEED, cache=CacheConfig(page_size=16,
                                                 num_pages=TP_PAGES),
         scheduler=SchedulerConfig(max_num_seqs=TP_SEQS)), params=params,
         device=device)
@@ -5801,12 +5891,22 @@ def check_tp(cfg, params, device, card: str, devices: list,
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    return reqs, ref
+
+
+def check_tp(cfg, params, device, card: str, devices: list,
+             backend: str, abort: bool) -> tuple[dict, dict]:
+    """Phase 12 (12d with NCCL on two cards): ``cfg`` (llama-3-8b bf16,
+    its layers as given) at tp 2 against the tp=1 engine on the same seed;
+    12c on the same ranks. Returns the record and the tp=1 run."""
+    ps = 16
+    reqs, ref = tp1_reference(cfg, params, device)
     tag = "12" if backend == "gloo" else "12d"
     t0 = time.perf_counter()
     ranks = spawn_ranks(tag, dict(model=cfg.name, quant=None, tp=2, ep=1,
                                   page_size=ps, pages=TP_PAGES,
                                   reqs=_req_spec(reqs), allreduce=True,
-                                  abort=abort),
+                                  abort=abort, layers=cfg.num_layers),
                         devices, backend, timeout_s=600)
     lead = ranks[0]
     equal, ties = _hold_tp_lead(tag, f"tp 2 ({backend})", ranks, reqs, ref,
@@ -5870,7 +5970,8 @@ def check_pp_sp(cfg, params, device, card: str, axis: str) -> dict:
     t0 = time.perf_counter()
     ranks = spawn_ranks(tag, {"model": cfg.name, "quant": None, "tp": 1,
                               "ep": 1, axis: 2, "page_size": ps,
-                              "pages": TP_PAGES, "reqs": _req_spec(reqs)},
+                              "pages": TP_PAGES, "reqs": _req_spec(reqs),
+                              "layers": cfg.num_layers},
                         [0, 0], "gloo", timeout_s=600)
     lead = ranks[0]
     _same_schedule(tag, lead["schedule"], ref["schedule"])
@@ -6174,7 +6275,7 @@ CKPT_DIR = REPO / "build" / MODEL   # the name maps --model to the preset
 CKPT_FILES = 4                      # HF's sharded save: ~4 GB files
 CKPT_LAYERS = 32                    # full depth: 16.1 GB of bf16
 DEPLOY_PROMPTS = (64, 300, 900, 2500)  # 14b: the Deployment's requests
-DEPLOY_TOKENS = 32
+DEPLOY_TOKENS = 16
 TERM_GRACE_S = 150                  # the rendered terminationGracePeriod
 
 
@@ -6279,20 +6380,27 @@ def whole_load_child(spec: dict) -> None:
     Path(spec["out"]).write_text(json.dumps(rec))
 
 
-def _whole_load(path: Path) -> dict:
+def _whole_load_start(path: Path):
+    """Start the whole-then-slice child (its own process: its host peak is
+    its own, whatever runs beside it)."""
     out = TP_DIR / "14a-whole.json"
     out.unlink(missing_ok=True)
     TP_DIR.mkdir(parents=True, exist_ok=True)
-    with open(TP_DIR / "14a-whole.log", "w") as logf:
-        proc = start_child(
-            ["--whole-load", json.dumps({"path": str(path), "out": str(out)})],
-            stdout=logf, stderr=subprocess.STDOUT)
-        try:
-            rc = proc.wait(timeout=600)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    logf = open(TP_DIR / "14a-whole.log", "w")
+    proc = start_child(
+        ["--whole-load", json.dumps({"path": str(path), "out": str(out)})],
+        stdout=logf, stderr=subprocess.STDOUT)
+    return proc, logf, out
+
+
+def _whole_load_finish(proc, logf, out: Path) -> dict:
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
     if rc != 0 or not out.exists():
         raise RuntimeError(f"14a whole load exited {rc}:\n"
                            + (TP_DIR / "14a-whole.log").read_text()[-3000:])
@@ -6305,14 +6413,33 @@ def check_streamed(cfg, params, device, card: str, path: Path,
     phase-14 checkpoint, at tp 2 and at pp 2; every local tensor is
     ``torch.equal`` to ``shard_tensor`` of phase 4's weights (the seed's
     draw); each logs its load seconds and host peak, and a separate
-    process the whole-then-slice path's. The tp 2 ranks then serve phase
-    12's requests on the streamed weights, held to phase 12's tp=1 run as
-    12 holds its ranks."""
+    process, run beside them, the whole-then-slice path's. The tp 2 ranks
+    then serve ``STREAMED_REQS`` of phase 12's requests on the streamed
+    weights, held to ``tp_ref`` (their tp=1 run) as 12 holds its ranks."""
     ps = 16
-    reqs = tp_requests(cfg.vocab_size, n_req=7, long_len=TP_LONG)
+    reqs = tp_requests(cfg.vocab_size, n_req=STREAMED_REQS, long_len=TP_LONG)
     base = dict(model=cfg.name, quant=None, ep=1, page_size=ps,
                 pages=TP_PAGES, reqs=_req_spec(reqs), weights=str(path))
     out: dict = {}
+    whole = _whole_load_start(path)
+    try:
+        _streamed_ranks(cfg, params, device, card, base, reqs, tp_ref, out)
+    except BaseException:
+        whole[0].kill()
+        whole[0].wait()
+        whole[1].close()
+        raise
+    out["whole"] = _whole_load_finish(*whole)
+    w = out["whole"]
+    log(f"14a whole-then-slice (tp 2 rank 0): {w['local_gb']:.3f} GB kept "
+        f"after {w['s']:.2f} s, host peak {w['peak_gb']:.3f} GB over "
+        f"{w['rss_before_gb']:.3f} (exact {w['exact']}) | {card}")
+    return out
+
+
+def _streamed_ranks(cfg, params, device, card: str, base: dict, reqs,
+                    tp_ref: dict, out: dict) -> None:
+    """14a's tp 2 and pp 2 rank pairs, each streaming its slices."""
     for axis in ("tp", "pp"):
         tag = f"14a-{axis}"
         sizes = {"tp": 1, "pp": 1, axis: 2}
@@ -6333,12 +6460,6 @@ def check_streamed(cfg, params, device, card: str, path: Path,
                 f"streamed in {ld['s']:.2f} s, host peak "
                 f"{ld['peak_gb']:.3f} GB over {ld['rss_before_gb']:.3f} "
                 f"(exact {ld['exact']}) | {card}")
-    out["whole"] = _whole_load(path)
-    w = out["whole"]
-    log(f"14a whole-then-slice (tp 2 rank 0): {w['local_gb']:.3f} GB kept "
-        f"after {w['s']:.2f} s, host peak {w['peak_gb']:.3f} GB over "
-        f"{w['rss_before_gb']:.3f} (exact {w['exact']}) | {card}")
-    return out
 
 
 def _values(path: Path, **vllm) -> dict:
@@ -6694,6 +6815,9 @@ def main() -> int:
             "flash_prefill_hist": flash_prefill_hist}
     eng = check_engine(cfg_engine, params, device, attn,
                        workload(cfg.vocab_size))
+    log("phase 4 tokens/s:", json.dumps({
+        "runs": [eng["run1"]["tokens_per_s"], eng["run2_tokens_per_s"]],
+        "483ea15": UNGATED_TOKENS_PER_S["4"]}), "|", card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6714,6 +6838,11 @@ def main() -> int:
     spec7a = check_spec_ngram(cfg_engine, params, device, spec_counters,
                               card)
     log("spec ngram:", json.dumps(spec7a))
+    log("phase 7a tokens/s:", json.dumps({
+        "spec_runs": [spec7a["tokens_per_s_spec"],
+                      spec7a["tokens_per_s_spec_run2"]],
+        "off": spec7a["tokens_per_s_off"],
+        "483ea15": UNGATED_TOKENS_PER_S["7a"]}), "|", card)
     phase(f"{MODEL} bf16 spec (7a, 16g)")
 
     # Phase 8: the KV transfer layer on the same weights.
@@ -6761,11 +6890,15 @@ def main() -> int:
     phase(f"{MODEL} bf16 captured prefill and mixed steps (16f)")
 
     # Phases 12 and 12c: tp 2 as two ranks on this card (gloo), held to
-    # the tp=1 tokens of these weights; then the group abort.
-    tp, tp_ref = check_tp(cfg, params, device, card, [0, 0], "gloo",
-                          abort=True)
+    # the tp=1 tokens of the same weights; then the group abort. 12, 12c
+    # and 13b at RANK_LAYERS layers (the module docstring says why).
+    cfg_ranks = cfg.replace(num_layers=RANK_LAYERS)
+    params_ranks = M.init_params(cfg_ranks, torch.Generator(
+        device=device).manual_seed(SEED), device)
+    tp, _ = check_tp(cfg_ranks, params_ranks, device, card, [0, 0], "gloo",
+                     abort=True)
     log("tp:", json.dumps(tp), "|", card)
-    phase(f"{MODEL} bf16 tp 2 (12, 12c)")
+    phase(f"{MODEL} bf16 tp 2 at {RANK_LAYERS} layers (12, 12c)")
     # Phase 12e: the server's CLI at tp 2, two --distributed ranks.
     log("cli tp:", json.dumps(check_cli_tp(cfg, params, device, card)), "|",
         card)
@@ -6775,33 +6908,45 @@ def main() -> int:
     log("pp:", json.dumps(check_pp_sp(cfg, params, device, card, "pp")),
         "|", card)
     phase(f"{MODEL} bf16 pp 2 (13)")
-    log("sp:", json.dumps(check_pp_sp(cfg, params, device, card, "sp")),
-        "|", card)
-    phase(f"{MODEL} bf16 sp 2 (13b)")
+    log("sp:", json.dumps(check_pp_sp(cfg_ranks, params_ranks, device, card,
+                                      "sp")), "|", card)
+    phase(f"{MODEL} bf16 sp 2 at {RANK_LAYERS} layers (13b)")
+    del params_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
     log("cli pp:", json.dumps(check_cli_tp(
         cfg, params, device, card, "--pipeline-parallel-size", "13c")), "|",
         card)
     phase(f"{MODEL} bf16 CLI pp 2 (13c)")
+    # 14a holds its streamed tp 2 ranks to the tp=1 run at full depth.
+    _, tp_ref = tp1_reference(cfg, params, device, n_req=STREAMED_REQS)
     checkpoint_phases(cfg, params, device, card, tp_ref, phase)
-    # Phase 14c: what the runtime image refuses, with no nvcc.
-    log("image refusals:", json.dumps(check_image_refusals(card)))
-    phase("image refusals (14c)")
-    # Phase 12d: the same over NCCL, where two cards exist.
-    if torch.cuda.device_count() >= 2:
-        log("nccl tp:", json.dumps(check_tp(cfg, params, device, card,
-                                            [0, 1], "nccl", abort=False)[0]))
-        phase(f"{MODEL} bf16 nccl tp 2 (12d)")
-    else:
-        log("nccl tp: not run (1 card)")
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    # Phase 14c: what the runtime image refuses, with no nvcc. Its children
+    # load no weights and exit at start, so they run beside 12d and 12b.
+    refusals = concurrent.futures.ThreadPoolExecutor(1)
+    image = refusals.submit(check_image_refusals, card)
+    try:
+        # Phase 12d: the same over NCCL, where two cards exist.
+        if torch.cuda.device_count() >= 2:
+            log("nccl tp:", json.dumps(check_tp(
+                cfg, params, device, card, [0, 1], "nccl", abort=False)[0]))
+            phase(f"{MODEL} bf16 nccl tp 2 (12d)")
+        else:
+            log("nccl tp: not run (1 card)")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    # Phase 12b: expert parallelism, mixtral-8x7b int4 at ep 2.
-    log("ep:", json.dumps(check_ep(get_model_config("mixtral-8x7b").replace(
-        quantization="int4", quant_group_size=GROUP), device, card,
-        EP_LAYERS)), "|", card)
-    phase("mixtral-8x7b int4 ep 2 (12b)")
+        # Phase 12b: expert parallelism, mixtral-8x7b int4 at ep 2.
+        log("ep:", json.dumps(check_ep(
+            get_model_config("mixtral-8x7b").replace(
+                quantization="int4", quant_group_size=GROUP), device, card,
+            EP_LAYERS)), "|", card)
+        phase("mixtral-8x7b int4 ep 2 (12b)")
+    finally:
+        refusals.shutdown(wait=True)
+    log("image refusals:", json.dumps(image.result()))
+    phase("image refusals (14c, beside 12d and 12b)")
 
     # Phase 3b: the int4 model, kernel against int4_matmul_plain.
     cfg4 = cfg.replace(quantization="int4", quant_group_size=GROUP)

@@ -31,8 +31,8 @@
 // block); the block that arrives last
 // sums the partials in block order (so the bits do not depend on arrival
 // order) and resets the counter to 0 for the next call or graph replay.
-// The wrapper keeps workspace and counters per device and assumes one
-// stream. Every tile leaves the block through shared memory, a few rows at
+// The wrapper passes each call the workspace and counters of its stream
+// (or of its graph capture). Every tile leaves the block through shared memory, a few rows at
 // a time, so the output, the partials and their sum move as 16-byte
 // coalesced rows; at decode the next segment's first stages are already in
 // flight while a finished tile is stored.
@@ -996,8 +996,6 @@ extern "C" int kgct_int4_matmul_tile_cols(int kind) {
 // What every call of one (shapes, dtypes, device) key passes unchanged
 // (ops/cuda/int4_matmul.py LaunchArgs).
 struct Int4Launch {
-  void* ws;        // at least 2 * blocks * tile_rows * tile_cols floats
-  int* counters;   // at least one int per output tile, all 0, left all 0
   int T, K, N, gs;
   int x_dtype;     // 0 = float32, 1 = bfloat16
   int kind, mt;    // 0 = decode tile of mt m16 row tiles, 1 = prefill tile
@@ -1008,15 +1006,19 @@ struct Int4Launch {
 // 0, gs % 16 == 0) and planned the launch. vec when N % 16 == 0 and x,
 // w_packed, scale are 16-byte aligned; out is 16-byte aligned. One launch
 // (the prefill tile's tensor maps are encoded on the host first); returns
-// its CUDA status.
+// its CUDA status. The call's workspace (at least 2 * blocks * tile_rows *
+// tile_cols floats) and counters (at least one int per output tile, all 0,
+// left all 0) are arguments, never part of the launch record that every
+// call of one key shares: two threads may launch one key at once.
 extern "C" int kgct_int4_matmul(const void* x, const void* w_packed, const void* scale,
-                                void* out, const Int4Launch* a, bool vec, void* stream) {
+                                void* out, void* ws, int* counters, const Int4Launch* a,
+                                bool vec, void* stream) {
   using namespace kgct;
   auto s = static_cast<cudaStream_t>(stream);
   const int T = a->T, K = a->K, N = a->N, gs = a->gs, kind = a->kind, blocks = a->blocks;
   if (T == 0 || N == 0) return cudaSuccess;
-  if (K <= 0 || gs <= 0 || gs % 16 || K % gs || blocks < 1 || a->ws == nullptr ||
-      a->counters == nullptr || (kind != 0 && kind != 1))
+  if (K <= 0 || gs <= 0 || gs % 16 || K % gs || blocks < 1 || ws == nullptr ||
+      counters == nullptr || (kind != 0 && kind != 1))
     return cudaErrorInvalidValue;
   const int rows = kind == 1 ? kPBM : 16 * a->mt;
   const int cols = kgct_int4_matmul_tile_cols(kind);
@@ -1044,8 +1046,8 @@ extern "C" int kgct_int4_matmul(const void* x, const void* w_packed, const void*
   return with_decode_kernel(a->x_dtype, a->mt, [&](auto kernel, int threads, size_t smem) {
     kernel<<<blocks, threads, smem, s>>>(
         x_arg(kernel, x), static_cast<const int8_t*>(w_packed),
-        static_cast<const float*>(scale), static_cast<float*>(out), static_cast<float*>(a->ws),
-        a->counters, T, K, N, gs, sch, vec);
+        static_cast<const float*>(scale), static_cast<float*>(out), static_cast<float*>(ws),
+        counters, T, K, N, gs, sch, vec);
     return cudaGetLastError();
   });
 }

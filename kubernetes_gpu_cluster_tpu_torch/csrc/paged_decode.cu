@@ -319,8 +319,6 @@ paged_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 // What every call of one (shapes, dtype, device) key passes unchanged
 // (ops/cuda/paged_decode.py LaunchArgs).
 struct PagedDecodeLaunch {
-  float* ws;          // bf16: splits * n_kv * B * g * (hd + 2) floats
-  int* counters;      // bf16: B * n_kv ints, all 0, left all 0
   int B, nh, n_kv, hd, ps, pps;
   int dtype;          // 0 = float32, 1 = bfloat16
   int min_split;      // fewest keys per split, a multiple of kgct_paged_decode_stage_keys()
@@ -337,7 +335,8 @@ namespace {
 template <int HD>
 cudaError_t launch_split(const PagedDecodeLaunch& a, const void* q, const void* kp,
                          const void* vp, const int* tables, const int* ctx, const void* kc,
-                         const void* vc, void* out, cudaStream_t stream) {
+                         const void* vc, void* out, float* ws, int* counters,
+                         cudaStream_t stream) {
   auto kernel = paged_decode_split_kernel<HD>;
   constexpr size_t smem = SplitSmem<HD>::kBytes;
   static const cudaError_t attr = allow_smem(kernel, smem);  // once per process
@@ -346,7 +345,7 @@ cudaError_t launch_split(const PagedDecodeLaunch& a, const void* q, const void* 
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
       static_cast<const __nv_bfloat16*>(vp), tables, ctx,
       static_cast<const __nv_bfloat16*>(kc), static_cast<const __nv_bfloat16*>(vc),
-      static_cast<__nv_bfloat16*>(out), a.ws, a.counters, a.nh, a.n_kv, ilog2(a.ps),
+      static_cast<__nv_bfloat16*>(out), ws, counters, a.nh, a.n_kv, ilog2(a.ps),
       a.pps, a.min_split, a.scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -382,11 +381,15 @@ cudaError_t dispatch_f32(const PagedDecodeLaunch& a, const void* q, const void* 
 }  // namespace kgct
 
 // Pool pointers address ONE layer [P, ps, n_kv*hd]. The wrapper has checked
-// the shapes and planned the splits. Returns the CUDA status of the launch.
+// the shapes and planned the splits. bf16 with splits > 1 takes the call's
+// workspace (splits * n_kv * B * g * (hd + 2) floats) and counters (B *
+// n_kv ints, all 0, left all 0) as arguments, never from the launch record
+// that every call of one key shares: two threads may launch one key at
+// once, each on its own stream's set. Returns the CUDA status of the launch.
 extern "C" int kgct_paged_decode(const void* q, const void* k_pool, const void* v_pool,
                                  const int* page_tables, const int* context_lens,
-                                 const void* k_cur, const void* v_cur, void* out,
-                                 const PagedDecodeLaunch* a, void* stream) {
+                                 const void* k_cur, const void* v_cur, void* out, float* ws,
+                                 int* counters, const PagedDecodeLaunch* a, void* stream) {
   using namespace kgct;
   auto s = static_cast<cudaStream_t>(stream);
   if (a->B == 0) return cudaSuccess;
@@ -395,14 +398,14 @@ extern "C" int kgct_paged_decode(const void* q, const void* k_pool, const void* 
     return cudaErrorInvalidValue;
   if (a->dtype == 1) {
     if (a->min_split <= 0 || a->min_split % kSK || a->splits < 1 ||
-        (a->splits > 1 && (a->ws == nullptr || a->counters == nullptr)))
+        (a->splits > 1 && (ws == nullptr || counters == nullptr)))
       return cudaErrorInvalidValue;
     if (a->hd == 128)
       return launch_split<128>(*a, q, k_pool, v_pool, page_tables, context_lens, k_cur,
-                               v_cur, out, s);
+                               v_cur, out, ws, counters, s);
     if (a->hd == 64)
       return launch_split<64>(*a, q, k_pool, v_pool, page_tables, context_lens, k_cur,
-                              v_cur, out, s);
+                              v_cur, out, ws, counters, s);
   } else if (a->dtype == 0) {
     if (a->hd == 128)
       return dispatch_f32<128>(*a, q, k_pool, v_pool, page_tables, context_lens, k_cur,

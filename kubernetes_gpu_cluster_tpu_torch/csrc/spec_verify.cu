@@ -656,8 +656,6 @@ spec_verify_f32_kernel(const float* __restrict__ q, const float* __restrict__ kp
 // What every call of one (shapes, dtype, device) key passes unchanged
 // (ops/cuda/spec_verify.py LaunchArgs).
 struct SpecVerifyLaunch {
-  float* ws;          // bf16: 2 * blocks * 64 * (hd + 2) floats
-  int* counters;      // bf16: R * groups * n_kv ints, all 0, left all 0
   int R, S, nh, n_kv, hd, ps, pps;
   int pages;          // P: pages of one layer of the pool
   int layers;         // L of a stacked pool, 1 for a one-layer pool
@@ -755,12 +753,15 @@ extern "C" int kgct_spec_verify_resident(int hd) {
 // heads, hd]. bf16 reads the pool through a K and a V tensor map encoded
 // here from the pool pointers: each over the stacked pool's layers * P *
 // ps rows of n_kv * hd elements, a box of 64 columns by box_rows(ps) rows.
-// The wrapper has checked the shapes and planned the grid. Returns the
-// CUDA status of the launch.
+// The wrapper has checked the shapes and planned the grid. bf16 takes the
+// call's workspace (2 * blocks * 64 * (hd + 2) floats) and counters (R *
+// groups * n_kv ints, all 0, left all 0) as arguments, never from the
+// launch record that every call of one key shares. Returns the CUDA
+// status of the launch.
 extern "C" int kgct_spec_verify(const void* q, const void* k_pool, const void* v_pool,
                                 const int* page_tables, const int* context_lens,
-                                const void* k_new, const void* v_new, void* out,
-                                const SpecVerifyLaunch* a, int layer,
+                                const void* k_new, const void* v_new, void* out, float* ws,
+                                int* counters, const SpecVerifyLaunch* a, int layer,
                                 void* stream) {
   using namespace kgct;
   auto s = static_cast<cudaStream_t>(stream);
@@ -772,8 +773,8 @@ extern "C" int kgct_spec_verify(const void* q, const void* k_pool, const void* v
   if (a->dtype == 1) {
     size_t smem = 0;
     const VerifyKernel kernel = verify_kernel(a->hd, &smem);
-    if (kernel == nullptr || a->blocks < 1 || a->layers < 1 || a->ws == nullptr ||
-        a->counters == nullptr)
+    if (kernel == nullptr || a->blocks < 1 || a->layers < 1 || ws == nullptr ||
+        counters == nullptr)
       return cudaErrorInvalidValue;
     const int kd = a->n_kv * a->hd;
     const uint64_t rows = uint64_t(a->layers) * a->pages * a->ps;
@@ -785,7 +786,7 @@ extern "C" int kgct_spec_verify(const void* q, const void* k_pool, const void* v
     kernel<<<a->blocks, kVThreads, smem, s>>>(
         static_cast<const __nv_bfloat16*>(q), page_tables, context_lens,
         static_cast<const __nv_bfloat16*>(k_new), static_cast<const __nv_bfloat16*>(v_new),
-        static_cast<__nv_bfloat16*>(out), a->ws, a->counters, a->R, a->S, a->nh, a->n_kv,
+        static_cast<__nv_bfloat16*>(out), ws, counters, a->R, a->S, a->nh, a->n_kv,
         tile_groups(a->S * g), ilog2(a->ps), a->pps,
         static_cast<int>(layer_row(layer, a->pages, a->ps)), a->scale * 1.4426950408889634f,
         m[0], m[1]);

@@ -108,10 +108,11 @@ from ..analysis.sanitize import build_step_sanitizer
 from ..config import EngineConfig
 from ..models import llama as model_lib
 from ..observability import Observability
+from ..ops.gates import when
 from ..ops.sampling import (TOP_LOGPROBS, apply_logit_bias, apply_penalties,
                             build_counts, row_sample_keys,
                             sample_and_logprobs, spec_verify_sample,
-                            token_logprobs, top_logprobs)
+                            token_logprobs, write_top_logprobs)
 from ..parallel.pp import pipeline_forward
 from ..parallel.sharding import (init_shard_fn, local_kv_config,
                                  shard_params, validate)
@@ -130,6 +131,40 @@ from .step_programs import StepPrograms, program_bytes
 logger = get_logger("engine")
 
 DEFAULT_PAGE_SIZE = 16
+
+# A step program's int32 input ``flags``, in this order: the conditions of
+# the JAX programs' ``lax.cond`` stages (``step_flags``). The ``chunk_*``
+# flags are a spec×mixed step's chunk row's, beside its verify rows'.
+STEP_FLAGS = ("any_sampled", "needs_filter", "any_pen", "any_bias",
+              "any_top", "chunk_sampled", "chunk_filter", "chunk_pen")
+
+
+def step_flags(batch, bias_ids: np.ndarray,
+               verify_rows: Optional[int] = None) -> np.ndarray:
+    """``STEP_FLAGS`` of a step, as its JAX program computes them on the
+    device from the same arrays, padding rows included:
+    ``any(temperature > 0)``, ``any((top_k > 0) | (top_p < 1))``,
+    ``any((presence != 0) | (frequency != 0))``, ``any(bias_ids >= 0)``
+    and ``any(top_n > 0)``. With ``verify_rows`` (a spec×mixed step) the
+    first three cover those rows and the ``chunk_*`` ones the rest;
+    bias and alternatives cover every row, as one ``_maybe_bias`` and one
+    ``any_top`` do there."""
+    def rows(sl):
+        return {"sampled": np.any(batch.temperature[sl] > 0),
+                "filter": np.any((batch.top_k[sl] > 0)
+                                 | (batch.top_p[sl] < 1.0)),
+                "pen": np.any((batch.presence[sl] != 0)
+                              | (batch.frequency[sl] != 0))}
+    main = rows(slice(verify_rows))
+    flags = {"any_sampled": main["sampled"], "needs_filter": main["filter"],
+             "any_pen": main["pen"], "any_bias": np.any(bias_ids >= 0),
+             "any_top": np.any(batch.top_n > 0)}
+    if verify_rows is not None:
+        chunk = rows(slice(verify_rows, None))
+        flags.update(chunk_sampled=chunk["sampled"],
+                     chunk_filter=chunk["filter"], chunk_pen=chunk["pen"])
+    return np.array([bool(flags.get(name, False)) for name in STEP_FLAGS],
+                    np.int32)
 
 
 @dataclasses.dataclass
@@ -1226,7 +1261,8 @@ class LLMEngine:
             "tokens", "seg_ids", "positions", "slot_mapping")}
         inputs.update(
             {name: ((rows,), i32) for name in ("top_k", "seed")},
-            step_key=((1,), i32), bias_ids=((rows, LOGIT_BIAS_CAP), i32),
+            step_key=((1,), i32), flags=((len(STEP_FLAGS),), i32),
+            bias_ids=((rows, LOGIT_BIAS_CAP), i32),
             bias_vals=((rows, LOGIT_BIAS_CAP), f32),
             **{name: ((rows,), f32) for name in (
                 "temperature", "top_p", "presence", "frequency")})
@@ -1279,7 +1315,7 @@ class LLMEngine:
         device value on the host, branches on one or uploads (KGCT001)."""
         hidden = self._forward("prefill", bufs["tokens"],
                                self._prefill_meta(bufs))
-        self._sample_step(bufs, hidden, self._prefill_counts(bufs))
+        self._sample_step(bufs, hidden, lambda: self._prefill_counts(bufs))
 
     def _prefill_hist_body(self, key, bufs) -> None:
         """One solo chunk of program ``key``: the chunk over its history
@@ -1288,7 +1324,7 @@ class LLMEngine:
         hidden = self._forward("prefill_hist", bufs["tokens"],
                                self._prefill_meta(bufs),
                                bufs["page_table"][0], bufs["hist_len"])
-        self._sample_step(bufs, hidden, build_counts(
+        self._sample_step(bufs, hidden, lambda: build_counts(
             bufs["out_tokens"], self.model_config.vocab_size))
 
     def _mixed_body(self, key, bufs) -> None:
@@ -1298,7 +1334,7 @@ class LLMEngine:
         hidden, _, _ = model_lib.forward_mixed(
             self.params, self.model_config, bufs["tokens"],
             self._mixed_meta(bufs), self.kv_cache, groups=self.groups)
-        self._sample_step(bufs, hidden, build_counts(
+        self._sample_step(bufs, hidden, lambda: build_counts(
             bufs["out_tokens"], self.model_config.vocab_size))
 
     def _spec_body(self, key, bufs) -> None:
@@ -1317,7 +1353,11 @@ class LLMEngine:
             self.kv_cache, groups=self.groups)
         logits = model_lib.compute_logits(self.params, self.model_config,
                                           hidden, groups=self.groups)
-        self._verify_rows(bufs, logits, bufs["tokens"], R, S)
+        flags = bufs.flags(STEP_FLAGS)
+        when("bias", flags["any_bias"], lambda: logits.copy_(apply_logit_bias(
+            logits, bufs["bias_ids"].repeat_interleave(S, dim=0),
+            bufs["bias_vals"].repeat_interleave(S, dim=0))))
+        self._verify_rows(bufs, logits, bufs["tokens"], R, S, flags)
 
     def _spec_mixed_body(self, key, bufs) -> None:
         """One spec×mixed step of program ``key`` = ("spec_mixed", Tp, R,
@@ -1331,55 +1371,68 @@ class LLMEngine:
             self._mixed_meta(bufs), self.kv_cache, S, groups=self.groups)
         logits = model_lib.compute_logits(self.params, self.model_config,
                                           hidden, groups=self.groups)
-        self._verify_rows(bufs, logits[:R * S], bufs["tokens"][Tp:], R, S)
+        flags = bufs.flags(STEP_FLAGS)
+        # One bias stage over the verify slots and the chunk row, as the
+        # JAX program's one _maybe_bias.
+        when("bias", flags["any_bias"], lambda: logits.copy_(apply_logit_bias(
+            logits, torch.cat([bufs["bias_ids"][:R].repeat_interleave(
+                S, dim=0), bufs["bias_ids"][R:]]),
+            torch.cat([bufs["bias_vals"][:R].repeat_interleave(S, dim=0),
+                       bufs["bias_vals"][R:]]))))
+        self._verify_rows(bufs, logits[:R * S], bufs["tokens"][Tp:], R, S,
+                          flags)
         chunk = slice(R, R + 1)
         idx = bufs["logits_indices"][R * S:].to(torch.int64)
         tok, lp, tid, tlp = self._sample_rows(
-            bufs, logits[R * S:], build_counts(bufs["out_tokens"][chunk],
-                                               self.model_config.vocab_size),
-            bufs["positions"][idx] + 1, chunk)
+            bufs, logits[R * S:], lambda: build_counts(
+                bufs["out_tokens"][chunk], self.model_config.vocab_size),
+            flags, bufs["positions"][idx] + 1, chunk)
         bufs["out_ctok"].copy_(tok)
         bufs["out_clp"].copy_(lp)
         bufs["out_ctid"].copy_(tid)
         bufs["out_ctlp"].copy_(tlp)
 
     def _verify_rows(self, bufs, logits: torch.Tensor,
-                     drafts_flat: torch.Tensor, R: int, S: int) -> None:
-        """Acceptance over the R verify rows' logits [R*S, V] into the
-        program's outputs: each row's bias on its S positions, then
-        ``spec_verify_sample`` with counts from the penalty history (spec
-        steps are synchronous, so the host knows every output token), each
-        row's own parameters deciding on the device, as ``_sample_rows``
-        does."""
+                     drafts_flat: torch.Tensor, R: int, S: int,
+                     flags: dict) -> None:
+        """Acceptance over the R verify rows' logits [R*S, V] (biased
+        already) into the program's outputs: ``spec_verify_sample`` with
+        counts from the penalty history (spec steps are synchronous, so the
+        host knows every output token), built only under ``any_pen`` (else
+        the zeros of the JAX false branch), its stages gated by the step's
+        flags."""
         V = logits.shape[-1]
         rows = slice(0, R)
-        logits = apply_logit_bias(
-            logits, bufs["bias_ids"][rows].repeat_interleave(S, dim=0),
-            bufs["bias_vals"][rows].repeat_interleave(S, dim=0))
+        counts = torch.empty((R, V), dtype=torch.int32, device=logits.device)
+        when("counts", flags["any_pen"],
+             lambda: counts.copy_(build_counts(bufs["out_tokens"][rows], V)),
+             counts.zero_)
         toks, n_acc, lps, tids, tlps = spec_verify_sample(
             logits.reshape(R, S, V), drafts_flat.reshape(R, S)[:, 1:],
             bufs["context_lens"], bufs["step_key"], bufs["seed"][rows],
             bufs["temperature"][rows], bufs["top_k"][rows],
             bufs["top_p"][rows], bufs["presence"][rows],
-            bufs["frequency"][rows],
-            build_counts(bufs["out_tokens"][rows], V), any_sampled=True,
-            needs_filter=True, any_pen=True, with_top=True)
+            bufs["frequency"][rows], counts,
+            any_sampled=flags["any_sampled"],
+            needs_filter=flags["needs_filter"], any_pen=flags["any_pen"],
+            with_top=flags["any_top"])
         bufs["out_tok"].copy_(toks)
         bufs["out_n_acc"].copy_(n_acc)
         bufs["out_lp"].copy_(lps)
         bufs["out_tid"].copy_(tids)
         bufs["out_tlp"].copy_(tlps)
 
-    def _sample_step(self, bufs, hidden: torch.Tensor,
-                     counts: torch.Tensor) -> None:
+    def _sample_step(self, bufs, hidden: torch.Tensor, counts) -> None:
         """The logits of a step's sampled rows and their draw into the
         program's outputs, on every row, as the JAX programs sample
-        whether the host reads a row or not."""
+        whether the host reads a row or not; ``counts()`` builds the
+        penalty histogram, inside the penalties stage."""
         logits = model_lib.compute_logits(self.params, self.model_config,
                                           hidden, groups=self.groups)
         idx = bufs["logits_indices"].to(torch.int64)
         toks, lps, tids, tlps = self._sample_rows(
-            bufs, logits, counts, bufs["positions"][idx] + 1)
+            bufs, logits, counts, bufs.flags(STEP_FLAGS),
+            bufs["positions"][idx] + 1)
         bufs["out_tok"].copy_(toks)
         bufs["out_lp"].copy_(lps)
         bufs["out_tid"].copy_(tids)
@@ -1424,7 +1477,9 @@ class LLMEngine:
             inputs = {name: getattr(batch, name) for name in (
                 "tokens", "seg_ids", "positions", "slot_mapping", "top_k",
                 "seed", "temperature", "top_p", "presence", "frequency")}
-            inputs.update(step_key=[step_key], bias_ids=ids, bias_vals=vals)
+            inputs.update(step_key=[step_key], bias_ids=ids, bias_vals=vals,
+                          flags=step_flags(batch, ids, key[2] if family ==
+                                           "spec_mixed" else None))
             if family != "spec":
                 inputs["logits_indices"] = batch.logits_indices
             if family == "prefill":
@@ -1637,7 +1692,8 @@ class LLMEngine:
         W = cfg.scheduler.decode_window
         pps = cdiv(cfg.effective_max_len, cfg.cache.page_size)
         i32, f32 = torch.int32, torch.float32
-        inputs = {"positions": ((B,), i32), "page_tables": ((B, pps), i32)}
+        inputs = {"positions": ((B,), i32), "page_tables": ((B, pps), i32),
+                  "flags": ((len(STEP_FLAGS),), i32)}
         state = {"tokens0": ((B,), i32), "out_tok": ((B, W), i32),
                  "out_lp": ((B, W), f32),
                  "out_tid": ((B, W, TOP_LOGPROBS), i32),
@@ -1653,26 +1709,36 @@ class LLMEngine:
             state["counts"] = ((B, self.model_config.vocab_size), i32)
         return inputs, state
 
-    def _sample_rows(self, bufs, logits: torch.Tensor, counts: torch.Tensor,
-                     pos_next: torch.Tensor, rows: slice = slice(None)
-                     ) -> tuple:
+    def _sample_rows(self, bufs, logits: torch.Tensor, counts, flags: dict,
+                     pos_next: torch.Tensor,
+                     rows: slice = slice(None)) -> tuple:
         """The sampled programs' stage over the buffers' ``rows`` (every
-        row by default; a spec×mixed step's chunk row): bias, penalties,
-        filters and the draw, each row's own parameters deciding on the
-        device (temperature 0 takes the argmax, top_k 0 and top_p 1 cut
-        nothing, zero penalties and empty bias slots add exact zeros).
-        Returns (tokens, logprobs, top ids, top logprobs)."""
+        row by default; a spec×mixed step's chunk row, whose logits are
+        biased already and whose flags are ``chunk_*``), each stage gated
+        as the JAX program gates it: the bias on ``any_bias``, the
+        penalties on ``any_pen`` (``counts()`` builds or reads the
+        histogram inside that stage), then ``sample_and_logprobs`` on
+        ``any_sampled``, ``needs_filter`` and ``any_top``. The rows'
+        own parameters decide inside a stage that runs (temperature 0 takes
+        the argmax, top_k 0 and top_p 1 cut nothing, zero penalties and
+        empty bias slots add exact zeros). ``logits`` is rewritten in
+        place. Returns (tokens, logprobs, top ids, top logprobs)."""
         p = {name: bufs[name][rows] for name in (
             "bias_ids", "bias_vals", "presence", "frequency", "seed",
             "temperature", "top_k", "top_p")}
-        logits = apply_logit_bias(logits, p["bias_ids"], p["bias_vals"])
-        logits = apply_penalties(logits, counts, p["presence"],
-                                 p["frequency"])
-        keys = row_sample_keys(bufs["step_key"], p["seed"],
-                               pos_next)
+        chunk = rows != slice(None)
+        if not chunk:
+            when("bias", flags["any_bias"], lambda: logits.copy_(
+                apply_logit_bias(logits, p["bias_ids"], p["bias_vals"])))
+        when("penalties", flags["chunk_pen" if chunk else "any_pen"],
+             lambda: logits.copy_(apply_penalties(
+                 logits, counts(), p["presence"], p["frequency"])))
+        keys = row_sample_keys(bufs["step_key"], p["seed"], pos_next)
         return sample_and_logprobs(
             logits, keys, p["temperature"], p["top_k"], p["top_p"],
-            any_sampled=True, needs_filter=True, with_top=True)
+            any_sampled=flags["chunk_sampled" if chunk else "any_sampled"],
+            needs_filter=flags["chunk_filter" if chunk else "needs_filter"],
+            with_top=flags["any_top"])
 
     def _window_body(self, key, bufs) -> None:
         """One W-substep decode window of program ``key`` over its static
@@ -1680,10 +1746,13 @@ class LLMEngine:
         slots and context lengths are recomputed per substep from the page
         tables. The function a program captures, so nothing here reads a
         device value on the host, branches on one or uploads (KGCT001):
-        the greedy variant is argmax-only; the sampled one runs
-        ``_sample_rows`` and bumps the carried counts in place."""
+        the greedy variant is argmax-only, its alternatives gated on
+        ``any_top``; the sampled one runs ``_sample_rows`` and bumps the
+        carried counts in place under ``any_pen``."""
         variant, _ = key
         cfg = self.model_config
+        flags = bufs.flags(STEP_FLAGS)
+        counts = bufs["counts"] if variant == "sampled" else None
         tokens, pos = bufs["tokens0"], bufs["positions"]
         for i in range(self.config.scheduler.decode_window):
             hidden = self._forward(
@@ -1692,18 +1761,21 @@ class LLMEngine:
                                               groups=self.groups)
             if variant == "greedy":
                 tokens = torch.argmax(logits, dim=-1).to(torch.int32)
-                lps = token_logprobs(logits, tokens)
-                tids, tlps = top_logprobs(logits)
+                bufs["out_lp"][:, i] = token_logprobs(logits, tokens)
+                write_top_logprobs(logits, flags["any_top"],
+                                   bufs["out_tid"][:, i],
+                                   bufs["out_tlp"][:, i])
             else:
                 tokens, lps, tids, tlps = self._sample_rows(
-                    bufs, logits, bufs["counts"], pos + 1)
-                bufs["counts"].scatter_add_(
-                    1, tokens.to(torch.int64)[:, None],
-                    torch.ones_like(bufs["counts"][:, :1]))
+                    bufs, logits, lambda: counts, flags, pos + 1)
+                when("count_bump", flags["any_pen"],
+                     lambda tokens=tokens: counts.scatter_add_(
+                         1, tokens.to(torch.int64)[:, None],
+                         torch.ones_like(counts[:, :1])))
+                bufs["out_lp"][:, i] = lps
+                bufs["out_tid"][:, i] = tids
+                bufs["out_tlp"][:, i] = tlps
             bufs["out_tok"][:, i] = tokens
-            bufs["out_lp"][:, i] = lps
-            bufs["out_tid"][:, i] = tids
-            bufs["out_tlp"][:, i] = tlps
             pos = pos + 1
 
     def _dispatch_window(self, batch: ScheduledBatch, positions: np.ndarray,
@@ -1734,10 +1806,11 @@ class LLMEngine:
         bufs = self._programs.buffers(key)
         step_key = self._next_step_key()
         with ph("host_prep"):
+            ids, vals = self._bias_arrays(batch)
             inputs = {"positions": positions,
-                      "page_tables": batch.page_tables}
+                      "page_tables": batch.page_tables,
+                      "flags": step_flags(batch, ids)}
             if not greedy:
-                ids, vals = self._bias_arrays(batch)
                 inputs.update(top_k=batch.top_k, seed=batch.seed,
                               step_key=[step_key], bias_ids=ids,
                               bias_vals=vals, temperature=batch.temperature,

@@ -41,6 +41,13 @@ verify step's penalty history) and outputs that every run overwrites.
   run is the step's result. Then the body is captured into a
   ``torch.cuda.CUDAGraph``, and every later run of the key replays it.
   Capture happens lazily, as ``jax.jit`` compiles at the first call.
+- A body's gated stages (``ops/gates.py``: the JAX programs' ``lax.cond``
+  stages) are captured as conditional nodes on the per-step flags of the
+  key's ``flags`` input, both branches of each; the warm-up ran only the
+  host flags' branches and lists them all, so a throwaway capture in
+  relaxed mode (never instantiated) takes every branch once before the
+  real one (the gated stages alone, not the forward). The flags
+  are inputs, not part of the key: one program per JAX jit key.
 - All graphs share one memory pool. Nothing allocated inside a capture
   outlives it (the body writes into the static buffers), and replays never
   overlap: they run on the engine's one stream. So one program's scratch
@@ -62,7 +69,8 @@ verify step's penalty history) and outputs that every run overwrites.
 
 A body is called as ``body(key, buffers)``: the key is static Python data,
 the buffers are tensors; branching on the first is free, on the second it
-is a host read that capture refuses (KGCT001).
+is a host read that capture refuses (KGCT001): a body branches on a step's
+flags only through ``gates.when``.
 """
 
 from __future__ import annotations
@@ -76,6 +84,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda as cuda_ops
+from ..ops import gates
 
 # (shape, dtype) of a static buffer, by name.
 Layout = dict[str, tuple[tuple[int, ...], torch.dtype]]
@@ -114,7 +123,12 @@ def activation_bytes(cfg, tokens: int, rows: int, out_cap: int,
     K/V until the one scatter; the [rows * positions, vocab] fp32 logits,
     held while the positions are sampled one after another; and one
     position's sampling stage, [rows, vocab] fp32 temporaries (the filter
-    tiers' sort among them, 16 rows' worth) with the penalty history."""
+    tiers' sort among them, 16 rows' worth) with the penalty history. The
+    stage's gated branches are captured from streams of their own, one per
+    nesting depth, whose blocks the pool keeps apart from the forward's:
+    every branch is resident at once, which the 16 rows' worth covers (a
+    gated stage at 32 rows of llama-3-8b's vocabulary took 12 rows' worth
+    of the pool on the card, PERF.md)."""
     item = 4 if cfg.dtype == "float32" else 2
     qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
     mlp = 14 * cfg.intermediate_size * (2 if cfg.is_moe else 1)
@@ -161,6 +175,7 @@ class StaticBuffers:
 
     def __init__(self, device: torch.device, inputs: Layout, state: Layout):
         self.device = device
+        self.host: dict = {}        # the last upload's host arrays
         self.tensors: dict[str, torch.Tensor] = {}
         # dtype -> (device buffer, [(name, offset, shape)])
         self._packs: dict[torch.dtype, tuple] = {}
@@ -184,6 +199,14 @@ class StaticBuffers:
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.tensors[name]
 
+    def flags(self, names: tuple) -> dict:
+        """The int32 input ``flags`` as ``gates.Flag``s by name (``names``
+        in its order): each the last upload's host value beside its device
+        copy, which a captured program's conditional nodes read."""
+        host, dev = self.host["flags"], self.tensors["flags"]
+        return {name: gates.Flag(bool(host[i]), dev[i:i + 1])
+                for i, name in enumerate(names)}
+
     def upload(self, arrays: dict) -> None:
         """Every input from the host arrays of the same names (shapes must
         match). On the card each dtype's inputs are packed into one pinned
@@ -191,6 +214,7 @@ class StaticBuffers:
         keeps the buffer from reuse until its copy has run, so a chained
         window's upload never waits for the window before it."""
         pinned = self.device.type == "cuda"
+        self.host = arrays
         for buf, segs in self._packs.values():
             host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=pinned)
             flat = host.numpy()
@@ -225,6 +249,9 @@ class StepPrograms:
         self._programs: dict = {}
         self._stream: Optional[torch.cuda.Stream] = None
         self._pool = None
+        # The streams the conditional nodes' bodies are captured from, one
+        # per nesting depth (ops/gates.py), shared by every capture.
+        self._children: list = []
         # Per capture: host seconds of the capture itself (the warm-up
         # run is not in it); the shared pool's growth in reserved bytes;
         # steps run by replay.
@@ -290,7 +317,15 @@ class StepPrograms:
         """Warm up (this step, eagerly, on the capture stream), then
         capture the body into a graph in the shared pool. Returns (graph,
         kernel launches the graph holds by kernel, the scratch tensors its
-        kernels use, kept alive with it)."""
+        kernels use, kept alive with it).
+
+        The warm-up runs one branch of each gated stage (the host flags')
+        and lists every branch of the gates it meets; a throwaway capture
+        in relaxed mode, whose graph is never instantiated, then takes each
+        of them once, nested gates inline (a first call's lazy set-up,
+        allowed there; a branch a capture refuses fails there, before any
+        conditional node exists), and the real capture records both
+        branches of each gate as conditional nodes."""
         main = torch.cuda.current_stream(self.device)
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
@@ -298,36 +333,60 @@ class StepPrograms:
         side = self._stream
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            body(key, bufs)
+            with gates.collecting() as branches:
+                body(key, bufs)
             reserved = torch.cuda.memory_reserved(self.device)
             t0 = time.perf_counter()
+            throwaway = torch.cuda.CUDAGraph(keep_graph=True)
+            if branches:
+                with self._recording(key, throwaway, inline=True):
+                    throwaway.capture_begin(pool=self._pool,
+                                            capture_error_mode="relaxed")
+                    for branch in branches:
+                        branch()
+            del branches
             graph = torch.cuda.CUDAGraph()
-            # A capture launches nothing: the wrapper counts of this
-            # thread's capture (other engines' threads launch meanwhile)
-            # are taken back and move to the replays, each of which
-            # launches what the graph recorded. The capture's kernels get
-            # workspaces and counters of their own: a replay may run while
-            # another engine's thread warms a capture up on its side stream.
-            with _collector_paused(), cuda_ops.tally_launches() as recorded, \
-                    cuda_ops.capture_scratch() as scratch:
+            with self._recording(key, graph) as (recorded, scratch):
                 # thread_local: another thread's CUDA calls (a /metrics
                 # scrape reading free memory) do not void this thread's
                 # capture.
                 graph.capture_begin(pool=self._pool,
                                     capture_error_mode="thread_local")
-                try:
-                    body(key, bufs)
-                    graph.capture_end()
-                except Exception as err:    # out of memory too
-                    self._abandon(graph)
-                    raise CaptureError(f"capture of step program {key} "
-                                       f"failed: {err}") from err
-                finally:
-                    cuda_ops.add_launches({k: -n for k, n in recorded.items()})
+                body(key, bufs)
+            # Only now: the pool must not drop to no graph between the
+            # two captures (the allocator refuses a pool it freed).
+            del throwaway
         self.capture_seconds.append(time.perf_counter() - t0)
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         main.wait_stream(side)
         return graph, dict(recorded), scratch
+
+    @contextlib.contextmanager
+    def _recording(self, key, graph: "torch.cuda.CUDAGraph",
+                   inline: bool = False):
+        """Open around one capture of ``graph``, begun and recorded inside;
+        ends it on leaving. A capture launches nothing: the wrapper counts
+        of this thread's capture (other engines' threads launch meanwhile)
+        are taken back and move to the replays, each of which launches what
+        the graph recorded. The capture's kernels get workspaces and
+        counters of their own: a replay may run while another engine's
+        thread warms a capture up on its side stream. Gates inside become
+        conditional nodes (with ``inline``, every branch in the graph as
+        it is: ``gates.capturing``). Yields (the launches recorded, the
+        scratch sets); raises ``CaptureError`` if the capture fails."""
+        with _collector_paused(), cuda_ops.tally_launches() as recorded, \
+                cuda_ops.capture_scratch() as scratch, \
+                gates.capturing(self.device, self._pool, self._children,
+                                inline):
+            try:
+                yield recorded, scratch
+                graph.capture_end()
+            except Exception as err:    # out of memory too
+                self._abandon(graph)
+                raise CaptureError(f"capture of step program {key} "
+                                   f"failed: {err}") from err
+            finally:
+                cuda_ops.add_launches({k: -n for k, n in recorded.items()})
 
     def _abandon(self, graph: "torch.cuda.CUDAGraph") -> None:
         """End a capture that failed. PyTorch ends a capture's routing of
@@ -339,7 +398,12 @@ class StepPrograms:
             graph.capture_end()
         except RuntimeError:
             pass                    # the error voided the capture
-        index = self.device.index
+        else:
+            # It ended (the error came after it, or from a conditional
+            # node's body only): PyTorch ended the routing, and the graph
+            # gives its pool reference back when it is dropped.
+            return
+        index = gates.device_index(self.device)
         for end in (torch._C._cuda_endAllocateToPool,
                     torch._C._cuda_releasePool):
             try:

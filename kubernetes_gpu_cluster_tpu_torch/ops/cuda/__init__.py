@@ -8,6 +8,9 @@ kernel, mirroring the JAX package's ``ops/pallas/``:
 - ``spec_verify``         <- no TPU kernel: the JAX package's XLA
   ``ops/attention.py::spec_verify_attention_xla``, which a captured verify
   program needs over its whole page table
+- ``graph_gate``          <- no TPU kernel: the CUDA-graph conditional
+  nodes by which a captured program skips a stage, as the JAX programs'
+  ``lax.cond`` does (``ops/gates.py``); it launches no counted kernel
 
 Each wrapper validates its inputs, allocates the output, launches on
 PyTorch's current stream (a capture stream while the engine captures a

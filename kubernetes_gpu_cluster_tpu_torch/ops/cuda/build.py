@@ -47,9 +47,13 @@ CSRC = PACKAGE_DIR / "csrc"
 DEFAULT_KERNEL_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 KERNEL_DIR_ENV = "KGCT_KERNEL_DIR"
 KERNELS = ("paged_decode", "flash_prefill", "flash_prefill_hist", "int4_matmul",
-           "spec_verify")
+           "spec_verify", "graph_gate")
+# -split-compile=0: nvcc optimizes a source's device functions in parallel
+# threads, one per core (a source is several kernels' instantiations); the
+# libraries and ptxas's report are those of a serial build.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "-lineinfo", "-Xptxas", "-v", "-split-compile=0", "-shared",
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -65,7 +65,7 @@ def _lib() -> ctypes.CDLL:
         if cols != (DECODE_COLS, PREFILL_COLS):
             raise RuntimeError(f"int4_matmul: library tile columns {cols} != "
                                f"{(DECODE_COLS, PREFILL_COLS)}")
-        fn.argtypes = [_P] * 4 + [ctypes.POINTER(LaunchArgs), ctypes.c_bool,
+        fn.argtypes = [_P] * 6 + [ctypes.POINTER(LaunchArgs), ctypes.c_bool,
                                   _P]
         fn.restype = _I
     return lib
@@ -150,10 +150,10 @@ def _plan_for(T: int, K: int, N: int, gs: int, x_dtype: int,
 
 class LaunchArgs(ctypes.Structure):
     """csrc/int4_matmul.cu's Int4Launch: what every call of one key passes
-    unchanged."""
-    _fields_ = [("ws", _P), ("counters", _P)] + [
-        (f, _I) for f in ("T", "K", "N", "gs", "x_dtype", "kind", "mt",
-                          "blocks")]
+    unchanged, written once when the key is prepared (a call's workspace
+    and counters are arguments of the call)."""
+    _fields_ = [(f, _I) for f in ("T", "K", "N", "gs", "x_dtype", "kind",
+                                  "mt", "blocks")]
 
 
 class _Launch(NamedTuple):
@@ -212,7 +212,7 @@ def _prepare(x: torch.Tensor, w_packed: torch.Tensor,
         return _Launch((T, N), x.device, False, None, None, None, 0, 0)
     fn = _lib().kgct_int4_matmul
     p = _plan_for(T, K, N, gs, x_dtype, x.device)
-    args = LaunchArgs(0, 0, T, K, N, gs, x_dtype, p.kind, p.mt, p.blocks)
+    args = LaunchArgs(T, K, N, gs, x_dtype, p.kind, p.mt, p.blocks)
     return _Launch((T, N), x.device, N % 16 == 0, p, ctypes.pointer(args),
                    fn, 2 * p.blocks * p.tile_rows * p.tile_cols, p.tiles)
 
@@ -244,11 +244,9 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     if c.args is None:
         return out
     stream = raw_stream(dev)
-    a = c.args.contents
-    a.ws, a.counters = SCRATCH.pointers(dev, stream, c.ws_floats,
-                                        c.n_counters)
+    ws, cnt = SCRATCH.pointers(dev, stream, c.ws_floats, c.n_counters)
     xp, wp, sp = x.data_ptr(), w_packed.data_ptr(), scale.data_ptr()
-    code = c.fn(xp, wp, sp, out.data_ptr(), c.args,
+    code = c.fn(xp, wp, sp, out.data_ptr(), ws, cnt, c.args,
                 c.n16 and not (xp | wp | sp) & 15, stream)
     if code:
         build.check_status(_lib(), "int4_matmul", code)

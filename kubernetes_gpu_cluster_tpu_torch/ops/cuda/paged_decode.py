@@ -87,10 +87,12 @@ def workspace_floats(p: Plan, B: int, n_kv: int, g: int, hd: int) -> int:
 
 class LaunchArgs(ctypes.Structure):
     """csrc/paged_decode.cu's PagedDecodeLaunch: what every call of one key
-    passes unchanged."""
-    _fields_ = [("ws", _P), ("counters", _P)] + [
-        (f, _I) for f in ("B", "nh", "n_kv", "hd", "ps", "pps", "dtype",
-                          "min_split", "splits")] + [
+    passes unchanged. Written once, when the key is prepared: a call's
+    workspace and counters are arguments of the call, so that two threads
+    launching one key at once (the GIL is released inside the call) each
+    pass their own set."""
+    _fields_ = [(f, _I) for f in ("B", "nh", "n_kv", "hd", "ps", "pps",
+                                  "dtype", "min_split", "splits")] + [
         ("scale", ctypes.c_float)]
 
 
@@ -103,7 +105,7 @@ def _lib() -> ctypes.CDLL:
         if lib.kgct_paged_decode_stage_keys() != STAGE_KEYS:
             raise RuntimeError("paged_decode: library stage size differs "
                                "from the wrapper's")
-        fn.argtypes = [_P] * 8 + [ctypes.POINTER(LaunchArgs), _P]
+        fn.argtypes = [_P] * 10 + [ctypes.POINTER(LaunchArgs), _P]
         fn.restype = _I
     return lib
 
@@ -169,8 +171,8 @@ def _prepare(q, k_pool, v_pool, page_tables, context_lens, k_cur, v_cur,
         # geometry: ``workspace_floats`` of any such plan is no larger.
         slots = BLOCKS_PER_SM * _sm_count(dev)
         ws, cnt = slots * (nh // n_kv) * (hd + 2), slots
-    args = LaunchArgs(0, 0, B, nh, n_kv, hd, ps, pps, dtype,
-                      p.min_split, p.splits, scale)
+    args = LaunchArgs(B, nh, n_kv, hd, ps, pps, dtype, p.min_split,
+                      p.splits, scale)
     return _Launch(layers, layer_bytes, ctypes.pointer(args), fn, ws, cnt)
 
 
@@ -199,14 +201,13 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     if c.args is None:
         return out
     stream = raw_stream(dev)
+    ws = cnt = None
     if c.n_counters:
-        a = c.args.contents
-        a.ws, a.counters = SCRATCH.pointers(dev, stream, c.ws_floats,
-                                            c.n_counters)
+        ws, cnt = SCRATCH.pointers(dev, stream, c.ws_floats, c.n_counters)
     code = c.fn(q.data_ptr(), k_pool.data_ptr() + off,
                 v_pool.data_ptr() + off, page_tables.data_ptr(),
                 context_lens.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(),
-                out.data_ptr(), c.args, stream)
+                out.data_ptr(), ws, cnt, c.args, stream)
     if code:
         build.check_status(_lib(), "paged_decode", code)
     note_launch("paged_decode")

@@ -147,8 +147,9 @@ def schedule(ctx, cap: int, n_kv: int, groups: int,
 
 class LaunchArgs(ctypes.Structure):
     """csrc/spec_verify.cu's SpecVerifyLaunch: what every call of one key
-    passes unchanged."""
-    _fields_ = [("ws", _P), ("counters", _P)] + [
+    passes unchanged, written once when the key is prepared (a call's
+    workspace and counters are arguments of the call)."""
+    _fields_ = [
         (f, _I) for f in ("R", "S", "nh", "n_kv", "hd", "ps", "pps", "pages",
                           "layers", "dtype", "blocks")] + [
         ("scale", ctypes.c_float)]
@@ -188,7 +189,7 @@ def _lib() -> ctypes.CDLL:
                                f"the wrapper's: {differ[:4]}")
         lib.kgct_spec_verify_resident.argtypes = [_I]
         lib.kgct_spec_verify_resident.restype = _I
-        fn.argtypes = [_P] * 8 + [ctypes.POINTER(LaunchArgs), _I, _P]
+        fn.argtypes = [_P] * 10 + [ctypes.POINTER(LaunchArgs), _I, _P]
         fn.restype = _I
     return lib
 
@@ -265,7 +266,7 @@ def _prepare(q, k_pool, v_pool, page_tables, context_lens, k_new, v_new,
         blocks = plan(_sm_count(dev), _resident(dev, hd))
         ws = 2 * blocks * TILE_ROWS * (hd + 2)
         cnt = R * n_kv * tile_groups(S * (nh // n_kv))
-    args = LaunchArgs(0, 0, R, S, nh, n_kv, hd, ps, pps, P, max(layers, 1),
+    args = LaunchArgs(R, S, nh, n_kv, hd, ps, pps, P, max(layers, 1),
                       dtype, blocks, scale)
     return _Launch(layers, layer_bytes, ctypes.pointer(args), fn, ws, cnt)
 
@@ -296,14 +297,13 @@ def spec_verify(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     if c.args is None:
         return out
     stream = raw_stream(dev)
+    ws = cnt = None
     if c.n_counters:
-        a = c.args.contents
-        a.ws, a.counters = SCRATCH.pointers(dev, stream, c.ws_floats,
-                                            c.n_counters)
+        ws, cnt = SCRATCH.pointers(dev, stream, c.ws_floats, c.n_counters)
     code = c.fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 page_tables.data_ptr(), context_lens.data_ptr(),
-                k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), c.args,
-                layer or 0, stream)
+                k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), ws, cnt,
+                c.args, layer or 0, stream)
     if code:
         build.check_status(_lib(), "spec_verify", code)
     note_launch("spec_verify")

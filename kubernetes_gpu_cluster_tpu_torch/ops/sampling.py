@@ -3,14 +3,13 @@
 Runs on the same device as the forward step, so no [B, V] logits cross to
 the host. All sampling params are per-row tensors, so one step serves
 heterogeneous requests. What a batch needs (any sampled row, any filter,
-alternatives) is decided by the caller from the HOST copy of those params
-and passed as Python flags: the device never has to report back before
-sampling. The decode window's captured programs pass every flag True: the
-rows' own parameters then decide on the device (temperature <= 0 takes
-the argmax, top_k 0 and top_p 1 cut nothing, zero penalties and empty
-bias slots add exact zeros), so one program serves every mix of rows.
-Nothing here reads a device value on the host: a captured graph could
-not.
+any penalty, alternatives) is decided from the HOST copy of those params,
+by the JAX programs' own conditions, and passed as flags: host bools (a
+Python branch) or ``gates.Flag``s, which a captured step program turns into
+CUDA-graph conditional nodes on the flags' device copies (``ops/gates.py``),
+so one program skips a stage whenever the step's flag says so, as the JAX
+program's ``lax.cond`` does. Nothing here reads a device value on the
+host: a captured graph could not.
 
 Seeded rows: the JAX package derives per-row keys with threefry
 ``fold_in(seed, position)``. Here each row's noise comes from a
@@ -26,9 +25,12 @@ seeded row's outcome at a position is as independent of the batch.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
+
+from . import gates
+from .gates import Flag, when
 
 # Width of the first top-k window. Serving-realistic top_k values and top-p
 # prefixes of peaked distributions fit; wider rows go to the wide window,
@@ -122,20 +124,21 @@ def _filter_thresholds_sorted(sorted_logits: torch.Tensor, k: torch.Tensor,
     return k_thresh, p_thresh, cumsum[:, -1]
 
 
-def _apply_filters(scaled: torch.Tensor, top_k: torch.Tensor,
-                   top_p: torch.Tensor) -> torch.Tensor:
-    """Top-k + top-p filtering (masked entries -> -inf). top_k: [B] int, 0 =>
-    disabled; top_p: [B] float, 1.0 => disabled.
+def _filter_thresholds(scaled: torch.Tensor, top_k: torch.Tensor,
+                       top_p: torch.Tensor) -> torch.Tensor:
+    """[B, 1] top-k + top-p cut of each row: entries below it are filtered.
+    top_k: [B] int, 0 => disabled; top_p: [B] float, 1.0 => disabled.
 
     First tier: one ``topk`` to TOP_K_CAP plus a full-row logsumexp, so the
     top-p mass is measured against the EXACT post-top-k distribution. When
     some row needs tokens beyond the window (top_k > cap, or a top-p prefix
     wider than the cap) the wide window is taken, then the full sort. The
-    choice is made on the device, for the batch as a whole: every tier is
-    computed and ``torch.where`` on each tier's all-rows flag picks the
-    thresholds, so the result is exactly the cut of the tier a host-side
-    branch would take, with no read-back (a captured window cannot read
-    one). It costs a [B, V] sort per filtering call (PERF.md §6)."""
+    choice is made on the device, for the batch as a whole, as the JAX
+    ``lax.cond``s on ``ok`` and ``ok_w`` make it: inside a captured program
+    each later tier is a conditional node on the tier before it
+    (``gates.when_device``), so the [B, V] sort runs only in a step that
+    needs it; eagerly every tier is computed and ``torch.where`` on each
+    tier's all-rows flag picks the thresholds (the same cut, no read-back)."""
     V = scaled.shape[-1]
     k = torch.clamp(torch.where(top_k <= 0, torch.full_like(top_k, V), top_k),
                     1, V)
@@ -150,11 +153,8 @@ def _apply_filters(scaled: torch.Tensor, top_k: torch.Tensor,
         k_t, p_t, _ = _filter_thresholds_sorted(sorted_logits, k, top_p, lse)
         return torch.maximum(k_t, p_t)
 
-    def cut(s, thresh):
-        return torch.where(s < thresh, torch.full_like(s, neg_inf), s)
-
     if V <= TOP_K_CAP:
-        return cut(scaled, full_sort(scaled))
+        return full_sort(scaled)
 
     def window_thresholds(s, W):
         top_vals = torch.topk(s, W, dim=-1).values             # [B, W] desc
@@ -169,12 +169,34 @@ def _apply_filters(scaled: torch.Tensor, top_k: torch.Tensor,
                        & ((top_p >= 1.0) | (covered >= top_p)))
         return torch.maximum(k_t, p_t), ok
 
+    if gates.in_capture():
+        thresh, ok = window_thresholds(scaled, TOP_K_CAP)
+
+        def wide_tier():
+            if V <= TOP_K_CAP_WIDE:
+                thresh.copy_(full_sort(scaled))
+                return
+            wide, ok_w = window_thresholds(scaled, TOP_K_CAP_WIDE)
+            thresh.copy_(wide)
+            gates.when_device(ok_w, lambda: thresh.copy_(full_sort(scaled)),
+                              negate=True)
+        gates.when_device(ok, wide_tier, negate=True)
+        return thresh
     thresh = full_sort(scaled)
     if V > TOP_K_CAP_WIDE:
         wide, ok = window_thresholds(scaled, TOP_K_CAP_WIDE)
         thresh = torch.where(ok, wide, thresh)
     narrow, ok = window_thresholds(scaled, TOP_K_CAP)
-    return cut(scaled, torch.where(ok, narrow, thresh))
+    return torch.where(ok, narrow, thresh)
+
+
+def _apply_filters(scaled: torch.Tensor, top_k: torch.Tensor,
+                   top_p: torch.Tensor) -> torch.Tensor:
+    """Top-k + top-p filtering (masked entries -> -inf) by
+    ``_filter_thresholds``."""
+    thresh = _filter_thresholds(scaled, top_k, top_p)
+    return torch.where(scaled < thresh, torch.full_like(scaled, float("-inf")),
+                       scaled)
 
 
 def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
@@ -232,16 +254,20 @@ def top_logprobs(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return ids.to(torch.int32), vals
 
 
-def gated_top_logprobs(logits: torch.Tensor, want: bool):
-    """top_logprobs when some row asked for alternatives, else zero-fills
-    the host never reads."""
-    if want:
-        return top_logprobs(logits)
-    B = logits.shape[0]
-    return (torch.zeros((B, TOP_LOGPROBS), dtype=torch.int32,
-                        device=logits.device),
-            torch.zeros((B, TOP_LOGPROBS), dtype=torch.float32,
-                        device=logits.device))
+def write_top_logprobs(logits: torch.Tensor, want: Union[bool, Flag],
+                       ids: torch.Tensor, lps: torch.Tensor) -> None:
+    """``top_logprobs`` into ``ids`` / ``lps`` where some row asked for
+    alternatives, else the zeros the JAX false branch returns (the host
+    never reads them)."""
+    def top():
+        i, v = top_logprobs(logits)
+        ids.copy_(i)
+        lps.copy_(v)
+
+    def zeros():
+        ids.zero_()
+        lps.zero_()
+    when("top_logprobs", want, top, zeros)
 
 
 def token_logprobs(logits: torch.Tensor, tokens: torch.Tensor,
@@ -263,33 +289,55 @@ def sample_and_logprobs(
     top_k: torch.Tensor,         # [B] int; 0 => disabled
     top_p: torch.Tensor,         # [B] float; 1.0 => disabled
     *,
-    any_sampled: bool,
-    needs_filter: bool,
-    with_top: bool = False,
+    any_sampled: Union[bool, Flag],
+    needs_filter: Union[bool, Flag],
+    with_top: Union[bool, Flag] = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (token ids [B] int32, chosen-token logprobs [B] f32,
     top ids [B, 5], top logprobs [B, 5]).
 
     Greedy rows (temperature <= 0) ignore the noise and report logprobs of
     the raw distribution; sampled rows report logprobs under the
-    temperature-scaled (pre-truncation, vLLM-order) distribution. A batch
-    with no sampled row (``any_sampled`` False, from the host copy of the
-    params) pays for an argmax and one logsumexp only: no sort, no noise.
-    ``needs_filter`` gates the top-k/top-p stage the same way."""
+    temperature-scaled (pre-truncation, vLLM-order) distribution. The
+    stages are gated as the JAX function's ``lax.cond``s gate them: a batch
+    with no sampled row (``any_sampled``) pays for an argmax and one
+    logsumexp only, no sort and no noise; ``needs_filter`` gates the
+    top-k/top-p stage inside the sampled path, ``with_top`` the
+    alternatives. Flags are host bools (a static branch) or ``Flag``s (a
+    conditional node inside a captured program, ``ops/gates.py``)."""
     logits = logits.to(torch.float32)
-    greedy_ids = torch.argmax(logits, dim=-1).to(torch.int32)
-    if not any_sampled:
-        return (greedy_ids, _chosen_logprobs(logits, greedy_ids),
-                *gated_top_logprobs(logits, with_top))
-    safe_temp = torch.where(temperature <= 0, torch.ones_like(temperature),
-                            temperature)
-    scaled = logits / safe_temp[:, None]
-    filtered = _apply_filters(scaled, top_k, top_p) if needs_filter else scaled
-    ids = torch.argmax(filtered + gumbel_noise(keys, logits.shape[-1]),
-                       dim=-1).to(torch.int32)
-    ids = torch.where(temperature <= 0, greedy_ids, ids)
-    return (ids, _chosen_logprobs(scaled, ids),
-            *gated_top_logprobs(scaled, with_top))
+    B, V = logits.shape
+    dev = logits.device
+    ids = torch.empty(B, dtype=torch.int32, device=dev)
+    lps = torch.empty(B, dtype=torch.float32, device=dev)
+    tids = torch.empty((B, TOP_LOGPROBS), dtype=torch.int32, device=dev)
+    tlps = torch.empty((B, TOP_LOGPROBS), dtype=torch.float32, device=dev)
+
+    def greedy_path():
+        greedy_ids = torch.argmax(logits, dim=-1).to(torch.int32)
+        ids.copy_(greedy_ids)
+        lps.copy_(_chosen_logprobs(logits, greedy_ids))
+        write_top_logprobs(logits, with_top, tids, tlps)
+
+    def sampled_path():
+        greedy_ids = torch.argmax(logits, dim=-1).to(torch.int32)
+        safe_temp = torch.where(temperature <= 0,
+                                torch.ones_like(temperature), temperature)
+        scaled = logits / safe_temp[:, None]
+        # argmax(filtered + g): the noise is added first and the filter's
+        # cut masks the sum (-inf either way), so the filter stage can be
+        # a node of its own.
+        noisy = scaled + gumbel_noise(keys, V)
+        when("filters", needs_filter, lambda: noisy.masked_fill_(
+            scaled < _filter_thresholds(scaled, top_k, top_p),
+            float("-inf")))
+        drawn = torch.argmax(noisy, dim=-1).to(torch.int32)
+        drawn = torch.where(temperature <= 0, greedy_ids, drawn)
+        ids.copy_(drawn)
+        lps.copy_(_chosen_logprobs(scaled, drawn))
+        write_top_logprobs(scaled, with_top, tids, tlps)
+    when("sampled", any_sampled, sampled_path, greedy_path)
+    return ids, lps, tids, tlps
 
 
 def sample_tokens(logits: torch.Tensor, keys: torch.Tensor,
@@ -317,10 +365,10 @@ def spec_verify_sample(
     frequency: torch.Tensor,     # [B]
     counts: Optional[torch.Tensor],  # [B, V] output-token histogram, or None
     *,
-    any_sampled: bool,
-    needs_filter: bool,
-    any_pen: bool,
-    with_top: bool = False,
+    any_sampled: Union[bool, Flag],
+    needs_filter: Union[bool, Flag],
+    any_pen: Union[bool, Flag],
+    with_top: Union[bool, Flag] = False,
 ) -> tuple[torch.Tensor, ...]:
     """Lossless draft acceptance over one verify step's logits.
 
@@ -346,80 +394,110 @@ def spec_verify_sample(
     outside the vocabulary is never accepted.
 
     The flags (any sampled row, any filter, any penalty, alternatives
-    wanted) come from the host copy of the params, as in
-    ``sample_and_logprobs``; the captured verify programs pass them all
-    True and let each row's own parameters decide on the device. Returns (tokens [B, S] int32, n_accepted [B]
-    int32, logprobs [B, S], top ids [B, S, 5], top logprobs [B, S, 5]),
-    logprobs under the temperature-scaled pre-truncation distribution
-    (raw for greedy rows)."""
+    wanted) gate the stages where the JAX function's ``lax.cond``s gate
+    them: penalties and the count bump at every position on ``any_pen``,
+    the filter thresholds on ``needs_filter``, the sampled decision (and
+    the sampled bonus) on ``any_sampled``, the alternatives on
+    ``with_top``. ``counts`` may be None when ``any_pen`` is False; it is
+    not written. Returns (tokens [B, S] int32, n_accepted [B] int32,
+    logprobs [B, S], top ids [B, S, 5], top logprobs [B, S, 5]), logprobs
+    under the temperature-scaled pre-truncation distribution (raw for
+    greedy rows)."""
     B, S, V = logits.shape
+    dev = logits.device
     logits = logits.to(torch.float32)
     is_greedy = temperature <= 0
     safe_temp = torch.where(is_greedy, torch.ones_like(temperature),
                             temperature)
-    vocab = torch.arange(V, device=logits.device)
+    vocab = torch.arange(V, device=dev)
+    neg_inf = float("-inf")
+    cnt = None
+    if counts is not None:
+        cnt = torch.empty_like(counts)
+        when("counts", any_pen, lambda: cnt.copy_(counts))
+    toks = torch.empty((B, S), dtype=torch.int32, device=dev)
+    lps = torch.empty((B, S), dtype=torch.float32, device=dev)
+    tids = torch.empty((B, S, TOP_LOGPROBS), dtype=torch.int32, device=dev)
+    tlps = torch.empty((B, S, TOP_LOGPROBS), dtype=torch.float32, device=dev)
 
-    def target(raw, counts):
-        pen = (apply_penalties(raw, counts, presence, frequency)
-               if any_pen else raw)
+    def target(j):
+        """(penalized raw, scaled, the filter's cut [B, 1], -inf when no
+        filter ran) at position j."""
+        raw = logits[:, j]
+        pen = torch.empty_like(raw)
+        when("penalties", any_pen,
+             lambda: pen.copy_(apply_penalties(raw, cnt, presence,
+                                               frequency)),
+             lambda: pen.copy_(raw))
         scaled = pen / safe_temp[:, None]
-        filtered = (_apply_filters(scaled, top_k, top_p) if needs_filter
-                    else scaled)
-        return pen, scaled, filtered
+        thresh = torch.full((B, 1), neg_inf, device=dev)
+        when("filters", needs_filter, lambda: thresh.copy_(
+            _filter_thresholds(scaled, top_k, top_p)))
+        return pen, scaled, thresh
+
+    def cut(scaled, thresh):
+        return torch.where(scaled < thresh, torch.full_like(scaled, neg_inf),
+                           scaled)
 
     def residual_noise(keys):
         return gumbel_noise(_mix32(keys ^ _RESIDUAL_SALT), V)
 
-    alive = torch.ones(B, dtype=torch.bool, device=logits.device)
-    n_acc = torch.zeros(B, dtype=torch.int32, device=logits.device)
-    toks, lps, tids, tlps = [], [], [], []
+    def emit(j, token, scaled):
+        toks[:, j] = token
+        lps[:, j] = _chosen_logprobs(scaled, token)
+        write_top_logprobs(scaled, with_top, tids[:, j], tlps[:, j])
+
+    alive = torch.ones(B, dtype=torch.bool, device=dev)
+    n_acc = torch.zeros(B, dtype=torch.int32, device=dev)
     for j in range(S - 1):
-        pen, scaled, filtered = target(logits[:, j], counts)
+        pen, scaled, thresh = target(j)
         greedy_ids = torch.argmax(pen, dim=-1).to(torch.int32)
         d = drafts[:, j].to(torch.int32)
-        accept = d == greedy_ids
-        replacement = greedy_ids
-        if any_sampled:
+        acc = torch.empty(B, dtype=torch.bool, device=dev)
+        repl = torch.empty(B, dtype=torch.int32, device=dev)
+
+        def sampled_decision(j=j, scaled=scaled, thresh=thresh, d=d,
+                             acc=acc, repl=repl):
             keys = row_sample_keys(step_key, seed, pos0 + j)
+            filtered = cut(scaled, thresh)
             is_d = vocab[None, :] == d[:, None].to(torch.int64)   # [B, V]
             p_d = torch.sum(torch.softmax(filtered, dim=-1) * is_d, dim=-1)
             u = _unit_uniform(_mix32(keys ^ _ACCEPT_SALT))
-            residual = filtered.masked_fill(is_d, float("-inf"))
+            residual = filtered.masked_fill(is_d, neg_inf)
             res_ids = torch.argmax(residual + residual_noise(keys),
                                    dim=-1).to(torch.int32)
-            # The draft held all the remaining mass (a +100 logit_bias, say):
-            # rejection has probability ~0; keep the draft.
+            # The draft held all the remaining mass (a +100 logit_bias,
+            # say): rejection has probability ~0; keep the draft.
             res_ok = torch.isfinite(torch.max(residual, dim=-1).values)
-            accept = torch.where(is_greedy, accept, u < p_d)
-            replacement = torch.where(
-                is_greedy, greedy_ids, torch.where(res_ok, res_ids, d))
-        accept = accept & alive
-        emitted = torch.where(accept, d, replacement)
-        if any_pen:
-            counts = counts.scatter_add(
-                1, emitted.to(torch.int64)[:, None],
-                alive.to(counts.dtype)[:, None])
-        toks.append(emitted)
-        lps.append(_chosen_logprobs(scaled, emitted))
-        tid, tlp = gated_top_logprobs(scaled, with_top)
-        tids.append(tid)
-        tlps.append(tlp)
+            acc.copy_(u < p_d)
+            repl.copy_(torch.where(res_ok, res_ids, d))
+
+        def greedy_only(d=d, greedy_ids=greedy_ids, acc=acc, repl=repl):
+            acc.copy_(d == greedy_ids)
+            repl.copy_(greedy_ids)
+        when("sampled", any_sampled, sampled_decision, greedy_only)
+        accept = torch.where(is_greedy, d == greedy_ids, acc) & alive
+        emitted = torch.where(accept, d,
+                              torch.where(is_greedy, greedy_ids, repl))
+        when("count_bump", any_pen, lambda emitted=emitted, alive=alive:
+             cnt.scatter_add_(1, emitted.to(torch.int64)[:, None],
+                              alive.to(cnt.dtype)[:, None]))
+        emit(j, emitted, scaled)
         alive = accept
         n_acc = n_acc + accept.to(torch.int32)
 
     # Bonus token from the last position (used only where the whole chain
     # survived; the host discards it otherwise).
-    pen, scaled, filtered = target(logits[:, -1], counts)
-    bonus = torch.argmax(pen, dim=-1).to(torch.int32)
-    if any_sampled:
+    pen, scaled, thresh = target(S - 1)
+    greedy_ids = torch.argmax(pen, dim=-1).to(torch.int32)
+    bonus = torch.empty(B, dtype=torch.int32, device=dev)
+
+    def sampled_bonus():
         keys = row_sample_keys(step_key, seed, pos0 + (S - 1))
-        sampled = torch.argmax(filtered + residual_noise(keys),
-                               dim=-1).to(torch.int32)
-        bonus = torch.where(is_greedy, bonus, sampled)
-    toks.append(bonus)
-    lps.append(_chosen_logprobs(scaled, bonus))
-    tid, tlp = gated_top_logprobs(scaled, with_top)
-    tids.append(tid)
-    tlps.append(tlp)
-    return (torch.stack(toks, dim=1), n_acc, torch.stack(lps, dim=1),
-            torch.stack(tids, dim=1), torch.stack(tlps, dim=1))
+        drawn = torch.argmax(cut(scaled, thresh) + residual_noise(keys),
+                             dim=-1).to(torch.int32)
+        bonus.copy_(torch.where(is_greedy, greedy_ids, drawn))
+    when("sampled", any_sampled, sampled_bonus,
+         lambda: bonus.copy_(greedy_ids))
+    emit(S - 1, bonus, scaled)
+    return toks, n_acc, lps, tids, tlps

@@ -814,11 +814,14 @@ class APIServer:
             if self.engine.engine.device.type == "cuda":
                 activities.append(ProfilerActivity.CUDA)
             prof = torch_profile(activities=activities)
-            prof.start()
+            # Started and stopped between two engine steps, on the worker
+            # thread: a trace that starts or stops while a step program
+            # captures can void the capture (engine/step_programs.py).
+            await self.engine.run_in_worker(lambda eng: prof.start())
             try:
                 await asyncio.sleep(seconds)
             finally:
-                prof.stop()
+                await self.engine.run_in_worker(lambda eng: prof.stop())
             path = os.path.join(
                 trace_dir, f"trace-{os.getpid()}-{time.time_ns()}.json")
             try:

@@ -142,7 +142,7 @@ def _use(lib: ctypes.CDLL, resident: int | None,
     what the occupancy API gives), or, with ``splits``, a decode grid of
     exactly that many blocks per output tile."""
     fn = lib.kgct_int4_matmul
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(C4.LaunchArgs),
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.POINTER(C4.LaunchArgs),
                                            ctypes.c_bool, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.kgct_int4_matmul_resident.argtypes = [ctypes.c_int] * 3

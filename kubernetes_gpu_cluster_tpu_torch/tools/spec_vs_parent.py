@@ -1,5 +1,6 @@
-"""Phase 7a's n-gram speculation of this tree against an older tree's, on
-the card, with each run's first-use costs split out.
+"""Phase 7a's n-gram speculation (and phase 4's engine) of this tree
+against an older tree's, on the card, with each run's first-use costs
+split out.
 
 Run from the repository root on a machine with an H100, with the older
 tree unpacked in a directory (``git archive <commit> | tar -x -C DIR``):
@@ -15,7 +16,9 @@ the script's seed): phase 7a's spec engine (``chip_smoke.check_spec_ngram``'s
 configuration, workload and warm-up), run twice, and then a second engine
 of the same configuration in the same process, run twice again. The
 second engine's first run has no first use of the process (library loads,
-first kernel calls), only its own captures.
+first kernel calls), only its own captures. Then phase 4's engine
+(``chip_smoke.check_engine``'s configuration, workload and warm-up), run
+twice: its tokens/s as phase 4 reckons them.
 
 For each run: wall seconds and tokens/s as phase 7a reckons them, steps
 and step kinds, drafted and accepted tokens, and the steps that captured a
@@ -119,6 +122,16 @@ for name in ("engine_1", "engine_2"):
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+wl = C.workload(cfg.vocab_size)
+engine = LLMEngine(cfg_engine, params=params, device=device)
+C.drive(engine, wl[1:3], "warm", flash_prefill_hist)
+res["phase_4"] = {}
+for tag in ("run_1", "run_2"):
+    r = C.drive(engine, wl, tag, flash_prefill_hist)
+    res["phase_4"][tag] = {"wall_s": r["wall_s"],
+                           "tokens_per_s": r["tokens_per_s"],
+                           "steps": r["steps"], "kinds": r["kinds"]}
+del engine
 print("RESULT:" + json.dumps(res), flush=True)
 '''
 

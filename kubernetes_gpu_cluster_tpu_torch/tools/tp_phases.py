@@ -112,6 +112,8 @@ def main() -> None:
                             abort=not args.checkpoint)
     print("tp:", json.dumps(tp), flush=True)
     if args.checkpoint:
+        _, tp_ref = C.tp1_reference(cfg, params, device,
+                                    n_req=C.STREAMED_REQS)
         C.checkpoint_phases(cfg, params, device, card, tp_ref)
         print(card)
         return

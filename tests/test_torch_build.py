@@ -8,11 +8,13 @@ what counts as current, what as stale, and what a stale library with no
 ``nvcc`` does. A stand-in ``nvcc`` (a Python script that writes its ``-o``
 file) drives the build path itself: the library, its ptxas report and its
 stamp, the per-kernel seconds and register lines of the command line, a
-failed compile.
+failed compile. The split wrappers' calls from two threads with one launch
+key each pass the kernel their own stream's workspace and counters.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import shutil
@@ -23,6 +25,7 @@ import time
 from pathlib import Path
 
 import pytest
+import torch
 
 from kubernetes_gpu_cluster_tpu_torch.ops.cuda import build
 
@@ -288,3 +291,100 @@ def test_command_line_with_no_nvcc_exits_non_zero(tmp_path):
     assert "kernel build failed" in proc.stderr
     assert str(tmp_path / "kernels") in proc.stderr
     assert not (tmp_path / "kernels").exists()
+
+
+class _OnCard(torch.Tensor):
+    """A host tensor the wrappers take for one on card 0 (their per-call
+    device checks read ``get_device``)."""
+
+    def get_device(self):
+        return 0
+
+
+def _card(shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype).as_subclass(_OnCard)
+
+
+# Per split wrapper: its call on stand-in tensors, and the launch record
+# its key would cache (the C launch struct, the stand-in entry, the
+# workspace floats and counters a call takes).
+_SPLIT_CALLS = {
+    "paged_decode": (
+        lambda m: m.paged_decode(
+            _card((2, 4, 8)), _card((3, 16, 16)), _card((3, 16, 16)),
+            _card((2, 3), torch.int32), _card((2,), torch.int32),
+            _card((2, 2, 8)), _card((2, 2, 8)), 0.5),
+        lambda m, fn: m._Launch(0, 0, ctypes.pointer(m.LaunchArgs()), fn,
+                                64, 8)),
+    "spec_verify": (
+        lambda m: m.spec_verify(
+            _card((4, 4, 8)), _card((4, 2, 8)), _card((4, 2, 8)),
+            _card((3, 16, 16)), _card((3, 16, 16)),
+            _card((2, 3), torch.int32), _card((2,), torch.int32), 0.5),
+        lambda m, fn: m._Launch(0, 0, ctypes.pointer(m.LaunchArgs()), fn,
+                                64, 8)),
+    "int4_matmul": (
+        lambda m: m.int4_matmul(_card((2, 32)), _card((16, 8), torch.int8),
+                                _card((1, 8))),
+        lambda m, fn: m._Launch((2, 8), torch.device("cpu"), False, None,
+                                ctypes.pointer(m.LaunchArgs()), fn, 64, 8)),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(_SPLIT_CALLS))
+def test_split_calls_of_one_key_on_two_threads_pass_their_own_scratch(
+        kernel, monkeypatch):
+    """Two threads call one split wrapper with the same launch key, each
+    on a stream of its own. The library's entry is a stand-in that, like
+    the C call (ctypes releases the GIL), lets the other thread run before
+    it reads the workspace and counters it was given: every call sees its
+    own stream's set. A wrapper that wrote the set into the key's cached
+    launch struct would let the other thread's call overwrite it."""
+    import importlib
+    import threading
+    from kubernetes_gpu_cluster_tpu_torch.ops import cuda as cuda_ops
+    mod = importlib.import_module(
+        f"kubernetes_gpu_cluster_tpu_torch.ops.cuda.{kernel}")
+    monkeypatch.setattr(cuda_ops.Scratch, "_new", staticmethod(
+        lambda dev, ws, n: (torch.empty(max(ws, 1)),
+                            torch.zeros(max(n, 1), dtype=torch.int32))))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    scratch = cuda_ops.Scratch()
+    monkeypatch.setattr(mod, "SCRATCH", scratch)
+    monkeypatch.setattr(mod, "_launch_cache", {})
+    monkeypatch.setattr(mod, "launches", mod.launches)
+    stream = threading.local()
+    monkeypatch.setattr(mod, "raw_stream", lambda dev: stream.id)
+    seen = []
+
+    def entry(*args):
+        at = next(i for i, a in enumerate(args)
+                  if isinstance(a, ctypes._Pointer))
+        time.sleep(0.0005)              # the other thread runs meanwhile
+        launch = args[at].contents
+        if hasattr(launch, "ws"):
+            ws, counters = launch.ws, launch.counters
+        else:
+            ws, counters = args[at - 2:at]
+        seen.append((args[-1], ws, counters))
+        return 0
+    call, record = _SPLIT_CALLS[kernel]
+    monkeypatch.setattr(mod, "_prepare", lambda *a, **k: record(mod, entry))
+    go = threading.Barrier(2)
+
+    def run(sid):
+        stream.id = sid
+        go.wait()
+        for _ in range(100):
+            call(mod)
+    other = threading.Thread(target=run, args=(0x7f02,))
+    other.start()
+    run(0x7f01)
+    other.join()
+    sets = {sid: tuple(t.data_ptr() for t in scratch._sets[(0, sid)])
+            for sid in (0x7f01, 0x7f02)}
+    assert len(seen) == 200 and len(set(sets.values())) == 2
+    wrong = [(sid, ws, cnt) for sid, ws, cnt in seen
+             if (ws, cnt) != sets[sid]]
+    assert not wrong, f"{len(wrong)} of 200 calls saw another stream's set"

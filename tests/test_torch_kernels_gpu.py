@@ -407,7 +407,10 @@ def test_split_calls_on_two_streams_at_once_share_no_scratch(cuda_device):
     """An engine's capture warm-up runs on its side stream while another
     engine's thread launches on the default one: split-K calls on the two
     streams at once, from two threads, give the bits of the same call made
-    alone, and leave every counter at 0."""
+    alone, and leave every counter at 0; again with the interpreter's
+    switch interval at its floor, so that the threads' wrapper calls
+    interleave as finely as they can (each call passes its own stream's
+    workspace and counters to the kernel)."""
     import threading
     g = torch.Generator(device=cuda_device).manual_seed(5)
     args = _decode_case(g, torch.bfloat16, cuda_device, 32, 8, 128, 16,
@@ -423,13 +426,22 @@ def test_split_calls_on_two_streams_at_once_share_no_scratch(cuda_device):
             outs[name] = [cpd.paged_decode(*args, layer=1)
                           for _ in range(200)]
         stream.synchronize()
-    other = threading.Thread(target=run, args=("side", torch.cuda.Stream()))
-    other.start()
-    run("default", torch.cuda.current_stream())
-    other.join()
-    for name, got in outs.items():
-        assert all(torch.equal(o, want) for o in got), name
-    assert cpd.SCRATCH.counters_in_use() == 0
+    interval = sys.getswitchinterval()
+    # Then again with the interpreter switching threads as often as it can
+    # (1 us): the wrappers' calls interleave as finely as they may.
+    for switch in (interval, 1e-6):
+        sys.setswitchinterval(switch)
+        try:
+            other = threading.Thread(target=run,
+                                     args=("side", torch.cuda.Stream()))
+            other.start()
+            run("default", torch.cuda.current_stream())
+            other.join()
+        finally:
+            sys.setswitchinterval(interval)
+        for name, got in outs.items():
+            assert all(torch.equal(o, want) for o in got), (name, switch)
+        assert cpd.SCRATCH.counters_in_use() == 0
 
 
 @pytest.mark.gpu
@@ -1157,6 +1169,205 @@ def test_captured_spec_steps_match_eager(cuda_device, draft):
     assert all(progs.keys(f) for f in families), progs.keys()
     assert len(progs.capture_seconds) == graph.compiled_step_variants()
     assert eager.compiled_step_variants() == 0
+
+
+# One request at a time through one program per family, its flags flipped
+# from request to request: every gate closed, then each stage open alone
+# (each filter tier: top_k 20 resolves in the 128-wide window, 1000 in the
+# 2048-wide one, 3000 and a top-p prefix of the flat random-weight
+# distribution only in the full sort), then closed again.
+_FLIPS = [
+    SamplingParams(max_tokens=9, temperature=0.0),
+    SamplingParams(max_tokens=9, temperature=0.0, logprobs=True,
+                   top_logprobs=3),
+    SamplingParams(max_tokens=9, temperature=0.0),
+    SamplingParams(max_tokens=9, temperature=0.8, seed=3),
+    SamplingParams(max_tokens=9, temperature=0.8, top_k=20, seed=4),
+    SamplingParams(max_tokens=9, temperature=0.8, seed=5),
+    SamplingParams(max_tokens=9, temperature=0.8, top_k=1000, seed=6),
+    SamplingParams(max_tokens=9, temperature=0.8, top_k=3000, seed=7),
+    SamplingParams(max_tokens=9, temperature=0.8, top_p=0.9, seed=8),
+    SamplingParams(max_tokens=9, temperature=0.8, top_k=20, seed=9),
+    SamplingParams(max_tokens=9, temperature=0.0, presence_penalty=0.5,
+                   frequency_penalty=0.3),
+    SamplingParams(max_tokens=9, temperature=0.0, logit_bias={5: 2.0}),
+    SamplingParams(max_tokens=9, temperature=0.8, seed=10),
+    SamplingParams(max_tokens=9, temperature=0.0),
+]
+
+
+def _flip_cfg(spec: bool = False):
+    """_tiny_cfg at a vocabulary past the wide filter window (4096 >
+    TOP_K_CAP_WIDE), so that every filter tier exists."""
+    base = _tiny_cfg(num_pages=256)
+    cfg = dataclasses.replace(base, model=base.model.replace(
+        vocab_size=4096))
+    if spec:
+        cfg = dataclasses.replace(cfg, scheduler=dataclasses.replace(
+            cfg.scheduler, mixed_batch_enabled=True,
+            spec_decode_enabled=True, num_speculative_tokens=4))
+    return cfg
+
+
+def _flip_wave(eng, family: str):
+    """``_FLIPS`` in order, one request each (a background greedy request
+    decodes beside them for the mixed families): tokens, logprobs and top
+    alternatives of each."""
+    pattern = _prompts(1, 12, 13, seed=70)[0]
+    prompt = {"window": _prompts(1, 40, 41, seed=71)[0],
+              "solo_chunk": _prompts(1, 300, 301, seed=72)[0],
+              "mixed": _prompts(1, 100, 101, seed=73)[0],
+              "spec": (pattern * 8)[:40],
+              "spec_mixed": (pattern * 30)[:300]}[family]
+    outs = []
+    for i, sp in enumerate(_FLIPS):
+        if family in ("mixed", "spec_mixed"):
+            eng.add_request(f"bg{i}", (pattern * 4)[:30],
+                            SamplingParams(max_tokens=24, temperature=0.0))
+            eng.step()
+        eng.add_request(f"r{i}", prompt, sp)
+        final = None
+        while eng.has_unfinished_requests():
+            for o in eng.step():
+                if o.request_id == f"r{i}" and o.finished:
+                    final = o
+        outs.append((final.output_token_ids, final.output_logprobs,
+                     final.output_top_logprobs))
+    return outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["window", "solo_chunk", "mixed", "spec",
+                                    "spec_mixed"])
+def test_gated_programs_replay_flag_flips_like_eager(cuda_device, family):
+    """Each family's programs (decode windows greedy and sampled and the
+    prefill with ``window``; solo chunks; mixed steps; spec and spec×mixed
+    verify steps) captured once, then replayed with their gate flags
+    flipped from step to step: closed, each stage and each filter tier
+    open, closed again. Every replay gives the enforce_eager twin's
+    tokens, logprobs and top alternatives bit for bit, and a second pass
+    of flips builds no program (kgct_jit_compiles_total unchanged)."""
+    cfg = _flip_cfg(spec=family.startswith("spec"))
+    graph = LLMEngine(cfg, device=cuda_device)
+    eager = LLMEngine(dataclasses.replace(cfg, enforce_eager=True),
+                      params=graph.params, device=cuda_device)
+    if family.startswith("spec"):
+        # The target drafting for itself: every step verifies drafts.
+        from kubernetes_gpu_cluster_tpu_torch.engine.spec.draft_model \
+            import DraftModelRunner
+        for eng in (graph, eager):
+            eng.scheduler.spec_proposer = DraftModelRunner(
+                eng.config, eng.model_config, params=graph.params,
+                device=cuda_device, programs=eng._programs)
+    want = _flip_wave(eager, family)
+    assert _flip_wave(graph, family) == want
+    built = graph.compiled_step_variants()
+    replays = graph._programs.replays
+    assert _flip_wave(graph, family) == want
+    assert graph.compiled_step_variants() == built
+    assert graph._programs.replays > replays
+    fams = {"window": ("greedy", "sampled", "prefill"),
+            "solo_chunk": ("prefill_hist",), "mixed": ("mixed",),
+            "spec": ("spec",), "spec_mixed": ("spec_mixed",)}[family]
+    assert all(graph._programs.keys(f) for f in fams), graph._programs.keys()
+
+
+@pytest.mark.gpu
+def test_gate_two_branches_and_nested_tiers_replay_right(cuda_device):
+    """The gate helper in a graph captured by hand: an if/else pair on an
+    int32 flag and, inside its then-branch, nodes on bools the graph
+    computes (taken and not taken, and a negated one); every flip of the
+    flag replays to what the branches compute, and nothing of a branch
+    that did not run is left behind."""
+    from kubernetes_gpu_cluster_tpu_torch.ops import gates
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    x = torch.arange(8, dtype=torch.float32, device=cuda_device)
+    out = torch.zeros(8, device=cuda_device)
+
+    def then():
+        out.copy_(x * 2)
+        gates.when_device(torch.all(out >= 0), lambda: out.add_(1))
+        big = torch.any(out > 100)
+        gates.when_device(big, lambda: out.add_(100))
+        gates.when_device(big, lambda: out.add_(1000), negate=True)
+    pool = torch.cuda.graph_pool_handle()
+    children = []
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with gates.capturing(cuda_device, pool, children):
+            g.capture_begin(pool=pool, capture_error_mode="thread_local")
+            gates.when("t", gates.Flag(True, flag), then,
+                       lambda: out.fill_(-1))
+            g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    assert len(children) == 2
+    for v in (0, 1, 0, 1, 1, 0):
+        out.fill_(7)
+        flag.fill_(v)
+        g.replay()
+        want = x * 2 + 1001 if v else torch.full_like(x, -1)
+        assert torch.equal(out, want), v
+    with pytest.raises(RuntimeError, match="captured program only"):
+        gates.when_device(torch.all(x >= 0), lambda: None)
+
+
+@pytest.mark.gpu
+def test_a_host_read_in_a_closed_branch_fails_its_capture(cuda_device):
+    """The capture records both branches of every gate, so a host read in
+    a branch the warm-up's flags skipped still fails the program's capture
+    with CaptureError; nothing runs eagerly in its place."""
+    from kubernetes_gpu_cluster_tpu_torch.engine.step_programs import \
+        CaptureError
+    from kubernetes_gpu_cluster_tpu_torch.ops import gates
+    eng = LLMEngine(_tiny_cfg(), device=cuda_device)
+    bodies = eng._programs._bodies
+
+    def leaky(body):
+        def run(key, bufs):
+            body(key, bufs)
+            flags = bufs.flags(("any_sampled",))
+            gates.when("leak", flags["any_sampled"],
+                       lambda: int(bufs["out_tok"].reshape(-1)[0]))
+        return run
+
+    eng._programs._bodies = {f: leaky(b) for f, b in bodies.items()}
+    with pytest.raises(CaptureError, match="capture of step program"):
+        eng.generate(_prompts(1, 10, 20),
+                     SamplingParams(max_tokens=12, temperature=0.0))
+    assert eng.compiled_step_variants() == 0
+
+
+@pytest.mark.gpu
+def test_a_key_first_met_under_a_steady_trace_is_captured(cuda_device):
+    """While a torch.profiler trace runs (started before, stopped after, as
+    the server's /debug/profile does between steps), a key first met is
+    captured with its gates' conditional nodes, as at any other time, and
+    its replays give the enforce_eager engine's tokens and logprobs,
+    under the trace and after it."""
+    from torch.profiler import ProfilerActivity, profile
+    graph = LLMEngine(_tiny_cfg(), device=cuda_device)
+    eager = LLMEngine(dataclasses.replace(_tiny_cfg(), enforce_eager=True),
+                      params=graph.params, device=cuda_device)
+    prompts = _prompts(2, 10, 40, seed=80)
+    sampled = SamplingParams(max_tokens=8, temperature=0.8, top_k=50,
+                             seed=7, logprobs=True)
+    greedy = SamplingParams(max_tokens=8, temperature=0.0, logprobs=True)
+
+    def run(eng):
+        return [(o.output_token_ids, o.output_logprobs)
+                for sp in (greedy, sampled)
+                for o in eng.generate(prompts, sp)]
+    want = run(eager)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = run(graph)
+        built = graph.compiled_step_variants()
+    assert got == want
+    assert built > 0
+    assert graph._programs.replays > 0
+    assert run(graph) == want
+    assert graph.compiled_step_variants() == built
 
 
 @pytest.mark.gpu

@@ -12,8 +12,15 @@ Same logits (numpy, from a seed) into both packages:
   counter-based hash + Gumbel-max here), so it is held by its properties:
   the same (seed, position) gives the same token in any batch, and the
   draws follow the target softmax (chi-square, the same pin as the JAX
-  package's rejection-sampling test: df = 15, bound 60 ≈ 8 sigma).
+  package's rejection-sampling test: df = 15, bound 60 ≈ 8 sigma);
+- the gated stages (``ops/gates.py``, the JAX functions' ``lax.cond``s):
+  with flags from the JAX conditions on the same rows, each eager stage
+  runs exactly where its condition holds, and skipped alternatives are
+  the JAX false branch's zeros.
 """
+
+import collections
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -190,3 +197,152 @@ def test_seeded_draws_follow_target_chi_square(top_k):
     expected = target[keep] * B
     chi2 = float(((counts[keep] - expected) ** 2 / expected).sum())
     assert chi2 < 60.0, (chi2, counts, expected)
+
+
+# -- gated stages (ops/gates.py): the JAX functions' lax.cond conditions ---
+
+# name -> (temperature, top_k, top_p, top_n) of a batch's rows
+_GATE_ROWS = {
+    "all_greedy": ([0.0, 0.0, 0.0], [0, 0, 0], [1.0, 1.0, 1.0], [0, 0, 0]),
+    "greedy_top": ([0.0, 0.0, 0.0], [0, 0, 0], [1.0, 1.0, 1.0], [0, 2, 0]),
+    "sampled": ([0.0, 0.8, 0.0], [0, 0, 0], [1.0, 1.0, 1.0], [0, 0, 0]),
+    "top_k_50": ([0.7, 0.8, 0.0], [50, 0, 0], [1.0, 1.0, 1.0], [0, 0, 0]),
+    "top_p": ([0.7, 0.0, 0.0], [0, 0, 0], [1.0, 0.95, 1.0], [0, 0, 1]),
+    "top_k_past_cap": ([0.9, 0.9, 0.9], [0, 300, 0], [1.0, 1.0, 1.0],
+                       [0, 0, 0]),
+    "greedy_with_filter": ([0.0, 0.0, 0.0], [5, 0, 0], [1.0, 1.0, 1.0],
+                           [0, 0, 0]),
+}
+
+
+def _jax_gates(temp, top_k, top_p, top_n) -> dict:
+    """The conditions of ``sample_and_logprobs``' ``lax.cond``s, by the JAX
+    expressions on the same arrays (``needs_filter`` is evaluated inside
+    the sampled path there)."""
+    t, k, p = jnp.asarray(temp), jnp.asarray(top_k), jnp.asarray(top_p)
+    return {"any_sampled": bool(jnp.any(t > 0)),
+            "needs_filter": bool(jnp.any((k > 0) | (p < 1.0))),
+            "with_top": bool(jnp.any(jnp.asarray(top_n) > 0))}
+
+
+@contextlib.contextmanager
+def counting_stages():
+    """Each gated stage's eager runs of its ``then``, by stage name, while
+    open: the port's ``gates.when`` wrapped where the engine and the
+    sampling ops call it."""
+    from kubernetes_gpu_cluster_tpu_torch.engine import engine as TE
+    from kubernetes_gpu_cluster_tpu_torch.ops import gates
+    counts = collections.Counter()
+
+    def counted(name, flag, then, otherwise=None):
+        def run():
+            counts[name] += 1
+            then()
+        gates.when(name, flag, run, otherwise)
+    try:
+        TE.when = TS.when = counted
+        yield counts
+    finally:
+        TE.when = TS.when = gates.when
+
+
+def _flags(values: dict) -> dict:
+    """``gates.Flag``s of host values (device copies set to the opposite,
+    which an eager call must never read)."""
+    from kubernetes_gpu_cluster_tpu_torch.ops.gates import Flag
+    return {k: Flag(v, torch.tensor([int(not v)], dtype=torch.int32))
+            for k, v in values.items()}
+
+
+@pytest.mark.parametrize("kind", sorted(_GATE_ROWS))
+def test_gated_sampling_runs_each_stage_where_the_jax_condition_holds(kind):
+    """``sample_and_logprobs`` with its flags as ``Flag``s from the JAX
+    conditions on the same rows: the eager stages run exactly where those
+    hold (``counting_stages``); greedy ids and every row's logprobs agree with
+    the JAX function; alternatives agree where asked for, and are the JAX
+    false branch's zeros where not."""
+    temp, top_k, top_p, top_n = (np.asarray(a) for a in _GATE_ROWS[kind])
+    temp, top_p = temp.astype(np.float32), top_p.astype(np.float32)
+    top_k = top_k.astype(np.int32)
+    B, V = 3, 512
+    logits = _logits(B, V, seed=5)
+    cond = _jax_gates(temp, top_k, top_p, top_n)
+    keys = TS.row_sample_keys(0, torch.tensor([1, 2, 3]),
+                              torch.tensor([7, 8, 9]))
+    with counting_stages() as taken:
+        ids, lps, tid, tlp = TS.sample_and_logprobs(
+            _t(logits), keys, _t(temp), _t(top_k), _t(top_p),
+            **_flags(cond))
+    ran = {k: taken[k] for k in ("sampled", "filters", "top_logprobs")}
+    assert ran == {"sampled": int(cond["any_sampled"]),
+                   "filters": int(cond["any_sampled"]
+                                  and cond["needs_filter"]),
+                   "top_logprobs": int(cond["with_top"])}
+    j_ids, j_lps, j_tid, j_tlp = JS.sample_and_logprobs(
+        jnp.asarray(logits), jax.random.key(0), jnp.asarray(temp),
+        jnp.asarray(top_k), jnp.asarray(top_p),
+        with_top=jnp.asarray(cond["with_top"]))
+    greedy = temp <= 0
+    np.testing.assert_array_equal(ids.numpy()[greedy],
+                                  np.asarray(j_ids)[greedy])
+    want_lps = JS._chosen_logprobs(
+        jnp.asarray(logits / np.where(greedy, 1.0, temp)[:, None]),
+        jnp.asarray(ids.numpy()))
+    np.testing.assert_allclose(lps.numpy(), np.asarray(want_lps),
+                               atol=1e-5, rtol=0)
+    if cond["with_top"]:
+        np.testing.assert_array_equal(tid.numpy(), np.asarray(j_tid))
+        np.testing.assert_allclose(tlp.numpy(), np.asarray(j_tlp),
+                                   atol=1e-5, rtol=0)
+    else:
+        assert not tid.any() and not tlp.any()
+        assert not np.asarray(j_tid).any() and not np.asarray(j_tlp).any()
+
+
+@pytest.mark.parametrize("pen", [False, True])
+def test_gated_verify_runs_each_stage_at_every_position(pen):
+    """``spec_verify_sample`` on greedy rows with flags from the JAX
+    function's own conditions: tokens and accepted counts equal the JAX
+    function's; penalties, the count bump and the filters run at every
+    position where their condition holds, the sampled decision at none
+    (all rows greedy), and alternatives are zero-filled as the JAX false
+    branch returns them."""
+    rng = np.random.default_rng(9)
+    B, S, V = 3, 4, 256
+    logits = (rng.standard_normal((B, S, V)) * 3).astype(np.float32)
+    drafts = logits[:, :-1].argmax(-1).astype(np.int32)
+    drafts[1, 1] = (drafts[1, 1] + 1) % V
+    pos0 = np.array([10, 20, 30], np.int32)
+    presence = np.full(B, 0.7 if pen else 0.0, np.float32)
+    frequency = np.zeros(B, np.float32)
+    counts = rng.integers(0, 3, (B, V)).astype(np.int32)
+    temp = np.zeros(B, np.float32)
+    top_k = np.array([0, 40, 0], np.int32)
+    top_p = np.ones(B, np.float32)
+    seed = np.full(B, -1, np.int32)
+    cond = {"any_sampled": bool(jnp.any(jnp.asarray(temp) > 0)),
+            "needs_filter": bool(jnp.any((jnp.asarray(top_k) > 0)
+                                         | (jnp.asarray(top_p) < 1.0))),
+            "any_pen": bool(jnp.any((jnp.asarray(presence) != 0.0)
+                                    | (jnp.asarray(frequency) != 0.0))),
+            "with_top": False}
+    with counting_stages() as taken:
+        toks, n_acc, lps, tids, tlps = TS.spec_verify_sample(
+            _t(logits), _t(drafts), _t(pos0), 0, _t(seed), _t(temp),
+            _t(top_k), _t(top_p), _t(presence), _t(frequency), _t(counts),
+            **_flags(cond))
+    ran = {k: taken[k] for k in ("penalties", "count_bump", "counts",
+                                 "filters", "sampled", "top_logprobs")}
+    assert ran == {"penalties": S * pen, "count_bump": (S - 1) * pen,
+                   "counts": int(pen), "filters": S, "sampled": 0,
+                   "top_logprobs": 0}
+    j = JS.spec_verify_sample(
+        jnp.asarray(logits), jnp.asarray(drafts), jnp.asarray(pos0),
+        jax.random.key(0), jnp.asarray(seed), jnp.asarray(temp),
+        jnp.asarray(top_k), jnp.asarray(top_p), jnp.asarray(presence),
+        jnp.asarray(frequency), jnp.asarray(counts),
+        with_top=jnp.asarray(False))
+    np.testing.assert_array_equal(n_acc.numpy(), np.asarray(j[1]))
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(j[0]))
+    assert not tids.any() and not tlps.any()
+    assert not np.asarray(j[3]).any() and not np.asarray(j[4]).any()

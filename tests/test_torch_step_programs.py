@@ -24,6 +24,14 @@ spec×mixed and draft programs as through the same bodies run eagerly.
 The cyclic garbage collector is paused while any capture is open, and
 captures may overlap across threads: it runs again only once the last
 one closes, also when a capture raises.
+
+Gated stages: the JAX engine's step functions record the batches they are
+called with beside the port's programs on the same weights and waves
+(nine batch kinds, and an oracle-draft spec×mixed wave); every step's
+uploaded flags equal the JAX functions' ``lax.cond`` conditions evaluated
+on the JAX engine's batch, each eager step runs each gated stage exactly
+where (and as often as) its condition holds, and a program's skipped
+alternatives are zero-filled.
 """
 
 from __future__ import annotations
@@ -473,3 +481,289 @@ def test_a_capture_without_its_context_makes_no_stream_set(host_scratch):
     assert s.pointers(0, 5, 10, 4) == stream
     assert s.pointers(0, 5, 40, 4) not in (stream, own)
     assert s._sets[(0, 5)][0].numel() == 10 and len(s._kept) == 4
+
+
+# -- the JAX programs' lax.cond stages, as gates ------------------------------
+
+# The JAX engine's jitted step functions -> the port's program family.
+_JAX_STEP_FAMILY = {"_prefill_fn": "prefill",
+                    "_prefill_hist_fn": "prefill_hist", "_mixed_fn": "mixed",
+                    "_spec_verify_fn": "spec", "_spec_mixed_fn": "spec_mixed",
+                    "_decode_fn_greedy": "greedy", "_decode_fn": "sampled"}
+
+
+def _jax_conditions(family: str, args: dict) -> dict:
+    """The conditions of the JAX step function's ``lax.cond`` stages, by
+    the JAX expressions themselves on the arguments it was called with
+    (``int_b``'s top_k and top_n columns are the family's own)."""
+    import jax.numpy as jnp
+    ib, fb = jnp.asarray(args["int_b"]), jnp.asarray(args["float_b"])
+    spec = family.startswith("spec")
+    top_k = 0 if spec else 1
+    top_n = 2 if spec else 3 if family in ("greedy", "sampled") else 4
+    if family == "greedy":
+        return {"any_top": bool(jnp.any(ib[:, top_n] > 0))}
+
+    def rows(sl):
+        return (jnp.any(fb[sl, 0] > 0),
+                jnp.any((ib[sl, top_k] > 0) | (fb[sl, 1] < 1.0)),
+                jnp.any((fb[sl, 2] != 0.0) | (fb[sl, 3] != 0.0)))
+    R = args["page_tables"].shape[0] if family == "spec_mixed" else None
+    out = dict(zip(("any_sampled", "needs_filter", "any_pen"),
+                   rows(slice(R))),
+               any_bias=jnp.any(jnp.asarray(args["bias_ids"]) >= 0),
+               any_top=jnp.any(ib[:, top_n] > 0))
+    if R is not None:
+        out.update(zip(("chunk_sampled", "chunk_filter", "chunk_pen"),
+                       rows(slice(R, None))))
+    return {k: bool(v) for k, v in out.items()}
+
+
+def _taken_per_step(family: str, key, flags: dict, window: int):
+    """The gated stages an eager step of ``key`` runs, by stage: each
+    stage as often as the step meets it (W substeps, S verify positions),
+    where its flag holds."""
+    import collections
+    f = flags
+    if family in ("greedy", "sampled"):
+        n = dict(top_logprobs=f["any_top"])
+        if family == "sampled":
+            n.update(bias=f["any_bias"], penalties=f["any_pen"],
+                     count_bump=f["any_pen"], sampled=f["any_sampled"],
+                     filters=f["any_sampled"] and f["needs_filter"])
+        return collections.Counter(
+            {k: window * v for k, v in n.items() if v})
+    if family in ("prefill", "prefill_hist", "mixed"):
+        n = dict(bias=f["any_bias"], penalties=f["any_pen"],
+                 sampled=f["any_sampled"],
+                 filters=f["any_sampled"] and f["needs_filter"],
+                 top_logprobs=f["any_top"])
+        return collections.Counter({k: v for k, v in n.items() if v})
+    S = key[-1]
+    n = collections.Counter({k: v for k, v in dict(
+        bias=f["any_bias"], counts=2 * f["any_pen"],
+        penalties=S * f["any_pen"], count_bump=(S - 1) * f["any_pen"],
+        filters=S * f["needs_filter"], sampled=S * f["any_sampled"],
+        top_logprobs=S * f["any_top"]).items() if v})
+    if family == "spec_mixed":           # the chunk row's one draw
+        n.update({k: 1 for k, v in dict(
+            penalties=f["chunk_pen"], sampled=f["chunk_sampled"],
+            filters=f["chunk_sampled"] and f["chunk_filter"],
+            top_logprobs=f["any_top"]).items() if v})
+    return n
+
+
+def _recorded_pair(spec: bool):
+    """A JAX engine whose step functions record the batches they are
+    called with, and the port (programs on the CPU) on its weights, whose
+    program cache records each step's uploaded flags and the gated stages
+    it ran eagerly."""
+    import collections
+    import inspect
+
+    import jax
+    from kubernetes_gpu_cluster_tpu.config import (
+        CacheConfig as JCache, EngineConfig as JConfig,
+        SchedulerConfig as JSched, get_model_config as jax_model)
+    from kubernetes_gpu_cluster_tpu.engine import LLMEngine as JaxEngine
+    from kubernetes_gpu_cluster_tpu.models import llama as JM
+    from kubernetes_gpu_cluster_tpu_torch.engine.engine import STEP_FLAGS
+
+    def sched(cls):
+        kw = dict(max_num_seqs=4, max_prefill_tokens=32,
+                  decode_buckets=(1, 2, 4), prefill_buckets=(16, 32),
+                  decode_window=2)
+        if spec:        # an oracle draft: spec×mixed steps fire for sure
+            kw.update(mixed_batch_enabled=True, spec_decode_enabled=True,
+                      num_speculative_tokens=3,
+                      spec_draft_model="debug-tiny")
+        return cls(**kw)
+    jcfg = JConfig(model=jax_model("debug-tiny"),
+                   cache=JCache(page_size=8, num_pages=160),
+                   scheduler=sched(JSched))
+    cfg = EngineConfig(model=get_model_config("debug-tiny"),
+                       cache=CacheConfig(page_size=8, num_pages=160),
+                       scheduler=sched(SchedulerConfig))
+    calls, steps = [], []
+    jparams = JM.init_params(jax_model("debug-tiny"),
+                             jax.random.key(jcfg.seed))
+    jax_eng = JaxEngine(jcfg, params=jparams,
+                        **({"draft_params": jparams} if spec else {}))
+    for attr, family in _JAX_STEP_FAMILY.items():
+        fn = getattr(jax_eng, attr, None)
+        if fn is None:
+            continue
+
+        def call(*args, _fn=fn, _family=family,
+                 _sig=inspect.signature(fn), **kw):
+            bound = _sig.bind(*args, **kw).arguments
+            calls.append((_family, {
+                k: np.asarray(v) for k, v in bound.items()
+                if k in ("int_b", "float_b", "bias_ids", "page_tables")}))
+            return _fn(*args, **kw)
+        setattr(jax_eng, attr, call)
+    tparams = model_lib.params_from_numpy(
+        jax.tree.map(np.asarray, jparams), cfg.model, "cpu")
+    port = LLMEngine(cfg, params=tparams, device="cpu",
+                     **({"draft_params": tparams} if spec else {}))
+    progs = port._programs
+    plain_run = progs.run
+    live = {"taken": collections.Counter()}   # the wave's stage counts
+
+    def run(key):
+        before = collections.Counter(live["taken"])
+        plain_run(key)
+        flags = progs.buffers(key).host.get("flags")
+        if flags is not None:           # not the draft's or KV programs
+            steps.append((key, dict(zip(STEP_FLAGS, map(bool, flags))),
+                          live["taken"] - before))
+    progs.run = run
+    return {"jax": jax_eng, "port": port, "calls": calls, "steps": steps,
+            "live": live, "window": cfg.scheduler.decode_window}
+
+
+@pytest.fixture(scope="module")
+def recorded():
+    return _recorded_pair(spec=False)
+
+
+@pytest.fixture(scope="module")
+def recorded_spec():
+    return _recorded_pair(spec=True)
+
+
+# Batch kinds: each row's sampling parameters (cycled over the wave's
+# requests).
+_GATE_BATCHES = {
+    "all_greedy": [dict(temperature=0.0)],
+    "greedy_top_logprobs": [dict(temperature=0.0, logprobs=True,
+                                 top_logprobs=2)],
+    "sampled_no_filter": [dict(temperature=0.8, seed=3)],
+    "top_k_50": [dict(temperature=0.8, top_k=50, seed=4)],
+    "top_p_095": [dict(temperature=0.8, top_p=0.95, seed=5)],
+    "top_k_past_the_cap": [dict(temperature=0.8, top_k=200, seed=6)],
+    "penalties": [dict(temperature=0.0, presence_penalty=0.5,
+                       frequency_penalty=0.2)],
+    "bias": [dict(temperature=0.0, logit_bias={5: 2.0})],
+    "mixed_rows": [dict(temperature=0.0),
+                   dict(temperature=0.7, top_k=20, seed=7),
+                   dict(temperature=0.0, presence_penalty=0.4,
+                        logit_bias={9: -1.0}),
+                   dict(temperature=0.0, logprobs=True, top_logprobs=1)],
+}
+
+
+def _gate_wave(eng, sp, tag: str, rows: list, lengths: list,
+               pattern=None, max_tokens: int = 5) -> None:
+    """Requests of ``rows`` arriving one per step (the long ones chunk
+    beside decoding rows), then drained; no stop on EOS, so that both
+    engines take the same steps whatever they sample. Prompts are random,
+    or the first tokens of ``pattern``."""
+    rng = np.random.default_rng(len(lengths))
+    pending = [(f"{tag}-{i}", pattern[:n] if pattern else
+                rng.integers(1, 500, n).tolist(),
+                sp(max_tokens=max_tokens, ignore_eos=True,
+                   **rows[i % len(rows)]))
+               for i, n in enumerate(lengths)]
+    while pending or eng.has_unfinished_requests():
+        if pending:
+            eng.add_request(*pending.pop(0))
+        eng.step()
+
+
+def _held_to_jax(pair: dict, runs) -> list:
+    """Run the same wave on both engines; the port's flags of every step
+    equal the JAX step's conditions, and each eager step ran exactly the
+    gated stages whose condition holds. Returns the steps' flags."""
+    from kubernetes_gpu_cluster_tpu.engine import SamplingParams as JSP
+    from test_torch_sampling import counting_stages
+    del pair["calls"][:], pair["steps"][:]
+    runs(pair["jax"], JSP)
+    with counting_stages() as taken:
+        pair["live"]["taken"] = taken
+        runs(pair["port"], SP)
+    got = [(key[0], flags) for key, flags, _ in pair["steps"]]
+    want = [(family, _jax_conditions(family, args))
+            for family, args in pair["calls"]]
+    assert [f for f, _ in got] == [f for f, _ in want]
+    for (family, flags), (_, cond) in zip(got, want):
+        assert {k: flags[k] for k in cond} == cond, family
+    for key, flags, taken in pair["steps"]:
+        assert taken == _taken_per_step(key[0], key, flags,
+                                        pair["window"]), (key, flags)
+    return [flags for _, flags in got]
+
+
+@pytest.mark.parametrize("kind", sorted(_GATE_BATCHES))
+def test_step_flags_are_the_jax_conditions(recorded, kind):
+    """A wave of ``kind``'s rows (a prefill, decode windows, a long prompt
+    chunked beside decoding rows, a lone prompt's solo chunks) through the
+    JAX engine and the port on one weight set: every step's uploaded flags
+    equal what the JAX step function's ``lax.cond``s compute on the batch
+    the JAX engine built, and each eager stage ran where, and as often as,
+    that condition holds."""
+    rows = _GATE_BATCHES[kind]
+
+    def runs(eng, sp):
+        _gate_wave(eng, sp, kind, rows, [6, 45, 9, 12])
+        _gate_wave(eng, sp, kind + "-solo", rows, [70])
+    flags = _held_to_jax(recorded, runs)
+    families = {key[0] for key, _, _ in recorded["steps"]}
+    assert {"prefill", "prefill_hist", "mixed"} <= families, families
+    for name, on in (("any_top", "top_logprobs" in str(rows)),
+                     ("any_pen", "penalty" in str(rows)),
+                     ("any_bias", "logit_bias" in str(rows)),
+                     ("any_sampled", "seed" in str(rows))):
+        assert any(f[name] for f in flags) == on, name
+
+
+def test_spec_step_flags_are_the_jax_conditions(recorded_spec):
+    """The compile guard's spec×mixed wave (an oracle draft keeps verify
+    rows live while a long prompt chunks beside them) with greedy rows
+    asking for alternatives, penalties (the chunk row's alone) and bias:
+    the spec and spec×mixed steps' flags (the chunk row's apart) equal the
+    JAX verify programs' conditions, and each eager verify step ran its
+    gated stages at every position where they hold."""
+    def runs(eng, sp):
+        rng = np.random.default_rng(2)
+        pattern = rng.integers(1, 500, 4).tolist()
+        eng.add_request("s0", pattern * 5, sp(max_tokens=30, temperature=0.0,
+                                              ignore_eos=True))
+        for _ in range(3):
+            eng.step()
+        eng.add_request("s1", pattern * 3, sp(
+            max_tokens=30, temperature=0.0, ignore_eos=True, logprobs=True,
+            top_logprobs=2))
+        for _ in range(2):
+            eng.step()
+        eng.add_request("long", pattern * 12, sp(
+            max_tokens=6, temperature=0.0, ignore_eos=True,
+            presence_penalty=0.5, frequency_penalty=0.3))
+        eng.add_request("p", rng.integers(1, 500, 12).tolist(), sp(
+            max_tokens=6, temperature=0.0, ignore_eos=True,
+            logit_bias={7: 1.0}))
+        while eng.has_unfinished_requests():
+            eng.step()
+    flags = _held_to_jax(recorded_spec, runs)
+    families = [key[0] for key, _, _ in recorded_spec["steps"]]
+    assert "spec" in families and "spec_mixed" in families, families
+    assert any(f["any_pen"] for f in flags)
+    assert any(f["chunk_pen"] != f["any_pen"] for f, (key, _, _) in
+               zip(flags, recorded_spec["steps"]) if key[0] == "spec_mixed")
+
+
+def test_skipped_alternatives_are_zero_filled(engines):
+    """A program that ran a row asking for alternatives, then steps whose
+    rows ask for none: its top ids and logprobs are the zeros the JAX
+    false branch returns, not the earlier step's."""
+    eng = engines["graph"]
+    rng = np.random.default_rng(12)
+    prompt = rng.integers(1, 500, 10).tolist()
+    eng.generate([prompt], [SP(max_tokens=4, temperature=0.0, logprobs=True,
+                               top_logprobs=3)])
+    keys = [k for k in eng._programs.keys() if k[0] in ("prefill", "greedy")]
+    assert any(eng._programs.buffers(k)["out_tid"].any() for k in keys)
+    eng.generate([prompt], [SP(max_tokens=4, temperature=0.0)])
+    for k in keys:
+        bufs = eng._programs.buffers(k)
+        assert not bufs["out_tid"].any() and not bufs["out_tlp"].any(), k
