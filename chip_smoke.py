@@ -439,7 +439,23 @@ phase-4 weights at full depth:
      ``--tensor-parallel-size`` one above the cards seen exits non-zero
      within ``REFUSAL_BOUND_S`` with the start-time refusal, before any
      weight, and leaves no rank behind. Its children run in a thread of
-     their own beside 12d and 12b (they load no weights).
+     their own beside 12d and 12b (they load no weights), as do 18's.
+18.  The node layer (``tools/node_layer.py``): the H100 device plugin and
+     its kubelet stand-in (``cluster/device-plugin-cuda``) built by its
+     Makefile; the plugin's ``--write-cdi-spec``
+     lists, UUID for UUID, what ``nvidia-smi`` lists, as many as
+     ``device_count()``; run with ``--plugin-dir`` in a temporary directory,
+     it registers ``nvidia.com/gpu`` at ``kgct-cuda.sock`` with the stand-in,
+     whose ``Allocate`` of each UUID returns character devices and
+     read-only mounts of regular files at the driver's version, and of an
+     unknown ID ``NOT_FOUND``; a child with an empty environment but
+     ``LD_LIBRARY_PATH`` (links named as the mounts) and
+     ``CUDA_VISIBLE_DEVICES`` initializes CUDA, sees one device, the
+     allocated node, JIT-loads a PTX module and maps no driver library
+     from outside the mounts; the mounted ``nvidia-smi -L`` lists the UUID;
+     SIGTERM ends the plugin within 2 s, its socket removed. Logged: build
+     seconds, start-to-register ms, ``Allocate`` microseconds. Beside 12d
+     and 12b.
 12d. With two cards, phase 12 over NCCL on cards 0 and 1; with one, the
      line ``nccl tp: not run (1 card)``.
 12b. ep 2: mixtral-8x7b int4 at tp 1, ep 2, full width (depth
@@ -6713,6 +6729,29 @@ def check_image_refusals(card: str) -> dict:
     return res
 
 
+def check_node_layer(card: str) -> dict:
+    """Phase 18: the H100 device plugin and its kubelet stand-in built by
+    ``cluster/device-plugin-cuda``'s Makefile and held to the card's driver
+    (``tools/node_layer.py``: the inventory against ``nvidia-smi``,
+    ``Allocate``'s nodes and mounts, CUDA in a child through the mounts
+    alone, SIGTERM). Its processes need no weights and run beside 12d and
+    12b."""
+    from kubernetes_gpu_cluster_tpu_torch.tools import node_layer
+    t0 = time.perf_counter()
+    res = node_layer.check(torch.cuda.device_count())
+    res["s"] = time.perf_counter() - t0
+    cuda = res["cuda"]
+    log(f"18: built in {res['build_s']:.2f} s; registered "
+        f"{res['inventory']['uuids']} (driver {res['inventory']['driver']}) "
+        f"{res['register_ms']:.2f} ms after start; Allocate "
+        f"{[round(us, 1) for us in res['allocate_us']]} us; CUDA through "
+        f"the mounts alone with CUDA_VISIBLE_DEVICES="
+        f"{cuda['env']['CUDA_VISIBLE_DEVICES']} (node {cuda['opened']}, "
+        f"driver libraries {cuda['driver_libs']}); SIGTERM exit in "
+        f"{res['stop_s']:.3f} s; {res['s']:.1f} s in all | {card}")
+    return res
+
+
 def checkpoint_phases(cfg, params, device, card: str, tp_ref: dict,
                       phase=lambda name: None) -> None:
     """Phase 14: the phase-4 weights written as an HF checkpoint; 14a the
@@ -6921,10 +6960,12 @@ def main() -> int:
     # 14a holds its streamed tp 2 ranks to the tp=1 run at full depth.
     _, tp_ref = tp1_reference(cfg, params, device, n_req=STREAMED_REQS)
     checkpoint_phases(cfg, params, device, card, tp_ref, phase)
-    # Phase 14c: what the runtime image refuses, with no nvcc. Its children
-    # load no weights and exit at start, so they run beside 12d and 12b.
-    refusals = concurrent.futures.ThreadPoolExecutor(1)
-    image = refusals.submit(check_image_refusals, card)
+    # Phase 14c: what the runtime image refuses, with no nvcc; phase 18:
+    # the node layer. Their children load no weights, so they run beside
+    # 12d and 12b.
+    beside = concurrent.futures.ThreadPoolExecutor(2)
+    image = beside.submit(check_image_refusals, card)
+    node = beside.submit(check_node_layer, card)
     try:
         # Phase 12d: the same over NCCL, where two cards exist.
         if torch.cuda.device_count() >= 2:
@@ -6944,9 +6985,10 @@ def main() -> int:
             EP_LAYERS)), "|", card)
         phase("mixtral-8x7b int4 ep 2 (12b)")
     finally:
-        refusals.shutdown(wait=True)
+        beside.shutdown(wait=True)
     log("image refusals:", json.dumps(image.result()))
-    phase("image refusals (14c, beside 12d and 12b)")
+    log("node layer:", json.dumps(node.result()), "|", card)
+    phase("image refusals and node layer (14c and 18, beside 12d and 12b)")
 
     # Phase 3b: the int4 model, kernel against int4_matmul_plain.
     cfg4 = cfg.replace(quantization="int4", quant_group_size=GROUP)

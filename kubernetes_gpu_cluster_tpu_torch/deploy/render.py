@@ -21,10 +21,10 @@ the fullest example):
 
 Mapping decisions (the port's engine, not a vLLM translation):
 
-- ``requestGPU`` becomes ``nvidia.com/gpu`` (advertised by the NVIDIA
-  device plugin); the count is also the default tensor-parallel size when
-  vllmConfig does not pin one, matching how the reference used N GPUs with
-  ``--tensor-parallel-size N``. The port runs one process a card: a pod
+- ``requestGPU`` becomes ``nvidia.com/gpu`` (advertised by the port's
+  device plugin, ``cluster/device-plugin-cuda``); the count is also the
+  default tensor-parallel size when vllmConfig does not pin one, matching
+  how the reference used N GPUs with ``--tensor-parallel-size N``. The port runs one process a card: a pod
   whose layout holds more ranks than there are pods starts its
   ``world / pods`` ranks itself (``serving/api_server.py``).
 - ``vllmConfig`` maps onto this framework's engine CLI

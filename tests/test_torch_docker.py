@@ -10,6 +10,12 @@ sources, the kernel directory, the install lines, the entrypoint, the tag and
 the scripts. ``chip_smoke.py`` phases 1, 14b and 14c reproduce the image's
 situation on the card: kernels built by the image's command, a server
 started by the rendered pod's command with no ``nvcc`` reachable.
+
+The node layer's image, ``docker/Dockerfile.cuda-device-plugin``, is held
+the same way: its COPY sources exist, its runtime stage copies the binary
+the Makefile builds, its entrypoint is that binary, and the DaemonSet runs
+it from the image the file's build line tags. The serving image sets
+``LD_LIBRARY_PATH`` and ``PATH`` to where that plugin mounts the driver.
 """
 
 from __future__ import annotations
@@ -257,3 +263,57 @@ def test_every_csrc_file_ships_as_package_data():
     from kubernetes_gpu_cluster_tpu_torch.ops.cuda import build
     for n in build.KERNELS:
         assert (csrc / f"{n}.cu").is_file()
+
+
+# -- the node layer's image (docker/Dockerfile.cuda-device-plugin) -----------
+
+PLUGIN_DF = DOCKER / "Dockerfile.cuda-device-plugin"
+
+
+@pytest.fixture(scope="module")
+def plugin_stages():
+    return _parse_dockerfile(PLUGIN_DF)
+
+
+def test_device_plugin_image_copies_only_what_exists(plugin_stages):
+    assert [s[0] for s in plugin_stages] == ["build", "runtime"]
+    build, runtime = plugin_stages
+    assert runtime[1] == "gcr.io/distroless/cc-debian12"
+    (src,) = [r for r in _ops(build, "COPY")]
+    assert src == "cluster/device-plugin-cuda ./cluster/device-plugin-cuda"
+    assert (REPO / "cluster" / "device-plugin-cuda" / "Makefile").is_file()
+    (copied,) = _ops(runtime, "COPY")
+    frm, path, dest = copied.split()
+    assert frm == "--from=build"
+    assert path == ("/src/cluster/device-plugin-cuda/build/"
+                    "kgct-cuda-device-plugin")
+    # The Makefile's target is the binary the runtime stage copies.
+    assert "$(BUILD)/kgct-cuda-device-plugin:" in (
+        REPO / "cluster" / "device-plugin-cuda" / "Makefile").read_text()
+    assert any("make -C cluster/device-plugin-cuda" in r
+               for r in _ops(build, "RUN"))
+    assert dest == "/kgct-cuda-device-plugin"
+
+
+def test_device_plugin_image_entrypoint_is_the_binary(plugin_stages):
+    runtime = plugin_stages[-1]
+    (entry,) = _ops(runtime, "ENTRYPOINT")
+    assert ast.literal_eval(entry) == ["/kgct-cuda-device-plugin"]
+    # The DaemonSet runs that binary from the image this file builds.
+    ds = (REPO / "cluster" / "device-plugin-cuda" / "manifest" /
+          "daemonset.yaml").read_text()
+    assert 'command: ["/kgct-cuda-device-plugin"]' in ds
+    tag = re.search(r"-t (\S+) \.", PLUGIN_DF.read_text()).group(1)
+    assert f"image: {tag}" in ds
+
+
+def test_serving_image_finds_the_plugins_mounts(stages):
+    """The plugin mounts the driver's libraries at /usr/local/nvidia/lib64
+    and nvidia-smi at /usr/local/nvidia/bin: the runtime stage sets both
+    paths itself."""
+    env = _env(_stage(stages, "runtime"))
+    assert env["LD_LIBRARY_PATH"] == "/usr/local/nvidia/lib64"
+    path = env["PATH"].split(":")
+    assert path[:2] == ["/opt/venv/bin", "/usr/local/nvidia/bin"]
+    assert "$PATH" not in env["PATH"] and "/usr/bin" in path
+    assert "NVIDIA container toolkit exposes" not in DF.read_text()
